@@ -1,0 +1,80 @@
+"""The port stands alone: it imports neither JAX nor pixie_tpu, its entry
+points refuse to run on the CPU unless asked to, and a missing CUDA compiler
+is a clear error, never a silent fallback."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "pixie_tpu_torch"
+
+
+def _is_banned(mod: str) -> bool:
+    top = mod.split(".")[0]
+    return top in ("jax", "jaxlib", "pixie_tpu")
+
+
+def test_importing_every_module_pulls_in_no_jax():
+    code = (
+        "import importlib, pkgutil, sys, pixie_tpu_torch\n"
+        "for m in pkgutil.walk_packages(pixie_tpu_torch.__path__, 'pixie_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pixie_tpu'))\n"
+        "print(len([m for m in sys.modules if m.startswith('pixie_tpu_torch')]))\n"
+        "sys.exit('imported: ' + ', '.join(bad) if bad else 0)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
+                                        [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]))
+def test_no_jax_or_reference_import(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        assert not any(_is_banned(n) for n in names), (path, node.lineno, names)
+
+
+def test_execute_plan_without_device_refuses_the_cpu():
+    import torch
+
+    from pixie_tpu_torch.engine import execute_plan
+    from pixie_tpu_torch.plan import Plan
+    from pixie_tpu_torch.status import Unavailable
+    from pixie_tpu_torch.table import TableStore
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    with pytest.raises(Unavailable, match="CUDA"):
+        execute_plan(Plan(), TableStore())
+
+
+def test_missing_nvcc_is_a_build_error(tmp_path):
+    code = (
+        "from pixie_tpu_torch.ops import _build\n"
+        "try:\n"
+        "    _build.build_all()\n"
+        "except _build.KernelUnavailable as e:\n"
+        "    print('KernelUnavailable:', e)\n"
+    )
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path),
+               CUDA_PATH=str(tmp_path))
+    if (pathlib.Path("/usr/local/cuda") / "bin" / "nvcc").exists():
+        pytest.skip("a CUDA toolkit is installed at its default prefix")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "KernelUnavailable: nvcc not found" in out.stdout
