@@ -15,16 +15,25 @@ code — dictionary columns natively, raw int columns via a query-time dictionar
 built in a host pre-scan of the cursor snapshot, and `px.bin(time)`-derived
 window keys via range arithmetic.
 
-Ported so far is the aggregate path of the reference executor
-(pixie_tpu/engine/executor.py).  Plain select sinks, joins, unions, UDTF
-sources, the sorted high-cardinality fallback, multi-query fusion and the
-distributed (SPMD/partial) paths raise Unimplemented and name the slice that
-brings them.  Unlike the reference, no query is routed to the CPU by size:
-on the card every query runs the device path.
+Select sinks (a chain of map/filter/limit feeding a sink) run the same chain
+through an output step: kernel K4 (ops/compact.py) compacts the kept rows of
+every output column to the front on the device, and the host reads back
+exactly `count` rows per feed, pipelined (engine/transfer.py).  Joins
+materialize both parents on the host, factorize the keys there, and match
+either on the host or, past the reference's size gate, with kernels J1-J3
+(ops/join_device.py).
+
+Ported so far are the aggregate, select and join paths of the reference
+executor (pixie_tpu/engine/executor.py).  Unions, UDTF and remote sources,
+the sorted high-cardinality fallback, multi-query fusion and the distributed
+(SPMD/partial) paths raise Unimplemented and name the slice that brings them.
+Unlike the reference, no query is routed to the CPU by size: on the card
+every query runs the device path.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import threading
 import time as _time
@@ -34,14 +43,18 @@ import numpy as np
 import torch
 
 from pixie_tpu_torch import flags as _flags
-from pixie_tpu_torch.engine.eval import ExprCompiler, SVal
+from pixie_tpu_torch.engine import transfer
+from pixie_tpu_torch.engine.eval import ExprCompiler, SVal, apply_lut_np
 from pixie_tpu_torch.engine.result import QueryResult
+from pixie_tpu_torch.ops import join_device as _jd
+from pixie_tpu_torch.ops.compact import compact
 from pixie_tpu_torch.ops.groupby import combine_codes, encode_against, next_pow2, split_codes
 from pixie_tpu_torch.plan.plan import (
     AggOp,
     Call,
     Column,
     FilterOp,
+    JoinOp,
     LimitOp,
     Literal,
     MapOp,
@@ -364,6 +377,31 @@ class ChainKernel:
                 consumed[sv] = torch.minimum(reaching, rem)
         return mask, consumed
 
+    def make_output_step(self, out_names: list[str]):
+        """→ (fn(cols, n_valid, t_lo, t_hi, limit_remaining, luts) →
+        (out_cols, count, consumed), out_dtypes, out_dicts).  The selected
+        rows are COMPACTED to the front of every output column on the device
+        (K4, a stable partition by the mask), so the host reads back exactly
+        `count` rows; count stays on the device."""
+        sym = self.ctx.sym
+        missing = [n for n in out_names if n not in sym]
+        if missing:
+            raise CompilerError(f"output columns {missing} not found; have {sorted(sym)}")
+        out_dtypes = {n: sym[n].dtype for n in out_names}
+        out_dicts = {n: sym[n].dictionary for n in out_names if sym[n].dictionary is not None}
+        builders = [(n, sym[n].build) for n in out_names]
+
+        def step(cols, n_valid, t_lo, t_hi, limit_remaining, luts):
+            env = {"cols": cols, "luts": luts}
+            n = _first_len(cols)
+            mask = self._base_mask(env, n, n_valid, t_lo, t_hi)
+            mask, consumed = self._apply_steps(env, mask, limit_remaining)
+            vals = [_rows(b(env), n).contiguous() for _name, b in builders]
+            outs, count = compact(mask, vals)
+            return dict(zip(out_names, outs)), count, consumed
+
+        return step, out_dtypes, out_dicts
+
     def make_agg_step(self, keys: list[GroupKey], udas: list, num_groups: int):
         """→ fn(cols, n_valid, t_lo, t_hi, limit_remaining, luts, state)
         → (state, consumed), the state updated in place.
@@ -526,6 +564,39 @@ class PlanExecutor:
         #: analyze mode (reference ExecutePlan(analyze=true), carnot.cc:318):
         #: synchronizes the device after every feed and records its wall time.
         self.analyze = analyze
+        #: one wall-time frame per operator chain or blocking op (see _timed)
+        self.op_stats: list[dict] = []
+        self._stat_stack: list[dict] = []
+
+    # -------------------------------------------------------------- exec stats
+    @contextlib.contextmanager
+    def _timed(self, label: str, ops: list[int]):
+        """Record a wall-time frame; nesting attributes child time so
+        self_ns = wall_ns - nested frames.  The parent is captured at enter
+        and the frame removed by identity: frames opened inside generators
+        close at exhaustion, not in LIFO order."""
+        rec = {"ops": ops, "label": label, "wall_ns": 0, "rows_out": 0,
+               "bytes_out": 0, "_child_ns": 0}
+        parent = self._stat_stack[-1] if self._stat_stack else None
+        self._stat_stack.append(rec)
+        t0 = _time.perf_counter_ns()
+        try:
+            yield rec
+        finally:
+            rec["wall_ns"] = _time.perf_counter_ns() - t0
+            self._stat_stack = [r for r in self._stat_stack if r is not rec]
+            if parent is not None and "_child_ns" in parent:
+                parent["_child_ns"] += rec["wall_ns"]
+            rec["self_ns"] = rec["wall_ns"] - rec.pop("_child_ns")
+            self.op_stats.append(rec)
+
+    @staticmethod
+    def _chain_label(head, chain, terminal: str = "") -> str:
+        parts = [f"scan({head.table})" if isinstance(head, MemorySourceOp) else head.kind]
+        parts.extend(op.kind for op in chain)
+        if terminal:
+            parts.append(terminal)
+        return "->".join(parts)
 
     # ------------------------------------------------------------ plan walking
     def _upstream_chain(self, op):
@@ -620,33 +691,128 @@ class PlanExecutor:
         got = self._materialized.get(op.id)
         if got is not None:
             return got
-        if not isinstance(op, AggOp):
-            raise Unimplemented(
-                f"operator {op.kind!r} is not ported yet: joins come with "
-                "slice 3, unions, UDTF sources and remote sources with later "
-                "slices")
-        out = self._run_agg(op)
+        label = f"agg(by={op.groups})" if isinstance(op, AggOp) else op.kind
+        with self._timed(label, [op.id]) as rec:
+            if isinstance(op, AggOp):
+                out = self._run_agg(op)
+            elif isinstance(op, JoinOp):
+                out = self._run_join(op)
+            elif isinstance(op, MemorySourceOp):
+                out = self._consume_to_batch(op, [])
+            else:
+                raise Unimplemented(
+                    f"operator {op.kind!r} is not ported yet: unions, UDTF "
+                    "sources and remote sources come with later slices")
+            rec["rows_out"] = out.num_rows
+            rec["bytes_out"] = sum(v.nbytes for v in out.cols.values())
         self._materialized[op.id] = out
         return out
 
     def _consume_chain(self, terminal_parent, out_names=None):
-        """Output columns of the chain feeding a sink: (dtypes, dicts, names,
-        cols).  Only a bare blocking op (an aggregate) feeding the sink is
-        ported — it is already a host batch."""
+        """Run the chain feeding `terminal_parent` through an output step.
+
+        Returns (out_dtypes, out_dicts, out_names, iterator of (np_cols,
+        count))."""
         head, chain = self._upstream_chain(terminal_parent)
-        if chain or isinstance(head, MemorySourceOp):
-            raise Unimplemented(
-                "select sinks (a chain of map/filter/limit feeding a sink) are "
-                "not ported yet: the output-compaction kernel comes with a "
-                "later slice")
-        hb = self._eval_blocking(head)
-        sel = out_names if out_names is not None else list(hb.cols)
-        missing = [n for n in sel if n not in hb.cols]
-        if missing:
-            raise CompilerError(f"output columns {missing} not found")
-        out_dtypes = {n: hb.dtypes[n] for n in sel}
-        out_dicts = {n: hb.dicts[n] for n in sel if n in hb.dicts}
-        return out_dtypes, out_dicts, sel, {n: hb.cols[n] for n in sel}
+
+        # A bare blocking op feeding a sink (the common shape for aggregated
+        # results) is already a host batch: plain column selection, no kernel.
+        if not chain and not isinstance(head, MemorySourceOp):
+            hb = self._eval_blocking(head)
+            sel = out_names if out_names is not None else list(hb.cols)
+            missing = [n for n in sel if n not in hb.cols]
+            if missing:
+                raise CompilerError(f"output columns {missing} not found")
+            out_dtypes = {n: hb.dtypes[n] for n in sel}
+            out_dicts = {n: hb.dicts[n] for n in sel if n in hb.dicts}
+
+            def gen_direct():
+                yield {n: hb.cols[n] for n in sel}, hb.num_rows
+
+            return out_dtypes, out_dicts, sel, gen_direct()
+
+        dtypes, dicts, src, names, visible, time_col, cap = self._input_of(head)
+        if out_names is not None:
+            dtypes, dicts, names, visible, chain = _prune_to_needed(
+                head, chain, dtypes, dicts, names, visible, time_col,
+                set(out_names),
+            )
+        kern = ChainKernel(dtypes, dicts, chain, self.registry, time_col,
+                           self.device, visible)
+        if out_names is None:
+            out_names = list(kern.ctx.visible)
+        step, out_dtypes, out_dicts = kern.make_output_step(out_names)
+        t_lo, t_hi = _time_bounds(head)
+        luts = {k: torch.as_tensor(v).to(self.device) for k, v in kern.luts.items()}
+        label = self._chain_label(head, chain, "select")
+        op_ids = [head.id] + [op.id for op in chain]
+
+        def gen():
+            # Double-buffered readback: every feed's step is enqueued without
+            # a host sync (limit budgets stay a device vector).  One feed
+            # behind, the previous feed's count (its copy started right after
+            # its step) lands and its count-sliced outputs start their D2H
+            # copy, in flight while the current feed computes; two feeds
+            # behind, the sliced outputs materialize and are yielded.
+            with self._timed(label, op_ids) as rec:
+                remaining = kern.init_limits()
+                computing: collections.deque = collections.deque()  # (outs, count pull)
+                pulling: collections.deque = collections.deque()    # (AsyncPull, rows)
+                feed_ns = []
+
+                def start_readback(overlapped: bool):
+                    outs, cnt = computing.popleft()
+                    c = int(cnt.wait())
+                    pulling.append(
+                        (transfer.pull_async({k: v[:c] for k, v in outs.items()}), c))
+                    if overlapped:
+                        rec["pipelined_waves"] = rec.get("pipelined_waves", 0) + 1
+                        self.stats["pipelined_waves"] = (
+                            self.stats.get("pipelined_waves", 0) + 1)
+
+                def emit_ready():
+                    h, c = pulling.popleft()
+                    cols_np = h.wait()
+                    rec["rows_out"] += c
+                    rec["bytes_out"] += sum(v.nbytes for v in cols_np.values())
+                    return cols_np, c
+
+                for cols, n_valid in self._feed(src, names, cap):
+                    tf0 = _time.perf_counter_ns()
+                    outs, cnt, consumed = step(cols, n_valid, t_lo, t_hi, remaining, luts)
+                    if kern.has_limit:
+                        remaining = remaining - consumed
+                    if self.analyze:
+                        if self.device.type == "cuda":
+                            torch.cuda.synchronize(self.device)
+                        feed_ns.append(_time.perf_counter_ns() - tf0)
+                    # the count rides home under this feed's own compute
+                    computing.append((outs, transfer.pull_async(cnt)))
+                    if len(computing) >= 2:
+                        start_readback(overlapped=True)
+                    while len(pulling) >= 2:
+                        yield emit_ready()
+                if self.analyze and feed_ns:
+                    rec["feed_ns"] = feed_ns
+                if kern.has_limit:
+                    # each LimitOp's remaining budget, in chain order
+                    rec["limit_remaining"] = [int(x) for x in transfer.pull(remaining)]
+                while computing:
+                    start_readback(overlapped=False)
+                while pulling:
+                    yield emit_ready()
+
+        return out_dtypes, out_dicts, out_names, gen()
+
+    def _consume_to_batch(self, terminal_parent, out_names=None) -> HostBatch:
+        out_dtypes, out_dicts, out_names, gen = self._consume_chain(terminal_parent, out_names)
+        return HostBatch(out_dtypes, out_dicts, _concat_parts(gen, out_names, out_dtypes))
+
+    def _materialize_parent(self, parent) -> HostBatch:
+        head, chain = self._upstream_chain(parent)
+        if not chain and not isinstance(head, MemorySourceOp):
+            return self._eval_blocking(head)
+        return self._consume_to_batch(parent)
 
     # --------------------------------------------------------------------- agg
     def _plan_group_keys(self, op: AggOp, kern: ChainKernel, src, head) -> list[GroupKey]:
@@ -965,6 +1131,116 @@ class PlanExecutor:
             dtypes[out_name] = out_dt
         return HostBatch(dtypes, dicts, cols)
 
+    # -------------------------------------------------------------------- join
+    def _run_join(self, op: JoinOp) -> HostBatch:
+        """Equijoin with full many-to-many expansion, inner/left/right/outer.
+
+        Both parents are materialized on the host and their keys factorized
+        into one shared int64 code space (`_composite_codes`); the match
+        phase then runs on the host (`_match_pairs`) or, when both sides
+        reach 2^16 rows and the gate is on, as kernels J1-J3 on this
+        executor's device (ops/join_device.py).  Null keys (dict code -1 or
+        untranslatable values) never match but their rows still surface as
+        unmatched in left/right/outer joins (pandas semantics).  The
+        reference's autotune arm is not ported: the gate's static decision
+        stands, as in the reference under PX_AUTOTUNE=0.
+        """
+        parents = self.plan.parents(op)
+        if len(parents) != 2:
+            raise Internal("join needs two parents")
+        left = self._materialize_parent(parents[0])
+        right = self._materialize_parent(parents[1])
+        if len(op.left_on) != len(op.right_on):
+            raise CompilerError("join requires equal-length key lists")
+        if op.how not in ("inner", "left", "right", "outer"):
+            raise Unimplemented(f"join how={op.how!r}")
+        nl, nr = left.num_rows, right.num_rows
+
+        if not op.left_on:
+            # Empty key lists = cross join.  When either side is empty,
+            # left/right/outer keep the other side's rows with null fills.
+            lidx = np.repeat(np.arange(nl, dtype=np.int64), nr)
+            ridx = np.tile(np.arange(nr, dtype=np.int64), nl)
+            if nr == 0 and op.how in ("left", "outer"):
+                lidx = np.arange(nl, dtype=np.int64)
+                ridx = np.full(nl, -1, dtype=np.int64)
+            elif nl == 0 and op.how in ("right", "outer"):
+                ridx = np.arange(nr, dtype=np.int64)
+                lidx = np.full(nr, -1, dtype=np.int64)
+            return self._join_output(op, left, right, lidx, ridx)
+
+        # Factorize each key pair into a shared integer code space; nulls
+        # (dict code -1) are tracked separately and excluded from matching.
+        t_codes0 = _time.perf_counter_ns()
+        lcodes, rcodes = [], []
+        lnull = np.zeros(nl, dtype=bool)
+        rnull = np.zeros(nr, dtype=bool)
+        for lk, rk in zip(op.left_on, op.right_on):
+            lv, rv = left.cols[lk], right.cols[rk]
+            ld, rd = left.dicts.get(lk), right.dicts.get(rk)
+            if (ld is None) != (rd is None):
+                raise CompilerError(f"join key {lk}/{rk}: dictionary/plain mismatch")
+            if ld is not None:
+                lnull |= lv < 0
+                if rd is not ld:
+                    rv = apply_lut_np(rd.translate_to(ld, insert=False), rv)
+                rnull |= rv < 0
+            lcodes.append(np.asarray(lv))
+            rcodes.append(np.asarray(rv))
+        lc, rc = _composite_codes(lcodes, rcodes)
+        split = {"composite_codes": (_time.perf_counter_ns() - t_codes0) / 1e9}
+
+        if min(nl, nr) >= (1 << 16):
+            # the gate decides from the measured H2D link on the card (or a
+            # forced flag) and its decision is recorded, not silent
+            gate = _jd.device_join_gate(self.device)
+            self.stats.setdefault("device", {})["join_gate"] = {
+                k: v for k, v in gate.items() if k != "flag"}
+        else:
+            gate = {"enabled": False}
+        t_match0 = _time.perf_counter_ns()
+        if gate["enabled"]:
+            # J1-J3 on this executor's device, or raise: the nulls become
+            # sentinels that cannot match (-1 build vs -2 probe)
+            lcx = np.where(lnull, np.int64(-1), lc)
+            rcx = np.where(rnull, np.int64(-2), rc)
+            lidx, ridx, l_matched, r_matched = _jd.device_join_codes(
+                lcx, rcx, device=self.device, timings=split if self.analyze else None)
+            self.stats["device_joins"] = self.stats.get("device_joins", 0) + 1
+        else:
+            lidx, ridx, l_matched, r_matched = _match_pairs(lc, rc, lnull, rnull)
+        split["match"] = (_time.perf_counter_ns() - t_match0) / 1e9
+        lsel, rsel = [lidx], [ridx]
+        if op.how in ("left", "outer"):
+            lum = np.nonzero(~l_matched)[0]
+            lsel.append(lum)
+            rsel.append(np.full(len(lum), -1, dtype=np.int64))
+        if op.how in ("right", "outer"):
+            rum = np.nonzero(~r_matched)[0]
+            lsel.append(np.full(len(rum), -1, dtype=np.int64))
+            rsel.append(rum)
+        lsel = np.concatenate(lsel)
+        rsel = np.concatenate(rsel)
+        t_out0 = _time.perf_counter_ns()
+        out = self._join_output(op, left, right, lsel, rsel)
+        split["output"] = (_time.perf_counter_ns() - t_out0) / 1e9
+        self.stats.setdefault("join_split_s", []).append(split)
+        return out
+
+    def _join_output(self, op, left, right, lsel, rsel) -> HostBatch:
+        dtypes, dicts, cols = {}, {}, {}
+        outputs = op.output or _default_join_output(left, right)
+        for side, col, out_name in outputs:
+            src_b = left if side == "left" else right
+            sel = lsel if side == "left" else rsel
+            cols[out_name] = _take_with_nulls(
+                src_b.cols[col], sel, src_b.dtypes[col]
+            )
+            dtypes[out_name] = src_b.dtypes[col]
+            if col in src_b.dicts:
+                dicts[out_name] = src_b.dicts[col]
+        return HostBatch(dtypes, dicts, cols)
+
     # -------------------------------------------------------------------- run
     def run(self) -> dict[str, QueryResult]:
         results = {}
@@ -975,8 +1251,9 @@ class PlanExecutor:
                     f"plan sink {sink.kind} is not ported yet (only MemorySink "
                     "is; result/partition/OTel sinks come with later slices)")
             parent = self.plan.parents(sink)[0]
-            out_dtypes, out_dicts, out_names, cols = self._consume_chain(
+            out_dtypes, out_dicts, out_names, gen = self._consume_chain(
                 parent, sink.columns)
+            cols = _concat_parts(gen, out_names, out_dtypes)
             # Semantic types (engine/semantics.py) come with the host-layer
             # slice; the port's relation carries the physical types.
             rel = Relation([ColumnSchema(n, out_dtypes[n]) for n in out_names])
@@ -990,8 +1267,10 @@ class PlanExecutor:
                 exec_stats=dict(self.stats),
             )
         self.stats["wall_ns"] = _time.perf_counter_ns() - t0
+        self.stats["operators"] = self.op_stats
         for r in results.values():
             r.exec_stats["wall_ns"] = self.stats["wall_ns"]
+            r.exec_stats["operators"] = self.op_stats
         return results
 
 
@@ -1056,6 +1335,110 @@ def _prescan_unique(src, col: str, qd: Dictionary, sort: bool = False):
         arr = rb.columns[col][: rb.num_valid]
         if len(arr):
             qd.encode(np.unique(arr))
+
+
+def _concat_parts(gen, out_names, out_dtypes) -> dict[str, np.ndarray]:
+    """The (np_cols, count) parts of a consumed chain, joined per column."""
+    parts = [c for c, _ in gen]
+    return {
+        n: (np.concatenate([p[n] for p in parts]) if parts
+            else np.empty(0, STORAGE_DTYPE[out_dtypes[n]]))
+        for n in out_names
+    }
+
+
+def _composite_codes(
+    lkeys: list[np.ndarray], rkeys: list[np.ndarray]
+) -> tuple[np.ndarray, np.ndarray]:
+    """Factorize both sides' (multi-)key rows into one shared int64 code space
+    so matching reduces to integer comparison.
+
+    Each key pair factorizes separately FIRST (np.unique collapses NaN on 1-D
+    float arrays, giving pandas' NaN==NaN merge semantics), then the per-key
+    code columns combine — structured-array comparison over floats would treat
+    NaNs as distinct and make join behavior depend on key count.
+    """
+    nl = len(lkeys[0]) if lkeys else 0
+    per = []
+    for l, r in zip(lkeys, rkeys):
+        _u, inv = np.unique(np.concatenate([l, r]), return_inverse=True)
+        per.append(inv.astype(np.int64))
+    if len(per) == 1:
+        comb = per[0]
+    else:
+        _u, comb = np.unique(np.rec.fromarrays(per), return_inverse=True)
+        comb = comb.astype(np.int64)
+    return comb[:nl], comb[nl:]
+
+
+def _match_pairs(
+    lc: np.ndarray, rc: np.ndarray, lnull: np.ndarray, rnull: np.ndarray
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """All matching (left_row, right_row) pairs with m:n expansion.
+
+    Returns (lidx, ridx, l_matched[nl], r_matched[nr]).  Sort the valid left
+    rows by code; each valid right row finds its [lo, hi) match range by
+    binary search and contributes hi-lo pairs.
+    """
+    nl, nr = len(lc), len(rc)
+    lvalid = np.nonzero(~lnull)[0]
+    order = lvalid[np.argsort(lc[lvalid], kind="stable")]
+    sorted_keys = lc[order]
+    if nr >= (1 << 20):
+        # Large probe sides: binary-searching random keys over a big sorted
+        # array is memory-latency-bound; sorting the probes first makes
+        # consecutive searches cache-local.
+        rorder = np.argsort(rc, kind="stable")
+        rs = rc[rorder]
+        lo = np.empty(nr, np.int64)
+        hi = np.empty(nr, np.int64)
+        lo[rorder] = np.searchsorted(sorted_keys, rs, side="left")
+        hi[rorder] = np.searchsorted(sorted_keys, rs, side="right")
+    else:
+        lo = np.searchsorted(sorted_keys, rc, side="left")
+        hi = np.searchsorted(sorted_keys, rc, side="right")
+    counts = np.where(rnull, 0, hi - lo)
+    total = int(counts.sum())
+    ridx = np.repeat(np.arange(nr, dtype=np.int64), counts)
+    offsets = np.cumsum(counts) - counts
+    within = np.arange(total, dtype=np.int64) - np.repeat(offsets, counts)
+    lidx = order[np.repeat(lo, counts) + within]
+    l_matched = np.zeros(nl, dtype=bool)
+    l_matched[lidx] = True
+    r_matched = counts > 0
+    return lidx, ridx, l_matched, r_matched
+
+
+def _take_with_nulls(arr: np.ndarray, sel: np.ndarray, dt: DT) -> np.ndarray:
+    """arr[sel] with sel == -1 producing the type's null fill."""
+    if len(arr) == 0:
+        out = np.zeros(len(sel), dtype=arr.dtype)
+        miss = np.ones(len(sel), dtype=bool)
+    else:
+        out = arr[np.clip(sel, 0, len(arr) - 1)]
+        miss = sel < 0
+    if miss.any():
+        out = out.copy()
+        out[miss] = _null_value(dt)
+    return out
+
+
+def _default_join_output(left: HostBatch, right: HostBatch):
+    out = []
+    for c in right.cols:
+        out.append(("right", c, c))
+    for c in left.cols:
+        if c not in right.cols:
+            out.append(("left", c, c))
+    return out
+
+
+def _null_value(dt: DT):
+    if dt == DT.FLOAT64:
+        return np.nan
+    if dt in (DT.STRING, DT.UINT128):
+        return -1  # code -1 decodes to None
+    return 0
 
 
 def _dtype_of(arr) -> DT:

@@ -42,6 +42,8 @@ SOURCES = {
     "segment_reduce": "segment_reduce.cu",
     "loghist_update": "loghist_update.cu",
     "loghist_quantile": "loghist_quantile.cu",
+    "compact": "compact.cu",
+    "join": "join.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

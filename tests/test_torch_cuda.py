@@ -9,8 +9,11 @@ import numpy as np
 import pytest
 import torch
 
+from pixie_tpu_torch.engine import transfer
 from pixie_tpu_torch.ops import _build
+from pixie_tpu_torch.ops import compact as k4
 from pixie_tpu_torch.ops import groupby as gb
+from pixie_tpu_torch.ops import join_device as jd
 from pixie_tpu_torch.ops.sketch import LogHistogram
 
 pytestmark = pytest.mark.cuda
@@ -69,13 +72,112 @@ def test_loghist_update_and_quantile_exact(dev, g):
     assert torch.equal(q.nan_to_num(-1.0), lh.quantile_plain(got, qs).nan_to_num(-1.0))
 
 
+@pytest.mark.parametrize("n", [1, 4095, 4097, 1 << 20])
+@pytest.mark.parametrize("density", [0.0, 0.1, 0.9, 1.0])
+def test_compact_equals_stable_partition(dev, n, density):
+    rng = np.random.default_rng(5)
+    m = torch.from_numpy(rng.random(n) < density).to(dev)
+    cols = [torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, n).astype(np.int32)).to(dev),
+            torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62, n)).to(dev),
+            torch.from_numpy(rng.normal(size=n)).to(dev),
+            torch.from_numpy(rng.random(n) < 0.5).to(dev),
+            torch.from_numpy(rng.integers(0, 100, n).astype(np.int16)).to(dev)]
+    before = _build.KERNELS["compact"].launches
+    got, count = k4.compact(m, cols)
+    assert _build.KERNELS["compact"].launches == before + 1
+    want, want_count = k4.compact_plain(m, cols)
+    c = int(count)
+    assert c == int(want_count)
+    for g, w in zip(got, want):
+        assert torch.equal(g[:c], w[:c])
+
+
+def test_compact_more_columns_than_one_launch_holds(dev):
+    m = torch.arange(10_000, device=dev) % 3 == 0
+    cols = [torch.arange(10_000, device=dev) * i for i in range(20)]
+    got, count = k4.compact(m, cols)
+    for i, g in enumerate(got):
+        assert torch.equal(g[:int(count)], cols[i][m])
+
+
+def _pair_keys(bidx, pidx, npr):
+    return torch.sort(bidx * npr + pidx).values
+
+
+@pytest.mark.parametrize("case", ["uniform", "heavy", "no_match", "null_probe", "wide"])
+def test_join_kernels_equal_plain(dev, case):
+    rng = np.random.default_rng(6)
+    n = 1 << 18
+    if case == "uniform":
+        b, p = rng.integers(0, n, n), rng.integers(0, n, n)
+    elif case == "heavy":
+        b = np.concatenate([np.full(512, 7), rng.integers(100, n, n)])
+        p = np.concatenate([np.full(512, 7), rng.integers(100, n, n)])
+    elif case == "no_match":
+        b, p = rng.integers(0, n, n), rng.integers(n, 2 * n, n)
+    elif case == "null_probe":
+        b, p = rng.integers(0, n, n), np.full(n, -2)
+    else:
+        b, p = rng.integers(0, 1000, n) << 40, rng.integers(0, 1000, n) << 40
+    b = torch.from_numpy(b.astype(np.int64)).to(dev)
+    p = torch.from_numpy(p.astype(np.int64)).to(dev)
+    before = dict(_build.KERNELS["join"].by_entry)
+    got = jd.device_join_codes(b, p)
+    for e in ("px_join_build", "px_join_probe", "px_join_expand"):
+        assert _build.KERNELS["join"].by_entry[e] == before.get(e, 0) + 1
+    want = jd.device_join_codes(b.cpu(), p.cpu())
+    npr = p.shape[0]
+    assert torch.equal(_pair_keys(torch.from_numpy(got[0]), torch.from_numpy(got[1]), npr),
+                       _pair_keys(torch.from_numpy(want[0]), torch.from_numpy(want[1]), npr))
+    assert np.array_equal(got[2], want[2]) and np.array_equal(got[3], want[3])
+
+
+def test_join_stages_equal_plain(dev):
+    rng = np.random.default_rng(7)
+    b = torch.from_numpy(rng.integers(-1, 5000, 1 << 16)).to(dev)
+    p = torch.from_numpy(rng.integers(-2, 6000, 1 << 16)).to(dev)
+    K = 5000
+    cnt, first, rows = jd.join_build(b, K)
+    cnt0, first0, rows0 = jd.join_build_plain(b, K)
+    assert torch.equal(cnt, cnt0) and torch.equal(first, first0)
+    # rows agree as a set within each code (atomics order them per run);
+    # only the first sum(cnt) slots are written (the -1 rows have none)
+    rows = rows[: rows0.shape[0]]
+    assert torch.equal(torch.sort(b[rows.long()] * (1 << 20) + rows).values,
+                       torch.sort(b[rows0.long()] * (1 << 20) + rows0).values)
+    cnt_p, lo_p, total = jd.join_probe(p, cnt, first)
+    cnt_p0, lo_p0, total0 = jd.join_probe_plain(p, cnt0, first0)
+    assert torch.equal(cnt_p, cnt_p0) and torch.equal(lo_p, lo_p0)
+    assert int(total) == int(total0)
+
+
+def test_readback_wave_lands_in_pinned_memory_and_is_counted(dev):
+    x = torch.arange(1 << 20, device=dev)
+    before = dict(transfer.stats)
+    h = transfer.pull_async({"x": x[: 1000], "y": [x.double()]})
+    assert h.n_dev == 2
+    out = h.wait()
+    np.testing.assert_array_equal(out["x"], np.arange(1000))
+    np.testing.assert_array_equal(out["y"][0], np.arange(1 << 20, dtype=np.float64))
+    assert transfer.stats["waves"] == before["waves"] + 1
+    assert transfer.stats["bytes"] == before["bytes"] + 1000 * 8 + (1 << 20) * 8
+    assert transfer.h2d_bandwidth_probe(device=dev)["mbps"] > 0
+
+
 def test_cuda_tensor_never_reaches_the_plain_version(dev, monkeypatch):
     def boom(*a, **k):
         raise AssertionError("plain version called on a CUDA tensor")
 
     monkeypatch.setattr(gb, "segment_count_plain", boom)
     monkeypatch.setattr(LogHistogram, "update_plain", boom)
+    for name in ("compact_plain",):
+        monkeypatch.setattr(k4, name, boom)
+    for name in ("join_build_plain", "join_probe_plain", "join_expand_plain"):
+        monkeypatch.setattr(jd, name, boom)
     _rng, gid, mask = _rows(dev, 4096, 8, 4)
     gb.masked_segment_count(gid, 8, mask)
     lh = LogHistogram()
     lh.update(lh.init(8, dev), gid, torch.ones(4096, dtype=torch.float64, device=dev), mask, 8)
+    k4.compact(mask, [gid])
+    codes = gid.long()
+    jd.device_join_codes(codes, codes)
