@@ -25,7 +25,8 @@ Phases, each of which fails the run if it fails:
                 codes uniform in [0, 16M), seed 11) and at edge cases (one
                 key with 4096 rows a side, no matches, all-null probe codes,
                 wide sparse codes), as exact pair sets and matched flags; and
-                times K1 min/max at the main path's shape;
+                times K1 min/max at the sorted path's shape (a 2^20-row
+                chunk into 2^23 groups) and at config #1's feed shape;
   4. slice    — bench config #1 (filter status != 404, group by service and
                 status, count / mean / p50 of latency) over an http_events
                 table of 64M rows (bench's headline size) built with the
@@ -48,9 +49,32 @@ Phases, each of which fails the run if it fails:
                 device join (J1-J3) with gate reason h2d_direct_attached,
                 sorted (k, a, b) rows equal to a numpy oracle's; timed warm,
                 and one analyze run splits it into host key codes, H2D,
-                J1-J3 and D2H (--profile adds the device trace).
-Each slice phase resets the launch counts just before its first query and
-reads them just after; a kernel of the phase that did not launch fails it.
+                J1-J3 and D2H (--profile adds the device trace);
+  8. resident — config #1 over an 8M-row http_events table (one feed, the
+                only shape in which the reference folds): a cold query
+                admits it (R1), a warm one moves 0 bytes; 2^20 rows appended
+                in 16 sealed batches fold in with a grow from 2^23 to 2^24
+                rows (R2, R1) and move exactly the delta's bytes; then the
+                same on a table whose budget holds 9M rows, where appending
+                2^21 rows trims 2^20 and the next query rebases (R2), grows
+                and folds.  Each result equals the stream route's and the
+                numpy oracle's;
+  9. sorted   — a 16M-row table (seed 13: conn_id uniform on [0, 2^23),
+                bytes, latency exponential(50)): S1 groups by conn_id
+                (~7.25M groups, past MAX_GROUPS) with count, sum(bytes),
+                mean, min and max(latency); S2 groups by bin(bytes, 4096)
+                (a computed key) with count, mean and p50(latency).  Each
+                takes the sorted fallback once and equals a numpy oracle.
+Config #1, the select and config #3 each report a stream median (the tier
+off, the feed cache off and empty: every feed uploaded, the route measured
+before the tier) and a warm median (after the admitting queries; a warm
+query that moves any host-to-device byte fails the phase), with the bytes
+moved and the feeds served from the tier and the cache.  Each slice phase
+resets the launch counts just before its first query and reads them just
+after; a kernel of the phase that did not launch fails it.  The kernel
+phase also holds R1 and R2 (the resident tier's fold and move) against
+their plain versions at 2^20 rows x 4 columns into 2^24 rows, a grow from
+2^23 to 2^24 rows and a rebase dropping 2^20 of 2^24 rows.
 
 It prints one JSON line per kernel, a {"kernels": [...]} line, the card's
 name and power limit, and last {"ok": true, "device": {...}}.  It exits
@@ -88,11 +112,26 @@ EXEC_JOIN_ROWS = 1 << 22
 CONFIG1_KERNELS = [("segment_reduce", "px_segment_count"),
                    ("segment_reduce", "px_segment_sum_f64"),
                    ("loghist_update", "px_loghist_update"),
-                   ("loghist_quantile", "px_loghist_quantile")]
-SELECT_KERNELS = [("compact", "px_compact")]
-CONFIG3_KERNELS = [("segment_reduce", "px_segment_sum_i64"), ("compact", "px_compact")]
+                   ("loghist_quantile", "px_loghist_quantile"),
+                   ("resident", "px_resident_fold")]
+SELECT_KERNELS = [("compact", "px_compact"), ("resident", "px_resident_fold")]
+CONFIG3_KERNELS = [("segment_reduce", "px_segment_sum_i64"), ("compact", "px_compact"),
+                   ("resident", "px_resident_fold")]
 JOIN_KERNELS = [("compact", "px_compact"), ("join", "px_join_build"),
                 ("join", "px_join_probe"), ("join", "px_join_expand")]
+RESIDENT_KERNELS = [("resident", "px_resident_fold"), ("resident", "px_resident_move")]
+SORTED_KERNELS = [("segment_reduce", e) for e in (
+    "px_segment_count", "px_segment_sum_i64", "px_segment_sum_f64",
+    "px_segment_min_f64", "px_segment_max_f64")] + [("loghist_update", "px_loghist_update")]
+#: resident phase: an 8M-row table (one feed) and the rows appended to it
+RESIDENT_ROWS = 1 << 23
+RESIDENT_APPEND = 1 << 20
+#: sorted phase rows, conn_id range and bytes range (4096 bins of 4096)
+SORTED_ROWS = 1 << 24
+CONN_IDS = 1 << 23
+BYTES_RANGE = 1 << 24
+#: the agg's pruned feed of config #1: service (int32) + latency + status
+CONFIG1_ROW_BYTES = 4 + 8 + 8
 
 
 def log(msg: str) -> None:
@@ -364,8 +403,8 @@ def check_kernels(dev) -> list[dict]:
 
 
 def check_new_kernels(dev) -> list[dict]:
-    """K1 min/max timed at the main path's shape; K4 and J1-J3 held against
-    their plain versions.  Returns their kernel rows."""
+    """K1 min/max timed at the sorted path's shape; K4 and J1-J3 held
+    against their plain versions.  Returns their kernel rows."""
     import torch
 
     from pixie_tpu_torch.ops import compact as k4
@@ -377,42 +416,55 @@ def check_new_kernels(dev) -> list[dict]:
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    # ---- K1 min / max at the main path's shape: one 16M-row feed, G = 64
+    # ---- K1 min / max: at the sorted path's shape (one 2^20-row chunk into
+    # state of 2^23 groups: global atomics), and at config #1's feed shape
+    # (16M rows, G = 64: shared memory)
     rng = np.random.default_rng(8)
-    g = 64
-    gid = t(rng.integers(0, g, FEED).astype(np.int32))
-    mask = t(rng.random(FEED) < 0.95)
-    lat = t(rng.exponential(50.0, FEED))
-    gid64 = gid.long()
-    for op in ("min", "max"):
-        ident = gb._identity_for(torch.float64, op)
-        out0 = torch.full((g,), ident, dtype=torch.float64, device=dev)
-        a, b = out0.clone(), out0.clone()
-        getattr(gb, f"masked_segment_{op}")(lat, gid, g, mask, out=a)
-        gb.segment_pick_plain(lat, gid, g, mask, b, op)
-        torch.cuda.synchronize()
-        if not torch.equal(a, b):
-            raise AssertionError(f"K1 {op} main: kernel and plain version disagree")
-        acc = out0.clone()
-        lat_id = torch.where(mask, lat, ident)
-        red = "amin" if op == "min" else "amax"
-        b_ms, by = bound(FEED * (4 + 1 + 8) + 2 * g * 8, FEED)
-        rows.append({
-            "name": f"segment_reduce.{op}_f64", "route": "cuda",
-            "source": "pixie_tpu_torch/csrc/segment_reduce.cu",
-            "replaces": f"pixie_tpu/ops/groupby.py:{188 if op == 'min' else 194} "
-                        f"masked_segment_{op}",
-            "entry": ("segment_reduce", f"px_segment_{op}_f64"), "path": None,
-            "max_abs_err": 0.0,
-            "ms": cuda_ms(lambda: getattr(gb, f"masked_segment_{op}")(
-                lat, gid, g, mask, out=acc), 20),
-            "plain_ms": cuda_ms(lambda: gb.segment_pick_plain(lat, gid, g, mask, acc, op), 5),
-            "bound_ms": b_ms, "bound_by": by,
-            "library_ms": cuda_ms(lambda: acc.scatter_reduce_(
-                0, gid64, lat_id, reduce=red, include_self=True), 10),
-            "shape": {"rows": FEED, "groups": g},
-        })
-    del gid, mask, lat, gid64
+    for label, n, g in (("sorted", 1 << 20, 1 << 23), ("feed", FEED, 64)):
+        gid = t(rng.integers(0, g, n).astype(np.int32))
+        mask = t(rng.random(n) < 0.95)
+        lat = t(rng.exponential(50.0, n))
+        gid64 = gid.long()
+        touched = int(torch.unique(gid[mask]).numel())
+        detail = {}
+        for op in ("min", "max"):
+            ident = gb._identity_for(torch.float64, op)
+            out0 = torch.full((g,), ident, dtype=torch.float64, device=dev)
+            a, b = out0.clone(), out0.clone()
+            getattr(gb, f"masked_segment_{op}")(lat, gid, g, mask, out=a)
+            gb.segment_pick_plain(lat, gid, g, mask, b, op)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError(f"K1 {op} {label}: kernel and plain version disagree")
+            acc = out0.clone()
+            lat_id = torch.where(mask, lat, ident)
+            red = "amin" if op == "min" else "amax"
+            # each row's id, mask and value read once; each touched group's
+            # state read and written once
+            b_ms, by = bound(n * (4 + 1 + 8) + 2 * touched * 8, n)
+            detail[op] = {
+                "ms": cuda_ms(lambda: getattr(gb, f"masked_segment_{op}")(
+                    lat, gid, g, mask, out=acc), 20),
+                "plain_ms": cuda_ms(lambda: gb.segment_pick_plain(lat, gid, g, mask, acc, op),
+                                    5),
+                "bound_ms": b_ms, "bound_by": by,
+                "library_ms": cuda_ms(lambda: acc.scatter_reduce_(
+                    0, gid64, lat_id, reduce=red, include_self=True), 10),
+            }
+        log(json.dumps({"kernel_detail": "segment_reduce.min/max_f64", "shape": label,
+                        "rows": n, "groups": g, "touched": touched, **detail}))
+        if label == "sorted":
+            for op in ("min", "max"):
+                rows.append({
+                    "name": f"segment_reduce.{op}_f64", "route": "cuda",
+                    "source": "pixie_tpu_torch/csrc/segment_reduce.cu",
+                    "replaces": f"pixie_tpu/ops/groupby.py:{188 if op == 'min' else 194} "
+                                f"masked_segment_{op}",
+                    "entry": ("segment_reduce", f"px_segment_{op}_f64"), "path": "sorted",
+                    "max_abs_err": 0.0, **detail[op],
+                    "shape": {"rows": n, "groups": g, "touched": touched},
+                })
+        del gid, mask, lat, gid64, acc, lat_id
 
     # ---- K4: 2^24 rows, 4 columns, four densities; exact and in order
     rng = np.random.default_rng(9)
@@ -543,32 +595,139 @@ def check_new_kernels(dev) -> list[dict]:
     return rows
 
 
+def check_resident_kernels(dev) -> list[dict]:
+    """R1 and R2 held against their plain versions at the resident tier's
+    shapes, 4 columns (int32, int64, f64, bool; 21 B/row): a fold of 2^20
+    rows at row 2^23 of 2^24-row buffers, a grow from 2^23 to 2^24 rows, a
+    rebase dropping 2^20 of 2^24 rows.  Exact; returns their kernel rows."""
+    import torch
+
+    from pixie_tpu_torch.ops import resident as rk
+
+    rng = np.random.default_rng(14)
+    big, half, d = 1 << 24, 1 << 23, RESIDENT_APPEND
+    dts = (np.int32, np.int64, np.float64, np.bool_)
+    width = sum(np.dtype(x).itemsize for x in dts)
+
+    def host(n, dt):
+        return (rng.random(n) < 0.5) if dt is np.bool_ else rng.integers(-1000, 1000, n).astype(dt)
+
+    def same(label, got, want, rows=None):
+        if not all(torch.equal(g[:rows], w[:rows]) for g, w in zip(got, want)):
+            raise AssertionError(f"{label}: kernel and plain version disagree")
+        log(json.dumps({"check": label, "ok": True, "max_abs_err": 0.0}))
+
+    # ---- R1: the delta staged once, then one launch for the 4 columns
+    parts = [[host(d // 2, x), host(d - d // 2, x)] for x in dts]
+    bufs = [torch.zeros(big, dtype=torch.from_numpy(np.zeros(1, x)).dtype, device=dev)
+            for x in dts]
+    plain_bufs = [b.clone() for b in bufs]
+    staging, offs, _ = rk.stage(parts, dev)
+    views = [staging[o: o + d * b.element_size()].view(b.dtype) for o, b in zip(offs, bufs)]
+    rk.fold_staged(bufs, staging, offs, d, half)
+    for b, v in zip(plain_bufs, views):
+        rk.fold_plain(b, v, half)
+    torch.cuda.synchronize()
+    same("R1 fold 2^20 rows x 4 columns at row 2^23", bufs, plain_bufs)
+    # whole fold as the tier runs it: host assembly into pinned memory, one
+    # H2D copy, the launch (host clock, synchronized)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        rk.fold(bufs, parts, half)
+    torch.cuda.synchronize()
+    fold_e2e_ms = (time.perf_counter() - t0) / 5 * 1e3
+    b_ms, by = bound(2 * d * width)
+    rows = [{
+        "name": "resident.fold", "route": "cuda", "source": "pixie_tpu_torch/csrc/resident.cu",
+        "replaces": "pixie_tpu/engine/resident.py:111 _kernels (fold: dynamic_update_slice)",
+        "entry": ("resident", "px_resident_fold"), "path": "resident", "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: rk.fold_staged(bufs, staging, offs, d, half), 20),
+        "plain_ms": cuda_ms(lambda: [rk.fold_plain(b, v, half) for b, v in zip(bufs, views)], 10),
+        "bound_ms": b_ms, "bound_by": by,
+        "library_ms": cuda_ms(lambda: [b[half: half + d].copy_(v)
+                                       for b, v in zip(bufs, views)], 10),
+        "shape": {"rows": d, "columns": "int32,int64,f64,bool", "at_row": half,
+                  "bucket": big, "fold_with_h2d_ms": fold_e2e_ms},
+    }]
+    del staging, views, plain_bufs
+
+    # ---- R2: grow 2^23 -> 2^24 and rebase (drop 2^20 of 2^24)
+    srcs = [b[:half].clone() for b in bufs]
+    got, want = rk.move(srcs, 0, half, big), [rk.move_plain(x, 0, half, big) for x in srcs]
+    torch.cuda.synchronize()
+    same("R2 grow 2^23 -> 2^24 x 4 columns", got, want)
+    got = rk.move(bufs, d, big - d, big)
+    want = [rk.move_plain(x, d, big - d, big) for x in bufs]
+    torch.cuda.synchronize()
+    same("R2 rebase dropping 2^20 of 2^24 x 4 columns", got, want)
+    rolled = [torch.roll(x, -d) for x in bufs]
+    same("R2 rebase vs torch.roll on [0, rows)", got, rolled, big - d)
+    del got, want, rolled
+    rebase = {
+        "ms": cuda_ms(lambda: rk.move(bufs, d, big - d, big), 20),
+        "plain_ms": cuda_ms(lambda: [rk.move_plain(x, d, big - d, big) for x in bufs], 10),
+        "library_ms": cuda_ms(lambda: [torch.roll(x, -d) for x in bufs], 10),
+        "bound_ms": bound((big - d + big) * width)[0], "bound_by": "bytes",
+    }
+    log(json.dumps({"kernel_detail": "resident.move", "rebase": rebase}))
+    b_ms, by = bound((half + big) * width)
+    rows.append({
+        "name": "resident.move", "route": "cuda", "source": "pixie_tpu_torch/csrc/resident.cu",
+        "replaces": "pixie_tpu/engine/resident.py:111 _kernels (grow: jnp.pad; shift: jnp.roll)",
+        "entry": ("resident", "px_resident_move"), "path": "resident", "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: rk.move(srcs, 0, half, big), 20),
+        "plain_ms": cuda_ms(lambda: [rk.move_plain(x, 0, half, big) for x in srcs], 10),
+        "bound_ms": b_ms, "bound_by": by,
+        "library_ms": cuda_ms(lambda: [torch.nn.functional.pad(x, (0, big - half))
+                                       for x in srcs], 10),
+        "shape": {"grow_rows": [half, big], "columns": "int32,int64,f64,bool",
+                  "rebase": {"drop": d, "rows": big, **rebase}},
+    })
+    del srcs, bufs
+    torch.cuda.empty_cache()
+    return rows
+
+
 # -------------------------------------------------------------------- slice
 
 
-def build_http_table(ts, rows: int, batch_rows: int = 1 << 16, span_s: int = 600):
-    """bench.build_http_table's generator, written into the port's store."""
+class HttpRows:
+    """bench.build_http_table's generator (seed 12), continued across
+    writes: 16 services, exponential(50) latency, status 200/404/500 at
+    .85/.05/.10, written in chunks of 2^21 rows."""
+
+    def __init__(self, table, rows: int, span_s: int = 600):
+        self.table = table
+        self.rng = np.random.default_rng(12)
+        self.services = np.array([f"svc-{i}" for i in range(N_SERVICES)])
+        self.t_step = span_s * SEC // max(rows, 1)
+        self.written = 0
+
+    def write(self, rows: int) -> None:
+        end = self.written + rows
+        while self.written < end:
+            n = min(1 << 21, end - self.written)
+            svc_idx = self.rng.integers(0, N_SERVICES, n)
+            self.table.write({
+                "time_": np.arange(self.written, self.written + n, dtype=np.int64) * self.t_step,
+                "service": self.services[svc_idx],
+                "latency": self.rng.exponential(50.0, n),
+                "status": self.rng.choice([200, 404, 500], n, p=[0.85, 0.05, 0.10]),
+            })
+            self.written += n
+
+
+def build_http_table(ts, rows: int, batch_rows: int = 1 << 16, max_bytes: int = 1 << 36):
+    """bench.build_http_table's table, written into the port's store; →
+    (table, its generator, for appends)."""
     from pixie_tpu_torch.types import DataType as DT, Relation
 
-    rng = np.random.default_rng(12)
     rel = Relation.of(("time_", DT.TIME64NS), ("service", DT.STRING),
                       ("latency", DT.FLOAT64), ("status", DT.INT64))
-    t = ts.create("http_events", rel, batch_rows=batch_rows, max_bytes=1 << 36)
-    services = np.array([f"svc-{i}" for i in range(N_SERVICES)])
-    chunk = 1 << 21
-    written = 0
-    t_step = span_s * SEC // max(rows, 1)
-    while written < rows:
-        n = min(chunk, rows - written)
-        svc_idx = rng.integers(0, N_SERVICES, n)
-        t.write({
-            "time_": np.arange(written, written + n, dtype=np.int64) * t_step,
-            "service": services[svc_idx],
-            "latency": rng.exponential(50.0, n),
-            "status": rng.choice([200, 404, 500], n, p=[0.85, 0.05, 0.10]),
-        })
-        written += n
-    return t
+    t = ts.create("http_events", rel, batch_rows=batch_rows, max_bytes=max_bytes)
+    gen = HttpRows(t, rows)
+    gen.write(rows)
+    return t, gen
 
 
 def http_plan():
@@ -587,19 +746,10 @@ def http_plan():
     return p
 
 
-def oracle_check(table, res) -> dict:
-    """numpy oracle of config #1 over the table's rows; raises on mismatch.
-    Its sketch is plain numpy and shares no code with the port's."""
-    cols = {k: [] for k in ("service", "latency", "status")}
-    for rb, _rid, _gen in table.cursor():
-        for k in cols:
-            cols[k].append(rb.columns[k][: rb.num_valid])
-    svc, lat, st = (np.concatenate(cols[k]) for k in ("service", "latency", "status"))
-    sel = st != 404
-    svc, lat, st = svc[sel], lat[sel], st[sel]
-    statuses = np.unique(st)
-    key = svc.astype(np.int64) * len(statuses) + np.searchsorted(statuses, st)
-    ng = int(key.max()) + 1
+def sketch_oracle(key, lat, ng: int):
+    """Per group (dense key in [0, ng)): count, mean, the p50 sketch bin's
+    value and np.median, in plain numpy that shares no code with the
+    port's sketch."""
     cnt = np.bincount(key, minlength=ng)
     mean = np.bincount(key, weights=lat, minlength=ng) / np.maximum(cnt, 1)
     W = WIDTH
@@ -617,7 +767,34 @@ def oracle_check(table, res) -> dict:
     lat_sorted = lat[order]
     median = np.array([np.median(lat_sorted[bounds[i]:bounds[i + 1]]) if cnt[i] else np.nan
                        for i in range(ng)])
+    return cnt, mean, sketch_p50, median
 
+
+def check_p50(p50, want_bin, median) -> tuple[int, float]:
+    """p50 in the oracle's sketch bin (or the next, for a value on a bin
+    edge) and within 2.1% of np.median; → (exact bins, max relative
+    error)."""
+    ratio = p50 / want_bin
+    in_bin = ((ratio == 1.0) | np.isclose(ratio, GAMMA, rtol=1e-12)
+              | np.isclose(ratio, 1 / GAMMA, rtol=1e-12))
+    if not in_bin.all():
+        raise AssertionError(f"p50 outside the oracle's sketch bin: {p50[~in_bin]}")
+    rel_err = np.abs(p50 - median) / median
+    if not (rel_err <= 0.021).all():
+        raise AssertionError(f"p50 beyond 2.1% of np.median: {rel_err.max()}")
+    return int((ratio == 1.0).sum()), float(rel_err.max())
+
+
+def oracle_check(table, res) -> dict:
+    """numpy oracle of config #1 over the table's rows; raises on mismatch."""
+    cols = _table_columns(table, ("service", "latency", "status"))
+    svc, lat, st = (cols[k] for k in ("service", "latency", "status"))
+    sel = st != 404
+    svc, lat, st = svc[sel], lat[sel], st[sel]
+    statuses = np.unique(st)
+    key = svc.astype(np.int64) * len(statuses) + np.searchsorted(statuses, st)
+    ng = int(key.max()) + 1
+    cnt, mean, sketch_p50, median = sketch_oracle(key, lat, ng)
     got_key = (res.columns["service"].astype(np.int64) * len(statuses)
                + np.searchsorted(statuses, res.columns["status"]))
     if res.num_rows != int((cnt > 0).sum()):
@@ -626,22 +803,12 @@ def oracle_check(table, res) -> dict:
         raise AssertionError("counts differ from the oracle")
     if not np.allclose(res.columns["avg_lat"], mean[got_key], rtol=1e-9, atol=0):
         raise AssertionError("means differ from the oracle beyond rtol 1e-9")
-    p50 = np.asarray(res.columns["p50"])
-    want = sketch_p50[got_key]
-    ratio = p50 / want
-    in_bin = ((ratio == 1.0) | np.isclose(ratio, GAMMA, rtol=1e-12)
-              | np.isclose(ratio, 1 / GAMMA, rtol=1e-12))
-    if not in_bin.all():
-        raise AssertionError(f"p50 outside the oracle's sketch bin: {p50[~in_bin]}")
-    rel_err = np.abs(p50 - median[got_key]) / median[got_key]
-    if not (rel_err <= 0.021).all():
-        raise AssertionError(f"p50 beyond 2.1% of np.median: {rel_err.max()}")
+    exact, rel = check_p50(np.asarray(res.columns["p50"]), sketch_p50[got_key],
+                           median[got_key])
     if not all(np.isfinite(np.asarray(res.columns[c], dtype=np.float64)).all()
                for c in ("cnt", "avg_lat", "p50")):
         raise AssertionError("non-finite results")
-    return {"groups": res.num_rows,
-            "p50_exact_bin": int((ratio == 1.0).sum()),
-            "p50_max_rel_err_vs_median": float(rel_err.max())}
+    return {"groups": res.num_rows, "p50_exact_bin": exact, "p50_max_rel_err_vs_median": rel}
 
 
 def profile_query(query) -> dict:
@@ -663,6 +830,79 @@ def profile_query(query) -> dict:
                      "count": e.count} for e in top]}
 
 
+def stream_and_warm(query, label: str, with_profile: bool = False, reps: int = 5,
+                    warm_h2d: int = 0, warm_streamed: int = 0) -> dict:
+    """Stream and warm medians of query() (which returns a QueryResult).
+
+    Stream: the resident tier off and the feed cache off and emptied, so
+    every feed is uploaded (the route measured before the tier).  Warm: both
+    on, after two settling queries (the reference's range logic re-uploads a
+    feed that lost the pinned slot once, into the cache).  A warm query that
+    moves other than `warm_h2d` host-to-device bytes (0 unless the plan
+    reads a hot remainder or a host batch, which stream by design), or
+    serves other than all but `warm_streamed` feeds from the tier and the
+    cache, fails the phase."""
+    from pixie_tpu_torch import flags
+    from pixie_tpu_torch.engine.executor import clear_device_cache
+
+    def timed(n):
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            r = query()
+            out.append((time.perf_counter() - t0, r.exec_stats))
+        return out
+
+    saved = {f: flags.get(f) for f in ("PL_HBM_RESIDENT", "PIXIE_TPU_DEVICE_CACHE_MB")}
+    flags.set_for_testing("PL_HBM_RESIDENT", False)
+    flags.set_for_testing("PIXIE_TPU_DEVICE_CACHE_MB", 0)
+    clear_device_cache()
+    try:
+        stream = timed(2 + reps)[2:]
+        prof_stream = profile_query(query) if with_profile else None
+    finally:
+        for f, v in saved.items():
+            flags.set_for_testing(f, v)
+    for _t, st in stream:
+        if st.get("resident_feeds", 0) or st.get("feed_cache_hits", 0) or not st["h2d_bytes"]:
+            raise AssertionError(f"{label}: the stream route did not upload every feed: {st}")
+    settle = timed(2)
+    warm = timed(reps)
+    for _t, st in warm:
+        served = st.get("resident_feeds", 0) + st.get("feed_cache_hits", 0)
+        if st["h2d_bytes"] != warm_h2d or served != st["feeds"] - warm_streamed:
+            raise AssertionError(
+                f"{label}: warm query moved {st['h2d_bytes']} H2D bytes, {served} of "
+                f"{st['feeds']} feeds from the tier and the cache")
+
+    def median(xs):
+        ts = sorted(t for t, _ in xs)
+        return ts[len(ts) // 2]
+
+    last = warm[-1][1]
+    out = {"stream_median_s": median(stream), "stream_s": sorted(t for t, _ in stream),
+           "stream_h2d_bytes": stream[-1][1]["h2d_bytes"],
+           "settle_h2d_bytes": [st["h2d_bytes"] for _t, st in settle],
+           "warm_median_s": median(warm), "warm_s": sorted(t for t, _ in warm),
+           "h2d_bytes": last["h2d_bytes"], "feeds": last["feeds"],
+           "resident_feeds": last.get("resident_feeds", 0),
+           "feed_cache_hits": last.get("feed_cache_hits", 0)}
+    if with_profile:
+        out["profile_stream"] = prof_stream
+        out["profile_warm"] = profile_query(query)
+    return out
+
+
+def device_memory() -> dict:
+    """Device bytes pinned by the resident tier and the feed cache."""
+    from pixie_tpu_torch.engine import resident
+    from pixie_tpu_torch.engine.executor import device_cache_stats
+
+    tier = resident.tier_stats()
+    return {"resident_entries": tier["entries"], "resident_bytes": tier["bytes"],
+            "cache": device_cache_stats()}
+
+
 def run_slice(dev, with_profile: bool) -> dict:
     import torch
 
@@ -672,7 +912,7 @@ def run_slice(dev, with_profile: bool) -> dict:
 
     t0 = time.perf_counter()
     ts = TableStore()
-    table = build_http_table(ts, ROWS)
+    table, _gen = build_http_table(ts, ROWS)
     log(json.dumps({"phase": "slice.data", "rows": ROWS,
                     "seconds": time.perf_counter() - t0}))
     plan = http_plan()
@@ -690,23 +930,15 @@ def run_slice(dev, with_profile: bool) -> dict:
     log(json.dumps({"phase": "slice.launches", "per_query": launches}))
     check = oracle_check(table, res)
     log(json.dumps({"phase": "slice.oracle", "ok": True, **check}))
-
-    for _ in range(2):
-        query()
-    times = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        query()
-        times.append(time.perf_counter() - t0)
-    times.sort()
-    med = times[len(times) // 2]
+    routes = stream_and_warm(query, "config #1", with_profile)
     analyzed = execute_plan(plan, ts, device=dev, analyze=True)["output"].exec_stats
-    if with_profile:
-        log(json.dumps({"phase": "slice.profile", **profile_query(query)}))
-    return {"launches": launches, "first_query_s": first_s, "query_s": times,
-            "median_query_s": med, "rows_per_s": ROWS / med,
-            "feeds": analyzed["feeds"], "h2d_bytes": analyzed["h2d_bytes"],
-            "analyze_feed_ms": [x / 1e6 for x in analyzed.get("feed_ns", [])]}, ts, table
+    return {"launches": launches, "first_query_s": first_s,
+            "first_query_h2d_bytes": res.exec_stats["h2d_bytes"], **routes,
+            "median_query_s": routes["warm_median_s"],
+            "rows_per_s": ROWS / routes["warm_median_s"],
+            "stream_rows_per_s": ROWS / routes["stream_median_s"],
+            "analyze_feed_ms": [x / 1e6 for x in analyzed.get("feed_ns", [])],
+            "device_memory": device_memory()}, ts, table
 
 
 def _table_columns(table, names) -> dict:
@@ -756,21 +988,22 @@ def run_select(dev, ts, table, with_profile: bool) -> dict:
 
         _build.reset_launches()
         res = query()
-        launches = read_launches(label, SELECT_KERNELS)
+        # the first select admits its feeds (R1); head(n) reads them warm
+        launches = read_launches(label, SELECT_KERNELS if head is None else
+                                 [k for k in SELECT_KERNELS if k[0] != "resident"])
         if res.num_rows != len(want_rows):
             raise AssertionError(f"{label}: {res.num_rows} rows, oracle {len(want_rows)}")
         for k in names:
             if not np.array_equal(np.asarray(res.columns[k]), cols[k][want_rows]):
                 raise AssertionError(f"{label}: column {k} differs from the oracle")
-        times = warm_times(query)
-        out[label] = {"rows": res.num_rows, "launches": launches, "query_s": times,
-                      "median_query_s": times[len(times) // 2],
+        routes = stream_and_warm(query, label, with_profile and head is None)
+        out[label] = {"rows": res.num_rows, "launches": launches,
+                      "first_query_h2d_bytes": res.exec_stats["h2d_bytes"], **routes,
+                      "median_query_s": routes["warm_median_s"],
                       "pipelined_waves": res.exec_stats.get("pipelined_waves", 0),
-                      "h2d_bytes": res.exec_stats["h2d_bytes"]}
+                      "device_memory": device_memory()}
         log(json.dumps({"phase": f"slice.{label}", "ok": True,
                         **{k: v for k, v in out[label].items() if k != "launches"}}))
-        if with_profile and head is None:
-            log(json.dumps({"phase": "slice.select.profile", **profile_query(query)}))
     return out
 
 
@@ -851,11 +1084,20 @@ def run_config3(dev) -> dict:
     st = res.exec_stats
     if st.get("device_joins", 0) != 0:
         raise AssertionError("config #3's 256-row join left the host match")
-    times = warm_times(query)
-    out = {"rows": res.num_rows, "launches": launches, "query_s": times,
-           "median_query_s": times[len(times) // 2], "rows_per_s": rows / times[len(times) // 2],
+    # The 256-row pods table is an unsealed hot remainder (bench writes it
+    # into 64K-row batches) and the join's 256 rows reach the second agg as
+    # a host batch: both stream every query, by design, as in the reference.
+    # Everything else (the 16M network_stats rows) must move 0 bytes warm.
+    routes = stream_and_warm(query, "config #3", warm_streamed=2,
+                             warm_h2d=n_pods * (4 + 4) + n_pods * (4 + 8 + 8))
+    out = {"rows": res.num_rows, "launches": launches,
+           "first_query_h2d_bytes": res.exec_stats["h2d_bytes"], **routes,
+           "median_query_s": routes["warm_median_s"],
+           "rows_per_s": rows / routes["warm_median_s"],
+           "stream_rows_per_s": rows / routes["stream_median_s"],
            "join_route": "host match (_match_pairs): the join has 256 rows a side, "
-                         "below the 2^16-row device gate"}
+                         "below the 2^16-row device gate",
+           "device_memory": device_memory()}
     log(json.dumps({"phase": "slice.config3", "ok": True,
                     **{k: v for k, v in out.items() if k != "launches"}}))
     return out
@@ -926,12 +1168,220 @@ def run_device_join(dev, with_profile: bool) -> dict:
     return out
 
 
+def same_agg(a, b, label: str) -> None:
+    """Two config #1 results over the same rows: groups, counts and p50
+    exactly, means to rtol 1e-12 (atomic float sums add in any order)."""
+    def rows(r):
+        key = r.columns["service"].astype(np.int64) * 1000 + r.columns["status"]
+        o = np.argsort(key)
+        return key[o], {c: np.asarray(r.columns[c])[o] for c in ("cnt", "avg_lat", "p50")}
+
+    ka, ca = rows(a)
+    kb, cb = rows(b)
+    if not (np.array_equal(ka, kb) and np.array_equal(ca["cnt"], cb["cnt"])
+            and np.array_equal(ca["p50"], cb["p50"])
+            and np.allclose(ca["avg_lat"], cb["avg_lat"], rtol=1e-12, atol=0)):
+        raise AssertionError(f"{label}: the resident route and the stream route disagree")
+
+
+def run_resident(dev) -> dict:
+    """Config #1 over 8M-row tables: admission, a warm hit, a fold with a
+    grow, and a retention rebase with a grow and a fold; each result held
+    against the stream route and the numpy oracle."""
+    import torch
+
+    from pixie_tpu_torch import flags
+    from pixie_tpu_torch.engine import resident
+    from pixie_tpu_torch.engine.executor import PlanExecutor, clear_device_cache
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.table import TableStore
+
+    plan = http_plan()
+    out = {}
+
+    def query(ts):
+        t0 = time.perf_counter()
+        ex = PlanExecutor(plan, ts, device=dev)
+        r = ex.run()["output"]
+        torch.cuda.synchronize(dev)
+        return r, {"s": time.perf_counter() - t0, "h2d_bytes": ex.stats["h2d_bytes"],
+                   "resident_feeds": ex.stats.get("resident_feeds", 0),
+                   "feeds": ex.stats["feeds"]}
+
+    def stream(ts):
+        saved = {f: flags.get(f) for f in ("PL_HBM_RESIDENT", "PIXIE_TPU_DEVICE_CACHE_MB")}
+        flags.set_for_testing("PL_HBM_RESIDENT", False)
+        flags.set_for_testing("PIXIE_TPU_DEVICE_CACHE_MB", 0)
+        clear_device_cache()
+        try:
+            return query(ts)[0]
+        finally:
+            for f, v in saved.items():
+                flags.set_for_testing(f, v)
+
+    def expect(label, st, tier0, h2d, **deltas):
+        tier = resident.tier_stats()
+        moved = {k: tier[k] - tier0[k] for k in deltas}
+        if st["h2d_bytes"] != h2d or moved != deltas or st["resident_feeds"] != st["feeds"]:
+            raise AssertionError(f"resident {label}: h2d {st['h2d_bytes']} (want {h2d}), "
+                                 f"tier {moved} (want {deltas}), {st}")
+
+    delta_bytes = RESIDENT_APPEND * CONFIG1_ROW_BYTES
+    _build.reset_launches()
+    for label, cap_rows, append in (("fold", None, RESIDENT_APPEND),
+                                    ("rebase", RESIDENT_ROWS + RESIDENT_APPEND,
+                                     2 * RESIDENT_APPEND)):
+        t0 = time.perf_counter()
+        ts = TableStore()
+        max_bytes = (1 << 36) if cap_rows is None else cap_rows * 28  # 28 B/row stored
+        table, gen = build_http_table(ts, RESIDENT_ROWS, max_bytes=max_bytes)
+        data_s = time.perf_counter() - t0
+        tier0 = resident.tier_stats()
+        _r, cold = query(ts)
+        expect(f"{label} cold", cold, tier0, RESIDENT_ROWS * CONFIG1_ROW_BYTES, admissions=1)
+        tier0 = resident.tier_stats()
+        _r, warm = query(ts)
+        expect(f"{label} warm", warm, tier0, 0, hits=1)
+        lo = table.first_row_id()
+        gen.write(append)  # sealed batches of 2^16 rows
+        trimmed = table.first_row_id() - lo
+        tier0 = resident.tier_stats()
+        res, st = query(ts)
+        if label == "fold":
+            expect("fold", st, tier0, delta_bytes, folds=1, rebases=0)
+        else:
+            if trimmed != RESIDENT_APPEND:
+                raise AssertionError(f"resident rebase: {trimmed} rows trimmed, "
+                                     f"want {RESIDENT_APPEND}")
+            expect("rebase", st, tier0, append * CONFIG1_ROW_BYTES, folds=1, rebases=1)
+        tier = resident.tier_stats()
+        check = oracle_check(table, res)
+        same_agg(res, stream(ts), f"resident {label}")
+        _r, warm2 = query(ts)
+        out[label] = {"table_rows": RESIDENT_ROWS, "appended": append, "trimmed": trimmed,
+                      "data_s": data_s, "cold": cold, "warm": warm, "after_append": st,
+                      "warm_after": warm2, "tier_bytes": tier["bytes"], "oracle": check}
+        log(json.dumps({"phase": f"resident.{label}", "ok": True, **out[label]}))
+        del ts, table, gen
+    out["launches"] = read_launches("resident", RESIDENT_KERNELS + CONFIG1_KERNELS)
+    out["device_memory"] = device_memory()
+    return out
+
+
+def run_sorted(dev) -> dict:
+    """S1 and S2 through the sorted fallback, each against numpy."""
+    import torch
+
+    from pixie_tpu_torch.engine.executor import MAX_GROUPS, PlanExecutor
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.plan import (AggExpr, AggOp, Call, Column, MapOp, MemorySinkOp,
+                                      MemorySourceOp, Plan, lit)
+    from pixie_tpu_torch.table import TableStore
+    from pixie_tpu_torch.types import DataType as DT, Relation
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(13)
+    n = SORTED_ROWS
+    conn = rng.integers(0, CONN_IDS, n)
+    nbytes = rng.integers(0, BYTES_RANGE, n)
+    lat = rng.exponential(50.0, n)
+    ts = TableStore()
+    ts.create("conns", Relation.of(("time_", DT.TIME64NS), ("conn_id", DT.INT64),
+                                   ("bytes", DT.INT64), ("latency", DT.FLOAT64)),
+              batch_rows=1 << 16, max_bytes=1 << 36).write(
+        {"time_": np.arange(n, dtype=np.int64), "conn_id": conn, "bytes": nbytes,
+         "latency": lat})
+    log(json.dumps({"phase": "sorted.data", "rows": n, "seconds": time.perf_counter() - t0}))
+
+    def plan(groups, values, maps=None):
+        p = Plan()
+        node = p.add(MemorySourceOp(table="conns"))
+        if maps:
+            node = p.add(MapOp(exprs=maps), parents=[node])
+        agg = p.add(AggOp(groups=groups, values=values), parents=[node])
+        p.add(MemorySinkOp(name="out"), parents=[agg])
+        return p
+
+    s1 = plan(["conn_id"], [AggExpr("cnt", "count", None), AggExpr("sb", "sum", "bytes"),
+                            AggExpr("avg", "mean", "latency"), AggExpr("mn", "min", "latency"),
+                            AggExpr("mx", "max", "latency")])
+    s2 = plan(["b"], [AggExpr("cnt", "count", None), AggExpr("avg", "mean", "latency"),
+                      AggExpr("p50", "p50", "latency")],
+              maps=[("b", Call("bin", (Column("bytes"), lit(4096)))),
+                    ("latency", Column("latency"))])
+
+    def run(p):
+        t0 = time.perf_counter()
+        ex = PlanExecutor(p, ts, device=dev)
+        r = ex.run()["out"]
+        torch.cuda.synchronize(dev)
+        st = ex.stats
+        if st.get("sorted_agg_fallbacks", 0) != 1:
+            raise AssertionError(f"sorted: {st.get('sorted_agg_fallbacks')} fallbacks, want 1")
+        frames = {f["label"]: f["wall_ns"] / 1e9 for f in st["operators"]}
+        return r, {"s": time.perf_counter() - t0, "h2d_bytes": st["h2d_bytes"],
+                   "operators_s": frames}
+
+    _build.reset_launches()
+    r1, st1 = run(s1)
+    r2, st2 = run(s2)
+    launches = read_launches("sorted", SORTED_KERNELS)
+
+    # ---- S1 oracle: groups, exact counts and int64 sums, means, min, max
+    u, inv, cnt = np.unique(conn, return_inverse=True, return_counts=True)
+    G = len(u)
+    order = np.argsort(inv, kind="stable")
+    starts = np.cumsum(cnt) - cnt
+    sb = np.bincount(inv, weights=nbytes, minlength=G)
+    if sb.max() >= 2.0 ** 53:
+        raise AssertionError("sorted oracle: sums beyond float64's exact integers")
+    want1 = {"conn_id": u, "cnt": cnt, "sb": sb.astype(np.int64),
+             "avg": np.bincount(inv, weights=lat, minlength=G) / cnt,
+             "mn": np.minimum.reduceat(lat[order], starts),
+             "mx": np.maximum.reduceat(lat[order], starts)}
+    o = np.argsort(r1.columns["conn_id"])
+    got1 = {k: np.asarray(r1.columns[k])[o] for k in want1}
+    if r1.num_rows != G or G <= MAX_GROUPS:
+        raise AssertionError(f"S1: {r1.num_rows} groups, oracle {G} (must exceed {MAX_GROUPS})")
+    for k in ("conn_id", "cnt", "sb", "mn", "mx"):
+        if not np.array_equal(got1[k], want1[k]):
+            raise AssertionError(f"S1: {k} differs from the oracle")
+    if not np.allclose(got1["avg"], want1["avg"], rtol=1e-12, atol=0):
+        raise AssertionError("S1: means differ from the oracle beyond rtol 1e-12")
+    gb = 1 << max(0, G - 1).bit_length()
+    st1.update({"groups": G, "state_groups": gb,
+                # K1 keeps G int64 accumulators a block in shared memory only
+                # up to the 227 KB a block may opt in to
+                "k1_global_atomics": gb * 8 > 232448})
+
+    # ---- S2 oracle: bin(bytes, 4096) groups, counts, means, p50
+    key = nbytes // 4096
+    ng = int(key.max()) + 1
+    cnt2, mean2, p50_bin, median2 = sketch_oracle(key, lat, ng)
+    present = np.nonzero(cnt2)[0]
+    o = np.argsort(r2.columns["b"])
+    b = np.asarray(r2.columns["b"])[o]
+    if not np.array_equal(b, present * 4096):
+        raise AssertionError("S2: bins differ from the oracle")
+    if not np.array_equal(np.asarray(r2.columns["cnt"])[o], cnt2[present]):
+        raise AssertionError("S2: counts differ from the oracle")
+    if not np.allclose(np.asarray(r2.columns["avg"])[o], mean2[present], rtol=1e-9, atol=0):
+        raise AssertionError("S2: means differ from the oracle beyond rtol 1e-9")
+    exact, rel = check_p50(np.asarray(r2.columns["p50"])[o], p50_bin[present], median2[present])
+    st2.update({"groups": len(present), "p50_exact_bin": exact, "p50_max_rel_err_vs_median": rel})
+    out = {"S1": st1, "S2": st2, "launches": launches, "device_memory": device_memory()}
+    log(json.dumps({"phase": "sorted", "ok": True,
+                    **{k: v for k, v in out.items() if k != "launches"}}))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace one warm query with torch.profiler")
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -954,7 +1404,7 @@ def main() -> int:
     log(json.dumps({"phase": "build", "wall_s": time.perf_counter() - t0,
                     "nvcc_s": secs}))
 
-    rows = check_kernels(dev) + check_new_kernels(dev)
+    rows = check_kernels(dev) + check_new_kernels(dev) + check_resident_kernels(dev)
     sl, ts, table = run_slice(dev, args.profile)
     log(json.dumps({"phase": "slice", "card": smi, **sl}))
     paths = {"config1": sl["launches"]}
@@ -962,6 +1412,8 @@ def main() -> int:
     del ts, table
     paths["config3"] = run_config3(dev)["launches"]
     paths["device_join"] = run_device_join(dev, args.profile)["launches"]
+    paths["resident"] = run_resident(dev)["launches"]
+    paths["sorted"] = run_sorted(dev)["launches"]
     log(json.dumps({"phase": "launches", "per_path": paths}))
     idle = [lib for lib in _build.KERNELS if not any(p_[lib] for p_ in paths.values())]
     if idle:
@@ -969,11 +1421,12 @@ def main() -> int:
     for r in rows:
         lib, entry = r.pop("entry")
         path = r.pop("path")
-        # K1 min/max is on no path of this slice: it launches 0 times there
-        r["launches"] = paths[path][lib].get(entry, 0) if path else 0
+        r["launches"] = paths[path][lib].get(entry, 0)
         log(json.dumps({"kernel": r["name"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
                         "library_ms": r["library_ms"], "bound_ms": r["bound_ms"],
                         "launches": r["launches"], "shape": r["shape"], "card": smi}))
+    log(json.dumps({"phase": "wall", "seconds": time.perf_counter() - t_start,
+                    "card": smi}))
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shape"}
                                   for r in rows]}))
     print(smi)

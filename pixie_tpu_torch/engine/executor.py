@@ -23,12 +23,19 @@ materialize both parents on the host, factorize the keys there, and match
 either on the host or, past the reference's size gate, with kernels J1-J3
 (ops/join_device.py).
 
-Ported so far are the aggregate, select and join paths of the reference
-executor (pixie_tpu/engine/executor.py).  Unions, UDTF and remote sources,
-the sorted high-cardinality fallback, multi-query fusion and the distributed
-(SPMD/partial) paths raise Unimplemented and name the slice that brings them.
-Unlike the reference, no query is routed to the CPU by size: on the card
-every query runs the device path.
+Sealed feeds are served first from the device-resident tier
+(engine/resident.py), then from the HBM feed cache below, and only then
+uploaded: a warm query moves zero host→device bytes.  Group keys with no
+bounded dense code (computed numeric keys, float keys, more than MAX_GROUPS
+groups) take the sorted fallback: the host factorizes the composite key and
+the device reduces over exact group ids in SORT_AGG_CHUNK-row chunks.
+
+Ported so far are the aggregate, select, join and sorted-fallback paths of
+the reference executor (pixie_tpu/engine/executor.py).  Unions, UDTF and
+remote sources, multi-query fusion and the distributed (SPMD/partial) paths
+raise Unimplemented and name the slice that brings them.  Unlike the
+reference, no query is routed to the CPU by size: on the card every query
+runs the device path.
 """
 from __future__ import annotations
 
@@ -43,7 +50,7 @@ import numpy as np
 import torch
 
 from pixie_tpu_torch import flags as _flags
-from pixie_tpu_torch.engine import transfer
+from pixie_tpu_torch.engine import resident, transfer
 from pixie_tpu_torch.engine.eval import ExprCompiler, SVal, apply_lut_np
 from pixie_tpu_torch.engine.result import QueryResult
 from pixie_tpu_torch.ops import join_device as _jd
@@ -71,6 +78,8 @@ from pixie_tpu_torch.udf.udf import CountUDA, to_torch_dtype, tree_map
 INT64_MIN = int(np.iinfo(np.int64).min)
 INT64_MAX = int(np.iinfo(np.int64).max)
 MAX_GROUPS = 1 << 22
+#: Sorted-fallback device reduction chunk (rows per update step).
+SORT_AGG_CHUNK = 1 << 20
 #: Minimum window-bin bucket: keeps the group space stable across streaming
 #: polls whose deltas span few windows.
 MIN_WINDOW_BINS = 1 << 6
@@ -107,10 +116,10 @@ def _decode_picker_codes(vals, d: Dictionary) -> np.ndarray:
 
 
 class GroupKeyFallback(Unimplemented):
-    """Group keys not expressible as bounded dense codes (computed numeric
-    keys, float keys, cardinality beyond MAX_GROUPS).  The reference reruns
-    such aggregates through its sort-based path; the port has not ported it
-    yet (a later slice), so the query is refused."""
+    """Raised when group keys are not expressible as bounded dense codes
+    (computed numeric keys, float keys, cardinality beyond MAX_GROUPS).
+    The executor catches it and reruns the aggregate through the sort-based
+    path (`_run_agg_sorted`)."""
 
 
 # ------------------------------------------------------------ key uniques
@@ -193,6 +202,70 @@ def _int_key_uniques(table, col: str, src) -> Optional[np.ndarray]:
             while len(_KEY_UNIQUES) > _KEY_UNIQUES_MAX:
                 _KEY_UNIQUES.popitem(last=False)
     return vals
+
+
+# ------------------------------------------------------------ device feed cache
+# Sealed batches are immutable, so their assembled, padded device feeds are
+# cached keyed by the seal gens (and the columns and device): a repeat query
+# then moves ZERO bytes host→device.  The resident tier (engine/resident.py)
+# sits above it and is tried first.
+_DEVICE_CACHE: "collections.OrderedDict[tuple, dict]" = collections.OrderedDict()
+_DEVICE_CACHE_BYTES = 0
+_flags.define_int(
+    "PIXIE_TPU_DEVICE_CACHE_MB", 4096,
+    "HBM feed cache budget (MB); the PEM table-memory-budget analog")
+
+
+def _cols_nbytes(cols: dict) -> int:
+    return sum(v.numel() * v.element_size() for v in cols.values())
+
+
+def _device_cache_max() -> int:
+    return int(_flags.get("PIXIE_TPU_DEVICE_CACHE_MB")) << 20
+
+
+def _device_cache_get(key):
+    with _CACHE_LOCK:
+        got = _DEVICE_CACHE.get(key)
+        if got is not None:
+            _DEVICE_CACHE.move_to_end(key)
+        return got
+
+
+def _device_cache_put(key, cols: dict):
+    global _DEVICE_CACHE_BYTES
+    nbytes = _cols_nbytes(cols)
+    cap = _device_cache_max()
+    if nbytes > cap:
+        return
+    with _CACHE_LOCK:
+        _DEVICE_CACHE[key] = cols
+        _DEVICE_CACHE_BYTES += nbytes
+        while _DEVICE_CACHE_BYTES > cap and _DEVICE_CACHE:
+            _k, v = _DEVICE_CACHE.popitem(last=False)
+            _DEVICE_CACHE_BYTES -= _cols_nbytes(v)
+
+
+def _device_cache_pop(key):
+    """Drop one entry (the resident tier adopted its buffers — keeping both
+    would pin the same bytes twice)."""
+    global _DEVICE_CACHE_BYTES
+    with _CACHE_LOCK:
+        got = _DEVICE_CACHE.pop(key, None)
+        if got is not None:
+            _DEVICE_CACHE_BYTES -= _cols_nbytes(got)
+
+
+def clear_device_cache():
+    global _DEVICE_CACHE_BYTES
+    with _CACHE_LOCK:
+        _DEVICE_CACHE.clear()
+        _DEVICE_CACHE_BYTES = 0
+
+
+def device_cache_stats() -> dict:
+    with _CACHE_LOCK:
+        return {"entries": len(_DEVICE_CACHE), "bytes": _DEVICE_CACHE_BYTES}
 
 
 # --------------------------------------------------------------------- batches
@@ -662,29 +735,72 @@ class PlanExecutor:
         """Yield (cols dict of device tensors, n_valid) feeds.
 
         Cursor batches (storage granularity) are coalesced into ~FEED_ROWS
-        feeds: fewer, larger kernel launches and transfers.
+        feeds: fewer, larger kernel launches and transfers.  A sealed-only
+        feed is served from the resident tier, else from the HBM feed cache,
+        else uploaded into padded buffers that the cache keeps; either way
+        the step sees exact-length views `buf[:n]`.  Feeds touching the hot
+        remainder (gen None) or a delta cursor stream fresh every query.
         """
         if isinstance(src, HostBatch):
             self.stats["feeds"] += 1
             yield self._upload([src.cols], names, src.num_rows), src.num_rows
             return
         target = max(cap, int(_flags.get("PX_FEED_ROWS")))
-        pend, nrows = [], 0
-        for rb, _row_id, _gen in src:  # cursor
+        table_id = src.table.uid
+        is_delta = getattr(src, "is_delta", False)
+        dev = str(self.device)
+
+        def emit(parts, gens, n):
+            self.stats["feeds"] += 1
+            if is_delta or any(g is None for g in gens):
+                return self._upload(parts, names, n), n
+            key = (table_id, tuple(gens), tuple(names), dev)
+            # Resident tier first: a new seal FOLDS into its buffers (only
+            # the delta rows cross the link) instead of invalidating the
+            # whole feed.  A cache entry for this exact feed is handed over
+            # for ADOPTION and then dropped, so its bytes are never uploaded
+            # or pinned twice.
+            got = resident.feed(table_id, tuple(names), gens, cap, parts, n,
+                                self.device, prewarmed=_device_cache_get(key))
+            if got is not None:
+                _device_cache_pop(key)
+                rcols, h2d = got
+                self.stats["resident_feeds"] = self.stats.get("resident_feeds", 0) + 1
+                self.stats["h2d_bytes"] += h2d
+                return {k: v[:n] for k, v in rcols.items()}, n
+            cached = _device_cache_get(key)
+            if cached is not None:
+                self.stats["feed_cache_hits"] = self.stats.get("feed_cache_hits", 0) + 1
+                return {k: v[:n] for k, v in cached.items()}, n
+            bucket = resident.bucket_rows(n)
+            if bucket * sum(parts[0][k].dtype.itemsize for k in names) > _device_cache_max():
+                return self._upload(parts, names, n), n  # the cache cannot keep it
+            cols, h2d = resident.upload_padded(parts, names, n, bucket, self.device)
+            self.stats["h2d_bytes"] += h2d
+            _device_cache_put(key, cols)
+            return {k: v[:n] for k, v in cols.items()}, n
+
+        pend, gens, nrows = [], [], 0
+        for rb, _row_id, gen in src:  # cursor
             n = rb.num_valid
             if n == 0:
                 continue
+            # The hot remainder (gen None) must not join a sealed feed:
+            # sealed feeds are immutable and cached, the hot tail changes
+            # every write — mixing them would re-upload the feed per query.
+            if pend and gen is None:
+                yield emit(pend, gens, nrows)
+                pend, gens, nrows = [], [], 0
             pend.append({k: rb.columns[k][:n] for k in names})
+            gens.append(gen)
             nrows += n
             self.stats["rows_scanned"] += n
             self.stats["batches"] += 1
             if nrows >= target:
-                self.stats["feeds"] += 1
-                yield self._upload(pend, names, nrows), nrows
-                pend, nrows = [], 0
+                yield emit(pend, gens, nrows)
+                pend, gens, nrows = [], [], 0
         if pend:
-            self.stats["feeds"] += 1
-            yield self._upload(pend, names, nrows), nrows
+            yield emit(pend, gens, nrows)
 
     # ---------------------------------------------------------------- blocking
     def _eval_blocking(self, op) -> HostBatch:
@@ -863,8 +979,7 @@ class PlanExecutor:
                 prov = kern.ctx.provenance.get(name)
                 if not isinstance(prov, Column):
                     raise GroupKeyFallback(
-                        f"group key {name!r} is a computed numeric column "
-                        "(the sorted group-by fallback is not ported yet)"
+                        f"group key {name!r} is a computed numeric column"
                     )
                 # Device-side encoding: the uniques come from the per-table
                 # incremental union when available; otherwise one prescan
@@ -877,10 +992,14 @@ class PlanExecutor:
                     t = self.store.table(head.table)
                     if type(t) is Table and prov.name in t.relation:
                         u = _int_key_uniques(t, prov.name, src)
-                if u is not None:
-                    qd.encode(u.tolist())
-                else:
-                    _prescan_unique(src, prov.name, qd, sort=True)
+                if u is None:
+                    u = _sorted_uniques(src, prov.name)
+                if len(u) > MAX_GROUPS:
+                    # the bound below would refuse it: fall back before
+                    # building a dictionary of every distinct value
+                    raise GroupKeyFallback(
+                        f"group cardinality bound {next_pow2(len(u))} exceeds {MAX_GROUPS}")
+                qd.encode(u.tolist())
                 vals = np.asarray(qd.values(), dtype=np.int64)
                 lut_name = kern.ctx.ec._add_lut(vals)
                 keys.append(
@@ -895,16 +1014,13 @@ class PlanExecutor:
                     )
                 )
                 continue
-            raise GroupKeyFallback(
-                f"group key {name!r} has type {sv.dtype.name} (the sorted "
-                "group-by fallback is not ported yet)")
+            raise GroupKeyFallback(f"group key {name!r} has type {sv.dtype.name}")
         total = 1
         for k in keys:
             total *= k.card
         if total > MAX_GROUPS:
             raise GroupKeyFallback(
-                f"group cardinality bound {total} exceeds {MAX_GROUPS} (the "
-                "sorted group-by fallback is not ported yet)"
+                f"group cardinality bound {total} exceeds {MAX_GROUPS}"
             )
         return keys
 
@@ -913,9 +1029,183 @@ class PlanExecutor:
             raise Unimplemented(
                 "partial/finalize aggregates (distributed plans) are not ported "
                 "yet (slice 4)")
-        keys, udas, state, seen_name, in_types, val_dicts = self._agg_state(op)
+        try:
+            keys, udas, state, seen_name, in_types, val_dicts = self._agg_state(op)
+        except GroupKeyFallback:
+            return self._run_agg_sorted(op)
         return self._finalize_agg(op, keys, udas, state, seen_name, in_types,
                                   val_dicts)
+
+    # -------------------------------------------------- sort-based agg fallback
+    def _sorted_group_reduce(self, op: AggOp):
+        """Sort-based group-by for keys with no bounded dense code space.
+
+        Two phases, as in the reference: (1) the chain runs through its
+        output step and the group-key and value columns come back to the
+        host (`_consume_to_batch`); (2) the host factorizes the composite
+        key (np.unique per key, then a mixed radix or a record unique) and
+        the per-group reduction goes back to the device as UDA updates over
+        exact group ids, SORT_AGG_CHUNK rows at a time, into state of
+        Gb = next_pow2(G) groups.
+
+        Returns (group_cols, dtypes, dicts, udas, in_types, state, G,
+        val_dicts): `state` is the device state; val_dicts maps dict-valued
+        picker outputs to the dictionary their code state decodes through.
+        """
+        self.stats["sorted_agg_fallbacks"] = self.stats.get("sorted_agg_fallbacks", 0) + 1
+        parent = self.plan.parents(op)[0]
+        need = list(dict.fromkeys(
+            [*op.groups, *[ae.arg for ae in op.values if ae.arg is not None]]
+        ))
+        hb = self._consume_to_batch(parent, need)
+        cols, out_dtypes, out_dicts = hb.cols, hb.dtypes, hb.dicts
+        n = hb.num_rows
+
+        # ---- composite key factorization (host sort)
+        valid = np.ones(n, dtype=bool)
+        per_inv, per_card = [], []
+        for g in op.groups:
+            arr = cols[g]
+            if g in out_dicts:
+                valid &= arr >= 0  # null keys drop out (pandas dropna)
+            elif arr.dtype.kind == "f":
+                valid &= ~np.isnan(arr)  # NaN keys drop out (pandas dropna)
+            u, inv = np.unique(arr, return_inverse=True)
+            per_inv.append(inv.reshape(-1).astype(np.int64))
+            per_card.append(len(u))
+        total_card = 1
+        for c in per_card:
+            total_card *= max(c, 1)
+        if total_card < (1 << 62):
+            comp = per_inv[0]
+            for inv, card in zip(per_inv[1:], per_card[1:]):
+                comp = comp * card + inv
+            space = total_card
+        else:
+            # a mixed radix would overflow int64: unique over the record rows
+            _u, comp = np.unique(np.rec.fromarrays(per_inv), return_inverse=True)
+            comp = comp.reshape(-1).astype(np.int64)
+            space = len(_u)
+        vrows = np.nonzero(valid)[0]
+        if space <= 2 * n:
+            # a composite code space about the size of the rows (one key, or
+            # few): the present codes, one row of each and the exact group
+            # ids by scatter and gather instead of a sort and a binary search
+            # (the same ids: groups in ascending code order)
+            cv = comp[vrows]
+            present = np.zeros(space, dtype=bool)
+            present[cv] = True
+            uniq_comp = np.flatnonzero(present)
+            rep = np.zeros(space, dtype=np.int64)
+            rep[cv] = vrows  # any row of a group holds its key values
+            rep_rows = rep[uniq_comp]
+            G = len(uniq_comp)
+            gid_np = (np.cumsum(present) - 1)[comp].clip(0, None).astype(np.int32)
+        else:
+            uniq_comp, first_in_valid = (
+                np.unique(comp[vrows], return_index=True)
+                if len(vrows)
+                else (np.empty(0, dtype=np.int64), np.empty(0, dtype=np.int64))
+            )
+            G = len(uniq_comp)
+            rep_rows = vrows[first_in_valid]  # one representative row per group
+            gid_np = np.searchsorted(uniq_comp, comp).clip(0, max(G - 1, 0)).astype(np.int32)
+        group_cols = {g: cols[g][rep_rows] for g in op.groups}
+        Gb = max(next_pow2(max(G, 1)), 1)
+
+        # ---- device reduction over exact gids, chunked
+        udas, in_types, init_pairs = [], {}, []
+        val_dicts: dict[str, Dictionary] = {}
+        dict_val_cols: set[str] = set()
+        for ae in op.values:
+            uda = self.registry.uda(ae.fn)
+            in_dt = None
+            in_types[ae.out_name] = None
+            if ae.arg is not None:
+                if ae.arg in out_dicts:
+                    if not uda.dict_ok:
+                        raise Unimplemented(
+                            f"aggregate {ae.fn} over string column {ae.arg!r}"
+                        )
+                    in_types[ae.out_name] = out_dtypes[ae.arg]
+                    in_dt = np.int32
+                    val_dicts[ae.out_name] = out_dicts[ae.arg]
+                    dict_val_cols.add(ae.arg)
+                else:
+                    if uda.needs_dict:
+                        raise Unimplemented(
+                            f"aggregate {ae.fn} requires a string "
+                            f"(dictionary-encoded) input column, got "
+                            f"{ae.arg!r}"
+                        )
+                    in_types[ae.out_name] = out_dtypes[ae.arg]
+                    in_dt = STORAGE_DTYPE[out_dtypes[ae.arg]]
+            elif not uda.nullary:
+                raise CompilerError(f"aggregate {ae.fn} requires an input column")
+            udas.append((ae.out_name, uda, ae.arg))
+            init_pairs.append((ae.out_name, uda, in_dt))
+        val_names = sorted({vn for _o, _u, vn in udas if vn is not None})
+        # null codes must never win the picker's min-reduction
+        for vn in dict_val_cols:
+            c = cols[vn]
+            cols = {**cols,
+                    vn: np.where(c >= 0, c, PICKER_NULL_SENTINEL).astype(np.int32)}
+
+        with self._timed(f"sorted_agg(by={op.groups}, G={G})", [op.id]):
+            state = {name: uda.init(Gb, in_dt, self.device)
+                     for name, uda, in_dt in init_pairs}
+            for off in range(0, n, SORT_AGG_CHUNK):
+                end = min(off + SORT_AGG_CHUNK, n)
+                # keyed by position: a value column may be named like anything
+                host = [gid_np[off:end], valid[off:end],
+                        *(cols[vn][off:end] for vn in val_names)]
+                dev = self._upload([dict(enumerate(host))], range(len(host)), end - off)
+                gid, mask = dev[0], dev[1]
+                vals = {vn: dev[2 + i] for i, vn in enumerate(val_names)}
+                for out_name, uda, vn in udas:
+                    v = vals[vn] if vn is not None else None
+                    state[out_name] = uda.update(state[out_name], gid, v, mask, Gb)
+                if self.analyze and self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        return (group_cols, out_dtypes, out_dicts, udas, in_types, state, G,
+                val_dicts)
+
+    def _run_agg_sorted(self, op: AggOp) -> HostBatch:
+        (group_cols, in_dtypes, in_dicts, udas, in_types, state, G,
+         val_dicts) = self._sorted_group_reduce(op)
+        dtypes: dict[str, DT] = {}
+        dicts: dict[str, Dictionary] = {}
+        cols: dict[str, np.ndarray] = {}
+        for g in op.groups:
+            dtypes[g] = in_dtypes[g]
+            cols[g] = group_cols[g]
+            if g in in_dicts:
+                dicts[g] = in_dicts[g]
+        for out_name, uda, _vn in udas:
+            # device finalize where the UDA has one (sketch → quantiles, K3),
+            # as the dense path does; else one readback and the host finalize
+            if uda.device_finalize:
+                full = uda.finalize_from_device(
+                    uda.finalize_device(state[out_name]).cpu().numpy())
+            else:
+                full = uda.finalize_host(tree_map(lambda t: t.cpu().numpy(),
+                                                  state[out_name]))
+            vals = np.asarray(full)[:G]
+            out_dt = (uda.out_type(None) if uda.nullary
+                      else uda.out_type(in_types[out_name]))
+            if out_name in val_dicts:
+                cols[out_name] = _decode_picker_codes(vals, val_dicts[out_name])
+                dicts[out_name] = val_dicts[out_name]
+                dtypes[out_name] = out_dt
+                continue
+            if out_dt == DT.STRING:
+                d = Dictionary()
+                cols[out_name] = d.encode(vals)
+                dicts[out_name] = d
+            else:
+                cols[out_name] = vals.astype(STORAGE_DTYPE[out_dt], copy=False)
+            dtypes[out_name] = out_dt
+        return HostBatch(dtypes, dicts, cols)
 
     def _agg_setup(self, op: AggOp) -> _AggSetup:
         """Chain walk, pruning, the chain kernel and its group keys, and the
@@ -1318,23 +1608,15 @@ def _source_time_range(src, head) -> tuple[int, int]:
     return t_min, max(t_min, t_max)
 
 
-def _prescan_unique(src, col: str, qd: Dictionary, sort: bool = False):
-    """Populate qd with the column's unique values; sort=True assigns codes in
-    sorted order (required by the intdevice searchsorted encoding)."""
+def _sorted_uniques(src, col: str) -> np.ndarray:
+    """The column's sorted unique values over a cursor or host batch (a
+    dictionary built from them assigns codes in sorted order, as the
+    intdevice searchsorted encoding requires)."""
     if isinstance(src, HostBatch):
-        vals = np.unique(src.cols[col]) if sort else src.cols[col]
-        qd.encode(vals)
-        return
-    if sort:
-        parts = [rb.columns[col][: rb.num_valid] for rb, _rid, _gen in src]
-        parts = [p for p in parts if len(p)]
-        if parts:
-            qd.encode(np.unique(np.concatenate([np.unique(p) for p in parts])))
-        return
-    for rb, _rid, _gen in src:
-        arr = rb.columns[col][: rb.num_valid]
-        if len(arr):
-            qd.encode(np.unique(arr))
+        return np.unique(src.cols[col])
+    parts = [rb.columns[col][: rb.num_valid] for rb, _rid, _gen in src]
+    parts = [np.unique(p) for p in parts if len(p)]
+    return np.unique(np.concatenate(parts)) if parts else np.empty(0, dtype=np.int64)
 
 
 def _concat_parts(gen, out_names, out_dtypes) -> dict[str, np.ndarray]:

@@ -44,6 +44,7 @@ SOURCES = {
     "loghist_quantile": "loghist_quantile.cu",
     "compact": "compact.cu",
     "join": "join.cu",
+    "resident": "resident.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

@@ -14,9 +14,9 @@ Parity with reference src/table_store/table/table.h and table_store.h:79:
 
 Not ported yet, and refused with Unimplemented where a caller reaches them:
 the durable ingest journal and seal replication (slice 6, host layers),
-tablets (slice 6) and the compressed cold tier (slice 6).  The port keeps no
-device-resident copy of a table (the resident tier comes with slice 2), so a
-retention trim has no device state to notify.
+tablets (slice 6) and the compressed cold tier (slice 6).  A retention trim
+notifies the device-resident tier (engine/resident.py), which frees or
+rebases the table's pinned device buffers.
 
 Thread model: one writer per table (the collector poll loop) + concurrent readers;
 a lock guards the batch list and builder swap, matching the reference's spinlocked
@@ -195,6 +195,14 @@ class Table:
             # The cached snapshot still references every popped batch; drop
             # it now so expiry actually frees the memory.
             self._snap_cache = None
+            # Same for device-pinned copies: fully expired resident entries
+            # free now; a head trim marks the entry for a lazy rebase on the
+            # device.  Bookkeeping only, no device work on the writer
+            # thread.  (Imported here: the engine imports this module.)
+            from pixie_tpu_torch.engine import resident
+
+            resident.on_retention_trim(
+                self.uid, self._sealed[0].gen if self._sealed else None)
 
     def _hot_bytes_locked(self) -> int:
         return sum(a.nbytes for arrs in self._hot.values() for a in arrs)

@@ -14,6 +14,7 @@ from pixie_tpu_torch.ops import _build
 from pixie_tpu_torch.ops import compact as k4
 from pixie_tpu_torch.ops import groupby as gb
 from pixie_tpu_torch.ops import join_device as jd
+from pixie_tpu_torch.ops import resident as rk
 from pixie_tpu_torch.ops.sketch import LogHistogram
 
 pytestmark = pytest.mark.cuda
@@ -174,6 +175,8 @@ def test_cuda_tensor_never_reaches_the_plain_version(dev, monkeypatch):
         monkeypatch.setattr(k4, name, boom)
     for name in ("join_build_plain", "join_probe_plain", "join_expand_plain"):
         monkeypatch.setattr(jd, name, boom)
+    for name in ("fold_plain", "move_plain"):
+        monkeypatch.setattr(rk, name, boom)
     _rng, gid, mask = _rows(dev, 4096, 8, 4)
     gb.masked_segment_count(gid, 8, mask)
     lh = LogHistogram()
@@ -181,3 +184,45 @@ def test_cuda_tensor_never_reaches_the_plain_version(dev, monkeypatch):
     k4.compact(mask, [gid])
     codes = gid.long()
     jd.device_join_codes(codes, codes)
+    bufs = rk.move([gid], 0, 4096, 8192)
+    rk.fold(bufs, [[np.arange(100, dtype=np.int32)]], 4096)
+
+
+#: resident buffers of every element width (1, 2, 4, 8 bytes)
+_RES_DTYPES = [np.uint8, np.int16, np.int32, np.float64, np.int64]
+
+
+def _res_bufs(dev, rows, seed):
+    rng = np.random.default_rng(seed)
+    return rng, [torch.from_numpy(rng.integers(0, 100, rows).astype(dt)).to(dev)
+                 for dt in _RES_DTYPES]
+
+
+@pytest.mark.parametrize("off,d", [(0, 1 << 16), (1001, 4099), (1 << 16, 5), (4096, 0)])
+def test_resident_fold_equals_plain(dev, off, d):
+    rng, bufs = _res_bufs(dev, 1 << 18, 8)
+    # each column's delta arrives in chunks, as sealed batches do
+    parts = [[rng.integers(0, 100, k).astype(dt) for k in (d // 3, d - d // 3)]
+             for dt in _RES_DTYPES]
+    want = [b.clone() for b in bufs]
+    for w, chunks in zip(want, parts):
+        rk.fold_plain(w, torch.from_numpy(np.concatenate(chunks)).to(dev), off)
+    before = _build.KERNELS["resident"].by_entry.get("px_resident_fold", 0)
+    assert rk.fold(bufs, parts, off) == sum(d * np.dtype(dt).itemsize for dt in _RES_DTYPES)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["resident"].by_entry.get("px_resident_fold", 0) == before + (d > 0)
+    for b, w in zip(bufs, want):
+        assert torch.equal(b, w)
+
+
+@pytest.mark.parametrize("lo,n,dst_rows", [(0, 3000, 1 << 13), (0, 1 << 12, 1 << 12),
+                                           (1 << 12, 5000, 1 << 14), (1001, 7000, 1 << 14),
+                                           (0, 0, 1 << 10)])
+def test_resident_move_equals_plain(dev, lo, n, dst_rows):
+    _rng, srcs = _res_bufs(dev, 1 << 14, 9)
+    before = _build.KERNELS["resident"].by_entry.get("px_resident_move", 0)
+    got = rk.move(srcs, lo, n, dst_rows)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["resident"].by_entry["px_resident_move"] == before + 1
+    for g, s in zip(got, srcs):
+        assert torch.equal(g, rk.move_plain(s, lo, n, dst_rows))

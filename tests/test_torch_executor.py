@@ -27,7 +27,8 @@ from pixie_tpu.table import TableStore as RefStore
 from pixie_tpu.types import DataType as DT, Relation
 
 import pixie_tpu_torch.interop as interop
-from pixie_tpu_torch.engine import execute_plan
+from pixie_tpu_torch.engine import execute_plan, resident
+from pixie_tpu_torch.engine.executor import clear_device_cache
 
 N = 1 << 16
 SEC = 1_000_000_000
@@ -198,9 +199,15 @@ px.display(df, 'output')
 
 def test_http_plan_exec_stats(stores):
     _ref_store, port_store = stores
-    res = execute_plan(interop.plan_from_dict(bench.http_plan().to_dict()),
-                       port_store, device="cpu")["output"]
+    # a cold query: earlier tests may have left this feed on the device
+    resident.clear_for_testing()
+    clear_device_cache()
+    plan = interop.plan_from_dict(bench.http_plan().to_dict())
+    res = execute_plan(plan, port_store, device="cpu")["output"]
     st = res.exec_stats
     assert st["rows_scanned"] == N and st["feeds"] == 1
     # service codes, latency and status only: time_ is pruned away
     assert st["h2d_bytes"] == N * (4 + 8 + 8)
+    # warm: the feed is resident and nothing crosses the link
+    st = execute_plan(plan, port_store, device="cpu")["output"].exec_stats
+    assert st["resident_feeds"] == 1 and st["h2d_bytes"] == 0
