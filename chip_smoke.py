@@ -59,7 +59,19 @@ Phases, each of which fails the run if it fails:
                 2^21 rows trims 2^20 and the next query rebases (R2), grows
                 and folds.  Each result equals the stream route's and the
                 numpy oracle's;
-  9. sorted   — a 16M-row table (seed 13: conn_id uniform on [0, 2^23),
+  9. config4  — bench config #4 from PxL text: 8 agent stores of 2M rows
+                built as bench_config4 builds them (seed 12 each, so their
+                dictionaries agree), bench's script through
+                LocalCluster.query: the agents run concurrently on the card
+                and their states merge there in exactly one M1 launch per
+                query; held against a numpy oracle over all 16M rows as
+                config #1 is; a stream and a warm median (5 each; warm moves
+                0 H2D bytes and the plan cache serves the compile and the
+                split), both profiled for the device's idle share.  Then the
+                mixed-dictionary run: 8 x 1M rows, agent a holding services
+                a..a+7 (mod 16), which takes the host value-keyed merge
+                with M1 never launched, against the same oracle;
+ 10. sorted   — a 16M-row table (seed 13: conn_id uniform on [0, 2^23),
                 bytes, latency exponential(50)): S1 groups by conn_id
                 (~7.25M groups, past MAX_GROUPS) with count, sum(bytes),
                 mean, min and max(latency); S2 groups by bin(bytes, 4096)
@@ -74,7 +86,10 @@ resets the launch counts just before its first query and reads them just
 after; a kernel of the phase that did not launch fails it.  The kernel
 phase also holds R1 and R2 (the resident tier's fold and move) against
 their plain versions at 2^20 rows x 4 columns into 2^24 rows, a grow from
-2^23 to 2^24 rows and a rebase dropping 2^20 of 2^24 rows.
+2^23 to 2^24 rows and a rebase dropping 2^20 of 2^24 rows, and M1 (the
+cross-agent state merge) at config #4's state (8 states of 64 groups) and at
+a bandwidth shape (8 states of 2^16 groups with min and max, ~138 MB each),
+exactly.
 
 It prints one JSON line per kernel, a {"kernels": [...]} line, the card's
 name and power limit, and last {"ok": true, "device": {...}}.  It exits
@@ -120,6 +135,10 @@ CONFIG3_KERNELS = [("segment_reduce", "px_segment_sum_i64"), ("compact", "px_com
 JOIN_KERNELS = [("compact", "px_compact"), ("join", "px_join_build"),
                 ("join", "px_join_probe"), ("join", "px_join_expand")]
 RESIDENT_KERNELS = [("resident", "px_resident_fold"), ("resident", "px_resident_move")]
+CONFIG4_KERNELS = [("segment_reduce", "px_segment_count"),
+                   ("segment_reduce", "px_segment_sum_f64"),
+                   ("loghist_update", "px_loghist_update"),
+                   ("merge", "px_merge_states"), ("resident", "px_resident_fold")]
 SORTED_KERNELS = [("segment_reduce", e) for e in (
     "px_segment_count", "px_segment_sum_i64", "px_segment_sum_f64",
     "px_segment_min_f64", "px_segment_max_f64")] + [("loghist_update", "px_loghist_update")]
@@ -132,6 +151,19 @@ CONN_IDS = 1 << 23
 BYTES_RANGE = 1 << 24
 #: the agg's pruned feed of config #1: service (int32) + latency + status
 CONFIG1_ROW_BYTES = 4 + 8 + 8
+#: config #4 (bench_config4 at its default --dist-rows): 8 agent stores of 2M
+#: rows each; the mixed-dictionary run: 8 stores of 1M rows
+CONFIG4_AGENTS = 8
+CONFIG4_ROWS = 1 << 24
+MIXED_ROWS = 1 << 20
+#: bench.py bench_config4's script, verbatim
+CONFIG4_SCRIPT = """
+df = px.DataFrame(table='http_events')
+df = df[df.status != 404]
+df = df.groupby(['service', 'status']).agg(
+    cnt=('latency', px.count), avg_lat=('latency', px.mean), p50=('latency', px.p50))
+px.display(df, 'output')
+"""
 
 
 def log(msg: str) -> None:
@@ -707,7 +739,7 @@ class HttpRows:
         end = self.written + rows
         while self.written < end:
             n = min(1 << 21, end - self.written)
-            svc_idx = self.rng.integers(0, N_SERVICES, n)
+            svc_idx = self.rng.integers(0, len(self.services), n)
             self.table.write({
                 "time_": np.arange(self.written, self.written + n, dtype=np.int64) * self.t_step,
                 "service": self.services[svc_idx],
@@ -1375,6 +1407,252 @@ def run_sorted(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------- config #4
+
+
+def check_merge_kernel(dev) -> list[dict]:
+    """M1 held against its plain version on config #4's state (8 agents x
+    64 groups: count, mean, p50 sketch, seen) and at a bandwidth shape
+    (8 states x 2^16 groups: count, mean, min, max, p50, seen; ~138 MB a
+    state).  Exact (every leaf folds in agent order in both); returns its
+    kernel row, with the bandwidth shape's times in the shape detail."""
+    import torch
+
+    from pixie_tpu_torch.ops import merge as m1
+    from pixie_tpu_torch.udf.udf import tree_map
+
+    rng = np.random.default_rng(15)
+
+    def states(g, with_minmax):
+        rt = {"cnt": "add", "avg_lat": {"sum": "add", "count": "add"}, "p50": "add",
+              "__seen": "add"}
+        if with_minmax:
+            rt.update({"lo": "min", "hi": "max"})
+        out = []
+        for _ in range(CONFIG4_AGENTS):
+            st = {"cnt": rng.integers(0, 1 << 20, g),
+                  "avg_lat": {"sum": rng.exponential(50.0, g) * 1e4,
+                              "count": rng.integers(0, 1 << 20, g)},
+                  "p50": rng.integers(0, 1 << 12, (g, WIDTH)).astype(np.float32),
+                  "__seen": rng.integers(0, 1 << 20, g)}
+            if with_minmax:
+                lo = rng.exponential(50.0, g)
+                lo[rng.integers(0, g, 4)] = np.nan
+                st.update({"lo": lo, "hi": lo * 3})
+            out.append(tree_map(lambda a: torch.from_numpy(a).to(dev), st))
+        return rt, out
+
+    def leaves(t):
+        return [x for v in t.values() for x in (leaves(v) if isinstance(v, dict) else [v])]
+
+    def hold(label, rt, sts):
+        got, want = m1.merge_states(rt, sts), m1.merge_states_plain(rt, sts)
+        torch.cuda.synchronize()
+        for a, b in zip(leaves(got), leaves(want)):
+            if not torch.equal(a.nan_to_num(), b.nan_to_num()) or \
+                    not torch.equal(a.isnan(), b.isnan()):
+                raise AssertionError(f"M1 {label}: kernel and plain version disagree")
+        log(json.dumps({"check": f"M1 {label}", "ok": True, "max_abs_err": 0.0}))
+        nbytes = sum(x.numel() * x.element_size() for x in leaves(sts[0]))
+        b_ms, by = bound((len(sts) + 1) * nbytes)
+
+        def library():
+            for path_leaves, op in zip(zip(*[leaves(x) for x in sts]), leaves_ops(rt)):
+                st_ = torch.stack(path_leaves)
+                st_.sum(0) if op == "add" else (st_.amin(0) if op == "min" else st_.amax(0))
+
+        return {"ms": cuda_ms(lambda: m1.merge_states(rt, sts), 20),
+                "device_ms": kernel_device_ms(lambda: m1.merge_states(rt, sts),
+                                              "merge_states", 20),
+                "plain_ms": cuda_ms(lambda: m1.merge_states_plain(rt, sts), 10),
+                "library_ms": cuda_ms(library, 10), "bound_ms": b_ms, "bound_by": by,
+                "state_bytes": nbytes, "states": len(sts)}
+
+    def leaves_ops(t):
+        return [x for v in t.values()
+                for x in (leaves_ops(v) if isinstance(v, dict) else [v])]
+
+    rt, sts = states(64, False)
+    small = hold("config #4 state (8 x 64 groups)", rt, sts)
+    rt, sts = states(1 << 16, True)
+    wide = hold("bandwidth shape (8 x 2^16 groups)", rt, sts)
+    del sts
+    torch.cuda.empty_cache()
+    log(json.dumps({"kernel_detail": "merge_states", "config4_state": small,
+                    "bandwidth_shape": wide}))
+    return [{
+        "name": "merge_states", "route": "cuda", "source": "pixie_tpu_torch/csrc/merge.cu",
+        "replaces": "pixie_tpu/engine/executor.py:656 ChainKernel.merge_states_fn "
+                    "(:1030 gang_merge_states)",
+        "entry": ("merge", "px_merge_states"), "path": "config4", "max_abs_err": 0.0,
+        "ms": small["ms"], "plain_ms": small["plain_ms"], "bound_ms": small["bound_ms"],
+        "bound_by": small["bound_by"], "library_ms": small["library_ms"],
+        "shape": {"config4_state": {"groups": 64, "states": CONFIG4_AGENTS,
+                                    "state_bytes": small["state_bytes"]},
+                  "bandwidth_shape": {"groups": 1 << 16, **wide}},
+    }]
+
+
+def kernel_device_ms(fn, kernel: str, reps: int) -> float:
+    """Device time per call of the kernels whose name holds `kernel`
+    (torch.profiler), without the wrapper's host time that CUDA events
+    around a host-bound call also measure."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and kernel in e.key]
+    return sum(e.self_device_time_total for e in ev) / 1e3 / reps
+
+
+def cluster_oracle(tables, res) -> dict:
+    """numpy oracle of config #4 over every agent table's rows (service
+    decoded to its index, so each table's private dictionary is read as
+    values); raises on mismatch, as oracle_check."""
+    svc, lat, st = [], [], []
+    for t in tables:
+        cols = _table_columns(t, ("service", "latency", "status"))
+        names = t.dictionaries["service"].decode(np.arange(t.dictionaries["service"].size))
+        idx = np.array([int(v.split("-")[1]) for v in names], dtype=np.int64)
+        svc.append(idx[cols["service"]])
+        lat.append(cols["latency"])
+        st.append(cols["status"])
+    svc, lat, st = np.concatenate(svc), np.concatenate(lat), np.concatenate(st)
+    sel = st != 404
+    svc, lat, st = svc[sel], lat[sel], st[sel]
+    statuses = np.unique(st)
+    key = svc * len(statuses) + np.searchsorted(statuses, st)
+    ng = N_SERVICES * len(statuses)
+    cnt, mean, sketch_p50, median = sketch_oracle(key, lat, ng)
+    got_svc = np.array([int(v.split("-")[1]) for v in res.decoded("service")], dtype=np.int64)
+    got_key = got_svc * len(statuses) + np.searchsorted(statuses, res.columns["status"])
+    if res.num_rows != int((cnt > 0).sum()):
+        raise AssertionError(f"groups: got {res.num_rows}, want {(cnt > 0).sum()}")
+    if not np.array_equal(np.asarray(res.columns["cnt"]), cnt[got_key]):
+        raise AssertionError("counts differ from the oracle")
+    if not np.allclose(res.columns["avg_lat"], mean[got_key], rtol=1e-9, atol=0):
+        raise AssertionError("means differ from the oracle beyond rtol 1e-9")
+    exact, rel = check_p50(np.asarray(res.columns["p50"]), sketch_p50[got_key],
+                           median[got_key])
+    if not all(np.isfinite(np.asarray(res.columns[c], dtype=np.float64)).all()
+               for c in ("cnt", "avg_lat", "p50")):
+        raise AssertionError("non-finite results")
+    return {"groups": res.num_rows, "rows": int(len(sel)), "p50_exact_bin": exact,
+            "p50_max_rel_err_vs_median": rel}
+
+
+def cluster_query(cluster, dev, m1_launches: int):
+    """→ query() for stream_and_warm: one cluster.query of config #4's
+    script whose result carries the agents' summed feed counters, failing
+    unless M1 launched exactly `m1_launches` times in it."""
+    import torch
+
+    from pixie_tpu_torch.ops import _build
+
+    def query():
+        before = _build.KERNELS["merge"].launches
+        res = cluster.query(CONFIG4_SCRIPT)["output"]
+        torch.cuda.synchronize(dev)
+        got = _build.KERNELS["merge"].launches - before
+        if got != m1_launches:
+            raise AssertionError(f"config #4: M1 launched {got} times in a query, "
+                                 f"want {m1_launches}")
+        agents = res.exec_stats["agents"].values()
+        res.exec_stats.update({k: sum(a.get(k, 0) for a in agents) for k in
+                               ("h2d_bytes", "feeds", "resident_feeds", "feed_cache_hits")})
+        return res
+
+    return query
+
+
+def _agent_stores(rows_each: int, services_of=None):
+    """CONFIG4_AGENTS stores built as bench_config4 builds them
+    (build_http_table, seed 12, 65,536-row batches); services_of(a), when
+    given, restricts agent a to that subset of the 16 services."""
+    from pixie_tpu_torch.table import TableStore
+
+    stores, tables = {}, []
+    for a in range(CONFIG4_AGENTS):
+        ts = TableStore()
+        if services_of is None:
+            t, _gen = build_http_table(ts, rows_each)
+        else:
+            t, gen = build_http_table(ts, 0)
+            gen = HttpRows(t, rows_each)
+            gen.services = np.array([f"svc-{i}" for i in services_of(a)])
+            gen.write(rows_each)
+        stores[f"pem{a}"] = ts
+        tables.append(t)
+    return stores, tables
+
+
+def run_config4(dev) -> dict:
+    """Bench config #4 from PxL text: 8 agent stores of 2M rows (identical,
+    so the states merge on the device: M1 once per query), then the
+    mixed-dictionary run (8 x 1M rows, a different service subset per
+    agent: the host value-keyed merge, M1 never launched)."""
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.parallel import LocalCluster
+
+    t0 = time.perf_counter()
+    stores, tables = _agent_stores(CONFIG4_ROWS // CONFIG4_AGENTS)
+    log(json.dumps({"phase": "config4.data", "agents": CONFIG4_AGENTS,
+                    "rows": CONFIG4_ROWS, "seconds": time.perf_counter() - t0}))
+    cluster = LocalCluster(stores, device=dev)
+    query = cluster_query(cluster, dev, m1_launches=1)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = query()
+    first_s = time.perf_counter() - t0
+    launches = read_launches("config #4", CONFIG4_KERNELS)
+    check = cluster_oracle(tables, res)
+    log(json.dumps({"phase": "config4.oracle", "ok": True, **check}))
+    routes = stream_and_warm(query, "config #4", with_profile=True)
+    out = {"launches": launches, "route": "gang merge (M1 once per query)",
+           "first_query_s": first_s, "first_query_h2d_bytes": res.exec_stats["h2d_bytes"],
+           **routes, "rows_per_s": CONFIG4_ROWS / routes["warm_median_s"],
+           "stream_rows_per_s": CONFIG4_ROWS / routes["stream_median_s"],
+           "plan_cache": {"hits": cluster.plan_cache.hits,
+                          "misses": cluster.plan_cache.misses},
+           "device_memory": device_memory()}
+    if cluster.plan_cache.misses != 1:
+        raise AssertionError(f"config #4: the plan cache missed {cluster.plan_cache.misses} "
+                             "times, want 1")
+    for k in ("profile_stream", "profile_warm"):
+        out[k] = {kk: v for kk, v in out[k].items() if kk != "top"} | {
+            "top": out[k]["top"][:8]}
+    out["warm_phases_ms"] = {k: v / 1e6 for k, v in
+                             query().exec_stats["phases"].items()}
+    log(json.dumps({"phase": "slice.config4", "ok": True,
+                    **{k: v for k, v in out.items() if k != "launches"}}))
+    del cluster, stores, tables
+
+    # ---- mixed dictionaries: agent a holds services a .. a + 7 (mod 16)
+    t0 = time.perf_counter()
+    stores, tables = _agent_stores(MIXED_ROWS, lambda a: [(a + k) % N_SERVICES
+                                                          for k in range(8)])
+    cluster = LocalCluster(stores, device=dev)
+    data_s = time.perf_counter() - t0
+    query = cluster_query(cluster, dev, m1_launches=0)
+    res = query()
+    check = cluster_oracle(tables, res)
+    times = warm_times(query, warmup=1, reps=3)
+    mixed = {"route": "host value-keyed merge (M1 not launched)", "agents": CONFIG4_AGENTS,
+             "rows": CONFIG4_AGENTS * MIXED_ROWS, "data_s": data_s, **check,
+             "warm_median_s": times[len(times) // 2], "warm_s": times,
+             "h2d_bytes": res.exec_stats["h2d_bytes"]}
+    log(json.dumps({"phase": "slice.config4_mixed", "ok": True, **mixed}))
+    out["mixed"] = mixed
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1404,13 +1682,15 @@ def main() -> int:
     log(json.dumps({"phase": "build", "wall_s": time.perf_counter() - t0,
                     "nvcc_s": secs}))
 
-    rows = check_kernels(dev) + check_new_kernels(dev) + check_resident_kernels(dev)
+    rows = (check_kernels(dev) + check_new_kernels(dev) + check_resident_kernels(dev)
+            + check_merge_kernel(dev))
     sl, ts, table = run_slice(dev, args.profile)
     log(json.dumps({"phase": "slice", "card": smi, **sl}))
     paths = {"config1": sl["launches"]}
     paths["select"] = run_select(dev, ts, table, args.profile)["select"]["launches"]
     del ts, table
     paths["config3"] = run_config3(dev)["launches"]
+    paths["config4"] = run_config4(dev)["launches"]
     paths["device_join"] = run_device_join(dev, args.profile)["launches"]
     paths["resident"] = run_resident(dev)["launches"]
     paths["sorted"] = run_sorted(dev)["launches"]

@@ -30,10 +30,19 @@ bounded dense code (computed numeric keys, float keys, more than MAX_GROUPS
 groups) take the sorted fallback: the host factorizes the composite key and
 the device reduces over exact group ids in SORT_AGG_CHUNK-row chunks.
 
-Ported so far are the aggregate, select, join and sorted-fallback paths of
-the reference executor (pixie_tpu/engine/executor.py).  Unions, UDTF and
-remote sources, multi-query fusion and the distributed (SPMD/partial) paths
-raise Unimplemented and name the slice that brings them.  Unlike the
+Agent plans of a distributed query (parallel/cluster.py) run through
+`run_agent`: each agg_state channel ships its partial aggregate as seen-group
+key VALUES plus raw UDA state (`_partial_agg_batch`).  With `defer_agg_pull`
+set the state stays on the device (`_DeferredPartial`) and the cluster merges
+every agent's state there in one launch of kernel M1 (`gang_merge_states`,
+ops/merge.py) when their layouts agree.  The merger plan reads the merged
+channels through RemoteSourceOps (`inputs`).
+
+Ported so far are the aggregate, select, join, sorted-fallback and
+distributed agent paths of the reference executor
+(pixie_tpu/engine/executor.py).  Unions, UDTF sources and partition sinks
+raise Unimplemented and name the slice that brings them; multi-query fusion
+and the SPMD (mesh) paths are absent (the four-chip slice).  Unlike the
 reference, no query is routed to the CPU by size: on the card every query
 runs the device path.
 """
@@ -56,6 +65,7 @@ from pixie_tpu_torch.engine.result import QueryResult
 from pixie_tpu_torch.ops import join_device as _jd
 from pixie_tpu_torch.ops.compact import compact
 from pixie_tpu_torch.ops.groupby import combine_codes, encode_against, next_pow2, split_codes
+from pixie_tpu_torch.ops.merge import merge_states
 from pixie_tpu_torch.plan.plan import (
     AggOp,
     Call,
@@ -67,7 +77,10 @@ from pixie_tpu_torch.plan.plan import (
     MapOp,
     MemorySinkOp,
     MemorySourceOp,
+    PartitionSinkOp,
     Plan,
+    RemoteSourceOp,
+    ResultSinkOp,
 )
 from pixie_tpu_torch.status import CompilerError, Internal, Unavailable, Unimplemented
 from pixie_tpu_torch.table.dictionary import Dictionary
@@ -106,6 +119,12 @@ def resolve_device(device=None) -> torch.device:
                 "no CUDA device is available; pass device='cpu' to run on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+def _dict_fingerprint(d) -> int:
+    """Content hash of a Dictionary (process-local, as the state merge that
+    reads it is)."""
+    return hash(tuple(str(v) for v in d.values()))
 
 
 def _decode_picker_codes(vals, d: Dictionary) -> np.ndarray:
@@ -601,6 +620,46 @@ class _FinalizedCol:
 
 
 @dataclasses.dataclass
+class _DeferredState:
+    """Un-pulled partial-agg state (distributed agents, `defer_agg_pull`).
+    The feed loop accumulates in place, so `partials` holds exactly one device
+    state; `reduce_tree` names each leaf's merge op."""
+
+    partials: list
+    reduce_tree: dict
+
+
+@dataclasses.dataclass
+class _DeferredPartial:
+    """An agg_state channel payload whose readback is deferred: the cluster
+    pulls `partials` (for ALL agents in one transfer wave) and then calls
+    finish(pulled) -> PartialAggBatch.
+
+    When every agent's `layout_fp` matches (same group-key value sets /
+    dictionaries / UDA layout), the cluster instead merges ALL agents' states
+    ON DEVICE (gang_merge_states, kernel M1) and finishes once on the merged
+    state: one readback of one state instead of N."""
+
+    partials: list
+    finish: Callable
+    #: state-layout fingerprint; None = never gang-merge
+    layout_fp: object = None
+    #: finish on an ALREADY-MERGED pulled state (gang path)
+    finish_state: Optional[Callable] = None
+    #: {out_name: reduce-op tree} for the device merge
+    reduce_tree: object = None
+
+
+def gang_merge_states(deferred: list) -> object:
+    """Merge every agent's device state into ONE device state (kernel M1 on
+    CUDA).  The caller guarantees an equal layout_fp across `deferred`."""
+    flat: list = []
+    for d in deferred:
+        flat.extend(d.partials)
+    return merge_states(deferred[0].reduce_tree, flat)
+
+
+@dataclasses.dataclass
 class _AggSetup:
     """One aggregate's prepared execution state (see _agg_setup)."""
 
@@ -624,13 +683,21 @@ class _AggSetup:
 
 class PlanExecutor:
     def __init__(self, plan: Plan, table_store, registry=None, device=None,
-                 analyze: bool = False):
+                 analyze: bool = False, inputs=None):
         from pixie_tpu_torch.udf import registry as default_registry
 
         self.plan = plan
         self.store = table_store
         self.registry = registry or default_registry
         self.device = resolve_device(device)
+        #: channel id → HostBatch injected by the cluster layer (remote edges;
+        #: reference: GRPCRouter demuxing inbound streams, grpc_router.h:52)
+        self.inputs: dict[str, HostBatch] = inputs or {}
+        #: colocated-agent mode (LocalCluster): agg_state channels return
+        #: device-resident state (_DeferredPartial) instead of pulling, so the
+        #: cluster merges all agents' states on the device and reads back once
+        self.defer_agg_pull = False
+        self._defer_active = False
         self._materialized: dict[int, HostBatch] = {}
         self.stats = {"rows_scanned": 0, "rows_output": 0, "batches": 0,
                       "feeds": 0, "h2d_bytes": 0}
@@ -807,7 +874,12 @@ class PlanExecutor:
         got = self._materialized.get(op.id)
         if got is not None:
             return got
-        label = f"agg(by={op.groups})" if isinstance(op, AggOp) else op.kind
+        if isinstance(op, AggOp):
+            label = f"agg(by={op.groups})"
+        elif isinstance(op, RemoteSourceOp):
+            label = f"remote({op.channel})"
+        else:
+            label = op.kind
         with self._timed(label, [op.id]) as rec:
             if isinstance(op, AggOp):
                 out = self._run_agg(op)
@@ -815,10 +887,15 @@ class PlanExecutor:
                 out = self._run_join(op)
             elif isinstance(op, MemorySourceOp):
                 out = self._consume_to_batch(op, [])
+            elif isinstance(op, RemoteSourceOp):
+                got = self.inputs.get(op.channel)
+                if got is None:
+                    raise Internal(f"no input injected for channel {op.channel!r}")
+                out = got
             else:
                 raise Unimplemented(
-                    f"operator {op.kind!r} is not ported yet: unions, UDTF "
-                    "sources and remote sources come with later slices")
+                    f"operator {op.kind!r} is not ported yet: unions (Queue 1 "
+                    "item 4) and UDTF sources (slice 6) come with later slices")
             rec["rows_out"] = out.num_rows
             rec["bytes_out"] = sum(v.nbytes for v in out.cols.values())
         self._materialized[op.id] = out
@@ -1025,10 +1102,6 @@ class PlanExecutor:
         return keys
 
     def _run_agg(self, op: AggOp) -> HostBatch:
-        if op.partial or op.finalize:
-            raise Unimplemented(
-                "partial/finalize aggregates (distributed plans) are not ported "
-                "yet (slice 4)")
         try:
             keys, udas, state, seen_name, in_types, val_dicts = self._agg_state(op)
         except GroupKeyFallback:
@@ -1234,8 +1307,9 @@ class PlanExecutor:
             step=step, val_dicts=val_dicts, lut_over=lut_over)
 
     def _agg_state(self, op: AggOp):
-        """Run the aggregation; returns the device state (and what
-        finalizing it needs)."""
+        """Run the aggregation; returns the device state (a _DeferredState
+        under the distributed partial path's deferral) and what finalizing it
+        needs."""
         s = self._agg_setup(op)
         t_lo, t_hi = _time_bounds(s.head)
         luts_np = {**s.kern.luts, **s.lut_over}
@@ -1243,6 +1317,9 @@ class PlanExecutor:
         luts = {k: torch.as_tensor(v).to(self.device) for k, v in luts_np.items()}
         state = self._agg_feed_loop(s.kern, s.step, s.init_specs, s.num_groups,
                                     s.src, s.names, s.cap, t_lo, t_hi, luts)
+        if self._defer_active:
+            state = _DeferredState(
+                [state], {name: uda.reduce_ops() for name, uda, _vb in s.udas})
         return s.keys, s.udas, state, s.seen_name, s.in_types, s.val_dicts
 
     def _refresh_window_keys(self, keys, src, head):
@@ -1379,16 +1456,9 @@ class PlanExecutor:
             codes = split_codes(gids, [k.card for k in keys])
             for k, kc in zip(keys, codes):
                 dtypes[k.name] = k.out_dtype
-                if k.kind == "dict":
-                    cols[k.name] = kc.astype(np.int32)
-                    dicts[k.name] = k.dictionary
-                elif k.kind == "intdevice":
-                    vals = k.dictionary.decode(kc)
-                    cols[k.name] = np.asarray(vals, dtype=STORAGE_DTYPE[k.out_dtype])
-                else:  # window
-                    cols[k.name] = ((kc.astype(np.int64) + k.t0_bin) * k.width).astype(
-                        np.int64
-                    )
+                cols[k.name], d = self._decode_key_column(k, kc)
+                if d is not None:
+                    dicts[k.name] = d
         for out_name, uda, _vb in udas:
             if out_name == seen_name:
                 continue
@@ -1420,6 +1490,155 @@ class PlanExecutor:
                 cols[out_name] = vals.astype(STORAGE_DTYPE[out_dt], copy=False)
             dtypes[out_name] = out_dt
         return HostBatch(dtypes, dicts, cols)
+
+    @staticmethod
+    def _decode_key_column(k: GroupKey, codes: np.ndarray):
+        """Seen-group codes → (np column, dictionary|None) for key k."""
+        if k.kind == "dict":
+            return codes.astype(np.int32), k.dictionary
+        if k.kind == "intdevice":
+            vals = k.dictionary.decode(codes)
+            return np.asarray(vals, dtype=STORAGE_DTYPE[k.out_dtype]), None
+        return ((codes.astype(np.int64) + k.t0_bin) * k.width).astype(np.int64), None
+
+    # ------------------------------------------------------ distributed agent
+    def _partial_agg_batch(self, op: AggOp):
+        """Distributed partial path: seen groups as VALUES + raw UDA state
+        (see pixie_tpu_torch.parallel.partial.PartialAggBatch), or a
+        _DeferredPartial holding the device state under `defer_agg_pull`."""
+        self._defer_active = self.defer_agg_pull
+        try:
+            keys, udas, state, seen_name, in_types, val_dicts = self._agg_state(op)
+        except GroupKeyFallback:
+            return self._sorted_partial_batch(op)
+        finally:
+            self._defer_active = False
+        if val_dicts:
+            raise Internal(
+                "dict-valued aggregates must ship rows, not partial state "
+                "(the distributed planner cuts them as rows channels)"
+            )
+
+        def finish_state(merged, keys=keys, udas=udas, seen_name=seen_name,
+                         in_types=in_types):
+            return self._finish_partial_batch(keys, udas, merged, seen_name,
+                                              in_types)
+
+        if isinstance(state, _DeferredState):
+            return _DeferredPartial(
+                state.partials,
+                # one state per agent (the feed loop accumulates in place)
+                lambda pulled: finish_state(pulled[0]),
+                layout_fp=self._partial_layout_fp(keys, udas, in_types,
+                                                  seen_name),
+                finish_state=finish_state,
+                reduce_tree=state.reduce_tree,
+            )
+        return finish_state(transfer.pull(state))
+
+    @staticmethod
+    def _partial_layout_fp(keys, udas, in_types, seen_name):
+        """Fingerprint of the partial state's LAYOUT + key code spaces.  Two
+        agents with equal fingerprints produce states indexed identically
+        (same composite group-code meaning), so their states may merge on
+        device BEFORE decode.  Dictionaries fingerprint by CONTENT — two
+        stores ingesting different values hash apart and take the host
+        value-keyed merge instead."""
+        key_fp = []
+        for k in keys:
+            d_fp = (_dict_fingerprint(k.dictionary)
+                    if k.dictionary is not None else None)
+            key_fp.append((k.name, k.kind, k.card, int(k.out_dtype), d_fp,
+                           k.width, k.t0_bin))
+        uda_fp = tuple((name, type(uda).__name__) for name, uda, _vb in udas)
+        return (tuple(key_fp), uda_fp, seen_name,
+                tuple(sorted((k, -1 if v is None else int(v))
+                             for k, v in in_types.items())))
+
+    def _finish_partial_batch(self, keys, udas, state_np, seen_name, in_types):
+        from pixie_tpu_torch.parallel.partial import PartialAggBatch
+
+        seen_counts = np.asarray(state_np[seen_name])
+        if keys:
+            gids = np.nonzero(seen_counts > 0)[0]
+        else:
+            gids = np.array([0])
+        key_cols: dict = {}
+        key_dtypes: dict = {}
+        if keys:
+            codes = split_codes(gids, [k.card for k in keys])
+            for k, kc in zip(keys, codes):
+                key_dtypes[k.name] = k.out_dtype
+                col, d = self._decode_key_column(k, kc)
+                if d is not None:
+                    # ship VALUES — each agent has a private code space
+                    key_cols[k.name] = np.asarray(d.decode(col), dtype=object)
+                else:
+                    key_cols[k.name] = col
+        states = {}
+        for out_name, _uda, _vb in udas:
+            if out_name == seen_name:
+                continue
+            states[out_name] = tree_map(lambda x: np.asarray(x)[gids],
+                                        state_np[out_name])
+        return PartialAggBatch(
+            key_cols=key_cols, key_dtypes=key_dtypes, states=states,
+            in_types=dict(in_types),
+        )
+
+    def _sorted_partial_batch(self, op: AggOp):
+        """Distributed partial for the sorted path: group key VALUES + dense
+        state sliced to the seen groups (same wire shape as
+        _partial_agg_batch; never deferred)."""
+        from pixie_tpu_torch.parallel.partial import PartialAggBatch
+
+        (group_cols, in_dtypes, in_dicts, udas, in_types, state, G,
+         val_dicts) = self._sorted_group_reduce(op)
+        if val_dicts:
+            raise Internal(
+                "dict-valued aggregates must ship rows, not partial state "
+                "(the distributed planner cuts them as rows channels)"
+            )
+        key_cols, key_dtypes = {}, {}
+        for g in op.groups:
+            key_dtypes[g] = in_dtypes[g]
+            if g in in_dicts:
+                key_cols[g] = np.asarray(in_dicts[g].decode(group_cols[g]), dtype=object)
+            else:
+                key_cols[g] = group_cols[g]
+        state_np = transfer.pull(state)
+        states = {
+            out_name: tree_map(lambda x: np.asarray(x)[:G], state_np[out_name])
+            for out_name, _uda, _vn in udas
+        }
+        return PartialAggBatch(
+            key_cols=key_cols, key_dtypes=key_dtypes, states=states,
+            in_types=dict(in_types),
+        )
+
+    def run_agent(self) -> dict:
+        """Execute an AGENT plan: returns {channel: payload} where payload is a
+        HostBatch (rows channels), a PartialAggBatch (agg_state channels) or,
+        under `defer_agg_pull`, a _DeferredPartial."""
+        out = {}
+        t0 = _time.perf_counter_ns()
+        for sink in self.plan.sinks():
+            if isinstance(sink, PartitionSinkOp):
+                raise Unimplemented(
+                    "partition sinks (repartitioned joins, parallel/"
+                    "repartition.py) are not ported yet (the four-chip slice)")
+            if not isinstance(sink, ResultSinkOp):
+                raise Internal(f"agent plan sink {sink.kind} is not a ResultSink")
+            parent = self.plan.parents(sink)[0]
+            if sink.payload == "agg_state":
+                if not (isinstance(parent, AggOp) and parent.partial):
+                    raise Internal("agg_state channel must be fed by a partial AggOp")
+                out[sink.channel] = self._partial_agg_batch(parent)
+            else:
+                out[sink.channel] = self._materialize_parent(parent)
+        self.stats["wall_ns"] = _time.perf_counter_ns() - t0
+        self.stats["operators"] = self.op_stats
+        return out
 
     # -------------------------------------------------------------------- join
     def _run_join(self, op: JoinOp) -> HostBatch:

@@ -15,7 +15,8 @@ it would turn logf into __logf and move values between sketch bins.)
 
 Each kernel has a launch counter (`KERNELS[name].launches`, split by C entry
 point in `.by_entry`); a wrapper adds one exactly where it launches that
-kernel.
+kernel.  The counters, the build and the symbol table are safe to use from
+several threads at once (LocalCluster runs its agents concurrently).
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ SOURCES = {
     "compact": "compact.cu",
     "join": "join.cu",
     "resident": "resident.cu",
+    "merge": "merge.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -64,17 +66,20 @@ class Kernel:
 
     def count(self, entry: str) -> None:
         """Record one launch of `entry` (called right after a launch)."""
-        self.launches += 1
-        self.by_entry[entry] = self.by_entry.get(entry, 0) + 1
+        with _count_lock:
+            self.launches += 1
+            self.by_entry[entry] = self.by_entry.get(entry, 0) + 1
 
 
 KERNELS = {name: Kernel(name) for name in SOURCES}
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
-        k.by_entry.clear()
+    with _count_lock:
+        for k in KERNELS.values():
+            k.launches = 0
+            k.by_entry.clear()
 
 
 def find_nvcc() -> str:
@@ -158,10 +163,13 @@ def function(lib: str, symbol: str, argtypes: list):
     fn = _funcs.get(key)
     if fn is None:
         build_all()
-        fn = getattr(_libs[lib], symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _funcs[key] = fn
+        with _lock:
+            fn = _funcs.get(key)
+            if fn is None:
+                fn = getattr(_libs[lib], symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _funcs[key] = fn
     return fn
 
 

@@ -1,0 +1,300 @@
+"""In-process distributed execution harness.
+
+Reference test strategy (SURVEY.md §4): every distributed behavior has an
+in-process seam — fake agent topologies for the planner, local loopback for
+shuffle edges.  LocalCluster is that seam made first-class: each agent has its
+own TableStore (its own dictionary code spaces, like independent PEMs), the
+planner splits queries across them, agents run their fragments, and channel
+payloads are merged exactly as a remote merger would — including a real
+serialization round-trip so the wire format is exercised on every query.
+
+Copied from the reference package (pixie_tpu/parallel/cluster.py).  The
+agents share one device (CUDA unless the caller passes another): they run
+concurrently in a thread pool, every agent's partial aggregate state stays on
+the device, and per agg_state channel all agents' states merge there in one
+launch of kernel M1 when their layouts agree (else each is read back and
+merged by key values on the host); one readback wave follows.
+
+Not ported yet: multi-device agents (`_agent_mesh`, the four-chip slice),
+repartitioned joins (parallel/repartition.py, the four-chip slice), standing
+views (PL_MATVIEW_ENABLED, the streaming slice: the port behaves as the
+reference does with the flag off), plan verification (PX_PLAN_VERIFY), query
+batching, the flight recorder and tracepoint mutations (slice 6), and the
+semantic-type restamp of results (slice 6: results carry physical types).
+"""
+from __future__ import annotations
+
+import time as _time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
+
+import numpy as np
+
+from pixie_tpu_torch.engine import transfer
+from pixie_tpu_torch.engine.eval import apply_lut_np
+from pixie_tpu_torch.engine.executor import (
+    HostBatch,
+    PlanExecutor,
+    _DeferredPartial,
+    gang_merge_states,
+    resolve_device,
+)
+from pixie_tpu_torch.engine.plancache import QueryPlanCache
+from pixie_tpu_torch.engine.result import QueryResult
+from pixie_tpu_torch.parallel.distributed import DistributedPlanner
+from pixie_tpu_torch.parallel.partial import PartialAggBatch, merge_partials
+from pixie_tpu_torch.parallel.topology import AgentInfo, ClusterSpec
+from pixie_tpu_torch.plan.plan import Plan
+from pixie_tpu_torch.status import Internal, InvalidArgument, Unimplemented
+from pixie_tpu_torch.table.dictionary import Dictionary
+from pixie_tpu_torch.table.table import TableStore
+
+
+class HostBatchUnion:
+    """Incremental union of row batches from different producers: each add()
+    reconciles the chunk's dictionary code space into the running merged
+    dictionaries and stashes the translated columns; finish() pays one
+    concatenation.
+
+    Row order follows fold order; distributed row-channel consumers are
+    order-insensitive (the merger re-aggregates / re-sorts as the plan
+    demands), matching the per-agent arrival order semantics.
+    """
+
+    __slots__ = ("count", "_first", "_dicts", "_parts")
+
+    def __init__(self):
+        self.count = 0
+        self._first: HostBatch | None = None
+        self._dicts: dict[str, Dictionary] = {}
+        self._parts: dict[str, list[np.ndarray]] = {}
+
+    def add(self, hb: HostBatch) -> None:
+        self.count += 1
+        if self._first is None:
+            self._first = hb
+            self._dicts = {n: Dictionary() for n in hb.dicts}
+            self._parts = {n: [] for n in hb.dtypes}
+        if hb.num_rows == 0:
+            return
+        self._fold_cols(hb)
+
+    def _fold_cols(self, hb: HostBatch) -> None:
+        for name in self._first.dtypes:
+            if name in self._dicts:
+                lut = hb.dicts[name].translate_to(self._dicts[name], insert=True)
+                self._parts[name].append(apply_lut_np(lut, hb.cols[name]))
+            else:
+                self._parts[name].append(hb.cols[name])
+
+    def finish(self) -> HostBatch:
+        first = self._first
+        if first is None:
+            raise InvalidArgument("HostBatchUnion.finish: no chunks folded")
+        if not any(self._parts.values()):
+            # every chunk was empty: fold the first chunk anyway so the
+            # result still carries its dtypes/dictionary values
+            self._fold_cols(first)
+        cols = {
+            name: (parts[0] if len(parts) == 1 else np.concatenate(parts))
+            for name, parts in self._parts.items()
+        }
+        return HostBatch(dict(first.dtypes), dict(self._dicts), cols)
+
+
+def _union_host_batches(batches: list[HostBatch]) -> HostBatch:
+    """Concatenate row batches from different agents, reconciling each
+    dictionary code space into a fresh merged dictionary."""
+    u = HostBatchUnion()
+    for b in batches:
+        u.add(b)
+    return u.finish()
+
+
+class LocalCluster:
+    """N agents with private table stores + one merger, in one process, on
+    one device."""
+
+    def __init__(self, stores: dict, merger_store: Optional[TableStore] = None,
+                 registry=None, device=None):
+        self.stores = dict(stores)
+        self.merger_store = merger_store or TableStore()
+        self.registry = registry
+        #: the device every agent's and the merger's PlanExecutor runs on
+        self.device = resolve_device(device)
+        agents = [
+            AgentInfo(
+                name=name,
+                has_data_store=True,
+                processes_data=True,
+                accepts_remote_sources=False,
+                schemas=store.schemas(),
+                n_devices=1,
+            )
+            for name, store in self.stores.items()
+        ]
+        agents.append(
+            AgentInfo(
+                name="merger",
+                has_data_store=False,
+                processes_data=False,
+                accepts_remote_sources=True,
+                schemas={},
+            )
+        )
+        self.spec = ClusterSpec(agents)
+        self.planner = DistributedPlanner(self.spec, registry)
+        #: whole-query plan cache (PL_QUERY_FASTPATH): warm repeated scripts
+        #: skip re-trace/re-split (engine/plancache.py documents soundness)
+        self.plan_cache = QueryPlanCache()
+
+    def schemas(self) -> dict:
+        return self.spec.combined_schemas()
+
+    def _schemas_fp(self) -> tuple:
+        """Schema fingerprint for the plan cache: per-store table-set epochs
+        (bumped by create/drop).  Relations are immutable, so the epochs pin
+        the combined schema view exactly."""
+        return tuple(sorted((n, s.epoch) for n, s in self.stores.items()))
+
+    def query(self, pxl_source: str, func: Optional[str] = None,
+              func_args: Optional[dict] = None, now: Optional[int] = None,
+              default_limit: Optional[int] = None,
+              analyze: bool = False) -> dict[str, QueryResult]:
+        """Compile a PxL script against the cluster's combined schemas and
+        execute it distributed (the ExecuteScript analog).  Warm repeats of
+        the same script hit the whole-query plan cache and skip the compile
+        and distributed-split work entirely (bit-equal results — the cached
+        plan IS the plan a recompile would produce)."""
+        from pixie_tpu_torch.compiler import compile_pxl
+
+        key = self.plan_cache.key(pxl_source, func, func_args, default_limit,
+                                  self._schemas_fp())
+        q, entry, _hit = self.plan_cache.get_query(
+            key, lambda: compile_pxl(pxl_source, self.schemas(), func=func,
+                                     func_args=func_args, now=now,
+                                     default_limit=default_limit,
+                                     registry=self.registry))
+        if q.mutations:
+            raise Unimplemented("tracepoint mutations are not ported yet "
+                                "(host-layer slice, slice 6)")
+        (dp, _extras), _shit = QueryPlanCache.get_split(
+            entry, self._schemas_fp(), lambda: (self.planner.plan(q.plan), {}))
+        return self.execute(q.plan, analyze=analyze, dp=dp)
+
+    def execute(self, logical: Plan, analyze: bool = False,
+                dp=None) -> dict[str, QueryResult]:
+        t_exec0 = _time.perf_counter_ns()
+        if dp is None:
+            dp = self.planner.plan(logical)
+        if dp.join_stages:
+            raise Unimplemented(
+                "repartitioned joins (parallel/repartition.py) are not ported "
+                "yet (the four-chip slice)")
+
+        # 1. run agent fragments (reference: per-agent Carnot::ExecutePlan).
+        #    Agents run CONCURRENTLY (they are separate processes in the
+        #    networked deployment); host-side work (feed assembly, dictionary
+        #    prescans) overlaps even though they share one device.
+        payloads: dict[str, list] = {cid: [] for cid in dp.channels}
+        agent_stats: dict[str, dict] = {}
+        items = list(dp.agent_plans.items())
+
+        def run_one(agent_name, plan):
+            ex = PlanExecutor(plan, self.stores[agent_name], self.registry,
+                              device=self.device, analyze=analyze)
+            # Colocated agents share one device: defer each agent's partial
+            # readback so ALL agents' states merge there and come back in ONE
+            # transfer wave below.
+            ex.defer_agg_pull = len(items) > 1
+            return agent_name, ex.run_agent(), dict(ex.stats)
+
+        if len(items) > 1:
+            with ThreadPoolExecutor(max_workers=min(len(items), 16)) as pool:
+                outs = list(pool.map(lambda kv: run_one(*kv), items))
+        else:
+            outs = [run_one(*kv) for kv in items]
+        # Deferred agent partials: per channel, either merge all agents'
+        # states ON DEVICE (equal layouts: one M1 launch and one readback
+        # instead of N) or pull everything in one transfer wave and merge by
+        # key values on the host.
+        by_channel: dict[str, list] = {}
+        for _name, out, _stats in outs:
+            for cid, payload in out.items():
+                if isinstance(payload, _DeferredPartial):
+                    by_channel.setdefault(cid, []).append(payload)
+        finished: dict[int, object] = {}
+        pull_tree = []
+        pull_done = []  # (fn(pulled_subtree) -> None) per entry
+        for cid, ds in by_channel.items():
+            fps = {d.layout_fp for d in ds}
+            if len(fps) == 1 and None not in fps and len(ds) > 1:
+                pull_tree.append(gang_merge_states(ds))
+
+                def done(merged, ds=ds):
+                    # all agents resolve to ONE merged batch; keep a single
+                    # payload entry (merge_partials is idempotent over one)
+                    for d in ds:
+                        finished[id(d)] = None
+                    finished[id(ds[0])] = ds[0].finish_state(merged)
+
+                pull_done.append(done)
+            else:
+                for d in ds:
+                    pull_tree.append(d.partials)
+
+                    def done(pulled, d=d):
+                        finished[id(d)] = d.finish(pulled)
+
+                    pull_done.append(done)
+        pulled_all = transfer.pull(pull_tree)
+        for fn, pulled in zip(pull_done, pulled_all):
+            fn(pulled)
+        for agent_name, out, stats in outs:
+            for cid, payload in out.items():
+                if isinstance(payload, _DeferredPartial):
+                    payload = finished[id(payload)]
+                    if payload is None:
+                        continue  # folded into the gang-merged batch
+                if isinstance(payload, PartialAggBatch):
+                    # round-trip the wire format on every query
+                    payload = PartialAggBatch.from_bytes(payload.to_bytes())
+                payloads[cid].append(payload)
+            agent_stats[agent_name] = stats
+        # the exec window: agent fragments + the coalesced readback wave;
+        # everything after is merge-side work
+        t_merge0 = _time.perf_counter_ns()
+
+        # 2. merge channel payloads (reference: Kelvin finalize / row merge).
+        reg = self.registry
+        if reg is None:
+            from pixie_tpu_torch.udf import registry as reg
+        inputs: dict[str, HostBatch] = {}
+        for cid, ch in dp.channels.items():
+            got = payloads.get(cid, [])
+            if not got:
+                raise Internal(f"channel {cid} received no payloads")
+            if ch.kind == "agg_state":
+                inputs[cid] = merge_partials(ch.agg, got, reg)
+            else:
+                inputs[cid] = _union_host_batches(got)
+
+        # 3. run the merger plan over the injected channels.
+        ex = PlanExecutor(dp.merger_plan, self.merger_store, self.registry,
+                          device=self.device, inputs=inputs, analyze=analyze)
+        results = ex.run()
+        # Per-agent exec stats ride along with every result (reference:
+        # AgentExecutionStats shipped with the final chunk, carnot.cc:227-275),
+        # with the whole-query transfer summary (a warm resident-tier query
+        # uploads ZERO feed bytes).
+        xfer = {
+            k: sum(int(s.get(k, 0)) for s in agent_stats.values())
+            for k in ("h2d_bytes", "resident_feeds", "feed_cache_hits")
+        }
+        phases = {"exec_ns": t_merge0 - t_exec0,
+                  "merge_ns": _time.perf_counter_ns() - t_merge0}
+        for r in results.values():
+            r.exec_stats["agents"] = agent_stats
+            r.exec_stats["transfer"] = xfer
+            r.exec_stats["phases"] = phases
+        return results

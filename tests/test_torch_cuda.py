@@ -14,6 +14,7 @@ from pixie_tpu_torch.ops import _build
 from pixie_tpu_torch.ops import compact as k4
 from pixie_tpu_torch.ops import groupby as gb
 from pixie_tpu_torch.ops import join_device as jd
+from pixie_tpu_torch.ops import merge as m1
 from pixie_tpu_torch.ops import resident as rk
 from pixie_tpu_torch.ops.sketch import LogHistogram
 
@@ -177,6 +178,7 @@ def test_cuda_tensor_never_reaches_the_plain_version(dev, monkeypatch):
         monkeypatch.setattr(jd, name, boom)
     for name in ("fold_plain", "move_plain"):
         monkeypatch.setattr(rk, name, boom)
+    monkeypatch.setattr(m1, "merge_states_plain", boom)
     _rng, gid, mask = _rows(dev, 4096, 8, 4)
     gb.masked_segment_count(gid, 8, mask)
     lh = LogHistogram()
@@ -186,6 +188,7 @@ def test_cuda_tensor_never_reaches_the_plain_version(dev, monkeypatch):
     jd.device_join_codes(codes, codes)
     bufs = rk.move([gid], 0, 4096, 8192)
     rk.fold(bufs, [[np.arange(100, dtype=np.int32)]], 4096)
+    m1.merge_states("add", [gid, gid])
 
 
 #: resident buffers of every element width (1, 2, 4, 8 bytes)
@@ -226,3 +229,92 @@ def test_resident_move_equals_plain(dev, lo, n, dst_rows):
     assert _build.KERNELS["resident"].by_entry["px_resident_move"] == before + 1
     for g, s in zip(got, srcs):
         assert torch.equal(g, rk.move_plain(s, lo, n, dst_rows))
+
+
+def _m1_states(dev, n, g, seed, offset=0):
+    """n states of config #4's tree plus int and NaN-carrying min / max
+    leaves; `offset` > 0 makes every leaf an unaligned view (scalar path)."""
+    rng = np.random.default_rng(seed)
+    rt = {"cnt": "add", "avg": {"sum": "add", "count": "add"}, "p50": "add",
+          "lo": "min", "hi": "max", "ilo": "min", "wrap": "add", "code": "min"}
+
+    def leaf(arr):
+        t = torch.from_numpy(np.concatenate([arr.reshape(-1)[:offset], arr.reshape(-1)]))
+        return t.to(dev)[offset:].view(arr.shape)
+
+    states = []
+    for _ in range(n):
+        f = rng.normal(size=g)
+        f[rng.integers(0, g, 2)] = np.nan
+        f[rng.integers(0, g, 2)] = np.inf
+        states.append({
+            "cnt": leaf(rng.integers(0, 1 << 30, g)),
+            "avg": {"sum": leaf(rng.normal(size=g)), "count": leaf(rng.integers(0, 99, g))},
+            "p50": leaf(rng.integers(0, 1000, (g, 514)).astype(np.float32)),
+            "lo": leaf(f), "hi": leaf(-f),
+            "ilo": leaf(rng.integers(-(2 ** 63), 2 ** 63 - 1, g, dtype=np.int64)),
+            "wrap": leaf(rng.integers(2 ** 62, 2 ** 63 - 1, g, dtype=np.int64)),
+            "code": leaf(rng.integers(-(2 ** 31), 2 ** 31 - 1, g).astype(np.int32)),
+        })
+    return rt, states
+
+
+@pytest.mark.parametrize("n,g,offset", [(2, 64, 0), (3, 1, 0), (8, 64, 0), (8, 4099, 0),
+                                        (9, 1000, 0), (17, 300, 0), (8, 257, 1)])
+def test_merge_states_equals_plain(dev, n, g, offset):
+    rt, states = _m1_states(dev, n, g, 21 + n, offset)
+    before = _build.KERNELS["merge"].launches
+    got = m1.merge_states(rt, states)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["merge"].launches == before + 1
+    want = m1.merge_states_plain(rt, states)
+    for path in ("cnt", "p50", "lo", "hi", "ilo", "wrap", "code"):
+        a, b = got[path], want[path]
+        assert a.dtype == b.dtype and torch.equal(a.isnan() if a.is_floating_point()
+                                                  else a, b.isnan() if b.is_floating_point() else b)
+        assert torch.equal(a.nan_to_num() if a.is_floating_point() else a,
+                           b.nan_to_num() if b.is_floating_point() else b), path
+    assert torch.equal(got["avg"]["count"], want["avg"]["count"])
+    # float64 sums: one add per state, in agent order, in both
+    assert torch.equal(got["avg"]["sum"], want["avg"]["sum"])
+
+
+def test_cluster_gang_merge_launches_m1_once(dev):
+    """8 agents with identical data on the card: one M1 launch per query,
+    and the result equals the same cluster's CPU run."""
+    from pixie_tpu_torch.parallel import LocalCluster
+    from pixie_tpu_torch.table import TableStore
+    from pixie_tpu_torch.types import DataType as DT, Relation
+
+    rng = np.random.default_rng(12)
+    n = 1 << 14
+    cols = {"time_": np.arange(n, dtype=np.int64),
+            "service": np.array([f"svc-{i}" for i in range(16)])[rng.integers(0, 16, n)],
+            "latency": rng.exponential(50.0, n),
+            "status": rng.choice([200, 404, 500], n)}
+    rel = Relation.of(("time_", DT.TIME64NS), ("service", DT.STRING),
+                      ("latency", DT.FLOAT64), ("status", DT.INT64))
+
+    def stores():
+        out = {}
+        for a in range(8):
+            ts = TableStore()
+            ts.create("http_events", rel, batch_rows=4096).write(cols)
+            out[f"pem{a}"] = ts
+        return out
+
+    script = """
+df = px.DataFrame(table='http_events')
+df = df[df.status != 404]
+df = df.groupby(['service', 'status']).agg(
+    cnt=('latency', px.count), avg_lat=('latency', px.mean), p50=('latency', px.p50))
+px.display(df, 'output')
+"""
+    before = _build.KERNELS["merge"].launches
+    got = LocalCluster(stores(), device=dev).query(script)["output"].to_pandas()
+    assert _build.KERNELS["merge"].launches == before + 1
+    want = LocalCluster(stores(), device="cpu").query(script)["output"].to_pandas()
+    got, want = (f.sort_values(["service", "status"]).reset_index(drop=True)
+                 for f in (got, want))
+    assert got.cnt.tolist() == want.cnt.tolist() and got.p50.tolist() == want.p50.tolist()
+    np.testing.assert_allclose(got.avg_lat, want.avg_lat, rtol=1e-12, atol=0)

@@ -62,6 +62,19 @@ def test_execute_plan_without_device_refuses_the_cpu():
         execute_plan(Plan(), TableStore())
 
 
+def test_local_cluster_without_device_refuses_the_cpu():
+    import torch
+
+    from pixie_tpu_torch.parallel import LocalCluster
+    from pixie_tpu_torch.status import Unavailable
+    from pixie_tpu_torch.table import TableStore
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    with pytest.raises(Unavailable, match="CUDA"):
+        LocalCluster({"pem0": TableStore()})
+
+
 def test_missing_nvcc_is_a_build_error(tmp_path):
     code = (
         "from pixie_tpu_torch.ops import _build\n"
