@@ -77,6 +77,28 @@ Phases, each of which fails the run if it fails:
                 mean, min and max(latency); S2 groups by bin(bytes, 4096)
                 (a computed key) with count, mean and p50(latency).  Each
                 takes the sorted fallback once and equals a numpy oracle.
+ 11. ml       — (1) kmeans_fit of 2^20 points (d = 64, 64 gaussian blobs,
+                seed 17) with k = 64 and 10 iterations, three times: the
+                fits are identical, every true center has a fitted one
+                within 0.5 sigma, and each fit launches KM3 63 times, KM2 10
+                and KM1 once; (2) CoresetTree(m=1024, k=8) over 64 batches
+                of 2^16 x 64 points (8 blobs): query() holds at most 1024
+                points of total weight within 5% of the stream's, and a fit
+                on it recovers the 8 centers within 1 sigma per dimension
+                (root mean square); (3) from PxL text over an 8M-row
+                http_events table (16 services, 200 request paths from 20
+                templates): _build_request_path_clusters per service, merged
+                back on service, _predict_request_path_cluster per row and a
+                count per endpoint, equal to a numpy oracle that templatizes
+                the paths itself; (4) _kmeans_fit per service over the
+                table's 256 _text_embedding strings: 16 models, each within
+                1e-4 of the port's plain route (the CPU) fitting the same
+                group with the card's draws, except a model whose plain fit
+                came within 1e-5 of a tie (two centers equidistant from a
+                point, or a sample on a boundary of its cumulative sum),
+                which the card's rounding may break the other way; more
+                than half the models must be compared.  KM1-KM3 and K1's
+                count must launch.
 Config #1, the select and config #3 each report a stream median (the tier
 off, the feed cache off and empty: every feed uploaded, the route measured
 before the tier) and a warm median (after the admitting queries; a warm
@@ -89,7 +111,11 @@ their plain versions at 2^20 rows x 4 columns into 2^24 rows, a grow from
 2^23 to 2^24 rows and a rebase dropping 2^20 of 2^24 rows, and M1 (the
 cross-agent state merge) at config #4's state (8 states of 64 groups) and at
 a bandwidth shape (8 states of 2^16 groups with min and max, ~138 MB each),
-exactly.
+exactly, and KM1-KM3 (the k-means assignment, Lloyd sums and seeding step)
+at the fit's shape (2^20 x 64 points, 64 centers) and at edge cases (k = 1,
+k > a block's 256 points, d = 13, d = 150 with k = 200, k = 129, a cluster
+of zero weight), to 1e-5 of |x|^2 + |c|^2 (distances, p) and of the sums
+of |w x| (xsum), ids equal outside near-ties, unit-weight counts exactly.
 
 It prints one JSON line per kernel, a {"kernels": [...]} line, the card's
 name and power limit, and last {"ok": true, "device": {...}}.  It exits
@@ -1653,6 +1679,462 @@ def run_config4(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------- the ML path
+
+#: the k-means kernels' shape: 2^20 points at the width of _text_embedding
+ML_N, ML_D, ML_K, ML_ITERS = 1 << 20, 64, 64, 10
+#: blob centers ~ N(0, spread^2) per dimension, sigma 1: at 300, two blobs'
+#: squared distance (~1.15e7) dwarfs a blob's spread (~128), so k-means++
+#: seeds one center per blob (the fit's recovery check needs that)
+ML_SPREAD = 300.0
+#: the CoresetTree stream: 64 batches of 2^16 points around 8 blob centers
+TREE_BATCHES, TREE_BATCH, TREE_K, TREE_M = 64, 1 << 16, 8, 1024
+#: the ml phase's http_events table: rows, services
+ML_ROWS, ML_SERVICES = 1 << 23, 16
+ML_KERNELS = [("kmeans", "px_kmeans_assign"), ("kmeans", "px_kmeans_lloyd"),
+              ("kmeans", "px_kmeans_seed_step"), ("segment_reduce", "px_segment_count")]
+#: 20 endpoint templates ({} an id segment), at most 5 literals a position
+#: per depth, so RequestPathClustering keeps each as it is
+ML_TEMPLATES = (
+    [f"/{r}/{{}}" for r in ("users", "orders", "carts", "items", "reviews")]
+    + [f"/api/{r}/{{}}" for r in ("users", "orders", "carts", "items", "reviews")]
+    + ["/api/v1/users/{}/profile", "/api/v1/orders/{}/items", "/api/v2/carts/{}/lines",
+       "/api/v2/items/{}/reviews", "/api/v3/reviews/{}/votes"]
+    + ["/api/v1/users/{}/orders/{}", "/api/v1/orders/{}/items/{}",
+       "/api/v2/carts/{}/lines/{}", "/api/v2/items/{}/reviews/{}",
+       "/api/v3/shops/{}/carts/{}"])
+#: 256 documents in 8 topics (their embeddings cluster by topic): a topic's
+#: long phrase, two seeded words and a number
+ML_TOPICS = ("checkout payment card declined retry gateway timeout refund",
+             "login session token expired redirect identity provider cookie",
+             "search results page latency ranking index shard replica",
+             "inventory stock warehouse sync reservation backorder supplier",
+             "shipping label carrier delay tracking customs manifest",
+             "image upload resize thumbnail transcode bucket storage",
+             "email notification bounce queue template digest unsubscribe",
+             "recommendation model feature store embedding vector batch")
+ML_WORDS = ("alpha", "beta", "gamma", "delta", "kappa", "sigma", "omega", "zeta",
+            "north", "south", "east", "west", "red", "green", "blue", "amber")
+TEMPLATES_SCRIPT = """
+import px
+df = px.DataFrame(table='http_events')
+cl = df.groupby('service').agg(clustering=('req_path', px._build_request_path_clusters))
+m = df.merge(cl, how='inner', left_on='service', right_on='service', suffixes=['', '_cl'])
+m.endpoint = px._predict_request_path_cluster(m.req_path, m.clustering)
+m = m.groupby('endpoint').agg(n=('latency', px.count))
+px.display(m, 'out')
+"""
+KMEANS_SCRIPT = """
+import px
+df = px.DataFrame(table='http_events')
+df = df.groupby('service').agg(model=('embedding', px._kmeans_fit))
+px.display(df, 'out')
+"""
+
+
+def ml_blobs(dev, n: int, d: int, k: int, seed: int, spread: float):
+    """n points of k gaussian blobs (sigma 1), made on the card from `seed`:
+    → (x [n, d] float32, true centers [k, d])."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    cent = torch.randn(k, d, generator=g, device=dev) * spread
+    ids = torch.randint(0, k, (n,), generator=g, device=dev)
+    return (cent[ids] + torch.randn(n, d, generator=g, device=dev)).contiguous(), cent
+
+
+def check_kmeans_kernels(dev) -> list[dict]:
+    """KM1-KM3 held against their plain versions on the same CUDA tensors at
+    the fit's shape (2^20 x 64 points, 64 centers, seeded blobs) and at edge
+    cases.  The expansion |x|^2 - 2x.c + |c|^2 rounds relative to |x|^2 +
+    |c|^2, so distances and p are compared to 1e-5 of that scale; ids must
+    be equal except where the plain version's two nearest distances are
+    within 1e-5 of it; wsum exactly with unit weights; xsum to 1e-5 of each
+    cell's sum of |w x|.  Returns the three kernel rows."""
+    import torch
+
+    from pixie_tpu_torch.ml import kmeans as km
+    from pixie_tpu_torch.ops import kmeans as kops
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in float32
+    torch.backends.cudnn.allow_tf32 = False
+
+    def hold(label, x, c, w):
+        n, d = x.shape
+        k = c.shape[0]
+        scale = (x * x).sum(1) + (c * c).sum(1).max()
+        ids, mind = kops.assign(x, c)
+        ids0, mind0 = kops.assign_plain(x, c)
+        torch.cuda.synchronize()
+        derr = float(((mind - mind0).abs() / scale).max())
+        if k > 1:
+            two = torch.topk(kops.sq_dists_plain(x, c), 2, dim=1, largest=False).values
+            tie = (two[:, 1] - two[:, 0]) <= 1e-5 * scale
+        else:
+            tie = torch.zeros(n, dtype=torch.bool, device=dev)
+        bad_ids = int(((ids != ids0) & ~tie).sum())
+        if derr > 1e-5 or bad_ids:
+            raise AssertionError(f"KM1 {label}: distance err {derr} (of |x|^2 + |c|^2), "
+                                 f"{bad_ids} ids differ outside near-ties")
+        out = {"km1_dist_err_rel_scale": derr, "km1_near_ties": int(tie.sum()),
+               "km1_max_abs_err": float((mind - mind0).abs().max())}
+        werr = 0.0
+        for wl, ww in (("unit", torch.ones_like(w)), ("weighted", w)):
+            wsum, xsum = kops.lloyd_step(x, ww, c)
+            wsum0, xsum0 = kops.lloyd_step_plain(x, ww, c)
+            absx = torch.zeros_like(xsum0).index_add_(0, ids0, (x * ww[:, None]).abs())
+            torch.cuda.synchronize()
+            xerr = float(((xsum - xsum0).abs() / absx.clamp_min(1e-30)).max())
+            if wl == "unit" and not torch.equal(wsum, wsum0):
+                raise AssertionError(f"KM2 {label}: unit-weight wsum differs")
+            werr = max(werr, float(((wsum - wsum0).abs() / wsum0.clamp_min(1e-30)).max()))
+            if xerr > 1e-5 or werr > 1e-6:
+                raise AssertionError(f"KM2 {label} ({wl}): xsum err {xerr}, wsum err {werr}")
+            out[f"km2_xsum_err_{wl}"] = xerr
+            out["km2_max_abs_err"] = max(out.get("km2_max_abs_err", 0.0),
+                                         float((xsum - xsum0).abs().max()))
+        out["km2_wsum_err_weighted"] = werr
+        mind_k = torch.full((n,), float("inf"), device=dev)
+        mind_p = mind_k.clone()
+        perr, pabs = 0.0, 0.0
+        for j in range(min(k, 4)):
+            p = kops.seed_step(x, w, c[j], mind_k)
+            p0 = kops.seed_step_plain(x, w, c[j], mind_p)
+            torch.cuda.synchronize()
+            sc = ((x * x).sum(1) + (c[j] * c[j]).sum()) * w
+            perr = max(perr, float(((p - p0).abs() / sc).max()))
+            pabs = max(pabs, float((p - p0).abs().max()))
+        if perr > 1e-5:
+            raise AssertionError(f"KM3 {label}: p err {perr} (of w (|x|^2 + |c|^2))")
+        out.update({"km3_p_err_rel_scale": perr, "km3_max_abs_err": pabs})
+        log(json.dumps({"check": f"KM1-KM3 {label}", "ok": True, **out}))
+        return out
+
+    def data(n, d, k, seed, spread=10.0):
+        x, cent = ml_blobs(dev, n, d, k, seed, spread)
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed + 1)
+        c = (cent + 0.5 * torch.randn(cent.shape, generator=g, device=dev)).contiguous()
+        w = torch.rand(n, generator=g, device=dev) + 0.5
+        return x, c, w
+
+    # edge cases: k = 1; more centers than a block's 256 points; d not a
+    # multiple of 4; n not a multiple of the block; d over one shared tile;
+    # k over one register tile and KM2's shared memory in two center ranges
+    for label, (n, d, k) in (("k=1", (1 << 16, 64, 1)),
+                             ("k=300 > 256 points a block", (4099, 8, 300)),
+                             ("d=13, n=2^16+3", ((1 << 16) + 3, 13, 7)),
+                             ("d=150, k=200 (two KM2 center ranges)", (3001, 150, 200)),
+                             ("k=129", (10007, 64, 129))):
+        hold(label, *data(n, d, k, 40 + n % 97))
+    # all-zero weights in a cluster: wsum 0, and the update keeps the center
+    x, c, w = data(1 << 16, 64, 16, 47)
+    ids, _ = kops.assign(x, c)
+    w0 = torch.where(ids == 3, 0.0, w)
+    wsum, _xsum = kops.lloyd_step(x, w0, c)
+    newc = km._lloyd_centers(x, w0, c, 1)
+    torch.cuda.synchronize()
+    if float(wsum[3]) != 0.0 or not torch.equal(newc[3], c[3]):
+        raise AssertionError("KM2: a zero-weight cluster moved its center")
+    log(json.dumps({"check": "KM2 zero-weight cluster keeps its center", "ok": True}))
+
+    # the fit's shape
+    x, c, w = data(ML_N, ML_D, ML_K, 41)
+    main = hold(f"main (n=2^20, d={ML_D}, k={ML_K})", x, c, w)
+    n, d, k = ML_N, ML_D, ML_K
+    ids = kops.assign(x, c)[0]
+    mind = torch.full((n,), float("inf"), device=dev)
+    kops.seed_step(x, w, c[0], mind)
+    shape = {"n": n, "d": d, "k": k}
+    common = {"route": "cuda", "source": "pixie_tpu_torch/csrc/kmeans.cu", "path": "ml",
+              "shape": shape}
+    rows = []
+    b, by = bound(n * d * 4 + k * d * 4 + n * 12, 2.0 * n * k * d)
+    rows.append({
+        **common, "name": "kmeans_assign",
+        "replaces": "pixie_tpu/ml/kmeans.py:21 _sq_dists (+ argmin / min :73, :112, :119)",
+        "entry": ("kmeans", "px_kmeans_assign"), "max_abs_err": main["km1_max_abs_err"],
+        "ms": cuda_ms(lambda: kops.assign(x, c), 20),
+        "plain_ms": cuda_ms(lambda: kops.assign_plain(x, c), 5),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": cuda_ms(lambda: torch.cdist(x, c).argmin(1), 5)})
+    b, by = bound(n * d * 4 + n * 4 + 2 * k * d * 4 + k * 4, 2.0 * n * k * d + 2.0 * n * (d + 1))
+
+    def library_sums():
+        torch.zeros(k, device=dev).index_add_(0, ids, w)
+        torch.zeros((k, d), device=dev).index_add_(0, ids, x * w[:, None])
+
+    rows.append({
+        **common, "name": "kmeans_lloyd",
+        "replaces": "pixie_tpu/ml/kmeans.py:61 _lloyd step (assign + segment_sum of w, x*w)",
+        "entry": ("kmeans", "px_kmeans_lloyd"), "max_abs_err": main["km2_max_abs_err"],
+        "ms": cuda_ms(lambda: kops.lloyd_step(x, w, c), 10),
+        "plain_ms": cuda_ms(lambda: kops.lloyd_step_plain(x, w, c), 3),
+        "bound_ms": b, "bound_by": by,
+        # the two float32 index_add_ of the reference's segment sums, given
+        # the ids (the assignment is not in it)
+        "library_ms": cuda_ms(library_sums, 5)})
+    b, by = bound(n * d * 4 + n * 16 + d * 4, 4.0 * n * d)
+    rows.append({
+        **common, "name": "kmeans_seed_step",
+        "replaces": "pixie_tpu/ml/kmeans.py:30 _plusplus_init step",
+        "entry": ("kmeans", "px_kmeans_seed_step"), "max_abs_err": main["km3_max_abs_err"],
+        "ms": cuda_ms(lambda: kops.seed_step(x, w, c[1], mind), 20),
+        "plain_ms": cuda_ms(lambda: kops.seed_step_plain(x, w, c[1], mind), 5),
+        "bound_ms": b, "bound_by": by, "library_ms": None})
+    del x, c, w, ids, mind
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _endpoint_of(path: str) -> str:
+    """The oracle's template of a path: all-digit segments become '*'."""
+    return "/".join("*" if seg.isdigit() else seg for seg in path.split("/"))
+
+
+def build_ml_table(ts):
+    """http_events of ML_ROWS rows: 16 services, 200 request paths (10 ids
+    in each of the 20 templates), exponential latency, and an embedding
+    column of 256 _text_embedding strings (8 topics x 32 documents)."""
+    from pixie_tpu_torch.types import DataType as DT, Relation
+    from pixie_tpu_torch.udf.builtins import _text_embedding
+
+    rel = Relation.of(("time_", DT.TIME64NS), ("service", DT.STRING),
+                      ("req_path", DT.STRING), ("latency", DT.FLOAT64),
+                      ("embedding", DT.STRING))
+    t = ts.create("http_events", rel, batch_rows=1 << 16)
+    rng = np.random.default_rng(23)
+    services = np.array([f"svc-{i}" for i in range(ML_SERVICES)])
+    paths = np.array([tpl.format(*(str(1000 + 37 * j + 7 * s) for s in range(tpl.count("{}"))))
+                      for tpl in ML_TEMPLATES for j in range(10)])
+    words = np.random.default_rng(29).choice(ML_WORDS, (len(ML_TOPICS), 32, 2))
+    embs = np.array([_text_embedding(f"{topic} {words[t, j, 0]} {words[t, j, 1]} {j}")
+                     for t, topic in enumerate(ML_TOPICS) for j in range(32)], dtype=object)
+    assert len(set(paths.tolist())) == 200 and len(set(embs.tolist())) == 256
+    for off in range(0, ML_ROWS, 1 << 21):
+        n = min(1 << 21, ML_ROWS - off)
+        t.write({"time_": np.arange(off, off + n, dtype=np.int64) * 1000,
+                 "service": services[rng.integers(0, ML_SERVICES, n)],
+                 "req_path": paths[rng.integers(0, len(paths), n)],
+                 "latency": rng.exponential(50.0, n),
+                 "embedding": embs[rng.integers(0, len(embs), n)]})
+    return t
+
+
+class plain_fit_with_card_draws:
+    """Context for the port's plain route (the CPU) replaying a fit the card
+    made: every draw comes from the card's generator for the same seed, and
+    the yielded dict records how close the fit came to a tie — "gap", the
+    least gap between a point's two nearest centers in any assignment (of
+    |x|^2 + |c|^2), and "margin", the least distance of a sample's r from a
+    boundary of its cumulative sum (of the total).  Within 1e-5 of a tie,
+    the card's rounding may break it the other way and take another path."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.margins: dict = {}
+
+    def _gap(self, x, c):
+        import torch
+
+        from pixie_tpu_torch.ops import kmeans as kops
+
+        if c.shape[0] > 1:
+            two = torch.topk(kops.sq_dists_plain(x, c), 2, dim=1, largest=False).values
+            g = float(((two[:, 1] - two[:, 0]) / ((x * x).sum(1) + (c * c).sum(1).max())).min())
+            self.margins["gap"] = min(self.margins.get("gap", 1.0), g)
+
+    def __enter__(self):
+        import torch
+
+        from pixie_tpu_torch.ml import kmeans as km
+        from pixie_tpu_torch.ops import kmeans as kops
+
+        self.saved = (km._uniforms, km._choice, kops.assign_plain, kops.lloyd_step_plain)
+        uniforms, choice, assign, lloyd = self.saved
+
+        def card_draws(gen, shape, device):
+            return uniforms(km._generator(gen.initial_seed(), self.dev), shape,
+                            self.dev).to(device)
+
+        def choice_m(p, u):
+            pc = torch.cumsum(p, 0, dtype=torch.float64)
+            r = pc[-1] * (1 - u.double())
+            i = torch.searchsorted(pc, r).clamp_max(len(pc) - 1)
+            lo = torch.where(i > 0, pc[(i - 1).clamp_min(0)], 0.0)
+            m = float((torch.minimum(r - lo, pc[i] - r) / pc[-1]).min())
+            self.margins["margin"] = min(self.margins.get("margin", 1.0), m)
+            return choice(p, u)
+
+        def assign_m(x, c):
+            self._gap(x, c)
+            return assign(x, c)
+
+        def lloyd_m(x, w, c):
+            self._gap(x, c)
+            return lloyd(x, w, c)
+
+        km._uniforms, km._choice = card_draws, choice_m
+        kops.assign_plain, kops.lloyd_step_plain = assign_m, lloyd_m
+        return self.margins
+
+    def __exit__(self, *exc):
+        from pixie_tpu_torch.ml import kmeans as km
+        from pixie_tpu_torch.ops import kmeans as kops
+
+        km._uniforms, km._choice, kops.assign_plain, kops.lloyd_step_plain = self.saved
+        return False
+
+
+def run_ml(dev) -> dict:
+    """The ML path: kmeans_fit and CoresetTree on the card, then the
+    service_endpoints pattern and _kmeans_fit from PxL text over an 8M-row
+    table.  Launch counts are reset before the first step and read after the
+    last."""
+    import torch
+
+    from pixie_tpu_torch.compiler import compile_pxl
+    from pixie_tpu_torch.engine import execute_plan
+    from pixie_tpu_torch.ml import CoresetTree, kmeans_fit
+    from pixie_tpu_torch.ml.fit import KMeansFitUDA
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.table import TableStore
+
+    out = {}
+    _build.reset_launches()
+
+    # 1. kmeans_fit at the kernels' shape: determinism, recovery, launches
+    x, cent = ml_blobs(dev, ML_N, ML_D, ML_K, 17, ML_SPREAD)
+    torch.cuda.synchronize()
+    fits, times, per_fit = [], [], []
+    for _ in range(3):
+        before = dict(_build.KERNELS["kmeans"].by_entry)
+        t0 = time.perf_counter()
+        fits.append(kmeans_fit(x, ML_K, max_iters=ML_ITERS, seed=5, device=dev))
+        times.append(time.perf_counter() - t0)
+        per_fit.append({e: v - before.get(e, 0)
+                        for e, v in _build.KERNELS["kmeans"].by_entry.items()})
+    want = {"px_kmeans_seed_step": ML_K - 1, "px_kmeans_lloyd": ML_ITERS, "px_kmeans_assign": 1}
+    if any(p != want for p in per_fit):
+        raise AssertionError(f"kmeans_fit launches {per_fit}, want {want} a fit")
+    for f in fits[1:]:
+        if not (np.array_equal(f[0], fits[0][0]) and np.array_equal(f[1], fits[0][1])):
+            raise AssertionError(
+                "kmeans_fit: two fits with one seed differ: "
+                f"{int((f[0] != fits[0][0]).any(1).sum())} centers, "
+                f"{int((f[1] != fits[0][1]).sum())} assignments")
+    truth = cent.cpu().numpy()
+    near = np.linalg.norm(truth[:, None, :] - fits[0][0][None], axis=2).min(1)
+    if near.max() >= 0.5:
+        raise AssertionError(f"kmeans_fit: a true center is {near.max()} sigma from the fit")
+    out["fit"] = {"n": ML_N, "d": ML_D, "k": ML_K, "iters": ML_ITERS, "seconds": times,
+                  "median_s": sorted(times)[1], "launches_per_fit": per_fit[0],
+                  "max_center_err_sigma": float(near.max()), "deterministic": True}
+    log(json.dumps({"phase": "ml.fit", "ok": True, **out["fit"]}))
+    del x, cent, fits
+
+    # 2. CoresetTree over a 4M-point stream, then a fit on its coreset
+    g = torch.Generator(device=dev)
+    g.manual_seed(19)
+    tcent = torch.randn(TREE_K, ML_D, generator=g, device=dev) * ML_SPREAD
+    tree = CoresetTree(m=TREE_M, k=TREE_K, seed=3, device=dev)
+    upd = []
+    t_all = time.perf_counter()
+    for _ in range(TREE_BATCHES):
+        ids = torch.randint(0, TREE_K, (TREE_BATCH,), generator=g, device=dev)
+        batch = (tcent[ids] + torch.randn(TREE_BATCH, ML_D, generator=g, device=dev)).cpu().numpy()
+        t0 = time.perf_counter()
+        tree.update(batch)
+        upd.append(time.perf_counter() - t0)
+    pts, w = tree.query()
+    tree_s = time.perf_counter() - t_all
+    c_tree, _ = kmeans_fit(pts, TREE_K, weights=w, seed=7, device=dev)
+    d_true = np.linalg.norm(tcent.cpu().numpy()[:, None, :] - c_tree[None], axis=2).min(1)
+    rms = d_true / math.sqrt(ML_D)  # per-dimension, in sigma
+    stream = TREE_BATCHES * TREE_BATCH
+    if rms.max() >= 1.0 or len(pts) > TREE_M or abs(float(w.sum()) / stream - 1) > 0.05:
+        raise AssertionError(f"CoresetTree: centers {d_true} (per dimension {rms}), "
+                             f"{len(pts)} points of weight {w.sum()} for {stream}")
+    out["tree"] = {"m": TREE_M, "k": TREE_K, "batches": TREE_BATCHES, "batch": TREE_BATCH,
+                   "seconds": tree_s, "update_median_s": sorted(upd)[len(upd) // 2],
+                   "update_max_s": max(upd), "levels": sorted(tree._levels),
+                   "weight_over_stream": float(w.sum()) / stream,
+                   "center_err_sigma": d_true.tolist(),
+                   "center_err_sigma_per_dim_max": float(rms.max())}
+    log(json.dumps({"phase": "ml.tree", "ok": True, **out["tree"]}))
+
+    # 3. the service_endpoints pattern from PxL text
+    t0 = time.perf_counter()
+    ts = TableStore()
+    table = build_ml_table(ts)
+    out["data_s"] = time.perf_counter() - t0
+    log(json.dumps({"phase": "ml.data", "rows": ML_ROWS, "seconds": out["data_s"]}))
+    cols = _table_columns(table, ("service", "req_path", "embedding"))
+    path_vals = table.dictionaries["req_path"].values()
+    tmpl_names = sorted({_endpoint_of(p) for p in path_vals})
+    tmpl_of = np.array([tmpl_names.index(_endpoint_of(p)) for p in path_vals])
+    want_n = np.bincount(tmpl_of[cols["req_path"]], minlength=len(tmpl_names))
+
+    def query(src):
+        q = compile_pxl(src, ts.schemas())
+        res = execute_plan(q.plan, ts, device=dev)["out"]
+        torch.cuda.synchronize(dev)
+        return res
+
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = query(TEMPLATES_SCRIPT)
+        walls.append(time.perf_counter() - t0)
+        got = dict(zip(res.decoded("endpoint"), np.asarray(res.columns["n"]).tolist()))
+        if got != dict(zip(tmpl_names, want_n.tolist())):
+            raise AssertionError(f"service endpoints: {got} != the oracle's counts")
+    out["endpoints"] = {"rows": ML_ROWS, "endpoints": len(got), "walls_s": walls,
+                        "median_s": sorted(walls)[1]}
+    log(json.dumps({"phase": "ml.endpoints", "ok": True, **out["endpoints"]}))
+
+    # 4. _kmeans_fit per service, each model against the port's plain route
+    # (the CPU) fitting the same group with the card's draws
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = query(KMEANS_SCRIPT)
+        walls.append(time.perf_counter() - t0)
+    svc_names = table.dictionaries["service"].values()
+    emb_dict = table.dictionaries["embedding"]
+    checked, near_tie, worst = 0, [], 0.0
+    with plain_fit_with_card_draws(dev) as margins:
+        for svc, model in zip(res.decoded("service"), res.decoded("model")):
+            counts = np.bincount(cols["embedding"][cols["service"] == svc_names.index(svc)],
+                                 minlength=256)
+            nz = np.nonzero(counts > 0)[0]
+            uda = KMeansFitUDA()
+            uda.init(1, None, "cpu")
+            margins.clear()
+            want_c = np.asarray(json.loads(uda.fit_group(emb_dict.decode(nz), counts[nz]))
+                                ["centroids"])
+            if min(margins.values()) < 1e-5:
+                near_tie.append({"service": svc, **margins})
+                continue
+            got_c = np.asarray(json.loads(model)["centroids"])
+            err = float(np.abs(got_c - want_c).max()) if got_c.shape == want_c.shape else math.inf
+            worst = max(worst, err)
+            checked += 1
+    if res.num_rows != ML_SERVICES or worst > 1e-4 or checked <= ML_SERVICES // 2:
+        raise AssertionError(f"_kmeans_fit: {res.num_rows} models, {checked} checked "
+                             f"(near ties: {near_tie}), worst centroid err {worst}")
+    out["kmeans_query"] = {"rows": ML_ROWS, "models": res.num_rows, "walls_s": walls,
+                           "median_s": sorted(walls)[1], "checked_models": checked,
+                           "near_tie_models": near_tie, "max_centroid_err_vs_plain": worst}
+    log(json.dumps({"phase": "ml.kmeans_query", "ok": True, **out["kmeans_query"]}))
+    out["launches"] = read_launches("ml", ML_KERNELS)
+    log(json.dumps({"phase": "slice.ml", "ok": True,
+                    **{k: v for k, v in out.items() if k != "launches"},
+                    "launches": out["launches"]["kmeans"]}))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1683,7 +2165,7 @@ def main() -> int:
                     "nvcc_s": secs}))
 
     rows = (check_kernels(dev) + check_new_kernels(dev) + check_resident_kernels(dev)
-            + check_merge_kernel(dev))
+            + check_merge_kernel(dev) + check_kmeans_kernels(dev))
     sl, ts, table = run_slice(dev, args.profile)
     log(json.dumps({"phase": "slice", "card": smi, **sl}))
     paths = {"config1": sl["launches"]}
@@ -1694,6 +2176,7 @@ def main() -> int:
     paths["device_join"] = run_device_join(dev, args.profile)["launches"]
     paths["resident"] = run_resident(dev)["launches"]
     paths["sorted"] = run_sorted(dev)["launches"]
+    paths["ml"] = run_ml(dev)["launches"]
     log(json.dumps({"phase": "launches", "per_path": paths}))
     idle = [lib for lib in _build.KERNELS if not any(p_[lib] for p_ in paths.values())]
     if idle:

@@ -1260,13 +1260,18 @@ class PlanExecutor:
             if uda.device_finalize:
                 full = uda.finalize_from_device(
                     uda.finalize_device(state[out_name]).cpu().numpy())
+            elif uda.needs_dict:
+                # model-fit UDA: finalize over the input DICTIONARY (unique
+                # values + multiplicities), emitting fresh strings
+                full = uda.finalize_dict(state[out_name].cpu().numpy(),
+                                         val_dicts[out_name])
             else:
                 full = uda.finalize_host(tree_map(lambda t: t.cpu().numpy(),
                                                   state[out_name]))
             vals = np.asarray(full)[:G]
             out_dt = (uda.out_type(None) if uda.nullary
                       else uda.out_type(in_types[out_name]))
-            if out_name in val_dicts:
+            if out_name in val_dicts and not uda.needs_dict:
                 cols[out_name] = _decode_picker_codes(vals, val_dicts[out_name])
                 dicts[out_name] = val_dicts[out_name]
                 dtypes[out_name] = out_dt
@@ -1465,6 +1470,8 @@ class PlanExecutor:
             st = state_np[out_name]
             if isinstance(st, _FinalizedCol):
                 full = uda.finalize_from_device(st.col)
+            elif uda.needs_dict:
+                full = uda.finalize_dict(st, val_dicts[out_name])
             else:
                 full = uda.finalize_host(st)
             vals = np.asarray(full)[gids]
@@ -1475,7 +1482,7 @@ class PlanExecutor:
                 out_dt = uda.out_type(in_types[out_name])
             else:
                 out_dt = uda.out_type(_dtype_of(full))
-            if val_dicts and out_name in val_dicts:
+            if val_dicts and out_name in val_dicts and not uda.needs_dict:
                 # dict-valued picker: the state holds CODES; out-of-range
                 # (all-null group sentinel) decodes to null
                 cols[out_name] = _decode_picker_codes(vals, val_dicts[out_name])

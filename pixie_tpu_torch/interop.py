@@ -12,13 +12,19 @@ one importing the other:
                                      with the reference's tree shapes and
                                      dtypes (MeanUDA {"sum": f64[G],
                                      "count": i64[G]}, QuantileUDA f32[G, 514]);
-  * states_to_numpy(states)        — the inverse.
+  * states_to_numpy(states)        — the inverse;
+  * kmeans_from_numpy(k, max_iters, seed, centers) — a fitted KMeans
+                                     holding the reference's centers;
+  * coreset_tree_from_numpy(m, k, seed, levels, n_seen) — a CoresetTree
+                                     holding the reference's levels
+                                     ({level: (points, weights)}).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from pixie_tpu_torch.ml import CoresetTree, KMeans
 from pixie_tpu_torch.plan.plan import Plan
 from pixie_tpu_torch.status import InvalidArgument
 from pixie_tpu_torch.table.table import DEFAULT_BATCH_ROWS, TableStore
@@ -67,3 +73,28 @@ def states_to_numpy(states: dict) -> dict:
     """Inverse of states_from_numpy: every leaf as a host numpy array."""
     return {name: tree_map(lambda t: t.detach().cpu().numpy(), st)
             for name, st in states.items()}
+
+
+def kmeans_from_numpy(k: int, max_iters: int, seed: int, centers,
+                      device=None) -> KMeans:
+    """A fitted KMeans whose model is `centers` ([k, d], e.g. the reference
+    KMeans's `.centers`)."""
+    c = np.asarray(centers, dtype=np.float32)
+    if c.ndim != 2 or c.shape[0] != k:
+        raise InvalidArgument(f"centers of shape {c.shape} for k={k}")
+    return KMeans(k=k, max_iters=max_iters, seed=seed, centers=c, device=device)
+
+
+def coreset_tree_from_numpy(m: int, k: int, seed: int, levels: dict, n_seen: int,
+                            device=None) -> CoresetTree:
+    """A CoresetTree holding `levels` ({level: (points [., d], weights [.])},
+    e.g. the reference tree's `_levels`) after `n_seen` points."""
+    tree = CoresetTree(m=m, k=k, seed=seed, device=device)
+    for level, (pts, w) in levels.items():
+        pts = np.asarray(pts, dtype=np.float32)
+        w = np.asarray(w, dtype=np.float32)
+        if pts.ndim != 2 or w.shape != (len(pts),):
+            raise InvalidArgument(f"level {level}: points {pts.shape}, weights {w.shape}")
+        tree._levels[int(level)] = (pts, w)
+    tree._n_seen = int(n_seen)
+    return tree

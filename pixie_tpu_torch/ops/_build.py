@@ -47,6 +47,7 @@ SOURCES = {
     "join": "join.cu",
     "resident": "resident.cu",
     "merge": "merge.cu",
+    "kmeans": "kmeans.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

@@ -5,9 +5,9 @@ conditionals.cc, math_sketches.h, json_ops.cc, ...} (~300 builtins).  Device
 numeric functions are torch functions over column tensors; string functions
 are host functions evaluated over dictionary values (O(unique)).
 
-Not ported yet (they need packages a later slice brings): the metadata
+Not ported yet (they need a package a later slice brings): the metadata
 functions (upid_to_pod_name, ... and the ambient asid / _exec_hostname, slice
-6 with metadata/) and _predict_request_path_cluster (slice 5 with ml/).
+6 with metadata/).
 """
 from __future__ import annotations
 
@@ -293,6 +293,8 @@ def register_all(r: Registry) -> None:
     r.register(_host("_encode_sentence_piece", (_S,), _S,
                      _encode_sentence_piece))
     r.register(_host("_kmeans_inference", (_S, _S), _I, _kmeans_inference))
+    r.register(_host("_predict_request_path_cluster", (_S, _S), _S,
+                     _predict_request_path_cluster))
 
     # -------------------------------------------------------------------- UDAs
     r.register_uda("count", CountUDA)
@@ -379,6 +381,28 @@ def _kmeans_inference(embedding_json: str, model_json: str) -> int:
         return best
     except (ValueError, TypeError):
         return -1
+
+
+def _predict_request_path_cluster(req_path: str, clusters_json: str) -> str:
+    """Nearest request-path cluster by template similarity (reference
+    request_path_ops.cc PredictRequestPathClusterUDF: path × clustering
+    model → representative template)."""
+    import json as _json
+
+    from pixie_tpu_torch.ml.request_path import RequestPathClustering
+
+    try:
+        clusters = _json.loads(clusters_json)
+    except (ValueError, TypeError):
+        return ""
+    if not isinstance(clusters, list) or not clusters:
+        return ""
+    model = RequestPathClustering()
+    model.templates = sorted(
+        c.get("template", "") if isinstance(c, dict) else str(c)
+        for c in clusters
+    )
+    return model.predict(req_path)
 
 
 def _atoi(s: str) -> int:

@@ -310,6 +310,68 @@ class StddevUDA(VarianceUDA):
         return np.sqrt(super().finalize_host(state_np))
 
 
+class DictHistUDA(UDA):
+    """Base for aggregates over a dictionary-encoded column whose FINALIZE
+    needs the string values (model-fitting UDAs: kmeans, request-path
+    clustering — reference funcs/builtins/ml_ops.cc, request_path_ops.cc).
+
+    The state is a bounded per-group histogram of dictionary codes ([G, CAP]
+    counts), "add"-mergeable, and the model fit runs once at finalize over
+    the observed UNIQUE values with their multiplicities, not over rows.
+    Codes beyond CAP are dropped (the reference's bounded budget, as its
+    64-point coreset, exec/ml/coreset.h).  Distributed plans ship rows for
+    dict-input aggregates (parallel/distributed.py), so cross-agent code
+    spaces never mix.
+
+    The update is K1's count over the flattened id gid * CAP + code, so the
+    counts are int64 where the reference's are int32 (equal values).
+    """
+
+    dict_ok = True
+    needs_dict = True  # executor must call finalize_dict, not finalize_host
+    CAP = 256
+
+    def out_type(self, in_type):
+        return DataType.STRING
+
+    def init(self, num_groups, in_dtype, device):
+        return torch.zeros((num_groups, self.CAP), dtype=torch.int64, device=device)
+
+    def update(self, state, gid, value, mask, num_groups):
+        from pixie_tpu_torch.ops.groupby import masked_segment_count
+
+        code = value.to(torch.int32)
+        # null codes arrive as a huge sentinel (executor PICKER_NULL_SENTINEL)
+        # and overflow codes are dropped, so `code < CAP` handles both
+        ok = mask & (code >= 0) & (code < self.CAP)
+        flat = gid.to(torch.int32) * self.CAP + code.clamp(0, self.CAP - 1)
+        masked_segment_count(flat, num_groups * self.CAP, ok, out=state.view(-1))
+        return state
+
+    def reduce_ops(self):
+        return "add"
+
+    def finalize_host(self, state_np):
+        raise NotFound(
+            f"UDA {self.name} needs the input dictionary to finalize "
+            "(needs_dict); the executor must call finalize_dict"
+        )
+
+    def finalize_dict(self, state_np, dictionary) -> np.ndarray:
+        counts = np.asarray(state_np)
+        out = np.empty(counts.shape[0], dtype=object)
+        for g in range(counts.shape[0]):
+            nz = np.nonzero(counts[g] > 0)[0]
+            vals = dictionary.decode(nz.astype(np.int32)) if len(nz) else []
+            out[g] = self.fit_group(list(vals), counts[g][nz])
+        return out
+
+    def fit_group(self, values: list, weights) -> str:
+        """Fit one group's model over unique `values` with multiplicities
+        `weights`; returns the serialized model (a JSON string)."""
+        raise NotImplementedError
+
+
 class _SketchUDA(UDA):
     """Base of the log-histogram sketch UDAs: a [G, 514] float32 state."""
 

@@ -14,6 +14,7 @@ from pixie_tpu_torch.ops import _build
 from pixie_tpu_torch.ops import compact as k4
 from pixie_tpu_torch.ops import groupby as gb
 from pixie_tpu_torch.ops import join_device as jd
+from pixie_tpu_torch.ops import kmeans as km_ops
 from pixie_tpu_torch.ops import merge as m1
 from pixie_tpu_torch.ops import resident as rk
 from pixie_tpu_torch.ops.sketch import LogHistogram
@@ -318,3 +319,118 @@ px.display(df, 'output')
                  for f in (got, want))
     assert got.cnt.tolist() == want.cnt.tolist() and got.p50.tolist() == want.p50.tolist()
     np.testing.assert_allclose(got.avg_lat, want.avg_lat, rtol=1e-12, atol=0)
+
+
+# ------------------------------------------------------------ KM1-KM3
+
+
+def _km_data(dev, n, d, k, seed, spread=10.0):
+    rng = np.random.default_rng(seed)
+    cent = rng.normal(0, spread, (k, d)).astype(np.float32)
+    x = cent[rng.integers(0, k, n)] + rng.normal(0, 1, (n, d)).astype(np.float32)
+    c = x[rng.choice(n, k, replace=n < k)] + 0.25
+    return (torch.from_numpy(x).to(dev), torch.from_numpy(c.astype(np.float32)).to(dev),
+            torch.from_numpy((rng.random(n) + 0.5).astype(np.float32)).to(dev))
+
+
+def _scale(x, c):
+    """|x|^2 + max |c|^2 per point: the expansion's rounding is relative to it."""
+    return (x * x).sum(1) + (c * c).sum(1).max()
+
+
+#: (n, d, k): the fit's shape at test size, k = 1, more centers than a
+#: block's points, d not a multiple of 4, n not a multiple of the block,
+#: d over one shared-memory tile, k over one register tile
+_KM_SHAPES = [(1 << 16, 64, 64), (5000, 16, 1), (4099, 8, 300), (3001, 13, 7),
+              (1, 3, 1), (2000, 150, 200), (10000, 64, 129)]
+
+
+@pytest.mark.parametrize("n,d,k", _KM_SHAPES)
+def test_kmeans_assign_equals_plain(dev, n, d, k):
+    x, c, _w = _km_data(dev, n, d, k, 31)
+    before = _build.KERNELS["kmeans"].by_entry.get("px_kmeans_assign", 0)
+    ids, mind = km_ops.assign(x, c)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["kmeans"].by_entry["px_kmeans_assign"] == before + 1
+    ids0, mind0 = km_ops.assign_plain(x, c)
+    scale = _scale(x, c)
+    assert torch.all((mind - mind0).abs() <= 1e-5 * scale)
+    # ids equal except where the two nearest distances are within 1e-5
+    d_all = km_ops.sq_dists_plain(x, c)
+    two = torch.topk(d_all, min(2, k), dim=1, largest=False).values
+    gap = (two[:, -1] - two[:, 0]) if k > 1 else torch.full_like(mind0, float("inf"))
+    tie = gap <= 1e-5 * scale
+    assert torch.equal(ids[~tie], ids0[~tie])
+
+
+@pytest.mark.parametrize("n,d,k", _KM_SHAPES)
+def test_kmeans_lloyd_step_equals_plain(dev, n, d, k):
+    x, c, w = _km_data(dev, n, d, k, 32)
+    ones = torch.ones_like(w)
+    wsum, xsum = km_ops.lloyd_step(x, ones, c)
+    wsum0, xsum0 = km_ops.lloyd_step_plain(x, ones, c)
+    ids0, _ = km_ops.assign_plain(x, c)
+    assert torch.equal(wsum, wsum0)  # unit weights: exact counts
+    absx = torch.zeros_like(xsum0).index_add_(0, ids0, x.abs())
+    assert torch.all((xsum - xsum0).abs() <= 1e-5 * absx + 1e-6)
+    wsum, xsum = km_ops.lloyd_step(x, w, c)
+    wsum0, xsum0 = km_ops.lloyd_step_plain(x, w, c)
+    absx = torch.zeros_like(xsum0).index_add_(0, ids0, (x * w[:, None]).abs())
+    assert torch.all((wsum - wsum0).abs() <= 1e-6 * wsum0)
+    assert torch.all((xsum - xsum0).abs() <= 1e-5 * absx + 1e-6)
+
+
+def test_kmeans_lloyd_step_is_reproducible(dev):
+    x, c, w = _km_data(dev, 1 << 18, 64, 64, 33)
+    a = km_ops.lloyd_step(x, w, c)
+    b = km_ops.lloyd_step(x, w, c)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_kmeans_zero_weight_cluster_keeps_its_center(dev):
+    from pixie_tpu_torch.ml import kmeans as km
+
+    x, c, w = _km_data(dev, 4096, 12, 6, 34)
+    ids, _ = km_ops.assign(x, c)
+    w = torch.where(ids == 2, 0.0, w)
+    wsum, _xsum = km_ops.lloyd_step(x, w, c)
+    assert float(wsum[2]) == 0.0
+    newc = km._lloyd_centers(x, w, c, 1)
+    assert torch.equal(newc[2], c[2])
+
+
+@pytest.mark.parametrize("n,d", [(1 << 16, 64), (3001, 13), (1, 4), (4097, 150)])
+def test_kmeans_seed_step_equals_plain(dev, n, d):
+    x, c, w = _km_data(dev, n, d, 4, 35)
+    mind = torch.full((n,), float("inf"), device=dev)
+    mind0 = mind.clone()
+    for j in range(c.shape[0]):
+        p = km_ops.seed_step(x, w, c[j], mind)
+        p0 = km_ops.seed_step_plain(x, w, c[j], mind0)
+        scale = (x * x).sum(1) + (c[j] * c[j]).sum()
+        assert torch.all((mind - mind0).abs() <= 1e-5 * scale)
+        assert torch.all((p - p0).abs() <= 1e-5 * scale * w)
+
+
+def test_kmeans_fit_on_the_card_is_deterministic_and_counts_launches(dev):
+    from pixie_tpu_torch.ml import kmeans_fit
+
+    x, _c, w = _km_data(dev, 1 << 20, 64, 16, 36, spread=300.0)
+    _build.reset_launches()
+    a = kmeans_fit(x, 16, weights=w, seed=5, device=dev)
+    by = dict(_build.KERNELS["kmeans"].by_entry)
+    assert by == {"px_kmeans_seed_step": 15, "px_kmeans_lloyd": 10, "px_kmeans_assign": 1}
+    b = kmeans_fit(x, 16, weights=w, seed=5, device=dev)
+    assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+
+
+def test_kmeans_cuda_tensor_never_reaches_the_plain_versions(dev, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version called on a CUDA tensor")
+
+    for name in ("sq_dists_plain", "assign_plain", "lloyd_step_plain", "seed_step_plain"):
+        monkeypatch.setattr(km_ops, name, boom)
+    x, c, w = _km_data(dev, 1000, 8, 3, 37)
+    km_ops.assign(x, c)
+    km_ops.lloyd_step(x, w, c)
+    km_ops.seed_step(x, w, c[0], torch.full((1000,), float("inf"), device=dev))
