@@ -150,18 +150,30 @@ JOIN_ROWS = 1 << 24
 CONFIG3_ROWS = 1 << 24
 EXEC_JOIN_ROWS = 1 << 22
 #: (library, C entry point) of the kernels each slice phase must launch
-CONFIG1_KERNELS = [("segment_reduce", "px_segment_count"),
+C1 = ("chain", "px_chain_run")
+CONFIG1_KERNELS = [C1, ("segment_reduce", "px_segment_count"),
                    ("segment_reduce", "px_segment_sum_f64"),
                    ("loghist_update", "px_loghist_update"),
                    ("loghist_quantile", "px_loghist_quantile"),
                    ("resident", "px_resident_fold")]
-SELECT_KERNELS = [("compact", "px_compact"), ("resident", "px_resident_fold")]
-CONFIG3_KERNELS = [("segment_reduce", "px_segment_sum_i64"), ("compact", "px_compact"),
+SELECT_KERNELS = [C1, ("compact", "px_compact"), ("resident", "px_resident_fold")]
+CONFIG3_KERNELS = [C1, ("segment_reduce", "px_segment_sum_i64"), ("compact", "px_compact"),
                    ("resident", "px_resident_fold")]
-JOIN_KERNELS = [("compact", "px_compact"), ("join", "px_join_build"),
+JOIN_KERNELS = [C1, ("compact", "px_compact"), ("join", "px_join_build"),
                 ("join", "px_join_probe"), ("join", "px_join_expand")]
+#: config #2 runs the whole aggregate path; config #5 and the cluster stream
+#: finalize on the host (finalize_partial), so K3 is not theirs
+CONFIG2_KERNELS = [C1, ("segment_reduce", "px_segment_count"),
+                   ("segment_reduce", "px_segment_sum_f64"),
+                   ("loghist_update", "px_loghist_update"),
+                   ("loghist_quantile", "px_loghist_quantile")]
+CONFIG5_KERNELS = [C1, ("segment_reduce", "px_segment_count"),
+                   ("loghist_update", "px_loghist_update")]
+CLUSTER_STREAM_KERNELS = [C1, ("segment_reduce", "px_segment_count"),
+                          ("segment_reduce", "px_segment_sum_f64"),
+                          ("loghist_update", "px_loghist_update")]
 RESIDENT_KERNELS = [("resident", "px_resident_fold"), ("resident", "px_resident_move")]
-CONFIG4_KERNELS = [("segment_reduce", "px_segment_count"),
+CONFIG4_KERNELS = [C1, ("segment_reduce", "px_segment_count"),
                    ("segment_reduce", "px_segment_sum_f64"),
                    ("loghist_update", "px_loghist_update"),
                    ("merge", "px_merge_states"), ("resident", "px_resident_fold")]
@@ -986,9 +998,11 @@ def run_slice(dev, with_profile: bool) -> dict:
     first_s = time.perf_counter() - t0
     launches = read_launches("config #1", CONFIG1_KERNELS)
     log(json.dumps({"phase": "slice.launches", "per_query": launches}))
+    check_leaves("config1", res.exec_stats)
     check = oracle_check(table, res)
     log(json.dumps({"phase": "slice.oracle", "ok": True, **check}))
-    routes = stream_and_warm(query, "config #1", with_profile)
+    # always profiled: the warm idle share is a headline of the chain kernel
+    routes = stream_and_warm(query, "config #1", with_profile=True)
     analyzed = execute_plan(plan, ts, device=dev, analyze=True)["output"].exec_stats
     return {"launches": launches, "first_query_s": first_s,
             "first_query_h2d_bytes": res.exec_stats["h2d_bytes"], **routes,
@@ -1049,6 +1063,7 @@ def run_select(dev, ts, table, with_profile: bool) -> dict:
         # the first select admits its feeds (R1); head(n) reads them warm
         launches = read_launches(label, SELECT_KERNELS if head is None else
                                  [k for k in SELECT_KERNELS if k[0] != "resident"])
+        check_leaves(label, res.exec_stats)
         if res.num_rows != len(want_rows):
             raise AssertionError(f"{label}: {res.num_rows} rows, oracle {len(want_rows)}")
         for k in names:
@@ -1122,6 +1137,7 @@ def run_config3(dev) -> dict:
     _build.reset_launches()
     res = query()
     launches = read_launches("config #3", CONFIG3_KERNELS)
+    check_leaves("config3", res.exec_stats)
     # oracle: int64 sums per pod, then per service (svc index = pod % 24)
     pod_idx, rx, tx = (np.concatenate(v) for v in (pod_idx, rx, tx))
     svc_of_pod = np.arange(n_pods) % 24
@@ -1638,6 +1654,8 @@ def run_config4(dev) -> dict:
     res = query()
     first_s = time.perf_counter() - t0
     launches = read_launches("config #4", CONFIG4_KERNELS)
+    check_leaves("config4", {"chain_leaves": sum(
+        a.get("chain_leaves", 0) for a in res.exec_stats["agents"].values())})
     check = cluster_oracle(tables, res)
     log(json.dumps({"phase": "config4.oracle", "ok": True, **check}))
     routes = stream_and_warm(query, "config #4", with_profile=True)
@@ -2135,6 +2153,547 @@ def run_ml(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------ C1: the chain kernel
+
+#: the `_dev` opcodes held against the plain interpreter at edge values:
+#: (opcode, argument kinds) — B, I, F for bool, int64, float64
+C1_OPS = ([(op, k) for op in ("add", "subtract", "multiply", "modulo", "floordiv", "divide",
+                              "pow", "eq", "ne", "lt", "le", "gt", "ge")
+           for k in ("II", "FF", "IF", "FI")]
+          + [(op, k) for op in ("abs", "negate", "log", "log2", "log10", "exp", "sqrt", "ceil",
+                                "floor", "round", "invert", "identity") for k in ("I", "F")]
+          + [("bin", "II"), ("approx_eq", "FF"), ("eq", "BB"), ("ne", "BB"), ("and", "BB"),
+             ("or", "BB"), ("not", "B"), ("select", "BII"), ("select", "BFF"),
+             ("select", "BBB")])
+C1_INT_EDGES = [-(2 ** 63), 2 ** 63 - 1, 0, -1, 1, -7, 7, 2, -2, 3, 10 ** 12, -(10 ** 12)]
+C1_FLT_EDGES = [math.nan, math.inf, -math.inf, 0.0, -0.0, 0.5, 1.5, 2.5, -0.5, -2.5, 1e-300,
+                1e300, -7.25, 3.0, 1e-9, 2.0 ** 53 + 1]
+
+
+def c1_edge_column(kind: str, n: int, rng, shift: int) -> np.ndarray:
+    """n values with every edge value at the front, in an order shifted by
+    `shift` so that two columns pair each edge with every other."""
+    if kind == "B":
+        return rng.random(n) < 0.5
+    edges = np.array(C1_FLT_EDGES if kind == "F" else C1_INT_EDGES,
+                     dtype=np.float64 if kind == "F" else np.int64)
+    e = len(edges)
+    v = (rng.normal(0, 100, n) if kind == "F"
+         else rng.integers(-1000, 1000, n).astype(np.int64))
+    idx = np.arange(e * e)
+    v[: e * e] = edges[(idx // e ** shift) % e]
+    return v
+
+
+def c1_compare(label: str, got, want) -> float:
+    """Bit for bit (a NaN equals a NaN); a float mismatch reports its ULP
+    distance and stops the run."""
+    import torch
+
+    if got is None and want is None:
+        return 0.0
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"C1 {label}: {got.dtype}{tuple(got.shape)} against "
+                             f"{want.dtype}{tuple(want.shape)}")
+    if got.dtype == torch.float64:
+        g, w = got.cpu().numpy(), want.cpu().numpy()
+        same = (np.isnan(g) & np.isnan(w)) | (g.view(np.int64) == w.view(np.int64))
+        if not same.all():
+            ulps = np.abs(g.view(np.int64)[~same].astype(object)
+                          - w.view(np.int64)[~same].astype(object))
+            raise AssertionError(f"C1 {label}: {int((~same).sum())} floats differ, up to "
+                                 f"{max(ulps)} ulp")
+        return 0.0
+    if not torch.equal(got, want):
+        raise AssertionError(f"C1 {label}: differs from the plain interpreter")
+    return 0.0
+
+
+def chain_programs(dev):
+    """The four chain programs of the C1 check at config #1's feed (16M
+    rows): → [(label, kernel, feed columns, luts, scalars, limits, path)]."""
+    import torch
+
+    from pixie_tpu_torch.engine.executor import ChainKernel, GroupKey
+    from pixie_tpu_torch.plan import Call, Column, FilterOp, LimitOp, MapOp, lit
+    from pixie_tpu_torch.table.dictionary import Dictionary
+    from pixie_tpu_torch.types import DataType as DT
+    from pixie_tpu_torch.udf import registry
+    from pixie_tpu_torch.udf.udf import CountUDA, MeanUDA, QuantileUDA
+
+    rng = np.random.default_rng(21)
+    n = FEED
+    svc = Dictionary([f"svc-{i}" for i in range(N_SERVICES)])
+    t_step = 600 * SEC // ROWS
+    host = {"time_": np.arange(n, dtype=np.int64) * t_step,
+            "service": rng.integers(0, N_SERVICES, n).astype(np.int32),
+            "latency": rng.exponential(50.0, n),
+            "status": rng.choice(np.array([200, 404, 500]), n, p=[0.85, 0.05, 0.10])}
+    cols = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    all_types = {"time_": DT.TIME64NS, "service": DT.STRING, "latency": DT.FLOAT64,
+                 "status": DT.INT64}
+    not404 = FilterOp(expr=Call("not_equal", (Column("status"), lit(404))))
+    out = []
+
+    def luts_of(kern, extra=None):
+        return {k: torch.as_tensor(v).to(dev) for k, v in {**kern.luts, **(extra or {})}.items()}
+
+    # config #1: status != 404, group by service (dict) and status (int)
+    types1 = {k: all_types[k] for k in ("service", "latency", "status")}
+    kern = ChainKernel(types1, {"service": svc}, [not404], registry, "time_", dev)
+    lut = kern.ctx.ec._add_lut(np.array([200, 404, 500], dtype=np.int64))
+    keys = [GroupKey("service", "dict", N_SERVICES, DT.STRING, svc,
+                     key_sval=kern.ctx.sym["service"]),
+            GroupKey("status", "intdevice", 4, DT.INT64, src_name="status", lut_name=lut)]
+    lat = kern.ctx.sym["latency"]
+    kern.make_agg_step(keys, [("cnt", CountUDA(), None), ("avg_lat", MeanUDA(), lat),
+                              ("p50", QuantileUDA(0.5), lat)], N_SERVICES * 4)
+    out.append(("config #1 chain", kern, {k: cols[k] for k in types1}, luts_of(kern), {},
+                None, "config1"))
+    # config #2: + bin(time_, 10 s) and the window key with a runtime origin
+    kern = ChainKernel(dict(all_types), {"service": svc}, [not404, MapOp(exprs=[
+        ("time_", Call("bin", (Column("time_"), lit(10 * SEC)))),
+        ("service", Column("service")), ("status", Column("status")),
+        ("latency", Column("latency"))])], registry, "time_", dev)
+    keys = [GroupKey("time_", "window", 64, DT.TIME64NS, width=10 * SEC,
+                     key_sval=kern.ctx.sym["time_"], lut_name="__origin0"),
+            GroupKey("service", "dict", N_SERVICES, DT.STRING, svc,
+                     key_sval=kern.ctx.sym["service"])]
+    lat = kern.ctx.sym["latency"]
+    kern.make_agg_step(keys, [("cnt", CountUDA(), None), ("avg_lat", MeanUDA(), lat),
+                              ("p50", QuantileUDA(0.5), lat)], 64 * N_SERVICES)
+    out.append(("config #2 chain", kern, dict(cols), luts_of(kern),
+                {"__origin0": int(host["time_"][0] // (10 * SEC))}, None, "config2"))
+    # a select: a string-LUT predicate and a computed float column
+    kern = ChainKernel(dict(all_types), {"service": svc}, [
+        FilterOp(expr=Call("contains", (Column("service"), lit("svc-1")))),
+        MapOp(exprs=[("time_", Column("time_")), ("service", Column("service")),
+                     ("x", Call("add", (Call("multiply", (Column("latency"), lit(1e-3))),
+                                        Call("divide", (Column("status"), lit(7)))))),
+                     ("status", Column("status"))])], registry, "time_", dev)
+    kern.make_output_step(["time_", "service", "x", "status"])
+    out.append(("select chain", kern, dict(cols), luts_of(kern), {}, None, "select"))
+    # two limits
+    kern = ChainKernel(dict(all_types), {"service": svc}, [
+        FilterOp(expr=Call("equal", (Column("status"), lit(500)))), LimitOp(n=1 << 20),
+        FilterOp(expr=Call("greater", (Column("latency"), lit(10.0)))), LimitOp(n=100_000)],
+        registry, "time_", dev)
+    kern.make_output_step(["time_", "service", "latency", "status"])
+    out.append(("two-limit chain", kern, dict(cols), luts_of(kern), {}, kern.init_limits(),
+                "select"))
+    return out
+
+
+def chain_bound(kern, n: int) -> tuple[float, str]:
+    """Bytes the chain must move: each feed column its programs read, once,
+    and the mask, the group ids and each computed column written once."""
+    from pixie_tpu_torch.ops import chain as c1
+
+    read = {}
+    for seg in kern.segments:
+        for name, kind in zip(seg.binding.cols, seg.prog.col_kinds):
+            if not name.startswith("__"):
+                read[name] = c1.DTYPE[kind].itemsize
+    last = kern.segments[-1].prog
+    written = 1 + (4 if last.has_gid else 0) + sum(c1.DTYPE[k].itemsize
+                                                   for k in last.out_kinds)
+    return bound(n * (sum(read.values()) + written))
+
+
+def check_chain_kernel(dev) -> list[dict]:
+    """C1 against its plain interpreter on the same CUDA tensors: every
+    `_dev` opcode at edge values, then four chain programs at a 16M-row feed
+    (config #1's, config #2's, a select's, one with two limits), with
+    n_valid < n and an all-false mask; timed beside the plain interpreter."""
+    import torch
+
+    from pixie_tpu_torch.ops import chain as c1
+
+    kinds = {"B": c1.B, "I": c1.I64, "F": c1.F64}
+    rng = np.random.default_rng(23)
+    n_ops = 1 << 16
+    for op, ks in C1_OPS:
+        for const in (False, True):
+            consts = None
+            if const and len(ks) > 1:
+                consts = [None] * (len(ks) - 1) + [{"I": -3, "F": -2.5, "B": True}[ks[-1]]]
+            prog, bnd = c1.op_program(op, [kinds[k] for k in ks], consts)
+            cols = [torch.from_numpy(c1_edge_column(k, n_ops, rng, i)).to(dev)
+                    for i, k in enumerate(ks) if f"a{i}" in bnd.cols]
+            _m, _g, got = c1.run(prog, cols, [], [], n_ops, dev)
+            _m, _g, want = c1.run_plain(prog, cols, [], [], n_ops, dev)
+            torch.cuda.synchronize()
+            c1_compare(f"{op}({ks}){' const' if consts else ''}", got[0], want[0])
+    log(json.dumps({"check": "C1 opcodes", "ok": True, "cases": 2 * len(C1_OPS),
+                    "rows": n_ops}))
+
+    rows = []
+    chains = chain_programs(dev)
+    for label, kern, cols, luts, scalars, limits, path in chains:
+        n = FEED
+
+        def run(runner, n_valid=n, cols=cols, kern=kern, luts=luts, scalars=scalars,
+                limits=limits):
+            return kern.run_segments(kern.segments, cols, n, n_valid, -(2 ** 63),
+                                     2 ** 63 - 1, limits, luts, scalars, runner=runner)
+
+        for case, n_valid in (("", n), (", n_valid < n", n - 12345)):
+            got, want = run(c1.run, n_valid), run(c1.run_plain, n_valid)
+            torch.cuda.synchronize()
+            c1_compare(label + case + " mask", got[0], want[0])
+            c1_compare(label + case + " gid", got[1], want[1])
+            for j, (g, w) in enumerate(zip(got[2], want[2])):
+                c1_compare(f"{label}{case} output {j}", g, w)
+            c1_compare(label + case + " consumed", got[3], want[3])
+            log(json.dumps({"check": "C1 " + label + case, "ok": True,
+                            "kept": int(got[0].sum()), "programs": len(kern.segments)}))
+        b_ms, b_by = chain_bound(kern, n)
+        rows.append({
+            "name": f"chain C1 ({label})", "route": "cuda",
+            "source": "pixie_tpu_torch/csrc/chain.cu",
+            "replaces": "pixie_tpu/engine/executor.py:566-765 ChainKernel (_base_mask, "
+                        "_apply_steps, key/value builders; groupby.py:21,73; eval.py:57)",
+            "entry": C1, "path": path, "max_abs_err": 0.0,
+            "ms": cuda_ms(lambda: run(c1.run), 20),
+            "plain_ms": cuda_ms(lambda: run(c1.run_plain), 5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            # no single PyTorch call computes a chain program
+            "library_ms": None,
+            "shape": {"rows": n, "programs": len(kern.segments),
+                      "instructions": [len(s.prog.code) for s in kern.segments]},
+        })
+    # an all-false mask (every status 404 under config #1's filter)
+    label, kern, cols, luts, scalars, limits, _p = chains[0]
+    cols = dict(cols, status=torch.full_like(cols["status"], 404))
+    got = kern.run_segments(kern.segments, cols, FEED, FEED, -(2 ** 63), 2 ** 63 - 1, None,
+                            luts, {}, runner=c1.run)
+    want = kern.run_segments(kern.segments, cols, FEED, FEED, -(2 ** 63), 2 ** 63 - 1, None,
+                             luts, {}, runner=c1.run_plain)
+    c1_compare("all-false mask", got[0], want[0])
+    c1_compare("all-false gid", got[1], want[1])
+    if bool(got[0].any()):
+        raise AssertionError("C1: the all-false chain kept rows")
+    log(json.dumps({"check": "C1 all-false mask", "ok": True}))
+    return rows
+
+
+def check_leaves(label: str, stats: dict) -> int:
+    """Every chain value of the phase lowered into C1: no leaf."""
+    leaves = int(stats.get("chain_leaves", -1))
+    log(json.dumps({"phase": f"{label}.chain_leaves", "chain_leaves": leaves}))
+    if leaves != 0:
+        raise AssertionError(f"{label}: {leaves} chain leaves (want 0)")
+    return leaves
+
+
+# --------------------------------------------- config #2, #5, cluster stream
+
+
+def config2_plan():
+    """bench.http_plan(windowed_ns=10 s, quantiles=True) with the port's plan API."""
+    from pixie_tpu_torch.plan import (AggExpr, AggOp, Call, Column, FilterOp, MapOp,
+                                      MemorySinkOp, MemorySourceOp, Plan, lit)
+
+    p = Plan()
+    node = p.add(FilterOp(expr=Call("not_equal", (Column("status"), lit(404)))),
+                 parents=[p.add(MemorySourceOp(table="http_events"))])
+    node = p.add(MapOp(exprs=[("time_", Call("bin", (Column("time_"), lit(10 * SEC)))),
+                              ("service", Column("service")), ("status", Column("status")),
+                              ("latency", Column("latency"))]), parents=[node])
+    agg = p.add(AggOp(groups=["time_", "service"], values=[
+        AggExpr("cnt", "count", None), AggExpr("avg_lat", "mean", "latency"),
+        AggExpr("p50", "p50", "latency"), AggExpr("p99", "p99", "latency")],
+        windowed=True), parents=[node])
+    p.add(MemorySinkOp(name="output"), parents=[agg])
+    return p
+
+
+class SketchOracle:
+    """Per group: count, sum and the sketch histogram, accumulated over
+    chunks in plain numpy (no code shared with the port's sketch)."""
+
+    def __init__(self, ng: int):
+        self.cnt = np.zeros(ng, np.int64)
+        self.sum = np.zeros(ng)
+        self.hist = np.zeros(ng * WIDTH, np.int64)
+        self.ng = ng
+
+    def add(self, key, lat) -> None:
+        self.cnt += np.bincount(key, minlength=self.ng)
+        self.sum += np.bincount(key, weights=lat, minlength=self.ng)
+        x = np.maximum(lat.astype(np.float32), np.float32(MIN_VALUE))
+        bins = np.clip(np.ceil(np.log(x) / np.float32(math.log(GAMMA))).astype(np.int64) + 1,
+                       0, WIDTH - 1)
+        bins[lat <= MIN_VALUE] = 0
+        self.hist += np.bincount(key * WIDTH + bins, minlength=self.ng * WIDTH)
+
+    def quantile(self, q: float) -> np.ndarray:
+        """The sketch value of quantile q: the first bin whose running count
+        reaches q of the group's total, as gamma^(idx - 1.5)."""
+        cum = np.cumsum(self.hist.reshape(self.ng, WIDTH), axis=1)
+        idx = np.minimum((cum < q * cum[:, -1:]).sum(axis=1), WIDTH - 1)
+        return np.where(idx <= 0, 0.0, GAMMA ** (idx - 1.5))
+
+
+def check_bins(label: str, got, want) -> int:
+    """Quantiles in the oracle's sketch bin or the next; → exact bins."""
+    ratio = np.asarray(got) / want
+    in_bin = (np.isclose(ratio, 1.0, rtol=1e-12) | np.isclose(ratio, GAMMA, rtol=1e-12)
+              | np.isclose(ratio, 1 / GAMMA, rtol=1e-12))
+    if not in_bin.all():
+        raise AssertionError(f"{label} outside the oracle's sketch bin: {np.asarray(got)[~in_bin]}")
+    return int(np.isclose(ratio, 1.0, rtol=1e-12).sum())
+
+
+def run_config2(dev, ts, table) -> dict:
+    """Bench config #2 over the slice's 64M-row table: windowed p50 and p99
+    per (10 s window, service), against a numpy oracle."""
+    import torch
+
+    from pixie_tpu_torch.engine import execute_plan
+    from pixie_tpu_torch.ops import _build
+
+    plan = config2_plan()
+
+    def query():
+        r = execute_plan(plan, ts, device=dev)["output"]
+        torch.cuda.synchronize(dev)
+        return r
+
+    _build.reset_launches()
+    res = query()
+    launches = read_launches("config #2", CONFIG2_KERNELS)
+    leaves = check_leaves("config2", res.exec_stats)
+    cols = _table_columns(table, ("time_", "service", "latency", "status"))
+    sel = cols["status"] != 404
+    w = cols["time_"][sel] // (10 * SEC)
+    w0 = int(w.min())
+    key = (w - w0) * N_SERVICES + cols["service"][sel].astype(np.int64)
+    ng = int(key.max()) + 1
+    orc = SketchOracle(ng)
+    orc.add(key, cols["latency"][sel])
+    got_key = ((res.columns["time_"] // (10 * SEC) - w0) * N_SERVICES
+               + res.columns["service"].astype(np.int64))
+    if res.num_rows != int((orc.cnt > 0).sum()):
+        raise AssertionError(f"config #2: {res.num_rows} groups, oracle {(orc.cnt > 0).sum()}")
+    if not np.array_equal(res.columns["cnt"], orc.cnt[got_key]):
+        raise AssertionError("config #2: counts differ from the oracle")
+    if not np.allclose(res.columns["avg_lat"], (orc.sum / np.maximum(orc.cnt, 1))[got_key],
+                       rtol=1e-9, atol=0):
+        raise AssertionError("config #2: means differ from the oracle beyond rtol 1e-9")
+    exact = {q: check_bins(f"config #2 {q}", res.columns[q], orc.quantile(v)[got_key])
+             for q, v in (("p50", 0.5), ("p99", 0.99))}
+    log(json.dumps({"phase": "config2.oracle", "ok": True, "groups": res.num_rows,
+                    "exact_bins": exact}))
+    routes = stream_and_warm(query, "config #2", with_profile=True)
+    for k in ("profile_stream", "profile_warm"):
+        routes[k]["top"] = routes[k]["top"][:8]
+    out = {"rows": ROWS, "groups": res.num_rows, "launches": launches, "chain_leaves": leaves,
+           **routes, "rows_per_s": ROWS / routes["warm_median_s"],
+           "stream_rows_per_s": ROWS / routes["stream_median_s"]}
+    log(json.dumps({"phase": "slice.config2", "ok": True,
+                    **{k: v for k, v in out.items() if k != "launches"}}))
+    return out
+
+
+#: bench_config5's script and shape (bench.py:333-420, --stream-rows default)
+CONFIG5_SCRIPT = """
+df = px.DataFrame(table='http_events').stream()
+df = df.rolling('10s').agg(cnt=('latency', px.count), p50=('latency', px.p50))
+px.display(df, 'win')
+"""
+CONFIG5_ROWS = 100_000_000
+CONFIG5_CHUNK = 1 << 21
+
+
+def run_config5(dev) -> dict:
+    """bench_config5 on the card: a writer appends 2^21-row chunks (seed 3)
+    while a poller thread polls the windowed StreamQuery on a 200 ms
+    cadence; every 10 s window is emitted exactly once with the oracle's
+    count and p50 bin."""
+    import threading
+
+    import torch
+
+    from pixie_tpu_torch.engine.stream import stream_pxl
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.table import TableStore
+    from pixie_tpu_torch.types import DataType as DT, Relation
+
+    ts = TableStore()
+    ts.create("http_events", Relation.of(("time_", DT.TIME64NS), ("service_id", DT.INT64),
+                                         ("latency", DT.FLOAT64)),
+              batch_rows=1 << 16, max_bytes=1 << 36)
+    sq = stream_pxl(CONFIG5_SCRIPT, ts, device=dev)
+    rng = np.random.default_rng(3)
+    svc = rng.integers(0, N_SERVICES, CONFIG5_CHUNK)
+    lat = rng.exponential(50.0, CONFIG5_CHUNK)
+    t = ts.table("http_events")
+    emitted, polls, errors = [], [0], []
+    stop = threading.Event()
+
+    def poller():
+        try:
+            torch.cuda.set_device(dev)
+            while not stop.is_set():
+                got = sq.poll()
+                polls[0] += 1
+                if got:
+                    emitted.append(got["win"])
+                if not sq.lagging():
+                    stop.wait(0.2)
+        except BaseException as e:  # surfaced by the writer below
+            errors.append(e)
+
+    rows = CONFIG5_ROWS
+    t_step = 600 * SEC // rows
+    th = threading.Thread(target=poller, daemon=True)
+    _build.reset_launches()
+    written = 0
+    t0 = time.perf_counter()
+    th.start()
+    while written < rows:
+        n = min(CONFIG5_CHUNK, rows - written)
+        t.write({"time_": np.arange(written, written + n, dtype=np.int64) * t_step,
+                 "service_id": svc[:n], "latency": lat[:n]})
+        written += n
+    stop.set()
+    th.join()
+    if errors:
+        raise errors[0]
+    fin = sq.close()
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    if fin:
+        emitted.append(fin["win"])
+    launches = read_launches("config #5", CONFIG5_KERNELS)
+    leaves = check_leaves("config5", sq.stats)
+    # oracle: the replayed chunk's latencies under each chunk's times
+    orc = SketchOracle(600 * SEC // (10 * SEC) + 1)
+    for off in range(0, rows, CONFIG5_CHUNK):
+        n = min(CONFIG5_CHUNK, rows - off)
+        orc.add((np.arange(off, off + n, dtype=np.int64) * t_step) // (10 * SEC), lat[:n])
+    wins = np.concatenate([r.columns["time_"] for r in emitted])
+    cnts = np.concatenate([r.columns["cnt"] for r in emitted])
+    p50 = np.concatenate([r.columns["p50"] for r in emitted])
+    if len(np.unique(wins)) != len(wins):
+        raise AssertionError("config #5: a window was emitted twice")
+    idx = wins // (10 * SEC)
+    if set(idx.tolist()) != set(np.nonzero(orc.cnt)[0].tolist()):
+        raise AssertionError("config #5: emitted windows differ from the oracle's")
+    if int(cnts.sum()) != rows or not np.array_equal(cnts, orc.cnt[idx]):
+        raise AssertionError("config #5: window counts differ from the oracle")
+    exact = check_bins("config #5 p50", p50, orc.quantile(0.5)[idx])
+    out = {"rows": rows, "chunk": CONFIG5_CHUNK, "windows": int(len(wins)),
+           "polls": polls[0], "seconds": secs, "rows_per_s": rows / secs,
+           "p50_exact_bins": exact, "feeds": sq.stats.get("feeds", 0),
+           "h2d_bytes": sq.stats.get("h2d_bytes", 0), "chain_leaves": leaves,
+           "launches": launches}
+    log(json.dumps({"phase": "slice.config5", "ok": True,
+                    **{k: v for k, v in out.items() if k != "launches"}}))
+    return out
+
+
+CLUSTER_STREAM_SCRIPT = """
+df = px.DataFrame(table='http_events').stream()
+df = df[df.status != 404]
+df = df.rolling('10s').groupby('service').agg(
+    cnt=('latency', px.count), avg_lat=('latency', px.mean), p50=('latency', px.p50))
+px.display(df, 'win')
+"""
+CLUSTER_STREAM_CHUNKS = 16
+
+
+def _emitted_frame(results) -> dict:
+    """(window, service) → (count, mean, p50) over a stream's emissions."""
+    out = {}
+    for r in results:
+        svc = r.decoded("service")
+        for i in range(r.num_rows):
+            k = (int(r.columns["time_"][i]), svc[i])
+            if k in out:
+                raise AssertionError(f"cluster stream: group {k} emitted twice")
+            out[k] = (int(r.columns["cnt"][i]), float(r.columns["avg_lat"][i]),
+                      float(r.columns["p50"][i]))
+    return out
+
+
+def run_cluster_stream(dev) -> dict:
+    """ClusterStreamQuery over 8 agent stores (config #4's 2M rows each,
+    written in 16 chunks with a poll after each): the emitted union equals
+    one StreamQuery over a store holding every agent's rows."""
+    import torch
+
+    from pixie_tpu_torch.engine.stream import stream_pxl
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.parallel import LocalCluster
+    from pixie_tpu_torch.parallel.streaming import ClusterStreamQuery
+    from pixie_tpu_torch.table import TableStore
+
+    rows_each = CONFIG4_ROWS // CONFIG4_AGENTS
+    stores, gens = {}, {}
+    for a in range(CONFIG4_AGENTS):
+        ts = TableStore()
+        t, _g = build_http_table(ts, 0)
+        gens[f"pem{a}"] = HttpRows(t, rows_each)
+        stores[f"pem{a}"] = ts
+    union = TableStore()
+    ut, _g = build_http_table(union, 0)
+    ugens = [HttpRows(ut, rows_each) for _ in range(CONFIG4_AGENTS)]
+    cs = ClusterStreamQuery(LocalCluster(stores, device=dev), CLUSTER_STREAM_SCRIPT)
+    sq = stream_pxl(CLUSTER_STREAM_SCRIPT, union, device=dev)
+    step = rows_each // CLUSTER_STREAM_CHUNKS
+    emitted, union_emitted, poll_s = [], [], []
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    for _k in range(CLUSTER_STREAM_CHUNKS):
+        for g in gens.values():
+            g.write(step)
+        tp = time.perf_counter()
+        got = cs.poll()
+        torch.cuda.synchronize(dev)
+        poll_s.append(time.perf_counter() - tp)
+        if got:
+            emitted.append(got["win"])
+    fin = cs.close()
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    if fin:
+        emitted.append(fin["win"])
+    launches = read_launches("cluster stream", CLUSTER_STREAM_KERNELS)
+    leaves = check_leaves("cluster_stream", cs.stats)
+    for _k in range(CLUSTER_STREAM_CHUNKS):
+        for g in ugens:
+            g.write(step)
+        got = sq.poll()
+        if got:
+            union_emitted.append(got["win"])
+    fin = sq.close()
+    if fin:
+        union_emitted.append(fin["win"])
+    a, b = _emitted_frame(emitted), _emitted_frame(union_emitted)
+    if a.keys() != b.keys():
+        raise AssertionError(f"cluster stream: {len(a)} groups, the union stream {len(b)}")
+    for k, (c, m, p) in a.items():
+        c2, m2, p2 = b[k]
+        if c != c2 or not math.isclose(m, m2, rel_tol=1e-9) or not (
+                p == p2 or math.isclose(p / p2, GAMMA, rel_tol=1e-12)
+                or math.isclose(p2 / p, GAMMA, rel_tol=1e-12)):
+            raise AssertionError(f"cluster stream: group {k}: {(c, m, p)} against "
+                                 f"{(c2, m2, p2)}")
+    if sum(c for c, _m, _p in a.values()) != int(
+            sum((_table_columns(t_.table("http_events"), ("status",))["status"] != 404).sum()
+                for t_ in stores.values())):
+        raise AssertionError("cluster stream: counts do not sum to the rows kept")
+    out = {"agents": CONFIG4_AGENTS, "rows": CONFIG4_ROWS, "polls": CLUSTER_STREAM_CHUNKS,
+           "groups": len(a), "seconds": secs, "rows_per_s": CONFIG4_ROWS / secs,
+           "poll_median_s": sorted(poll_s)[len(poll_s) // 2], "chain_leaves": leaves,
+           "launches": launches}
+    log(json.dumps({"phase": "slice.cluster_stream", "ok": True,
+                    **{k: v for k, v in out.items() if k != "launches"}}))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2165,14 +2724,17 @@ def main() -> int:
                     "nvcc_s": secs}))
 
     rows = (check_kernels(dev) + check_new_kernels(dev) + check_resident_kernels(dev)
-            + check_merge_kernel(dev) + check_kmeans_kernels(dev))
+            + check_merge_kernel(dev) + check_kmeans_kernels(dev) + check_chain_kernel(dev))
     sl, ts, table = run_slice(dev, args.profile)
     log(json.dumps({"phase": "slice", "card": smi, **sl}))
     paths = {"config1": sl["launches"]}
     paths["select"] = run_select(dev, ts, table, args.profile)["select"]["launches"]
+    paths["config2"] = run_config2(dev, ts, table)["launches"]
     del ts, table
     paths["config3"] = run_config3(dev)["launches"]
     paths["config4"] = run_config4(dev)["launches"]
+    paths["config5"] = run_config5(dev)["launches"]
+    paths["cluster_stream"] = run_cluster_stream(dev)["launches"]
     paths["device_join"] = run_device_join(dev, args.profile)["launches"]
     paths["resident"] = run_resident(dev)["launches"]
     paths["sorted"] = run_sorted(dev)["launches"]

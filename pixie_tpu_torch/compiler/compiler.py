@@ -53,7 +53,7 @@ def _safe_builtins(px_module) -> dict:
             return px_module
         if name == "pxtrace":
             raise Unimplemented("pxtrace (tracepoint deploys) is not ported "
-                                "yet (host-layer slice, slice 6)")
+                                "yet (the host-layer slice)")
         raise ImportError(
             f"PxL scripts may only import px / pxtrace (attempted {name!r})"
         )

@@ -33,7 +33,7 @@ from pixie_tpu_torch.types import DataType as DT
 from pixie_tpu_torch.types import Relation
 
 #: Copied from the reference package (pixie_tpu/metadata/funcs.py CTX_KEYS);
-#: the metadata UDFs it names come with the metadata slice (slice 6).
+#: the metadata UDFs it names come with the host-layer slice (metadata).
 #: ctx key → candidate (udf, source column) chain, tried in order against the
 #: DataFrame's columns.  The reference's metadata-conversion rule does the
 #: same: it picks whichever metadata key column the table carries (upid for

@@ -10,7 +10,7 @@ Copied from the reference package (pixie_tpu/compiler/pxmodule.py).  Not
 ported yet, each raising Unimplemented where a script reaches it: the OTel
 export objects (px.otel, px.export), the metadata-snapshot helpers (px.asid,
 px.node_name, px._exec_hostname) and UDTF sources (px.<UDTF>()), all of which
-come with the host-layer slice (slice 6).
+come with the host-layer slice.
 """
 from __future__ import annotations
 
@@ -188,13 +188,13 @@ class PxModule(types.ModuleType):
     @property
     def otel(self):
         raise Unimplemented("px.otel: OTel export objects are not ported yet "
-                            "(host-layer slice, slice 6)")
+                            "(the host-layer slice)")
 
     def export(self, df: DataFrame, data) -> None:
         """px.export(df, px.otel.Data(...)) — an OTel export sink in the
         reference (objects/otel.cc); not ported yet."""
         raise Unimplemented("px.export: OTel export sinks are not ported yet "
-                            "(host-layer slice, slice 6)")
+                            "(the host-layer slice)")
 
     def normalize_mysql(self, q, cmd=None):
         """2-arg form (reference sql_ops.cc NormalizeMySQLUDF) takes the int
@@ -216,15 +216,15 @@ class PxModule(types.ModuleType):
     # read the metadata snapshot, which comes with the metadata slice.
     def asid(self) -> int:
         raise Unimplemented("px.asid reads the metadata snapshot, which is not "
-                            "ported yet (metadata slice, slice 6)")
+                            "ported yet (the host-layer slice, metadata)")
 
     def node_name(self) -> str:
         raise Unimplemented("px.node_name reads the metadata snapshot, which is "
-                            "not ported yet (metadata slice, slice 6)")
+                            "not ported yet (the host-layer slice, metadata)")
 
     def _exec_hostname(self) -> str:
         raise Unimplemented("px._exec_hostname reads the metadata snapshot, "
-                            "which is not ported yet (metadata slice, slice 6)")
+                            "which is not ported yet (the host-layer slice, metadata)")
 
     def _exec_host_num_cpus(self) -> int:
         import os

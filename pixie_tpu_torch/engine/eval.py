@@ -12,10 +12,15 @@ at compile time against dictionary snapshots:
   * string equality / select → dictionary code translation at compile time,
     integer compare / where on device.
 
-Compile-time value = SVal(dtype, dictionary, build) where build(env) emits the
-device tensor; env = {"cols": {...}, "luts": {...}}.  LUTs are uploaded to the
-device once per query (ExprCompiler.luts holds them as numpy until then);
-literals are made on the compiler's device once, at compile time.
+Compile-time value = SVal(dtype, dictionary, build, emit) where build(env)
+computes the device tensor with torch ops (env = {"cols": {...}, "luts":
+{...}}) and emit(builder) pushes the same value in a chain program
+(ops/chain.py): the chain kernel runs the programs (kernel C1 on the card, the
+plain interpreter on the CPU), and `build` serves the per-dictionary-value
+evaluation of composed origins and any value that cannot lower (a leaf).
+LUTs are uploaded to the device once per query (ExprCompiler.luts holds them
+as numpy until then); literals are made on the compiler's device once, at
+compile time.
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from pixie_tpu_torch.ops import chain as _c
+from pixie_tpu_torch.ops.chain import apply_lut, emit_value
 from pixie_tpu_torch.plan.plan import Call, Column, Expr, Literal
 from pixie_tpu_torch.status import CompilerError
 from pixie_tpu_torch.table.dictionary import Dictionary
@@ -46,22 +53,17 @@ class SVal:
     dtype: DT
     build: Callable  # env -> torch.Tensor
     dictionary: Optional[Dictionary] = None  # for STRING / UINT128 values
-    #: (root_dict, root_col, fn, codes_build) when this value is a PURE
+    #: (root_dict, root_col, fn, root) when this value is a PURE
     #: per-dictionary-value function of one dict-encoded source column:
-    #: value_for_row = fn(root_dict.value(codes_build(env)[row])).  Lets a
+    #: value_for_row = fn(root_dict.value(root.build(env)[row])), root being
+    #: the column's SVal.  Lets a
     #: later host call with several non-literal args that all derive from the
     #: same column (px.substring(s, px.find(s, a)+8, ...)) still compile to
     #: one LUT over the root dictionary instead of failing.
     origin: Optional[tuple] = None
-
-
-def apply_lut(lut: torch.Tensor, codes: torch.Tensor, fill):
-    """Safe LUT gather: codes may be -1 (null / no-translation) → fill.
-    An EMPTY lut (no dictionary values yet — empty table) yields all-fill."""
-    if lut.shape[0] == 0:
-        return torch.full(codes.shape, fill, dtype=lut.dtype, device=codes.device)
-    safe = torch.clamp(codes, 0, lut.shape[0] - 1).long()
-    return torch.where(codes >= 0, lut[safe], fill)
+    #: pushes this value in a chain program (ops/chain.py ProgramBuilder);
+    #: None makes the value a leaf of the chain
+    emit: Optional[Callable] = None
 
 
 def apply_lut_np(lut: np.ndarray, codes: np.ndarray, fill=-1) -> np.ndarray:
@@ -127,8 +129,14 @@ class ExprCompiler:
                 d0, root, g, cb = o
                 py = float if target == DT.FLOAT64 else int
                 o = (d0, root, lambda x, g=g, py=py: py(g(x)), cb)
+            k = _c.value_kind(target)
+
+            def emit(pb, v=v, k=k):
+                emit_value(pb, v)
+                pb.cast_to(k)
+
             return SVal(target, lambda env, b=b, dt=dt: b(env).to(dt),
-                        origin=o)
+                        origin=o, emit=emit)
         raise CompilerError(f"cannot cast {v.dtype.name} to {target.name}")
 
     # ------------------------------------------------------------------ entry
@@ -156,8 +164,11 @@ class ExprCompiler:
         dt = self.col_dtypes[name]
         build = lambda env, name=name: env["cols"][name]  # noqa: E731
         d = self.col_dicts.get(name)
-        origin = (d, name, lambda v: v, build) if d is not None else None
-        return SVal(dt, build, d, origin)
+        k = _c.value_kind(dt)
+        sv = SVal(dt, build, d, emit=lambda pb, name=name, k=k: pb.col(name, k))
+        if d is not None:
+            sv.origin = (d, name, lambda v: v, sv)
+        return sv
 
     def _compile_literal(self, expr: Literal) -> SVal:
         if expr.dtype == DT.STRING:
@@ -165,9 +176,13 @@ class ExprCompiler:
             # single-value dictionary; code 0 broadcast.
             d = Dictionary([expr.value])
             zero = torch.zeros((), dtype=torch.int32, device=self.device)
-            return SVal(DT.STRING, lambda env, zero=zero: zero, d)
+            return SVal(DT.STRING, lambda env, zero=zero: zero, d,
+                        emit=lambda pb: pb.const(0, _c.I32))
         t = torch.tensor(expr.value, dtype=TORCH_DTYPE[expr.dtype], device=self.device)
-        return SVal(expr.dtype, lambda env, t=t: t)
+        k = _c.value_kind(expr.dtype)
+        v = np.asarray(expr.value, dtype=STORAGE_DTYPE[expr.dtype]).item()
+        return SVal(expr.dtype, lambda env, t=t: t,
+                    emit=lambda pb, v=v, k=k: pb.const(v, k))
 
     # ------------------------------------------------------------------ calls
     def _compile_call(self, call: Call) -> SVal:
@@ -205,8 +220,16 @@ class ExprCompiler:
         def build(env, f=f, builders=builders):
             return f(*[b(env) for b in builders])
 
+        emit = None
+        if udf.op is not None:
+            kinds = [_c.value_kind(v.dtype) for v in svals]
+            emits = [lambda pb, v=v: emit_value(pb, v) for v in svals]
+
+            def emit(pb, op=udf.op, kinds=kinds, emits=emits):
+                _c.lower_call(pb, op, kinds, emits)
+
         return SVal(udf.out_type, build,
-                    origin=self._composed_origin(call.args, svals, f))
+                    origin=self._composed_origin(call.args, svals, f), emit=emit)
 
     @staticmethod
     def _composed_origin(args, svals, f) -> Optional[tuple]:
@@ -317,6 +340,7 @@ class ExprCompiler:
                 lambda env, name=name, b=b: apply_lut(env["luts"][name], b(env), -1),
                 out_dict,
                 origin=origin,
+                emit=_lut_emit(s, name, lut, -1),
             )
         np_out = STORAGE_DTYPE[udf.out_type]
         lut = s.dictionary.lut(call_fn, np_out, size=size)
@@ -326,6 +350,7 @@ class ExprCompiler:
             udf.out_type,
             lambda env, name=name, b=b, fill=fill: apply_lut(env["luts"][name], b(env), fill),
             origin=origin,
+            emit=_lut_emit(s, name, lut, fill),
         )
 
     #: compile-time cap on per-dictionary-value composed evaluation (each
@@ -336,7 +361,8 @@ class ExprCompiler:
         """Host UDF whose value is a pure per-dict-value function of one root
         column (origin tuple): evaluate over the root dictionary into a LUT
         applied to the ROOT column's codes."""
-        root_dict, _root, fn, codes_build = origin
+        root_dict, _root, fn, root = origin
+        codes_build = root.build
         size = root_dict.size
         if size > self.ORIGIN_CAP:
             raise CompilerError(
@@ -354,6 +380,7 @@ class ExprCompiler:
                     env["luts"][name], b(env), -1),
                 out_dict,
                 origin=origin,
+                emit=_lut_emit(root, name, lut, -1),
             )
         np_out = STORAGE_DTYPE[udf.out_type]
         lut = root_dict.lut(fn, np_out, size=size)
@@ -364,6 +391,7 @@ class ExprCompiler:
             lambda env, name=name, b=codes_build, fill=fill: apply_lut(
                 env["luts"][name], b(env), fill),
             origin=origin,
+            emit=_lut_emit(root, name, lut, fill),
         )
 
     #: cross-product bound for two-dictionary host calls (compile-time python
@@ -421,7 +449,13 @@ class ExprCompiler:
             )
             return apply_lut(env["luts"][name], pair, fill)
 
-        return SVal(udf.out_type, build, out_dict)
+        def emit(pb, name=name, nb=nb, fill=fill, k=_c.kind_of_np(lut.dtype)):
+            emit_value(pb, sa)
+            emit_value(pb, sb)
+            pb.pair(nb)
+            pb.lut(name, k, fill)
+
+        return SVal(udf.out_type, build, out_dict, emit=emit)
 
     def _int_domain_call(self, call: Call, udf) -> SVal:
         lo, hi = udf.int_domain
@@ -447,7 +481,8 @@ class ExprCompiler:
                 idx = torch.clamp(x - lo, 0, hi - lo).long()
                 return torch.where(in_dom, env["luts"][name][idx], oob)
 
-            return SVal(DT.STRING, build, out_dict)
+            return SVal(DT.STRING, build, out_dict,
+                        emit=_domain_emit(v, name, lut, lo, hi, oob))
         np_out = STORAGE_DTYPE[udf.out_type]
         lut = np.asarray(vals, dtype=np_out)
         oob_v = udf.fn(lo - 1, *consts)
@@ -459,7 +494,8 @@ class ExprCompiler:
             idx = torch.clamp(x - lo, 0, hi - lo).long()
             return torch.where(in_dom, env["luts"][name][idx], oob_v)
 
-        return SVal(udf.out_type, build_n)
+        return SVal(udf.out_type, build_n,
+                    emit=_domain_emit(v, name, lut, lo, hi, oob_v))
 
     def _string_equality(self, call: Call, negate: bool) -> SVal:
         lhs_e, rhs_e = call.args
@@ -476,7 +512,12 @@ class ExprCompiler:
                 eq = b(env) == code
                 return torch.logical_not(eq) if negate else eq
 
-            return SVal(DT.BOOLEAN, build)
+            def emit(pb, v=v, code=code, negate=negate):
+                emit_value(pb, v)
+                pb.const(code, _c.I64)
+                _eq(pb, negate)
+
+            return SVal(DT.BOOLEAN, build, emit=emit)
         lv, rv = self.compile(lhs_e), self.compile(rhs_e)
         if lv.dictionary is None or rv.dictionary is None:
             raise CompilerError("string equality requires dictionary-encoded operands")
@@ -487,7 +528,12 @@ class ExprCompiler:
                 eq = lb(env) == rb(env)
                 return torch.logical_not(eq) if negate else eq
 
-            return SVal(DT.BOOLEAN, build_same)
+            def emit_same(pb, lv=lv, rv=rv, negate=negate):
+                emit_value(pb, lv)
+                emit_value(pb, rv)
+                _eq(pb, negate)
+
+            return SVal(DT.BOOLEAN, build_same, emit=emit_same)
         trans = rv.dictionary.translate_to(lv.dictionary, insert=False)
         name = self._add_lut(trans)
         lb, rb = lv.build, rv.build
@@ -497,7 +543,14 @@ class ExprCompiler:
             eq = lb(env) == r
             return torch.logical_not(eq) if negate else eq
 
-        return SVal(DT.BOOLEAN, build_trans)
+        def emit_trans(pb, lv=lv, rv=rv, name=name, k=_c.kind_of_np(trans.dtype),
+                       negate=negate):
+            emit_value(pb, lv)
+            emit_value(pb, rv)
+            pb.lut(name, k, -1)
+            _eq(pb, negate)
+
+        return SVal(DT.BOOLEAN, build_trans, emit=emit_trans)
 
     def _string_select(self, call: Call) -> SVal:
         cond = self.compile(call.args[0])
@@ -515,4 +568,36 @@ class ExprCompiler:
             bc = apply_lut(env["luts"][name], bb(env), -1)
             return torch.where(cb(env), ab(env), bc)
 
-        return SVal(DT.STRING, build, out)
+        def emit(pb, name=name, k=_c.kind_of_np(tb.dtype)):
+            emit_value(pb, cond)
+            emit_value(pb, a)
+            emit_value(pb, b)
+            pb.lut(name, k, -1)
+            pb.op("SELECT")
+
+        return SVal(DT.STRING, build, out, emit=emit)
+
+
+def _eq(pb, negate: bool) -> None:
+    """Compare the two codes on top of a chain program's stack (== or !=)."""
+    pb.op("EQ_I")
+    if negate:
+        pb.op("NOT")
+
+
+def _lut_emit(codes: SVal, name: str, lut: np.ndarray, fill):
+    """Emitter of apply_lut(luts[name], codes, fill)."""
+    def emit(pb, k=_c.kind_of_np(lut.dtype)):
+        emit_value(pb, codes)
+        pb.lut(name, k, fill)
+
+    return emit
+
+
+def _domain_emit(x: SVal, name: str, lut: np.ndarray, lo: int, hi: int, oob):
+    """Emitter of a bounded-int-domain LUT (see _int_domain_call)."""
+    def emit(pb, k=_c.kind_of_np(lut.dtype)):
+        emit_value(pb, x)
+        pb.lut_domain(name, k, lo, hi, oob)
+
+    return emit

@@ -2,9 +2,9 @@
 
 This replaces the reference's push-based ExecutionGraph interpreter
 (src/carnot/exec/exec_graph.cc:177-295): every maximal Source→(Map|Filter|
-Limit)*→Agg chain becomes ONE chain kernel — torch tensor code around the
-hand-written CUDA kernels (K1 masked segment reductions, K2 sketch update, K3
-sketch quantiles) — run over coalesced column feeds.  Filters never compact on
+Limit)*→Agg chain becomes ONE chain kernel — chain programs (kernel C1) feeding
+the hand-written CUDA kernels (K1 masked segment reductions, K2 sketch update,
+K3 sketch quantiles) — run over coalesced column feeds.  Filters never compact on
 the device: they refine a validity mask.  The aggregate state lives on the
 device and accumulates IN PLACE across feeds (every UDA update writes into its
 state tensors); it is finalized on the device where a UDA can (sketch →
@@ -38,13 +38,24 @@ every agent's state there in one launch of kernel M1 (`gang_merge_states`,
 ops/merge.py) when their layouts agree.  The merger plan reads the merged
 channels through RemoteSourceOps (`inputs`).
 
+Every chain's row mask, group ids and computed columns come from chain
+programs (ops/chain.py): kernel C1 on the card, one launch per chain segment
+and feed, the plain interpreter on the CPU.  A LimitOp splits a chain into
+segments joined by a torch cumsum.  A value that cannot lower to a program
+enters C1 as a leaf column computed by its torch closure
+(exec_stats["chain_leaves"]).
+
 Ported so far are the aggregate, select, join, sorted-fallback and
 distributed agent paths of the reference executor
-(pixie_tpu/engine/executor.py).  Unions, UDTF sources and partition sinks
-raise Unimplemented and name the slice that brings them; multi-query fusion
-and the SPMD (mesh) paths are absent (the four-chip slice).  Unlike the
-reference, no query is routed to the CPU by size: on the card every query
-runs the device path.
+(pixie_tpu/engine/executor.py), with `run_agent_stream` (the chunk stream
+the streaming fold consumes) and the streaming polls of engine/stream.py.
+Unions, UDTF sources and partition sinks raise Unimplemented and name the
+slice that brings them.  Multi-query batching and fusion
+(`_gang_agg_payloads`, `_multi_partial_agg`) are absent: every sink runs on
+its own, as in the reference with PX_MQ_FUSION=0.  The SPMD (mesh) paths
+wait for the four-chip slice.  Unlike the reference, no query is routed to
+the CPU by size: on the card every query, and every streaming poll, runs the
+device path.
 """
 from __future__ import annotations
 
@@ -62,9 +73,10 @@ from pixie_tpu_torch import flags as _flags
 from pixie_tpu_torch.engine import resident, transfer
 from pixie_tpu_torch.engine.eval import ExprCompiler, SVal, apply_lut_np
 from pixie_tpu_torch.engine.result import QueryResult
+from pixie_tpu_torch.ops import chain as _chain
 from pixie_tpu_torch.ops import join_device as _jd
 from pixie_tpu_torch.ops.compact import compact
-from pixie_tpu_torch.ops.groupby import combine_codes, encode_against, next_pow2, split_codes
+from pixie_tpu_torch.ops.groupby import next_pow2, split_codes
 from pixie_tpu_torch.ops.merge import merge_states
 from pixie_tpu_torch.plan.plan import (
     AggOp,
@@ -322,8 +334,9 @@ class GroupKey:
     width: int = 0
     t0_bin: int = 0
     key_sval: Optional[SVal] = None  # device codes builder (dict/window)
-    #: luts entry holding the sorted unique values (intdevice: searchsorted
-    #: against it maps value → code on the device).
+    #: intdevice: the luts entry holding the sorted unique values (a binary
+    #: search in it maps value → code on the device); window: the name of
+    #: the runtime scalar holding the window origin
     lut_name: str = ""
 
 
@@ -390,8 +403,31 @@ def _rows(t: torch.Tensor, n: int) -> torch.Tensor:
     return t.expand(n).contiguous() if t.dim() == 0 else t
 
 
+#: binding names of the inputs a chain segment reads besides the feed: the
+#: previous segment's mask and its running count, and the limit budgets
+_MASK_IN, _CSUM_IN, _LIMITS = "__mask_in", "__csum", "__limits"
+
+
+@dataclasses.dataclass
+class _Segment:
+    """One C1 launch of a chain: its interned program and what its slots
+    bind to."""
+
+    prog: _chain.Program
+    binding: _chain.Binding
+
+
 class ChainKernel:
-    """Compiles Source → transforms → agg into one step function."""
+    """Compiles Source → transforms → agg (or an output step) into chain
+    programs run by kernel C1 (ops/chain.py).
+
+    Each LimitOp splits the chain into segments, one C1 launch each: the
+    first forms the base mask (valid rows, time bounds) and applies the
+    filters before the first limit; a limit takes a torch cumsum of the mask
+    and the next segment admits the rows whose running count fits the
+    limit's remaining budget (a device vector: no host sync), then applies
+    its own filters.  The last segment also builds the group ids and every
+    computed value column; plain column references pass through."""
 
     def __init__(
         self,
@@ -405,6 +441,7 @@ class ChainKernel:
     ):
         self.device = torch.device(device)
         self.ctx = _ChainCtx(in_dtypes, in_dicts, registry, self.device, visible)
+        self.in_dtypes = dict(in_dtypes)
         self.registry = registry
         self.time_col = time_col
         self.steps = []  # ("filter", sval); ("limit", i)
@@ -412,6 +449,11 @@ class ChainKernel:
         #: remaining budget (a single min-collapsed budget under-returns when a
         #: filter between two limits drops admitted rows).
         self.limit_ns: list[int] = []
+        #: values of the lowered programs computed outside C1 (see
+        #: ops/chain.py emit_value); exec_stats["chain_leaves"]
+        self.n_leaves = 0
+        #: the segments the last make_*_step lowered
+        self.segments: list[_Segment] = []
         for op in transforms:
             if isinstance(op, MapOp):
                 self.ctx.apply_map(op)
@@ -438,39 +480,105 @@ class ChainKernel:
     def luts(self) -> dict[str, np.ndarray]:
         return self.ctx.ec.luts
 
-    def _base_mask(self, env, n, n_valid, t_lo, t_hi):
-        if n_valid >= n:
-            mask = torch.ones(n, dtype=torch.bool, device=self.device)
-        else:
-            mask = torch.arange(n, device=self.device) < n_valid
-        if self.time_col is not None and self.time_col in env["cols"]:
-            t = env["cols"][self.time_col]
-            mask = mask & (t >= t_lo) & (t < t_hi)
-        return mask
-
-    def _apply_steps(self, env, mask, limits):
-        """Apply filter/limit steps. Returns (mask, consumed[n_limits]).
-
-        `limits` is the per-limit remaining-budget vector (a device tensor of
-        shape [n_limits]).  consumed[i] counts limit i's slots used by THIS
-        batch — rows reaching that limit step, capped at its remaining
-        budget.  The caller subtracts the whole vector from `remaining`.
-        Without limits both are None.
-        """
-        consumed = (torch.zeros(len(self.limit_ns), dtype=torch.int64,
-                                device=self.device) if self.limit_ns else None)
+    # ------------------------------------------------------------ lowering
+    def _lower(self, tail: Callable, has_gid: bool) -> list[_Segment]:
+        """The chain's programs, one per segment; tail(builder) emits the
+        last segment's group ids and value columns."""
+        segs = []
+        b = _chain.ProgramBuilder()
+        b.row()
+        b.scalar("n_valid")
+        b.op("LT_I")
+        b.mask_and()
+        if self.time_col is not None and self.time_col in self.in_dtypes:
+            for bound, cmp in (("t_lo", "GE_I"), ("t_hi", "LT_I")):
+                b.col(self.time_col, _chain.I64)
+                b.scalar(bound)
+                b.op(cmp)
+                b.mask_and()
         for kind, sv in self.steps:
             if kind == "filter":
-                mask = mask & sv.build(env)
-            else:  # limit; sv = budget index
-                rem = limits[sv]
-                reaching = torch.sum(mask, dtype=torch.int64)
-                mask = mask & (torch.cumsum(mask, 0, dtype=torch.int64) <= rem)
-                consumed[sv] = torch.minimum(reaching, rem)
-        return mask, consumed
+                _chain.emit_value(b, sv)
+                b.mask_and()
+                continue
+            segs.append(_Segment(*b.finish()))
+            # the rows a limit admits: running count within its budget
+            b = _chain.ProgramBuilder()
+            b.col(_CSUM_IN, _chain.I64)
+            b.const(sv, _chain.I64)
+            b.lut(_LIMITS, _chain.I64, 0)
+            b.op("LE_I")
+            b.mask_and()
+            b.col(_MASK_IN, _chain.B)
+            b.mask_and()
+        tail(b)
+        segs.append(_Segment(*b.finish(has_gid=has_gid)))
+        self.n_leaves = sum(len(s.binding.leaves) for s in segs)
+        self.segments = segs
+        return segs
+
+    def run_segments(self, segs, cols, n, n_valid, t_lo, t_hi, limits, luts, scalars,
+                     runner=None):
+        """Run the segments over one feed → (mask, gid, outputs, consumed).
+        `runner` runs one program (ops/chain.py run, or run_plain to hold C1
+        against its plain interpreter on the same tensors)."""
+        runner = runner or _chain.run
+        env = {"cols": cols, "luts": luts}
+        vals = {"n_valid": n_valid, "t_lo": t_lo, "t_hi": t_hi, **(scalars or {})}
+        consumed = (torch.zeros(len(self.limit_ns), dtype=torch.int64,
+                                device=self.device) if self.limit_ns else None)
+        mask = gid = outs = None
+        for i, seg in enumerate(segs):
+            extra = {}
+            if i > 0:
+                csum = torch.cumsum(mask, 0, dtype=torch.int64)
+                reaching = csum[-1] if n else torch.zeros((), dtype=torch.int64,
+                                                         device=self.device)
+                consumed[i - 1] = torch.minimum(reaching, limits[i - 1])
+                extra = {_MASK_IN: mask, _CSUM_IN: csum}
+            bnd = seg.binding
+            in_cols = []
+            for name in bnd.cols:
+                if name in bnd.leaves:
+                    in_cols.append(_rows(bnd.leaves[name](env), n))
+                else:
+                    in_cols.append(extra[name] if name in extra else cols[name])
+            in_luts = [limits if name == _LIMITS else luts[name] for name in bnd.luts]
+            mask, gid, outs = runner(seg.prog, in_cols, in_luts,
+                                     [vals[name] for name in bnd.scalars], n, self.device)
+        return mask, gid, outs, consumed
+
+    @staticmethod
+    def _passthrough(sv) -> Optional[str]:
+        """The feed column an SVal reads unchanged, or None if computed."""
+        b = _chain.ProgramBuilder()
+        _chain.emit_value(b, sv)
+        if len(b.code) == 1 and not b.leaves and b.code[0][0] == _chain.OP["LOAD_COL"]:
+            return next(iter(b.cols))
+        return None
+
+    def _value_tail(self, svals: list):
+        """→ (tail emitting the computed values, per value: feed column name
+        or output index)."""
+        where = []
+        computed = []
+        for sv in svals:
+            src = self._passthrough(sv)
+            if src is None:
+                where.append(len(computed))
+                computed.append(sv)
+            else:
+                where.append(src)
+
+        def tail(b):
+            for sv in computed:
+                _chain.emit_value(b, sv)
+                b.store()
+
+        return tail, where
 
     def make_output_step(self, out_names: list[str]):
-        """→ (fn(cols, n_valid, t_lo, t_hi, limit_remaining, luts) →
+        """→ (fn(cols, n_valid, t_lo, t_hi, limit_remaining, luts, scalars) →
         (out_cols, count, consumed), out_dtypes, out_dicts).  The selected
         rows are COMPACTED to the front of every output column on the device
         (K4, a stable partition by the mask), so the host reads back exactly
@@ -481,67 +589,82 @@ class ChainKernel:
             raise CompilerError(f"output columns {missing} not found; have {sorted(sym)}")
         out_dtypes = {n: sym[n].dtype for n in out_names}
         out_dicts = {n: sym[n].dictionary for n in out_names if sym[n].dictionary is not None}
-        builders = [(n, sym[n].build) for n in out_names]
+        tail, where = self._value_tail([sym[n] for n in out_names])
+        segs = self._lower(tail, has_gid=False)
 
-        def step(cols, n_valid, t_lo, t_hi, limit_remaining, luts):
-            env = {"cols": cols, "luts": luts}
+        def step(cols, n_valid, t_lo, t_hi, limit_remaining, luts, scalars=None):
             n = _first_len(cols)
-            mask = self._base_mask(env, n, n_valid, t_lo, t_hi)
-            mask, consumed = self._apply_steps(env, mask, limit_remaining)
-            vals = [_rows(b(env), n).contiguous() for _name, b in builders]
-            outs, count = compact(mask, vals)
-            return dict(zip(out_names, outs)), count, consumed
+            mask, _gid, outs, consumed = self.run_segments(
+                segs, cols, n, n_valid, t_lo, t_hi, limit_remaining, luts, scalars)
+            vals = [cols[w] if isinstance(w, str) else outs[w] for w in where]
+            compacted, count = compact(mask, vals)
+            return dict(zip(out_names, compacted)), count, consumed
 
         return step, out_dtypes, out_dicts
 
     def make_agg_step(self, keys: list[GroupKey], udas: list, num_groups: int):
-        """→ fn(cols, n_valid, t_lo, t_hi, limit_remaining, luts, state)
+        """→ fn(cols, n_valid, t_lo, t_hi, limit_remaining, luts, state, scalars)
         → (state, consumed), the state updated in place.
-        udas: list of (out_name, UDA, value_builder|None)."""
-        key_builders = []
-        for k in keys:
-            if k.kind == "intdevice":
-                src_name, lut_name = k.src_name, k.lut_name
-                key_builders.append(
-                    lambda env, s=src_name, l=lut_name: encode_against(
-                        env["luts"][l], env["cols"][s]
-                    )
-                )
-            elif k.kind == "dict":
-                key_builders.append(k.key_sval.build)
-            else:  # window: origin is a runtime scalar in luts (streaming)
-                sv, w, t0name = k.key_sval, k.width, k.lut_name
-                key_builders.append(
-                    lambda env, sv=sv, w=w, t0name=t0name: (
-                        torch.div(sv.build(env), w, rounding_mode="floor")
-                        - env["luts"][t0name][0]
-                    ).to(torch.int32)
-                )
-        cards = [k.card for k in keys]
+        udas: list of (out_name, UDA, value SVal|None)."""
+        vals = [vb for _o, _u, vb in udas if vb is not None]
+        value_tail, where = self._value_tail(vals)
 
-        def step(cols, n_valid, t_lo, t_hi, limit_remaining, luts, state):
-            env = {"cols": cols, "luts": luts}
+        def tail(b):
+            for k in keys:
+                if k.kind == "intdevice":
+                    b.col(k.src_name, _chain.value_kind(self.in_dtypes[k.src_name]))
+                    b.search(k.lut_name)
+                elif k.kind == "dict":
+                    # Null keys (code -1, e.g. unmatched left-join fills)
+                    # drop out of the aggregate (pandas dropna semantics)
+                    # before the combine clamps them into group 0.  A literal
+                    # key's code is one value for every row.
+                    _chain.emit_value(b, k.key_sval)
+                    b.dup()
+                    b.const(0, _chain.I64)
+                    b.op("GE_I")
+                    b.mask_and()
+                else:  # window: the origin is a runtime scalar (streaming)
+                    _chain.emit_value(b, k.key_sval)
+                    b.window(k.width, k.lut_name)
+                b.combine(k.card)
+            value_tail(b)
+
+        segs = self._lower(tail, has_gid=True)
+
+        def step(cols, n_valid, t_lo, t_hi, limit_remaining, luts, state, scalars=None):
             n = _first_len(cols)
-            mask = self._base_mask(env, n, n_valid, t_lo, t_hi)
-            mask, consumed = self._apply_steps(env, mask, limit_remaining)
-            if keys:
-                # literal group keys build scalar codes — broadcast to rows
-                code_arrays = [_rows(kb(env), n) for kb in key_builders]
-                # Null keys (code -1, e.g. unmatched left-join fills) drop out
-                # of the aggregate (pandas dropna semantics); without this,
-                # combine_codes would clamp them into group 0.
-                for k, c in zip(keys, code_arrays):
-                    if k.kind == "dict":
-                        mask = mask & (c >= 0)
-                gid, _ = combine_codes(code_arrays, cards)
-            else:
-                gid = torch.zeros(n, dtype=torch.int32, device=self.device)
+            mask, gid, outs, consumed = self.run_segments(
+                segs, cols, n, n_valid, t_lo, t_hi, limit_remaining, luts, scalars)
+            j = 0
             for out_name, uda, vb in udas:
-                v = _rows(vb(env), n) if vb is not None else None
+                v = None
+                if vb is not None:
+                    w = where[j]
+                    j += 1
+                    v = cols[w] if isinstance(w, str) else outs[w]
                 state[out_name] = uda.update(state[out_name], gid, v, mask, num_groups)
             return state, consumed
 
         return step
+
+
+def _picker_codes(sv: SVal) -> SVal:
+    """A dict-valued picker's input: the codes, with null (-1) replaced by
+    PICKER_NULL_SENTINEL, the min identity, so that it never wins."""
+    def build(env):
+        v = sv.build(env)
+        return torch.where(v >= 0, v, PICKER_NULL_SENTINEL)
+
+    def emit(b):
+        _chain.emit_value(b, sv)
+        b.const(0, _chain.I64)
+        b.op("GE_I")
+        _chain.emit_value(b, sv)
+        b.const(PICKER_NULL_SENTINEL, _chain.I64)
+        b.op("SELECT")
+
+    return SVal(sv.dtype, build, emit=emit)
 
 
 def _first_len(cols: dict) -> int:
@@ -678,7 +801,8 @@ class _AggSetup:
     seen_name: str
     step: Callable
     val_dicts: dict
-    lut_over: dict
+    #: window origins of this run (chain program scalars)
+    origins: dict
 
 
 class PlanExecutor:
@@ -699,7 +823,7 @@ class PlanExecutor:
         self.defer_agg_pull = False
         self._defer_active = False
         self._materialized: dict[int, HostBatch] = {}
-        self.stats = {"rows_scanned": 0, "rows_output": 0, "batches": 0,
+        self.stats = {"rows_scanned": 0, "rows_output": 0, "batches": 0, "chain_leaves": 0,
                       "feeds": 0, "h2d_bytes": 0}
         #: analyze mode (reference ExecutePlan(analyze=true), carnot.cc:318):
         #: synchronizes the device after every feed and records its wall time.
@@ -760,7 +884,7 @@ class PlanExecutor:
         """
         if isinstance(head, MemorySourceOp):
             if head.tablet is not None:
-                raise Unimplemented("tablet sources are not ported yet (slice 6)")
+                raise Unimplemented("tablet sources are not ported yet (the host-layer slice)")
             table = self.store.table(head.table)
             if head.since_row_id is not None or head.stop_row_id is not None:
                 cursor = table.cursor_since(
@@ -895,7 +1019,7 @@ class PlanExecutor:
             else:
                 raise Unimplemented(
                     f"operator {op.kind!r} is not ported yet: unions (Queue 1 "
-                    "item 4) and UDTF sources (slice 6) come with later slices")
+                    "item 4) and UDTF sources (the host-layer slice) come with later slices")
             rec["rows_out"] = out.num_rows
             rec["bytes_out"] = sum(v.nbytes for v in out.cols.values())
         self._materialized[op.id] = out
@@ -935,6 +1059,7 @@ class PlanExecutor:
         if out_names is None:
             out_names = list(kern.ctx.visible)
         step, out_dtypes, out_dicts = kern.make_output_step(out_names)
+        self.stats["chain_leaves"] = self.stats.get("chain_leaves", 0) + kern.n_leaves
         t_lo, t_hi = _time_bounds(head)
         luts = {k: torch.as_tensor(v).to(self.device) for k, v in kern.luts.items()}
         label = self._chain_label(head, chain, "select")
@@ -1035,10 +1160,10 @@ class PlanExecutor:
                 t_min, t_max = _source_time_range(src, head)
                 t0_bin = t_min // width
                 nbins = int(t_max // width - t0_bin) + 1
-                # The window ORIGIN is a runtime parameter (fed through the
-                # luts dict, see _refresh_window_keys); only the bin-count
-                # bucket is static.
-                t0name = kern.ctx.ec._add_lut(np.asarray([t0_bin], dtype=np.int64))
+                # The window ORIGIN is a runtime scalar of the chain program
+                # (see _refresh_window_keys); only the bin-count bucket is
+                # static.
+                t0name = f"__origin{len(keys)}"
                 keys.append(
                     GroupKey(
                         name,
@@ -1298,7 +1423,7 @@ class PlanExecutor:
         (kern, keys, udas, in_types, init_specs, num_groups, seen_name, step,
          val_dicts) = self._agg_kernel(op, dtypes, dicts, chain, time_col,
                                        visible, src, head)
-        ok, keys, lut_over = self._refresh_window_keys(keys, src, head)
+        ok, keys, origins = self._refresh_window_keys(keys, src, head)
         if not ok:
             # Concurrent ingest grew the time span between the key planning
             # and the refresh: running with a stale bucket would silently
@@ -1309,7 +1434,7 @@ class PlanExecutor:
             op=op, head=head, chain=chain, src=src, names=names, cap=cap,
             kern=kern, keys=keys, udas=udas, in_types=in_types,
             init_specs=init_specs, num_groups=num_groups, seen_name=seen_name,
-            step=step, val_dicts=val_dicts, lut_over=lut_over)
+            step=step, val_dicts=val_dicts, origins=origins)
 
     def _agg_state(self, op: AggOp):
         """Run the aggregation; returns the device state (a _DeferredState
@@ -1317,11 +1442,11 @@ class PlanExecutor:
         needs."""
         s = self._agg_setup(op)
         t_lo, t_hi = _time_bounds(s.head)
-        luts_np = {**s.kern.luts, **s.lut_over}
         # LUTs are uploaded once per query
-        luts = {k: torch.as_tensor(v).to(self.device) for k, v in luts_np.items()}
+        luts = {k: torch.as_tensor(v).to(self.device) for k, v in s.kern.luts.items()}
         state = self._agg_feed_loop(s.kern, s.step, s.init_specs, s.num_groups,
-                                    s.src, s.names, s.cap, t_lo, t_hi, luts)
+                                    s.src, s.names, s.cap, t_lo, t_hi, luts,
+                                    s.origins)
         if self._defer_active:
             state = _DeferredState(
                 [state], {name: uda.reduce_ops() for name, uda, _vb in s.udas})
@@ -1330,10 +1455,11 @@ class PlanExecutor:
     def _refresh_window_keys(self, keys, src, head):
         """Per-run window-origin resolution.
 
-        Returns (ok, keys', lut_overrides).  keys' holds GroupKey copies with
-        this run's t0_bin, and lut_overrides carries the runtime origin
-        scalars.  ok=False means the static bin bucket can't hold this run's
-        span."""
+        Returns (ok, keys', origins).  keys' holds GroupKey copies with this
+        run's t0_bin, and origins maps each window key's scalar name to its
+        origin (a runtime scalar of the chain program, so a new origin
+        reuses the program).  ok=False means the static bin bucket can't
+        hold this run's span."""
         if not any(k.kind == "window" for k in keys):
             return True, keys, {}
         t_min, t_max = _source_time_range(src, head)
@@ -1347,7 +1473,7 @@ class PlanExecutor:
             if nbins > k.card:
                 return False, keys, {}
             out.append(dataclasses.replace(k, t0_bin=t0))
-            over[k.lut_name] = np.asarray([t0], dtype=np.int64)
+            over[k.lut_name] = t0
         return True, out, over
 
     def _agg_kernel(self, op, dtypes, dicts, chain, time_col, visible, src, head):
@@ -1383,12 +1509,7 @@ class PlanExecutor:
                     # Dict-valued picker: aggregate over CODES (null code -1
                     # masked to the min-identity so it never wins); the
                     # finalize step decodes back through the dictionary.
-                    b = sv.build
-
-                    def vb(env, b=b):
-                        v = b(env)
-                        return torch.where(v >= 0, v, PICKER_NULL_SENTINEL)
-
+                    vb = _picker_codes(sv)
                     in_dtype = np.int32
                     in_types[ae.out_name] = sv.dtype
                     val_dicts[ae.out_name] = sv.dictionary
@@ -1399,7 +1520,7 @@ class PlanExecutor:
                             f"(dictionary-encoded) input column, got "
                             f"{ae.arg!r}"
                         )
-                    vb = sv.build
+                    vb = sv
                     in_dtype = STORAGE_DTYPE[sv.dtype]
                     in_types[ae.out_name] = sv.dtype
             elif not uda.nullary:
@@ -1411,11 +1532,12 @@ class PlanExecutor:
         init_specs.append((seen_name, seen_uda, None))
 
         step = kern.make_agg_step(keys, udas, num_groups)
+        self.stats["chain_leaves"] = self.stats.get("chain_leaves", 0) + kern.n_leaves
         return (kern, keys, udas, in_types, init_specs, num_groups, seen_name,
                 step, val_dicts)
 
     def _agg_feed_loop(self, kern, step, init_specs, num_groups, src, names,
-                       cap, t_lo, t_hi, luts):
+                       cap, t_lo, t_hi, luts, origins=None):
         """Drive the feeds through the agg step.
 
         The state is created once on the device and every feed's UDA updates
@@ -1427,7 +1549,8 @@ class PlanExecutor:
         remaining = kern.init_limits()
         for cols, n_valid in self._feed(src, names, cap):
             tf0 = _time.perf_counter_ns()
-            state, consumed = step(cols, n_valid, t_lo, t_hi, remaining, luts, state)
+            state, consumed = step(cols, n_valid, t_lo, t_hi, remaining, luts, state,
+                                   origins)
             if kern.has_limit:
                 remaining = remaining - consumed
             if self.analyze:
@@ -1646,6 +1769,60 @@ class PlanExecutor:
         self.stats["wall_ns"] = _time.perf_counter_ns() - t0
         self.stats["operators"] = self.op_stats
         return out
+
+    def run_agent_stream(self, agg_chunk_groups: int = 0):
+        """Execute an AGENT plan as a chunk stream: yields (channel, payload)
+        in wave order — one HostBatch per readback wave for rows channels
+        (each wave's D2H rode under a later wave's compute, engine.transfer),
+        per group-slice for agg_state channels (`agg_chunk_groups` > 0 caps
+        the slice).  A consumer folds each yield as it arrives
+        (parallel.partial.PartialAggFold, parallel.cluster.HostBatchUnion);
+        run_agent is the barrier shape of the same walk.
+
+        Chunks of one channel are yielded in order, but consumers must not
+        rely on it: the folds are order-insensitive by construction.  Every
+        sink runs on its own (no multi-query gang: the reference with
+        PX_MQ_FUSION=0), and partition sinks raise as in run_agent.
+        """
+        from pixie_tpu_torch.parallel.partial import slice_partial
+
+        t0 = _time.perf_counter_ns()
+        for sink in self.plan.sinks():
+            if isinstance(sink, PartitionSinkOp):
+                raise Unimplemented(
+                    "partition sinks (repartitioned joins, parallel/"
+                    "repartition.py) are not ported yet (the four-chip slice)")
+            if not isinstance(sink, ResultSinkOp):
+                raise Internal(f"agent plan sink {sink.kind} is not a ResultSink")
+            parent = self.plan.parents(sink)[0]
+            if sink.payload == "agg_state":
+                if not (isinstance(parent, AggOp) and parent.partial):
+                    raise Internal("agg_state channel must be fed by a partial AggOp")
+                pb = self._partial_agg_batch(parent)
+                n = pb.num_groups
+                if agg_chunk_groups > 0 and n > agg_chunk_groups:
+                    for a in range(0, n, agg_chunk_groups):
+                        idx = np.arange(a, min(a + agg_chunk_groups, n))
+                        yield sink.channel, slice_partial(pb, idx)
+                else:
+                    yield sink.channel, pb
+            else:
+                out_dtypes, out_dicts, out_names, gen = self._consume_chain(parent)
+                sent = False
+                for cols, _c in gen:
+                    sent = True
+                    yield sink.channel, HostBatch(
+                        dict(out_dtypes), dict(out_dicts),
+                        {name: cols[name] for name in out_names})
+                if not sent:
+                    # the channel contract is >= 1 payload: an empty scan still
+                    # ships one zero-row chunk carrying the dtypes/dicts
+                    yield sink.channel, HostBatch(
+                        dict(out_dtypes), dict(out_dicts),
+                        {name: np.empty(0, STORAGE_DTYPE[out_dtypes[name]])
+                         for name in out_names})
+        self.stats["wall_ns"] = _time.perf_counter_ns() - t0
+        self.stats["operators"] = self.op_stats
 
     # -------------------------------------------------------------------- join
     def _run_join(self, op: JoinOp) -> HostBatch:

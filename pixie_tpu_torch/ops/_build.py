@@ -48,6 +48,7 @@ SOURCES = {
     "resident": "resident.cu",
     "merge": "merge.cu",
     "kmeans": "kmeans.cu",
+    "chain": "chain.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

@@ -6,6 +6,10 @@ code (dictionary code for strings/UPIDs; query-time dictionary for raw ints),
 multi-key groups are mixed-radix combined into a single segment id, and
 aggregation is a masked segment reduction.
 
+On the query path the chain program (ops/chain.py, kernel C1) computes the
+group ids itself (its GID_COMBINE and SEARCH opcodes); `combine_codes` and
+`encode_against` stay here as the plain torch forms of the same functions.
+
 The reductions accumulate IN PLACE into a caller-owned state tensor `out`
 (the aggregate state lives on the device across feeds).  On a CUDA tensor each
 `masked_segment_*` launches kernel K1 (csrc/segment_reduce.cu); on a CPU tensor

@@ -17,10 +17,12 @@ merged by key values on the host); one readback wave follows.
 
 Not ported yet: multi-device agents (`_agent_mesh`, the four-chip slice),
 repartitioned joins (parallel/repartition.py, the four-chip slice), standing
-views (PL_MATVIEW_ENABLED, the streaming slice: the port behaves as the
-reference does with the flag off), plan verification (PX_PLAN_VERIFY), query
-batching, the flight recorder and tracepoint mutations (slice 6), and the
-semantic-type restamp of results (slice 6: results carry physical types).
+views (PL_MATVIEW_ENABLED: the port behaves as the reference does with the
+flag off), plan verification (PX_PLAN_VERIFY), query batching, the flight
+recorder and tracepoint mutations (the host-layer slice), and the
+semantic-type restamp of results (the host-layer slice: results carry
+physical types).  Streaming queries over a cluster run through
+parallel/streaming.py.
 """
 from __future__ import annotations
 
@@ -177,7 +179,7 @@ class LocalCluster:
                                      registry=self.registry))
         if q.mutations:
             raise Unimplemented("tracepoint mutations are not ported yet "
-                                "(host-layer slice, slice 6)")
+                                "(the host-layer slice)")
         (dp, _extras), _shit = QueryPlanCache.get_split(
             entry, self._schemas_fp(), lambda: (self.planner.plan(q.plan), {}))
         return self.execute(q.plan, analyze=analyze, dp=dp)

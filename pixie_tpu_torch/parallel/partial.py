@@ -10,8 +10,9 @@ PartialAggBatch holds the seen groups' key VALUES (decoded out of the
 producing agent's private dictionary space) plus each UDA's state leaves
 sliced to those groups.  Merging re-groups by key values and reduces each leaf
 with the UDA's declared reduce op — no per-UDA merge code; the same reduce
-tree drives the device gang merge (ops/merge.py, kernel M1).  The streaming
-fold (PartialAggFold) comes with the streaming slice.
+tree drives the device gang merge (ops/merge.py, kernel M1).
+PartialAggFold folds a stream of partial chunks as they arrive (the
+executor's `run_agent_stream` yields them).
 """
 from __future__ import annotations
 
@@ -231,6 +232,61 @@ def merge_partials(
 ) -> HostBatch:
     """Merge value-keyed partials from N producers and finalize → HostBatch."""
     return finalize_partial(agg, combine_partials(agg, partials, registry), registry)
+
+
+class PartialAggFold:
+    """Running merge of partial-agg chunks, folded AS THEY ARRIVE.
+
+    The streaming analog of merge_partials: a consumer calls add() for each
+    producer chunk, so combine work happens under the slowest producer's
+    compute instead of behind an all-producers barrier.  combine_partials
+    re-groups by key VALUES, so folds commute — chunk arrival order
+    (including cross-producer interleaving and out-of-order delivery) cannot
+    change the result.
+
+    Chunks stage in batches of FOLD_BATCH: each full batch combines on
+    arrival (the incremental work), and finish() pays ONE combine over the
+    staged results plus the finalize.  A per-chunk rolling accumulator would
+    re-group the whole accumulated key set on every add — O(chunks x
+    total_groups) for high-cardinality aggs; batching bounds the total work
+    at ~2x the barrier merge while keeping the overlap.
+
+    Thread model: callers serialize add() per channel; finish() runs after
+    all producers completed.
+    """
+
+    FOLD_BATCH = 8
+
+    __slots__ = ("agg", "registry", "count", "_staged", "_pending")
+
+    def __init__(self, agg: AggOp, registry):
+        self.agg = agg
+        self.registry = registry
+        self.count = 0
+        self._staged: list[PartialAggBatch] = []
+        self._pending: list[PartialAggBatch] = []
+
+    def add(self, pb: PartialAggBatch) -> None:
+        self.count += 1
+        self._pending.append(pb)
+        if len(self._pending) >= self.FOLD_BATCH:
+            self._staged.append(
+                combine_partials(self.agg, self._pending, self.registry))
+            self._pending = []
+
+    def finish(self) -> HostBatch:
+        parts = self._staged + self._pending
+        if not parts:
+            raise InvalidArgument("PartialAggFold.finish: no chunks folded")
+        acc = (parts[0] if len(parts) == 1
+               else combine_partials(self.agg, parts, self.registry))
+        return finalize_partial(self.agg, acc, self.registry)
+
+    def raw_parts(self) -> list[PartialAggBatch]:
+        """The accumulated state WITHOUT finalizing — staged combines plus
+        the pending tail, so a caller can merge several independent folds
+        (one per producer) into one finalize."""
+        return self._staged + self._pending
 
 
 def _np_identity(dtype, op: str):

@@ -30,7 +30,8 @@ Kinds (reference pixie_tpu/services/wire.py): json (control messages),
 host_batch (a HostBatch) and partial_agg (a PartialAggBatch: key values +
 flattened UDA state leaves).  The port carries the partial_agg frame only,
 byte for byte the reference's: LocalCluster round-trips every partial through
-it.  The json and host_batch frames come with the services slice (slice 6).
+it.  The json and host_batch frames come with the host-layer slice
+(services).
 """
 from __future__ import annotations
 
@@ -395,5 +396,5 @@ def decode_frame(data: bytes):
         return kind, pb
     if kind in ("json", "host_batch"):
         raise Unimplemented(
-            f"wire: {kind} frames are not ported yet (services slice, slice 6)")
+            f"wire: {kind} frames are not ported yet (the host-layer slice, services)")
     raise InvalidArgument(f"wire: unknown kind {kind!r}")

@@ -13,8 +13,8 @@ Parity with reference src/table_store/table/table.h and table_store.h:79:
   * Dictionary encoding of STRING/UINT128 columns happens here, at write time.
 
 Not ported yet, and refused with Unimplemented where a caller reaches them:
-the durable ingest journal and seal replication (slice 6, host layers),
-tablets (slice 6) and the compressed cold tier (slice 6).  A retention trim
+the durable ingest journal and seal replication (the host-layer slice),
+tablets (the host-layer slice) and the compressed cold tier (the host-layer slice).  A retention trim
 notifies the device-resident tier (engine/resident.py), which frees or
 rebases the table's pinned device buffers.
 
@@ -85,7 +85,7 @@ class Table:
         }
         self._lock = threading.Lock()
         #: durable ingest journal and seal observer (replication) hooks of the
-        #: reference; the port refuses a table that has either set (slice 6)
+        #: reference; the port refuses a table that has either set (the host-layer slice)
         self.journal = None
         self.on_seal = None
         self._sealed: list[_SealedBatch] = []
@@ -116,7 +116,7 @@ class Table:
         if self.journal is not None or self.on_seal is not None:
             raise Unimplemented(
                 f"write to {self.name}: the ingest journal and seal "
-                "replication are not ported yet (slice 6, host layers)")
+                "replication are not ported yet (the host-layer slice)")
         # Validate shape before touching dictionaries: a rejected write must not
         # leak values into the append-only dictionaries.
         n = None
@@ -410,10 +410,10 @@ class TableStore:
         self.epoch = 0
 
     def create(self, name: str, relation: Relation, tablet_col: str | None = None, **kw):
-        """Create a Table (tabletized tables are not ported yet: slice 6)."""
+        """Create a Table (tabletized tables are not ported yet: the host-layer slice)."""
         if tablet_col is not None:
             raise Unimplemented(
-                f"table {name}: tablets are not ported yet (slice 6)")
+                f"table {name}: tablets are not ported yet (the host-layer slice)")
         with self._lock:
             if name in self._tables:
                 raise InvalidArgument(f"table {name} already exists")

@@ -17,6 +17,7 @@ import re
 
 import torch
 
+from pixie_tpu_torch.ops.chain import remainder
 from pixie_tpu_torch.types import DataType as DT
 from pixie_tpu_torch.udf.udf import (
     AnyUDA,
@@ -36,8 +37,11 @@ from pixie_tpu_torch.udf.udf import (
 _B, _I, _F, _S, _T = DT.BOOLEAN, DT.INT64, DT.FLOAT64, DT.STRING, DT.TIME64NS
 
 
-def _dev(name, args, out, fn):
-    return ScalarUDF(name=name, arg_types=tuple(args), out_type=out, fn=fn, device=True)
+def _dev(name, args, out, fn, op):
+    """A device fn; `op` names its chain program opcode (ops/chain.py
+    DEV_OPS), which computes what fn computes."""
+    return ScalarUDF(name=name, arg_types=tuple(args), out_type=out, fn=fn, device=True,
+                     op=op)
 
 
 def _host(name, args, out, fn):
@@ -55,61 +59,62 @@ def register_all(r: Registry) -> None:
     # ---------------------------------------------------------------- numeric
     for args in ((_I, _I), (_F, _F)):
         out = args[0]
-        r.register(_dev("add", args, out, lambda a, b: a + b))
-        r.register(_dev("subtract", args, out, lambda a, b: a - b))
-        r.register(_dev("multiply", args, out, lambda a, b: a * b))
-        r.register(_dev("modulo", args, out, lambda a, b: torch.where(b != 0, a % torch.where(b == 0, 1, b), 0)))
+        r.register(_dev("add", args, out, lambda a, b: a + b, "add"))
+        r.register(_dev("subtract", args, out, lambda a, b: a - b, "subtract"))
+        r.register(_dev("multiply", args, out, lambda a, b: a * b, "multiply"))
+        r.register(_dev("modulo", args, out, lambda a, b: torch.where(b != 0, remainder(a, torch.where(b == 0, 1, b)), 0), "modulo"))
     # Division always yields float (PxL / Python semantics).
-    r.register(_dev("divide", (_F, _F), _F, lambda a, b: a.to(torch.float64) / b))
-    r.register(_dev("floordiv", (_I, _I), _I, lambda a, b: torch.where(b != 0, a // torch.where(b == 0, 1, b), 0)))
-    r.register(_dev("pow", (_F, _F), _F, lambda a, b: torch.pow(a.to(torch.float64), b)))
-    r.register(_dev("abs", (_F,), _F, torch.abs))
-    r.register(_dev("abs", (_I,), _I, torch.abs))
-    r.register(_dev("log", (_F,), _F, torch.log))
-    r.register(_dev("log2", (_F,), _F, torch.log2))
-    r.register(_dev("log10", (_F,), _F, torch.log10))
-    r.register(_dev("exp", (_F,), _F, torch.exp))
-    r.register(_dev("sqrt", (_F,), _F, torch.sqrt))
-    r.register(_dev("ceil", (_F,), _F, lambda a: torch.ceil(a)))
-    r.register(_dev("floor", (_F,), _F, lambda a: torch.floor(a)))
-    r.register(_dev("round", (_F,), _F, lambda a: torch.round(a)))
+    r.register(_dev("divide", (_F, _F), _F, lambda a, b: a.to(torch.float64) / b, "divide"))
+    r.register(_dev("floordiv", (_I, _I), _I, lambda a, b: torch.where(b != 0, a // torch.where(b == 0, 1, b), 0), "floordiv"))
+    r.register(_dev("pow", (_F, _F), _F, lambda a, b: torch.pow(a.to(torch.float64), b), "pow"))
+    r.register(_dev("abs", (_F,), _F, torch.abs, "abs"))
+    r.register(_dev("abs", (_I,), _I, torch.abs, "abs"))
+    r.register(_dev("log", (_F,), _F, torch.log, "log"))
+    r.register(_dev("log2", (_F,), _F, torch.log2, "log2"))
+    r.register(_dev("log10", (_F,), _F, torch.log10, "log10"))
+    r.register(_dev("exp", (_F,), _F, torch.exp, "exp"))
+    r.register(_dev("sqrt", (_F,), _F, torch.sqrt, "sqrt"))
+    r.register(_dev("ceil", (_F,), _F, lambda a: torch.ceil(a), "ceil"))
+    r.register(_dev("floor", (_F,), _F, lambda a: torch.floor(a), "floor"))
+    r.register(_dev("round", (_F,), _F, lambda a: torch.round(a), "round"))
     # time binning: px.bin(t, size) — truncate to window start
     r.register(dataclasses.replace(
-        _dev("bin", (_T, _I), _T, lambda t, s: t - t % torch.where(s == 0, 1, s)),
+        _dev("bin", (_T, _I), _T, lambda t, s: t - t % torch.where(s == 0, 1, s), "bin"),
         st_preserve=True))
     r.register(dataclasses.replace(
-        _dev("bin", (_I, _I), _I, lambda t, s: t - t % torch.where(s == 0, 1, s)),
+        _dev("bin", (_I, _I), _I, lambda t, s: t - t % torch.where(s == 0, 1, s), "bin"),
         st_preserve=True))
 
     # ------------------------------------------------------------ comparisons
     for args in ((_I, _I), (_F, _F), (_B, _B), (_T, _T)):
-        r.register(_dev("equal", args, _B, lambda a, b: a == b))
-        r.register(_dev("not_equal", args, _B, lambda a, b: a != b))
+        r.register(_dev("equal", args, _B, lambda a, b: a == b, "eq"))
+        r.register(_dev("not_equal", args, _B, lambda a, b: a != b, "ne"))
     for args in ((_I, _I), (_F, _F), (_T, _T)):
-        r.register(_dev("less", args, _B, lambda a, b: a < b))
-        r.register(_dev("less_equal", args, _B, lambda a, b: a <= b))
-        r.register(_dev("greater", args, _B, lambda a, b: a > b))
-        r.register(_dev("greater_equal", args, _B, lambda a, b: a >= b))
+        r.register(_dev("less", args, _B, lambda a, b: a < b, "lt"))
+        r.register(_dev("less_equal", args, _B, lambda a, b: a <= b, "le"))
+        r.register(_dev("greater", args, _B, lambda a, b: a > b, "gt"))
+        r.register(_dev("greater_equal", args, _B, lambda a, b: a >= b, "ge"))
 
     # ----------------------------------------------------------------- logical
-    r.register(_dev("logical_and", (_B, _B), _B, torch.logical_and))
-    r.register(_dev("logical_or", (_B, _B), _B, torch.logical_or))
-    r.register(_dev("logical_not", (_B,), _B, torch.logical_not))
+    r.register(_dev("logical_and", (_B, _B), _B, torch.logical_and, "and"))
+    r.register(_dev("logical_or", (_B, _B), _B, torch.logical_or, "or"))
+    r.register(_dev("logical_not", (_B,), _B, torch.logical_not, "not"))
 
     # ------------------------------------------------------------ conditionals
     # select on numerics is a device where(); select on strings is handled by the
     # evaluator via code translation (reference builtins/conditionals.cc).
     for t in (_I, _F, _B, _T):
-        r.register(_dev("select", (_B, t, t), t, lambda c, a, b: torch.where(c, a, b)))
+        r.register(_dev("select", (_B, t, t), t, lambda c, a, b: torch.where(c, a, b),
+                        "select"))
 
     # More math (reference math_ops.cc)
-    r.register(_dev("ln", (_F,), _F, torch.log))
-    r.register(_dev("negate", (_F,), _F, lambda a: -a))
-    r.register(_dev("negate", (_I,), _I, lambda a: -a))
-    r.register(_dev("invert", (_F,), _F, lambda a: 1.0 / a))
+    r.register(_dev("ln", (_F,), _F, torch.log, "log"))
+    r.register(_dev("negate", (_F,), _F, lambda a: -a, "negate"))
+    r.register(_dev("negate", (_I,), _I, lambda a: -a, "negate"))
+    r.register(_dev("invert", (_F,), _F, lambda a: 1.0 / a, "invert"))
     # time casts (reference string_ops int64_to_time / time_to_int64)
-    r.register(_dev("int64_to_time", (_I,), _T, lambda a: a))
-    r.register(_dev("time_to_int64", (_T,), _I, lambda a: a))
+    r.register(_dev("int64_to_time", (_I,), _T, lambda a: a, "identity"))
+    r.register(_dev("time_to_int64", (_T,), _I, lambda a: a, "identity"))
 
     # ------------------------------------------------------------ string (host)
     r.register(_host("length", (_S,), _I, lambda s: len(s)))
@@ -210,43 +215,47 @@ def register_all(r: Registry) -> None:
     # out_types independently of widening-rule evolution, and skip the
     # per-call cast closure on the hot dispatch path.
     for args in ((_I, _F), (_F, _I)):
-        r.register(_dev("add", args, _F, lambda a, b: a + b))
-        r.register(_dev("subtract", args, _F, lambda a, b: a - b))
-        r.register(_dev("multiply", args, _F, lambda a, b: a * b))
+        r.register(_dev("add", args, _F, lambda a, b: a + b, "add"))
+        r.register(_dev("subtract", args, _F, lambda a, b: a - b, "subtract"))
+        r.register(_dev("multiply", args, _F, lambda a, b: a * b, "multiply"))
     for args in ((_I, _I), (_I, _F), (_F, _I)):
         r.register(_dev("divide", args, _F,
-                        lambda a, b: a.to(torch.float64) / b))
+                        lambda a, b: a.to(torch.float64) / b, "divide"))
     r.register(_dev("floordiv", (_F, _F), _F,
-                    lambda a, b: torch.where(b != 0, a // torch.where(b == 0, 1., b), 0.)))
+                    lambda a, b: torch.where(b != 0, a // torch.where(b == 0, 1., b), 0.),
+                    "floordiv"))
     r.register(_dev("pow", (_I, _I), _F,
-                    lambda a, b: torch.pow(a.to(torch.float64), b)))
+                    lambda a, b: torch.pow(a.to(torch.float64), b), "pow"))
     r.register(_dev("pow", (_I, _F), _F,
-                    lambda a, b: torch.pow(a.to(torch.float64), b)))
-    r.register(_dev("pow", (_F, _I), _F, lambda a, b: torch.pow(a, b)))
+                    lambda a, b: torch.pow(a.to(torch.float64), b), "pow"))
+    r.register(_dev("pow", (_F, _I), _F, lambda a, b: torch.pow(a, b), "pow"))
     # time arithmetic: offsets stay times, differences are durations
     r.register(dataclasses.replace(
-        _dev("add", (_T, _I), _T, lambda a, b: a + b), st_preserve=True))
+        _dev("add", (_T, _I), _T, lambda a, b: a + b, "add"), st_preserve=True))
     r.register(dataclasses.replace(
-        _dev("add", (_I, _T), _T, lambda a, b: a + b), st_preserve=True))
+        _dev("add", (_I, _T), _T, lambda a, b: a + b, "add"), st_preserve=True))
     r.register(dataclasses.replace(
-        _dev("subtract", (_T, _I), _T, lambda a, b: a - b), st_preserve=True))
-    r.register(_dev("subtract", (_T, _T), _I, lambda a, b: a - b))
+        _dev("subtract", (_T, _I), _T, lambda a, b: a - b, "subtract"), st_preserve=True))
+    r.register(_dev("subtract", (_T, _T), _I, lambda a, b: a - b, "subtract"))
     # int inputs to float math (implicit widening, reference type expansion)
     for fname, fn in (("log", torch.log), ("ln", torch.log), ("log2", torch.log2),
                       ("log10", torch.log10), ("exp", torch.exp),
                       ("sqrt", torch.sqrt)):
         r.register(_dev(fname, (_I,), _F,
-                        lambda a, fn=fn: fn(a.to(torch.float64))))
+                        lambda a, fn=fn: fn(a.to(torch.float64)),
+                        "log" if fname == "ln" else fname))
     for fname in ("ceil", "floor", "round"):
-        r.register(_dev(fname, (_I,), _I, lambda a: a))  # already integral
-    r.register(_dev("invert", (_I,), _F, lambda a: 1.0 / a))
+        r.register(_dev(fname, (_I,), _I, lambda a: a, fname))  # already integral
+    # 1.0 / an int64 tensor would be float32 (torch's default dtype); the
+    # reference computes it in float64
+    r.register(_dev("invert", (_I,), _F, lambda a: 1.0 / a.to(torch.float64), "invert"))
     for args in ((_I, _F), (_F, _I)):
-        r.register(_dev("equal", args, _B, lambda a, b: a == b))
-        r.register(_dev("not_equal", args, _B, lambda a, b: a != b))
-        r.register(_dev("less", args, _B, lambda a, b: a < b))
-        r.register(_dev("less_equal", args, _B, lambda a, b: a <= b))
-        r.register(_dev("greater", args, _B, lambda a, b: a > b))
-        r.register(_dev("greater_equal", args, _B, lambda a, b: a >= b))
+        r.register(_dev("equal", args, _B, lambda a, b: a == b, "eq"))
+        r.register(_dev("not_equal", args, _B, lambda a, b: a != b, "ne"))
+        r.register(_dev("less", args, _B, lambda a, b: a < b, "lt"))
+        r.register(_dev("less_equal", args, _B, lambda a, b: a <= b, "le"))
+        r.register(_dev("greater", args, _B, lambda a, b: a > b, "gt"))
+        r.register(_dev("greater_equal", args, _B, lambda a, b: a >= b, "ge"))
     # lexical string comparisons (host pair/LUT eval; reference string
     # comparisons via StringValue operator<)
     r.register(_host("less", (_S, _S), _B, lambda a, b: a < b))
@@ -257,17 +266,17 @@ def register_all(r: Registry) -> None:
     # ---------------------------- reference-spelling aliases (math_ops.cc
     # registers comparison/logical ops under camelCase PxL names)
     for args in ((_I, _I), (_F, _F), (_T, _T)):
-        r.register(_dev("greaterThan", args, _B, lambda a, b: a > b))
-        r.register(_dev("greaterThanEqual", args, _B, lambda a, b: a >= b))
-        r.register(_dev("lessThan", args, _B, lambda a, b: a < b))
-        r.register(_dev("lessThanEqual", args, _B, lambda a, b: a <= b))
-        r.register(_dev("notEqual", args, _B, lambda a, b: a != b))
-    r.register(_dev("logicalAnd", (_B, _B), _B, torch.logical_and))
-    r.register(_dev("logicalOr", (_B, _B), _B, torch.logical_or))
-    r.register(_dev("logicalNot", (_B,), _B, torch.logical_not))
+        r.register(_dev("greaterThan", args, _B, lambda a, b: a > b, "gt"))
+        r.register(_dev("greaterThanEqual", args, _B, lambda a, b: a >= b, "ge"))
+        r.register(_dev("lessThan", args, _B, lambda a, b: a < b, "lt"))
+        r.register(_dev("lessThanEqual", args, _B, lambda a, b: a <= b, "le"))
+        r.register(_dev("notEqual", args, _B, lambda a, b: a != b, "ne"))
+    r.register(_dev("logicalAnd", (_B, _B), _B, torch.logical_and, "and"))
+    r.register(_dev("logicalOr", (_B, _B), _B, torch.logical_or, "or"))
+    r.register(_dev("logicalNot", (_B,), _B, torch.logical_not, "not"))
     # approxEqual: |a-b| < 1e-9 (reference math_ops.cc ApproxEqualUDF)
     r.register(_dev("approxEqual", (_F, _F), _B,
-                    lambda a, b: torch.abs(a - b) < 1e-9))
+                    lambda a, b: torch.abs(a - b) < 1e-9, "approx_eq"))
 
     # ------------------------------------------- environment constants
     # (reference metadata_ops.cc VizierIDUDF / VizierNameUDF,

@@ -58,6 +58,9 @@ class ScalarUDF:
     #: True if the output keeps the semantic type of its first ST-typed
     #: argument
     st_preserve: bool = False
+    #: device fns: the chain program opcode computing fn (ops/chain.py
+    #: DEV_OPS); None makes a call of it a leaf of the chain kernel
+    op: "str | None" = None
 
     def key(self) -> tuple:
         return (self.name, self.arg_types)

@@ -5,6 +5,8 @@ card and no JAX, run them without the suite's conftest (which imports JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import zlib
+
 import numpy as np
 import pytest
 import torch
@@ -434,3 +436,160 @@ def test_kmeans_cuda_tensor_never_reaches_the_plain_versions(dev, monkeypatch):
     km_ops.assign(x, c)
     km_ops.lloyd_step(x, w, c)
     km_ops.seed_step(x, w, c[0], torch.full((1000,), float("inf"), device=dev))
+
+
+# ---------------------------------------------------------------- C1 (chain)
+
+from pixie_tpu_torch.ops import chain as c1  # noqa: E402
+
+_I64_EDGES = np.array([np.iinfo(np.int64).min, np.iinfo(np.int64).max, 0, -1, 1, -7, 7,
+                       2, -2, 3, 10 ** 12, -(10 ** 12)], dtype=np.int64)
+_F64_EDGES = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 0.5, 1.5, 2.5, -0.5, -2.5,
+                       1e-300, 1e300, -7.25, 3.0, 1e-9, 2.0 ** 53 + 1], dtype=np.float64)
+
+
+def c1_column(kind, n, rng):
+    """n values of `kind` with the edge values at the front, the rest random
+    (so every edge meets every other edge across the two operands)."""
+    if kind == c1.B:
+        return rng.random(n) < 0.5
+    if kind == c1.F64:
+        v = rng.normal(0, 100, n)
+        v[: len(_F64_EDGES)] = _F64_EDGES
+        v[len(_F64_EDGES): 2 * len(_F64_EDGES)] = rng.permutation(_F64_EDGES)
+        return v
+    v = rng.integers(-1000, 1000, n).astype(np.int64)
+    v[: len(_I64_EDGES)] = _I64_EDGES
+    v[len(_I64_EDGES): 2 * len(_I64_EDGES)] = rng.permutation(_I64_EDGES)
+    return v
+
+
+def c1_same(got, want) -> bool:
+    """Bit for bit (a NaN equals a NaN: the payload is not compared)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    if got.dtype == torch.float64:
+        both_nan = torch.isnan(got) & torch.isnan(want)
+        return bool(torch.all(both_nan | (got.view(torch.int64) == want.view(torch.int64))))
+    return torch.equal(got, want)
+
+
+_I, _F, _B = c1.I64, c1.F64, c1.B
+C1_OP_CASES = (
+    [(op, k) for op in ("add", "subtract", "multiply", "modulo", "floordiv", "divide", "pow",
+                        "eq", "ne", "lt", "le", "gt", "ge")
+     for k in ((_I, _I), (_F, _F), (_I, _F), (_F, _I))]
+    + [(op, (k,)) for op in ("abs", "negate", "log", "log2", "log10", "exp", "sqrt", "ceil",
+                             "floor", "round", "invert", "identity") for k in (_I, _F)]
+    + [("bin", (_I, _I)), ("approx_eq", (_F, _F)), ("eq", (_B, _B)), ("ne", (_B, _B)),
+       ("and", (_B, _B)), ("or", (_B, _B)), ("not", (_B,)),
+       ("select", (_B, _I, _I)), ("select", (_B, _F, _F)), ("select", (_B, _B, _B))])
+
+
+@pytest.mark.parametrize("op,kinds", C1_OP_CASES)
+@pytest.mark.parametrize("const_b", [False, True])
+def test_chain_opcode_equals_plain(dev, op, kinds, const_b):
+    """Every `_dev` opcode: C1 against the plain interpreter on the same
+    CUDA columns (edge values included), bit for bit."""
+    rng = np.random.default_rng(zlib.crc32(repr((op, kinds)).encode()))
+    n = 4099
+    consts = None
+    if const_b and len(kinds) > 1:
+        consts = [None] * len(kinds)
+        consts[-1] = {_I: -3, _F: -2.5, _B: True}[kinds[-1]]
+    prog, bnd = c1.op_program(op, list(kinds), consts)
+    cols = [torch.from_numpy(c1_column(k, n, rng)).to(dev)
+            for i, k in enumerate(kinds) if f"a{i}" in bnd.cols]
+    before = _build.KERNELS["chain"].launches
+    _m, _g, got = c1.run(prog, cols, [], [], n, dev)
+    assert _build.KERNELS["chain"].launches == before + 1
+    _m, _g, want = c1.run_plain(prog, cols, [], [], n, dev)
+    assert c1_same(got[0], want[0]), (op, kinds, prog.listing())
+
+
+def test_chain_structural_opcodes_equal_plain(dev):
+    """LUT gathers (codes < 0, past the end, an empty LUT), a bounded
+    domain, a code pair, a sorted search, the window key with a runtime
+    origin, the group-id combine and the mask with n_valid < n."""
+    rng = np.random.default_rng(5)
+    n = 70_001
+    codes = torch.from_numpy(rng.integers(-2, 40, n).astype(np.int32)).to(dev)
+    codes2 = torch.from_numpy(rng.integers(-1, 9, n).astype(np.int32)).to(dev)
+    t = torch.from_numpy(rng.integers(-(10 ** 12), 10 ** 12, n).astype(np.int64)).to(dev)
+    t[:3] = torch.tensor([np.iinfo(np.int64).min, -1, 0])
+    luts = {"f": torch.from_numpy(rng.normal(0, 1, 32)).to(dev),
+            "s": torch.from_numpy(rng.integers(0, 5, 32).astype(np.int32)).to(dev),
+            "e": torch.zeros(0, dtype=torch.bool, device=dev),
+            "p": torch.from_numpy(rng.random(40 * 9) < 0.5).to(dev),
+            "u": torch.from_numpy(np.unique(rng.integers(-1000, 1000, 300))).to(dev),
+            "d": torch.from_numpy(rng.integers(0, 99, 500).astype(np.int64)).to(dev)}
+    b = c1.ProgramBuilder()
+    b.row(); b.scalar("n_valid"); b.op("LT_I"); b.mask_and()
+    b.col("c", c1.I32); b.lut("f", c1.F64, 0.0); b.store()
+    b.col("c", c1.I32); b.lut("s", c1.I32, -1); b.store()
+    b.col("c", c1.I32); b.lut("e", c1.B, False); b.store()
+    b.col("c", c1.I32); b.col("c2", c1.I32); b.pair(9); b.lut("p", c1.B, False); b.store()
+    b.col("t", c1.I64); b.lut_domain("d", c1.I64, 100, 599, -5); b.store()
+    b.col("t", c1.I64); b.search("u"); b.store()
+    b.col("t", c1.I64); b.window(10 ** 10, "origin"); b.store()
+    b.col("c", c1.I32); b.dup(); b.const(0, c1.I64); b.op("GE_I"); b.mask_and(); b.combine(64)
+    b.col("c2", c1.I32); b.combine(16)
+    prog, bnd = b.finish(has_gid=True)
+    cols = {"c": codes, "c2": codes2, "t": t}
+    args = ([cols[k] for k in bnd.cols], [luts[k] for k in bnd.luts])
+    for origin in (0, -123, 77):
+        scal = {"n_valid": n - 17, "origin": origin}
+        sc = [scal[k] for k in bnd.scalars]
+        got = c1.run(prog, *args, sc, n, dev)
+        want = c1.run_plain(prog, *args, sc, n, dev)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        for g, w in zip(got[2], want[2]):
+            assert c1_same(g, w)
+
+
+def test_chain_kernel_on_the_card_equals_cpu_route(dev):
+    """A chain with two limits, a string predicate and a computed float
+    column through the executor: the card's result equals the CPU's, and
+    C1 ran on the card."""
+    from pixie_tpu_torch.engine import execute_plan
+    from pixie_tpu_torch.plan import (Call, Column, FilterOp, LimitOp, MapOp, MemorySinkOp,
+                                      MemorySourceOp, Plan, lit)
+    from pixie_tpu_torch.table import TableStore
+    from pixie_tpu_torch.types import DataType as DT, Relation
+
+    rng = np.random.default_rng(8)
+    ts = TableStore()
+    t = ts.create("t", Relation.of(("time_", DT.TIME64NS), ("svc", DT.STRING),
+                                   ("lat", DT.FLOAT64), ("st", DT.INT64)), batch_rows=4096)
+    n = 50_000
+    t.write({"time_": np.arange(n, dtype=np.int64), "svc": rng.choice(["a", "b", "c"], n),
+             "lat": rng.exponential(5.0, n), "st": rng.choice([200, 404, 500], n)})
+    p = Plan()
+    node = p.add(MemorySourceOp(table="t"))
+    node = p.add(FilterOp(expr=Call("not_equal", (Column("svc"), lit("b")))), parents=[node])
+    node = p.add(LimitOp(n=20_000), parents=[node])
+    node = p.add(MapOp(exprs=[("svc", Column("svc")), ("st", Column("st")),
+                              ("x", Call("multiply", (Column("lat"), lit(2.5))))]),
+                 parents=[node])
+    node = p.add(FilterOp(expr=Call("equal", (Column("st"), lit(500)))), parents=[node])
+    node = p.add(LimitOp(n=1000), parents=[node])
+    p.add(MemorySinkOp(name="out"), parents=[node])
+    before = _build.KERNELS["chain"].launches
+    got = execute_plan(p, ts, device=dev)["out"]
+    assert _build.KERNELS["chain"].launches > before
+    assert got.exec_stats["chain_leaves"] == 0
+    want = execute_plan(p, ts, device="cpu")["out"]
+    for k in ("svc", "st", "x"):
+        assert np.array_equal(got.columns[k], want.columns[k])
+
+
+def test_chain_cuda_tensor_never_reaches_the_plain_interpreter(dev, monkeypatch):
+    prog, bnd = c1.op_program("add", [c1.I64, c1.I64])
+    x = torch.arange(10, device=dev)
+
+    def boom(*a, **k):
+        raise AssertionError("plain interpreter reached with CUDA tensors")
+
+    monkeypatch.setattr(c1, "run_plain", boom)
+    _m, _g, (out,) = c1.run(prog, [x, x], [], [], 10, dev)
+    assert torch.equal(out, 2 * x)

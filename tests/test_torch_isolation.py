@@ -91,3 +91,36 @@ def test_missing_nvcc_is_a_build_error(tmp_path):
                          text=True, timeout=120, env=env)
     assert out.returncode == 0, out.stderr
     assert "KernelUnavailable: nvcc not found" in out.stdout
+
+
+@pytest.mark.parametrize("mod", ["pixie_tpu_torch.ops.chain", "pixie_tpu_torch.engine.stream",
+                                 "pixie_tpu_torch.parallel.streaming",
+                                 "pixie_tpu_torch.table.delta"])
+def test_streaming_and_chain_modules_import_alone(mod):
+    """Each module of the streaming slice, imported on its own, pulls in no
+    JAX and nothing of the reference."""
+    code = (
+        f"import importlib, sys\nimportlib.import_module({mod!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pixie_tpu'))\n"
+        "sys.exit('imported: ' + ', '.join(bad) if bad else 0)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_stream_pxl_without_device_refuses_the_cpu():
+    import torch
+
+    from pixie_tpu_torch.engine.stream import stream_pxl
+    from pixie_tpu_torch.status import Unavailable
+    from pixie_tpu_torch.table import TableStore
+    from pixie_tpu_torch.types import DataType as DT, Relation
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    ts = TableStore()
+    ts.create("t", Relation.of(("time_", DT.TIME64NS), ("x", DT.INT64)))
+    with pytest.raises(Unavailable, match="CUDA"):
+        stream_pxl("df = px.DataFrame(table='t').stream()\npx.display(df, 'o')\n", ts)
