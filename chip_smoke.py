@@ -117,6 +117,22 @@ k > a block's 256 points, d = 13, d = 150 with k = 200, k = 129, a cluster
 of zero weight), to 1e-5 of |x|^2 + |c|^2 (distances, p) and of the sums
 of |w x| (xsum), ids equal outside near-ties, unit-weight counts exactly.
 
+Then, over config #1's 64M-row table (after config #2's phase): G1 (the
+multi-query gang) on the table's first 16M-row feed with the four
+BATCH_SCRIPTS members of the reference's load harness, held against its
+plain version and against the per-sink route (each member's C1 and K1/K2
+launches) on the same tensors — counts, int64 sums, min, max and sketch
+cells exactly, float64 sums to rtol 1e-12 — and again with a member of 2^20
+groups added (global atomics), each timed; and the batch phase: the four
+scripts through LocalCluster.query from 16 client threads (4 per script, 8
+queries each), unbatched (PL_QUERY_BATCHING=0, PX_MQ_FUSION=0) and then
+batched (both on), each result equal to the script's solo result, which
+equals a numpy oracle (counts exact, means to rtol 1e-9, max and min
+exact, p50 and p99 in the oracle's sketch bin or the next); per arm the
+goodput, the p50 latency, the batches formed and their median size,
+mq_fused, mq_waves and G1's launches per batch.  The phase fails unless a
+batch formed and G1 launched.
+
 It prints one JSON line per kernel, a {"kernels": [...]} line, the card's
 name and power limit, and last {"ok": true, "device": {...}}.  It exits
 non-zero, printing no result, without a CUDA device or outside the repo.
@@ -2694,6 +2710,412 @@ def run_cluster_stream(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------- G1 and the batch phase
+
+#: the reference load harness's four dashboard scripts over one hot table
+#: (pixie_tpu/serving/load_bench.py:377-405 BATCH_SCRIPTS, as text)
+BATCH_SCRIPTS = [
+    """
+df = px.DataFrame(table='http_events')
+df = df[df.status != 404]
+df = df.groupby(['service', 'status']).agg(
+    cnt=('latency', px.count), avg_lat=('latency', px.mean))
+px.display(df, 'out')
+""",
+    """
+df = px.DataFrame(table='http_events')
+df = df[df.latency > 10.0]
+df = df.groupby('service').agg(cnt=('latency', px.count),
+                               mx=('latency', px.max))
+px.display(df, 'out')
+""",
+    """
+df = px.DataFrame(table='http_events')
+df = df.groupby('status').agg(p50=('latency', px.p50),
+                              p99=('latency', px.p99))
+px.display(df, 'out')
+""",
+    """
+df = px.DataFrame(table='http_events')
+df = df[df.status == 200]
+df = df.groupby('service').agg(avg=('latency', px.mean),
+                               mn=('latency', px.min))
+px.display(df, 'out')
+""",
+]
+#: each script's group keys, for comparing results as sorted frames
+BATCH_KEYS = [["service", "status"], ["service"], ["status"], ["service"]]
+#: the batched arm runs every member's partial step in G1 (one agent: no M1;
+#: the merger finalizes on the host)
+BATCH_KERNELS = [("gang", "px_gang_partial")]
+#: the batch phase's clients: 4 threads per script, 8 queries each
+BATCH_CLIENTS_PER_SCRIPT = 4
+BATCH_QUERIES = 8
+#: G1's global-atomics member: grouped by an int key of 2^20 values
+GANG_BIG_KEYS = 1 << 20
+
+
+def gang_feed(dev, ts):
+    """The four BATCH_SCRIPTS fused and split as LocalCluster does, their
+    partial aggregates prepared as the executor's gang prepares them
+    (`_agg_setup`), over the table's first 16M-row feed: → (fresh() → one
+    state per member, members(states) → the gang's members over the feed,
+    per_sink(states): each member's C1 and K1/K2 launches on the feed, the
+    feed's columns, n_valid)."""
+    import torch
+
+    from pixie_tpu_torch.compiler import compile_pxl
+    from pixie_tpu_torch.engine.executor import PlanExecutor, _time_bounds
+    from pixie_tpu_torch.parallel import LocalCluster
+    from pixie_tpu_torch.plan import AggOp
+    from pixie_tpu_torch.serving import batching
+
+    cl = LocalCluster({"pem0": ts}, device=dev)
+    qs = [compile_pxl(s, cl.schemas()) for s in BATCH_SCRIPTS]
+    fused, _map = batching.fuse_members([(f"q{i}", q.plan) for i, q in enumerate(qs)],
+                                        cl.schemas())
+    ap = cl.planner.plan(fused).agent_plans["pem0"]
+    ex = PlanExecutor(ap, ts, None, device=dev)
+    setups = [ex._agg_setup(op) for op in ap.topo_sorted() if isinstance(op, AggOp)]
+    names: list = []
+    for s in setups:
+        names.extend(n for n in s.names if n not in names)
+    cols, n_valid = next(iter(ex._feed(setups[0].src, names, setups[0].cap)))
+    t_lo, t_hi = _time_bounds(setups[0].head)
+    luts = [{k: torch.as_tensor(v).to(dev) for k, v in s.kern.luts.items()} for s in setups]
+
+    def fresh():
+        return [{name: uda.init(s.num_groups, in_dt, dev) for name, uda, in_dt in s.init_specs}
+                for s in setups]
+
+    def members(states):
+        return [s.kern.gang_member(cols, n_valid, t_lo, t_hi, lut, st, s.origins)
+                for s, lut, st in zip(setups, luts, states)]
+
+    def per_sink(states):
+        for s, lut, st in zip(setups, luts, states):
+            s.step(cols, n_valid, t_lo, t_hi, None, lut, st, s.origins)
+
+    return fresh, members, per_sink, cols, n_valid
+
+
+def gang_big_member(dev, cols, n_valid, rng):
+    """A member of GANG_BIG_KEYS groups (count, a float64 sum and max of
+    latency, an int64 min of status) over the same feed, keyed by an int
+    column of 2^20 values encoded against its sorted values (the executor's
+    int-key route): its states do not fit a block, so it takes global
+    atomics.  → members(states), fresh()."""
+    import torch
+
+    from pixie_tpu_torch.ops import chain as c1
+    from pixie_tpu_torch.ops import gang as g1
+    from pixie_tpu_torch.ops.groupby import _identity_for
+
+    n = next(iter(cols.values())).shape[0]
+    conn = torch.from_numpy(rng.integers(0, GANG_BIG_KEYS, n)).to(dev)
+    keys = torch.arange(GANG_BIG_KEYS, dtype=torch.int64, device=dev)
+    b = c1.ProgramBuilder()
+    b.row(); b.scalar("n_valid"); b.op("LT_I"); b.mask_and()
+    b.col("status", c1.I64); b.const(404, c1.I64); b.op("NE_I"); b.mask_and()
+    b.col("conn", c1.I64); b.search("keys"); b.combine(GANG_BIG_KEYS)
+    prog, bnd = b.finish(has_gid=True)
+    src = {**cols, "conn": conn}
+    g = GANG_BIG_KEYS
+
+    def fresh():
+        return {"cnt": torch.zeros(g, dtype=torch.int64, device=dev),
+                "sum": torch.zeros(g, dtype=torch.float64, device=dev),
+                "mx": torch.full((g,), _identity_for(torch.float64, "max"),
+                                 dtype=torch.float64, device=dev),
+                "mn": torch.full((g,), _identity_for(torch.int64, "min"),
+                                 dtype=torch.int64, device=dev)}
+
+    def member(st):
+        return g1.Member(prog, [src[k] for k in bnd.cols], [keys], [n_valid], g, [
+            g1.Leaf("count", st["cnt"]), g1.Leaf("sum", st["sum"], cols["latency"]),
+            g1.Leaf("max", st["mx"], cols["latency"]), g1.Leaf("min", st["mn"], cols["status"])])
+
+    return member, fresh
+
+
+def gang_bound(members: list, n: int) -> tuple[float, str]:
+    """Bytes G1 must move over one feed: each distinct feed column the
+    members read (their programs' inputs and their leaves' values), once,
+    and each state leaf written once."""
+    import torch
+
+    cols: dict[int, int] = {}
+    for m in members:
+        for c in m.cols:
+            cols[c.data_ptr()] = c.element_size() * n
+        for leaf in m.leaves:
+            if isinstance(leaf.value, torch.Tensor):
+                cols[leaf.value.data_ptr()] = leaf.value.element_size() * n
+    states = {leaf.state.data_ptr(): leaf.state.numel() * leaf.state.element_size()
+              for m in members for leaf in m.leaves}
+    return bound(sum(cols.values()) + sum(states.values()))
+
+
+def gang_compare(label: str, got: list, want: list) -> float:
+    """Two gangs' states leaf by leaf: float64 sums to rtol 1e-12 (atomic
+    order), every other leaf exactly; → the largest float64 sum difference."""
+    import torch
+
+    err = 0.0
+    for mg, mw in zip(got, want):
+        for lg, lw in zip(mg.leaves, mw.leaves):
+            a, b = lg.state, lw.state
+            if a.dtype.is_floating_point and lg.op in ("sum", "sumsq"):
+                ok = torch.allclose(a, b, rtol=1e-12, atol=0)
+                err = max(err, float((a - b).abs().max()))
+            else:
+                ok = torch.equal(a, b)
+            if not ok:
+                raise AssertionError(f"G1 {label}: {lg.op} leaf ({a.dtype}, "
+                                     f"{tuple(a.shape)}) differs")
+    return err
+
+
+def check_gang_kernel(dev, ts) -> list[dict]:
+    """G1 against its plain version and against the per-sink route (each
+    member's C1 and K1/K2 launches) on one 16M-row feed of the 64M-row
+    table, with the four BATCH_SCRIPTS members (their states in shared
+    memory), and with a member of 2^20 groups added (global atomics);
+    timed beside both."""
+    import torch
+
+    from pixie_tpu_torch.ops import gang as g1
+
+    fresh, members, per_sink, cols, n_valid = gang_feed(dev, ts)
+    n = next(iter(cols.values())).shape[0]
+    a, b, c = fresh(), fresh(), fresh()
+    g1.run(members(a), n, dev)
+    g1.run_plain(members(b), n, dev)
+    per_sink(c)
+    torch.cuda.synchronize()
+    err = gang_compare("against its plain version", members(a), members(b))
+    err = max(err, gang_compare("against the per-sink route", members(a), members(c)))
+    offs, acc = g1.plan_shared(members(a))
+    if None in offs:
+        raise AssertionError(f"G1: a BATCH_SCRIPTS member missed shared memory: {offs}")
+    log(json.dumps({"check": "G1 BATCH_SCRIPTS members", "ok": True, "rows": n,
+                    "members": len(offs), "shared_bytes": acc, "max_abs_err": err}))
+    big, big_fresh = gang_big_member(dev, cols, n_valid, np.random.default_rng(31))
+    sa, sb = (big_fresh(), fresh()), (big_fresh(), fresh())
+    for (bs, st), run in ((sa, g1.run), (sb, g1.run_plain)):
+        run([big(bs)] + members(st), n, dev)
+    torch.cuda.synchronize()
+    mixed = [big(sa[0])] + members(sa[1])
+    err_big = gang_compare("with a 2^20-group member", mixed, [big(sb[0])] + members(sb[1]))
+    offs_big, _acc = g1.plan_shared(mixed)
+    if offs_big[0] is not None or None in offs_big[1:]:
+        raise AssertionError(f"G1: the 2^20-group member took shared memory: {offs_big}")
+    st = fresh()
+    mixed_ms = cuda_ms(lambda: g1.run([big(sa[0])] + members(st), n, dev), 10)
+    log(json.dumps({"check": "G1 with a 2^20-group member", "ok": True,
+                    "max_abs_err": err_big, "kernel_ms": mixed_ms,
+                    "bound_ms": gang_bound(mixed, n)[0]}))
+    st = fresh()
+    b_ms, b_by = gang_bound(members(st), n)
+    return [{
+        "name": "gang G1 (the four BATCH_SCRIPTS members)", "route": "cuda",
+        "source": "pixie_tpu_torch/csrc/gang.cu",
+        "replaces": "pixie_tpu/engine/executor.py:2807 _multi_partial_agg (fused_fn :2852)",
+        "entry": ("gang", "px_gang_partial"), "path": "batch", "max_abs_err": max(err, err_big),
+        "ms": cuda_ms(lambda: g1.run(members(st), n, dev), 20),
+        "plain_ms": cuda_ms(lambda: g1.run_plain(members(st), n, dev), 3, warmup=1),
+        # the yardstick: the same work as each member's C1 and K1/K2 launches
+        "per_sink_ms": cuda_ms(lambda: per_sink(st), 20),
+        "bound_ms": b_ms, "bound_by": b_by,
+        # no single PyTorch call computes a gang
+        "library_ms": None,
+        "shape": {"rows": n, "members": len(offs), "union_columns": sorted(cols)},
+    }]
+
+
+def batch_frame(res, keys) -> dict:
+    """A result's columns (service decoded to its index) sorted by its keys."""
+    cols = {}
+    for name in res.relation.names():
+        if name == "service":
+            cols[name] = np.array([int(v.split("-")[1]) for v in res.decoded(name)],
+                                  dtype=np.int64)
+        else:
+            cols[name] = np.asarray(res.columns[name])
+    order = np.lexsort([cols[k] for k in reversed(keys)])
+    return {k: v[order] for k, v in cols.items()}
+
+
+def batch_same(label: str, got: dict, want: dict) -> None:
+    """Counts, keys, min, max and quantiles exactly; means to rtol 1e-12."""
+    if sorted(got) != sorted(want) or len(next(iter(got.values()))) != len(
+            next(iter(want.values()))):
+        raise AssertionError(f"{label}: columns or groups differ")
+    for k in got:
+        if k in ("avg_lat", "avg"):
+            ok = np.allclose(got[k], want[k], rtol=1e-12, atol=0)
+        else:
+            ok = np.array_equal(got[k], want[k])
+        if not ok:
+            raise AssertionError(f"{label}: column {k} differs")
+
+
+def batch_oracle(table, frames: list) -> dict:
+    """Each script's solo result (a batch_frame) against a numpy oracle over
+    the table: counts exact, means to rtol 1e-9, max and min exact, p50 and
+    p99 in the oracle's sketch bin or the next."""
+    cols = _table_columns(table, ("service", "latency", "status"))
+    names = table.dictionaries["service"].decode(np.arange(table.dictionaries["service"].size))
+    idx = np.array([int(v.split("-")[1]) for v in names], dtype=np.int64)
+    svc, lat, st = idx[cols["service"]], cols["latency"], cols["status"]
+    statuses = np.unique(st)
+    out = {}
+
+    def counts(label, f, sel, key, ng):
+        cnt = np.bincount(key[sel], minlength=ng)
+        if not np.array_equal(f["cnt"], cnt[cnt > 0]):
+            raise AssertionError(f"{label}: counts differ from the oracle")
+        return cnt
+
+    # 0: status != 404, by (service, status): count, mean
+    sel = st != 404
+    key = svc * len(statuses) + np.searchsorted(statuses, st)
+    ng = N_SERVICES * len(statuses)
+    cnt = counts("batch script 0", frames[0], sel, key, ng)
+    mean = np.bincount(key[sel], weights=lat[sel], minlength=ng) / np.maximum(cnt, 1)
+    if not np.allclose(frames[0]["avg_lat"], mean[cnt > 0], rtol=1e-9, atol=0):
+        raise AssertionError("batch script 0: means differ from the oracle")
+    # 1: latency > 10, by service: count, max
+    sel = lat > 10.0
+    cnt = counts("batch script 1", frames[1], sel, svc, N_SERVICES)
+    mx = np.full(N_SERVICES, -np.inf)
+    np.maximum.at(mx, svc[sel], lat[sel])
+    if not np.array_equal(frames[1]["mx"], mx[cnt > 0]):
+        raise AssertionError("batch script 1: max differs from the oracle")
+    # 2: by status: p50, p99
+    key2 = np.searchsorted(statuses, st)
+    orc = SketchOracle(len(statuses))
+    orc.add(key2, lat)
+    out["p_exact_bins"] = {q: check_bins(f"batch script 2 {q}", frames[2][q],
+                                         orc.quantile(v)) for q, v in (("p50", 0.5),
+                                                                        ("p99", 0.99))}
+    # 3: status == 200, by service: mean, min
+    sel = st == 200
+    cnt = np.bincount(svc[sel], minlength=N_SERVICES)
+    mean = np.bincount(svc[sel], weights=lat[sel], minlength=N_SERVICES) / np.maximum(cnt, 1)
+    mn = np.full(N_SERVICES, np.inf)
+    np.minimum.at(mn, svc[sel], lat[sel])
+    if not (np.allclose(frames[3]["avg"], mean[cnt > 0], rtol=1e-9, atol=0)
+            and np.array_equal(frames[3]["mn"], mn[cnt > 0])):
+        raise AssertionError("batch script 3: mean or min differs from the oracle")
+    out["groups"] = [len(f[k[0]]) for f, k in zip(frames, BATCH_KEYS)]
+    return out
+
+
+def run_batch(dev, ts, table) -> dict:
+    """The four BATCH_SCRIPTS through LocalCluster.query over the 64M-row
+    table from 16 client threads (4 per script, BATCH_QUERIES queries each),
+    unbatched (PL_QUERY_BATCHING=0, PX_MQ_FUSION=0) and then batched (both
+    on: the gang on G1); every result equal to the script's solo result,
+    which equals a numpy oracle."""
+    import threading
+
+    import torch
+
+    from pixie_tpu_torch import flags, metrics
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.parallel import LocalCluster
+    from pixie_tpu_torch.serving import batching
+
+    cl = LocalCluster({"pem0": ts}, device=dev)
+
+    def query(i):
+        t0 = time.perf_counter()
+        r = cl.query(BATCH_SCRIPTS[i])["out"]
+        torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0, r
+
+    def clients(nq):
+        """16 threads, started together; → (wall, [(script, seconds, result)])."""
+        out, errs = [], []
+        lock = threading.Lock()
+        n_thr = len(BATCH_SCRIPTS) * BATCH_CLIENTS_PER_SCRIPT
+        barrier = threading.Barrier(n_thr + 1, timeout=300)
+
+        def run(i):
+            try:
+                barrier.wait()
+                for _ in range(nq):
+                    s, r = query(i)
+                    with lock:
+                        out.append((i, s, r))
+            except Exception as e:  # raised below, after every thread ends
+                errs.append(e)
+
+        threads = [threading.Thread(target=run, args=(i % len(BATCH_SCRIPTS),))
+                   for i in range(n_thr)]
+        for t in threads:
+            t.start()
+        barrier.wait()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads) or errs:
+            raise AssertionError(f"batch clients failed: {errs[:3]}")
+        return wall, out
+
+    saved = {f: flags.get(f) for f in ("PL_QUERY_BATCHING", "PX_MQ_FUSION")}
+    try:
+        flags.set_for_testing("PL_QUERY_BATCHING", False)
+        flags.set_for_testing("PX_MQ_FUSION", 0)
+        solo = [batch_frame(query(i)[1], BATCH_KEYS[i]) for i in range(len(BATCH_SCRIPTS))]
+        check = batch_oracle(table, solo)
+        log(json.dumps({"phase": "batch.oracle", "ok": True, **check}))
+        arms, launches = {}, None
+        for arm, on in (("unbatched", False), ("batched", True)):
+            flags.set_for_testing("PL_QUERY_BATCHING", on)
+            flags.set_for_testing("PX_MQ_FUSION", -1 if on else 0)
+            clients(1)  # warm: the gang's union column set has its own tier entry
+            batching.reset_for_testing()
+            formed0 = metrics.counter_value("px_batch_formed_total")
+            g0 = _build.KERNELS["gang"].launches
+            if on:
+                _build.reset_launches()
+            wall, out = clients(BATCH_QUERIES)
+            if on:
+                launches = read_launches("batch", BATCH_KERNELS)
+            g1_launches = _build.KERNELS["gang"].launches - (0 if on else g0)
+            formed = metrics.counter_value("px_batch_formed_total") - formed0
+            for i, _s, r in out:
+                batch_same(f"batch {arm} script {i}", batch_frame(r, BATCH_KEYS[i]), solo[i])
+            execs = {id(r.exec_stats["agents"]): r.exec_stats["agents"]["pem0"]
+                     for _i, _s, r in out}
+            lat = sorted(s for _i, s, _r in out)
+            arms[arm] = {
+                "queries": len(out), "wall_s": wall, "goodput_qps": len(out) / wall,
+                "p50_latency_s": lat[len(lat) // 2], "p99_latency_s": lat[-1 - len(lat) // 100],
+                "recent_size_p50": batching.recent_size_p50(), "batches_formed": formed,
+                "batched_queries": sum(1 for _i, _s, r in out if "batch" in r.exec_stats),
+                "executions": len(execs),
+                "mq_fused": sum(e.get("mq_fused", 0) for e in execs.values()),
+                "mq_waves": sum(e.get("mq_waves", 0) for e in execs.values()),
+                "g1_launches": g1_launches,
+                "g1_launches_per_batch": g1_launches / formed if formed else 0.0,
+                "h2d_bytes": sum(e.get("h2d_bytes", 0) for e in execs.values())}
+            log(json.dumps({"phase": f"batch.{arm}", **arms[arm]}))
+        b = arms["batched"]
+        if not (b["batches_formed"] > 0 and b["g1_launches"] > 0 and b["mq_fused"] > 0):
+            raise AssertionError(f"batch: no batch formed or G1 never launched: {b}")
+        if arms["unbatched"]["batches_formed"] or arms["unbatched"]["g1_launches"]:
+            raise AssertionError("batch: the unbatched arm batched or launched G1")
+    finally:
+        for f, v in saved.items():
+            flags.set_for_testing(f, v)
+    return {"launches": launches, "arms": arms, "oracle": check,
+            "device_memory": device_memory()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2730,6 +3152,12 @@ def main() -> int:
     paths = {"config1": sl["launches"]}
     paths["select"] = run_select(dev, ts, table, args.profile)["select"]["launches"]
     paths["config2"] = run_config2(dev, ts, table)["launches"]
+    rows += check_gang_kernel(dev, ts)
+    t0 = time.perf_counter()
+    batch = run_batch(dev, ts, table)
+    log(json.dumps({"phase": "batch", "card": smi, "seconds": time.perf_counter() - t0,
+                    **{k: v for k, v in batch.items() if k != "launches"}}))
+    paths["batch"] = batch["launches"]
     del ts, table
     paths["config3"] = run_config3(dev)["launches"]
     paths["config4"] = run_config4(dev)["launches"]
@@ -2749,6 +3177,7 @@ def main() -> int:
         r["launches"] = paths[path][lib].get(entry, 0)
         log(json.dumps({"kernel": r["name"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
                         "library_ms": r["library_ms"], "bound_ms": r["bound_ms"],
+                        "per_sink_ms": r.get("per_sink_ms"),
                         "launches": r["launches"], "shape": r["shape"], "card": smi}))
     log(json.dumps({"phase": "wall", "seconds": time.perf_counter() - t_start,
                     "card": smi}))

@@ -50,10 +50,12 @@ distributed agent paths of the reference executor
 (pixie_tpu/engine/executor.py), with `run_agent_stream` (the chunk stream
 the streaming fold consumes) and the streaming polls of engine/stream.py.
 Unions, UDTF sources and partition sinks raise Unimplemented and name the
-slice that brings them.  Multi-query batching and fusion
-(`_gang_agg_payloads`, `_multi_partial_agg`) are absent: every sink runs on
-its own, as in the reference with PX_MQ_FUSION=0.  The SPMD (mesh) paths
-wait for the four-chip slice.  Unlike the reference, no query is routed to
+slice that brings them.  The agent plan of a batched query (serving/
+batching.py) holds several partial aggregates over one shared scan: they run
+as a multi-query gang (`_gang_agg_payloads`, `_multi_partial_agg`), one
+launch of kernel G1 (ops/gang.py) per feed for every member, under
+PX_MQ_FUSION (auto: on for a CUDA executor).  The SPMD (mesh) paths wait for
+the four-chip slice.  Unlike the reference, no query is routed to
 the CPU by size: on the card every query, and every streaming poll, runs the
 device path.
 """
@@ -62,6 +64,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import threading
 import time as _time
 from typing import Callable, Optional
@@ -74,6 +77,7 @@ from pixie_tpu_torch.engine import resident, transfer
 from pixie_tpu_torch.engine.eval import ExprCompiler, SVal, apply_lut_np
 from pixie_tpu_torch.engine.result import QueryResult
 from pixie_tpu_torch.ops import chain as _chain
+from pixie_tpu_torch.ops import gang as _gang
 from pixie_tpu_torch.ops import join_device as _jd
 from pixie_tpu_torch.ops.compact import compact
 from pixie_tpu_torch.ops.groupby import next_pow2, split_codes
@@ -119,6 +123,29 @@ PICKER_NULL_SENTINEL = int(np.iinfo(np.int32).max)
 FEED_ROWS = _flags.define_int(
     "PX_FEED_ROWS", 1 << 24, "feed coalescing target (rows per device feed)"
 )
+
+
+#: multi-query gang: the distinct partial aggregates of one shared scan (the
+#: fused-batch agent-plan shape, serving/batching.py) run as ONE launch of
+#: kernel G1 per feed, and the whole gang reads back in one transfer wave
+_flags.define_int(
+    "PX_MQ_FUSION", -1,
+    "run sibling partial-agg chains sharing one scan as one multi-query gang "
+    "(kernel G1, one launch per feed): -1 = auto (on iff the executor's "
+    "device is CUDA), 0 = never, 1 = always (the plain version of G1 on the "
+    "CPU: tests)")
+
+
+def mq_fusion_enabled(device) -> bool:
+    """Whether an executor on `device` runs the multi-query gang
+    (PX_MQ_FUSION): auto means the executor's own device is CUDA, the port's
+    counterpart of the reference's "a real accelerator backs the dispatch"."""
+    v = int(_flags.get("PX_MQ_FUSION"))
+    if v == 0:
+        return False
+    if v >= 1:
+        return True
+    return torch.device(device).type == "cuda"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -536,17 +563,25 @@ class ChainKernel:
                                                          device=self.device)
                 consumed[i - 1] = torch.minimum(reaching, limits[i - 1])
                 extra = {_MASK_IN: mask, _CSUM_IN: csum}
-            bnd = seg.binding
-            in_cols = []
-            for name in bnd.cols:
-                if name in bnd.leaves:
-                    in_cols.append(_rows(bnd.leaves[name](env), n))
-                else:
-                    in_cols.append(extra[name] if name in extra else cols[name])
-            in_luts = [limits if name == _LIMITS else luts[name] for name in bnd.luts]
-            mask, gid, outs = runner(seg.prog, in_cols, in_luts,
-                                     [vals[name] for name in bnd.scalars], n, self.device)
+            in_cols, in_luts, in_scalars = self._bind(seg, env, n, vals, limits, extra)
+            mask, gid, outs = runner(seg.prog, in_cols, in_luts, in_scalars, n, self.device)
         return mask, gid, outs, consumed
+
+    @staticmethod
+    def _bind(seg, env, n, vals, limits=None, extra=None):
+        """A segment's program inputs over one feed, in binding order: its
+        columns (leaf values computed here by their closures), LUTs and
+        scalar values."""
+        bnd = seg.binding
+        extra = extra or {}
+        in_cols = []
+        for name in bnd.cols:
+            if name in bnd.leaves:
+                in_cols.append(_rows(bnd.leaves[name](env), n))
+            else:
+                in_cols.append(extra[name] if name in extra else env["cols"][name])
+        in_luts = [limits if name == _LIMITS else env["luts"][name] for name in bnd.luts]
+        return in_cols, in_luts, [vals[name] for name in bnd.scalars]
 
     @staticmethod
     def _passthrough(sv) -> Optional[str]:
@@ -631,6 +666,8 @@ class ChainKernel:
             value_tail(b)
 
         segs = self._lower(tail, has_gid=True)
+        #: what gang_member needs of this aggregate
+        self._agg = (udas, where, num_groups)
 
         def step(cols, n_valid, t_lo, t_hi, limit_remaining, luts, state, scalars=None):
             n = _first_len(cols)
@@ -647,6 +684,29 @@ class ChainKernel:
             return state, consumed
 
         return step
+
+    def gang_member(self, cols, n_valid, t_lo, t_hi, luts, state, scalars=None):
+        """This aggregate as a member of a multi-query gang over one feed
+        (ops/gang.py): the chain's one program (a chain with limits never
+        joins a gang) with its inputs, and a leaf update per state leaf of
+        each UDA, reading the values make_agg_step's step would pass to
+        `update`."""
+        udas, where, num_groups = self._agg
+        (seg,) = self.segments
+        n = _first_len(cols)
+        vals = {"n_valid": n_valid, "t_lo": t_lo, "t_hi": t_hi, **(scalars or {})}
+        in_cols, in_luts, in_scalars = self._bind(seg, {"cols": cols, "luts": luts}, n, vals)
+        leaves = []
+        j = 0
+        for out_name, uda, vb in udas:
+            v = None
+            if vb is not None:
+                w = where[j]
+                j += 1
+                v = cols[w] if isinstance(w, str) else w
+            for op, leaf, sketch in uda.gang_leaves(state[out_name]):
+                leaves.append(_gang.Leaf(op, leaf, None if op == "count" else v, sketch))
+        return _gang.Member(seg.prog, in_cols, in_luts, in_scalars, num_groups, leaves)
 
 
 def _picker_codes(sv: SVal) -> SVal:
@@ -1648,23 +1708,25 @@ class PlanExecutor:
                 "dict-valued aggregates must ship rows, not partial state "
                 "(the distributed planner cuts them as rows channels)"
             )
-
-        def finish_state(merged, keys=keys, udas=udas, seen_name=seen_name,
-                         in_types=in_types):
-            return self._finish_partial_batch(keys, udas, merged, seen_name,
-                                              in_types)
-
+        finish_state = functools.partial(self._finish_partial_batch, keys, udas,
+                                         seen_name=seen_name, in_types=in_types)
         if isinstance(state, _DeferredState):
-            return _DeferredPartial(
-                state.partials,
-                # one state per agent (the feed loop accumulates in place)
-                lambda pulled: finish_state(pulled[0]),
-                layout_fp=self._partial_layout_fp(keys, udas, in_types,
-                                                  seen_name),
-                finish_state=finish_state,
-                reduce_tree=state.reduce_tree,
-            )
+            return self._deferred_partial(state.partials, state.reduce_tree, keys, udas,
+                                          seen_name, in_types, finish_state)
         return finish_state(transfer.pull(state))
+
+    def _deferred_partial(self, partials, reduce_tree, keys, udas, seen_name, in_types,
+                          finish_state) -> _DeferredPartial:
+        """A partial whose device state the cluster pulls (or merges with M1)
+        together with every other agent's."""
+        return _DeferredPartial(
+            partials,
+            # one state per agent (the feed loop accumulates in place)
+            lambda pulled: finish_state(pulled[0]),
+            layout_fp=self._partial_layout_fp(keys, udas, in_types, seen_name),
+            finish_state=finish_state,
+            reduce_tree=reduce_tree,
+        )
 
     @staticmethod
     def _partial_layout_fp(keys, udas, in_types, seen_name):
@@ -1746,12 +1808,112 @@ class PlanExecutor:
             in_types=dict(in_types),
         )
 
+    # ------------------------------------------------- multi-query gang
+    def _gang_agg_payloads(self) -> dict:
+        """{channel: payload} for the agg_state sinks executed as ONE
+        multi-query gang — two or more distinct partial aggs reading a single
+        MemorySourceOp (the fused-batch agent-plan shape).  Empty when the
+        gang is off (PX_MQ_FUSION, analyze) or does not apply; such sinks run
+        one by one as before."""
+        if not mq_fusion_enabled(self.device) or self.analyze:
+            return {}
+        groups: dict[int, list] = {}
+        for sink in self.plan.sinks():
+            if not isinstance(sink, ResultSinkOp) or sink.payload != "agg_state":
+                continue
+            parent = self.plan.parents(sink)[0]
+            if not (isinstance(parent, AggOp) and parent.partial):
+                continue
+            try:
+                head, _ops = self._upstream_chain(self.plan.parents(parent)[0])
+            except Internal:
+                continue
+            if isinstance(head, MemorySourceOp):
+                groups.setdefault(head.id, []).append((sink.channel, parent))
+        out: dict = {}
+        for g in groups.values():
+            # one agg feeding several channels computes ONCE: dedup by op
+            # identity before the gang, then fan the payload out per channel
+            uniq, seen = [], set()
+            for _c, p in g:
+                if id(p) not in seen:
+                    seen.add(id(p))
+                    uniq.append(p)
+            if len(uniq) < 2:
+                continue
+            got = self._multi_partial_agg(uniq)
+            if got is None:
+                continue
+            for cid, parent in g:
+                out[cid] = got[parent.id]
+        return out
+
+    def _multi_partial_agg(self, ops: list) -> Optional[dict]:
+        """Execute N partial aggregates over ONE shared scan as a gang: each
+        feed is one launch of kernel G1 (ops/gang.py) that runs every
+        member's chain program and folds its kept rows into its state, in
+        place; then the whole gang reads back in one transfer wave, or, under
+        `defer_agg_pull`, each member's state stays on the device for the
+        cluster's merge (M1).  Returns {op.id: payload}, or None when a
+        member is out of scope (a key that takes the sorted fallback, a
+        limit, a dictionary-valued aggregate, a UDA whose state G1 cannot
+        update): the caller then runs the sinks one by one.  The earliest
+        member's cursor snapshot feeds the gang over the union of the
+        members' columns; a later member's key sets cover at least its rows
+        (tables are append-only)."""
+        leaves0 = self.stats.get("chain_leaves", 0)
+        setups = []
+        for op in ops:
+            try:
+                s = self._agg_setup(op)
+            except GroupKeyFallback:
+                s = None
+            if s is None or s.kern.has_limit or s.val_dicts:
+                self.stats["chain_leaves"] = leaves0
+                return None
+            setups.append(s)
+        states = [{name: uda.init(s.num_groups, in_dt, self.device)
+                   for name, uda, in_dt in s.init_specs} for s in setups]
+        if any(uda.gang_leaves(st[name]) is None
+               for s, st in zip(setups, states) for name, uda, _dt in s.init_specs):
+            self.stats["chain_leaves"] = leaves0
+            return None
+        union_names: list[str] = []
+        for s in setups:
+            union_names.extend(n for n in s.names if n not in union_names)
+        t_lo, t_hi = _time_bounds(setups[0].head)
+        # LUTs are uploaded once per query
+        luts = [{k: torch.as_tensor(v).to(self.device) for k, v in s.kern.luts.items()}
+                for s in setups]
+        with self._timed(f"mq_gang[{len(setups)}]", [op.id for op in ops]):
+            waves = 0
+            for cols, n_valid in self._feed(setups[0].src, union_names, setups[0].cap):
+                members = [s.kern.gang_member(cols, n_valid, t_lo, t_hi, lut, st, s.origins)
+                           for s, lut, st in zip(setups, luts, states)]
+                _gang.run(members, _first_len(cols), self.device)
+                waves += 1
+            self.stats["mq_waves"] = self.stats.get("mq_waves", 0) + waves
+            finishers = [functools.partial(self._finish_partial_batch, s.keys, s.udas,
+                                           seen_name=s.seen_name, in_types=s.in_types)
+                         for s in setups]
+            if self.defer_agg_pull:
+                got = [self._deferred_partial(
+                    [st], {name: uda.reduce_ops() for name, uda, _vb in s.udas},
+                    s.keys, s.udas, s.seen_name, s.in_types, fin)
+                    for s, st, fin in zip(setups, states, finishers)]
+            else:
+                got = [fin(pulled) for fin, pulled in zip(finishers, transfer.pull(states))]
+        self.stats["mq_fused"] = self.stats.get("mq_fused", 0) + len(setups)
+        return {s.op.id: g for s, g in zip(setups, got)}
+
     def run_agent(self) -> dict:
         """Execute an AGENT plan: returns {channel: payload} where payload is a
         HostBatch (rows channels), a PartialAggBatch (agg_state channels) or,
-        under `defer_agg_pull`, a _DeferredPartial."""
+        under `defer_agg_pull`, a _DeferredPartial.  Partial aggregates over
+        one shared scan run as a multi-query gang (`_gang_agg_payloads`)."""
         out = {}
         t0 = _time.perf_counter_ns()
+        gang = self._gang_agg_payloads()
         for sink in self.plan.sinks():
             if isinstance(sink, PartitionSinkOp):
                 raise Unimplemented(
@@ -1763,7 +1925,8 @@ class PlanExecutor:
             if sink.payload == "agg_state":
                 if not (isinstance(parent, AggOp) and parent.partial):
                     raise Internal("agg_state channel must be fed by a partial AggOp")
-                out[sink.channel] = self._partial_agg_batch(parent)
+                out[sink.channel] = (gang[sink.channel] if sink.channel in gang
+                                     else self._partial_agg_batch(parent))
             else:
                 out[sink.channel] = self._materialize_parent(parent)
         self.stats["wall_ns"] = _time.perf_counter_ns() - t0
@@ -1780,13 +1943,15 @@ class PlanExecutor:
         run_agent is the barrier shape of the same walk.
 
         Chunks of one channel are yielded in order, but consumers must not
-        rely on it: the folds are order-insensitive by construction.  Every
-        sink runs on its own (no multi-query gang: the reference with
-        PX_MQ_FUSION=0), and partition sinks raise as in run_agent.
+        rely on it: the folds are order-insensitive by construction.  Partial
+        aggregates over one shared scan run as a multi-query gang, computed
+        before the first yield, as in run_agent; partition sinks raise as in
+        run_agent.
         """
         from pixie_tpu_torch.parallel.partial import slice_partial
 
         t0 = _time.perf_counter_ns()
+        gang = self._gang_agg_payloads()
         for sink in self.plan.sinks():
             if isinstance(sink, PartitionSinkOp):
                 raise Unimplemented(
@@ -1798,7 +1963,8 @@ class PlanExecutor:
             if sink.payload == "agg_state":
                 if not (isinstance(parent, AggOp) and parent.partial):
                     raise Internal("agg_state channel must be fed by a partial AggOp")
-                pb = self._partial_agg_batch(parent)
+                pb = (gang[sink.channel] if sink.channel in gang
+                      else self._partial_agg_batch(parent))
                 n = pb.num_groups
                 if agg_chunk_groups > 0 and n > agg_chunk_groups:
                     for a in range(0, n, agg_chunk_groups):

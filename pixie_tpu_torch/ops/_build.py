@@ -49,6 +49,7 @@ SOURCES = {
     "merge": "merge.cu",
     "kmeans": "kmeans.cu",
     "chain": "chain.cu",
+    "gang": "gang.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

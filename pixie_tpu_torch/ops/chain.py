@@ -580,7 +580,11 @@ def _check_tensor(t: torch.Tensor, kind: int, what: str, device, n=None) -> None
         raise TypeError(f"{what}: {t.shape[0]} rows, the feed has {n}")
 
 
-def _launch_c1(prog: Program, cols: list, luts: list, scalars: list, n: int, device):
+def pack_params(prog: Program, cols: list, luts: list, scalars: list, n: int, device):
+    """Check a program's inputs over one feed of n rows and pack them, with
+    the program (uploaded once per shape and device), into the ChainParams
+    of a launch; outputs, mask and group ids are left null.  C1 and G1
+    (ops/gang.py) both launch from it."""
     global _size_checked
     for i, (c, k) in enumerate(zip(cols, prog.col_kinds)):
         _check_tensor(c, k, f"column {i}", device, n)
@@ -596,22 +600,29 @@ def _launch_c1(prog: Program, cols: list, luts: list, scalars: list, n: int, dev
                            f"{ctypes.sizeof(_Params)} in the wrapper")
         _size_checked = True
     code, consts = _device_program(prog, device)
-    mask = torch.empty(n, dtype=torch.bool, device=device) if prog.has_mask else None
-    gid = torch.empty(n, dtype=torch.int32, device=device) if prog.has_gid else None
-    outs = [torch.empty(n, dtype=DTYPE[k], device=device) for k in prog.out_kinds]
     p = _Params()
     p.code, p.consts = code.data_ptr(), consts.data_ptr()
     for i, (c, k) in enumerate(zip(cols, prog.col_kinds)):
         p.col[i], p.col_kind[i] = c.data_ptr(), k
     for i, (t, k) in enumerate(zip(luts, prog.lut_kinds)):
         p.lut[i], p.lut_len[i], p.lut_kind[i] = t.data_ptr(), t.shape[0], k
-    for i, (o, k) in enumerate(zip(outs, prog.out_kinds)):
-        p.out[i], p.out_kind[i] = o.data_ptr(), k
+    for i, k in enumerate(prog.out_kinds):
+        p.out_kind[i] = k
     for i, s in enumerate(scalars):
         p.scalar[i] = int(s)
+    p.n, p.ncode, p.depth = n, len(prog.code), prog.depth
+    return p
+
+
+def _launch_c1(prog: Program, cols: list, luts: list, scalars: list, n: int, device):
+    p = pack_params(prog, cols, luts, scalars, n, device)
+    mask = torch.empty(n, dtype=torch.bool, device=device) if prog.has_mask else None
+    gid = torch.empty(n, dtype=torch.int32, device=device) if prog.has_gid else None
+    outs = [torch.empty(n, dtype=DTYPE[k], device=device) for k in prog.out_kinds]
+    for i, o in enumerate(outs):
+        p.out[i] = o.data_ptr()
     p.mask_out = mask.data_ptr() if mask is not None else None
     p.gid_out = gid.data_ptr() if gid is not None else None
-    p.n, p.ncode, p.depth = n, len(prog.code), prog.depth
     fn = _build.function(_C1, "px_chain_run", [_P, _P])
     with torch.cuda.device(device):
         err = fn(ctypes.byref(p), ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))

@@ -15,18 +15,28 @@ the device, and per agg_state channel all agents' states merge there in one
 launch of kernel M1 when their layouts agree (else each is read back and
 merged by key values on the host); one readback wave follows.
 
+Concurrent-query batching (PL_QUERY_BATCHING, serving/batching.py) runs as
+in the reference: groupable concurrent queries rendezvous at `query()`, the
+leader fuses the member plans, splits the fused plan once per batch
+signature and executes it once (its agents run the members' partial
+aggregates as one multi-query gang, kernel G1), and each member gets its
+demuxed results with exec_stats["batch"].  The batch window is the static
+flag (the reference's autotuned window is host-layer work), a fused batch is
+not verified (no plan verification yet), and there are no tenant namespaces.
+
 Not ported yet: multi-device agents (`_agent_mesh`, the four-chip slice),
 repartitioned joins (parallel/repartition.py, the four-chip slice), standing
 views (PL_MATVIEW_ENABLED: the port behaves as the reference does with the
-flag off), plan verification (PX_PLAN_VERIFY), query batching, the flight
-recorder and tracepoint mutations (the host-layer slice), and the
-semantic-type restamp of results (the host-layer slice: results carry
-physical types).  Streaming queries over a cluster run through
-parallel/streaming.py.
+flag off), plan verification (PX_PLAN_VERIFY), the flight recorder and
+tracepoint mutations (the host-layer slice), and the semantic-type restamp
+of results (the host-layer slice: results carry physical types).  Streaming
+queries over a cluster run through parallel/streaming.py.
 """
 from __future__ import annotations
 
+import threading
 import time as _time
+from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
@@ -149,6 +159,18 @@ class LocalCluster:
         #: whole-query plan cache (PL_QUERY_FASTPATH): warm repeated scripts
         #: skip re-trace/re-split (engine/plancache.py documents soundness)
         self.plan_cache = QueryPlanCache()
+        #: guards the batching state below
+        self._mesh_lock = threading.Lock()
+        #: concurrent-query batching rendezvous (PL_QUERY_BATCHING):
+        #: groupable concurrent queries fuse into one dispatch, results demux
+        #: per member (serving/batching.py); built on the first groupable query
+        self._batcher = None
+        #: batch signature -> BatchSlot (fused plan, sink map, split slot), so
+        #: warm repeats of the same member set skip re-merge and re-split
+        self._batch_splits: OrderedDict = OrderedDict()
+        #: concurrent query() calls in flight: the batching gate's
+        #: concurrent-traffic signal
+        self._query_inflight = 0
 
     def schemas(self) -> dict:
         return self.spec.combined_schemas()
@@ -167,11 +189,22 @@ class LocalCluster:
         execute it distributed (the ExecuteScript analog).  Warm repeats of
         the same script hit the whole-query plan cache and skip the compile
         and distributed-split work entirely (bit-equal results — the cached
-        plan IS the plan a recompile would produce)."""
+        plan IS the plan a recompile would produce).  A cacheable query may
+        run as a member of a batch with concurrent queries over the same scan
+        (PL_QUERY_BATCHING, `_maybe_batched_query`)."""
+        with self._mesh_lock:
+            self._query_inflight += 1
+        try:
+            return self._query(pxl_source, func, func_args, now, default_limit, analyze)
+        finally:
+            with self._mesh_lock:
+                self._query_inflight -= 1
+
+    def _query(self, pxl_source, func, func_args, now, default_limit, analyze):
         from pixie_tpu_torch.compiler import compile_pxl
 
-        key = self.plan_cache.key(pxl_source, func, func_args, default_limit,
-                                  self._schemas_fp())
+        fp = self._schemas_fp()
+        key = self.plan_cache.key(pxl_source, func, func_args, default_limit, fp)
         q, entry, _hit = self.plan_cache.get_query(
             key, lambda: compile_pxl(pxl_source, self.schemas(), func=func,
                                      func_args=func_args, now=now,
@@ -180,9 +213,64 @@ class LocalCluster:
         if q.mutations:
             raise Unimplemented("tracepoint mutations are not ported yet "
                                 "(the host-layer slice)")
+        if not analyze and not getattr(q, "now_sensitive", True):
+            # Concurrent-query batching: groupable concurrent queries over the
+            # same (table, scan window, schema epoch) rendezvous and dispatch
+            # as ONE fused plan with a shared scan; per-member results demux
+            # back here.  None = this query runs the normal path.
+            got = self._maybe_batched_query(q, key, fp)
+            if got is not None:
+                return got
         (dp, _extras), _shit = QueryPlanCache.get_split(
-            entry, self._schemas_fp(), lambda: (self.planner.plan(q.plan), {}))
+            entry, fp, lambda: (self.planner.plan(q.plan), {}))
         return self.execute(q.plan, analyze=analyze, dp=dp)
+
+    # ------------------------------------------------- query batching
+    def _maybe_batched_query(self, q, key, fp):
+        """Pass one compiled, cache-eligible query through the shared
+        batching gate (serving/batching.gate).  Returns the member's demuxed
+        results, or None when the query should run the normal path (batching
+        off, a plan that cannot batch, or a solo leader)."""
+        from pixie_tpu_torch import flags as _flags
+        from pixie_tpu_torch.serving import batching
+
+        if not batching.enabled():
+            return None
+        with self._mesh_lock:
+            if self._batcher is None:
+                self._batcher = batching.BatchCollector()
+            batcher = self._batcher
+        window_s = float(_flags.get("PL_BATCH_WINDOW_MS")) / 1e3
+        max_n = int(_flags.get("PL_BATCH_MAX_QUERIES"))
+        got = batching.gate(
+            batcher, q.plan, key, fp, window_s, max_n,
+            lambda members: self._execute_batch(members, fp),
+            wait_timeout_s=600.0,  # bounded by the leader's own execution
+            registry=self.registry,
+            concurrency=lambda: self._query_inflight >= 2)
+        return got[0] if isinstance(got, tuple) else got
+
+    def _execute_batch(self, members: list, fp) -> list:
+        """Leader path: merge the member plans (shared scans, deduped chains,
+        renamed sinks; identical members share ONE computed slot), split
+        ONCE per batch signature, run one distributed execution, and demux
+        per-member result dicts."""
+        from pixie_tpu_torch.serving import batching
+
+        slot, plans, slot_of = batching.fused_slot(
+            self._batch_splits, self._mesh_lock, members, self.schemas())
+        (dp, _extras), _hit = QueryPlanCache.get_split(
+            slot, fp, lambda: (self.planner.plan(slot.fused), {}))
+        results = self.execute(slot.fused, dp=dp)
+        batching.note_formed(len(members))
+        out = []
+        for i, _m in enumerate(members):
+            res = batching.demux_results(results, slot.sink_map, f"q{slot_of[i]}")
+            for qr in res.values():
+                qr.exec_stats["batch"] = {"size": len(members), "slots": len(plans),
+                                          "slot": slot_of[i]}
+            out.append(res)
+        return out
 
     def execute(self, logical: Plan, analyze: bool = False,
                 dp=None) -> dict[str, QueryResult]:

@@ -124,6 +124,14 @@ class UDA:
     def reduce_ops(self):
         raise NotImplementedError
 
+    def gang_leaves(self, state) -> list | None:
+        """The updates of `state`'s leaves for the multi-query gang (kernel
+        G1, ops/gang.py): [(op, leaf tensor, sketch | None)], each op one of
+        G1's leaf updates applied to this UDA's value, doing what `update`
+        does; None when G1 cannot update this state (the gang then runs the
+        sinks one by one)."""
+        return None
+
     def finalize_host(self, state_np) -> np.ndarray:
         raise NotImplementedError
 
@@ -166,6 +174,9 @@ class CountUDA(UDA):
     def reduce_ops(self):
         return "add"
 
+    def gang_leaves(self, state):
+        return [("count", state, None)]
+
     def finalize_host(self, state_np):
         return np.asarray(state_np, dtype=np.int64)
 
@@ -187,6 +198,9 @@ class SumUDA(UDA):
 
     def reduce_ops(self):
         return "add"
+
+    def gang_leaves(self, state):
+        return [("sum", state, None)]
 
     def finalize_host(self, state_np):
         return np.asarray(state_np)
@@ -214,6 +228,9 @@ class MeanUDA(UDA):
 
     def reduce_ops(self):
         return {"sum": "add", "count": "add"}
+
+    def gang_leaves(self, state):
+        return [("sum", state["sum"], None), ("count", state["count"], None)]
 
     def finalize_host(self, state_np):
         cnt = np.asarray(state_np["count"], dtype=np.float64)
@@ -244,6 +261,9 @@ class _PickUDA(UDA):
 
     def reduce_ops(self):
         return self.op
+
+    def gang_leaves(self, state):
+        return [(self.op, state, None)]
 
     def finalize_host(self, state_np):
         return np.asarray(state_np)
@@ -296,6 +316,10 @@ class VarianceUDA(UDA):
 
     def reduce_ops(self):
         return {"sum": "add", "sumsq": "add", "count": "add"}
+
+    def gang_leaves(self, state):
+        return [("sum", state["sum"], None), ("sumsq", state["sumsq"], None),
+                ("count", state["count"], None)]
 
     def finalize_host(self, state_np):
         n = np.asarray(state_np["count"], dtype=np.float64)
@@ -389,6 +413,9 @@ class _SketchUDA(UDA):
 
     def reduce_ops(self):
         return "add"
+
+    def gang_leaves(self, state):
+        return [("hist", state, self._sketch)]
 
     device_finalize = True
 

@@ -593,3 +593,190 @@ def test_chain_cuda_tensor_never_reaches_the_plain_interpreter(dev, monkeypatch)
     monkeypatch.setattr(c1, "run_plain", boom)
     _m, _g, (out,) = c1.run(prog, [x, x], [], [], 10, dev)
     assert torch.equal(out, 2 * x)
+
+
+# ------------------------------------------------------------------ G1 (gang)
+
+from pixie_tpu_torch.ops import gang as g1  # noqa: E402
+
+_G1_LEAVES = [  # (op, state dtype, value column)
+    ("count", torch.int64, None), ("sum", torch.int64, "i64"), ("sum", torch.int64, "b"),
+    ("sum", torch.float64, "pos"), ("sum", torch.float64, "posint"),
+    ("sum", torch.float64, 0), ("sumsq", torch.float64, "pos"),
+    ("min", torch.int32, "i32"), ("max", torch.int32, "i32"),
+    ("min", torch.int64, "i64"), ("max", torch.int64, "i64"), ("min", torch.int64, "b"),
+    ("min", torch.float64, "edge"), ("max", torch.float64, "edge"),
+    ("hist", torch.float32, "edge"), ("hist", torch.float32, 0)]
+
+
+def _g1_members(dev, n, groups, seed, n_valid, all_false):
+    """Two gang members over one feed of n rows, of groups[0] and groups[1]
+    groups, with a leaf of every op and state dtype between them, and
+    states started away from their identities, as after earlier feeds."""
+    rng = np.random.default_rng(seed)
+    edge = rng.exponential(50.0, n)
+    edge[:len(_F64_EDGES)] = _F64_EDGES
+    edge[rng.random(n) < 0.001] = np.nan
+    cols = {"code": rng.integers(-1, 97, n).astype(np.int32),
+            "code2": rng.integers(0, 1 << 14, n).astype(np.int32),
+            "st": rng.choice([200, 404, 500], n).astype(np.int64),
+            "i64": rng.integers(-(2 ** 62), 2 ** 62, n).astype(np.int64),
+            "i32": rng.integers(-(2 ** 31), 2 ** 31 - 1, n).astype(np.int32),
+            "b": rng.random(n) < 0.3,
+            "pos": rng.exponential(20.0, n),
+            "posint": rng.integers(0, 10 ** 6, n).astype(np.int64),
+            "edge": edge}
+    if all_false:
+        cols["st"][:] = 404
+    cols = {k: torch.from_numpy(v).to(dev) for k, v in cols.items()}
+    sk = LogHistogram()
+    hists = [lf for lf in _G1_LEAVES if lf[0] == "hist"]
+    members = []
+    for m, g in enumerate(groups):
+        b = c1.ProgramBuilder()
+        b.row(); b.scalar("n_valid"); b.op("LT_I"); b.mask_and()
+        b.col("st", c1.I64); b.const(404, c1.I64); b.op("NE_I"); b.mask_and()
+        b.col("code", c1.I32); b.dup(); b.const(0, c1.I64); b.op("GE_I"); b.mask_and()
+        b.combine(min(g, 64))
+        if g > 64:
+            b.col("code2", c1.I32); b.combine(g // 64)
+        b.col("pos", c1.F64); b.const(1.5 + m, c1.F64); b.op("MUL_F"); b.store()
+        prog, bnd = b.finish(has_gid=True)
+        leaves = []
+        # one sketch a member: two [8, 514] sketches fit a block's budget
+        for op, dt, v in [lf for lf in _G1_LEAVES if lf[0] != "hist"] + [hists[m]]:
+            shape = (g, sk.width) if op == "hist" else (g,)
+            if op in ("min", "max"):
+                info = torch.finfo(dt) if dt.is_floating_point else torch.iinfo(dt)
+                state = torch.full(shape, info.max if op == "min" else info.min, dtype=dt,
+                                   device=dev)
+                state[::3] = torch.tensor(rng.integers(-1000, 1000, state[::3].shape[0]),
+                                          dtype=dt, device=dev)
+            elif op == "hist":
+                state = torch.from_numpy(rng.integers(0, 5, shape).astype(np.float32)).to(dev)
+            else:
+                state = torch.from_numpy(rng.integers(0, 100, shape)).to(dt).to(dev)
+            value = cols[v] if isinstance(v, str) else v
+            leaves.append(g1.Leaf(op, state, value, sk if op == "hist" else None))
+        members.append(g1.Member(prog, [cols[k] for k in bnd.cols], [],
+                                 [n_valid], g, leaves))
+    return members
+
+
+def _g1_clone(members):
+    return [g1.Member(m.prog, m.cols, m.luts, m.scalars, m.num_groups,
+                      [g1.Leaf(lf.op, lf.state.clone(), lf.value, lf.sketch)
+                       for lf in m.leaves]) for m in members]
+
+
+@pytest.mark.parametrize("groups", [(8, 8), (1 << 20, 1 << 20), (8, 1 << 20)],
+                         ids=["shared", "global", "mixed"])
+@pytest.mark.parametrize("case", ["all", "n_valid", "all_false"])
+def test_gang_equals_plain(dev, groups, case):
+    """G1 against its plain version on the same CUDA tensors, for every leaf
+    op and state dtype, with private accumulators in shared memory (8
+    groups), with global atomics (2^20 groups) and both in one launch:
+    counts, int64 sums, min, max and sketch cells exactly, float64 sums to
+    rtol 1e-12 (positive values: no cancellation)."""
+    n = 300_001
+    n_valid = n - 4321 if case == "n_valid" else n
+    members = _g1_members(dev, n, groups, 11, n_valid, case == "all_false")
+    offs, _acc = g1.plan_shared(members)
+    assert [o is None for o in offs] == [g > 64 for g in groups]
+    got, want = _g1_clone(members), _g1_clone(members)
+    before = _build.KERNELS["gang"].launches
+    g1.run(got, n, dev)
+    assert _build.KERNELS["gang"].launches == before + 1
+    g1.run_plain(want, n, dev)
+    torch.cuda.synchronize()
+    for m_got, m_want, m0 in zip(got, want, members):
+        for lg, lw, l0 in zip(m_got.leaves, m_want.leaves, m0.leaves):
+            what = (lg.op, lg.state.dtype, m_got.num_groups, case)
+            if lg.state.dtype == torch.float64 and lg.op in ("sum", "sumsq"):
+                assert torch.allclose(lg.state, lw.state, rtol=1e-12, atol=0), what
+            else:
+                assert torch.equal(lg.state, lw.state) or (
+                    lg.state.dtype == torch.float64
+                    and c1_same(lg.state, lw.state)), what
+            if case == "all_false":
+                assert c1_same(lg.state, l0.state), what
+
+
+def test_gang_cuda_tensor_never_reaches_the_plain_version(dev, monkeypatch):
+    members = _g1_members(dev, 4097, (8, 64), 12, 4097, False)
+
+    def boom(*a, **k):
+        raise AssertionError("plain version reached with CUDA tensors")
+
+    monkeypatch.setattr(g1, "run_plain", boom)
+    monkeypatch.setattr(c1, "run_plain", boom)
+    g1.run(members, 4097, dev)
+    torch.cuda.synchronize()
+
+
+def test_gang_on_the_card_equals_cpu_route(dev):
+    """The fused agent plan of the reference load harness's four dashboard
+    scripts through run_agent: G1 on the card, once per feed, equal to the
+    CPU's gang (its plain version)."""
+    from pixie_tpu_torch import flags
+    from pixie_tpu_torch.compiler import compile_pxl
+    from pixie_tpu_torch.engine.executor import PlanExecutor
+    from pixie_tpu_torch.parallel import LocalCluster
+    from pixie_tpu_torch.serving import batching
+    from pixie_tpu_torch.table import TableStore
+    from pixie_tpu_torch.types import DataType as DT, Relation
+
+    scripts = [
+        "df = px.DataFrame(table='http_events')\ndf = df[df.status != 404]\n"
+        "df = df.groupby(['service', 'status']).agg(cnt=('latency', px.count), "
+        "avg_lat=('latency', px.mean))\npx.display(df, 'out')\n",
+        "df = px.DataFrame(table='http_events')\ndf = df[df.latency > 10.0]\n"
+        "df = df.groupby('service').agg(cnt=('latency', px.count), mx=('latency', px.max))\n"
+        "px.display(df, 'out')\n",
+        "df = px.DataFrame(table='http_events')\ndf = df.groupby('status').agg("
+        "p50=('latency', px.p50), p99=('latency', px.p99))\npx.display(df, 'out')\n",
+        "df = px.DataFrame(table='http_events')\ndf = df[df.status == 200]\n"
+        "df = df.groupby('service').agg(avg=('latency', px.mean), mn=('latency', px.min))\n"
+        "px.display(df, 'out')\n"]
+    rng = np.random.default_rng(9)
+    n = 200_000
+    ts = TableStore()
+    ts.create("http_events", Relation.of(
+        ("time_", DT.TIME64NS), ("service", DT.STRING), ("latency", DT.FLOAT64),
+        ("status", DT.INT64)), batch_rows=1 << 15).write({
+            "time_": np.arange(n, dtype=np.int64), "service": rng.choice(["a", "b", "c"], n),
+            "latency": rng.exponential(20.0, n), "status": rng.choice([200, 404, 500], n)})
+    saved = flags.get("PX_MQ_FUSION")
+    try:
+        flags.set_for_testing("PX_MQ_FUSION", -1)  # auto: on for a CUDA executor
+        out = {}
+        for device in (dev, "cpu"):
+            if device == "cpu":
+                flags.set_for_testing("PX_MQ_FUSION", 1)
+            cl = LocalCluster({"pem0": ts}, device=device)
+            qs = [compile_pxl(s, cl.schemas()) for s in scripts]
+            fused, _sm = batching.fuse_members([(f"q{i}", q.plan) for i, q in enumerate(qs)],
+                                               cl.schemas())
+            ap = cl.planner.plan(fused).agent_plans["pem0"]
+            before = _build.KERNELS["gang"].launches
+            ex = PlanExecutor(ap, ts, None, device=device)
+            out[str(device)] = ex.run_agent()
+            assert ex.stats["mq_fused"] == 4
+            if device != "cpu":
+                assert _build.KERNELS["gang"].launches - before == ex.stats["mq_waves"] >= 1
+    finally:
+        flags.set_for_testing("PX_MQ_FUSION", saved)
+    got, want = out[str(dev)], out["cpu"]
+    for cid in want:
+        g, w = got[cid], want[cid]
+        assert {k: list(map(str, v)) for k, v in g.key_cols.items()} == \
+            {k: list(map(str, v)) for k, v in w.key_cols.items()}
+        for name in w.states:
+            gl, wl = g.states[name], w.states[name]
+            for key in (sorted(wl) if isinstance(wl, dict) else [None]):
+                a = np.asarray(gl[key] if key else gl)
+                b = np.asarray(wl[key] if key else wl)
+                if a.dtype == np.float64 and name.startswith(("avg", "sum")):
+                    np.testing.assert_allclose(a, b, rtol=1e-12, atol=0)
+                else:
+                    np.testing.assert_array_equal(a, b)

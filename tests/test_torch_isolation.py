@@ -124,3 +124,38 @@ def test_stream_pxl_without_device_refuses_the_cpu():
     ts.create("t", Relation.of(("time_", DT.TIME64NS), ("x", DT.INT64)))
     with pytest.raises(Unavailable, match="CUDA"):
         stream_pxl("df = px.DataFrame(table='t').stream()\npx.display(df, 'o')\n", ts)
+
+
+@pytest.mark.parametrize("mod", ["pixie_tpu_torch.plan.fusion", "pixie_tpu_torch.metrics",
+                                 "pixie_tpu_torch.serving", "pixie_tpu_torch.serving.batching",
+                                 "pixie_tpu_torch.ops.gang"])
+def test_batching_and_gang_modules_import_alone(mod):
+    """Each module of the batching slice, imported on its own, pulls in no
+    JAX and nothing of the reference."""
+    code = (
+        f"import importlib, sys\nimportlib.import_module({mod!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pixie_tpu'))\n"
+        "sys.exit('imported: ' + ', '.join(bad) if bad else 0)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_gang_cuda_tensor_never_reaches_the_plain_version_on_the_cpu():
+    """A CUDA device never runs the plain gang: without a card the launch
+    raises instead of carrying on on the CPU."""
+    import torch
+
+    from pixie_tpu_torch.ops import chain as c1
+    from pixie_tpu_torch.ops import gang as g1
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the launch is valid here")
+    prog, _bnd = c1.op_program("add", [c1.I64, c1.I64])
+    state = torch.zeros(1, dtype=torch.int64)
+    with pytest.raises(Exception):
+        g1.run([g1.Member(prog, [], [], [], 1, [g1.Leaf("count", state)])], 4,
+               torch.device("cuda"))
+    assert int(state[0]) == 0
