@@ -133,6 +133,27 @@ goodput, the p50 latency, the batches formed and their median size,
 mq_fused, mq_waves and G1's launches per batch.  The phase fails unless a
 batch formed and G1 launched.
 
+Then the mesh phases (slice 8; PIXIE_TORCH_VIRTUAL_SHARDS = 4 for them
+only, restored after).  The kernel phase also holds X1 and X2 (the in-mesh
+repartition's hash-and-count and stable scatter, csrc/repartition.cu)
+against their plain versions at 2^24 rows (an int64 and a dictionary key,
+f64 and int64 values) over 4 and 8 partitions and with one key holding half
+the rows, exactly, and M1 as the collective merge of 4 shards of config
+#1's state.  Mesh config #1: config #1 over the 64M-row table with a mesh
+of 4 co-located shards (each feed in 4 row blocks, each shard's C1, K1 and
+K2 into its own state, M1 once, K3), equal to the single-device executor
+(counts and p50 exactly, means to 1e-12) and the oracle, spmd_feeds 4, a
+stream and a warm median (0 warm H2D bytes: the sharded resident entry).
+Mesh cluster: a LocalCluster of 2 agents of 4 shards: config #4's script
+over 2 x 8M rows, equal to the one-device-per-agent cluster and the oracle
+(M1 3 times a query: each agent's shards, then the agents), stream and
+warm medians; a repartitioned join of two 2^22-row tables spread over both
+agents on (int64, string) keys, each side exchanged in each agent's mesh
+(X1, X2), equal to the single-device join (run once with analyze, for its
+operator times) as sorted frames; one agent's side exchanged in the mesh
+and on the host, equal and each timed; and the same join with one agent at
+one device (a host exchange beside a mesh one).
+
 It prints one JSON line per kernel, a {"kernels": [...]} line, the card's
 name and power limit, and last {"ok": true, "device": {...}}.  It exits
 non-zero, printing no result, without a CUDA device or outside the repo.
@@ -1358,6 +1379,41 @@ def run_resident(dev) -> dict:
     return out
 
 
+#: bytes a row that each K1 / K2 entry point reads (group id, mask, value)
+ROW_READ_BYTES = {"px_segment_count": 4 + 1, "px_segment_sum_i64": 4 + 1 + 8,
+                  "px_segment_sum_f64": 4 + 1 + 8, "px_segment_min_f64": 4 + 1 + 8,
+                  "px_segment_max_f64": 4 + 1 + 8, "px_loghist_update": 4 + 1 + 8}
+
+
+def sorted_bound(launches: dict, n: int, g: int) -> tuple[float, str]:
+    """Row 9's bound: the sum of its kernels' bounds over one sorted query of
+    n rows into g groups, from the query's launches — each K1 / K2 launch
+    reads its chunk's ids, mask and values once, each leaf's state of g
+    groups is read and written once a query, and K3 reads the sketches and
+    writes g quantiles."""
+    chunks = -(-n // (1 << 20))
+    nbytes = 0.0
+    for lib in ("segment_reduce", "loghist_update"):
+        for e, c in launches.get(lib, {}).items():
+            state = g * (WIDTH * 4 if lib == "loghist_update" else 8)
+            nbytes += (c / chunks) * (n * ROW_READ_BYTES[e] + 2 * state)
+    nbytes += launches.get("loghist_quantile", {}).get("px_loghist_quantile", 0) * (
+        g * WIDTH * 4 + g * 8)
+    return bound(nbytes)
+
+
+def coreset_bound(n: int, d: int, k: int) -> tuple[float, str]:
+    """Row 17d's bound: one kmeans_coreset of n points — k - 1 KM3 steps, 5
+    KM2 steps, one KM1 assignment and K1's f64 sum of the masses — as the
+    sum of those kernels' bounds (rows 17a-c, 1) at this shape."""
+    ms = ((k - 1) * bound(n * d * 4 + n * 16 + d * 4, 4.0 * n * d)[0]
+          + 5 * bound(n * d * 4 + n * 4 + 2 * k * d * 4 + k * 4,
+                      2.0 * n * k * d + 2.0 * n * (d + 1))[0]
+          + bound(n * d * 4 + k * d * 4 + n * 12, 2.0 * n * k * d)[0]
+          + bound(n * (4 + 1 + 8) + 2 * k * 8, n)[0])
+    return ms, "sum of kernels"
+
+
 def run_sorted(dev) -> dict:
     """S1 and S2 through the sorted fallback, each against numpy."""
     import torch
@@ -1412,10 +1468,16 @@ def run_sorted(dev) -> dict:
         return r, {"s": time.perf_counter() - t0, "h2d_bytes": st["h2d_bytes"],
                    "operators_s": frames}
 
+    def by_entry():
+        return {n_: dict(k.by_entry) for n_, k in _build.KERNELS.items()}
+
     _build.reset_launches()
     r1, st1 = run(s1)
+    after1 = by_entry()
     r2, st2 = run(s2)
     launches = read_launches("sorted", SORTED_KERNELS)
+    per_query = {"S1": after1, "S2": {lib: {e: c - after1[lib].get(e, 0) for e, c in es.items()}
+                                      for lib, es in launches.items()}}
 
     # ---- S1 oracle: groups, exact counts and int64 sums, means, min, max
     u, inv, cnt = np.unique(conn, return_inverse=True, return_counts=True)
@@ -1440,6 +1502,7 @@ def run_sorted(dev) -> dict:
         raise AssertionError("S1: means differ from the oracle beyond rtol 1e-12")
     gb = 1 << max(0, G - 1).bit_length()
     st1.update({"groups": G, "state_groups": gb,
+                "bound_ms": sorted_bound(per_query["S1"], n, G)[0],
                 # K1 keeps G int64 accumulators a block in shared memory only
                 # up to the 227 KB a block may opt in to
                 "k1_global_atomics": gb * 8 > 232448})
@@ -1458,7 +1521,8 @@ def run_sorted(dev) -> dict:
     if not np.allclose(np.asarray(r2.columns["avg"])[o], mean2[present], rtol=1e-9, atol=0):
         raise AssertionError("S2: means differ from the oracle beyond rtol 1e-9")
     exact, rel = check_p50(np.asarray(r2.columns["p50"])[o], p50_bin[present], median2[present])
-    st2.update({"groups": len(present), "p50_exact_bin": exact, "p50_max_rel_err_vs_median": rel})
+    st2.update({"groups": len(present), "p50_exact_bin": exact, "p50_max_rel_err_vs_median": rel,
+                "bound_ms": sorted_bound(per_query["S2"], n, len(present))[0]})
     out = {"S1": st1, "S2": st2, "launches": launches, "device_memory": device_memory()}
     log(json.dumps({"phase": "sorted", "ok": True,
                     **{k: v for k, v in out.items() if k != "launches"}}))
@@ -1630,14 +1694,14 @@ def cluster_query(cluster, dev, m1_launches: int):
     return query
 
 
-def _agent_stores(rows_each: int, services_of=None):
-    """CONFIG4_AGENTS stores built as bench_config4 builds them
-    (build_http_table, seed 12, 65,536-row batches); services_of(a), when
-    given, restricts agent a to that subset of the 16 services."""
+def _agent_stores(rows_each: int, services_of=None, agents: int = CONFIG4_AGENTS):
+    """`agents` stores built as bench_config4 builds them (build_http_table,
+    seed 12, 65,536-row batches); services_of(a), when given, restricts
+    agent a to that subset of the 16 services."""
     from pixie_tpu_torch.table import TableStore
 
     stores, tables = {}, []
-    for a in range(CONFIG4_AGENTS):
+    for a in range(agents):
         ts = TableStore()
         if services_of is None:
             t, _gen = build_http_table(ts, rows_each)
@@ -2091,6 +2155,8 @@ def run_ml(dev) -> dict:
         raise AssertionError(f"CoresetTree: centers {d_true} (per dimension {rms}), "
                              f"{len(pts)} points of weight {w.sum()} for {stream}")
     out["tree"] = {"m": TREE_M, "k": TREE_K, "batches": TREE_BATCHES, "batch": TREE_BATCH,
+                   "coreset_bound_ms": {"leaf": coreset_bound(TREE_BATCH, ML_D, TREE_K)[0],
+                                        "merge": coreset_bound(2 * TREE_M, ML_D, TREE_K)[0]},
                    "seconds": tree_s, "update_median_s": sorted(upd)[len(upd) // 2],
                    "update_max_s": max(upd), "levels": sorted(tree._levels),
                    "weight_over_stream": float(w.sum()) / stream,
@@ -2124,8 +2190,12 @@ def run_ml(dev) -> dict:
         got = dict(zip(res.decoded("endpoint"), np.asarray(res.columns["n"]).tolist()))
         if got != dict(zip(tmpl_names, want_n.tolist())):
             raise AssertionError(f"service endpoints: {got} != the oracle's counts")
+    # row 18's bound: K1's count over gid * 256 + code, one feed of ML_ROWS
+    # rows into ML_SERVICES x 256 cells
     out["endpoints"] = {"rows": ML_ROWS, "endpoints": len(got), "walls_s": walls,
-                        "median_s": sorted(walls)[1]}
+                        "median_s": sorted(walls)[1],
+                        "dicthist_bound_ms": bound(ML_ROWS * (4 + 1)
+                                                   + 2 * ML_SERVICES * 256 * 8)[0]}
     log(json.dumps({"phase": "ml.endpoints", "ok": True, **out["endpoints"]}))
 
     # 4. _kmeans_fit per service, each model against the port's plain route
@@ -3115,6 +3185,436 @@ def run_batch(dev, ts, table) -> dict:
     return {"launches": launches, "arms": arms, "oracle": check,
             "device_memory": device_memory()}
 
+# ------------------------------------------------- the mesh path (slice 8)
+
+#: co-located shards of the mesh phases (PIXIE_TORCH_VIRTUAL_SHARDS)
+MESH_SHARDS = 4
+#: X1 / X2 check rows (one int64 and one dictionary key; values f64, int64)
+X_ROWS = 1 << 24
+X_DICT = 4096
+#: config #1 over the mesh: every kernel of the path, and M1 as the
+#: collective merge of the shards' states
+MESH_CONFIG1_KERNELS = CONFIG1_KERNELS + [("merge", "px_merge_states")]
+X_KERNELS = [("repartition", "px_partition_count"), ("repartition", "px_partition_scatter")]
+#: the mesh cluster: agents, config #4's rows over them, the join's rows a side
+MESH_AGENTS = 2
+MESH_JOIN_ROWS = 1 << 22
+MESH_JOIN_KEYS = 1 << 20
+#: bench config #4's script with a repartitioned join of two tables spread
+#: over the agents, keyed on an int64 and a string column
+MESH_JOIN_SCRIPT = """
+left = px.DataFrame(table='left_t')
+right = px.DataFrame(table='right_t')
+df = left.merge(right, how='inner', left_on=['k', 's'], right_on=['k', 's'],
+                suffixes=['', '_r'])
+px.display(df, 'out')
+"""
+
+
+class virtual_shards:
+    """PIXIE_TORCH_VIRTUAL_SHARDS set for the mesh phases, restored after."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __enter__(self):
+        from pixie_tpu_torch import flags
+        import pixie_tpu_torch.parallel  # noqa: F401  (defines the flag)
+
+        self.saved = flags.get("PIXIE_TORCH_VIRTUAL_SHARDS")
+        flags.set_for_testing("PIXIE_TORCH_VIRTUAL_SHARDS", self.n)
+
+    def __exit__(self, *exc):
+        from pixie_tpu_torch import flags
+
+        flags.set_for_testing("PIXIE_TORCH_VIRTUAL_SHARDS", self.saved)
+
+
+def x_inputs(dev, n_dev: int, skew: bool, rng):
+    """X_ROWS rows over n_dev shards: an int64 key k (full range), a
+    dictionary key s (X_DICT values, 1% null), values v (f64) and w (int64);
+    with skew, one k value holds half the rows."""
+    import torch
+
+    from pixie_tpu_torch.ops import repartition as xr
+
+    k = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, X_ROWS, dtype=np.int64)
+    if skew:
+        k[rng.random(X_ROWS) < 0.5] = 42
+    s = rng.integers(0, X_DICT, X_ROWS).astype(np.int32)
+    s[rng.random(X_ROWS) < 0.01] = -1
+    cols = [torch.from_numpy(a).to(dev) for a in
+            (k, s, rng.exponential(50.0, X_ROWS), rng.integers(0, 1 << 40, X_ROWS))]
+    lut = torch.from_numpy(xr.value_hash_lut([f"v{i}" for i in range(X_DICT)])).to(dev)
+    nv = np.full(n_dev, X_ROWS // n_dev, dtype=np.int64)
+    return [(cols[0], None), (cols[1], lut)], cols, nv
+
+
+def check_repartition_kernels(dev) -> list[dict]:
+    """X1 and X2 held against their plain versions at X_ROWS rows over 4
+    and 8 partitions, and over 4 with one key holding half the rows: part,
+    the counts and the tile counts exactly; the received counts exactly and
+    every block's received rows bit for bit.  Timed (CUDA events) beside the
+    plain versions and the bound; no single PyTorch call partitions stably,
+    so the library column is null.  Rows: X1, X2 at 4 partitions."""
+    import torch
+
+    from pixie_tpu_torch.ops import repartition as xr
+
+    rng = np.random.default_rng(19)
+    out = {}
+    for label, n_dev, skew in (("4 partitions", 4, False), ("8 partitions", 8, False),
+                               ("4 partitions, one key half the rows", 4, True)):
+        keys, cols, nv = x_inputs(dev, n_dev, skew, rng)
+        part, counts, tiles = xr.partition_count(keys, nv, n_dev)
+        wpart, wcounts, wtiles = xr.partition_count_plain(keys, nv, n_dev)
+        torch.cuda.synchronize()
+        if not (torch.equal(part, wpart) and torch.equal(counts, wcounts)
+                and torch.equal(tiles, wtiles)):
+            raise AssertionError(f"X1 {label}: kernel and plain version disagree")
+        cap = int(counts.max())
+        outs, recv = xr.partition_scatter(part, tiles, counts, cols, n_dev, cap)
+        wouts, wrecv = xr.partition_scatter_plain(part, tiles, counts, cols, n_dev, cap)
+        torch.cuda.synchronize()
+        if not torch.equal(recv, wrecv) or int(recv.sum()) != X_ROWS:
+            raise AssertionError(f"X2 {label}: received counts differ or lost rows")
+        valid = torch.arange(cap, device=dev).view(1, cap) < recv.view(-1, 1)
+        for g, w in zip(outs, wouts):
+            if not torch.equal(g.view(-1, cap)[valid], w.view(-1, cap)[valid]):
+                raise AssertionError(f"X2 {label}: kernel and plain version disagree")
+        del wouts
+        x1_bytes = X_ROWS * (8 + 4 + 4)
+        x2_bytes = X_ROWS * (4 + 2 * sum(c.element_size() for c in cols))
+        b1, by1 = bound(x1_bytes)
+        b2, by2 = bound(x2_bytes)
+        out[label] = {
+            "partitions": n_dev, "cap": cap, "skew": skew,
+            "x1_ms": cuda_ms(lambda: xr.partition_count(keys, nv, n_dev), 20),
+            "x1_plain_ms": cuda_ms(lambda: xr.partition_count_plain(keys, nv, n_dev), 3),
+            "x1_bound_ms": b1, "x1_bound_by": by1,
+            "x2_ms": cuda_ms(lambda: xr.partition_scatter(part, tiles, counts, cols, n_dev,
+                                                          cap), 10),
+            "x2_plain_ms": cuda_ms(lambda: xr.partition_scatter_plain(
+                part, tiles, counts, cols, n_dev, cap), 3),
+            "x2_bound_ms": b2, "x2_bound_by": by2}
+        log(json.dumps({"check": f"X1 X2 {label}", "ok": True, "max_abs_err": 0.0,
+                        **out[label]}))
+        del outs, cols, keys
+        torch.cuda.empty_cache()
+    main = out["4 partitions"]
+    shape = {"rows": X_ROWS, "columns": "k int64, s int32 codes, v f64, w int64",
+             "cases": out}
+    return [{
+        "name": "partition_count", "route": "cuda",
+        "source": "pixie_tpu_torch/csrc/repartition.cu",
+        "replaces": "pixie_tpu/parallel/repartition.py:156 _device_key_fn "
+                    "(:358 mesh_bucket_counts)",
+        "entry": ("repartition", "px_partition_count"), "path": "mesh_cluster",
+        "max_abs_err": 0.0, "ms": main["x1_ms"], "plain_ms": main["x1_plain_ms"],
+        "bound_ms": main["x1_bound_ms"], "bound_by": main["x1_bound_by"],
+        "library_ms": None, "shape": shape,
+    }, {
+        "name": "partition_scatter", "route": "cuda",
+        "source": "pixie_tpu_torch/csrc/repartition.cu",
+        "replaces": "pixie_tpu/parallel/repartition.py:335 _local_partition "
+                    "(:395 mesh_repartition, its all_to_all)",
+        "entry": ("repartition", "px_partition_scatter"), "path": "mesh_cluster",
+        "max_abs_err": 0.0, "ms": main["x2_ms"], "plain_ms": main["x2_plain_ms"],
+        "bound_ms": main["x2_bound_ms"], "bound_by": main["x2_bound_by"],
+        "library_ms": None, "shape": {"rows": X_ROWS, "partitions": 4},
+    }]
+
+
+def check_collective_merge(dev) -> list[dict]:
+    """M1 as the collective merge (row 13) of MESH_SHARDS shard states of
+    config #1's state (64 groups: count, mean, p50 sketch, seen), against
+    its plain version, exactly; timed beside torch.stack + sum per leaf."""
+    import torch
+
+    from pixie_tpu_torch.ops import merge as m1
+    from pixie_tpu_torch.udf.udf import tree_map
+
+    rng = np.random.default_rng(16)
+    g = 64
+    rt = {"cnt": "add", "avg_lat": {"sum": "add", "count": "add"}, "p50": "add",
+          "__seen": "add"}
+    sts = [tree_map(lambda a: torch.from_numpy(a).to(dev), {
+        "cnt": rng.integers(0, 1 << 20, g),
+        "avg_lat": {"sum": rng.exponential(50.0, g) * 1e4, "count": rng.integers(0, 1 << 20, g)},
+        "p50": rng.integers(0, 1 << 12, (g, WIDTH)).astype(np.float32),
+        "__seen": rng.integers(0, 1 << 20, g)}) for _ in range(MESH_SHARDS)]
+
+    def leaves(t):
+        return [x for v in t.values() for x in (leaves(v) if isinstance(v, dict) else [v])]
+
+    got, want = m1.collective_merge(rt, sts), m1.merge_states_plain(rt, sts)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(want))):
+        raise AssertionError("M1 collective merge: kernel and plain version disagree")
+    nbytes = sum(x.numel() * x.element_size() for x in leaves(sts[0]))
+    b_ms, by = bound((MESH_SHARDS + 1) * nbytes)
+
+    def library():
+        for xs in zip(*[leaves(x) for x in sts]):
+            torch.stack(xs).sum(0)
+
+    row = {"ms": cuda_ms(lambda: m1.collective_merge(rt, sts), 20),
+           "device_ms": kernel_device_ms(lambda: m1.collective_merge(rt, sts),
+                                         "merge_states", 20),
+           "plain_ms": cuda_ms(lambda: m1.merge_states_plain(rt, sts), 10),
+           "library_ms": cuda_ms(library, 10), "bound_ms": b_ms, "bound_by": by}
+    log(json.dumps({"check": "M1 collective merge (4 shards x 64 groups)", "ok": True,
+                    "max_abs_err": 0.0, **row}))
+    return [{
+        "name": "collective_merge", "route": "cuda", "source": "pixie_tpu_torch/csrc/merge.cu",
+        "replaces": "pixie_tpu/parallel/spmd.py:174 collective_merge (psum / pmin / pmax; "
+                    ":182 _carry, :203 spmd_agg_step, :234 spmd_partial_step, "
+                    ":268 spmd_multi_partial_step)",
+        "entry": ("merge", "px_merge_states"), "path": "mesh_config1", "max_abs_err": 0.0,
+        "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": b_ms, "bound_by": by,
+        "library_ms": row["library_ms"],
+        "shape": {"shards": MESH_SHARDS, "groups": g, "state_bytes": nbytes,
+                  "device_ms": row["device_ms"]},
+    }]
+
+
+def run_mesh_config1(dev, ts, table) -> dict:
+    """Config #1 over the 64M-row table through execute_plan with a mesh of
+    MESH_SHARDS co-located shards: each feed splits into 4 row blocks, each
+    shard runs C1, K1 and K2 into its own state, M1 merges the shards once,
+    K3 finalizes.  Equal to the single-device executor (counts and p50
+    exactly, means to 1e-12) and to the numpy oracle; spmd_feeds 4 a query;
+    stream and warm medians (a warm query moves 0 H2D bytes: the sharded
+    resident entry and the mesh's cache entries)."""
+    import torch
+
+    from pixie_tpu_torch.engine import execute_plan
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.parallel.spmd import make_mesh
+
+    plan = http_plan()
+    with virtual_shards(MESH_SHARDS):
+        mesh = make_mesh(MESH_SHARDS, device=dev)
+
+        def query():
+            r = execute_plan(plan, ts, device=dev, mesh=mesh)["output"]
+            torch.cuda.synchronize(dev)
+            return r
+
+        _build.reset_launches()
+        res = query()
+        launches = read_launches("mesh config #1", MESH_CONFIG1_KERNELS)
+        m1 = launches["merge"].get("px_merge_states", 0)
+        if res.exec_stats.get("spmd_feeds") != ROWS // FEED or m1 != 1:
+            raise AssertionError(f"mesh config #1: spmd_feeds {res.exec_stats.get('spmd_feeds')}"
+                                 f" (want {ROWS // FEED}), M1 launches {m1} (want 1)")
+        check_leaves("mesh_config1", res.exec_stats)
+        check = oracle_check(table, res)
+        single = execute_plan(plan, ts, device=dev, mesh=None)["output"]
+        same_frame("mesh config #1", res, single, ["service", "status"], exact=("cnt", "p50"))
+        log(json.dumps({"phase": "mesh_config1.oracle", "ok": True, **check,
+                        "shard_rows": res.exec_stats["shard_rows"],
+                        "shard_skew_frac": res.exec_stats["shard_skew_frac"]}))
+        routes = stream_and_warm(query, "mesh config #1", with_profile=True)
+    for k in ("profile_stream", "profile_warm"):
+        routes[k] = {kk: v for kk, v in routes[k].items() if kk != "top"} | {
+            "top": routes[k]["top"][:8]}
+    out = {"launches": launches, "shards": MESH_SHARDS, "spmd_feeds": ROWS // FEED,
+           **routes, "rows_per_s": ROWS / routes["warm_median_s"],
+           "stream_rows_per_s": ROWS / routes["stream_median_s"],
+           "device_memory": device_memory()}
+    log(json.dumps({"phase": "slice.mesh_config1", "ok": True,
+                    **{k: v for k, v in out.items() if k != "launches"}}))
+    return out
+
+
+def same_frame(label: str, got, want, keys, exact=()) -> None:
+    """Two results equal as frames sorted by `keys`: float columns to rtol
+    1e-12 (the `exact` ones bit for bit), the rest exactly."""
+    g = got.to_pandas().sort_values(keys).reset_index(drop=True)
+    w = want.to_pandas().sort_values(keys).reset_index(drop=True)
+    if list(g.columns) != list(w.columns) or len(g) != len(w):
+        raise AssertionError(f"{label}: columns or rows differ: {len(g)} vs {len(w)}")
+    for c in g.columns:
+        a, b = g[c].to_numpy(), w[c].to_numpy()
+        if a.dtype.kind == "f" and c not in exact:
+            ok = np.allclose(a, b, rtol=1e-12, atol=0, equal_nan=True)
+        else:
+            ok = a.tolist() == b.tolist()
+        if not ok:
+            raise AssertionError(f"{label}: column {c} differs")
+
+
+def same_rows(label: str, got, want) -> None:
+    """Two integer-and-string results equal as sorted frames: the same
+    columns and the same multiset of rows (each sorted by every column).  On
+    a mismatch it logs the rows each holds that the other lacks, then
+    raises."""
+    def rows_of(res):
+        df = res.to_pandas()
+        cols = [df[c].astype(str).to_numpy() for c in df.columns]
+        return list(df.columns), sorted(zip(*cols))
+
+    gc, g = rows_of(got)
+    wc, w = rows_of(want)
+    if gc == wc and g == w:
+        return
+    only_g = sorted(set(g) - set(w))
+    only_w = sorted(set(w) - set(g))
+    log(json.dumps({"check": f"{label} rows", "ok": False, "columns": [gc, wc],
+                    "rows": [len(g), len(w)], "only_got": len(only_g), "only_want": len(only_w),
+                    "examples_got": only_g[:5], "examples_want": only_w[:5]}))
+    raise AssertionError(f"{label}: rows differ ({len(only_g)} only in the result, "
+                         f"{len(only_w)} only in the reference)")
+
+
+def _join_tables(stores: dict, rows: int, seed: int):
+    """left_t and right_t of `rows` rows each, spread evenly over the agent
+    stores and one store of all the rows (the single-device reference): k
+    uniform in [0, MESH_JOIN_KEYS), s one of 16 services; lv, rv int64."""
+    from pixie_tpu_torch.table import TableStore
+    from pixie_tpu_torch.types import DataType as DT, Relation
+
+    rng = np.random.default_rng(seed)
+    whole = TableStore()
+    services = np.array([f"svc-{i}" for i in range(N_SERVICES)])
+    names = list(stores)
+    for side, val in (("left_t", "lv"), ("right_t", "rv")):
+        rel = Relation.of(("time_", DT.TIME64NS), ("k", DT.INT64), ("s", DT.STRING),
+                          (val, DT.INT64))
+        cols = {"time_": np.arange(rows, dtype=np.int64),
+                "k": rng.integers(0, MESH_JOIN_KEYS, rows).astype(np.int64),
+                "s": services[rng.integers(0, N_SERVICES, rows)],
+                val: rng.integers(0, 1 << 40, rows).astype(np.int64)}
+        whole.create(side, rel, batch_rows=1 << 16).write(cols)
+        per = rows // len(names)
+        for i, a in enumerate(names):
+            stores[a].create(side, rel, batch_rows=1 << 16).write(
+                {c: v[i * per:(i + 1) * per] for c, v in cols.items()})
+    return whole
+
+
+def time_exchange(dev, store) -> dict:
+    """One agent's left side (its 2^21 rows, every column) exchanged into
+    MESH_SHARDS partitions in the mesh (X1, X2 with the uploads and the two
+    readbacks) and on the host (partition_ids, split_host_batch): equal
+    partitions, and the median wall of 3 of each."""
+    from pixie_tpu_torch.engine.executor import HostBatch
+    from pixie_tpu_torch.parallel import repartition as rp
+    from pixie_tpu_torch.parallel.spmd import make_mesh
+
+    t = store.table("left_t")
+    hb = HostBatch({n: t.relation.dtype(n) for n in t.relation.names()},
+                   dict(t.dictionaries), _table_columns(t, t.relation.names()))
+    mesh = make_mesh(MESH_SHARDS, device=dev)
+    keys = ["k", "s"]
+
+    def host():
+        return rp.split_host_batch(hb, rp.partition_ids(hb, keys, MESH_SHARDS), MESH_SHARDS)
+
+    def in_mesh():
+        return rp.mesh_partition_exchange(hb, keys, MESH_SHARDS, mesh)
+
+    for a, b in zip(in_mesh(), host()):
+        for c in hb.cols:
+            if not np.array_equal(np.sort(a.cols[c]), np.sort(b.cols[c])):
+                raise AssertionError(f"exchange: partition column {c} differs")
+    return {"rows": hb.num_rows, "partitions": MESH_SHARDS,
+            "mesh_s": warm_times(in_mesh, 1, 3)[1], "host_s": warm_times(host, 1, 3)[1]}
+
+
+def run_mesh_cluster(dev) -> dict:
+    """A LocalCluster of MESH_AGENTS agents, each a mesh of MESH_SHARDS
+    co-located shards (n_devices_per_agent = 4): config #4's script over
+    config #4's 16M rows (2 x 8M), equal to the n_devices_per_agent = 1
+    cluster and to the oracle (every agent's shards merge by M1, then the
+    agents by M1: 3 launches a query); then a repartitioned join of two
+    2^22-row tables spread over both agents, keyed on (k int64, s string):
+    each agent exchanges both sides in its mesh (X1, X2), four partition
+    joins run, equal to the single-device join as sorted frames; then the
+    same join with one agent at n_devices_per_agent = 1 (a host exchange
+    beside a mesh exchange), equal again."""
+    import torch
+
+    from pixie_tpu_torch.engine import execute_plan
+    from pixie_tpu_torch.compiler import compile_pxl
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.parallel import LocalCluster
+
+    out = {}
+    with virtual_shards(MESH_SHARDS):
+        t0 = time.perf_counter()
+        stores, tables = _agent_stores(CONFIG4_ROWS // MESH_AGENTS, agents=MESH_AGENTS)
+        data_s = time.perf_counter() - t0
+        mesh_cl = LocalCluster(stores, device=dev, n_devices_per_agent=MESH_SHARDS)
+        single_cl = LocalCluster(stores, device=dev, n_devices_per_agent=1)
+        query = cluster_query(mesh_cl, dev, m1_launches=MESH_AGENTS + 1)
+        _build.reset_launches()
+        res = query()
+        launches = read_launches("mesh config #4", CONFIG4_KERNELS)
+        check = cluster_oracle(tables, res)
+        spmd_feeds = res.exec_stats["transfer"]["spmd_feeds"]
+        if spmd_feeds != res.exec_stats["feeds"]:
+            raise AssertionError(f"mesh config #4: {spmd_feeds} SPMD feeds of "
+                                 f"{res.exec_stats['feeds']}")
+        want = cluster_query(single_cl, dev, m1_launches=1)()
+        same_frame("mesh config #4", res, want, ["service", "status"], exact=("cnt", "p50"))
+        routes = stream_and_warm(query, "mesh config #4")
+        single_times = warm_times(cluster_query(single_cl, dev, m1_launches=1), 1, 5)
+        out["config4"] = {"agents": MESH_AGENTS, "rows": CONFIG4_ROWS, "data_s": data_s,
+                          **check, "spmd_feeds": spmd_feeds, **routes,
+                          "rows_per_s": CONFIG4_ROWS / routes["warm_median_s"],
+                          "single_device_warm_median_s": single_times[2]}
+        log(json.dumps({"phase": "mesh_cluster.config4", "ok": True, **out["config4"]}))
+        del mesh_cl, single_cl, tables
+
+        # ---- the repartitioned join, over the same two agents' stores
+        t0 = time.perf_counter()
+        whole = _join_tables(stores, MESH_JOIN_ROWS, seed=23)
+        data_s = time.perf_counter() - t0
+        plan = compile_pxl(MESH_JOIN_SCRIPT, whole.schemas()).plan
+
+        t0 = time.perf_counter()
+        want = execute_plan(plan, whole, device=dev, mesh=None, analyze=True)["out"]
+        single_s = time.perf_counter() - t0
+        single_ops = [{"label": r["label"], "self_ms": r["self_ns"] / 1e6}
+                      for r in want.exec_stats["operators"]]
+        out["exchange"] = time_exchange(dev, stores["pem0"])
+        log(json.dumps({"phase": "mesh_cluster.exchange", "ok": True, **out["exchange"]}))
+        for label, agent1 in (("mesh", MESH_SHARDS), ("mixed", 1)):
+            cl = LocalCluster(stores, device=dev, n_devices_per_agent=MESH_SHARDS)
+            cl.spec.agents[1].n_devices = agent1
+            if label == "mesh":
+                _build.reset_launches()
+            t0 = time.perf_counter()
+            res = cl.query(MESH_JOIN_SCRIPT)["out"]
+            torch.cuda.synchronize(dev)
+            first_s = time.perf_counter() - t0
+            if label == "mesh":
+                launches = read_launches("mesh join", X_KERNELS) | {
+                    k: v for k, v in launches.items() if k != "repartition"}
+            same_rows(f"{label} join", res, want)
+            shuffles = {a: s.get("mesh_shuffles", 0)
+                        for a, s in res.exec_stats["agents"].items()}
+            want_shuffles = {"pem0": 2, "pem1": 2 if agent1 > 1 else 0}
+            if shuffles != want_shuffles:
+                raise AssertionError(f"{label} join: mesh shuffles {shuffles}, "
+                                     f"want {want_shuffles}")
+            t0 = time.perf_counter()
+            cl.query(MESH_JOIN_SCRIPT)
+            torch.cuda.synchronize(dev)
+            out[f"join_{label}"] = {"rows_a_side": MESH_JOIN_ROWS, "out_rows": res.num_rows,
+                                    "mesh_shuffles": shuffles, "first_s": first_s,
+                                    "second_s": time.perf_counter() - t0,
+                                    "single_device_s": single_s,
+                                    "single_device_operators": single_ops, "data_s": data_s}
+            log(json.dumps({"phase": f"mesh_cluster.join_{label}", "ok": True,
+                            **out[f"join_{label}"]}))
+    out["launches"] = launches
+    log(json.dumps({"phase": "slice.mesh_cluster", "ok": True,
+                    **{k: v for k, v in out.items() if k != "launches"}}))
+    return out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3146,7 +3646,8 @@ def main() -> int:
                     "nvcc_s": secs}))
 
     rows = (check_kernels(dev) + check_new_kernels(dev) + check_resident_kernels(dev)
-            + check_merge_kernel(dev) + check_kmeans_kernels(dev) + check_chain_kernel(dev))
+            + check_merge_kernel(dev) + check_kmeans_kernels(dev) + check_chain_kernel(dev)
+            + check_repartition_kernels(dev) + check_collective_merge(dev))
     sl, ts, table = run_slice(dev, args.profile)
     log(json.dumps({"phase": "slice", "card": smi, **sl}))
     paths = {"config1": sl["launches"]}
@@ -3158,7 +3659,15 @@ def main() -> int:
     log(json.dumps({"phase": "batch", "card": smi, "seconds": time.perf_counter() - t0,
                     **{k: v for k, v in batch.items() if k != "launches"}}))
     paths["batch"] = batch["launches"]
+    t0 = time.perf_counter()
+    paths["mesh_config1"] = run_mesh_config1(dev, ts, table)["launches"]
+    log(json.dumps({"phase": "mesh_config1", "card": smi,
+                    "seconds": time.perf_counter() - t0}))
     del ts, table
+    t0 = time.perf_counter()
+    paths["mesh_cluster"] = run_mesh_cluster(dev)["launches"]
+    log(json.dumps({"phase": "mesh_cluster", "card": smi,
+                    "seconds": time.perf_counter() - t0}))
     paths["config3"] = run_config3(dev)["launches"]
     paths["config4"] = run_config4(dev)["launches"]
     paths["config5"] = run_config5(dev)["launches"]

@@ -49,15 +49,26 @@ Ported so far are the aggregate, select, join, sorted-fallback and
 distributed agent paths of the reference executor
 (pixie_tpu/engine/executor.py), with `run_agent_stream` (the chunk stream
 the streaming fold consumes) and the streaming polls of engine/stream.py.
-Unions, UDTF sources and partition sinks raise Unimplemented and name the
-slice that brings them.  The agent plan of a batched query (serving/
-batching.py) holds several partial aggregates over one shared scan: they run
-as a multi-query gang (`_gang_agg_payloads`, `_multi_partial_agg`), one
-launch of kernel G1 (ops/gang.py) per feed for every member, under
-PX_MQ_FUSION (auto: on for a CUDA executor).  The SPMD (mesh) paths wait for
-the four-chip slice.  Unlike the reference, no query is routed to
-the CPU by size: on the card every query, and every streaming poll, runs the
-device path.
+Unions and UDTF sources raise Unimplemented and name the slice that brings
+them.  The agent plan of a batched query (serving/batching.py) holds several
+partial aggregates over one shared scan: they run as a multi-query gang
+(`_gang_agg_payloads`, `_multi_partial_agg`), one launch of kernel G1
+(ops/gang.py) per feed for every member, under PX_MQ_FUSION (auto: on for a
+CUDA executor).
+
+With a mesh (parallel/spmd.py: `mesh=make_mesh(n)`, or "auto" for the
+default mesh, None by default), every unlimited aggregate shards each feed
+row-wise over the mesh's co-located shards: each shard runs its chain
+program (C1) and UDA kernels (K1, K2) — or, in a gang, G1 — into its own
+state, in place across the query's feeds, and one collective merge (M1)
+after the last feed gives the state K3 finalizes.  The reference instead
+merges once per feed; add, min and max are associative, so the results
+agree.  Sealed feeds come from the resident tier's sharded entry (keyed by
+the mesh width).  A partition sink (the producer half of a repartitioned
+join) exchanges its rows in the mesh (kernels X1, X2) when the mesh width is
+the partition count, else on the host (parallel/repartition.py).  Unlike the
+reference, no query is routed to the CPU by size: on the card every query,
+and every streaming poll, runs the device path.
 """
 from __future__ import annotations
 
@@ -640,7 +651,9 @@ class ChainKernel:
     def make_agg_step(self, keys: list[GroupKey], udas: list, num_groups: int):
         """→ fn(cols, n_valid, t_lo, t_hi, limit_remaining, luts, state, scalars)
         → (state, consumed), the state updated in place.
-        udas: list of (out_name, UDA, value SVal|None)."""
+        udas: list of (out_name, UDA, value SVal|None).  Also sets
+        `raw_agg_step`, the same step → (state, passed-row count, consumed)
+        (the form parallel/spmd.py lifts, as the reference's)."""
         vals = [vb for _o, _u, vb in udas if vb is not None]
         value_tail, where = self._value_tail(vals)
 
@@ -669,7 +682,7 @@ class ChainKernel:
         #: what gang_member needs of this aggregate
         self._agg = (udas, where, num_groups)
 
-        def step(cols, n_valid, t_lo, t_hi, limit_remaining, luts, state, scalars=None):
+        def run(cols, n_valid, t_lo, t_hi, limit_remaining, luts, state, scalars):
             n = _first_len(cols)
             mask, gid, outs, consumed = self.run_segments(
                 segs, cols, n, n_valid, t_lo, t_hi, limit_remaining, luts, scalars)
@@ -681,8 +694,19 @@ class ChainKernel:
                     j += 1
                     v = cols[w] if isinstance(w, str) else outs[w]
                 state[out_name] = uda.update(state[out_name], gid, v, mask, num_groups)
+            return state, mask, consumed
+
+        def step(cols, n_valid, t_lo, t_hi, limit_remaining, luts, state, scalars=None):
+            state, _mask, consumed = run(cols, n_valid, t_lo, t_hi, limit_remaining, luts,
+                                         state, scalars)
             return state, consumed
 
+        def raw_step(cols, n_valid, t_lo, t_hi, limit_remaining, luts, state, scalars=None):
+            state, mask, consumed = run(cols, n_valid, t_lo, t_hi, limit_remaining, luts,
+                                        state, scalars)
+            return state, mask.sum(dtype=torch.int64), consumed
+
+        self.raw_agg_step = raw_step
         return step
 
     def gang_member(self, cols, n_valid, t_lo, t_hi, luts, state, scalars=None):
@@ -867,7 +891,7 @@ class _AggSetup:
 
 class PlanExecutor:
     def __init__(self, plan: Plan, table_store, registry=None, device=None,
-                 analyze: bool = False, inputs=None):
+                 analyze: bool = False, inputs=None, mesh="auto"):
         from pixie_tpu_torch.udf import registry as default_registry
 
         self.plan = plan
@@ -891,6 +915,23 @@ class PlanExecutor:
         #: one wall-time frame per operator chain or blocking op (see _timed)
         self.op_stats: list[dict] = []
         self._stat_stack: list[dict] = []
+        # Mesh of co-located shards for SPMD aggregation (parallel/spmd.py):
+        # every unlimited agg shards its feeds over it.  "auto" = the default
+        # mesh of this device (None unless PIXIE_TORCH_VIRTUAL_SHARDS > 1).
+        from pixie_tpu_torch.parallel import spmd as _spmd
+
+        if mesh == "auto":
+            mesh = _spmd.default_mesh(self.device)
+        if mesh is not None and any(d != self.device for d in mesh.devices):
+            raise Unimplemented(
+                f"a mesh over {sorted({str(d) for d in mesh.devices})} for an executor on "
+                f"{self.device}: meshes over distinct devices wait for the multi-card slice")
+        self.mesh = mesh
+        if mesh is not None:
+            # the collective-serialization decision, recorded per query as
+            # the reference records it
+            gate = {k: v for k, v in _spmd.collective_gate(mesh).items() if k != "_key"}
+            self.stats.setdefault("device", {})["collective_gate"] = gate
 
     # -------------------------------------------------------------- exec stats
     @contextlib.contextmanager
@@ -982,7 +1023,29 @@ class PlanExecutor:
             self.stats["h2d_bytes"] += n * arrs[0].itemsize
         return cols
 
-    def _feed(self, src, names, cap):
+    def _note_shard_rows(self, per_shard) -> None:
+        """Per-shard placement accounting for SPMD feeds: accumulates each
+        feed's per-shard valid rows and keeps the skew ratio (max/mean shard
+        rows) visible — stats["shard_rows"] / ["shard_skew_frac"] plus the
+        px_shard_skew_frac gauge.  1.0 = perfectly even placement; row-block
+        sharding stays near 1 except at uneven tails."""
+        from pixie_tpu_torch import metrics as _metrics
+
+        rows = [int(x) for x in np.asarray(per_shard).reshape(-1)]
+        acc = self.stats.get("shard_rows")
+        if not isinstance(acc, list) or len(acc) != len(rows):
+            acc = [0] * len(rows)
+        acc = [a + r for a, r in zip(acc, rows)]
+        self.stats["shard_rows"] = acc
+        mean = sum(acc) / max(len(acc), 1)
+        skew = (max(acc) / mean) if mean > 0 else 1.0
+        self.stats["shard_skew_frac"] = round(skew, 4)
+        _metrics.gauge_set(
+            "px_shard_skew_frac", skew,
+            help_="max/mean rows per mesh shard over this process's latest "
+                  "SPMD query feeds (placement-skew visibility; 1.0 = even)")
+
+    def _feed(self, src, names, cap, spmd: bool = False):
         """Yield (cols dict of device tensors, n_valid) feeds.
 
         Cursor batches (storage granularity) are coalesced into ~FEED_ROWS
@@ -991,10 +1054,28 @@ class PlanExecutor:
         else uploaded into padded buffers that the cache keeps; either way
         the step sees exact-length views `buf[:n]`.  Feeds touching the hot
         remainder (gen None) or a delta cursor stream fresh every query.
+
+        spmd=True (an SPMD consumer over the mesh): every feed is its whole
+        zero-padded power-of-two buffer, which splits row-block-wise into the
+        mesh's shards, and sealed feeds come from the resident tier's and
+        the cache's entries for the mesh width (the keys carry n_dev).
         """
+        n_dev = self.mesh.size if (spmd and self.mesh is not None) else 1
+
+        def fresh(parts, n):
+            if n_dev == 1:
+                return self._upload(parts, names, n)
+            cols, h2d = resident.upload_padded(parts, names, n, resident.bucket_rows(n),
+                                               self.device)
+            self.stats["h2d_bytes"] += h2d
+            return cols
+
+        def rows_of(cols, n):
+            return cols if n_dev > 1 else {k: v[:n] for k, v in cols.items()}
+
         if isinstance(src, HostBatch):
             self.stats["feeds"] += 1
-            yield self._upload([src.cols], names, src.num_rows), src.num_rows
+            yield fresh([src.cols], src.num_rows), src.num_rows
             return
         target = max(cap, int(_flags.get("PX_FEED_ROWS")))
         table_id = src.table.uid
@@ -1004,32 +1085,32 @@ class PlanExecutor:
         def emit(parts, gens, n):
             self.stats["feeds"] += 1
             if is_delta or any(g is None for g in gens):
-                return self._upload(parts, names, n), n
-            key = (table_id, tuple(gens), tuple(names), dev)
+                return fresh(parts, n), n
+            key = (table_id, tuple(gens), tuple(names), dev, n_dev)
             # Resident tier first: a new seal FOLDS into its buffers (only
             # the delta rows cross the link) instead of invalidating the
             # whole feed.  A cache entry for this exact feed is handed over
             # for ADOPTION and then dropped, so its bytes are never uploaded
             # or pinned twice.
             got = resident.feed(table_id, tuple(names), gens, cap, parts, n,
-                                self.device, prewarmed=_device_cache_get(key))
+                                self.device, prewarmed=_device_cache_get(key), n_dev=n_dev)
             if got is not None:
                 _device_cache_pop(key)
                 rcols, h2d = got
                 self.stats["resident_feeds"] = self.stats.get("resident_feeds", 0) + 1
                 self.stats["h2d_bytes"] += h2d
-                return {k: v[:n] for k, v in rcols.items()}, n
+                return rows_of(rcols, n), n
             cached = _device_cache_get(key)
             if cached is not None:
                 self.stats["feed_cache_hits"] = self.stats.get("feed_cache_hits", 0) + 1
-                return {k: v[:n] for k, v in cached.items()}, n
+                return rows_of(cached, n), n
             bucket = resident.bucket_rows(n)
             if bucket * sum(parts[0][k].dtype.itemsize for k in names) > _device_cache_max():
-                return self._upload(parts, names, n), n  # the cache cannot keep it
+                return fresh(parts, n), n  # the cache cannot keep it
             cols, h2d = resident.upload_padded(parts, names, n, bucket, self.device)
             self.stats["h2d_bytes"] += h2d
             _device_cache_put(key, cols)
-            return {k: v[:n] for k, v in cols.items()}, n
+            return rows_of(cols, n), n
 
         pend, gens, nrows = [], [], 0
         for rb, _row_id, gen in src:  # cursor
@@ -1506,7 +1587,7 @@ class PlanExecutor:
         luts = {k: torch.as_tensor(v).to(self.device) for k, v in s.kern.luts.items()}
         state = self._agg_feed_loop(s.kern, s.step, s.init_specs, s.num_groups,
                                     s.src, s.names, s.cap, t_lo, t_hi, luts,
-                                    s.origins)
+                                    s.origins, s.udas)
         if self._defer_active:
             state = _DeferredState(
                 [state], {name: uda.reduce_ops() for name, uda, _vb in s.udas})
@@ -1596,29 +1677,68 @@ class PlanExecutor:
         return (kern, keys, udas, in_types, init_specs, num_groups, seen_name,
                 step, val_dicts)
 
+    def _init_states(self, init_specs, num_groups, n: int) -> list:
+        """n identity states (one per mesh shard, or one)."""
+        return [{name: uda.init(num_groups, in_dt, self.device)
+                 for name, uda, in_dt in init_specs} for _ in range(n)]
+
+    def _spmd_feed(self, cols, n_valid) -> Optional[np.ndarray]:
+        """Per-shard valid rows of an SPMD feed, counted in spmd_feeds and the
+        shard placement stats — or None when the feed's rows do not split
+        into the mesh's shards (a mesh whose width is not a power of two):
+        that feed runs the single-device step into shard 0's state, as the
+        reference runs it, counted in spmd_skipped_feeds."""
+        from pixie_tpu_torch.parallel.spmd import per_shard_valid
+
+        n_dev = self.mesh.size
+        bucket = _first_len(cols)
+        if bucket % n_dev:
+            self.stats["spmd_skipped_feeds"] = self.stats.get("spmd_skipped_feeds", 0) + 1
+            return None
+        nv = per_shard_valid(n_valid, bucket, n_dev)
+        self.stats["spmd_feeds"] = self.stats.get("spmd_feeds", 0) + 1
+        self._note_shard_rows(nv)
+        return nv
+
     def _agg_feed_loop(self, kern, step, init_specs, num_groups, src, names,
-                       cap, t_lo, t_hi, luts, origins=None):
+                       cap, t_lo, t_hi, luts, origins=None, udas=None):
         """Drive the feeds through the agg step.
 
         The state is created once on the device and every feed's UDA updates
         accumulate into it IN PLACE (the kernels add into the state tensors),
-        so feeds allocate no per-feed partial state and need no merge.
+        so feeds allocate no per-feed partial state and need no merge.  Over
+        a mesh (an unlimited agg) each shard keeps its own state in place,
+        and one collective merge (M1) over the shards' states after the last
+        feed gives the state.
         """
-        state = {name: uda.init(num_groups, in_dt, self.device)
-                 for name, uda, in_dt in init_specs}
+        spmd = self.mesh is not None and not kern.has_limit
+        states = self._init_states(init_specs, num_groups, self.mesh.size if spmd else 1)
         remaining = kern.init_limits()
-        for cols, n_valid in self._feed(src, names, cap):
+        if spmd:
+            from pixie_tpu_torch.parallel.spmd import shard_step
+
+            run_shards = shard_step(
+                lambda c, v, st: step(c, v, t_lo, t_hi, None, luts, st, origins), self.mesh)
+        for cols, n_valid in self._feed(src, names, cap, spmd=spmd):
             tf0 = _time.perf_counter_ns()
-            state, consumed = step(cols, n_valid, t_lo, t_hi, remaining, luts, state,
-                                   origins)
-            if kern.has_limit:
-                remaining = remaining - consumed
+            nv = self._spmd_feed(cols, n_valid) if spmd else None
+            if nv is not None:
+                run_shards(cols, nv, states)
+            else:
+                states[0], consumed = step(cols, n_valid, t_lo, t_hi, remaining, luts,
+                                           states[0], origins)
+                if kern.has_limit:
+                    remaining = remaining - consumed
             if self.analyze:
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 self.stats.setdefault("feed_ns", []).append(
                     _time.perf_counter_ns() - tf0)
-        return state
+        if len(states) == 1:
+            return states[0]
+        from pixie_tpu_torch.parallel.spmd import collective_merge, reduce_tree_for
+
+        return collective_merge(states, reduce_tree_for(udas))
 
     def _finalize_agg(self, op, keys, udas, state, seen_name, in_types=None,
                       val_dicts=None) -> HostBatch:
@@ -1860,7 +1980,9 @@ class PlanExecutor:
         update): the caller then runs the sinks one by one.  The earliest
         member's cursor snapshot feeds the gang over the union of the
         members' columns; a later member's key sets cover at least its rows
-        (tables are append-only)."""
+        (tables are append-only).  Over a mesh each shard runs G1 into its
+        own member states, and M1 merges each member's shard states once
+        after the last feed."""
         leaves0 = self.stats.get("chain_leaves", 0)
         setups = []
         for op in ops:
@@ -1872,10 +1994,15 @@ class PlanExecutor:
                 self.stats["chain_leaves"] = leaves0
                 return None
             setups.append(s)
-        states = [{name: uda.init(s.num_groups, in_dt, self.device)
-                   for name, uda, in_dt in s.init_specs} for s in setups]
+        spmd = self.mesh is not None
+        n_shards = self.mesh.size if spmd else 1
+        per_member = [self._init_states(s.init_specs, s.num_groups, n_shards)
+                      for s in setups]
+        # shard_states[i][j]: member j's state on shard i
+        shard_states = [[pm[i] for pm in per_member] for i in range(n_shards)]
         if any(uda.gang_leaves(st[name]) is None
-               for s, st in zip(setups, states) for name, uda, _dt in s.init_specs):
+               for s, st in zip(setups, shard_states[0])
+               for name, uda, _dt in s.init_specs):
             self.stats["chain_leaves"] = leaves0
             return None
         union_names: list[str] = []
@@ -1885,14 +2012,32 @@ class PlanExecutor:
         # LUTs are uploaded once per query
         luts = [{k: torch.as_tensor(v).to(self.device) for k, v in s.kern.luts.items()}
                 for s in setups]
+
+        def run_gang(cols, n_valid, states):
+            members = [s.kern.gang_member(cols, n_valid, t_lo, t_hi, lut, st, s.origins)
+                       for s, lut, st in zip(setups, luts, states)]
+            _gang.run(members, _first_len(cols), self.device)
+
+        if spmd:
+            from pixie_tpu_torch.parallel.spmd import collective_merge, reduce_tree_for, shard_step
+
+            run_shards = shard_step(run_gang, self.mesh)
         with self._timed(f"mq_gang[{len(setups)}]", [op.id for op in ops]):
             waves = 0
-            for cols, n_valid in self._feed(setups[0].src, union_names, setups[0].cap):
-                members = [s.kern.gang_member(cols, n_valid, t_lo, t_hi, lut, st, s.origins)
-                           for s, lut, st in zip(setups, luts, states)]
-                _gang.run(members, _first_len(cols), self.device)
+            for cols, n_valid in self._feed(setups[0].src, union_names, setups[0].cap,
+                                            spmd=spmd):
+                nv = self._spmd_feed(cols, n_valid) if spmd else None
+                if nv is not None:
+                    run_shards(cols, nv, shard_states)
+                else:
+                    run_gang(cols, n_valid, shard_states[0])
                 waves += 1
             self.stats["mq_waves"] = self.stats.get("mq_waves", 0) + waves
+            states = shard_states[0]
+            if spmd:
+                states = [collective_merge([sh[j] for sh in shard_states],
+                                           reduce_tree_for(s.udas))
+                          for j, s in enumerate(setups)]
             finishers = [functools.partial(self._finish_partial_batch, s.keys, s.udas,
                                            seen_name=s.seen_name, in_types=s.in_types)
                          for s in setups]
@@ -1906,19 +2051,40 @@ class PlanExecutor:
         self.stats["mq_fused"] = self.stats.get("mq_fused", 0) + len(setups)
         return {s.op.id: g for s, g in zip(setups, got)}
 
+    def _partition_buckets(self, sink: PartitionSinkOp) -> list:
+        """A partition sink's hash buckets, one HostBatch per partition (the
+        producer half of a repartitioned join's shuffle edge).  With a mesh
+        whose width is the partition count the exchange runs in the mesh
+        (kernels X1, X2: parallel/repartition.py mesh_partition_exchange),
+        else on the host; both assign partitions by the same value hash, so
+        mixed producers interoperate."""
+        from pixie_tpu_torch.parallel.repartition import (
+            mesh_partition_exchange,
+            partition_ids,
+            split_host_batch,
+        )
+
+        hb = self._materialize_parent(self.plan.parents(sink)[0])
+        if self.mesh is not None and self.mesh.size == sink.n_parts and hb.num_rows > 0:
+            self.stats["mesh_shuffles"] = self.stats.get("mesh_shuffles", 0) + 1
+            return mesh_partition_exchange(hb, sink.keys, sink.n_parts, self.mesh)
+        return split_host_batch(hb, partition_ids(hb, sink.keys, sink.n_parts),
+                                sink.n_parts)
+
     def run_agent(self) -> dict:
         """Execute an AGENT plan: returns {channel: payload} where payload is a
-        HostBatch (rows channels), a PartialAggBatch (agg_state channels) or,
-        under `defer_agg_pull`, a _DeferredPartial.  Partial aggregates over
-        one shared scan run as a multi-query gang (`_gang_agg_payloads`)."""
+        HostBatch (rows channels and partition buckets), a PartialAggBatch
+        (agg_state channels) or, under `defer_agg_pull`, a _DeferredPartial.
+        Partial aggregates over one shared scan run as a multi-query gang
+        (`_gang_agg_payloads`)."""
         out = {}
         t0 = _time.perf_counter_ns()
         gang = self._gang_agg_payloads()
         for sink in self.plan.sinks():
             if isinstance(sink, PartitionSinkOp):
-                raise Unimplemented(
-                    "partition sinks (repartitioned joins, parallel/"
-                    "repartition.py) are not ported yet (the four-chip slice)")
+                for p, bucket in enumerate(self._partition_buckets(sink)):
+                    out[f"{sink.prefix}{p}"] = bucket
+                continue
             if not isinstance(sink, ResultSinkOp):
                 raise Internal(f"agent plan sink {sink.kind} is not a ResultSink")
             parent = self.plan.parents(sink)[0]
@@ -1945,8 +2111,8 @@ class PlanExecutor:
         Chunks of one channel are yielded in order, but consumers must not
         rely on it: the folds are order-insensitive by construction.  Partial
         aggregates over one shared scan run as a multi-query gang, computed
-        before the first yield, as in run_agent; partition sinks raise as in
-        run_agent.
+        before the first yield, as in run_agent; a partition sink yields one
+        chunk per bucket.
         """
         from pixie_tpu_torch.parallel.partial import slice_partial
 
@@ -1954,9 +2120,9 @@ class PlanExecutor:
         gang = self._gang_agg_payloads()
         for sink in self.plan.sinks():
             if isinstance(sink, PartitionSinkOp):
-                raise Unimplemented(
-                    "partition sinks (repartitioned joins, parallel/"
-                    "repartition.py) are not ported yet (the four-chip slice)")
+                for p, bucket in enumerate(self._partition_buckets(sink)):
+                    yield f"{sink.prefix}{p}", bucket
+                continue
             if not isinstance(sink, ResultSinkOp):
                 raise Internal(f"agent plan sink {sink.kind} is not a ResultSink")
             parent = self.plan.parents(sink)[0]
@@ -2304,8 +2470,8 @@ def _dtype_of(arr) -> DT:
 
 
 def execute_plan(plan: Plan, table_store, registry=None, device=None,
-                 analyze: bool = False) -> dict[str, QueryResult]:
-    """Run a plan against a table store on `device` (CUDA unless given);
-    returns {sink_name: QueryResult}."""
+                 analyze: bool = False, mesh="auto") -> dict[str, QueryResult]:
+    """Run a plan against a table store on `device` (CUDA unless given),
+    over `mesh` (see PlanExecutor); returns {sink_name: QueryResult}."""
     return PlanExecutor(plan, table_store, registry, device=device,
-                        analyze=analyze).run()
+                        analyze=analyze, mesh=mesh).run()

@@ -24,8 +24,17 @@ Budget: `PL_HBM_RESIDENT_MB` bounds the tier (LRU across entries; an entry
 that cannot fit falls back to the executor's feed cache / upload path, with
 the same results).  `PL_HBM_RESIDENT=0` turns the tier off.
 
-Not ported yet: the sharded (multi-device) entries, which come with the
-distributed slice, and the tier's metrics, which come with the observability
+Sharded entries (the reference's `_SHARD_KERNELS`, row 15): an SPMD
+consumer over a mesh of n_dev co-located shards asks with `n_dev`, and its
+entry is keyed by it, so sharded and single-device entries of one table
+coexist and never alias, as in the reference.  A sharded entry is the same
+contiguous device buffer per column, read as [n_dev, bucket / n_dev] (shard
+i holds rows [i * bucket / n_dev, (i + 1) * bucket / n_dev)), so its fold,
+grow and rebase are R1 and R2 as for any entry, and a fold that crosses a
+shard boundary lands where `dynamic_update_slice` on the reference's
+row-wise NamedSharding puts it.  The bucket must split into n_dev shards.
+
+Not ported yet: the tier's metrics, which come with the observability
 slice; this module counts in `stats` instead.
 """
 from __future__ import annotations
@@ -57,7 +66,7 @@ _LOCK = threading.Lock()
 #: warm queries racing the same delta would double-fold it), but a global
 #: lock would block every table's warm hit behind one table's admission
 _ENTRY_LOCKS: dict = {}
-#: (table_uid, names tuple, device) -> _Entry, LRU order
+#: (table_uid, names tuple, device, n_dev) -> _Entry, LRU order
 _TIER: "OrderedDict[tuple, _Entry]" = OrderedDict()
 _TIER_BYTES = 0
 
@@ -134,7 +143,7 @@ def upload_padded(parts: list, names, n: int, bucket: int, device) -> tuple[dict
 
 
 def feed(table_uid: int, names: tuple, gens: list, batch_rows: int,
-         parts: list, n_rows: int, device, prewarmed=None):
+         parts: list, n_rows: int, device, prewarmed=None, n_dev: int = 1):
     """Serve one sealed-only feed from the resident tier.
 
     → (device cols dict padded to the entry bucket, h2d_bytes) or None
@@ -144,7 +153,9 @@ def feed(table_uid: int, names: tuple, gens: list, batch_rows: int,
     (whole sealed batches; sliced delta batches carry gen None and never
     reach here).  `prewarmed` optionally carries the feed cache's entry for
     exactly this feed: admission then ADOPTS those buffers instead of
-    uploading the same bytes again beside them.
+    uploading the same bytes again beside them.  `n_dev` > 1 selects the
+    sharded entry of a mesh of n_dev shards (None when the bucket does not
+    split into them: the caller streams).
     """
     if not _flags.get("PL_HBM_RESIDENT") or not gens:
         return None
@@ -154,7 +165,9 @@ def feed(table_uid: int, names: tuple, gens: list, batch_rows: int,
         return None  # time-pruned cursor skipped interior batches
     if any(len(p[names[0]]) != batch_rows for p in parts):
         return None
-    key = (table_uid, names, str(torch.device(device)))
+    if n_dev > 1 and bucket_rows(n_rows) % n_dev:
+        return None  # not row-block shardable; the caller streams
+    key = (table_uid, names, str(torch.device(device)), n_dev)
     # one feed mutates a given entry at a time: concurrent warm queries over
     # the same table would otherwise both compute the same delta and fold it
     # twice (other tables' feeds proceed in parallel)

@@ -282,8 +282,9 @@ class StreamQuery:
 
     # ---------------------------------------------------------------- plumbing
     def _executor(self, plan: Plan, inputs=None) -> PlanExecutor:
+        # polls run on one device (mesh=None), as the reference's do
         return PlanExecutor(plan, self.store, self.registry, device=self.device,
-                            inputs=inputs)
+                            inputs=inputs, mesh=None if inputs is None else "auto")
 
     def _count(self, ex: PlanExecutor) -> None:
         for k, v in ex.stats.items():

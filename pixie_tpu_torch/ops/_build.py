@@ -50,6 +50,7 @@ SOURCES = {
     "kmeans": "kmeans.cu",
     "chain": "chain.cu",
     "gang": "gang.cu",
+    "repartition": "repartition.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

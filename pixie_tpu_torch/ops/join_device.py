@@ -127,10 +127,13 @@ def join_build(codes: torch.Tensor, K: int):
     first = torch.empty(K, dtype=torch.int32, device=dev)
     fill = torch.empty(K, dtype=torch.int32, device=dev)
     rows = torch.empty(nb, dtype=torch.int32, device=dev)
+    # held until the launch is enqueued: a block freed before it could go to
+    # another thread's allocation on this stream, whose kernels J1 would race
+    scratch = _scratch(K, dev)
     fn = _build.function(_J, "px_join_build", [_P, _L, _L, _P, _P, _P, _P, _P, _P])
     with torch.cuda.device(dev):
         err = fn(_build.ptr(codes), nb, K, _build.ptr(cnt), _build.ptr(first),
-                 _build.ptr(fill), _build.ptr(rows), _build.ptr(_scratch(K, dev)),
+                 _build.ptr(fill), _build.ptr(rows), _build.ptr(scratch),
                  _build.stream_of(codes))
     _build.check(_J, err, "join_build")
     _build.KERNELS[_J].count("px_join_build")
@@ -180,11 +183,12 @@ def join_expand(cnt_p: torch.Tensor, lo_p: torch.Tensor, rows: torch.Tensor, nb:
     bm = torch.empty(nb, dtype=torch.bool, device=dev)
     pm = torch.empty(npr, dtype=torch.bool, device=dev)
     offs = torch.empty(npr, dtype=torch.int64, device=dev)
+    scratch = _scratch(npr, dev)  # held until the launch is enqueued (see join_build)
     fn = _build.function(_J, "px_join_expand",
                          [_P, _P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _P])
     with torch.cuda.device(dev):
         err = fn(_build.ptr(cnt_p), _build.ptr(lo_p), npr, _build.ptr(rows), nb,
-                 _build.ptr(offs), _build.ptr(_scratch(npr, dev)), _build.ptr(bidx),
+                 _build.ptr(offs), _build.ptr(scratch), _build.ptr(bidx),
                  _build.ptr(pidx), _build.ptr(bm), _build.ptr(pm), _build.stream_of(cnt_p))
     _build.check(_J, err, "join_expand")
     _build.KERNELS[_J].count("px_join_expand")

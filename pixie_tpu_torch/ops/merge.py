@@ -15,6 +15,10 @@ descriptor table that reaches the device in one pinned non_blocking copy.  On
 CPU tensors it runs the plain PyTorch version beside it (a loop of
 torch.add / torch.minimum / torch.maximum, which propagate NaN).  The choice
 follows the states' device only; a CUDA tensor never reaches the plain version.
+
+`collective_merge(reduce_tree, shard_states)` is the same merge over the
+shards of one mesh (row 13: parallel/spmd.py's psum / pmin / pmax of each
+state leaf over the mesh axis), used by the port's co-located shards.
 """
 from __future__ import annotations
 
@@ -113,3 +117,11 @@ def merge_states(reduce_tree, states: list):
     if any(x.is_cuda for _p, _o, xs in leaves for x in xs):
         raise ValueError("merge_states: states on the CPU and on a CUDA device")
     return merge_states_plain(reduce_tree, states)
+
+
+def collective_merge(reduce_tree, shard_states: list):
+    """Row 13, the collective merge of a mesh's shard states (reference
+    parallel/spmd.py `collective_merge`: psum / pmin / pmax of each leaf over
+    the mesh axis) → one state.  Kernel M1 on CUDA tensors, the plain version
+    on CPU tensors; one shard comes back as it is."""
+    return merge_states(reduce_tree, shard_states)

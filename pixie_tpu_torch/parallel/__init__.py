@@ -1,6 +1,15 @@
 """Distributed execution on one device: the planner's split of a logical
 plan across agents (distributed.py), value-keyed partial aggregates
-(partial.py) and the in-process cluster that runs them (cluster.py)."""
+(partial.py), SPMD aggregation over a mesh of co-located shards (spmd.py),
+the keyed repartition of join sides (repartition.py) and the in-process
+cluster that runs them (cluster.py)."""
+from pixie_tpu_torch.parallel.spmd import (
+    collective_merge,
+    collective_merge_carry,
+    make_mesh,
+    reduce_tree_for,
+    spmd_agg_step,
+)
 from pixie_tpu_torch.parallel.topology import AgentInfo, ClusterSpec
 from pixie_tpu_torch.parallel.distributed import (
     Channel,
@@ -11,6 +20,11 @@ from pixie_tpu_torch.parallel.partial import PartialAggBatch, merge_partials
 from pixie_tpu_torch.parallel.cluster import LocalCluster
 
 __all__ = [
+    "make_mesh",
+    "collective_merge",
+    "collective_merge_carry",
+    "spmd_agg_step",
+    "reduce_tree_for",
     "AgentInfo",
     "ClusterSpec",
     "Channel",

@@ -15,6 +15,14 @@ the device, and per agg_state channel all agents' states merge there in one
 launch of kernel M1 when their layouts agree (else each is read back and
 merged by key values on the host); one readback wave follows.
 
+`n_devices_per_agent` gives each agent a mesh (parallel/spmd.py) of that
+many co-located shards of the device (None: the default mesh, 1: none), over
+which its executor shards every unlimited aggregate and exchanges the rows of
+a repartitioned join in the mesh (kernels X1, X2).  Repartitioned joins run
+as the reference runs them: the agents' partition sinks hash both sides into
+bucket channels, each partition's buckets join in a worker (`run_join_stages`,
+parallel/repartition.py), and the merger reads the joined channel.
+
 Concurrent-query batching (PL_QUERY_BATCHING, serving/batching.py) runs as
 in the reference: groupable concurrent queries rendezvous at `query()`, the
 leader fuses the member plans, splits the fused plan once per batch
@@ -24,13 +32,12 @@ demuxed results with exec_stats["batch"].  The batch window is the static
 flag (the reference's autotuned window is host-layer work), a fused batch is
 not verified (no plan verification yet), and there are no tenant namespaces.
 
-Not ported yet: multi-device agents (`_agent_mesh`, the four-chip slice),
-repartitioned joins (parallel/repartition.py, the four-chip slice), standing
-views (PL_MATVIEW_ENABLED: the port behaves as the reference does with the
-flag off), plan verification (PX_PLAN_VERIFY), the flight recorder and
-tracepoint mutations (the host-layer slice), and the semantic-type restamp
-of results (the host-layer slice: results carry physical types).  Streaming
-queries over a cluster run through parallel/streaming.py.
+Not ported yet: meshes over several distinct cards (the multi-card slice),
+standing views (PL_MATVIEW_ENABLED: the port behaves as the reference does
+with the flag off), plan verification (PX_PLAN_VERIFY), the flight recorder
+and tracepoint mutations (the host-layer slice), and the semantic-type
+restamp of results (the host-layer slice: results carry physical types).
+Streaming queries over a cluster run through parallel/streaming.py.
 """
 from __future__ import annotations
 
@@ -55,6 +62,11 @@ from pixie_tpu_torch.engine.plancache import QueryPlanCache
 from pixie_tpu_torch.engine.result import QueryResult
 from pixie_tpu_torch.parallel.distributed import DistributedPlanner
 from pixie_tpu_torch.parallel.partial import PartialAggBatch, merge_partials
+from pixie_tpu_torch.parallel.repartition import (
+    bucket_channels,
+    run_join_stages,
+    stage_output_inputs,
+)
 from pixie_tpu_torch.parallel.topology import AgentInfo, ClusterSpec
 from pixie_tpu_torch.plan.plan import Plan
 from pixie_tpu_torch.status import Internal, InvalidArgument, Unimplemented
@@ -128,7 +140,7 @@ class LocalCluster:
     one device."""
 
     def __init__(self, stores: dict, merger_store: Optional[TableStore] = None,
-                 registry=None, device=None):
+                 registry=None, device=None, n_devices_per_agent: Optional[int] = None):
         self.stores = dict(stores)
         self.merger_store = merger_store or TableStore()
         self.registry = registry
@@ -141,7 +153,7 @@ class LocalCluster:
                 processes_data=True,
                 accepts_remote_sources=False,
                 schemas=store.schemas(),
-                n_devices=1,
+                n_devices=n_devices_per_agent,
             )
             for name, store in self.stores.items()
         ]
@@ -174,6 +186,22 @@ class LocalCluster:
 
     def schemas(self) -> dict:
         return self.spec.combined_schemas()
+
+    def _agent_mesh(self, agent_name: str):
+        """Resolve an agent's mesh from AgentInfo.n_devices: None = the
+        default mesh ("auto"), 1 = single device, N = N co-located shards."""
+        info = next(a for a in self.spec.agents if a.name == agent_name)
+        n = info.n_devices
+        if n is None:
+            return "auto"
+        if n <= 1:
+            return None
+        from pixie_tpu_torch.parallel.spmd import make_mesh
+
+        # Clamp to a power of two: feed buckets are pow2-sized, so e.g. a
+        # 6-shard mesh would fail every divisibility gate and silently run
+        # single-device (same clamp as spmd.default_mesh).
+        return make_mesh(1 << (n.bit_length() - 1), device=self.device)
 
     def _schemas_fp(self) -> tuple:
         """Schema fingerprint for the plan cache: per-store table-set epochs
@@ -277,12 +305,9 @@ class LocalCluster:
         t_exec0 = _time.perf_counter_ns()
         if dp is None:
             dp = self.planner.plan(logical)
-        if dp.join_stages:
-            raise Unimplemented(
-                "repartitioned joins (parallel/repartition.py) are not ported "
-                "yet (the four-chip slice)")
 
-        # 1. run agent fragments (reference: per-agent Carnot::ExecutePlan).
+        # 1. run agent fragments (reference: per-agent Carnot::ExecutePlan),
+        #    each over the agent's mesh (AgentInfo.n_devices).
         #    Agents run CONCURRENTLY (they are separate processes in the
         #    networked deployment); host-side work (feed assembly, dictionary
         #    prescans) overlaps even though they share one device.
@@ -292,7 +317,8 @@ class LocalCluster:
 
         def run_one(agent_name, plan):
             ex = PlanExecutor(plan, self.stores[agent_name], self.registry,
-                              device=self.device, analyze=analyze)
+                              device=self.device, analyze=analyze,
+                              mesh=self._agent_mesh(agent_name))
             # Colocated agents share one device: defer each agent's partial
             # readback so ALL agents' states merge there and come back in ONE
             # transfer wave below.
@@ -355,12 +381,21 @@ class LocalCluster:
         # everything after is merge-side work
         t_merge0 = _time.perf_counter_ns()
 
-        # 2. merge channel payloads (reference: Kelvin finalize / row merge).
+        # 2. repartitioned joins: per-partition key-disjoint joins between
+        #    the agent stage and the merger (reference splitter shuffle).
         reg = self.registry
         if reg is None:
             from pixie_tpu_torch.udf import registry as reg
+        if dp.join_stages:
+            run_join_stages(dp, payloads, reg, store=self.merger_store,
+                            device=self.device, analyze=analyze)
+
+        # 3. merge channel payloads (reference: Kelvin finalize / row merge).
         inputs: dict[str, HostBatch] = {}
+        consumed = bucket_channels(dp)
         for cid, ch in dp.channels.items():
+            if cid in consumed:
+                continue  # bucket channels were joined in their stage
             got = payloads.get(cid, [])
             if not got:
                 raise Internal(f"channel {cid} received no payloads")
@@ -368,8 +403,9 @@ class LocalCluster:
                 inputs[cid] = merge_partials(ch.agg, got, reg)
             else:
                 inputs[cid] = _union_host_batches(got)
+        inputs.update(stage_output_inputs(dp, payloads))
 
-        # 3. run the merger plan over the injected channels.
+        # 4. run the merger plan over the injected channels.
         ex = PlanExecutor(dp.merger_plan, self.merger_store, self.registry,
                           device=self.device, inputs=inputs, analyze=analyze)
         results = ex.run()
@@ -379,8 +415,14 @@ class LocalCluster:
         # uploads ZERO feed bytes).
         xfer = {
             k: sum(int(s.get(k, 0)) for s in agent_stats.values())
-            for k in ("h2d_bytes", "resident_feeds", "feed_cache_hits")
+            for k in ("h2d_bytes", "resident_feeds", "feed_cache_hits",
+                      "spmd_feeds", "mesh_shuffles")
         }
+        # placement skew across mesh shards: the worst agent's max/mean shard rows
+        skews = [s.get("shard_skew_frac") for s in agent_stats.values()
+                 if isinstance(s.get("shard_skew_frac"), (int, float))]
+        if skews:
+            xfer["shard_skew_frac"] = max(skews)
         phases = {"exec_ns": t_merge0 - t_exec0,
                   "merge_ns": _time.perf_counter_ns() - t_merge0}
         for r in results.values():

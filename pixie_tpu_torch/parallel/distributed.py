@@ -270,8 +270,8 @@ class DistributedPlanner:
             agent count — when producers declare EXPLICIT device meshes
             (AgentInfo.n_devices), the shuffle widens to the largest mesh so
             each mesh device owns one partition and the PartitionSink
-            exchange lowers to ONE all_to_all over the mesh (the
-            executor's in-mesh path, in the reference).  A single agent with an 8-device mesh
+            exchange runs in the mesh (the executor's in-mesh path:
+            kernels X1 and X2).  A single agent with an 8-device mesh
             therefore still gets an 8-way shuffled join — partitions are
             device shards, not host processes."""
             from pixie_tpu_torch.plan.plan import JoinOp, PartitionSinkOp

@@ -4,10 +4,9 @@ Reference: distributedpb CarnotInfo{has_data_store, processes_data,
 accepts_remote_sources} (src/carnot/distributedpb/distributed_plan.proto:48-72)
 drives the coordinator's partition of a logical plan into per-agent physical
 plans (coordinator/coordinator.h:40-91).  Copied from the reference package
-(pixie_tpu/parallel/topology.py).  The reference lets an agent own a device
-mesh; the port's agents are single-device so far (multi-device agents come
-with the four-chip slice), and the planner reads `n_devices` only to size a
-repartitioned join.
+(pixie_tpu/parallel/topology.py).  An agent's `n_devices` is the width of
+its mesh (in the port, co-located shards of one device: parallel/spmd.py);
+the planner reads it to size a repartitioned join.
 """
 from __future__ import annotations
 

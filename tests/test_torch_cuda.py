@@ -780,3 +780,164 @@ def test_gang_on_the_card_equals_cpu_route(dev):
                     np.testing.assert_allclose(a, b, rtol=1e-12, atol=0)
                 else:
                     np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------ X1, X2 and the mesh path
+def _x1_inputs(dev, n_dev, per, seed, skew=False):
+    """One int64 key (values above 2^63 as uint64 among them), one
+    dictionary key with nulls, and the shards' valid rows."""
+    from pixie_tpu_torch.ops import repartition as xr
+
+    rng = np.random.default_rng(seed)
+    a = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, n_dev * per,
+                     dtype=np.int64)
+    if skew:
+        a[: n_dev * per // 2] = 7  # one key holds half the rows
+    codes = rng.integers(-1, 300, n_dev * per).astype(np.int32)
+    lut = xr.value_hash_lut([f"svc-{i}" for i in range(300)])
+    nv = np.full(n_dev, per, dtype=np.int64)
+    nv[-1] = per // 3
+    keys = [(torch.from_numpy(a).to(dev), None),
+            (torch.from_numpy(codes).to(dev), torch.from_numpy(lut).to(dev))]
+    return keys, nv
+
+
+@pytest.mark.parametrize("n_dev,per,skew", [(4, 1 << 16, False), (8, 12345, False),
+                                            (4, 1 << 16, True), (3, 5000, False),
+                                            (1, 4097, False)])
+def test_partition_count_equals_plain(dev, n_dev, per, skew):
+    from pixie_tpu_torch.ops import repartition as xr
+
+    keys, nv = _x1_inputs(dev, n_dev, per, 21, skew)
+    before = _build.KERNELS["repartition"].by_entry.get("px_partition_count", 0)
+    got = xr.partition_count(keys, nv, n_dev)
+    assert _build.KERNELS["repartition"].by_entry["px_partition_count"] == before + 1
+    want = xr.partition_count_plain(keys, nv, n_dev)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.parametrize("n_dev,per,skew", [(4, 1 << 16, False), (8, 12345, False),
+                                            (4, 1 << 16, True), (3, 5000, False)])
+def test_partition_scatter_equals_plain(dev, n_dev, per, skew):
+    """X2's received layout equals its plain version's in every block's
+    valid rows, for every column width; the received counts exactly."""
+    from pixie_tpu_torch.ops import repartition as xr
+
+    keys, nv = _x1_inputs(dev, n_dev, per, 22, skew)
+    part, counts, tiles = xr.partition_count(keys, nv, n_dev)
+    cap = int(counts.max())
+    rng = np.random.default_rng(23)
+    cols = [keys[0][0], keys[1][0], torch.from_numpy(rng.normal(size=n_dev * per)).to(dev),
+            torch.from_numpy(rng.random(n_dev * per) < 0.5).to(dev),
+            torch.from_numpy(rng.integers(0, 1 << 15, n_dev * per).astype(np.int16)).to(dev)]
+    got, grecv = xr.partition_scatter(part, tiles, counts, cols, n_dev, cap)
+    want, wrecv = xr.partition_scatter_plain(part, tiles, counts, cols, n_dev, cap)
+    assert torch.equal(grecv.cpu(), wrecv.cpu())
+    assert int(grecv.sum()) == int(nv.sum())
+    rc = grecv.cpu().numpy()
+    for g, w in zip(got, want):
+        g = g.cpu().view(n_dev * n_dev, cap)
+        w = w.cpu().view(n_dev * n_dev, cap)
+        for b in range(n_dev * n_dev):
+            assert torch.equal(g[b, : rc[b]], w[b, : rc[b]])
+
+
+def test_partition_scatter_short_cap_drops_rows_visibly(dev):
+    """Rows past cap are not written, and the received counts say so."""
+    from pixie_tpu_torch.ops import repartition as xr
+
+    keys, nv = _x1_inputs(dev, 4, 4096, 24)
+    part, counts, tiles = xr.partition_count(keys, nv, 4)
+    _outs, recv = xr.partition_scatter(part, tiles, counts, [keys[0][0]], 4,
+                                       int(counts.max()) - 1)
+    assert int(recv.sum()) < int(nv.sum())
+
+
+def test_repartition_cuda_tensor_never_reaches_the_plain_versions(dev, monkeypatch):
+    from pixie_tpu_torch.ops import repartition as xr
+
+    def boom(*a, **k):
+        raise AssertionError("plain version reached with CUDA tensors")
+
+    monkeypatch.setattr(xr, "partition_count_plain", boom)
+    monkeypatch.setattr(xr, "partition_scatter_plain", boom)
+    keys, nv = _x1_inputs(dev, 4, 4096, 25)
+    part, counts, tiles = xr.partition_count(keys, nv, 4)
+    xr.partition_scatter(part, tiles, counts, [keys[0][0]], 4, int(counts.max()))
+    torch.cuda.synchronize()
+
+
+def test_mesh_query_and_exchange_on_the_card_equal_cpu(dev):
+    """An aggregate over a 4-shard mesh and a mesh exchange on the card:
+    C1, K1, K2, M1 and K3 per shard and once merged, X1 and X2 launched,
+    results equal to the CPU's mesh route."""
+    from pixie_tpu_torch import flags
+    from pixie_tpu_torch.compiler import compile_pxl
+    from pixie_tpu_torch.engine.executor import HostBatch, PlanExecutor
+    from pixie_tpu_torch.parallel import repartition as rp
+    from pixie_tpu_torch.parallel.spmd import make_mesh
+    from pixie_tpu_torch.table import TableStore
+    from pixie_tpu_torch.table.dictionary import Dictionary
+    from pixie_tpu_torch.types import DataType as DT, Relation
+
+    rng = np.random.default_rng(31)
+    n = 300_000
+    ts = TableStore()
+    ts.create("http_events", Relation.of(
+        ("time_", DT.TIME64NS), ("service", DT.STRING), ("latency", DT.FLOAT64),
+        ("status", DT.INT64)), batch_rows=1 << 15).write({
+            "time_": np.arange(n, dtype=np.int64), "service": rng.choice(["a", "b", "c"], n),
+            "latency": rng.exponential(20.0, n), "status": rng.choice([200, 404, 500], n)})
+    src = ("df = px.DataFrame(table='http_events')\ndf = df[df.status != 404]\n"
+           "df = df.groupby(['service', 'status']).agg(cnt=('latency', px.count), "
+           "avg=('latency', px.mean), p50=('latency', px.p50))\npx.display(df, 'out')\n")
+    saved = flags.get("PIXIE_TORCH_VIRTUAL_SHARDS")
+    flags.set_for_testing("PIXIE_TORCH_VIRTUAL_SHARDS", 4)
+    try:
+        plan = compile_pxl(src, ts.schemas()).plan
+        _build.reset_launches()
+        got = PlanExecutor(plan, ts, device=dev, mesh=make_mesh(4, device=dev)).run()["out"]
+        by = _build.KERNELS
+        assert by["merge"].launches >= 1 and by["chain"].launches >= 4
+        assert by["segment_reduce"].launches >= 4 and by["loghist_quantile"].launches >= 1
+        want = PlanExecutor(plan, ts, device="cpu",
+                            mesh=make_mesh(4, device="cpu")).run()["out"]
+        g = got.to_pandas().sort_values(["service", "status"]).reset_index(drop=True)
+        w = want.to_pandas().sort_values(["service", "status"]).reset_index(drop=True)
+        assert g.cnt.tolist() == w.cnt.tolist()
+        np.testing.assert_allclose(g.avg, w.avg, rtol=1e-12)
+        np.testing.assert_array_equal(g.p50, w.p50)
+        d = Dictionary([f"k{i}" for i in range(50)])
+        hb = HostBatch({"k": DT.STRING, "v": DT.INT64}, {"k": d},
+                       {"k": rng.integers(-1, 50, 100_001).astype(np.int32),
+                        "v": np.arange(100_001, dtype=np.int64)})
+        cuda_parts = rp.mesh_partition_exchange(hb, ["k", "v"], 4, make_mesh(4, device=dev))
+        assert by["repartition"].by_entry.get("px_partition_scatter", 0) == 1
+        cpu_parts = rp.mesh_partition_exchange(hb, ["k", "v"], 4, make_mesh(4, device="cpu"))
+        for a, b in zip(cuda_parts, cpu_parts):
+            for c in ("k", "v"):
+                np.testing.assert_array_equal(a.cols[c], b.cols[c])
+    finally:
+        flags.set_for_testing("PIXIE_TORCH_VIRTUAL_SHARDS", saved)
+
+
+def test_device_joins_from_threads_equal_serial(dev):
+    """J1-J3 launched from several threads at once (a repartitioned join's
+    partition joins run in a thread pool) give the serial pair sets: no
+    kernel's scratch is freed before its launch is enqueued."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = np.random.default_rng(41)
+    cases = [(rng.integers(0, 1 << 18, 1 << 20), rng.integers(0, 1 << 18, 1 << 20))
+             for _ in range(8)]
+
+    def pairs(bp):
+        bi, pi, bm, pm = jd.device_join_codes(bp[0], bp[1], device=dev)
+        return sorted(zip(bi.tolist(), pi.tolist())), bm.tolist(), pm.tolist()
+
+    want = [pairs(c) for c in cases]
+    for _ in range(3):
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            got = list(pool.map(pairs, cases))
+        assert got == want

@@ -159,3 +159,53 @@ def test_gang_cuda_tensor_never_reaches_the_plain_version_on_the_cpu():
         g1.run([g1.Member(prog, [], [], [], 1, [g1.Leaf("count", state)])], 4,
                torch.device("cuda"))
     assert int(state[0]) == 0
+
+
+@pytest.mark.parametrize("mod", ["pixie_tpu_torch.parallel.spmd",
+                                 "pixie_tpu_torch.parallel.repartition",
+                                 "pixie_tpu_torch.ops.repartition"])
+def test_mesh_modules_import_alone(mod):
+    """Each module of the mesh slice, imported on its own, pulls in no JAX
+    and nothing of the reference."""
+    code = (
+        f"import importlib, sys\nimportlib.import_module({mod!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pixie_tpu'))\n"
+        "sys.exit('imported: ' + ', '.join(bad) if bad else 0)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_make_mesh_without_device_refuses_the_cpu():
+    """A mesh's shards sit on the card unless the caller asks for the CPU."""
+    import torch
+
+    from pixie_tpu_torch.parallel.spmd import make_mesh
+    from pixie_tpu_torch.status import Unavailable
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    with pytest.raises(Unavailable, match="CUDA"):
+        make_mesh(1)
+    assert make_mesh(1, device="cpu").device.type == "cpu"
+
+
+def test_repartition_cuda_tensor_never_reaches_the_plain_version_on_the_cpu():
+    """X1 and X2 on a CUDA device never run their plain versions: without a
+    card the launch raises instead of carrying on on the CPU."""
+    import torch
+
+    from pixie_tpu_torch.ops import repartition as rk
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the launch is valid here")
+    with pytest.raises(Exception):
+        rk.partition_count([(torch.zeros(8, dtype=torch.int64, device="cuda"), None)],
+                           [4, 4], 2)
+    with pytest.raises(Exception):
+        part = torch.zeros(8, dtype=torch.int32, device="cuda")
+        rk.partition_scatter(part, torch.zeros((2, 1, 2), dtype=torch.int64, device="cuda"),
+                             torch.zeros((2, 2), dtype=torch.int64, device="cuda"),
+                             [part], 2, 4)
