@@ -133,6 +133,26 @@ goodput, the p50 latency, the batches formed and their median size,
 mq_fused, mq_waves and G1's launches per batch.  The phase fails unless a
 batch formed and G1 launched.
 
+The device finalize (slice 9): an unlimited aggregate over several feeds
+runs the per-feed route (C1, K1, K2) and then F2 once (the merge of the
+shards' states, N = 1 without a mesh, the sketches' quantiles and the pack
+into one buffer: one readback), so config #1, config #2 and mesh config #1
+launch F2 and no K3 (mesh config #1 no M1); an aggregate of one feed is one
+F1 launch (the resident phase, config #3); raw partial states read back
+packed by P1 (config #4, the batch phase).  After G1's check, F1 is held
+against its plain version and the per-sink route on the 64M-row table's
+first 16M-row feed (config #1's chain, and config #2's at 1,024 groups);
+F2 at N = 1, N = 4 (the four feeds' states) and 8 states of 2^16 groups,
+beside M1 + K3;
+P1 on config #4's state and a 2^20-group state, beside torch.cat per dtype
+— counts, int64 sums, min, max, quantiles and packed bytes exactly, float64
+sums to rtol 1e-12.  The one-feed phase (after mesh config #1) runs config
+#1 on bench's build_http_table at 16M rows and at 1M rows: one F1 launch a
+warm query and no other kernel, one D2H wave, the oracle, stream and warm
+medians; then the 16M rows in two feeds (PX_FEED_ROWS = 2^23: C1 twice, F2
+once), equal to F1's result.  Before the ml phase, row 18's yardstick: K1's
+count over gid * 256 + code beside torch.bincount.
+
 Then the mesh phases (slice 8; PIXIE_TORCH_VIRTUAL_SHARDS = 4 for them
 only, restored after).  The kernel phase also holds X1 and X2 (the in-mesh
 repartition's hash-and-count and stable scatter, csrc/repartition.cu)
@@ -141,7 +161,7 @@ f64 and int64 values) over 4 and 8 partitions and with one key holding half
 the rows, exactly, and M1 as the collective merge of 4 shards of config
 #1's state.  Mesh config #1: config #1 over the 64M-row table with a mesh
 of 4 co-located shards (each feed in 4 row blocks, each shard's C1, K1 and
-K2 into its own state, M1 once, K3), equal to the single-device executor
+K2 into its own state, F2 once over the 4 states), equal to the single-device executor
 (counts and p50 exactly, means to 1e-12) and the oracle, spmd_feeds 4, a
 stream and a warm median (0 warm H2D bytes: the sharded resident entry).
 Mesh cluster: a LocalCluster of 2 agents of 4 shards: config #4's script
@@ -188,35 +208,43 @@ CONFIG3_ROWS = 1 << 24
 EXEC_JOIN_ROWS = 1 << 22
 #: (library, C entry point) of the kernels each slice phase must launch
 C1 = ("chain", "px_chain_run")
+K3 = ("loghist_quantile", "px_loghist_quantile")
+#: the device finalize: F1 a single-feed aggregate's one launch, F2 the
+#: merge + finalize after the per-feed route, P1 a raw state's pack
+F1 = ("finalize", "px_fused_partial_finalize")
+F2 = ("finalize", "px_merge_finalize")
+P1 = ("pack", "px_state_pack")
+#: config #1 over 4 feeds: the per-feed route, then F2 (no K3)
 CONFIG1_KERNELS = [C1, ("segment_reduce", "px_segment_count"),
                    ("segment_reduce", "px_segment_sum_f64"),
-                   ("loghist_update", "px_loghist_update"),
-                   ("loghist_quantile", "px_loghist_quantile"),
+                   ("loghist_update", "px_loghist_update"), F2,
                    ("resident", "px_resident_fold")]
 SELECT_KERNELS = [C1, ("compact", "px_compact"), ("resident", "px_resident_fold")]
-CONFIG3_KERNELS = [C1, ("segment_reduce", "px_segment_sum_i64"), ("compact", "px_compact"),
-                   ("resident", "px_resident_fold")]
+#: config #3: both aggregates are one feed (F1); the pods scan is a select
+CONFIG3_KERNELS = [C1, F1, ("compact", "px_compact"), ("resident", "px_resident_fold")]
 JOIN_KERNELS = [C1, ("compact", "px_compact"), ("join", "px_join_build"),
                 ("join", "px_join_probe"), ("join", "px_join_expand")]
-#: config #2 runs the whole aggregate path; config #5 and the cluster stream
-#: finalize on the host (finalize_partial), so K3 is not theirs
+#: config #2 runs the whole aggregate path (4 feeds, then F2); config #5
+#: and the cluster stream finalize on the host (finalize_partial)
 CONFIG2_KERNELS = [C1, ("segment_reduce", "px_segment_count"),
                    ("segment_reduce", "px_segment_sum_f64"),
-                   ("loghist_update", "px_loghist_update"),
-                   ("loghist_quantile", "px_loghist_quantile")]
+                   ("loghist_update", "px_loghist_update"), F2]
 CONFIG5_KERNELS = [C1, ("segment_reduce", "px_segment_count"),
                    ("loghist_update", "px_loghist_update")]
 CLUSTER_STREAM_KERNELS = [C1, ("segment_reduce", "px_segment_count"),
                           ("segment_reduce", "px_segment_sum_f64"),
                           ("loghist_update", "px_loghist_update")]
-RESIDENT_KERNELS = [("resident", "px_resident_fold"), ("resident", "px_resident_move")]
+#: the resident phase's queries are one feed each: F1
+RESIDENT_KERNELS = [("resident", "px_resident_fold"), ("resident", "px_resident_move"), F1]
+#: config #4's agents keep raw partial state (no finalize): M1 merges it,
+#: P1 packs the merged state for its one readback
 CONFIG4_KERNELS = [C1, ("segment_reduce", "px_segment_count"),
                    ("segment_reduce", "px_segment_sum_f64"),
                    ("loghist_update", "px_loghist_update"),
-                   ("merge", "px_merge_states"), ("resident", "px_resident_fold")]
+                   ("merge", "px_merge_states"), ("resident", "px_resident_fold"), P1]
 SORTED_KERNELS = [("segment_reduce", e) for e in (
     "px_segment_count", "px_segment_sum_i64", "px_segment_sum_f64",
-    "px_segment_min_f64", "px_segment_max_f64")] + [("loghist_update", "px_loghist_update")]
+    "px_segment_min_f64", "px_segment_max_f64")] + [("loghist_update", "px_loghist_update"), K3]
 #: resident phase: an 8M-row table (one feed) and the rows appended to it
 RESIDENT_ROWS = 1 << 23
 RESIDENT_APPEND = 1 << 20
@@ -497,7 +525,7 @@ def check_kernels(dev) -> list[dict]:
         "name": "loghist_quantile", "route": "cuda",
         "source": "pixie_tpu_torch/csrc/loghist_quantile.cu",
         "replaces": "pixie_tpu/ops/sketch.py:257 LogHistogram.quantile_device",
-        "entry": ("loghist_quantile", "px_loghist_quantile"), "path": "config1",
+        "entry": ("loghist_quantile", "px_loghist_quantile"), "path": "sorted",
         "max_abs_err": err,
         "ms": cuda_ms(lambda: lh.quantile_device(a, [0.5]), 50),
         "plain_ms": cuda_ms(lambda: lh.quantile_plain(a, [0.5]), 20),
@@ -924,7 +952,9 @@ def profile_query(query) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # (CUDA activity alone: with CPU activity too, no device event of a query
+    # that makes a cooperative launch reached key_averages())
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         query()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1035,6 +1065,8 @@ def run_slice(dev, with_profile: bool) -> dict:
     first_s = time.perf_counter() - t0
     launches = read_launches("config #1", CONFIG1_KERNELS)
     log(json.dumps({"phase": "slice.launches", "per_query": launches}))
+    if launches["loghist_quantile"] or launches["finalize"].get(F2[1]) != 1:
+        raise AssertionError(f"config #1: want F2 once and no K3: {launches}")
     check_leaves("config1", res.exec_stats)
     check = oracle_check(table, res)
     log(json.dumps({"phase": "slice.oracle", "ok": True, **check}))
@@ -1374,7 +1406,11 @@ def run_resident(dev) -> dict:
                       "warm_after": warm2, "tier_bytes": tier["bytes"], "oracle": check}
         log(json.dumps({"phase": f"resident.{label}", "ok": True, **out[label]}))
         del ts, table, gen
-    out["launches"] = read_launches("resident", RESIDENT_KERNELS + CONFIG1_KERNELS)
+    out["launches"] = read_launches("resident", RESIDENT_KERNELS)
+    routed = [f"{lib}.{e}" for lib, e in CONFIG1_KERNELS[:4] + [K3]
+              if out["launches"][lib].get(e, 0)]
+    if routed:
+        raise AssertionError(f"resident: one-feed queries launched {routed} beside F1")
     out["device_memory"] = device_memory()
     return out
 
@@ -2549,6 +2585,8 @@ def run_config2(dev, ts, table) -> dict:
     _build.reset_launches()
     res = query()
     launches = read_launches("config #2", CONFIG2_KERNELS)
+    if launches["loghist_quantile"] or launches["finalize"].get(F2[1]) != 1:
+        raise AssertionError(f"config #2: want F2 once and no K3: {launches}")
     leaves = check_leaves("config2", res.exec_stats)
     cols = _table_columns(table, ("time_", "service", "latency", "status"))
     sel = cols["status"] != 404
@@ -2817,7 +2855,8 @@ px.display(df, 'out')
 BATCH_KEYS = [["service", "status"], ["service"], ["status"], ["service"]]
 #: the batched arm runs every member's partial step in G1 (one agent: no M1;
 #: the merger finalizes on the host)
-BATCH_KERNELS = [("gang", "px_gang_partial")]
+#: one agent: the gang's states read back through P1
+BATCH_KERNELS = [("gang", "px_gang_partial"), P1]
 #: the batch phase's clients: 4 threads per script, 8 queries each
 BATCH_CLIENTS_PER_SCRIPT = 4
 BATCH_QUERIES = 8
@@ -3001,6 +3040,396 @@ def check_gang_kernel(dev, ts) -> list[dict]:
         "library_ms": None,
         "shape": {"rows": n, "members": len(offs), "union_columns": sorted(cols)},
     }]
+
+
+# ---------------------------------------- F1, F2 and P1 (the device finalize)
+
+#: the one-feed phase: config #1 at one 16M-row feed and at the 1M-row
+#: interactive shape
+ONE_FEED_ROWS = 1 << 24
+INTERACTIVE_ROWS = 1 << 20
+#: the per-feed route's kernels, none of which a one-feed query launches
+ROUTE_KERNELS = [C1, ("segment_reduce", "px_segment_count"),
+                 ("segment_reduce", "px_segment_sum_f64"),
+                 ("loghist_update", "px_loghist_update"), K3]
+#: F2's bandwidth shape: 8 states of 2^16 groups, config #1's tree
+F2_WIDE_GROUPS = 1 << 16
+F2_WIDE_STATES = 8
+#: P1's large state: 2^20 groups of count, mean (f64 sum, count) and seen
+P1_WIDE_GROUPS = 1 << 20
+
+
+class AggFeeds:
+    """A plan's one aggregate prepared as the executor prepares it
+    (`_agg_setup`) over the table's feeds (served from the tier and the
+    cache after the slice phase): F1 and its plain version over feed i, the
+    per-feed route (C1, K1, K2) into a state, and K3 on a state's sketches."""
+
+    def __init__(self, dev, ts, plan):
+        import torch
+
+        from pixie_tpu_torch.engine.executor import PlanExecutor, _time_bounds
+        from pixie_tpu_torch.ops import finalize as fin
+        from pixie_tpu_torch.plan import AggOp
+
+        self.dev = dev
+        ex = PlanExecutor(plan, ts, device=dev)
+        (op,) = [o for o in plan.topo_sorted() if isinstance(o, AggOp)]
+        self.s = s = ex._agg_setup(op)
+        self.feeds = list(ex._feed(s.src, s.names, s.cap))
+        self.t_lo, self.t_hi = _time_bounds(s.head)
+        self.luts = {k: torch.as_tensor(v).to(dev) for k, v in s.kern.luts.items()}
+        self.rt = {name: uda.reduce_ops() for name, uda, _vb in s.udas}
+        self.finals = fin.finals_of((name, uda) for name, uda, _vb in s.udas)
+
+    def init(self, device):
+        return {name: uda.init(self.s.num_groups, dt, device)
+                for name, uda, dt in self.s.init_specs}
+
+    def n(self, i: int) -> int:
+        return next(iter(self.feeds[i][0].values())).shape[0]
+
+    def member(self, i: int, state):
+        cols, n_valid = self.feeds[i]
+        return self.s.kern.gang_member(cols, n_valid, self.t_lo, self.t_hi, self.luts, state,
+                                       self.s.origins)
+
+    def f1(self, i: int):
+        """F1 over feed i, its plan cached as the executor caches it."""
+        from pixie_tpu_torch.engine.executor import f1_key
+        from pixie_tpu_torch.ops import finalize as fin
+
+        return fin.fused_partial_finalize(lambda st: self.member(i, st), self.init, self.rt,
+                                          self.finals, self.n(i), self.dev,
+                                          f1_key(self.s.num_groups, self.s.init_specs))
+
+    def f1_plain(self, i: int):
+        from pixie_tpu_torch.ops import finalize as fin
+        from pixie_tpu_torch.ops import gang as g1
+
+        st = self.init(self.dev)
+        g1.run_plain([self.member(i, st)], self.n(i), self.dev)
+        return fin.merge_finalize_plain([st], self.rt, self.finals)
+
+    def per_sink(self, i: int, state=None):
+        cols, n_valid = self.feeds[i]
+        state = self.init(self.dev) if state is None else state
+        self.s.step(cols, n_valid, self.t_lo, self.t_hi, None, self.luts, state, self.s.origins)
+        return state
+
+    def k3(self, state) -> list:
+        return [f.sketch.quantile_device(state[name], list(f.qs))
+                for name, f in self.finals.items()]
+
+    def feed_bytes(self, i: int) -> int:
+        """The bytes of the feed columns F1 reads over feed i (each once)."""
+        import torch
+
+        m = self.member(i, self.init(self.dev))
+        cols = {c.data_ptr(): c.numel() * c.element_size() for c in m.cols}
+        for leaf in m.leaves:
+            if isinstance(leaf.value, torch.Tensor):
+                cols[leaf.value.data_ptr()] = leaf.value.numel() * leaf.value.element_size()
+        return sum(cols.values())
+
+
+def same_finalized(label: str, got, want) -> float:
+    """Two F1 / F2 outputs leaf by leaf after their host unpack: float64 sums
+    to rtol 1e-12 (atomic order), every other leaf (counts, int64 sums, min,
+    max, quantiles) exactly; → the largest float64 sum difference."""
+    from pixie_tpu_torch.ops import pack as p1
+
+    err = 0.0
+    for a, b in zip(got.unpack(got.buf.cpu().numpy()), want.unpack(want.buf.cpu().numpy())):
+        la, lb = p1.flatten(a), p1.flatten(b)
+        if [p for p, _ in la] != [p for p, _ in lb]:
+            raise AssertionError(f"{label}: output trees differ")
+        for (path, x), (_p, y) in zip(la, lb):
+            if x.dtype.kind == "f" and path[-1] == "sum":
+                ok = np.allclose(x, y, rtol=1e-12, atol=0)
+                err = max(err, float(np.abs(x - y).max()) if x.size else 0.0)
+            else:
+                ok = np.array_equal(x, y, equal_nan=x.dtype.kind == "f")
+            if not ok:
+                raise AssertionError(f"{label}: leaf {'/'.join(map(str, path))} differs")
+    return err
+
+
+def config1_states(dev, g: int, n: int, seed: int) -> list:
+    """n states of config #1's tree at g groups (count, mean, p50 sketch,
+    seen), counts small enough that every sketch's running count stays
+    below 2^24 when 8 merge (exact in float32 in any order)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        out.append({"cnt": torch.from_numpy(rng.integers(0, 1 << 20, g)).to(dev),
+                    "avg_lat": {"sum": torch.from_numpy(rng.exponential(50.0, g) * 1e4).to(dev),
+                                "count": torch.from_numpy(rng.integers(0, 1 << 20, g)).to(dev)},
+                    "p50": torch.from_numpy(rng.integers(0, 1 << 10, (g, WIDTH)).astype(
+                        np.float32)).to(dev),
+                    "__seen": torch.from_numpy(rng.integers(0, 1 << 20, g)).to(dev)})
+    return out
+
+
+def check_finalize_kernels(dev, ts) -> list[dict]:
+    """F1, F2 and P1 against their plain versions on the card, each timed
+    (CUDA events; device time by torch.profiler) beside its plain version,
+    its bound and its yardstick:
+      F1 on config #1's first 16M-row feed of the 64M-row table (the small
+         leaves in private shared accumulators, the sketch on global atomics)
+         and on config #2's chain (1,024 groups: global atomics), beside the per-sink route on the same feed (C1, three K1,
+         K2, then K3);
+      F2 at N = 1 (config #1's state after the per-feed route), N = 4 (the
+         four feeds' states: mesh config #1's shape) and the bandwidth shape
+         (8 states of 2^16 groups, 1.08 GB), beside M1 + K3 as separate
+         launches;
+      P1 on config #4's state (64 groups, 133,632 B) and on a 2^20-group
+         state of count, mean and seen, beside torch.cat per dtype.
+    Exact for counts, int64 sums, min, max, quantiles and packed bytes;
+    float64 sums to rtol 1e-12."""
+    import torch
+
+    from pixie_tpu_torch.ops import finalize as fin
+    from pixie_tpu_torch.ops import merge as m1
+    from pixie_tpu_torch.ops import pack as p1
+
+    rows = []
+    # ---- F1
+    c1_feeds = AggFeeds(dev, ts, http_plan())
+    n = c1_feeds.n(0)
+    err = same_finalized("F1 config #1 feed", c1_feeds.f1(0), c1_feeds.f1_plain(0))
+    route = c1_feeds.per_sink(0)
+    err = max(err, same_finalized("F1 against the per-sink route", c1_feeds.f1(0),
+                                  fin.merge_finalize_plain([route], c1_feeds.rt,
+                                                           c1_feeds.finals)))
+    out_bytes = fin.output_layout(c1_feeds.init("meta"), c1_feeds.finals).nbytes
+    b_ms, b_by = bound(c1_feeds.feed_bytes(0) + out_bytes)
+
+    def per_sink_route():
+        c1_feeds.k3(c1_feeds.per_sink(0))
+
+    f1 = {"ms": cuda_ms(lambda: c1_feeds.f1(0), 20),
+          "device_ms": kernel_device_ms(lambda: c1_feeds.f1(0), "fused_kernel", 10),
+          "plain_ms": cuda_ms(lambda: c1_feeds.f1_plain(0), 3, warmup=1),
+          "per_sink_ms": cuda_ms(per_sink_route, 20), "bound_ms": b_ms, "bound_by": b_by}
+    log(json.dumps({"check": "F1 config #1 (16M-row feed, 64 groups)", "ok": True,
+                    "max_abs_err": err, **f1}))
+    c2_feeds = AggFeeds(dev, ts, config2_plan())
+    err2 = same_finalized("F1 config #2 feed", c2_feeds.f1(0), c2_feeds.f1_plain(0))
+    c2_out = fin.output_layout(c2_feeds.init("meta"), c2_feeds.finals).nbytes
+    f1_c2 = {"groups": c2_feeds.s.num_groups, "max_abs_err": err2,
+             "ms": cuda_ms(lambda: c2_feeds.f1(0), 10),
+             "device_ms": kernel_device_ms(lambda: c2_feeds.f1(0), "fused_kernel", 5),
+             "plain_ms": cuda_ms(lambda: c2_feeds.f1_plain(0), 3, warmup=1),
+             "per_sink_ms": cuda_ms(lambda: c2_feeds.k3(c2_feeds.per_sink(0)), 10),
+             "bound_ms": bound(c2_feeds.feed_bytes(0) + c2_out)[0]}
+    log(json.dumps({"check": "F1 config #2 (16M-row feed, 1,024 groups)", "ok": True, **f1_c2}))
+    rows.append({
+        "name": "fused_partial_finalize F1", "route": "cuda",
+        "source": "pixie_tpu_torch/csrc/finalize.cu",
+        "replaces": "pixie_tpu/engine/executor.py:1004 _fused_partial_finalize",
+        "entry": F1, "path": "config1_one_feed", "max_abs_err": max(err, err2),
+        "ms": f1["ms"], "plain_ms": f1["plain_ms"], "per_sink_ms": f1["per_sink_ms"],
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": {"rows": n, "groups": c1_feeds.s.num_groups, "output_bytes": out_bytes,
+                  "device_ms": f1["device_ms"], "config2": f1_c2},
+    })
+    del c2_feeds
+    # ---- F2
+    cases = {}
+
+    def hold_f2(label, states, rt, finals):
+        got = fin.merge_finalize(states, rt, finals)
+        err_ = same_finalized(f"F2 {label}", got, fin.merge_finalize_plain(states, rt, finals))
+        nbytes = sum(x.numel() * x.element_size()
+                     for st in states for _p, x in p1.flatten(st))
+        b_ms_, b_by_ = bound(nbytes + got.layout.nbytes)
+
+        def m1_k3():
+            merged = m1.merge_states(rt, states)
+            for name, f in finals.items():
+                f.sketch.quantile_device(merged[name], list(f.qs))
+
+        reps = 20 if nbytes < (1 << 26) else 10
+        cases[label] = {
+            "states": len(states), "state_bytes": nbytes // len(states), "max_abs_err": err_,
+            "ms": cuda_ms(lambda: fin.merge_finalize(states, rt, finals), reps),
+            "device_ms": kernel_device_ms(lambda: fin.merge_finalize(states, rt, finals),
+                                          "merge_finalize", reps),
+            "plain_ms": cuda_ms(lambda: fin.merge_finalize_plain(states, rt, finals), 3),
+            "m1_k3_ms": cuda_ms(m1_k3, reps), "bound_ms": b_ms_, "bound_by": b_by_}
+        log(json.dumps({"check": f"F2 {label}", "ok": True, **cases[label]}))
+
+    feed_states = [c1_feeds.per_sink(i) for i in range(len(c1_feeds.feeds))]
+    hold_f2("N = 1 (config #1's state)", feed_states[:1], c1_feeds.rt, c1_feeds.finals)
+    hold_f2(f"N = {len(feed_states)} (config #1's feeds' states)", feed_states, c1_feeds.rt,
+            c1_feeds.finals)
+    wide = config1_states(dev, F2_WIDE_GROUPS, F2_WIDE_STATES, 41)
+    hold_f2(f"bandwidth shape ({F2_WIDE_STATES} x 2^16 groups)", wide, c1_feeds.rt,
+            c1_feeds.finals)
+    del wide, feed_states
+    torch.cuda.empty_cache()
+    main = cases["N = 1 (config #1's state)"]
+    rows.append({
+        "name": "merge_finalize F2", "route": "cuda", "source": "pixie_tpu_torch/csrc/finalize.cu",
+        "replaces": "pixie_tpu/engine/executor.py:982 _merge_finalize_fn "
+                    "(:967 _device_finalize_split)",
+        "entry": F2, "path": "config1", "max_abs_err": max(c["max_abs_err"] for c in
+                                                              cases.values()),
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "m1_k3_ms": main["m1_k3_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+        "shape": cases,
+    })
+    # ---- P1
+    packs = {}
+    for label, st in (("config #4's state (64 groups)", config1_states(dev, 64, 1, 42)[0]),
+                      ("2^20 groups of count, mean and seen",
+                       {k: v for k, v in config1_states(dev, P1_WIDE_GROUPS, 1, 43)[0].items()
+                        if k != "p50"})):
+        layout = p1.state_packer(st)
+        leaves = [x for _p, x in p1.flatten(st)]
+        got, want = p1.pack(leaves, layout), p1.pack_plain(leaves, layout)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"P1 {label}: kernel and plain version disagree")
+        pulled = layout.unpack(got.cpu().numpy())
+        for (path, x), (_p, y) in zip(p1.flatten(pulled), p1.flatten(st)):
+            if not np.array_equal(x, y.cpu().numpy()):
+                raise AssertionError(f"P1 {label}: leaf {path} unpacks differently")
+        nbytes = sum(x.numel() * x.element_size() for x in leaves)
+        dtypes = sorted({x.dtype for x in leaves}, key=str)
+
+        def library(leaves=leaves, dtypes=dtypes):
+            return [torch.cat([x.reshape(-1) for x in leaves if x.dtype == d]) for d in dtypes]
+
+        b_ms_, b_by_ = bound(2 * nbytes)
+        packs[label] = {
+            "state_bytes": nbytes, "leaves": len(leaves), "dtypes": len(dtypes),
+            "ms": cuda_ms(lambda: p1.pack(leaves, layout), 20),
+            "device_ms": kernel_device_ms(lambda: p1.pack(leaves, layout), "state_pack", 20),
+            "plain_ms": cuda_ms(lambda: p1.pack_plain(leaves, layout), 10),
+            "library_ms": cuda_ms(library, 20), "bound_ms": b_ms_, "bound_by": b_by_}
+        log(json.dumps({"check": f"P1 {label}", "ok": True, "max_abs_err": 0.0,
+                        **packs[label]}))
+    main = packs["config #4's state (64 groups)"]
+    rows.append({
+        "name": "state_pack P1", "route": "cuda", "source": "pixie_tpu_torch/csrc/pack.cu",
+        "replaces": "pixie_tpu/engine/executor.py:912 _state_packer",
+        "entry": P1, "path": "config4", "max_abs_err": 0.0,
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"], "shape": packs,
+    })
+    return rows
+
+
+def run_config1_one_feed(dev) -> dict:
+    """Config #1 at one feed: bench's build_http_table (config #1's widths)
+    at 16M rows and at the 1M-row interactive shape.  Each query is one F1
+    launch: the oracle holds, a warm query launches F1 once and C1, K1, K2
+    and K3 not at all, and reads back in one D2H wave; stream and warm
+    medians.  Then the same query on the 16M rows with PX_FEED_ROWS = 2^23:
+    two feeds on the per-feed route and F2 once, equal to F1's result."""
+    import torch
+
+    from pixie_tpu_torch import flags
+    from pixie_tpu_torch.engine import execute_plan, transfer
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.table import TableStore
+
+    plan = http_plan()
+    out = {}
+    for label, rows in (("16M", ONE_FEED_ROWS), ("1M", INTERACTIVE_ROWS)):
+        t0 = time.perf_counter()
+        ts = TableStore()
+        table, _gen = build_http_table(ts, rows)
+        data_s = time.perf_counter() - t0
+
+        def query(ts=ts):
+            r = execute_plan(plan, ts, device=dev)["output"]
+            torch.cuda.synchronize(dev)
+            return r
+
+        _build.reset_launches()
+        res = query()
+        cold = read_launches(f"config #1 at one feed ({label})", [F1])
+        check = oracle_check(table, res)
+        _build.reset_launches()
+        waves0 = transfer.stats["waves"]
+        warm = query()
+        waves = transfer.stats["waves"] - waves0
+        warm_all = {lib: dict(k.by_entry) for lib, k in _build.KERNELS.items()}
+        launches = {lib: e for lib, e in warm_all.items() if e}
+        if (launches != {"finalize": {F1[1]: 1}} or waves != 1
+                or warm.exec_stats.get("fused_single_feed") != 1):
+            raise AssertionError(f"config #1 at one feed ({label}): launches {launches}, "
+                                 f"{waves} D2H waves, stats {warm.exec_stats}")
+        same_frame(f"config #1 at one feed ({label}) warm", warm, res, ["service", "status"],
+                   exact=("cnt", "p50"))
+        routes = stream_and_warm(query, f"config #1 at one feed ({label})", with_profile=True)
+        for k in ("profile_stream", "profile_warm"):
+            routes[k]["top"] = routes[k]["top"][:6]
+        # every device event of a warm query (kernel and copies), as the F1
+        # check times its kernel: the profile above may hold none of them
+        busy = kernel_device_ms(query, "", 5)
+        out[label] = {"rows": rows, "data_s": data_s, **check, "cold_launches": cold,
+                      "warm_launches": launches, "warm_d2h_waves": waves, **routes,
+                      "warm_device_busy_ms": busy,
+                      "warm_device_idle_share": 1.0 - busy / (routes["warm_median_s"] * 1e3),
+                      "rows_per_s": rows / routes["warm_median_s"]}
+        if label == "16M":
+            out["launches"] = warm_all  # one warm query's
+            saved = flags.get("PX_FEED_ROWS")
+            flags.set_for_testing("PX_FEED_ROWS", ONE_FEED_ROWS // 2)
+            try:
+                _build.reset_launches()
+                two = query()
+                two_launches = {lib: dict(k.by_entry) for lib, k in _build.KERNELS.items()
+                                if k.launches}
+                if (two_launches.get("finalize") != {F2[1]: 1}
+                        or two_launches.get("chain", {}).get(C1[1]) != 2
+                        or "loghist_quantile" in two_launches):
+                    raise AssertionError(f"config #1 in two feeds: launches {two_launches}")
+                same_frame("config #1 in two feeds", two, res, ["service", "status"],
+                           exact=("cnt", "p50"))
+                two_times = warm_times(query, 2, 5)
+            finally:
+                flags.set_for_testing("PX_FEED_ROWS", saved)
+            out["two_feeds"] = {"launches": two_launches, "warm_median_s": two_times[2],
+                                "warm_s": two_times}
+        log(json.dumps({"phase": f"config1_one_feed.{label}", "ok": True,
+                        **{k: v for k, v in out[label].items()}}))
+        del ts, table, _gen
+    log(json.dumps({"phase": "config1_one_feed.two_feeds", "ok": True, **out["two_feeds"]}))
+    return out
+
+
+def check_dicthist_library(dev) -> dict:
+    """Row 18's yardstick: K1's count over gid * 256 + code (DictHistUDA's
+    update) beside torch.bincount of the same flat ids, one call each, at
+    the ml phase's shape (8M rows into 16 x 256 cells)."""
+    import torch
+
+    from pixie_tpu_torch.ops import groupby as gb
+
+    rng = np.random.default_rng(44)
+    n, g, cap = 1 << 23, N_SERVICES, 256
+    gid = torch.from_numpy(rng.integers(0, g, n).astype(np.int32)).to(dev)
+    code = torch.from_numpy(rng.integers(0, cap, n).astype(np.int32)).to(dev)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    flat = gid * cap + code
+    got = gb.masked_segment_count(flat, g * cap, mask)
+    want = torch.bincount(flat, minlength=g * cap)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("DictHist count: K1 and torch.bincount disagree")
+    out = {"rows": n, "cells": g * cap,
+           "k1_ms": cuda_ms(lambda: gb.masked_segment_count(flat, g * cap, mask), 20),
+           "library_ms": cuda_ms(lambda: torch.bincount(flat, minlength=g * cap), 20),
+           "bound_ms": bound(n * (4 + 1) + g * cap * 8)[0]}
+    log(json.dumps({"check": "row 18 DictHist count (K1) vs torch.bincount", "ok": True, **out}))
+    return out
 
 
 def batch_frame(res, keys) -> dict:
@@ -3192,9 +3621,9 @@ MESH_SHARDS = 4
 #: X1 / X2 check rows (one int64 and one dictionary key; values f64, int64)
 X_ROWS = 1 << 24
 X_DICT = 4096
-#: config #1 over the mesh: every kernel of the path, and M1 as the
-#: collective merge of the shards' states
-MESH_CONFIG1_KERNELS = CONFIG1_KERNELS + [("merge", "px_merge_states")]
+#: config #1 over the mesh: every kernel of the path; F2 merges the shards'
+#: states (N = 4) as it finalizes, so M1 does not launch
+MESH_CONFIG1_KERNELS = CONFIG1_KERNELS
 X_KERNELS = [("repartition", "px_partition_count"), ("repartition", "px_partition_scatter")]
 #: the mesh cluster: agents, config #4's rows over them, the join's rows a side
 MESH_AGENTS = 2
@@ -3370,7 +3799,7 @@ def check_collective_merge(dev) -> list[dict]:
         "replaces": "pixie_tpu/parallel/spmd.py:174 collective_merge (psum / pmin / pmax; "
                     ":182 _carry, :203 spmd_agg_step, :234 spmd_partial_step, "
                     ":268 spmd_multi_partial_step)",
-        "entry": ("merge", "px_merge_states"), "path": "mesh_config1", "max_abs_err": 0.0,
+        "entry": ("merge", "px_merge_states"), "path": "mesh_cluster", "max_abs_err": 0.0,
         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": b_ms, "bound_by": by,
         "library_ms": row["library_ms"],
         "shape": {"shards": MESH_SHARDS, "groups": g, "state_bytes": nbytes,
@@ -3381,8 +3810,9 @@ def check_collective_merge(dev) -> list[dict]:
 def run_mesh_config1(dev, ts, table) -> dict:
     """Config #1 over the 64M-row table through execute_plan with a mesh of
     MESH_SHARDS co-located shards: each feed splits into 4 row blocks, each
-    shard runs C1, K1 and K2 into its own state, M1 merges the shards once,
-    K3 finalizes.  Equal to the single-device executor (counts and p50
+    shard runs C1, K1 and K2 into its own state, and F2 merges the shards'
+    states, finalizes and packs in one launch (no M1, no K3).  Equal to the
+    single-device executor (counts and p50
     exactly, means to 1e-12) and to the numpy oracle; spmd_feeds 4 a query;
     stream and warm medians (a warm query moves 0 H2D bytes: the sharded
     resident entry and the mesh's cache entries)."""
@@ -3405,9 +3835,11 @@ def run_mesh_config1(dev, ts, table) -> dict:
         res = query()
         launches = read_launches("mesh config #1", MESH_CONFIG1_KERNELS)
         m1 = launches["merge"].get("px_merge_states", 0)
-        if res.exec_stats.get("spmd_feeds") != ROWS // FEED or m1 != 1:
+        f2 = launches["finalize"].get(F2[1], 0)
+        if res.exec_stats.get("spmd_feeds") != ROWS // FEED or m1 != 0 or f2 != 1:
             raise AssertionError(f"mesh config #1: spmd_feeds {res.exec_stats.get('spmd_feeds')}"
-                                 f" (want {ROWS // FEED}), M1 launches {m1} (want 1)")
+                                 f" (want {ROWS // FEED}), M1 launches {m1} (want 0), F2 "
+                                 f"launches {f2} (want 1)")
         check_leaves("mesh_config1", res.exec_stats)
         check = oracle_check(table, res)
         single = execute_plan(plan, ts, device=dev, mesh=None)["output"]
@@ -3655,6 +4087,10 @@ def main() -> int:
     paths["config2"] = run_config2(dev, ts, table)["launches"]
     rows += check_gang_kernel(dev, ts)
     t0 = time.perf_counter()
+    rows += check_finalize_kernels(dev, ts)
+    log(json.dumps({"phase": "finalize_checks", "card": smi,
+                    "seconds": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
     batch = run_batch(dev, ts, table)
     log(json.dumps({"phase": "batch", "card": smi, "seconds": time.perf_counter() - t0,
                     **{k: v for k, v in batch.items() if k != "launches"}}))
@@ -3664,6 +4100,10 @@ def main() -> int:
     log(json.dumps({"phase": "mesh_config1", "card": smi,
                     "seconds": time.perf_counter() - t0}))
     del ts, table
+    t0 = time.perf_counter()
+    paths["config1_one_feed"] = run_config1_one_feed(dev)["launches"]
+    log(json.dumps({"phase": "config1_one_feed", "card": smi,
+                    "seconds": time.perf_counter() - t0}))
     t0 = time.perf_counter()
     paths["mesh_cluster"] = run_mesh_cluster(dev)["launches"]
     log(json.dumps({"phase": "mesh_cluster", "card": smi,
@@ -3675,6 +4115,7 @@ def main() -> int:
     paths["device_join"] = run_device_join(dev, args.profile)["launches"]
     paths["resident"] = run_resident(dev)["launches"]
     paths["sorted"] = run_sorted(dev)["launches"]
+    check_dicthist_library(dev)
     paths["ml"] = run_ml(dev)["launches"]
     log(json.dumps({"phase": "launches", "per_path": paths}))
     idle = [lib for lib in _build.KERNELS if not any(p_[lib] for p_ in paths.values())]
@@ -3686,7 +4127,7 @@ def main() -> int:
         r["launches"] = paths[path][lib].get(entry, 0)
         log(json.dumps({"kernel": r["name"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
                         "library_ms": r["library_ms"], "bound_ms": r["bound_ms"],
-                        "per_sink_ms": r.get("per_sink_ms"),
+                        "per_sink_ms": r.get("per_sink_ms"), "m1_k3_ms": r.get("m1_k3_ms"),
                         "launches": r["launches"], "shape": r["shape"], "card": smi}))
     log(json.dumps({"phase": "wall", "seconds": time.perf_counter() - t_start,
                     "card": smi}))

@@ -19,136 +19,28 @@
 // per leaf its op, dtype, vector flag, element count, output pointer and the
 // N input pointers -- and copies it to the device in one pinned non_blocking
 // copy.  blockIdx.y picks the leaf; the blocks of a leaf stride over its
-// elements.  A thread reads element j of the N inputs (neighbouring threads on
-// neighbouring elements, so every load is coalesced), 16 bytes at a time where
-// all of the leaf's pointers are 16-byte aligned, and keeps up to 8 inputs'
-// loads in flight before it reduces them in agent order.
+// elements with the merge body of merge.cuh (coalesced, 16-byte loads where
+// the leaf's pointers allow, up to 8 inputs' loads in flight).
 
 #include "common.cuh"
+#include "merge.cuh"
 
 namespace {
 
 constexpr int kBlock = 256;
-// loads kept in flight per thread and round
-constexpr int kBatch = 8;
-
-enum Op { kAdd = 0, kMin = 1, kMax = 2 };
-enum Dtype { kF32 = 0, kF64 = 1, kI64 = 2, kI32 = 3 };
 
 // descriptor: [flags, n, out, in_0 .. in_{N-1}] as int64, flags =
 // op | dtype << 8 | vec << 16
 constexpr int kHeader = 3;
 
-template <typename T>
-__device__ __forceinline__ bool is_nan(T v) {
-  return v != v;
-}
-
-template <typename T, int OP>
-__device__ __forceinline__ T combine(T a, T b) {
-  if (OP == kAdd) return a + b;
-  if (OP == kMin) {
-    if (is_nan(a)) return a;
-    if (is_nan(b)) return b;
-    return b < a ? b : a;
-  }
-  if (is_nan(a)) return a;
-  if (is_nan(b)) return b;
-  return b > a ? b : a;
-}
-
-// integer adds wrap: add in the unsigned type of the same width
-template <>
-__device__ __forceinline__ long long combine<long long, kAdd>(long long a, long long b) {
-  return static_cast<long long>(static_cast<unsigned long long>(a) +
-                                static_cast<unsigned long long>(b));
-}
-template <>
-__device__ __forceinline__ int combine<int, kAdd>(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
-}
-
-template <typename T, int OP>
-__device__ void merge_leaf(const long long* __restrict__ d, int n_states,
-                           long long tid, long long stride) {
-  const long long n = d[1];
-  T* out = reinterpret_cast<T*>(d[2]);
-  const long long* ins = d + kHeader;
-  constexpr int V = 16 / sizeof(T);
-  long long done = 0;
-  if ((d[0] >> 16) & 1) {
-    const long long nv = n / V;
-    for (long long v = tid; v < nv; v += stride) {
-      union Vec {
-        uint4 u;
-        T t[V];
-      };
-      Vec acc;
-      acc.u = __ldg(reinterpret_cast<const uint4*>(ins[0]) + v);
-      for (int s0 = 1; s0 < n_states; s0 += kBatch) {
-        Vec x[kBatch];
-#pragma unroll
-        for (int k = 0; k < kBatch; ++k)
-          if (s0 + k < n_states) x[k].u = __ldg(reinterpret_cast<const uint4*>(ins[s0 + k]) + v);
-#pragma unroll
-        for (int k = 0; k < kBatch; ++k)
-          if (s0 + k < n_states) {
-#pragma unroll
-            for (int e = 0; e < V; ++e) acc.t[e] = combine<T, OP>(acc.t[e], x[k].t[e]);
-          }
-      }
-      reinterpret_cast<uint4*>(out)[v] = acc.u;
-    }
-    done = nv * V;
-  }
-  for (long long j = done + tid; j < n; j += stride) {
-    T acc = __ldg(reinterpret_cast<const T*>(ins[0]) + j);
-    for (int s0 = 1; s0 < n_states; s0 += kBatch) {
-      T x[kBatch];
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k)
-        if (s0 + k < n_states) x[k] = __ldg(reinterpret_cast<const T*>(ins[s0 + k]) + j);
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k)
-        if (s0 + k < n_states) acc = combine<T, OP>(acc, x[k]);
-    }
-    out[j] = acc;
-  }
-}
-
-template <typename T>
-__device__ void merge_typed(const long long* d, int op, int n_states, long long tid,
-                            long long stride) {
-  if (op == kAdd)
-    merge_leaf<T, kAdd>(d, n_states, tid, stride);
-  else if (op == kMin)
-    merge_leaf<T, kMin>(d, n_states, tid, stride);
-  else
-    merge_leaf<T, kMax>(d, n_states, tid, stride);
-}
-
 __global__ void __launch_bounds__(kBlock) merge_states(const long long* __restrict__ desc,
                                                        int n_states) {
   const long long* d = desc + static_cast<long long>(blockIdx.y) * (kHeader + n_states);
   const int flags = static_cast<int>(d[0]);
-  const int op = flags & 0xff;
-  const int dtype = (flags >> 8) & 0xff;
   const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  switch (dtype) {
-    case kF32:
-      merge_typed<float>(d, op, n_states, tid, stride);
-      break;
-    case kF64:
-      merge_typed<double>(d, op, n_states, tid, stride);
-      break;
-    case kI64:
-      merge_typed<long long>(d, op, n_states, tid, stride);
-      break;
-    default:
-      merge_typed<int>(d, op, n_states, tid, stride);
-      break;
-  }
+  px_merge::merge_any((flags >> 8) & 0xff, flags & 0xff, reinterpret_cast<void*>(d[2]),
+                      d + kHeader, d[1], (flags >> 16) & 1, n_states, tid, stride);
 }
 
 }  // namespace

@@ -3,12 +3,16 @@
 This replaces the reference's push-based ExecutionGraph interpreter
 (src/carnot/exec/exec_graph.cc:177-295): every maximal Source→(Map|Filter|
 Limit)*→Agg chain becomes ONE chain kernel — chain programs (kernel C1) feeding
-the hand-written CUDA kernels (K1 masked segment reductions, K2 sketch update,
-K3 sketch quantiles) — run over coalesced column feeds.  Filters never compact on
-the device: they refine a validity mask.  The aggregate state lives on the
-device and accumulates IN PLACE across feeds (every UDA update writes into its
-state tensors); it is finalized on the device where a UDA can (sketch →
-quantiles) and read back once, small.
+the hand-written CUDA kernels (K1 masked segment reductions, K2 sketch update)
+— run over coalesced column feeds.  Filters never compact on the device: they
+refine a validity mask.  The aggregate state lives on the device and
+accumulates IN PLACE across feeds (every UDA update writes into its state
+tensors); then one launch of kernel F2 (ops/finalize.py) finalizes it where a
+UDA can (sketch → quantiles) and packs the results and the rest of the state
+into one buffer, read back in one copy.  A query whose snapshot is one feed
+runs whole as one launch of kernel F1: the chain, the updates of a fresh
+state, the finalize and the pack (stat fused_single_feed).  Limit queries
+keep K3 for the quantiles.
 
 Group-by strategy (see ops/groupby.py): every key must be reducible to a dense
 code — dictionary columns natively, raw int columns via a query-time dictionary
@@ -32,11 +36,12 @@ the device reduces over exact group ids in SORT_AGG_CHUNK-row chunks.
 
 Agent plans of a distributed query (parallel/cluster.py) run through
 `run_agent`: each agg_state channel ships its partial aggregate as seen-group
-key VALUES plus raw UDA state (`_partial_agg_batch`).  With `defer_agg_pull`
-set the state stays on the device (`_DeferredPartial`) and the cluster merges
-every agent's state there in one launch of kernel M1 (`gang_merge_states`,
-ops/merge.py) when their layouts agree.  The merger plan reads the merged
-channels through RemoteSourceOps (`inputs`).
+key VALUES plus raw UDA state (`_partial_agg_batch`), never finalized; a raw
+state reads back packed by kernel P1 into one buffer (transfer.pull_states).
+With `defer_agg_pull` set the state stays on the device (`_DeferredPartial`)
+and the cluster merges every agent's state there in one launch of kernel M1
+(`gang_merge_states`, ops/merge.py) when their layouts agree.  The merger
+plan reads the merged channels through RemoteSourceOps (`inputs`).
 
 Every chain's row mask, group ids and computed columns come from chain
 programs (ops/chain.py): kernel C1 on the card, one launch per chain segment
@@ -60,11 +65,11 @@ With a mesh (parallel/spmd.py: `mesh=make_mesh(n)`, or "auto" for the
 default mesh, None by default), every unlimited aggregate shards each feed
 row-wise over the mesh's co-located shards: each shard runs its chain
 program (C1) and UDA kernels (K1, K2) — or, in a gang, G1 — into its own
-state, in place across the query's feeds, and one collective merge (M1)
-after the last feed gives the state K3 finalizes.  The reference instead
-merges once per feed; add, min and max are associative, so the results
-agree.  Sealed feeds come from the resident tier's sharded entry (keyed by
-the mesh width).  A partition sink (the producer half of a repartitioned
+state, in place across the query's feeds, and F2 merges the shards'
+states as it finalizes them (a partial aggregate's shards merge by M1).
+The reference instead merges once per feed; add, min and max are
+associative, so the results agree.  Sealed feeds come from the resident
+tier's sharded entry (keyed by the mesh width).  A partition sink (the producer half of a repartitioned
 join) exchanges its rows in the mesh (kernels X1, X2) when the mesh width is
 the partition count, else on the host (parallel/repartition.py).  Unlike the
 reference, no query is routed to the CPU by size: on the card every query,
@@ -76,6 +81,7 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import itertools
 import threading
 import time as _time
 from typing import Callable, Optional
@@ -88,6 +94,7 @@ from pixie_tpu_torch.engine import resident, transfer
 from pixie_tpu_torch.engine.eval import ExprCompiler, SVal, apply_lut_np
 from pixie_tpu_torch.engine.result import QueryResult
 from pixie_tpu_torch.ops import chain as _chain
+from pixie_tpu_torch.ops import finalize as _fin
 from pixie_tpu_torch.ops import gang as _gang
 from pixie_tpu_torch.ops import join_device as _jd
 from pixie_tpu_torch.ops.compact import compact
@@ -757,6 +764,41 @@ def _first_len(cols: dict) -> int:
     return 0
 
 
+def _feed_batches(src, target: int):
+    """The feed policy: a cursor's batches → one list of (batch, gen) per
+    feed.  Empty batches are skipped; sealed batches coalesce until the
+    feed holds `target` rows; the hot remainder (gen None) never joins the
+    sealed rows before it — sealed feeds are immutable and cached, the hot
+    tail changes every write, so mixing them would re-upload the feed per
+    query."""
+    pend, nrows = [], 0
+    for rb, _row_id, gen in src:
+        n = rb.num_valid
+        if n == 0:
+            continue
+        if pend and gen is None:
+            yield pend
+            pend, nrows = [], 0
+        pend.append((rb, gen))
+        nrows += n
+        if nrows >= target:
+            yield pend
+            pend, nrows = [], 0
+    if pend:
+        yield pend
+
+
+def f1_key(num_groups: int, init_specs) -> tuple:
+    """An aggregate's shape for F1: its group count and each state's (name,
+    UDA class, input dtype), from which the state's structure follows."""
+    return (num_groups, tuple((name, type(uda), str(dt)) for name, uda, dt in init_specs))
+
+
+#: f1_key → whether every state has a gang update, so that F1 can run the
+#: aggregate
+_F1_GANG_OK: dict = {}
+
+
 # ------------------------------------------------------------ column pruning
 def _expr_columns(e) -> set:
     if isinstance(e, Column):
@@ -1049,11 +1091,12 @@ class PlanExecutor:
         """Yield (cols dict of device tensors, n_valid) feeds.
 
         Cursor batches (storage granularity) are coalesced into ~FEED_ROWS
-        feeds: fewer, larger kernel launches and transfers.  A sealed-only
-        feed is served from the resident tier, else from the HBM feed cache,
-        else uploaded into padded buffers that the cache keeps; either way
-        the step sees exact-length views `buf[:n]`.  Feeds touching the hot
-        remainder (gen None) or a delta cursor stream fresh every query.
+        feeds (_feed_batches): fewer, larger kernel launches and transfers.
+        A sealed-only feed is served from the resident tier, else from the
+        HBM feed cache, else uploaded into padded buffers that the cache
+        keeps; either way the step sees exact-length views `buf[:n]`.  Feeds
+        touching the hot remainder (gen None) or a delta cursor stream fresh
+        every query.
 
         spmd=True (an SPMD consumer over the mesh): every feed is its whole
         zero-padded power-of-two buffer, which splits row-block-wise into the
@@ -1112,27 +1155,12 @@ class PlanExecutor:
             _device_cache_put(key, cols)
             return rows_of(cols, n), n
 
-        pend, gens, nrows = [], [], 0
-        for rb, _row_id, gen in src:  # cursor
-            n = rb.num_valid
-            if n == 0:
-                continue
-            # The hot remainder (gen None) must not join a sealed feed:
-            # sealed feeds are immutable and cached, the hot tail changes
-            # every write — mixing them would re-upload the feed per query.
-            if pend and gen is None:
-                yield emit(pend, gens, nrows)
-                pend, gens, nrows = [], [], 0
-            pend.append({k: rb.columns[k][:n] for k in names})
-            gens.append(gen)
-            nrows += n
-            self.stats["rows_scanned"] += n
-            self.stats["batches"] += 1
-            if nrows >= target:
-                yield emit(pend, gens, nrows)
-                pend, gens, nrows = [], [], 0
-        if pend:
-            yield emit(pend, gens, nrows)
+        for batches in _feed_batches(src, target):
+            nrows = sum(rb.num_valid for rb, _gen in batches)
+            self.stats["rows_scanned"] += nrows
+            self.stats["batches"] += len(batches)
+            yield emit([{k: rb.columns[k][:rb.num_valid] for k in names} for rb, _gen in batches],
+                       [gen for _rb, gen in batches], nrows)
 
     # ---------------------------------------------------------------- blocking
     def _eval_blocking(self, op) -> HostBatch:
@@ -1369,10 +1397,11 @@ class PlanExecutor:
 
     def _run_agg(self, op: AggOp) -> HostBatch:
         try:
-            keys, udas, state, seen_name, in_types, val_dicts = self._agg_state(op)
+            keys, udas, state_np, seen_name, in_types, val_dicts = self._agg_state(
+                op, finalize=True)
         except GroupKeyFallback:
             return self._run_agg_sorted(op)
-        return self._finalize_agg(op, keys, udas, state, seen_name, in_types,
+        return self._finalize_agg(op, keys, udas, state_np, seen_name, in_types,
                                   val_dicts)
 
     # -------------------------------------------------- sort-based agg fallback
@@ -1577,17 +1606,19 @@ class PlanExecutor:
             init_specs=init_specs, num_groups=num_groups, seen_name=seen_name,
             step=step, val_dicts=val_dicts, origins=origins)
 
-    def _agg_state(self, op: AggOp):
+    def _agg_state(self, op: AggOp, finalize: bool = False):
         """Run the aggregation; returns the device state (a _DeferredState
-        under the distributed partial path's deferral) and what finalizing it
-        needs."""
+        under the distributed partial path's deferral), or with `finalize`
+        the pulled state with its device-finalized outputs (the local
+        route), and what finalizing it needs."""
         s = self._agg_setup(op)
         t_lo, t_hi = _time_bounds(s.head)
         # LUTs are uploaded once per query
         luts = {k: torch.as_tensor(v).to(self.device) for k, v in s.kern.luts.items()}
         state = self._agg_feed_loop(s.kern, s.step, s.init_specs, s.num_groups,
                                     s.src, s.names, s.cap, t_lo, t_hi, luts,
-                                    s.origins, s.udas)
+                                    s.origins, s.udas, finalize=finalize,
+                                    fuse=not s.val_dicts)
         if self._defer_active:
             state = _DeferredState(
                 [state], {name: uda.reduce_ops() for name, uda, _vb in s.udas})
@@ -1701,18 +1732,36 @@ class PlanExecutor:
         return nv
 
     def _agg_feed_loop(self, kern, step, init_specs, num_groups, src, names,
-                       cap, t_lo, t_hi, luts, origins=None, udas=None):
+                       cap, t_lo, t_hi, luts, origins=None, udas=None,
+                       finalize: bool = False, fuse: bool = False):
         """Drive the feeds through the agg step.
 
-        The state is created once on the device and every feed's UDA updates
-        accumulate into it IN PLACE (the kernels add into the state tensors),
-        so feeds allocate no per-feed partial state and need no merge.  Over
-        a mesh (an unlimited agg) each shard keeps its own state in place,
-        and one collective merge (M1) over the shards' states after the last
-        feed gives the state.
+        The state is created on the device before the first feed runs and
+        every feed's UDA updates accumulate into it IN PLACE (the kernels add
+        into the state tensors), so feeds allocate no per-feed partial state
+        and need no merge.  Over a mesh (an unlimited agg) each shard keeps
+        its own state in place.  Without `finalize` this returns the device
+        state, the shards' states merged by one collective merge (M1).
+
+        With `finalize` (the local route of an unlimited agg) it returns the
+        pulled state, device-finalized outputs as _FinalizedCol: one F2
+        launch (ops/finalize.py) merges the shards' states (N = 1 without a
+        mesh), finalizes the sketches and packs the output for one readback.
+        When the snapshot predicts exactly one feed (the interactive warm
+        query: no limit, not analyze, no mesh) the feed is held back and F1
+        runs the whole query in one launch: the chain, every UDA's update of
+        a fresh identity state, the finalize and the pack (stat
+        fused_single_feed).  A second feed that does arrive sends the held
+        one down the ordinary route first (a safety net: the prediction is
+        exact for a cursor snapshot).  `fuse` is False when the aggregate
+        cannot run as one gang member (a dictionary-valued aggregate).
         """
         spmd = self.mesh is not None and not kern.has_limit
-        states = self._init_states(init_specs, num_groups, self.mesh.size if spmd else 1)
+        fin = finalize and not kern.has_limit
+        fuse_ok = (fin and fuse and not spmd and not self.analyze
+                   and self._predicted_single_feed(src, cap))
+        states = None
+        held = None
         remaining = kern.init_limits()
         if spmd:
             from pixie_tpu_torch.parallel.spmd import shard_step
@@ -1720,7 +1769,17 @@ class PlanExecutor:
             run_shards = shard_step(
                 lambda c, v, st: step(c, v, t_lo, t_hi, None, luts, st, origins), self.mesh)
         for cols, n_valid in self._feed(src, names, cap, spmd=spmd):
+            if fuse_ok and held is None and states is None:
+                held = (cols, n_valid)
+                continue
             tf0 = _time.perf_counter_ns()
+            if states is None:
+                states = self._init_states(init_specs, num_groups,
+                                           self.mesh.size if spmd else 1)
+            if held is not None:
+                states[0], _consumed = step(*held, t_lo, t_hi, remaining, luts, states[0],
+                                            origins)
+                held = None
             nv = self._spmd_feed(cols, n_valid) if spmd else None
             if nv is not None:
                 run_shards(cols, nv, states)
@@ -1734,24 +1793,85 @@ class PlanExecutor:
                     torch.cuda.synchronize(self.device)
                 self.stats.setdefault("feed_ns", []).append(
                     _time.perf_counter_ns() - tf0)
+        if held is not None:
+            got = self._fused_finalize(kern, init_specs, num_groups, udas, held, t_lo, t_hi,
+                                       luts, origins)
+            if got is not None:
+                return got
+            states = self._init_states(init_specs, num_groups, 1)
+            states[0], _consumed = step(*held, t_lo, t_hi, remaining, luts, states[0], origins)
+        if states is None:  # no feed at all: the identity state
+            states = self._init_states(init_specs, num_groups, self.mesh.size if spmd else 1)
+        rt = {name: uda.reduce_ops() for name, uda, _vb in udas}
+        if fin:
+            return self._pull_finalized(_fin.merge_finalize(
+                states, rt, _fin.finals_of((name, uda) for name, uda, _vb in udas)))
+        if finalize:  # a limit query keeps its route: K3, then one readback
+            return self._device_finalized_k3(states[0], udas)
         if len(states) == 1:
             return states[0]
-        from pixie_tpu_torch.parallel.spmd import collective_merge, reduce_tree_for
+        from pixie_tpu_torch.parallel.spmd import collective_merge
 
-        return collective_merge(states, reduce_tree_for(udas))
+        return collective_merge(states, rt)
 
-    def _finalize_agg(self, op, keys, udas, state, seen_name, in_types=None,
-                      val_dicts=None) -> HostBatch:
-        """Device finalize where a UDA has one (sketch → quantiles), one
-        readback of the small results and the remaining state, then the host
-        finalize into output columns."""
+    def _fused_finalize(self, kern, init_specs, num_groups, udas, held, t_lo, t_hi, luts,
+                        origins) -> Optional[dict]:
+        """The single-feed query in one F1 launch → the pulled, finalized
+        state; None when a UDA's state has no gang update (the caller runs the
+        held feed on the ordinary route)."""
+        def init(device):
+            return {name: uda.init(num_groups, dt, device) for name, uda, dt in init_specs}
+
+        key = f1_key(num_groups, init_specs)
+        ok = _F1_GANG_OK.get(key)
+        if ok is None:
+            template = init("meta")
+            ok = all(uda.gang_leaves(template[name]) is not None
+                     for name, uda, _dt in init_specs)
+            if len(_F1_GANG_OK) > 256:
+                _F1_GANG_OK.clear()
+            _F1_GANG_OK[key] = ok
+        if not ok:
+            return None
+        cols, n_valid = held
+        res = _fin.fused_partial_finalize(
+            lambda st: kern.gang_member(cols, n_valid, t_lo, t_hi, luts, st, origins),
+            init, {name: uda.reduce_ops() for name, uda, _vb in udas},
+            _fin.finals_of((name, uda) for name, uda, _vb in udas),
+            _first_len(cols), self.device, key)
+        self.stats["fused_single_feed"] = self.stats.get("fused_single_feed", 0) + 1
+        return self._pull_finalized(res)
+
+    @staticmethod
+    def _pull_finalized(res) -> dict:
+        """An F1 / F2 output → one readback → {name: numpy state tree, or
+        _FinalizedCol for a device-finalized output}."""
+        finals, rest = res.unpack(transfer.pull(res.buf))
+        return {**rest, **{k: _FinalizedCol(v) for k, v in finals.items()}}
+
+    def _predicted_single_feed(self, src, cap) -> bool:
+        """At most one feed, predicted from the snapshot's batches by _feed's
+        own policy (_feed_batches).  Cursors are immutable snapshots, so a
+        concurrent write cannot invalidate it."""
+        if isinstance(src, HostBatch):
+            return True
+        target = max(cap, int(_flags.get("PX_FEED_ROWS")))
+        return sum(1 for _ in itertools.islice(_feed_batches(src, target), 2)) <= 1
+
+    @staticmethod
+    def _device_finalized_k3(state, udas) -> dict:
+        """The limit route's finalize: K3 on each device-finalized output, then
+        one readback of the results and the remaining state."""
         finals = {out_name: uda.finalize_device(state[out_name])
-                  for out_name, uda, _vb in udas
-                  if uda.device_finalize and out_name != seen_name}
-        pulled = tree_map(lambda t: t.cpu().numpy(),
-                          {k: v for k, v in state.items() if k not in finals})
-        state_np = {**pulled, **{k: _FinalizedCol(v.cpu().numpy())
-                                 for k, v in finals.items()}}
+                  for out_name, uda, _vb in udas if uda.device_finalize}
+        rest, finals = transfer.pull(({k: v for k, v in state.items() if k not in finals},
+                                      finals))
+        return {**rest, **{k: _FinalizedCol(v) for k, v in finals.items()}}
+
+    def _finalize_agg(self, op, keys, udas, state_np, seen_name, in_types=None,
+                      val_dicts=None) -> HostBatch:
+        """The host finalize of a pulled state (device-finalized outputs
+        arrive as _FinalizedCol) into output columns."""
         seen_counts = np.asarray(state_np[seen_name])
         if keys:
             gids = np.nonzero(seen_counts > 0)[0]
@@ -1833,7 +1953,7 @@ class PlanExecutor:
         if isinstance(state, _DeferredState):
             return self._deferred_partial(state.partials, state.reduce_tree, keys, udas,
                                           seen_name, in_types, finish_state)
-        return finish_state(transfer.pull(state))
+        return finish_state(transfer.pull_states([state])[0])
 
     def _deferred_partial(self, partials, reduce_tree, keys, udas, seen_name, in_types,
                           finish_state) -> _DeferredPartial:
@@ -1918,7 +2038,7 @@ class PlanExecutor:
                 key_cols[g] = np.asarray(in_dicts[g].decode(group_cols[g]), dtype=object)
             else:
                 key_cols[g] = group_cols[g]
-        state_np = transfer.pull(state)
+        state_np = transfer.pull_states([state])[0]
         states = {
             out_name: tree_map(lambda x: np.asarray(x)[:G], state_np[out_name])
             for out_name, _uda, _vn in udas
@@ -2047,7 +2167,8 @@ class PlanExecutor:
                     s.keys, s.udas, s.seen_name, s.in_types, fin)
                     for s, st, fin in zip(setups, states, finishers)]
             else:
-                got = [fin(pulled) for fin, pulled in zip(finishers, transfer.pull(states))]
+                got = [fin(pulled) for fin, pulled in
+                       zip(finishers, transfer.pull_states(states))]
         self.stats["mq_fused"] = self.stats.get("mq_fused", 0) + len(setups)
         return {s.op.id: g for s, g in zip(setups, got)}
 

@@ -7,7 +7,10 @@ in transfer waves:
   * `pull_async(tree)` → `AsyncPull.wait()` — the pipelined wave: the copies
     start now and the block comes later, so device work enqueued in between
     (the next feed's step) runs while the copies are in flight.  The select
-    path's feed loop reads its waves one and two feeds behind.
+    path's feed loop reads its waves one and two feeds behind;
+  * `pull_states(states)` — raw aggregate states in one wave, each packed
+    into one buffer first (kernel P1), so a state is one copy, not one per
+    leaf.
 
 On CUDA a wave's copies run on a side stream that first waits for the work
 already enqueued on the current stream; each leaf lands in a pinned host
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from pixie_tpu_torch import flags as _flags
+from pixie_tpu_torch.ops import pack as _pack
 
 _flags.define_float(
     "PX_PROBE_MAX_AGE_S", 900.0,
@@ -202,6 +206,17 @@ def pull(tree):
     """Tree of tensors → the same tree of numpy arrays, every leaf's copy
     started before the one wait."""
     return AsyncPull(tree).wait()
+
+
+def pull_states(states: list) -> list:
+    """State trees → the same trees of numpy arrays in one wave, each state
+    whose leaves outnumber its dtypes packed first into one buffer by kernel
+    P1 (ops/pack.py; its plain version on the CPU), so that it lands in one
+    copy; the host unpacks the pulled bytes."""
+    packed = [_pack.pack_state(s) for s in states]
+    pulled = pull([p.buf if isinstance(p, _pack.Packed) else p for p in packed])
+    return [p.unpack(b) if isinstance(p, _pack.Packed) else b
+            for p, b in zip(packed, pulled)]
 
 
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:

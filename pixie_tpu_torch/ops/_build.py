@@ -51,6 +51,8 @@ SOURCES = {
     "chain": "chain.cu",
     "gang": "gang.cu",
     "repartition": "repartition.cu",
+    "pack": "pack.cu",
+    "finalize": "finalize.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

@@ -173,11 +173,14 @@ def _check_sizes() -> None:
     _sizes_checked = True
 
 
-def leaf_shared_bytes(leaf: Leaf, num_groups: int) -> int:
+def leaf_shared_bytes(leaf: Leaf, num_groups: int, hist_shared: bool = True) -> int:
     """Bytes of a block's private accumulators for one leaf (K1's 32-bit
     counters for counts, 8 B for int64 and float64 sums, min and max, K2's
-    32-bit counts per sketch cell), rounded up to 8."""
+    32-bit counts per sketch cell), rounded up to 8; 0 for a sketch that
+    takes global atomics (hist_shared False)."""
     st = leaf.state
+    if leaf.op == "hist" and not hist_shared:
+        return 0
     if leaf.op == "hist":
         b = 4 * num_groups * st.shape[1]
     elif leaf.op == "count" or st.dtype == torch.int32:
@@ -187,14 +190,16 @@ def leaf_shared_bytes(leaf: Leaf, num_groups: int) -> int:
     return (b + 7) // 8 * 8
 
 
-def plan_shared(members: list) -> tuple[list, int]:
+def plan_shared(members: list, budget: int = SHARED_STATE_BYTES,
+                hist_shared: bool = True) -> tuple[list, int]:
     """→ (per member: the byte offset of its accumulators, or None for
     global atomics; total accumulator bytes).  Members take shared memory in
-    order while their states fit SHARED_STATE_BYTES."""
+    order while their states fit `budget`; with hist_shared False a
+    member's sketches take global atomics and no shared memory."""
     offs, total = [], 0
     for m in members:
-        need = sum(leaf_shared_bytes(leaf, m.num_groups) for leaf in m.leaves)
-        if total + need <= SHARED_STATE_BYTES:
+        need = sum(leaf_shared_bytes(leaf, m.num_groups, hist_shared) for leaf in m.leaves)
+        if total + need <= budget:
             offs.append(total)
             total += need
         else:
@@ -202,12 +207,12 @@ def plan_shared(members: list) -> tuple[list, int]:
     return offs, total
 
 
-def rows_per_thread(depth: int, outs: int, acc_bytes: int) -> int:
+def rows_per_thread(depth: int, outs: int, acc_bytes: int, smem: int = BLOCK_SMEM) -> int:
     """R, the rows a thread owns in a tile: the largest of 4, 2, 1 whose
-    stack, slots and accumulators fit BLOCK_SMEM (1 beyond it; the launch
+    stack, slots and accumulators fit `smem` (1 beyond it; the launch
     opts in to the card's maximum and refuses more)."""
     for r in (4, 2):
-        if (max(depth, 1) + outs) * r * BLOCK * 8 + acc_bytes <= BLOCK_SMEM:
+        if (max(depth, 1) + outs) * r * BLOCK * 8 + acc_bytes <= smem:
             return r
     return 1
 
@@ -242,14 +247,32 @@ def _check_leaf(leaf: Leaf, m: Member, n: int, device) -> tuple[int, int]:
     return code, kind
 
 
-def _launch_g1(members: list, n: int, device) -> None:
-    if n <= 0 or not members:
-        return  # (px_gang_partial launches nothing for an empty feed)
+@dataclasses.dataclass
+class Encoded:
+    """The members and their leaves as the card reads them (csrc/gang.cuh
+    GangMember[], then GangLeaf[] at `leaves_at`), with the pass's shape."""
+
+    blob: bytes
+    leaves_at: int
+    n_members: int
+    n_leaves: int
+    depth: int
+    outs: int
+    acc_bytes: int
+    rows_per_thread: int
+
+
+def encode(members: list, n: int, device, state_budget: int = SHARED_STATE_BYTES,
+           smem: int = BLOCK_SMEM, hist_shared: bool = True) -> Encoded:
+    """Check and encode the members over a feed of n rows; each member's
+    state takes a block's private accumulators while the states fit
+    `state_budget` (with hist_shared False its sketches take global atomics
+    whatever the budget), and R is chosen to fit `smem`."""
     _check_sizes()
-    offs, acc_bytes = plan_shared(members)
+    offs, acc_bytes = plan_shared(members, state_budget, hist_shared)
     depth = max(m.prog.depth for m in members)
     outs = max(len(m.prog.out_kinds) for m in members)
-    r = rows_per_thread(depth, outs, acc_bytes)
+    r = rows_per_thread(depth, outs, acc_bytes, smem)
     c_members, c_leaves = [], []
     for m, off in zip(members, offs):
         p = _chain.pack_params(m.prog, m.cols, m.luts, m.scalars, n, device)
@@ -270,24 +293,31 @@ def _launch_g1(members: list, n: int, device) -> None:
                 lf.log_gamma = sk._log_gamma_f32()
                 lf.min_f = float(np.float32(sk.min_value))
                 lf.min_d = sk.min_value
-            if off is None:
+            if off is None or not leaf_shared_bytes(leaf, m.num_groups, hist_shared):
                 lf.shared_off = -1
             else:
                 lf.shared_off = off
-                off += leaf_shared_bytes(leaf, m.num_groups)
+                off += leaf_shared_bytes(leaf, m.num_groups, hist_shared)
             c_leaves.append(lf)
     mem = bytes((_Member * len(c_members))(*c_members))
-    buf = mem + bytes((_Leaf * len(c_leaves))(*c_leaves))
+    return Encoded(mem + bytes((_Leaf * len(c_leaves))(*c_leaves)), len(mem), len(c_members),
+                   len(c_leaves), depth, outs, acc_bytes, r)
+
+
+def _launch_g1(members: list, n: int, device) -> None:
+    if n <= 0 or not members:
+        return  # (px_gang_partial launches nothing for an empty feed)
+    enc = encode(members, n, device)
     # one upload per launch, in stream order; the pinned staging buffer is
     # not reused before the copy has run (torch's caching host allocator)
-    dev_buf = torch.frombuffer(bytearray(buf), dtype=torch.uint8).pin_memory().to(
+    dev_buf = torch.frombuffer(bytearray(enc.blob), dtype=torch.uint8).pin_memory().to(
         device, non_blocking=True)
     fn = _build.function(_G1, "px_gang_partial",
                          [_P, _I, _P, _I, ctypes.c_longlong, _I, _I, _I, _I, _P])
     base = dev_buf.data_ptr()
     with torch.cuda.device(device):
-        err = fn(ctypes.c_void_p(base), len(c_members), ctypes.c_void_p(base + len(mem)),
-                 len(c_leaves), n, depth, outs, acc_bytes, r,
+        err = fn(ctypes.c_void_p(base), enc.n_members, ctypes.c_void_p(base + enc.leaves_at),
+                 enc.n_leaves, n, enc.depth, enc.outs, enc.acc_bytes, enc.rows_per_thread,
                  ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
     _build.check(_G1, err, "gang")
     _build.KERNELS[_G1].count("px_gang_partial")

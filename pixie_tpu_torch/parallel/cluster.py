@@ -340,32 +340,35 @@ class LocalCluster:
                 if isinstance(payload, _DeferredPartial):
                     by_channel.setdefault(cid, []).append(payload)
         finished: dict[int, object] = {}
-        pull_tree = []
-        pull_done = []  # (fn(pulled_subtree) -> None) per entry
+        pull_states = []
+        pull_done = []  # (fn(pulled states) -> None, how many states) per entry
         for cid, ds in by_channel.items():
             fps = {d.layout_fp for d in ds}
             if len(fps) == 1 and None not in fps and len(ds) > 1:
-                pull_tree.append(gang_merge_states(ds))
+                pull_states.append(gang_merge_states(ds))
 
-                def done(merged, ds=ds):
+                def done(pulled, ds=ds):
                     # all agents resolve to ONE merged batch; keep a single
                     # payload entry (merge_partials is idempotent over one)
                     for d in ds:
                         finished[id(d)] = None
-                    finished[id(ds[0])] = ds[0].finish_state(merged)
+                    finished[id(ds[0])] = ds[0].finish_state(pulled[0])
 
-                pull_done.append(done)
+                pull_done.append((done, 1))
             else:
                 for d in ds:
-                    pull_tree.append(d.partials)
+                    pull_states.extend(d.partials)
 
                     def done(pulled, d=d):
                         finished[id(d)] = d.finish(pulled)
 
-                    pull_done.append(done)
-        pulled_all = transfer.pull(pull_tree)
-        for fn, pulled in zip(pull_done, pulled_all):
-            fn(pulled)
+                    pull_done.append((done, len(d.partials)))
+        # one wave; each multi-leaf state packed into one buffer first (P1)
+        pulled_all = transfer.pull_states(pull_states)
+        at = 0
+        for fn, k in pull_done:
+            fn(pulled_all[at:at + k])
+            at += k
         for agent_name, out, stats in outs:
             for cid, payload in out.items():
                 if isinstance(payload, _DeferredPartial):

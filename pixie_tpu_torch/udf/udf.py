@@ -402,10 +402,13 @@ class DictHistUDA(UDA):
 class _SketchUDA(UDA):
     """Base of the log-histogram sketch UDAs: a [G, 514] float32 state."""
 
-    def init(self, num_groups, in_dtype, device):
+    @property
+    def _sketch(self):
         from pixie_tpu_torch.ops.sketch import LogHistogram
 
-        self._sketch = LogHistogram()
+        return LogHistogram()
+
+    def init(self, num_groups, in_dtype, device):
         return self._sketch.init(num_groups, device)
 
     def update(self, state, gid, value, mask, num_groups):
@@ -418,6 +421,12 @@ class _SketchUDA(UDA):
         return [("hist", state, self._sketch)]
 
     device_finalize = True
+
+    def device_quantiles(self) -> tuple[tuple[float, ...], bool]:
+        """(the quantiles finalize_device computes, True when it returns them
+        as [G] rather than [G, nq]): what the fused device finalize
+        (ops/finalize.py, F1 / F2) computes in its place."""
+        raise NotImplementedError
 
 
 class QuantileUDA(_SketchUDA):
@@ -442,6 +451,9 @@ class QuantileUDA(_SketchUDA):
         from pixie_tpu_torch.ops.sketch import LogHistogram
 
         return LogHistogram().quantile_device(state, [self.q])[:, 0]
+
+    def device_quantiles(self):
+        return (self.q,), True
 
 
 class QuantilesUDA(_SketchUDA):
@@ -472,6 +484,9 @@ class QuantilesUDA(_SketchUDA):
         from pixie_tpu_torch.ops.sketch import LogHistogram
 
         return LogHistogram().quantile_device(state, list(self.QS))
+
+    def device_quantiles(self):
+        return tuple(self.QS), False
 
     def finalize_from_device(self, pulled_np) -> np.ndarray:
         return self._format(np.asarray(pulled_np))

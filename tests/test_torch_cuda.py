@@ -941,3 +941,215 @@ def test_device_joins_from_threads_equal_serial(dev):
         with ThreadPoolExecutor(max_workers=8) as pool:
             got = list(pool.map(pairs, cases))
         assert got == want
+
+
+# ------------------------------------------- P1, F2 and F1 (the device finalize)
+from pixie_tpu_torch.ops import finalize as fin  # noqa: E402
+from pixie_tpu_torch.ops import pack as p1  # noqa: E402
+
+_FIN_RT = {"cnt": "add", "avg": {"sum": "add", "count": "add"}, "p50": "add", "qs": "add",
+           "mn32": "min", "mx64": "max", "mnf": "min", "__seen": "add"}
+_FINALS = {"p50": fin.Final(LogHistogram(), (0.5,), True),
+           "qs": fin.Final(LogHistogram(), (0.01, 0.1, 0.5, 0.9, 0.99), False)}
+
+
+def _fin_states(dev, n, g, seed):
+    """n states of one tree: counts, an f64 mean, two sketches (a quarter of
+    their groups empty), int32 min, int64 max and an f64 min with NaN."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        sk = rng.integers(0, 64, (2, g, 514)).astype(np.float32)
+        sk[:, rng.random(g) < 0.25] = 0.0
+        mnf = rng.exponential(5.0, g)
+        mnf[rng.random(g) < 0.05] = np.nan
+        st = {"cnt": rng.integers(-(2 ** 62), 2 ** 62, g),
+              "avg": {"sum": rng.exponential(50.0, g) * 1e3, "count": rng.integers(0, 1 << 20, g)},
+              "p50": sk[0], "qs": sk[1],
+              "mn32": rng.integers(-(2 ** 31), 2 ** 31 - 1, g).astype(np.int32),
+              "mx64": rng.integers(-(2 ** 62), 2 ** 62, g), "mnf": mnf,
+              "__seen": rng.integers(0, 3, g)}
+        out.append({k: ({kk: torch.from_numpy(vv).to(dev) for kk, vv in v.items()}
+                        if isinstance(v, dict) else torch.from_numpy(v).to(dev))
+                    for k, v in st.items()})
+    return out
+
+
+def _same_trees(got, want) -> None:
+    gl, wl = p1.flatten(got), p1.flatten(want)
+    assert [p for p, _ in gl] == [p for p, _ in wl]
+    for (path, a), (_p, b) in zip(gl, wl):
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        assert np.array_equal(a, b, equal_nan=a.dtype.kind == "f"), path
+
+
+@pytest.mark.parametrize("g", [1, 64, 4096])
+def test_state_pack_equals_plain_and_unpacks_bit_for_bit(dev, g):
+    """P1 against its plain version (the buffer, padding included, byte for
+    byte) and the unpacked leaves against a leaf-by-leaf pull, with one
+    leaf a view that is not 16-byte aligned."""
+    (st,) = _fin_states(dev, 1, g, 31)
+    st["mn32"] = torch.arange(g + 1, dtype=torch.int32, device=dev)[1:]
+    layout = p1.state_packer(st)
+    leaves = [x for _p, x in p1.flatten(st)]
+    before = _build.KERNELS["pack"].launches
+    got = p1.pack(leaves, layout)
+    assert _build.KERNELS["pack"].launches == before + 1
+    want = p1.pack_plain(leaves, layout)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    _same_trees(layout.unpack(got.cpu().numpy()),
+                {k: ({kk: vv.cpu().numpy() for kk, vv in v.items()} if isinstance(v, dict)
+                     else v.cpu().numpy()) for k, v in st.items()})
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", [1, 64, 1024])
+@pytest.mark.parametrize("with_finals", [True, False])
+def test_merge_finalize_equals_plain(dev, n, g, with_finals):
+    """F2 against its plain version (M1's merge in state order, K3's rank
+    rule, the pack) on the same CUDA tensors: every output leaf exactly."""
+    states = _fin_states(dev, n, g, 32 + n)
+    finals = _FINALS if with_finals else {}
+    before = _build.KERNELS["finalize"].launches
+    got = fin.merge_finalize(states, _FIN_RT, finals)
+    assert _build.KERNELS["finalize"].launches == before + 1
+    want = fin.merge_finalize_plain(states, _FIN_RT, finals)
+    torch.cuda.synchronize()
+    g_f, g_r = got.unpack(got.buf.cpu().numpy())
+    w_f, w_r = want.unpack(want.buf.cpu().numpy())
+    _same_trees(g_f, w_f)
+    _same_trees(g_r, w_r)
+
+
+def test_finalize_cuda_tensors_never_reach_the_plain_versions(dev, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version reached with CUDA tensors")
+
+    monkeypatch.setattr(fin, "merge_finalize_plain", boom)
+    monkeypatch.setattr(fin, "pack_plain", boom)
+    monkeypatch.setattr(p1, "pack_plain", boom)
+    states = _fin_states(dev, 2, 8, 33)
+    fin.merge_finalize(states, _FIN_RT, _FINALS)
+    p1.pack_state(states[0])
+    torch.cuda.synchronize()
+
+
+def _fin_table(n, seed):
+    from pixie_tpu_torch.table import TableStore
+    from pixie_tpu_torch.types import DataType as DT, Relation
+
+    rng = np.random.default_rng(seed)
+    ts = TableStore()
+    ts.create("http_events", Relation.of(
+        ("time_", DT.TIME64NS), ("service", DT.STRING), ("latency", DT.FLOAT64),
+        ("status", DT.INT64)), batch_rows=1 << 14).write({
+            "time_": np.sort(rng.integers(0, 600 * 10 ** 9, n)).astype(np.int64),
+            "service": rng.choice([f"svc-{i}" for i in range(16)], n),
+            "latency": rng.exponential(50.0, n), "status": rng.choice([200, 404, 500], n)})
+    return ts
+
+
+_FIN_SCRIPTS = {
+    "by_status": "df = px.DataFrame(table='http_events')\n"
+                 "df = df.groupby('status').agg(cnt=('latency', px.count), "
+                 "p50=('latency', px.p50), avg=('latency', px.mean))\npx.display(df, 'out')\n",
+    "grouped": "df = px.DataFrame(table='http_events')\ndf = df[df.status != 404]\n"
+               "df = df.groupby(['service', 'status']).agg(cnt=('latency', px.count), "
+               "avg=('latency', px.mean), p50=('latency', px.p50), "
+               "qs=('latency', px.quantiles), mx=('latency', px.max), mn=('status', px.min))\n"
+               "px.display(df, 'out')\n",
+    "windowed": "df = px.DataFrame(table='http_events')\n"
+                "df.w = px.bin(df.time_, px.DurationNanos(10 * 1000 * 1000 * 1000))\n"
+                "df = df.groupby(['w', 'service']).agg(cnt=('latency', px.count), "
+                "p99=('latency', px.p99))\npx.display(df, 'out')\n",
+}
+
+
+@pytest.mark.parametrize("script", sorted(_FIN_SCRIPTS))
+@pytest.mark.parametrize("feeds", [1, 4])
+def test_device_finalize_on_the_card_equals_cpu_route(dev, script, feeds):
+    """One feed: F1 is the query's only kernel launch (no C1, K1, K2, K3)
+    and one readback wave, the second query's from F1's cached plan; four
+    feeds: F2 once after the per-feed route.  Either way the card's result
+    equals the CPU's (means to 1e-12)."""
+    from pixie_tpu_torch import flags
+    from pixie_tpu_torch.compiler import compile_pxl
+    from pixie_tpu_torch.engine import execute_plan
+
+    ts = _fin_table(1 << 16, 34)
+    plan = compile_pxl(_FIN_SCRIPTS[script], ts.schemas()).plan
+    saved = flags.get("PX_FEED_ROWS")
+    try:
+        flags.set_for_testing("PX_FEED_ROWS", (1 << 16) // feeds)
+        execute_plan(plan, ts, device=dev)  # warm: tier admission, key uniques
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        waves = transfer.stats["waves"]
+        got = execute_plan(plan, ts, device=dev)["out"]
+        torch.cuda.synchronize()
+        launches = {k: v.launches for k, v in _build.KERNELS.items() if v.launches}
+        want = execute_plan(plan, ts, device="cpu")["out"]
+    finally:
+        flags.set_for_testing("PX_FEED_ROWS", saved)
+    if feeds == 1:
+        assert got.exec_stats["fused_single_feed"] == 1
+        assert launches == {"finalize": 1}, launches
+        assert _build.KERNELS["finalize"].by_entry == {"px_fused_partial_finalize": 1}
+        assert transfer.stats["waves"] - waves == 1
+    else:
+        assert "fused_single_feed" not in got.exec_stats
+        assert _build.KERNELS["finalize"].by_entry == {"px_merge_finalize": 1}
+        assert "loghist_quantile" not in launches
+    g, w = got.to_pandas(), want.to_pandas()
+    keys = [c for c in w.columns if c in ("service", "status", "w")]
+    g = g.sort_values(keys).reset_index(drop=True)
+    w = w.sort_values(keys).reset_index(drop=True)
+    for c in w.columns:
+        if c == "avg":
+            np.testing.assert_allclose(g[c], w[c], rtol=1e-12, atol=0)
+        else:
+            assert g[c].tolist() == w[c].tolist() or np.array_equal(
+                g[c].to_numpy(), w[c].to_numpy(), equal_nan=True), c
+
+
+def test_fused_finalize_shared_and_global_accumulators_equal_plain(dev):
+    """F1 directly over one feed, against its plain version on the same CUDA
+    tensors: a state within G1's shared budget (4 groups: every leaf in a
+    block's private accumulators), one past it (64 groups: the sketch on
+    global atomics, the small leaves private) and 1,024 window groups."""
+    from pixie_tpu_torch.compiler import compile_pxl
+    from pixie_tpu_torch.engine.executor import PlanExecutor, _time_bounds
+    from pixie_tpu_torch.plan import AggOp
+
+    ts = _fin_table(1 << 15, 35)
+    for script in sorted(_FIN_SCRIPTS):
+        plan = compile_pxl(_FIN_SCRIPTS[script], ts.schemas()).plan
+        ex = PlanExecutor(plan, ts, device=dev)
+        (op,) = [o for o in plan.topo_sorted() if isinstance(o, AggOp)]
+        s = ex._agg_setup(op)
+        cols = {k: torch.from_numpy(np.concatenate(
+            [rb.columns[k][:rb.num_valid] for rb, _r, _g in s.src])).to(dev) for k in s.names}
+        n = next(iter(cols.values())).shape[0]
+        luts = {k: torch.as_tensor(v).to(dev) for k, v in s.kern.luts.items()}
+        t_lo, t_hi = _time_bounds(s.head)
+
+        def build(st):
+            return s.kern.gang_member(cols, n, t_lo, t_hi, luts, st, s.origins)
+
+        def init(d):
+            return {name: uda.init(s.num_groups, dt, d) for name, uda, dt in s.init_specs}
+
+        rt = {name: uda.reduce_ops() for name, uda, _vb in s.udas}
+        finals = fin.finals_of((name, uda) for name, uda, _vb in s.udas)
+        got = fin.fused_partial_finalize(build, init, rt, finals, n, dev)
+        state = init(dev)
+        g1.run_plain([build(state)], n, dev)
+        want = fin.merge_finalize_plain([state], rt, finals)
+        torch.cuda.synchronize()
+        for a, b in zip(got.unpack(got.buf.cpu().numpy()), want.unpack(want.buf.cpu().numpy())):
+            for (path, x), (_p, y) in zip(p1.flatten(a), p1.flatten(b)):
+                if x.dtype.kind == "f" and path[-1] == "sum":
+                    np.testing.assert_allclose(x, y, rtol=1e-12, atol=0)
+                else:
+                    assert np.array_equal(x, y, equal_nan=x.dtype.kind == "f"), (script, path)

@@ -209,3 +209,42 @@ def test_repartition_cuda_tensor_never_reaches_the_plain_version_on_the_cpu():
         rk.partition_scatter(part, torch.zeros((2, 1, 2), dtype=torch.int64, device="cuda"),
                              torch.zeros((2, 2), dtype=torch.int64, device="cuda"),
                              [part], 2, 4)
+
+
+@pytest.mark.parametrize("mod", ["pixie_tpu_torch.ops.pack", "pixie_tpu_torch.ops.finalize"])
+def test_finalize_modules_import_alone(mod):
+    """Each module of the device-finalize slice, imported on its own, pulls in
+    no JAX and nothing of the reference."""
+    code = (
+        f"import importlib, sys\nimportlib.import_module({mod!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pixie_tpu'))\n"
+        "sys.exit('imported: ' + ', '.join(bad) if bad else 0)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_fused_finalize_on_a_cuda_device_never_reaches_the_plain_version(monkeypatch):
+    """F1 asked for a CUDA device takes the kernel's route: without a card it
+    raises instead of carrying on with its plain version on the CPU."""
+    import torch
+
+    from pixie_tpu_torch.ops import finalize as fin
+    from pixie_tpu_torch.ops import gang as g1
+    from pixie_tpu_torch.udf.udf import CountUDA
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the launch is valid here")
+
+    def boom(*a, **k):
+        raise AssertionError("plain version reached for a CUDA device")
+
+    monkeypatch.setattr(fin, "merge_finalize_plain", boom)
+    monkeypatch.setattr(g1, "run_plain", boom)
+    uda = CountUDA()
+    with pytest.raises(Exception) as e:
+        fin.fused_partial_finalize(lambda st: None, lambda d: {"n": uda.init(4, None, d)},
+                                   {"n": "add"}, {}, 16, torch.device("cuda"))
+    assert "plain version reached" not in str(e.value)
