@@ -3,6 +3,7 @@
 against another, in alternating pairs of fresh processes.
 
     python3 ab_finalize.py OTHER_TREE [--pairs N] [--rows N] [--reps N]
+                           [--measures NAME,...]
 
 OTHER_TREE is another checkout of the repository (for example the parent
 commit, unpacked with `git archive`).  Pair i runs one process of each
@@ -23,7 +24,9 @@ settling ones, ms):
   batch_batched     --rows table from 16 threads, 4 queries each, query
                     batching off and on: goodput in queries per second.
 
-It prints one JSON line per process, then the card's name and power limit,
+--measures names the measures to take (default all; config4 and the batch
+arms alone are the paths where P1 and M1 run).  It prints one JSON line
+per process, then the card's name and power limit,
 then for each measure: each tree's median and quartiles over its
 processes, the pairs this tree won, and the verdict — "gain" or "loss" when
 one tree won at least nine tenths of the pairs and the medians differ by
@@ -43,6 +46,7 @@ CHILD = r"""
 import json, sys, threading, time
 import torch
 tree, rows, reps = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+measures = set(sys.argv[4].split(","))
 sys.path.insert(0, tree)
 import chip_smoke as cs
 from pixie_tpu_torch import flags
@@ -64,7 +68,9 @@ def warm_ms(query):
 
 
 ts = TableStore()
-cs.build_http_table(ts, rows)
+if measures & {"one_feed", "four_feeds", "four_feeds_mesh4", "batch_unbatched",
+               "batch_batched"}:
+    cs.build_http_table(ts, rows)
 plan = cs.http_plan()
 mesh = None
 
@@ -76,6 +82,8 @@ def query():
 
 for label, feed_rows in (("one_feed", 1 << 24), ("four_feeds", rows // 4),
                          ("four_feeds_mesh4", rows // 4)):
+    if label not in measures:
+        continue
     flags.set_for_testing("PX_FEED_ROWS", feed_rows)
     if label == "four_feeds_mesh4":
         flags.set_for_testing("PIXIE_TORCH_VIRTUAL_SHARDS", 4)
@@ -119,17 +127,21 @@ def clients(nq):
 
 
 for arm, on in (("batch_unbatched", False), ("batch_batched", True)):
+    if arm not in measures:
+        continue
     flags.set_for_testing("PL_QUERY_BATCHING", on)
     flags.set_for_testing("PX_MQ_FUSION", -1 if on else 0)
     clients(1)
     out[arm] = clients(4)
 del cl, ts
 
-out["config3"] = cs.run_config3(dev)["warm_median_s"] * 1e3
+if "config3" in measures:
+    out["config3"] = cs.run_config3(dev)["warm_median_s"] * 1e3
 
-stores, _tables = cs._agent_stores(cs.CONFIG4_ROWS // cs.CONFIG4_AGENTS)
-cluster_query = cs.cluster_query(LocalCluster(stores, device=dev), dev, m1_launches=1)
-out["config4"] = warm_ms(cluster_query)
+if "config4" in measures:
+    stores, _tables = cs._agent_stores(cs.CONFIG4_ROWS // cs.CONFIG4_AGENTS)
+    cluster_query = cs.cluster_query(LocalCluster(stores, device=dev), dev, m1_launches=1)
+    out["config4"] = warm_ms(cluster_query)
 print(json.dumps(out), flush=True)
 """
 
@@ -178,7 +190,13 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--rows", type=int, default=1 << 24)
     ap.add_argument("--reps", type=int, default=21)
+    ap.add_argument("--measures", default=",".join(MEASURES),
+                    help="comma-separated measures to take (default: all)")
     args = ap.parse_args()
+    measures = args.measures.split(",")
+    unknown = set(measures) - set(MEASURES)
+    if unknown:
+        ap.error(f"unknown measures: {sorted(unknown)}")
     import torch
 
     if not torch.cuda.is_available():
@@ -190,7 +208,7 @@ def main() -> int:
     for i in range(args.pairs):
         for tree in ((other, here) if i % 2 == 0 else (here, other)):
             proc = subprocess.run([sys.executable, "-c", CHILD, tree, str(args.rows),
-                                   str(args.reps)], cwd=tree, capture_output=True, text=True,
+                                   str(args.reps), ",".join(measures)], cwd=tree, capture_output=True, text=True,
                                   env=dict(os.environ, PYTHONPATH=tree), timeout=900)
             if proc.returncode != 0:
                 print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
@@ -203,6 +221,8 @@ def main() -> int:
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi)
     for name, higher in MEASURES.items():
+        if name not in measures:
+            continue
         print(json.dumps({"measure": name, "unit": "q/s" if higher else "ms",
                           **verdict([r[name] for r in runs[here]],
                                     [r[name] for r in runs[other]], higher)}))

@@ -64,13 +64,15 @@ Phases, each of which fails the run if it fails:
                 dictionaries agree), bench's script through
                 LocalCluster.query: the agents run concurrently on the card
                 and their states merge there in exactly one M1 launch per
-                query; held against a numpy oracle over all 16M rows as
+                query, written packed and read back with no P1 launch;
+                held against a numpy oracle over all 16M rows as
                 config #1 is; a stream and a warm median (5 each; warm moves
                 0 H2D bytes and the plan cache serves the compile and the
                 split), both profiled for the device's idle share.  Then the
                 mixed-dictionary run: 8 x 1M rows, agent a holding services
                 a..a+7 (mod 16), which takes the host value-keyed merge
-                with M1 never launched, against the same oracle;
+                with M1 never launched and each agent's state packed by P1
+                (8 launches a query), against the same oracle;
  10. sorted   — a 16M-row table (seed 13: conn_id uniform on [0, 2^23),
                 bytes, latency exponential(50)): S1 groups by conn_id
                 (~7.25M groups, past MAX_GROUPS) with count, sum(bytes),
@@ -109,9 +111,11 @@ after; a kernel of the phase that did not launch fails it.  The kernel
 phase also holds R1 and R2 (the resident tier's fold and move) against
 their plain versions at 2^20 rows x 4 columns into 2^24 rows, a grow from
 2^23 to 2^24 rows and a rebase dropping 2^20 of 2^24 rows, and M1 (the
-cross-agent state merge) at config #4's state (8 states of 64 groups) and at
-a bandwidth shape (8 states of 2^16 groups with min and max, ~138 MB each),
-exactly, and KM1-KM3 (the k-means assignment, Lloyd sums and seeding step)
+cross-agent state merge) at config #4's state (8 states of 64 groups), at
+a bandwidth shape (8 states of 2^16 groups with min and max, ~138 MB each)
+and past one launch's parameter block (17 states over 250 leaves: two
+launches), exactly, each with its host microseconds a call (200 calls, no
+synchronize) beside its CUDA-event and device times, and KM1-KM3 (the k-means assignment, Lloyd sums and seeding step)
 at the fit's shape (2^20 x 64 points, 64 centers) and at edge cases (k = 1,
 k > a block's 256 points, d = 13, d = 150 with k = 200, k = 129, a cluster
 of zero weight), to 1e-5 of |x|^2 + |c|^2 (distances, p) and of the sums
@@ -139,13 +143,15 @@ shards' states, N = 1 without a mesh, the sketches' quantiles and the pack
 into one buffer: one readback), so config #1, config #2 and mesh config #1
 launch F2 and no K3 (mesh config #1 no M1); an aggregate of one feed is one
 F1 launch (the resident phase, config #3); raw partial states read back
-packed by P1 (config #4, the batch phase).  After G1's check, F1 is held
+packed by P1 (the batch phase, the mixed-dictionary run), while M1 writes a
+merged state packed, so config #4 and the mesh cluster launch no P1.  After G1's check, F1 is held
 against its plain version and the per-sink route on the 64M-row table's
 first 16M-row feed (config #1's chain, and config #2's at 1,024 groups);
 F2 at N = 1, N = 4 (the four feeds' states) and 8 states of 2^16 groups,
 beside M1 + K3;
 P1 on config #4's state and a 2^20-group state, beside torch.cat per dtype
-— counts, int64 sums, min, max, quantiles and packed bytes exactly, float64
+(each with its host microseconds a call), and past one launch's table
+(2,000 leaves: two launches) — counts, int64 sums, min, max, quantiles and packed bytes exactly, float64
 sums to rtol 1e-12.  The one-feed phase (after mesh config #1) runs config
 #1 on bench's build_http_table at 16M rows and at 1M rows: one F1 launch a
 warm query and no other kernel, one D2H wave, the oracle, stream and warm
@@ -159,14 +165,16 @@ repartition's hash-and-count and stable scatter, csrc/repartition.cu)
 against their plain versions at 2^24 rows (an int64 and a dictionary key,
 f64 and int64 values) over 4 and 8 partitions and with one key holding half
 the rows, exactly, and M1 as the collective merge of 4 shards of config
-#1's state.  Mesh config #1: config #1 over the 64M-row table with a mesh
+#1's state (with its host microseconds a call) and past one launch's
+parameter block.  Mesh config #1: config #1 over the 64M-row table with a mesh
 of 4 co-located shards (each feed in 4 row blocks, each shard's C1, K1 and
 K2 into its own state, F2 once over the 4 states), equal to the single-device executor
 (counts and p50 exactly, means to 1e-12) and the oracle, spmd_feeds 4, a
 stream and a warm median (0 warm H2D bytes: the sharded resident entry).
 Mesh cluster: a LocalCluster of 2 agents of 4 shards: config #4's script
 over 2 x 8M rows, equal to the one-device-per-agent cluster and the oracle
-(M1 3 times a query: each agent's shards, then the agents), stream and
+(M1 3 times a query: each agent's shards, then the agents; P1 never),
+stream and
 warm medians; a repartitioned join of two 2^22-row tables spread over both
 agents on (int64, string) keys, each side exchanged in each agent's mesh
 (X1, X2), equal to the single-device join (run once with analyze, for its
@@ -236,12 +244,14 @@ CLUSTER_STREAM_KERNELS = [C1, ("segment_reduce", "px_segment_count"),
                           ("loghist_update", "px_loghist_update")]
 #: the resident phase's queries are one feed each: F1
 RESIDENT_KERNELS = [("resident", "px_resident_fold"), ("resident", "px_resident_move"), F1]
-#: config #4's agents keep raw partial state (no finalize): M1 merges it,
-#: P1 packs the merged state for its one readback
+#: config #4's agents keep raw partial state (no finalize): M1 merges it
+#: into one packed buffer, read back in one copy with no P1 launch; the
+#: mixed-dictionary run reads each agent's state back through P1
 CONFIG4_KERNELS = [C1, ("segment_reduce", "px_segment_count"),
                    ("segment_reduce", "px_segment_sum_f64"),
                    ("loghist_update", "px_loghist_update"),
-                   ("merge", "px_merge_states"), ("resident", "px_resident_fold"), P1]
+                   ("merge", "px_merge_states"), ("resident", "px_resident_fold")]
+MIXED_KERNELS = [C1, P1]
 SORTED_KERNELS = [("segment_reduce", e) for e in (
     "px_segment_count", "px_segment_sum_i64", "px_segment_sum_f64",
     "px_segment_min_f64", "px_segment_max_f64")] + [("loghist_update", "px_loghist_update"), K3]
@@ -290,6 +300,95 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call of fn(): time.perf_counter over `calls`
+    calls with no synchronize between them (the launch path alone while the
+    card runs behind it)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def same_bits(a, b) -> bool:
+    """Equal dtype, shape and bits (every NaN counted as one value)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        if not torch.equal(a.isnan(), b.isnan()):
+            return False
+        ints = torch.int32 if a.element_size() == 4 else torch.int64
+        a = torch.where(a.isnan(), torch.zeros_like(a), a).view(ints)
+        b = torch.where(b.isnan(), torch.zeros_like(b), b).view(ints)
+    return torch.equal(a, b)
+
+
+def state_tree(state):
+    """A merged state as its tree (a Packed's leaves as views of its buffer)."""
+    from pixie_tpu_torch.ops import pack as p1
+
+    return state.tree() if isinstance(state, p1.Packed) else state
+
+
+#: M1 past one launch's parameter block: 17 states over 250 leaves (rows of
+#: 20 words, 203 a launch: two launches)
+M1_PAST_STATES, M1_PAST_LEAVES = 17, 250
+#: P1 past one launch's table: 2,000 leaves (1,024 a launch: two launches)
+P1_PAST_LEAVES = 2000
+
+
+def m1_past_capacity(dev, merge, label: str) -> dict:
+    """`merge` (M1 or the collective merge) over M1_PAST_STATES states of
+    M1_PAST_LEAVES leaves of four dtypes and ragged sizes (int64 sums that
+    wrap, NaN through min and max) on the card: the table splits into the
+    plan's launches (at least two), and the result equals the plain version
+    bit for bit; → its detail."""
+    import torch
+
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.ops import merge as m1
+    from pixie_tpu_torch.ops import pack as p1
+
+    rng = np.random.default_rng(18)
+    rt = {f"l{i}": ("add", "min", "max")[i % 3] for i in range(M1_PAST_LEAVES)}
+
+    def leaf(i):
+        n = 1 + (i * 37) % 300
+        if i % 4 == 1:
+            return rng.integers(2 ** 62, 2 ** 63 - 1, n, dtype=np.int64)
+        if i % 4 == 3:
+            return rng.integers(-(2 ** 31), 2 ** 31 - 1, n).astype(np.int32)
+        v = rng.normal(size=n).astype(np.float64 if i % 4 == 0 else np.float32)
+        v[rng.integers(0, n)] = np.nan
+        return v
+
+    sts = [{k: torch.from_numpy(leaf(i)).to(dev) for i, k in enumerate(rt)}
+           for _ in range(M1_PAST_STATES)]
+    want_launches = len(m1.plan_for(rt, sts).launches)
+    before = _build.KERNELS["merge"].launches
+    got = merge(rt, sts)
+    torch.cuda.synchronize()
+    launches = _build.KERNELS["merge"].launches - before
+    if want_launches < 2 or launches != want_launches:
+        raise AssertionError(f"M1 {label}: {launches} launches, want {want_launches} (>= 2)")
+    want = m1.merge_states_plain(rt, sts)
+    for (path, a), (_p, b) in zip(p1.flatten(state_tree(got)), p1.flatten(want)):
+        if not same_bits(a, b):
+            raise AssertionError(f"M1 {label}: leaf {path} differs from the plain version")
+    out = {"states": M1_PAST_STATES, "leaves": M1_PAST_LEAVES, "launches": launches,
+           "host_us": host_us(lambda: merge(rt, sts))}
+    log(json.dumps({"check": f"M1 {label}", "ok": True, "max_abs_err": 0.0, **out}))
+    return out
 
 
 def read_launches(phase: str, required) -> dict:
@@ -1604,11 +1703,11 @@ def check_merge_kernel(dev) -> list[dict]:
         return [x for v in t.values() for x in (leaves(v) if isinstance(v, dict) else [v])]
 
     def hold(label, rt, sts):
-        got, want = m1.merge_states(rt, sts), m1.merge_states_plain(rt, sts)
+        got = state_tree(m1.merge_states(rt, sts))
+        want = m1.merge_states_plain(rt, sts)
         torch.cuda.synchronize()
         for a, b in zip(leaves(got), leaves(want)):
-            if not torch.equal(a.nan_to_num(), b.nan_to_num()) or \
-                    not torch.equal(a.isnan(), b.isnan()):
+            if not same_bits(a, b):
                 raise AssertionError(f"M1 {label}: kernel and plain version disagree")
         log(json.dumps({"check": f"M1 {label}", "ok": True, "max_abs_err": 0.0}))
         nbytes = sum(x.numel() * x.element_size() for x in leaves(sts[0]))
@@ -1622,8 +1721,10 @@ def check_merge_kernel(dev) -> list[dict]:
         return {"ms": cuda_ms(lambda: m1.merge_states(rt, sts), 20),
                 "device_ms": kernel_device_ms(lambda: m1.merge_states(rt, sts),
                                               "merge_states", 20),
+                "host_us": host_us(lambda: m1.merge_states(rt, sts)),
                 "plain_ms": cuda_ms(lambda: m1.merge_states_plain(rt, sts), 10),
-                "library_ms": cuda_ms(library, 10), "bound_ms": b_ms, "bound_by": by,
+                "library_ms": cuda_ms(library, 10),
+                "library_host_us": host_us(library), "bound_ms": b_ms, "bound_by": by,
                 "state_bytes": nbytes, "states": len(sts)}
 
     def leaves_ops(t):
@@ -1636,8 +1737,9 @@ def check_merge_kernel(dev) -> list[dict]:
     wide = hold("bandwidth shape (8 x 2^16 groups)", rt, sts)
     del sts
     torch.cuda.empty_cache()
+    past = m1_past_capacity(dev, m1.merge_states, "past one launch's capacity")
     log(json.dumps({"kernel_detail": "merge_states", "config4_state": small,
-                    "bandwidth_shape": wide}))
+                    "bandwidth_shape": wide, "past_capacity": past}))
     return [{
         "name": "merge_states", "route": "cuda", "source": "pixie_tpu_torch/csrc/merge.cu",
         "replaces": "pixie_tpu/engine/executor.py:656 ChainKernel.merge_states_fn "
@@ -1647,7 +1749,9 @@ def check_merge_kernel(dev) -> list[dict]:
         "bound_by": small["bound_by"], "library_ms": small["library_ms"],
         "shape": {"config4_state": {"groups": 64, "states": CONFIG4_AGENTS,
                                     "state_bytes": small["state_bytes"]},
-                  "bandwidth_shape": {"groups": 1 << 16, **wide}},
+                  "bandwidth_shape": {"groups": 1 << 16, **wide},
+                  "past_capacity": past, "host_us": small["host_us"],
+                  "device_ms": small["device_ms"]},
     }]
 
 
@@ -1706,22 +1810,28 @@ def cluster_oracle(tables, res) -> dict:
             "p50_max_rel_err_vs_median": rel}
 
 
-def cluster_query(cluster, dev, m1_launches: int):
+def cluster_query(cluster, dev, m1_launches: int, p1_launches: int | None = None):
     """→ query() for stream_and_warm: one cluster.query of config #4's
-    script whose result carries the agents' summed feed counters, failing
-    unless M1 launched exactly `m1_launches` times in it."""
+    script whose result carries the agents' summed feed counters and its
+    device-to-host copies (`d2h_leaves`), failing unless M1 launched exactly
+    `m1_launches` times in it (and P1 `p1_launches` times, when given)."""
     import torch
 
+    from pixie_tpu_torch.engine import transfer
     from pixie_tpu_torch.ops import _build
 
     def query():
         before = _build.KERNELS["merge"].launches
+        packs = _build.KERNELS["pack"].launches
+        d2h = transfer.stats["leaves"]
         res = cluster.query(CONFIG4_SCRIPT)["output"]
         torch.cuda.synchronize(dev)
         got = _build.KERNELS["merge"].launches - before
-        if got != m1_launches:
-            raise AssertionError(f"config #4: M1 launched {got} times in a query, "
-                                 f"want {m1_launches}")
+        got_p1 = _build.KERNELS["pack"].launches - packs
+        if got != m1_launches or p1_launches not in (None, got_p1):
+            raise AssertionError(f"config #4: M1 launched {got} times and P1 {got_p1} in a "
+                                 f"query, want {m1_launches} and {p1_launches}")
+        res.exec_stats["d2h_leaves"] = transfer.stats["leaves"] - d2h
         agents = res.exec_stats["agents"].values()
         res.exec_stats.update({k: sum(a.get(k, 0) for a in agents) for k in
                                ("h2d_bytes", "feeds", "resident_feeds", "feed_cache_hits")})
@@ -1764,7 +1874,7 @@ def run_config4(dev) -> dict:
     log(json.dumps({"phase": "config4.data", "agents": CONFIG4_AGENTS,
                     "rows": CONFIG4_ROWS, "seconds": time.perf_counter() - t0}))
     cluster = LocalCluster(stores, device=dev)
-    query = cluster_query(cluster, dev, m1_launches=1)
+    query = cluster_query(cluster, dev, m1_launches=1, p1_launches=0)
     _build.reset_launches()
     t0 = time.perf_counter()
     res = query()
@@ -1775,8 +1885,9 @@ def run_config4(dev) -> dict:
     check = cluster_oracle(tables, res)
     log(json.dumps({"phase": "config4.oracle", "ok": True, **check}))
     routes = stream_and_warm(query, "config #4", with_profile=True)
-    out = {"launches": launches, "route": "gang merge (M1 once per query)",
+    out = {"launches": launches, "route": "gang merge (M1 once per query, no P1)",
            "first_query_s": first_s, "first_query_h2d_bytes": res.exec_stats["h2d_bytes"],
+           "first_query_d2h_leaves": res.exec_stats["d2h_leaves"],
            **routes, "rows_per_s": CONFIG4_ROWS / routes["warm_median_s"],
            "stream_rows_per_s": CONFIG4_ROWS / routes["stream_median_s"],
            "plan_cache": {"hits": cluster.plan_cache.hits,
@@ -1788,8 +1899,9 @@ def run_config4(dev) -> dict:
     for k in ("profile_stream", "profile_warm"):
         out[k] = {kk: v for kk, v in out[k].items() if kk != "top"} | {
             "top": out[k]["top"][:8]}
-    out["warm_phases_ms"] = {k: v / 1e6 for k, v in
-                             query().exec_stats["phases"].items()}
+    warm = query()
+    out["warm_phases_ms"] = {k: v / 1e6 for k, v in warm.exec_stats["phases"].items()}
+    out["warm_d2h_leaves"] = warm.exec_stats["d2h_leaves"]
     log(json.dumps({"phase": "slice.config4", "ok": True,
                     **{k: v for k, v in out.items() if k != "launches"}}))
     del cluster, stores, tables
@@ -1800,14 +1912,17 @@ def run_config4(dev) -> dict:
                                                           for k in range(8)])
     cluster = LocalCluster(stores, device=dev)
     data_s = time.perf_counter() - t0
-    query = cluster_query(cluster, dev, m1_launches=0)
+    query = cluster_query(cluster, dev, m1_launches=0, p1_launches=CONFIG4_AGENTS)
+    _build.reset_launches()
     res = query()
+    mixed_launches = read_launches("config #4 mixed", MIXED_KERNELS)
     check = cluster_oracle(tables, res)
     times = warm_times(query, warmup=1, reps=3)
     mixed = {"route": "host value-keyed merge (M1 not launched)", "agents": CONFIG4_AGENTS,
              "rows": CONFIG4_AGENTS * MIXED_ROWS, "data_s": data_s, **check,
              "warm_median_s": times[len(times) // 2], "warm_s": times,
-             "h2d_bytes": res.exec_stats["h2d_bytes"]}
+             "h2d_bytes": res.exec_stats["h2d_bytes"], "d2h_leaves": res.exec_stats["d2h_leaves"],
+             "p1_launches": mixed_launches["pack"].get(P1[1], 0)}
     log(json.dumps({"phase": "slice.config4_mixed", "ok": True, **mixed}))
     out["mixed"] = mixed
     return out
@@ -3191,6 +3306,7 @@ def check_finalize_kernels(dev, ts) -> list[dict]:
     float64 sums to rtol 1e-12."""
     import torch
 
+    from pixie_tpu_torch.ops import _build
     from pixie_tpu_torch.ops import finalize as fin
     from pixie_tpu_torch.ops import merge as m1
     from pixie_tpu_torch.ops import pack as p1
@@ -3248,7 +3364,7 @@ def check_finalize_kernels(dev, ts) -> list[dict]:
         b_ms_, b_by_ = bound(nbytes + got.layout.nbytes)
 
         def m1_k3():
-            merged = m1.merge_states(rt, states)
+            merged = m1.merge_states(rt, states, packed=False)
             for name, f in finals.items():
                 f.sketch.quantile_device(merged[name], list(f.qs))
 
@@ -3309,17 +3425,38 @@ def check_finalize_kernels(dev, ts) -> list[dict]:
             "state_bytes": nbytes, "leaves": len(leaves), "dtypes": len(dtypes),
             "ms": cuda_ms(lambda: p1.pack(leaves, layout), 20),
             "device_ms": kernel_device_ms(lambda: p1.pack(leaves, layout), "state_pack", 20),
+            "host_us": host_us(lambda: p1.pack(leaves, layout)),
             "plain_ms": cuda_ms(lambda: p1.pack_plain(leaves, layout), 10),
-            "library_ms": cuda_ms(library, 20), "bound_ms": b_ms_, "bound_by": b_by_}
+            "library_ms": cuda_ms(library, 20), "library_host_us": host_us(library),
+            "bound_ms": b_ms_, "bound_by": b_by_}
         log(json.dumps({"check": f"P1 {label}", "ok": True, "max_abs_err": 0.0,
                         **packs[label]}))
+    # past one launch's table: two launches, the buffer byte for byte
+    rng = np.random.default_rng(44)
+    dts = (np.int32, np.int64, np.float32, np.float64)
+    leaves = [torch.from_numpy(rng.integers(-1000, 1000, 1 + (i * 37) % 300).astype(
+        dts[i % 4])).to(dev) for i in range(P1_PAST_LEAVES)]
+    layout = p1.Layout.of([((f"l{i}",), x.dtype, x.shape) for i, x in enumerate(leaves)])
+    before = _build.KERNELS["pack"].launches
+    got = p1.pack(leaves, layout)
+    torch.cuda.synchronize()
+    past_launches = _build.KERNELS["pack"].launches - before
+    if past_launches != len(layout.p1.launches) or past_launches < 2 or \
+            not torch.equal(got, p1.pack_plain(leaves, layout)):
+        raise AssertionError(f"P1 past one launch's capacity: {past_launches} launches, "
+                             "or the buffer differs from the plain version's")
+    packs["past capacity"] = {"leaves": P1_PAST_LEAVES, "launches": past_launches,
+                              "host_us": host_us(lambda: p1.pack(leaves, layout))}
+    log(json.dumps({"check": "P1 past one launch's capacity", "ok": True, "max_abs_err": 0.0,
+                    **packs["past capacity"]}))
     main = packs["config #4's state (64 groups)"]
     rows.append({
         "name": "state_pack P1", "route": "cuda", "source": "pixie_tpu_torch/csrc/pack.cu",
         "replaces": "pixie_tpu/engine/executor.py:912 _state_packer",
-        "entry": P1, "path": "config4", "max_abs_err": 0.0,
+        "entry": P1, "path": "batch", "max_abs_err": 0.0,
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"], "library_ms": main["library_ms"], "shape": packs,
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "shape": {**packs, "host_us": main["host_us"], "device_ms": main["device_ms"]},
     })
     return rows
 
@@ -3757,7 +3894,9 @@ def check_repartition_kernels(dev) -> list[dict]:
 def check_collective_merge(dev) -> list[dict]:
     """M1 as the collective merge (row 13) of MESH_SHARDS shard states of
     config #1's state (64 groups: count, mean, p50 sketch, seen), against
-    its plain version, exactly; timed beside torch.stack + sum per leaf."""
+    its plain version, exactly; timed (CUDA events, device time, host
+    microseconds a call) beside torch.stack + sum per leaf; then past one
+    launch's parameter block (m1_past_capacity)."""
     import torch
 
     from pixie_tpu_torch.ops import merge as m1
@@ -3776,9 +3915,10 @@ def check_collective_merge(dev) -> list[dict]:
     def leaves(t):
         return [x for v in t.values() for x in (leaves(v) if isinstance(v, dict) else [v])]
 
-    got, want = m1.collective_merge(rt, sts), m1.merge_states_plain(rt, sts)
+    got = state_tree(m1.collective_merge(rt, sts))
+    want = m1.merge_states_plain(rt, sts)
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(want))):
+    if not all(same_bits(a, b) for a, b in zip(leaves(got), leaves(want))):
         raise AssertionError("M1 collective merge: kernel and plain version disagree")
     nbytes = sum(x.numel() * x.element_size() for x in leaves(sts[0]))
     b_ms, by = bound((MESH_SHARDS + 1) * nbytes)
@@ -3790,10 +3930,14 @@ def check_collective_merge(dev) -> list[dict]:
     row = {"ms": cuda_ms(lambda: m1.collective_merge(rt, sts), 20),
            "device_ms": kernel_device_ms(lambda: m1.collective_merge(rt, sts),
                                          "merge_states", 20),
+           "host_us": host_us(lambda: m1.collective_merge(rt, sts)),
            "plain_ms": cuda_ms(lambda: m1.merge_states_plain(rt, sts), 10),
-           "library_ms": cuda_ms(library, 10), "bound_ms": b_ms, "bound_by": by}
+           "library_ms": cuda_ms(library, 10), "library_host_us": host_us(library),
+           "bound_ms": b_ms, "bound_by": by}
     log(json.dumps({"check": "M1 collective merge (4 shards x 64 groups)", "ok": True,
                     "max_abs_err": 0.0, **row}))
+    past = m1_past_capacity(dev, m1.collective_merge, "collective merge past one launch's "
+                            "capacity")
     return [{
         "name": "collective_merge", "route": "cuda", "source": "pixie_tpu_torch/csrc/merge.cu",
         "replaces": "pixie_tpu/parallel/spmd.py:174 collective_merge (psum / pmin / pmax; "
@@ -3803,7 +3947,8 @@ def check_collective_merge(dev) -> list[dict]:
         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": b_ms, "bound_by": by,
         "library_ms": row["library_ms"],
         "shape": {"shards": MESH_SHARDS, "groups": g, "state_bytes": nbytes,
-                  "device_ms": row["device_ms"]},
+                  "device_ms": row["device_ms"], "host_us": row["host_us"],
+                  "library_host_us": row["library_host_us"], "past_capacity": past},
     }]
 
 
@@ -3980,7 +4125,7 @@ def run_mesh_cluster(dev) -> dict:
         data_s = time.perf_counter() - t0
         mesh_cl = LocalCluster(stores, device=dev, n_devices_per_agent=MESH_SHARDS)
         single_cl = LocalCluster(stores, device=dev, n_devices_per_agent=1)
-        query = cluster_query(mesh_cl, dev, m1_launches=MESH_AGENTS + 1)
+        query = cluster_query(mesh_cl, dev, m1_launches=MESH_AGENTS + 1, p1_launches=0)
         _build.reset_launches()
         res = query()
         launches = read_launches("mesh config #4", CONFIG4_KERNELS)
@@ -3989,7 +4134,7 @@ def run_mesh_cluster(dev) -> dict:
         if spmd_feeds != res.exec_stats["feeds"]:
             raise AssertionError(f"mesh config #4: {spmd_feeds} SPMD feeds of "
                                  f"{res.exec_stats['feeds']}")
-        want = cluster_query(single_cl, dev, m1_launches=1)()
+        want = cluster_query(single_cl, dev, m1_launches=1, p1_launches=0)()
         same_frame("mesh config #4", res, want, ["service", "status"], exact=("cnt", "p50"))
         routes = stream_and_warm(query, "mesh config #4")
         single_times = warm_times(cluster_query(single_cl, dev, m1_launches=1), 1, 5)
@@ -4127,6 +4272,7 @@ def main() -> int:
         r["launches"] = paths[path][lib].get(entry, 0)
         log(json.dumps({"kernel": r["name"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
                         "library_ms": r["library_ms"], "bound_ms": r["bound_ms"],
+                        "host_us": r["shape"].get("host_us"),
                         "per_sink_ms": r.get("per_sink_ms"), "m1_k3_ms": r.get("m1_k3_ms"),
                         "launches": r["launches"], "shape": r["shape"], "card": smi}))
     log(json.dumps({"phase": "wall", "seconds": time.perf_counter() - t_start,

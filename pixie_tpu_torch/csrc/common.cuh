@@ -50,3 +50,21 @@ static long long px_grid(Kernel kernel, long long n, int block, size_t smem) {
   long long grid = want < cap ? want : cap;
   return grid < 1 ? 1 : grid;
 }
+
+// Makes `device` the calling thread's current device for one launch and
+// restores the caller's device on return.  A wrapper that passes its
+// tensors' device index here needs no device context of its own on the host
+// hot path: when `device` is already current, this is one cudaGetDevice.
+struct PxDeviceScope {
+  int prev = -1;
+  explicit PxDeviceScope(int device) {
+    int cur = 0;
+    cudaGetDevice(&cur);
+    if (cur != device && cudaSetDevice(device) == cudaSuccess) prev = cur;
+  }
+  ~PxDeviceScope() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+  PxDeviceScope(const PxDeviceScope&) = delete;
+  PxDeviceScope& operator=(const PxDeviceScope&) = delete;
+};

@@ -40,7 +40,8 @@ key VALUES plus raw UDA state (`_partial_agg_batch`), never finalized; a raw
 state reads back packed by kernel P1 into one buffer (transfer.pull_states).
 With `defer_agg_pull` set the state stays on the device (`_DeferredPartial`)
 and the cluster merges every agent's state there in one launch of kernel M1
-(`gang_merge_states`, ops/merge.py) when their layouts agree.  The merger
+(`gang_merge_states`, ops/merge.py) when their layouts agree; M1 writes the
+merged state packed, so its readback is one copy with no P1.  The merger
 plan reads the merged channels through RemoteSourceOps (`inputs`).
 
 Every chain's row mask, group ids and computed columns come from chain
@@ -901,7 +902,10 @@ class _DeferredPartial:
 
 def gang_merge_states(deferred: list) -> object:
     """Merge every agent's device state into ONE device state (kernel M1 on
-    CUDA).  The caller guarantees an equal layout_fp across `deferred`."""
+    CUDA), written packed (`pack.Packed`, which transfer.pull_states reads
+    back in one copy with no P1 launch).  An agent's state may itself be
+    packed (a mesh agent's merged shards).  The caller guarantees an equal
+    layout_fp across `deferred`."""
     flat: list = []
     for d in deferred:
         flat.extend(d.partials)

@@ -9,8 +9,8 @@ in transfer waves:
     (the next feed's step) runs while the copies are in flight.  The select
     path's feed loop reads its waves one and two feeds behind;
   * `pull_states(states)` — raw aggregate states in one wave, each packed
-    into one buffer first (kernel P1), so a state is one copy, not one per
-    leaf.
+    into one buffer first (kernel P1, unless M1 already wrote it packed), so
+    a state is one copy, not one per leaf.
 
 On CUDA a wave's copies run on a side stream that first waits for the work
 already enqueued on the current stream; each leaf lands in a pinned host
@@ -212,8 +212,10 @@ def pull_states(states: list) -> list:
     """State trees → the same trees of numpy arrays in one wave, each state
     whose leaves outnumber its dtypes packed first into one buffer by kernel
     P1 (ops/pack.py; its plain version on the CPU), so that it lands in one
-    copy; the host unpacks the pulled bytes."""
-    packed = [_pack.pack_state(s) for s in states]
+    copy; the host unpacks the pulled bytes.  A state that is already packed
+    (`pack.Packed`: M1 writes its merged states so) is read back as it is,
+    with no P1 launch."""
+    packed = [s if isinstance(s, _pack.Packed) else _pack.pack_state(s) for s in states]
     pulled = pull([p.buf if isinstance(p, _pack.Packed) else p for p in packed])
     return [p.unpack(b) if isinstance(p, _pack.Packed) else b
             for p, b in zip(packed, pulled)]

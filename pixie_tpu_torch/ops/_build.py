@@ -193,3 +193,13 @@ def ptr(t) -> ctypes.c_void_p:
 
 def stream_of(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def raw_stream(index: int) -> int:
+    """The current CUDA stream of device `index` as an integer handle,
+    without building a torch.cuda.Stream (the launch paths that count host
+    microseconds use it)."""
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if get is None:
+        return torch.cuda.current_stream(index).cuda_stream
+    return get(index)

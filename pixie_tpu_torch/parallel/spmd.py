@@ -179,11 +179,13 @@ def reduce_tree_for(udas: list) -> dict:
     return {name: uda.reduce_ops() for name, uda, _vb in udas}
 
 
-def collective_merge(shard_states: list, reduce_tree):
+def collective_merge(shard_states: list, reduce_tree, packed: bool = True):
     """Merge the shards' partial agg states into one (row 13: psum / pmin /
     pmax of each leaf over the mesh axis): kernel M1 on the card, its plain
-    version on the CPU."""
-    return _m1_merge(reduce_tree, list(shard_states))
+    version on the CPU.  The merged state is packed (ops/merge.py): a
+    `pack.Packed` for a readback, or with `packed=False` the tree of views
+    of its buffer."""
+    return _m1_merge(reduce_tree, list(shard_states), packed)
 
 
 def _map2(tree, carry, states, fn):
@@ -201,7 +203,7 @@ def collective_merge_carry(carry, new_states: list, reduce_tree):
     the replicated carry, so M1 merges the full states."""
     deltas = [_map2(reduce_tree, carry, [s], lambda op, c, xs: xs[0] - c if op == "add"
                     else xs[0]) for s in new_states]
-    merged = collective_merge(deltas, reduce_tree)
+    merged = collective_merge(deltas, reduce_tree, packed=False)
     return _map2(reduce_tree, carry, [merged],
                  lambda op, c, xs: c + xs[0] if op == "add" else xs[0])
 
@@ -283,7 +285,7 @@ def spmd_partial_step(raw_step: Callable, init_state_fn: Callable, reduce_tree,
         limits = _identity_limits(n_limits, mesh.device)
         outs = shard_step(lambda c, v, st: raw_step(c, v, t_lo, t_hi, limits, luts, st, scalars),
                           mesh)(cols, n_valid, [init_state_fn() for _ in range(mesh.size)])
-        return collective_merge([o[0] for o in outs], reduce_tree)
+        return collective_merge([o[0] for o in outs], reduce_tree, packed=False)
 
     return lifted
 

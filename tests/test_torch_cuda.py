@@ -270,6 +270,9 @@ def test_merge_states_equals_plain(dev, n, g, offset):
     got = m1.merge_states(rt, states)
     torch.cuda.synchronize()
     assert _build.KERNELS["merge"].launches == before + 1
+    # one packed buffer at the merged tree's layout
+    assert isinstance(got, m1.Packed) and got.buf.is_cuda
+    got = got.tree()
     want = m1.merge_states_plain(rt, states)
     for path in ("cnt", "p50", "lo", "hi", "ilo", "wrap", "code"):
         a, b = got[path], want[path]
@@ -313,9 +316,29 @@ df = df.groupby(['service', 'status']).agg(
     cnt=('latency', px.count), avg_lat=('latency', px.mean), p50=('latency', px.p50))
 px.display(df, 'output')
 """
-    before = _build.KERNELS["merge"].launches
-    got = LocalCluster(stores(), device=dev).query(script)["output"].to_pandas()
-    assert _build.KERNELS["merge"].launches == before + 1
+    pulls = []
+    real_pull = transfer.pull_states
+
+    def pull_states(states):
+        leaves0 = transfer.stats["leaves"]
+        out = real_pull(states)
+        pulls.append((states, transfer.stats["leaves"] - leaves0))
+        return out
+
+    cluster = LocalCluster(stores(), device=dev)
+    cluster.query(script)  # warm: tier admission, the plan cache
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    transfer.pull_states = pull_states
+    try:
+        got = cluster.query(script)["output"].to_pandas()
+    finally:
+        transfer.pull_states = real_pull
+    assert _build.KERNELS["merge"].launches == 1
+    # the merged state is M1's packed buffer: no P1, one copy
+    assert _build.KERNELS["pack"].launches == 0
+    assert len(pulls) == 1 and len(pulls[0][0]) == 1
+    assert isinstance(pulls[0][0][0], m1.Packed) and pulls[0][1] == 1
     want = LocalCluster(stores(), device="cpu").query(script)["output"].to_pandas()
     got, want = (f.sort_values(["service", "status"]).reset_index(drop=True)
                  for f in (got, want))
@@ -870,8 +893,9 @@ def test_repartition_cuda_tensor_never_reaches_the_plain_versions(dev, monkeypat
 
 def test_mesh_query_and_exchange_on_the_card_equal_cpu(dev):
     """An aggregate over a 4-shard mesh and a mesh exchange on the card:
-    C1, K1, K2, M1 and K3 per shard and once merged, X1 and X2 launched,
-    results equal to the CPU's mesh route."""
+    C1, K1 and K2 per shard, then F2 once over the shards' states (no M1,
+    no K3: the device finalize merges them), X1 and X2 launched, results
+    equal to the CPU's mesh route."""
     from pixie_tpu_torch import flags
     from pixie_tpu_torch.compiler import compile_pxl
     from pixie_tpu_torch.engine.executor import HostBatch, PlanExecutor
@@ -899,8 +923,9 @@ def test_mesh_query_and_exchange_on_the_card_equal_cpu(dev):
         _build.reset_launches()
         got = PlanExecutor(plan, ts, device=dev, mesh=make_mesh(4, device=dev)).run()["out"]
         by = _build.KERNELS
-        assert by["merge"].launches >= 1 and by["chain"].launches >= 4
-        assert by["segment_reduce"].launches >= 4 and by["loghist_quantile"].launches >= 1
+        assert by["finalize"].by_entry == {"px_merge_finalize": 1}
+        assert by["merge"].launches == 0 and by["loghist_quantile"].launches == 0
+        assert by["chain"].launches >= 4 and by["segment_reduce"].launches >= 4
         want = PlanExecutor(plan, ts, device="cpu",
                             mesh=make_mesh(4, device="cpu")).run()["out"]
         g = got.to_pandas().sort_values(["service", "status"]).reset_index(drop=True)
@@ -1001,6 +1026,87 @@ def test_state_pack_equals_plain_and_unpacks_bit_for_bit(dev, g):
     _same_trees(layout.unpack(got.cpu().numpy()),
                 {k: ({kk: vv.cpu().numpy() for kk, vv in v.items()} if isinstance(v, dict)
                      else v.cpu().numpy()) for k, v in st.items()})
+
+
+def test_state_pack_past_one_launch_splits_and_equals_plain(dev):
+    """2,000 leaves of four dtypes and ragged sizes: P1 packs them in
+    ceil(2000 / P1_CAPACITY) launches, byte for byte the plain version's
+    buffer."""
+    rng = np.random.default_rng(35)
+    dts = (np.int32, np.int64, np.float32, np.float64)
+    leaves = [torch.from_numpy(rng.integers(-1000, 1000, 1 + (i * 37) % 300).astype(
+        dts[i % 4])).to(dev) for i in range(2000)]
+    layout = p1.Layout.of([((f"l{i}",), x.dtype, x.shape) for i, x in enumerate(leaves)])
+    before = _build.KERNELS["pack"].launches
+    got = p1.pack(leaves, layout)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["pack"].launches == before + -(-2000 // p1.P1_CAPACITY)
+    assert torch.equal(got, p1.pack_plain(leaves, layout))
+
+
+def test_merge_past_one_launch_splits_and_equals_plain(dev):
+    """17 states over 250 leaves (rows of 20 words: 203 a launch): M1
+    merges them in two launches, equal to the plain fold bit for bit, NaN
+    positions and int64 wraps included."""
+    rng = np.random.default_rng(36)
+    rt = {f"l{i}": ("add", "min", "max")[i % 3] for i in range(250)}
+
+    def leaf(i):
+        if i % 2:
+            return rng.integers(2 ** 62, 2 ** 63 - 1, 3 + i % 5, dtype=np.int64)
+        v = rng.normal(size=3 + i % 5)
+        v[rng.integers(0, v.size)] = np.nan
+        return v
+
+    states = [{k: torch.from_numpy(leaf(i)).to(dev) for i, k in enumerate(rt)}
+              for _ in range(17)]
+    plan = m1.plan_for(rt, states)
+    before = _build.KERNELS["merge"].launches
+    got = m1.merge_states(rt, states)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["merge"].launches == before + len(plan.launches) == before + 2
+    want = m1.merge_states_plain(rt, states)
+    got = got.tree()
+    for k in rt:
+        a, b = got[k], want[k]
+        assert torch.equal(a.isnan() if a.is_floating_point() else a,
+                           b.isnan() if b.is_floating_point() else b), k
+        assert torch.equal(a.nan_to_num() if a.is_floating_point() else a,
+                           b.nan_to_num() if b.is_floating_point() else b), k
+
+
+def test_pack_and_merge_from_threads_equal_serial(dev):
+    """8 threads packing and merging at once, as LocalCluster's agents run,
+    give the serial results: every thread writes its own descriptor rows."""
+    import threading
+
+    rt, states = _m1_states(dev, 4, 257, 37)
+    packs = [_fin_states(dev, 1, 64 + t, 38 + t)[0] for t in range(8)]
+    want_m = [m1.merge_states(rt, states[t % 4:] + states[:t % 4]) for t in range(8)]
+    want_p = [p1.pack_state(st) for st in packs]
+    torch.cuda.synchronize()
+    got_m, got_p, errs = [None] * 8, [None] * 8, []
+    barrier = threading.Barrier(8)
+
+    def run(t):
+        try:
+            barrier.wait()
+            for _ in range(50):
+                got_m[t] = m1.merge_states(rt, states[t % 4:] + states[:t % 4])
+                got_p[t] = p1.pack_state(packs[t])
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001  (reported below)
+            errs.append(e)
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errs, errs
+    for t in range(8):
+        assert torch.equal(got_m[t].buf, want_m[t].buf), t
+        assert torch.equal(got_p[t].buf, want_p[t].buf), t
 
 
 @pytest.mark.parametrize("n", [1, 2, 4, 8])

@@ -21,7 +21,11 @@ them, pixie_tpu_torch against pixie_tpu on the CPU.
       mesh of 4 shards (PIXIE_TORCH_VIRTUAL_SHARDS = 4);
   (d) the distributed partial path ships raw, unfinalized state;
   (e) the mixed-dictionary cluster and the batched gang read back through
-      P1, with the reference's results.
+      P1, with the reference's results; eight equal-layout agents read their
+      gang-merged state (M1's packed output) back with no P1 call.
+P1's launch plan (`P1Plan`, cached per layout) is held against the per-call
+descriptor encoding the wrapper used before it: the same rows, split into
+launches of at most P1_CAPACITY leaves that cover every leaf once, in order.
 Inputs come from numpy seeds.  Means compare to rtol 1e-12, the quantile
 columns to 1 ulp of the reference's device finalize (as (b)), every other
 column exactly.
@@ -174,6 +178,65 @@ def test_state_packer_matches_reference(tree, g):
     got = packed.unpack(packed.buf.numpy())
     _same_tree(got, want)
     _same_tree(got, st)
+
+
+def _per_call_p1_rows(leaves, layout, base):
+    """The descriptor table as the wrapper encoded it on every call before
+    the plan was cached: per leaf [src, nbytes, dst], and the most 16-byte
+    words of any leaf."""
+    rows, max_words = [], 1
+    for x, off in zip(leaves, layout.offsets):
+        n = x.numel() * x.element_size()
+        max_words = max(max_words, (n + p1.ALIGN - 1) // p1.ALIGN)
+        rows.append([x.data_ptr(), n, base + off])
+    return np.array(rows, dtype=np.int64), max_words
+
+
+@pytest.mark.parametrize("tree", sorted(TREES))
+@pytest.mark.parametrize("g", [1, 7, 4096])
+def test_p1_plan_rows_equal_per_call_encoding(tree, g):
+    """The plan cached on a layout gives the rows of the per-call encoding
+    (source pointers, byte counts, buffer offsets past the base) in one
+    launch, also for a tree state_packer declines (M1 writes such a merged
+    state into one buffer too)."""
+    st = _torch(_tree(TREES[tree], g, np.random.default_rng(g)))
+    items = p1.flatten(st)
+    layout = p1.Layout.of([(path, x.dtype, x.shape) for path, x in items])
+    leaves = [x for _p, x in items]
+    plan = layout.p1
+    assert layout.p1 is plan
+    base = 1 << 40
+    want, max_words = _per_call_p1_rows(leaves, layout, base)
+    np.testing.assert_array_equal(plan.rows(leaves, base, -1), want)
+    assert plan.launches == ((0, len(leaves), max_words),)
+    with pytest.raises(TypeError):
+        plan.rows([x.to(torch.int16) for x in leaves], base, -1)
+
+
+@pytest.mark.parametrize("n_leaves", [1, 8, 9, 64, 65, 1024, 1025, 2000, 2048])
+def test_p1_plan_splits_past_one_launch(n_leaves):
+    """A layout of more leaves than one launch carries splits into launches
+    of at most P1_CAPACITY leaves that cover every leaf exactly once, in
+    order, each sized by its own largest leaf; the rows stay those of the
+    per-call encoding."""
+    rng = np.random.default_rng(n_leaves)
+    dts = (torch.int32, torch.int64, torch.float32, torch.float64)
+    leaves = [torch.from_numpy(rng.integers(0, 100, 1 + (i * 37) % 300)).to(dts[i % 4])
+              for i in range(n_leaves)]
+    layout = p1.Layout.of([((f"l{i}",), x.dtype, x.shape) for i, x in enumerate(leaves)])
+    plan = layout.p1
+    assert len(plan.launches) == -(-n_leaves // p1.P1_CAPACITY)
+    assert [i for a, b, _w in plan.launches for i in range(a, b)] == list(range(n_leaves))
+    for a, b, w in plan.launches:
+        assert b - a <= p1.P1_CAPACITY
+        assert w == max((x.numel() * x.element_size() + 15) // 16 for x in leaves[a:b])
+    base = 1 << 36
+    np.testing.assert_array_equal(plan.rows(leaves, base, -1),
+                                  _per_call_p1_rows(leaves, layout, base)[0])
+    got = p1.pack(leaves, layout)
+    assert got.numel() == layout.nbytes
+    unpacked = layout.unpack(got.numpy())
+    assert all(np.array_equal(unpacked[(f"l{i}")], x.numpy()) for i, x in enumerate(leaves))
 
 
 def test_state_packer_is_cached_per_tree_and_spec():
@@ -589,6 +652,39 @@ def test_mixed_dictionary_cluster_reads_back_through_p1(pack_calls):
     assert len(pack_calls) == 3  # one pack per agent state (cnt, p50, seen)
     want = RefCluster(ref_stores, n_devices_per_agent=1).query(SCRIPT)["out"]
     _same_frames(got, want, ["service"])
+
+
+CONFIG4_SCRIPT = """
+df = px.DataFrame(table='http_events')
+df = df[df.status != 404]
+df = df.groupby(['service', 'status']).agg(
+    cnt=('latency', px.count), avg_lat=('latency', px.mean), p50=('latency', px.p50))
+px.display(df, 'output')
+"""
+
+
+def test_gang_merged_cluster_state_reads_back_without_p1(pack_calls, monkeypatch):
+    """Config #4's script over eight agents with equal dictionaries: M1 (its
+    plain route here) merges their states once into one packed buffer,
+    which reads back with no P1 call; the answer equals the reference's."""
+    from pixie_tpu_torch.engine import executor as port_executor
+
+    merged = []
+    real = port_executor.merge_states
+
+    def recording(reduce_tree, states):
+        out = real(reduce_tree, states)
+        merged.append((len(states), out))
+        return out
+
+    monkeypatch.setattr(port_executor, "merge_states", recording)
+    ref_stores, stores = _cluster_stores([7] * 8)
+    got = LocalCluster(stores, device="cpu").query(CONFIG4_SCRIPT)["output"]
+    assert [n for n, _out in merged] == [8]
+    assert isinstance(merged[0][1], p1.Packed)
+    assert pack_calls == []
+    want = RefCluster(ref_stores, n_devices_per_agent=1).query(CONFIG4_SCRIPT)["output"]
+    _same_frames(got, want, ["service", "status"])
 
 
 def test_batched_gang_reads_back_through_p1(pack_calls):

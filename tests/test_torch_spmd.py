@@ -57,6 +57,7 @@ from pixie_tpu_torch.parallel.spmd import (
     spmd_multi_partial_step,
     spmd_partial_step,
 )
+from pixie_tpu_torch.ops.pack import Packed
 from pixie_tpu_torch.plan import plan as port_plan
 from pixie_tpu_torch.status import Unimplemented
 from pixie_tpu_torch.table import TableStore
@@ -255,11 +256,16 @@ def _ref_shard_map(fn, states, n_dev):
     return _np_tree(jax.tree.map(np.asarray, out))
 
 
-def test_collective_merge_tree(rng):
-    """tests/test_spmd.py: psum / pmin / pmax of a state tree over 4 shards."""
+@pytest.mark.parametrize("packed", [True, False])
+def test_collective_merge_tree(rng, packed):
+    """tests/test_spmd.py: psum / pmin / pmax of a state tree over 4 shards;
+    the merged state packed (read back as transfer.pull_states reads it) or
+    as views of its buffer."""
     states = _merge_inputs(rng, 4, g=1)
     want = _ref_shard_map(lambda s: ref_spmd.collective_merge(s, TREE, "agents"), states, 4)
-    got = _np_tree(collective_merge([_torch_tree(s) for s in states], TREE))
+    got = collective_merge([_torch_tree(s) for s in states], TREE, packed=packed)
+    assert isinstance(got, Packed) == packed
+    got = got.unpack(got.buf.numpy()) if packed else _np_tree(got)
     assert_states(got, want)
     assert int(got["cnt"][0]) == sum(int(s["cnt"][0]) for s in states)
     assert float(got["lo"][0]) == min(float(s["lo"][0]) for s in states)
