@@ -22,7 +22,11 @@ settling ones, ms):
                     rows, M1 once a query);
   batch_unbatched,  the four BATCH_SCRIPTS through LocalCluster over the
   batch_batched     --rows table from 16 threads, 4 queries each, query
-                    batching off and on: goodput in queries per second.
+                    batching off and on: goodput in queries per second;
+  g1                kernel G1 alone (`gang.run`) on the four BATCH_SCRIPTS
+                    members over the table's first 16M-row feed (chip_smoke
+                    `gang_feed`): the median of 5 timings of 20 calls by
+                    CUDA events, ms a call.
 
 --measures names the measures to take (default all; config4 and the batch
 arms alone are the paths where P1 and M1 run).  It prints one JSON line
@@ -69,7 +73,7 @@ def warm_ms(query):
 
 ts = TableStore()
 if measures & {"one_feed", "four_feeds", "four_feeds_mesh4", "batch_unbatched",
-               "batch_batched"}:
+               "batch_batched", "g1"}:
     cs.build_http_table(ts, rows)
 plan = cs.http_plan()
 mesh = None
@@ -95,6 +99,14 @@ for label, feed_rows in (("one_feed", 1 << 24), ("four_feeds", rows // 4),
                                 if k.launches}
 flags.set_for_testing("PIXIE_TORCH_VIRTUAL_SHARDS", 1)
 flags.set_for_testing("PX_FEED_ROWS", 1 << 24)
+
+if "g1" in measures:
+    from pixie_tpu_torch.ops import gang as g1
+
+    fresh, members, _per_sink, cols, _n_valid = cs.gang_feed(dev, ts)
+    n = next(iter(cols.values())).shape[0]
+    ms = members(fresh())
+    out["g1"] = sorted(cs.cuda_ms(lambda: g1.run(ms, n, dev), 20) for _ in range(5))[2]
 
 # the four BATCH_SCRIPTS from 16 threads, batching off and on
 cl = LocalCluster({"pem0": ts}, device=dev)
@@ -148,7 +160,7 @@ print(json.dumps(out), flush=True)
 #: measure → True when higher is better
 MEASURES = {"one_feed": False, "four_feeds": False, "four_feeds_mesh4": False,
             "config3": False, "config4": False, "batch_unbatched": True,
-            "batch_batched": True}
+            "batch_batched": True, "g1": False}
 
 
 def quartiles(xs: list) -> tuple[float, float, float]:

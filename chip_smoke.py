@@ -12,7 +12,8 @@ Phases, each of which fails the run if it fails:
                 same CUDA tensors, at the main path's shapes and at edge
                 cases (int64 sums that wrap, an all-false mask, one group,
                 more groups than shared memory holds, values on sketch bin
-                edges and <= 1e-9).  Integer results and the quantiles must
+                edges and <= 1e-9, K2 over values 20% NaN at NaN bins 0
+                and 1).  Integer results and the quantiles must
                 match exactly, float64 sums to 1e-12 of each group's sum
                 of |values|.  Each kernel is
                 timed (CUDA events) beside its plain version, the nearest
@@ -115,7 +116,9 @@ cross-agent state merge) at config #4's state (8 states of 64 groups), at
 a bandwidth shape (8 states of 2^16 groups with min and max, ~138 MB each)
 and past one launch's parameter block (17 states over 250 leaves: two
 launches), exactly, each with its host microseconds a call (200 calls, no
-synchronize) beside its CUDA-event and device times, and KM1-KM3 (the k-means assignment, Lloyd sums and seeding step)
+synchronize) beside its CUDA-event and device times (device: CUDA events
+around calls enqueued while the device sleeps, `kernel_device_ms`), and
+KM1-KM3 (the k-means assignment, Lloyd sums and seeding step)
 at the fit's shape (2^20 x 64 points, 64 centers) and at edge cases (k = 1,
 k > a block's 256 points, d = 13, d = 150 with k = 200, k = 129, a cluster
 of zero weight), to 1e-5 of |x|^2 + |c|^2 (distances, p) and of the sums
@@ -126,8 +129,11 @@ multi-query gang) on the table's first 16M-row feed with the four
 BATCH_SCRIPTS members of the reference's load harness, held against its
 plain version and against the per-sink route (each member's C1 and K1/K2
 launches) on the same tensors — counts, int64 sums, min, max and sketch
-cells exactly, float64 sums to rtol 1e-12 — and again with a member of 2^20
-groups added (global atomics), each timed; and the batch phase: the four
+cells exactly, float64 sums to rtol 1e-12 — on the same feed with its
+latencies 20% NaN at NaN bins 0 and 1, again with a member of 2^20 groups
+added (global atomics), and past one launch's table (24 members: two
+launches), timed by CUDA events, its device time and its host
+microseconds a call; and the batch phase: the four
 scripts through LocalCluster.query from 16 client threads (4 per script, 8
 queries each), unbatched (PL_QUERY_BATCHING=0, PX_MQ_FUSION=0) and then
 batched (both on), each result equal to the script's solo result, which
@@ -135,7 +141,8 @@ equals a numpy oracle (counts exact, means to rtol 1e-9, max and min
 exact, p50 and p99 in the oracle's sketch bin or the next); per arm the
 goodput, the p50 latency, the batches formed and their median size,
 mq_fused, mq_waves and G1's launches per batch.  The phase fails unless a
-batch formed and G1 launched.
+batch formed and G1 launched, or if a warm batch's CUDA-only profile holds
+a host-to-device copy.
 
 The device finalize (slice 9): an unlimited aggregate over several feeds
 runs the per-feed route (C1, K1, K2) and then F2 once (the merge of the
@@ -146,7 +153,9 @@ F1 launch (the resident phase, config #3); raw partial states read back
 packed by P1 (the batch phase, the mixed-dictionary run), while M1 writes a
 merged state packed, so config #4 and the mesh cluster launch no P1.  After G1's check, F1 is held
 against its plain version and the per-sink route on the 64M-row table's
-first 16M-row feed (config #1's chain, and config #2's at 1,024 groups);
+first 16M-row feed (config #1's chain; its first 1M rows; the feed 20% NaN
+at both NaN bins; config #2's chain at 1,024 groups), each with its device
+time and host microseconds a call;
 F2 at N = 1, N = 4 (the four feeds' states) and 8 states of 2^16 groups,
 beside M1 + K3;
 P1 on config #4's state and a 2^20-group state, beside torch.cat per dtype
@@ -154,9 +163,10 @@ P1 on config #4's state and a 2^20-group state, beside torch.cat per dtype
 (2,000 leaves: two launches) — counts, int64 sums, min, max, quantiles and packed bytes exactly, float64
 sums to rtol 1e-12.  The one-feed phase (after mesh config #1) runs config
 #1 on bench's build_http_table at 16M rows and at 1M rows: one F1 launch a
-warm query and no other kernel, one D2H wave, the oracle, stream and warm
-medians; then the 16M rows in two feeds (PX_FEED_ROWS = 2^23: C1 twice, F2
-once), equal to F1's result.  Before the ml phase, row 18's yardstick: K1's
+warm query and no other kernel, one D2H wave and no host-to-device copy in
+its CUDA-only profile, the oracle, stream and warm medians; then the 16M
+rows in two feeds (PX_FEED_ROWS = 2^23: C1 twice, F2 once), equal to F1's
+result.  Before the ml phase, row 18's yardstick: K1's
 count over gid * 256 + code beside torch.bincount.
 
 Then the mesh phases (slice 8; PIXIE_TORCH_VIRTUAL_SHARDS = 4 for them
@@ -581,6 +591,19 @@ def check_kernels(dev) -> list[dict]:
             err = same("K2 " + label + mask_label, a, b)
             log(json.dumps({"check": "K2 " + label + mask_label, "ok": True,
                             "max_abs_err": err}))
+    # a feed 20% NaN at both NaN bins: 0 a streaming poll's, 1 a batch query's
+    vals = rng.exponential(50.0, 1 << 20)
+    vals[rng.random(1 << 20) < 0.2] = np.nan
+    v_n, gid_n, mask_n = t(vals), t(rng.integers(0, 64, 1 << 20).astype(np.int32)), \
+        t(rng.random(1 << 20) < 0.9)
+    for nan_bin in (0, 1):
+        a, b = lh.init(64, dev), lh.init(64, dev)
+        lh.update(a, gid_n, v_n, mask_n, 64, nan_bin)
+        lh.update_plain(b, gid_n, v_n, mask_n, 64, nan_bin)
+        torch.cuda.synchronize()
+        err = same(f"K2 NaN bin {nan_bin}", a, b)
+        log(json.dumps({"check": f"K2 20% NaN, NaN bin {nan_bin}", "ok": True,
+                        "max_abs_err": err}))
     # main shapes
     a, b = lh.init(g, dev), lh.init(g, dev)
     lh.update(a, gid, lat, mask, g)
@@ -1719,8 +1742,7 @@ def check_merge_kernel(dev) -> list[dict]:
                 st_.sum(0) if op == "add" else (st_.amin(0) if op == "min" else st_.amax(0))
 
         return {"ms": cuda_ms(lambda: m1.merge_states(rt, sts), 20),
-                "device_ms": kernel_device_ms(lambda: m1.merge_states(rt, sts),
-                                              "merge_states", 20),
+                "device_ms": kernel_device_ms(lambda: m1.merge_states(rt, sts), 20),
                 "host_us": host_us(lambda: m1.merge_states(rt, sts)),
                 "plain_ms": cuda_ms(lambda: m1.merge_states_plain(rt, sts), 10),
                 "library_ms": cuda_ms(library, 10),
@@ -1755,10 +1777,11 @@ def check_merge_kernel(dev) -> list[dict]:
     }]
 
 
-def kernel_device_ms(fn, kernel: str, reps: int) -> float:
-    """Device time per call of the kernels whose name holds `kernel`
-    (torch.profiler), without the wrapper's host time that CUDA events
-    around a host-bound call also measure."""
+def h2d_copies(fn, reps: int = 3) -> dict:
+    """Host-to-device copies per call of fn() in its CUDA-only profile (fn
+    called once first), beside the device events the profile holds: a
+    count of 0 means something only when the profile saw the call's
+    kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1769,8 +1792,64 @@ def kernel_device_ms(fn, kernel: str, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and kernel in e.key]
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    h2d = [e for e in ev if "HtoD" in e.key]
+    return {"h2d_per_call": sum(e.count for e in h2d) / reps,
+            "h2d_events": sorted({e.key[:60] for e in h2d}),
+            "device_events_per_call": sum(e.count for e in ev) / reps}
+
+
+def kernel_device_ms(fn, reps: int) -> float:
+    """Device time per call of fn(), which launches its kernel without a
+    host synchronize: CUDA events around `reps` calls that the host
+    enqueues while the device sleeps, so the wrapper's host time, which
+    CUDA events around a host-bound call also measure, is hidden (the gaps
+    between the calls' launches on the device count).  The sleep must
+    outlast the enqueue: if the start event has run when the last call is
+    enqueued, it is taken again with a sleep four times longer, twice at
+    most, and then fails the run.  (torch.profiler dropped 4 of 10 G1
+    launches from every profile in one whole run, so it is no source of a
+    kernel's device time here.)"""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    sleep_s = max(0.005, 2.0 * (time.perf_counter() - t0))
+    for _attempt in range(3):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_s * 2e9))  # cycles at up to ~2 GHz
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(stop) / reps
+        sleep_s *= 4
+    raise AssertionError("kernel_device_ms: the device reached the first call before the "
+                         "host had enqueued the last, three times")
+
+
+def device_busy_ms(fn, reps: int) -> float:
+    """Device time per call of every event (kernels and copies) of fn(), a
+    whole query, from torch.profiler's CUDA activity over `reps` calls;
+    the profile may hold none of them (§7 of PERF.md)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     return sum(e.self_device_time_total for e in ev) / 1e3 / reps
 
 
@@ -3012,9 +3091,14 @@ def gang_feed(dev, ts):
         return [{name: uda.init(s.num_groups, in_dt, dev) for name, uda, in_dt in s.init_specs}
                 for s in setups]
 
-    def members(states):
-        return [s.kern.gang_member(cols, n_valid, t_lo, t_hi, lut, st, s.origins)
-                for s, lut, st in zip(setups, luts, states)]
+    def members(states, feed=None, nan_bin=1):
+        feed = cols if feed is None else feed
+        out = [s.kern.gang_member(feed, n_valid, t_lo, t_hi, lut, st, s.origins)
+               for s, lut, st in zip(setups, luts, states)]
+        for m in out:
+            for leaf in m.leaves:
+                leaf.nan_bin = nan_bin
+        return out
 
     def per_sink(states):
         for s, lut, st in zip(setups, luts, states):
@@ -3090,10 +3174,11 @@ def gang_compare(label: str, got: list, want: list) -> float:
         for lg, lw in zip(mg.leaves, mw.leaves):
             a, b = lg.state, lw.state
             if a.dtype.is_floating_point and lg.op in ("sum", "sumsq"):
-                ok = torch.allclose(a, b, rtol=1e-12, atol=0)
-                err = max(err, float((a - b).abs().max()))
+                # (a NaN value makes its group's sum NaN on both routes)
+                ok = torch.allclose(a, b, rtol=1e-12, atol=0, equal_nan=True)
+                err = max(err, float((a - b).nan_to_num().abs().max()))
             else:
-                ok = torch.equal(a, b)
+                ok = same_bits(a, b)
             if not ok:
                 raise AssertionError(f"G1 {label}: {lg.op} leaf ({a.dtype}, "
                                      f"{tuple(a.shape)}) differs")
@@ -3104,10 +3189,13 @@ def check_gang_kernel(dev, ts) -> list[dict]:
     """G1 against its plain version and against the per-sink route (each
     member's C1 and K1/K2 launches) on one 16M-row feed of the 64M-row
     table, with the four BATCH_SCRIPTS members (their states in shared
-    memory), and with a member of 2^20 groups added (global atomics);
-    timed beside both."""
+    memory), on the same feed with its latencies 20% NaN at both NaN bins,
+    with a member of 2^20 groups added (global atomics), and past one
+    launch's table (24 members: two launches); timed beside both, with its
+    device time and its host microseconds a call."""
     import torch
 
+    from pixie_tpu_torch.ops import _build
     from pixie_tpu_torch.ops import gang as g1
 
     fresh, members, per_sink, cols, n_valid = gang_feed(dev, ts)
@@ -3124,6 +3212,19 @@ def check_gang_kernel(dev, ts) -> list[dict]:
         raise AssertionError(f"G1: a BATCH_SCRIPTS member missed shared memory: {offs}")
     log(json.dumps({"check": "G1 BATCH_SCRIPTS members", "ok": True, "rows": n,
                     "members": len(offs), "shared_bytes": acc, "max_abs_err": err}))
+    lat = cols["latency"].clone()
+    lat[torch.rand(n, device=dev, generator=torch.Generator(dev).manual_seed(5)) < 0.2] = \
+        float("nan")
+    nan_feed = {**cols, "latency": lat}
+    for nan_bin in (0, 1):
+        a, b = fresh(), fresh()
+        g1.run(members(a, nan_feed, nan_bin), n, dev)
+        g1.run_plain(members(b, nan_feed, nan_bin), n, dev)
+        torch.cuda.synchronize()
+        e = gang_compare(f"20% NaN, NaN bin {nan_bin}", members(a, nan_feed, nan_bin),
+                         members(b, nan_feed, nan_bin))
+        log(json.dumps({"check": f"G1 BATCH_SCRIPTS members, 20% NaN, NaN bin {nan_bin}",
+                        "ok": True, "max_abs_err": e}))
     big, big_fresh = gang_big_member(dev, cols, n_valid, np.random.default_rng(31))
     sa, sb = (big_fresh(), fresh()), (big_fresh(), fresh())
     for (bs, st), run in ((sa, g1.run), (sb, g1.run_plain)):
@@ -3139,21 +3240,43 @@ def check_gang_kernel(dev, ts) -> list[dict]:
     log(json.dumps({"check": "G1 with a 2^20-group member", "ok": True,
                     "max_abs_err": err_big, "kernel_ms": mixed_ms,
                     "bound_ms": gang_bound(mixed, n)[0]}))
+    # past one launch's table: the four members six times over, 24 members
+    states = [fresh() for _ in range(6)]
+    plain = [fresh() for _ in range(6)]
+    before = _build.KERNELS["gang"].launches
+    g1.run([m for st_ in states for m in members(st_)], n, dev)
+    past_launches = _build.KERNELS["gang"].launches - before
+    g1.run_plain([m for st_ in plain for m in members(st_)], n, dev)
+    torch.cuda.synchronize()
+    err_past = gang_compare("past one launch's table", [m for st_ in states for m in members(st_)],
+                            [m for st_ in plain for m in members(st_)])
+    if past_launches != 2:
+        raise AssertionError(f"G1 past capacity: {past_launches} launches for 24 members")
+    log(json.dumps({"check": "G1 past one launch's table (24 members)", "ok": True,
+                    "launches": past_launches, "max_abs_err": err_past}))
     st = fresh()
-    b_ms, b_by = gang_bound(members(st), n)
+    ms = members(st)
+    b_ms, b_by = gang_bound(ms, n)
+    main = {"ms": cuda_ms(lambda: g1.run(ms, n, dev), 20),
+            "device_ms": kernel_device_ms(lambda: g1.run(ms, n, dev), 10),
+            # the wrapper's own host time a call, its members built once
+            "host_us": host_us(lambda: g1.run(ms, n, dev)),
+            # the yardstick: the same work as each member's C1 and K1/K2 launches
+            "per_sink_ms": cuda_ms(lambda: per_sink(st), 20), "bound_ms": b_ms}
+    log(json.dumps({"check": "G1 BATCH_SCRIPTS members timed", "ok": True, **main}))
     return [{
         "name": "gang G1 (the four BATCH_SCRIPTS members)", "route": "cuda",
         "source": "pixie_tpu_torch/csrc/gang.cu",
         "replaces": "pixie_tpu/engine/executor.py:2807 _multi_partial_agg (fused_fn :2852)",
-        "entry": ("gang", "px_gang_partial"), "path": "batch", "max_abs_err": max(err, err_big),
-        "ms": cuda_ms(lambda: g1.run(members(st), n, dev), 20),
+        "entry": ("gang", "px_gang_partial"), "path": "batch",
+        "max_abs_err": max(err, err_big, err_past), "ms": main["ms"],
         "plain_ms": cuda_ms(lambda: g1.run_plain(members(st), n, dev), 3, warmup=1),
-        # the yardstick: the same work as each member's C1 and K1/K2 launches
-        "per_sink_ms": cuda_ms(lambda: per_sink(st), 20),
-        "bound_ms": b_ms, "bound_by": b_by,
+        "per_sink_ms": main["per_sink_ms"], "bound_ms": b_ms, "bound_by": b_by,
         # no single PyTorch call computes a gang
         "library_ms": None,
-        "shape": {"rows": n, "members": len(offs), "union_columns": sorted(cols)},
+        "shape": {"rows": n, "members": len(offs), "union_columns": sorted(cols),
+                  "device_ms": main["device_ms"], "host_us": main["host_us"],
+                  "with_2_20_group_member_ms": mixed_ms},
     }]
 
 
@@ -3203,6 +3326,30 @@ class AggFeeds:
 
     def n(self, i: int) -> int:
         return next(iter(self.feeds[i][0].values())).shape[0]
+
+    def f1_layout(self) -> list:
+        """[block width, R, sketch private, combine] of F1's member pass
+        here (ops/gang.py plan_f1_pass)."""
+        from pixie_tpu_torch.ops import gang as g1
+
+        pp = g1.plan_f1_pass(self.member(0, self.init(self.dev)))
+        return [pp.block, pp.rows_per_thread, pp.hist_shared, pp.combine]
+
+    def add_feed(self, i: int, rows: int | None = None, nan_share: float = 0.0) -> int:
+        """A feed made from feed i: its first `rows` rows, its latencies
+        `nan_share` NaN (seeded); → its index."""
+        import torch
+
+        cols, n_valid = self.feeds[i]
+        rows = self.n(i) if rows is None else rows
+        cols = {k: v[:rows] for k, v in cols.items()}
+        if nan_share:
+            lat = cols["latency"].clone()
+            gen = torch.Generator(self.dev).manual_seed(6)
+            lat[torch.rand(rows, device=self.dev, generator=gen) < nan_share] = float("nan")
+            cols["latency"] = lat
+        self.feeds.append((cols, min(n_valid, rows)))
+        return len(self.feeds) - 1
 
     def member(self, i: int, state):
         cols, n_valid = self.feeds[i]
@@ -3261,8 +3408,8 @@ def same_finalized(label: str, got, want) -> float:
             raise AssertionError(f"{label}: output trees differ")
         for (path, x), (_p, y) in zip(la, lb):
             if x.dtype.kind == "f" and path[-1] == "sum":
-                ok = np.allclose(x, y, rtol=1e-12, atol=0)
-                err = max(err, float(np.abs(x - y).max()) if x.size else 0.0)
+                ok = np.allclose(x, y, rtol=1e-12, atol=0, equal_nan=True)
+                err = max(err, float(np.nan_to_num(np.abs(x - y)).max()) if x.size else 0.0)
             else:
                 ok = np.array_equal(x, y, equal_nan=x.dtype.kind == "f")
             if not ok:
@@ -3321,36 +3468,56 @@ def check_finalize_kernels(dev, ts) -> list[dict]:
                                   fin.merge_finalize_plain([route], c1_feeds.rt,
                                                            c1_feeds.finals)))
     out_bytes = fin.output_layout(c1_feeds.init("meta"), c1_feeds.finals).nbytes
-    b_ms, b_by = bound(c1_feeds.feed_bytes(0) + out_bytes)
 
-    def per_sink_route():
-        c1_feeds.k3(c1_feeds.per_sink(0))
+    def f1_timed(feeds, i, out_b):
+        """F1 over feed i: CUDA events, device time, host µs a call, bound
+        and the per-sink route (C1, K1, K2, then K3) on the same feed."""
+        def route():
+            feeds.k3(feeds.per_sink(i))
 
-    f1 = {"ms": cuda_ms(lambda: c1_feeds.f1(0), 20),
-          "device_ms": kernel_device_ms(lambda: c1_feeds.f1(0), "fused_kernel", 10),
-          "plain_ms": cuda_ms(lambda: c1_feeds.f1_plain(0), 3, warmup=1),
-          "per_sink_ms": cuda_ms(per_sink_route, 20), "bound_ms": b_ms, "bound_by": b_by}
+        return {"ms": cuda_ms(lambda: feeds.f1(i), 20),
+                "device_ms": kernel_device_ms(lambda: feeds.f1(i), 10),
+                "host_us": host_us(lambda: feeds.f1(i)),
+                "plain_ms": cuda_ms(lambda: feeds.f1_plain(i), 3, warmup=1),
+                "per_sink_ms": cuda_ms(route, 20),
+                "bound_ms": bound(feeds.feed_bytes(i) + out_b)[0],
+                "bound_by": bound(feeds.feed_bytes(i) + out_b)[1]}
+
+    f1 = f1_timed(c1_feeds, 0, out_bytes)
+    b_ms, b_by = f1["bound_ms"], f1["bound_by"]
     log(json.dumps({"check": "F1 config #1 (16M-row feed, 64 groups)", "ok": True,
-                    "max_abs_err": err, **f1}))
+                    "max_abs_err": err, "layout": c1_feeds.f1_layout(), **f1}))
+    small = c1_feeds.add_feed(0, INTERACTIVE_ROWS)
+    err_1m = same_finalized("F1 config #1 at 1M rows", c1_feeds.f1(small),
+                            c1_feeds.f1_plain(small))
+    f1_1m = {"rows": INTERACTIVE_ROWS, "max_abs_err": err_1m,
+             **f1_timed(c1_feeds, small, out_bytes)}
+    log(json.dumps({"check": "F1 config #1 (1M rows, 64 groups)", "ok": True, **f1_1m}))
+    nan_feed = c1_feeds.add_feed(0, nan_share=0.2)
+    for nan_bin in (0, 1):
+        c1_feeds.s.kern.nan_bin = nan_bin
+        e = same_finalized(f"F1 20% NaN, NaN bin {nan_bin}", c1_feeds.f1(nan_feed),
+                           c1_feeds.f1_plain(nan_feed))
+        log(json.dumps({"check": f"F1 config #1, 20% NaN, NaN bin {nan_bin}", "ok": True,
+                        "max_abs_err": e}))
+    c1_feeds.s.kern.nan_bin = 1
+    del c1_feeds.feeds[small:]
     c2_feeds = AggFeeds(dev, ts, config2_plan())
     err2 = same_finalized("F1 config #2 feed", c2_feeds.f1(0), c2_feeds.f1_plain(0))
     c2_out = fin.output_layout(c2_feeds.init("meta"), c2_feeds.finals).nbytes
     f1_c2 = {"groups": c2_feeds.s.num_groups, "max_abs_err": err2,
-             "ms": cuda_ms(lambda: c2_feeds.f1(0), 10),
-             "device_ms": kernel_device_ms(lambda: c2_feeds.f1(0), "fused_kernel", 5),
-             "plain_ms": cuda_ms(lambda: c2_feeds.f1_plain(0), 3, warmup=1),
-             "per_sink_ms": cuda_ms(lambda: c2_feeds.k3(c2_feeds.per_sink(0)), 10),
-             "bound_ms": bound(c2_feeds.feed_bytes(0) + c2_out)[0]}
+             **f1_timed(c2_feeds, 0, c2_out), "layout": c2_feeds.f1_layout()}
     log(json.dumps({"check": "F1 config #2 (16M-row feed, 1,024 groups)", "ok": True, **f1_c2}))
     rows.append({
         "name": "fused_partial_finalize F1", "route": "cuda",
         "source": "pixie_tpu_torch/csrc/finalize.cu",
         "replaces": "pixie_tpu/engine/executor.py:1004 _fused_partial_finalize",
-        "entry": F1, "path": "config1_one_feed", "max_abs_err": max(err, err2),
+        "entry": F1, "path": "config1_one_feed", "max_abs_err": max(err, err_1m, err2),
         "ms": f1["ms"], "plain_ms": f1["plain_ms"], "per_sink_ms": f1["per_sink_ms"],
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": {"rows": n, "groups": c1_feeds.s.num_groups, "output_bytes": out_bytes,
-                  "device_ms": f1["device_ms"], "config2": f1_c2},
+                  "device_ms": f1["device_ms"], "host_us": f1["host_us"], "1M": f1_1m,
+                  "config2": f1_c2},
     })
     del c2_feeds
     # ---- F2
@@ -3372,8 +3539,8 @@ def check_finalize_kernels(dev, ts) -> list[dict]:
         cases[label] = {
             "states": len(states), "state_bytes": nbytes // len(states), "max_abs_err": err_,
             "ms": cuda_ms(lambda: fin.merge_finalize(states, rt, finals), reps),
-            "device_ms": kernel_device_ms(lambda: fin.merge_finalize(states, rt, finals),
-                                          "merge_finalize", reps),
+            "device_ms": kernel_device_ms(lambda: fin.merge_finalize(states, rt, finals), reps),
+            "host_us": host_us(lambda: fin.merge_finalize(states, rt, finals)),
             "plain_ms": cuda_ms(lambda: fin.merge_finalize_plain(states, rt, finals), 3),
             "m1_k3_ms": cuda_ms(m1_k3, reps), "bound_ms": b_ms_, "bound_by": b_by_}
         log(json.dumps({"check": f"F2 {label}", "ok": True, **cases[label]}))
@@ -3396,7 +3563,7 @@ def check_finalize_kernels(dev, ts) -> list[dict]:
                                                               cases.values()),
         "ms": main["ms"], "plain_ms": main["plain_ms"], "m1_k3_ms": main["m1_k3_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
-        "shape": cases,
+        "shape": {**cases, "host_us": main["host_us"]},
     })
     # ---- P1
     packs = {}
@@ -3424,7 +3591,7 @@ def check_finalize_kernels(dev, ts) -> list[dict]:
         packs[label] = {
             "state_bytes": nbytes, "leaves": len(leaves), "dtypes": len(dtypes),
             "ms": cuda_ms(lambda: p1.pack(leaves, layout), 20),
-            "device_ms": kernel_device_ms(lambda: p1.pack(leaves, layout), "state_pack", 20),
+            "device_ms": kernel_device_ms(lambda: p1.pack(leaves, layout), 20),
             "host_us": host_us(lambda: p1.pack(leaves, layout)),
             "plain_ms": cuda_ms(lambda: p1.pack_plain(leaves, layout), 10),
             "library_ms": cuda_ms(library, 20), "library_host_us": host_us(library),
@@ -3467,7 +3634,9 @@ def run_config1_one_feed(dev) -> dict:
     launch: the oracle holds, a warm query launches F1 once and C1, K1, K2
     and K3 not at all, and reads back in one D2H wave; stream and warm
     medians.  Then the same query on the 16M rows with PX_FEED_ROWS = 2^23:
-    two feeds on the per-feed route and F2 once, equal to F1's result."""
+    two feeds on the per-feed route and F2 once, equal to F1's result.
+    Last, each size in a fresh process: a warm query's CUDA-only profile
+    holds no host-to-device copy (one_feed_h2d_probe)."""
     import torch
 
     from pixie_tpu_torch import flags
@@ -3509,7 +3678,7 @@ def run_config1_one_feed(dev) -> dict:
             routes[k]["top"] = routes[k]["top"][:6]
         # every device event of a warm query (kernel and copies), as the F1
         # check times its kernel: the profile above may hold none of them
-        busy = kernel_device_ms(query, "", 5)
+        busy = device_busy_ms(query, 5)
         out[label] = {"rows": rows, "data_s": data_s, **check, "cold_launches": cold,
                       "warm_launches": launches, "warm_d2h_waves": waves, **routes,
                       "warm_device_busy_ms": busy,
@@ -3539,7 +3708,45 @@ def run_config1_one_feed(dev) -> dict:
                         **{k: v for k, v in out[label].items()}}))
         del ts, table, _gen
     log(json.dumps({"phase": "config1_one_feed.two_feeds", "ok": True, **out["two_feeds"]}))
+    # each size in a fresh process: in this one, after its earlier profiles,
+    # a profile of the one-feed query held no device event at all
+    out["warm_profile_copies"] = {}
+    for label, rows in (("16M", ONE_FEED_ROWS), ("1M", INTERACTIVE_ROWS)):
+        probe = subprocess.run([sys.executable, "-c", "import chip_smoke; "
+                                f"chip_smoke.one_feed_h2d_probe({rows})"],
+                               capture_output=True, text=True, timeout=300)
+        if probe.returncode != 0:
+            raise AssertionError(f"the one-feed copy probe failed: {probe.stderr[-2000:]}")
+        copies = json.loads(probe.stdout.strip().splitlines()[-1])
+        out["warm_profile_copies"][label] = copies
+        log(json.dumps({"phase": f"config1_one_feed.{label}.warm_profile", **copies}))
+        if copies["h2d_per_call"] or not copies["device_events_per_call"]:
+            raise AssertionError(f"config #1 at one feed ({label}): a warm query's CUDA-only "
+                                 f"profile: {copies}")
     return out
+
+
+def one_feed_h2d_probe(rows: int) -> None:
+    """Config #1 at one feed over bench's build_http_table at `rows` rows,
+    warm, under a CUDA-only profile in this process: prints its
+    h2d_copies as JSON."""
+    import torch
+
+    from pixie_tpu_torch.engine import execute_plan
+    from pixie_tpu_torch.table import TableStore
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    plan = http_plan()
+    ts = TableStore()
+    build_http_table(ts, rows)
+
+    def query():
+        execute_plan(plan, ts, device=dev)
+        torch.cuda.synchronize(dev)
+
+    query()
+    print(json.dumps(h2d_copies(query)), flush=True)
 
 
 def check_dicthist_library(dev) -> dict:
@@ -3743,6 +3950,29 @@ def run_batch(dev, ts, table) -> dict:
         b = arms["batched"]
         if not (b["batches_formed"] > 0 and b["g1_launches"] > 0 and b["mq_fused"] > 0):
             raise AssertionError(f"batch: no batch formed or G1 never launched: {b}")
+        # a warm batch: the four scripts from four threads, one batch, whose
+        # CUDA-only profile holds no host-to-device copy
+        saved_max = flags.get("PL_BATCH_MAX_QUERIES")
+        flags.set_for_testing("PL_BATCH_MAX_QUERIES", len(BATCH_SCRIPTS))
+
+        def one_batch():
+            threads = [threading.Thread(target=query, args=(i,))
+                       for i in range(len(BATCH_SCRIPTS))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+
+        try:
+            formed0 = metrics.counter_value("px_batch_formed_total")
+            copies = h2d_copies(one_batch)
+            copies["batches_formed"] = metrics.counter_value("px_batch_formed_total") - formed0
+        finally:
+            flags.set_for_testing("PL_BATCH_MAX_QUERIES", saved_max)
+        log(json.dumps({"phase": "batch.warm_profile", **copies}))
+        if copies["h2d_per_call"] or not copies["batches_formed"]:
+            raise AssertionError(f"batch: a warm batch's CUDA-only profile: {copies}")
+        arms["warm_batch_profile"] = copies
         if arms["unbatched"]["batches_formed"] or arms["unbatched"]["g1_launches"]:
             raise AssertionError("batch: the unbatched arm batched or launched G1")
     finally:
@@ -3928,8 +4158,7 @@ def check_collective_merge(dev) -> list[dict]:
             torch.stack(xs).sum(0)
 
     row = {"ms": cuda_ms(lambda: m1.collective_merge(rt, sts), 20),
-           "device_ms": kernel_device_ms(lambda: m1.collective_merge(rt, sts),
-                                         "merge_states", 20),
+           "device_ms": kernel_device_ms(lambda: m1.collective_merge(rt, sts), 20),
            "host_us": host_us(lambda: m1.collective_merge(rt, sts)),
            "plain_ms": cuda_ms(lambda: m1.merge_states_plain(rt, sts), 10),
            "library_ms": cuda_ms(library, 10), "library_host_us": host_us(library),

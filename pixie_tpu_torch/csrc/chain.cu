@@ -55,7 +55,7 @@ __global__ void __launch_bounds__(kBlock) chain_kernel(const __grid_constant__ C
     const long long base = tile * T;
     bool mask[R];
     int gid[R];
-    run_tile<R>(p, base, stk, mask, gid, store);
+    run_tile<R, kBlock>(p, base, stk, mask, gid, store);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const long long i = base + r * kBlock + threadIdx.x;

@@ -12,7 +12,8 @@
 // in registers.  A thread touches only its own rows' stack slots, so the
 // interpreter needs no barrier.  STORE hands each row's value to the
 // caller's Store: C1 writes it to an output column in device memory, G1 to a
-// tile slot in shared memory.
+// tile slot in shared memory.  The block width B is a template parameter:
+// C1 and G1 run kBlock (256) threads, F1 1024 (finalize.cu).
 //
 // Semantics follow PyTorch's ops, which the plain interpreter in
 // ops/chain.py runs one per opcode: integer add, subtract, multiply and
@@ -144,8 +145,8 @@ __device__ __forceinline__ double floor_div_f(double a, double b) {
 // Per-row loops over the thread's R rows of the tile.  S(k) is stack slot
 // sp - k (S(1) the top) of row r; PUSH the slot above the top.
 #define PX_ROWS _Pragma("unroll") for (int r = 0; r < R; ++r)
-#define PX_S(k) stk[static_cast<size_t>(sp - (k)) * T + r * kBlock + threadIdx.x]
-#define PX_PUSH stk[static_cast<size_t>(sp) * T + r * kBlock + threadIdx.x]
+#define PX_S(k) stk[static_cast<size_t>(sp - (k)) * T + r * B + threadIdx.x]
+#define PX_PUSH stk[static_cast<size_t>(sp) * T + r * B + threadIdx.x]
 #define PX_BIN_INT(expr)                                        \
   PX_ROWS {                                                     \
     const long long x = PX_S(2), y = PX_S(1);                   \
@@ -167,37 +168,45 @@ __device__ __forceinline__ double floor_div_f(double a, double b) {
   }                                                             \
   break;
 
-// Runs program p over the tile of rows [base, base + R * kBlock): mask and
-// gid start all-true and 0 and come back as the program left them; stk is
-// the tile's stack (p.depth * R * kBlock values); each STORE calls
-// store(slot, r, row, value) for the thread's rows r.
-template <int R, class Store>
+// Runs program p over the tile of rows [base, base + R * B) of a block of B
+// threads: mask and gid start all-true and 0 and come back as the program
+// left them; stk is the tile's stack (p.depth * R * B values); each STORE
+// calls store(slot, r, row, value) for the thread's rows r.  p may live in
+// the launch's parameter space (C1, G1, F1) or anywhere else.
+template <int R, int B, class Store>
 __device__ __forceinline__ void run_tile(const ChainParams& p, long long base, long long* stk,
                                          bool (&mask)[R], int (&gid)[R], Store& store) {
-  constexpr int T = R * kBlock;
+  constexpr int T = R * B;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     mask[r] = true;
     gid[r] = 0;
   }
   int sp = 0;
-  for (int pc = 0; pc < p.ncode; ++pc) {
-    const int op = __ldg(p.code + 3 * pc);
-    const int a = __ldg(p.code + 3 * pc + 1);
-    const int b = __ldg(p.code + 3 * pc + 2);
+  // the loop's own fields in registers: where p lives in shared memory (G1,
+  // F1) the compiler must otherwise assume each stack store may change them
+  // and reload them on every instruction
+  const int* const code = p.code;
+  const long long* const consts = p.consts;
+  const int ncode = p.ncode;
+  const long long n = p.n;
+  for (int pc = 0; pc < ncode; ++pc) {
+    const int op = __ldg(code + 3 * pc);
+    const int a = __ldg(code + 3 * pc + 1);
+    const int b = __ldg(code + 3 * pc + 2);
     switch (op) {
       case LOAD_COL: {
         const void* col = p.col[a];
         const int kind = p.col_kind[a];
         PX_ROWS {
-          const long long i = base + r * kBlock + threadIdx.x;
-          PX_PUSH = i < p.n ? load_kind(col, kind, i) : 0;
+          const long long i = base + r * B + threadIdx.x;
+          PX_PUSH = i < n ? load_kind(col, kind, i) : 0;
         }
         sp += 1;
         break;
       }
       case LOAD_CONST: {
-        const long long v = __ldg(p.consts + a);
+        const long long v = __ldg(consts + a);
         PX_ROWS { PX_PUSH = v; }
         sp += 1;
         break;
@@ -209,7 +218,7 @@ __device__ __forceinline__ void run_tile(const ChainParams& p, long long base, l
         break;
       }
       case LOAD_ROW:
-        PX_ROWS { PX_PUSH = base + r * kBlock + threadIdx.x; }
+        PX_ROWS { PX_PUSH = base + r * B + threadIdx.x; }
         sp += 1;
         break;
       case DUP:
@@ -217,7 +226,7 @@ __device__ __forceinline__ void run_tile(const ChainParams& p, long long base, l
         sp += 1;
         break;
       case STORE:
-        PX_ROWS { store(a, r, base + r * kBlock + threadIdx.x, PX_S(1)); }
+        PX_ROWS { store(a, r, base + r * B + threadIdx.x, PX_S(1)); }
         sp -= 1;
         break;
       case MASK_AND:
@@ -240,7 +249,7 @@ __device__ __forceinline__ void run_tile(const ChainParams& p, long long base, l
         const void* lut = p.lut[a];
         const long long len = p.lut_len[a];
         const int kind = p.lut_kind[a];
-        const long long fill = __ldg(p.consts + b);
+        const long long fill = __ldg(consts + b);
         PX_ROWS {
           const long long c = PX_S(1);
           PX_S(1) = (c < 0 || len == 0) ? fill : load_kind(lut, kind, c < len ? c : len - 1);
@@ -251,8 +260,8 @@ __device__ __forceinline__ void run_tile(const ChainParams& p, long long base, l
         // a bounded integer domain [lo, hi] into a LUT; outside it, oob
         const void* lut = p.lut[a];
         const int kind = p.lut_kind[a];
-        const long long lo = __ldg(p.consts + b), hi = __ldg(p.consts + b + 1);
-        const long long oob = __ldg(p.consts + b + 2);
+        const long long lo = __ldg(consts + b), hi = __ldg(consts + b + 1);
+        const long long oob = __ldg(consts + b + 2);
         PX_ROWS {
           const long long x = PX_S(1);
           PX_S(1) = (x >= lo && x <= hi) ? load_kind(lut, kind, x - lo) : oob;
@@ -287,7 +296,7 @@ __device__ __forceinline__ void run_tile(const ChainParams& p, long long base, l
       }
       case WINDOW: {
         // window key: int32(floor(t / width) - origin)
-        const long long w = __ldg(p.consts + a);
+        const long long w = __ldg(consts + a);
         const long long origin = p.scalar[b];
         PX_ROWS {
           const long long q = floor_div(PX_S(1), w);

@@ -7,8 +7,11 @@
 //   [1] n: elements (merge, fill) or groups (quantile)
 //   [2] dst: a device pointer into the output (or, for fill, the state)
 //   [3] quantile: width | nq << 16; fill: the identity's bits
-//   [4] quantile: word index in the table of nq f64 quantiles
-//   [5] quantile: word index in the table of width f64 bin values
+//   [4] quantile: a device pointer to nq f64 quantiles
+//   [5] quantile: a device pointer to width f64 bin values
+// The rows travel in the launch's parameter block (finalize.cu); the
+// quantiles and bin values, the same on every call, in a device buffer the
+// wrapper uploads once and caches (ops/finalize.py).
 // Kinds:
 //   merge    — M1's merge (merge.cuh) of the leaf over the n_states sources,
 //              in state order, written at dst: the leaf's place in the packed
@@ -18,17 +21,17 @@
 //              dst, by K3's rank rule (csrc/loghist_quantile.cu);
 //   fill     — n elements of 4 or 8 bytes (the dtype) set to the identity.
 //
-// The quantile of one group runs on one block of kThreads threads: the
-// merged row is staged in shared memory with coalesced loads, each thread
-// sums a run of consecutive bins (width <= kMaxWidth, at most kMaxPer each),
-// the block scans the runs' sums (warp shuffles, then the warps' totals),
-// and each thread finds its bins' inclusive cumulative counts.  For each
-// quantile q the rank index is #(cum < clip(q, 0, 1) * total), the count
-// summed over the block, capped at width - 1; the value is the f64 bin value
-// table's entry, NaN for a group with no rows.  The counts are integers held
-// in float32: every partial sum below 2^24 is exact in any order, so the
-// answer equals K3's Hillis-Steele scan and the reference's sequential f32
-// cumsum.
+// The quantile of one group runs on one block of NT threads (256 in F2,
+// F1's block width in F1): the merged row is staged in shared memory with
+// coalesced loads, each thread sums a run of consecutive bins (width <=
+// kMaxWidth, at most kMaxWidth / NT each), the block scans the runs' sums
+// (warp shuffles, then the warps' totals), and each thread finds its bins'
+// inclusive cumulative counts.  For each quantile q the rank index is
+// #(cum < clip(q, 0, 1) * total), the count summed over the block, capped at
+// width - 1; the value is the f64 bin value table's entry, NaN for a group
+// with no rows.  The counts are integers held in float32: every partial sum
+// below 2^24 is exact in any order, so the answer equals K3's Hillis-Steele
+// scan and the reference's sequential f32 cumsum.
 #pragma once
 
 #include <math_constants.h>
@@ -38,20 +41,21 @@
 namespace px_fin {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxWidth = 1024;
-constexpr int kMaxPer = kMaxWidth / kThreads;
-// shared scratch of a quantile row: the staged row, the warps' sums and the
-// warps' counts
-constexpr int kScratchFloats = kMaxWidth + 2 * kWarps;
+// shared scratch of a quantile row on NT threads: the staged row, the
+// warps' sums and the warps' counts
+__host__ __device__ constexpr int scratch_floats(int nt) { return kMaxWidth + 2 * (nt / 32); }
 
 enum Kind { kMergeRow = 0, kQuantileRow = 1, kFillRow = 2 };
 constexpr int kRow = 6;
 
 // Group g of the sketch leaf at srcs[0..n_states) → out[g * nq, g * nq + nq).
+template <int NT>
 __device__ __forceinline__ void quantile_group(const long long* srcs, int n_states, long long g,
                                                int width, int nq, const double* qs,
                                                const double* binv, double* out, float* sh) {
+  constexpr int kWarps = NT / 32;
+  constexpr int kMaxPer = kMaxWidth / NT;
   float* row = sh;
   float* wsum = sh + kMaxWidth;
   int* wcnt = reinterpret_cast<int*>(sh + kMaxWidth + kWarps);
@@ -59,13 +63,28 @@ __device__ __forceinline__ void quantile_group(const long long* srcs, int n_stat
   const int lane = t & 31;
   const int warp = t >> 5;
   const long long base = g * width;
-  for (int b = t; b < width; b += kThreads) {
-    float acc = reinterpret_cast<const float*>(srcs[0])[base + b];
-    for (int s = 1; s < n_states; ++s) acc = acc + reinterpret_cast<const float*>(srcs[s])[base + b];
+  // the first kHoist sources' addresses read once a group into registers
+  // (the sources live in the launch's parameter space), so every bin's
+  // loads are in flight together; the adds run in state order
+  constexpr int kHoist = 8;
+  const float* src[kHoist];
+#pragma unroll
+  for (int k = 0; k < kHoist; ++k) {
+    src[k] = k < n_states ? reinterpret_cast<const float*>(srcs[k]) + base : nullptr;
+  }
+  for (int b = t; b < width; b += NT) {
+    float acc = src[0][b];
+#pragma unroll
+    for (int k = 1; k < kHoist; ++k) {
+      if (k < n_states) acc = acc + src[k][b];
+    }
+    for (int s = kHoist; s < n_states; ++s) {
+      acc = acc + reinterpret_cast<const float*>(srcs[s])[base + b];
+    }
     row[b] = acc;
   }
   __syncthreads();
-  const int per = (width + kThreads - 1) / kThreads;
+  const int per = (width + NT - 1) / NT;
   const int b0 = t * per;
   float cum[kMaxPer];
   float local = 0.0f;
@@ -112,8 +131,9 @@ __device__ __forceinline__ void quantile_group(const long long* srcs, int n_stat
 }
 
 // Row `row` of the table (rows of kRow + n_states words), as block bx of the
-// nbx blocks that share it.  sh: kScratchFloats floats of shared memory (a
-// quantile row's only).
+// nbx blocks of NT threads that share it.  sh: scratch_floats(NT) floats of
+// shared memory (a quantile row's only).
+template <int NT>
 __device__ __forceinline__ void run_row(const long long* table, int row, int n_states,
                                         long long bx, long long nbx, float* sh) {
   const long long* d = table + static_cast<long long>(row) * (kRow + n_states);
@@ -121,8 +141,8 @@ __device__ __forceinline__ void run_row(const long long* table, int row, int n_s
   const int kind = flags & 0xf;
   const int dtype = (flags >> 8) & 0xff;
   const long long n = d[1];
-  const long long tid = bx * kThreads + threadIdx.x;
-  const long long stride = nbx * kThreads;
+  const long long tid = bx * NT + threadIdx.x;
+  const long long stride = nbx * NT;
   if (kind == kMergeRow) {
     px_merge::merge_any(dtype, (flags >> 4) & 0xf, reinterpret_cast<void*>(d[2]), d + kRow, n,
                         (flags >> 16) & 1, n_states, tid, stride);
@@ -138,11 +158,11 @@ __device__ __forceinline__ void run_row(const long long* table, int row, int n_s
   } else {
     const int width = static_cast<int>(d[3] & 0xffff);
     const int nq = static_cast<int>((d[3] >> 16) & 0xffff);
-    const double* qs = reinterpret_cast<const double*>(table + d[4]);
-    const double* binv = reinterpret_cast<const double*>(table + d[5]);
+    const double* qs = reinterpret_cast<const double*>(d[4]);
+    const double* binv = reinterpret_cast<const double*>(d[5]);
     double* out = reinterpret_cast<double*>(d[2]);
     for (long long g = bx; g < n; g += nbx) {
-      quantile_group(d + kRow, n_states, g, width, nq, qs, binv, out, sh);
+      quantile_group<NT>(d + kRow, n_states, g, width, nq, qs, binv, out, sh);
     }
   }
 }

@@ -1,27 +1,48 @@
 // The multi-query gang's member pass, shared by kernel G1 (gang.cu) and the
 // fused single-feed partial + finalize F1 (finalize.cu).
 //
-// A block walks tiles of R x 256 rows with a grid stride, as C1 does.  For
-// each tile, every member's program runs in turn over the same rows through
-// C1's interpreter (`px_chain::run_tile`, chain.cuh), so the second member's
-// column loads hit L1 or L2 rather than HBM.  Nothing per row reaches device
-// memory: the mask and the group ids stay in registers, and a program's
-// STORE writes a tile slot in shared memory, not an output column.  Right
-// after each member's program the block folds that member's kept rows into
-// its state leaves with the per-row operations of K1 (segment_ops.cuh) and
-// K2's bin (loghist.cuh): count into int64, sums into int64 (wrapping) or
-// f64, the f64 sum of squares, min and max over int32, int64 and f64 (NaN
-// wins), the sketch's cell count into f32.  Each member whose state fits the
-// block's budget (the wrapper decides, ops/gang.py) keeps private
-// accumulators in shared memory, flushed with one atomic per group at the
-// end as K1 and K2 flush theirs; a member whose state does not fit adds
-// every row into its state with global atomics.
+// A block of B threads walks tiles of R x B rows with a grid stride, as C1
+// does.  For each tile, every member's program runs in turn over the same
+// rows through C1's interpreter (`px_chain::run_tile`, chain.cuh), so the
+// second member's column loads hit L1 or L2 rather than HBM.  Nothing per
+// row reaches device memory: the mask and the group ids stay in registers,
+// and a program's STORE writes a tile slot in shared memory, not an output
+// column.  Right after each member's program the block folds that member's
+// kept rows into its state leaves with the per-row operations of K1
+// (segment_ops.cuh) and K2's bin (loghist.cuh): count into int64, sums into
+// int64 (wrapping) or f64, the f64 sum of squares, min and max over int32,
+// int64 and f64 (NaN wins), the sketch's cell count into f32.  Each leaf
+// whose state the wrapper placed in the block's budget (ops/gang.py
+// `plan_pass`) keeps private accumulators in shared memory, flushed with one
+// atomic per group at the end as K1 and K2 flush theirs; a leaf that does
+// not fit adds every row into its state with global atomics.
+//
+// The members and their leaves arrive in the launch's parameter space (a
+// `__grid_constant__` table, gang.cu and finalize.cu), so nothing of the
+// table is uploaded, and the blocks read them there.
+//
+// Few groups, one address: with `Combine` (a template flag: F1 sets it for
+// a member of at most a few dozen groups, ops/gang.py plan_f1_pass; G1
+// never, where it cost more than it saved) the rows of one warp that share
+// a group fold before the shared atomic.  `__match_any_sync` on the group
+// id gives each lane its peers; a count adds their number (a popcount), the other
+// ops combine the peers' values in log2(32) shuffle rounds; one lane per
+// distinct group issues the atomic.  K1 instead keeps up to 8 per-warp
+// replicas of the accumulators: those spread the warps of a block over
+// addresses but leave the lanes of one warp on one address (32 lanes into 3
+// to 64 groups), and they multiply the shared memory that F1 needs for its
+// sketch.  Counts, int64 sums, min and max stay exact; an f64 sum changes
+// only its order, as the atomics' order already varies.  The sketch's
+// cells (a group times ~100 active bins) rarely share an address within a
+// warp and are not combined.
 //
 // Shared memory: the deepest member's stack and the widest member's output
-// slots (each R x 256 values of 8 B), then the private accumulators.  A
+// slots (each R x B values of 8 B), then the private accumulators.  A
 // thread touches only its own rows' stack and slots, so the only barriers
 // are after the accumulators' initialisation and before their flush.
 #pragma once
+
+#include <type_traits>
 
 #include "chain.cuh"
 #include "loghist.cuh"
@@ -51,6 +72,8 @@ struct GangLeaf {
   int width;        // sketch: cells per group
   float log_gamma;  // sketch: (float)log(gamma)
   float min_f;      // sketch: (float)min_value
+  int nan_bin;      // sketch: the bin of a NaN value (loghist.cuh)
+  int pad;
 };
 
 // One member: its program over this feed (out, mask_out and gid_out unused)
@@ -78,13 +101,12 @@ struct HistCellOp {
 };
 
 // STORE: the row's value into tile slot `a` in shared memory, in its kind.
-template <int R>
+template <int R, int B>
 struct SlotStore {
   const ChainParams& p;
   long long* slots;
   __device__ __forceinline__ void operator()(int a, int r, long long, long long v) const {
-    slots[static_cast<size_t>(a) * (R * kBlock) + r * kBlock + threadIdx.x] =
-        as_kind(p.out_kind[a], v);
+    slots[static_cast<size_t>(a) * (R * B) + r * B + threadIdx.x] = as_kind(p.out_kind[a], v);
   }
 };
 
@@ -136,12 +158,35 @@ struct Flush {
   }
 };
 
+// x combined over the lane's peers (the lanes of its warp whose rows share
+// its key, `peers` from __match_any_sync), complete at the lowest lane of
+// the peers.  Every lane of the warp calls it.  A tree over each lane's
+// rank among its peers: in round k a lane adds the next remaining peer's
+// partial, and the lanes whose rank has bit k set drop out.
+template <class Op>
+__device__ __forceinline__ typename Op::Acc combine_peers(unsigned peers, typename Op::Acc x) {
+  const unsigned lane = threadIdx.x & 31u;
+  unsigned rank = __popc(peers & ((1u << lane) - 1u));
+  unsigned above = peers & (0xfffffffeu << lane);
+  while (__any_sync(0xffffffffu, above != 0u)) {
+    const int next = __ffs(above);
+    const typename Op::Acc t = __shfl_sync(0xffffffffu, x, (next - 1) & 31);
+    if (next) x = Op::combine(x, t);
+    above &= ~__ballot_sync(0xffffffffu, rank & 1u);
+    rank >>= 1;
+  }
+  return x;
+}
+
 // Folds each kept row r (keep[r], gid[r] in [0, groups)) of value(r) into
 // the leaf: its private accumulators, or the state with global atomics.
 // All R values are loaded before the first atomic, so their loads overlap.
-template <class Op, int R, class Value>
+// With Combine, peers[r] holds row r's peers (gang_pass) and one lane per
+// distinct group adds the combined value.
+template <class Op, int R, bool Combine, class Value>
 __device__ __forceinline__ void fold(const GangLeaf& L, const bool (&keep)[R],
-                                     const int (&gid)[R], unsigned char* acc, Value value) {
+                                     const int (&gid)[R], const unsigned (&peers)[R],
+                                     unsigned char* acc, Value value) {
   typename Op::Acc x[R];
   bool in[R];
 #pragma unroll
@@ -151,9 +196,23 @@ __device__ __forceinline__ void fold(const GangLeaf& L, const bool (&keep)[R],
   }
   if (L.shared_off >= 0) {
     typename Op::Acc* sh = reinterpret_cast<typename Op::Acc*>(acc + L.shared_off);
+    if constexpr (Combine) {
+      const unsigned below = (1u << (threadIdx.x & 31u)) - 1u;
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (in[r]) Op::shared_add(sh + gid[r], x[r]);
+      for (int r = 0; r < R; ++r) {
+        typename Op::Acc v;
+        if constexpr (std::is_same<Op, CountOp>::value) {
+          v = __popc(peers[r]);
+        } else {
+          v = combine_peers<Op>(peers[r], x[r]);
+        }
+        if (in[r] && (peers[r] & below) == 0u) Op::shared_add(sh + gid[r], v);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (in[r]) Op::shared_add(sh + gid[r], x[r]);
+      }
     }
   } else {
     typename Op::Out* out = static_cast<typename Op::Out*>(L.state);
@@ -175,7 +234,7 @@ __device__ __forceinline__ void fold_hist(const GangLeaf& L, const bool (&keep)[
   for (int r = 0; r < R; ++r) {
     in[r] = keep[r] && static_cast<unsigned>(gid[r]) < static_cast<unsigned>(L.groups);
     cell[r] = in[r] ? static_cast<long long>(gid[r]) * L.width +
-                          px_bin(value(r), L.log_gamma, L.min_f, L.min_d, L.width)
+                          px_bin(value(r), L.log_gamma, L.min_f, L.min_d, L.width, L.nan_bin)
                     : 0;
   }
   if (L.shared_off >= 0) {
@@ -198,16 +257,17 @@ __device__ __forceinline__ void fold_hist(const GangLeaf& L, const bool (&keep)[
 // already their int64 values; to f64 by round to nearest.  The leaf is
 // copied into registers first: the atomics below would otherwise make the
 // compiler reload its fields for every row.
-template <int R>
+template <int R, int B, bool Combine>
 __device__ __forceinline__ void update_leaf(const GangLeaf& leaf, const bool (&keep)[R],
-                                            const int (&gid)[R], long long base,
-                                            const long long* slots, unsigned char* acc) {
+                                            const int (&gid)[R], const unsigned (&peers)[R],
+                                            long long base, const long long* slots,
+                                            unsigned char* acc) {
   const GangLeaf L = leaf;
   auto raw = [&](int r) -> long long {
     if (L.slot >= 0) {
-      return slots[static_cast<size_t>(L.slot) * (R * kBlock) + r * kBlock + threadIdx.x];
+      return slots[static_cast<size_t>(L.slot) * (R * B) + r * B + threadIdx.x];
     }
-    return load_kind(L.col, L.kind, base + r * kBlock + threadIdx.x);
+    return load_kind(L.col, L.kind, base + r * B + threadIdx.x);
   };
   auto i64 = [&](int r) -> long long { return raw(r); };
   auto i32 = [&](int r) -> int { return static_cast<int>(raw(r)); };
@@ -217,41 +277,54 @@ __device__ __forceinline__ void update_leaf(const GangLeaf& leaf, const bool (&k
   };
   switch (L.op) {
     case L_COUNT:
-      fold<CountOp, R>(L, keep, gid, acc, [](int) -> uint8_t { return 1; });
+      fold<CountOp, R, Combine>(L, keep, gid, peers, acc, [](int) -> uint8_t { return 1; });
       break;
-    case L_SUM_I64: fold<SumI64Op, R>(L, keep, gid, acc, i64); break;
-    case L_SUM_F64: fold<SumFloatOp<double>, R>(L, keep, gid, acc, f64); break;
+    case L_SUM_I64: fold<SumI64Op, R, Combine>(L, keep, gid, peers, acc, i64); break;
+    case L_SUM_F64: fold<SumFloatOp<double>, R, Combine>(L, keep, gid, peers, acc, f64); break;
     case L_SUMSQ_F64:
       // the square rounds once before the add, as torch's v * v does
-      fold<SumFloatOp<double>, R>(L, keep, gid, acc, [&](int r) -> double {
+      fold<SumFloatOp<double>, R, Combine>(L, keep, gid, peers, acc, [&](int r) -> double {
         const double x = f64(r);
         return __dmul_rn(x, x);
       });
       break;
-    case L_MIN_I32: fold<PickIntOp<int, true>, R>(L, keep, gid, acc, i32); break;
-    case L_MAX_I32: fold<PickIntOp<int, false>, R>(L, keep, gid, acc, i32); break;
-    case L_MIN_I64: fold<PickIntOp<long long, true>, R>(L, keep, gid, acc, i64); break;
-    case L_MAX_I64: fold<PickIntOp<long long, false>, R>(L, keep, gid, acc, i64); break;
-    case L_MIN_F64: fold<PickF64Op<true>, R>(L, keep, gid, acc, f64); break;
-    case L_MAX_F64: fold<PickF64Op<false>, R>(L, keep, gid, acc, f64); break;
+    case L_MIN_I32:
+      fold<PickIntOp<int, true>, R, Combine>(L, keep, gid, peers, acc, i32);
+      break;
+    case L_MAX_I32:
+      fold<PickIntOp<int, false>, R, Combine>(L, keep, gid, peers, acc, i32);
+      break;
+    case L_MIN_I64:
+      fold<PickIntOp<long long, true>, R, Combine>(L, keep, gid, peers, acc, i64);
+      break;
+    case L_MAX_I64:
+      fold<PickIntOp<long long, false>, R, Combine>(L, keep, gid, peers, acc, i64);
+      break;
+    case L_MIN_F64: fold<PickF64Op<true>, R, Combine>(L, keep, gid, peers, acc, f64); break;
+    case L_MAX_F64: fold<PickF64Op<false>, R, Combine>(L, keep, gid, peers, acc, f64); break;
     case L_HIST: fold_hist<R>(L, keep, gid, acc, f64); break;
     default: break;
   }
 }
 
-// One block's share of the gang pass over a feed of n rows: the private
+// One block's share of the gang pass over a feed of n rows.  The members
+// and leaves are read where the launch put them, in its parameter space:
+// the interpreter reads a member's fields at a warp-uniform index, and
+// run_tile holds the ones its loop needs in registers.  (Each block
+// copying the table into its shared memory first ran 0.005 ms slower on
+// the four dashboard members, ab_gang.py, PERF.md row 16.)  The private
 // accumulators of every leaf that has them are set to the identity, the
 // block walks its tiles (grid stride) running each member's program and
-// folding its kept rows, then flushes the accumulators into the states.
-// smem: the block's dynamic shared memory, gang_smem_bytes(R, ...) bytes.
-template <int R>
-__device__ __forceinline__ void gang_pass(const GangMember* __restrict__ members,
-                                          int n_members, const GangLeaf* __restrict__ leaves,
-                                          int n_leaves, long long n, int depth, int outs,
-                                          long long* smem) {
-  constexpr int T = R * kBlock;
+// folding its kept rows, and flushes the accumulators into the states.
+// smem: the block's dynamic shared memory, gang_smem_bytes(R, B, ...)
+// bytes: the stack, the slots, the accumulators.
+template <int R, int B, bool Combine>
+__device__ __forceinline__ void gang_pass(const GangMember* __restrict__ members, int n_members,
+                                          const GangLeaf* __restrict__ leaves, int n_leaves,
+                                          long long n, int depth, int outs, long long* smem) {
+  constexpr int T = R * B;
   long long* stk = smem;
-  long long* slots = smem + static_cast<size_t>(depth) * T;
+  long long* slots = stk + static_cast<size_t>(depth) * T;
   unsigned char* acc = reinterpret_cast<unsigned char*>(slots + static_cast<size_t>(outs) * T);
   for (int l = 0; l < n_leaves; ++l) dispatch<Init>(leaves[l].op, leaves[l], acc);
   __syncthreads();
@@ -262,12 +335,23 @@ __device__ __forceinline__ void gang_pass(const GangMember* __restrict__ members
       const GangMember& M = members[m];
       bool mask[R];
       int gid[R];
-      SlotStore<R> store{M.chain, slots};
-      run_tile<R>(M.chain, base, stk, mask, gid, store);
+      unsigned peers[R];
+      SlotStore<R, B> store{M.chain, slots};
+      run_tile<R, B>(M.chain, base, stk, mask, gid, store);
 #pragma unroll
-      for (int r = 0; r < R; ++r) mask[r] = mask[r] && base + r * kBlock + threadIdx.x < n;
-      for (int l = M.leaf0; l < M.leaf0 + M.nleaf; ++l) {
-        update_leaf<R>(leaves[l], mask, gid, base, slots, acc);
+      for (int r = 0; r < R; ++r) {
+        mask[r] = mask[r] && base + r * B + threadIdx.x < n;
+        peers[r] = 0u;
+        // every lane of the warp takes part; a row that is not kept has key -1
+        if constexpr (Combine) {
+          const bool in =
+              mask[r] && static_cast<unsigned>(gid[r]) < static_cast<unsigned>(M.groups);
+          peers[r] = __match_any_sync(0xffffffffu, in ? gid[r] : -1);
+        }
+      }
+      const int l0 = M.leaf0, l1 = M.leaf0 + M.nleaf;
+      for (int l = l0; l < l1; ++l) {
+        update_leaf<R, B, Combine>(leaves[l], mask, gid, peers, base, slots, acc);
       }
     }
   }
@@ -276,10 +360,11 @@ __device__ __forceinline__ void gang_pass(const GangMember* __restrict__ members
 }
 
 // Dynamic shared memory of gang_pass: the deepest member's stack and the
-// widest member's output slots (R x kBlock values of 8 B each), then the
+// widest member's output slots (R x B values of 8 B each), then the
 // private accumulators.
-__host__ __device__ inline size_t gang_smem_bytes(int R, int depth, int outs, int acc_bytes) {
-  return static_cast<size_t>(depth + outs) * R * kBlock * 8 + acc_bytes;
+__host__ __device__ inline size_t gang_smem_bytes(int R, int B, int depth, int outs,
+                                                  int acc_bytes) {
+  return static_cast<size_t>(depth + outs) * R * B * 8 + acc_bytes;
 }
 
 }  // namespace

@@ -18,8 +18,8 @@
 // reference.  Above that size, rows add 1.0f straight into the state with
 // global atomics.
 //
-// The bin is px_bin (loghist.cuh, shared with G1, gang.cu), which follows
-// sketch.py:103-106 operation by operation.
+// The bin is px_bin (loghist.cuh, shared with G1 and F1), which follows
+// sketch.py:103-106 operation by operation; the caller gives NaN's bin.
 
 #include "common.cuh"
 #include "loghist.cuh"
@@ -31,7 +31,7 @@ constexpr int kBlock = 1024;
 __global__ void __launch_bounds__(kBlock) hist_shared(
     const int* __restrict__ gid, const uint8_t* __restrict__ mask,
     const double* __restrict__ v, long long n, float* __restrict__ hist,
-    int groups, int width, float log_gamma, float min_f, double min_d) {
+    int groups, int width, float log_gamma, float min_f, double min_d, int nan_bin) {
   extern __shared__ __align__(16) unsigned int counts[];
   const int cells = groups * width;
   for (int i = threadIdx.x; i < cells; i += blockDim.x) counts[i] = 0u;
@@ -41,7 +41,7 @@ __global__ void __launch_bounds__(kBlock) hist_shared(
        i < n; i += stride) {
     const int g = gid[i];
     if (mask[i] && static_cast<unsigned>(g) < static_cast<unsigned>(groups)) {
-      atomicAdd(&counts[g * width + px_bin(v[i], log_gamma, min_f, min_d, width)], 1u);
+      atomicAdd(&counts[g * width + px_bin(v[i], log_gamma, min_f, min_d, width, nan_bin)], 1u);
     }
   }
   __syncthreads();
@@ -54,14 +54,15 @@ __global__ void __launch_bounds__(kBlock) hist_shared(
 __global__ void __launch_bounds__(kBlock) hist_global(
     const int* __restrict__ gid, const uint8_t* __restrict__ mask,
     const double* __restrict__ v, long long n, float* __restrict__ hist,
-    int groups, int width, float log_gamma, float min_f, double min_d) {
+    int groups, int width, float log_gamma, float min_f, double min_d, int nan_bin) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
     const int g = gid[i];
     if (mask[i] && static_cast<unsigned>(g) < static_cast<unsigned>(groups)) {
       const long long cell =
-          static_cast<long long>(g) * width + px_bin(v[i], log_gamma, min_f, min_d, width);
+          static_cast<long long>(g) * width +
+          px_bin(v[i], log_gamma, min_f, min_d, width, nan_bin);
       atomicAdd(&hist[cell], 1.0f);
     }
   }
@@ -70,11 +71,12 @@ __global__ void __launch_bounds__(kBlock) hist_global(
 }  // namespace
 
 // hist is the [groups, width] float32 state, updated in place.  All pointers
-// are device pointers.  Returns a cudaError_t (0 = launched).
+// are device pointers; nan_bin: the bin of a NaN value (loghist.cuh).
+// Returns a cudaError_t (0 = launched).
 extern "C" int px_loghist_update(const int* gid, const uint8_t* mask,
                                  const double* values, long long n, float* hist,
                                  int groups, int width, float log_gamma,
-                                 float min_value_f, double min_value,
+                                 float min_value_f, double min_value, int nan_bin,
                                  void* stream) {
   if (n <= 0 || groups <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -89,12 +91,12 @@ extern "C" int px_loghist_update(const int* gid, const uint8_t* mask,
     long long grid = px_grid(hist_shared, n, kBlock, bytes);
     hist_shared<<<static_cast<unsigned>(grid), kBlock, bytes, s>>>(
         gid, mask, values, n, hist, groups, width, log_gamma, min_value_f,
-        min_value);
+        min_value, nan_bin);
   } else {
     long long grid = px_grid(hist_global, n, kBlock, 0);
     hist_global<<<static_cast<unsigned>(grid), kBlock, 0, s>>>(
         gid, mask, values, n, hist, groups, width, log_gamma, min_value_f,
-        min_value);
+        min_value, nan_bin);
   }
   return static_cast<int>(cudaGetLastError());
 }

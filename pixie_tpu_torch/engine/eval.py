@@ -178,11 +178,19 @@ class ExprCompiler:
             zero = torch.zeros((), dtype=torch.int32, device=self.device)
             return SVal(DT.STRING, lambda env, zero=zero: zero, d,
                         emit=lambda pb: pb.const(0, _c.I32))
-        t = torch.tensor(expr.value, dtype=TORCH_DTYPE[expr.dtype], device=self.device)
         k = _c.value_kind(expr.dtype)
         v = np.asarray(expr.value, dtype=STORAGE_DTYPE[expr.dtype]).item()
-        return SVal(expr.dtype, lambda env, t=t: t,
-                    emit=lambda pb, v=v, k=k: pb.const(v, k))
+        # the tensor is made when a value is first built in torch, never for
+        # a chain program (which holds the constant): on a CUDA device that
+        # is a host-to-device copy
+        made: list = []
+
+        def build(env, value=expr.value, dtype=TORCH_DTYPE[expr.dtype], device=self.device):
+            if not made:
+                made.append(torch.tensor(value, dtype=dtype, device=device))
+            return made[0]
+
+        return SVal(expr.dtype, build, emit=lambda pb, v=v, k=k: pb.const(v, k))
 
     # ------------------------------------------------------------------ calls
     def _compile_call(self, call: Call) -> SVal:

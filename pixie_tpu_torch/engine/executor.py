@@ -82,6 +82,7 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import itertools
 import threading
 import time as _time
@@ -316,6 +317,9 @@ def _device_cache_put(key, cols: dict):
     if nbytes > cap:
         return
     with _CACHE_LOCK:
+        old = _DEVICE_CACHE.pop(key, None)  # (two queries may race to put a key)
+        if old is not None:
+            _DEVICE_CACHE_BYTES -= _cols_nbytes(old)
         _DEVICE_CACHE[key] = cols
         _DEVICE_CACHE_BYTES += nbytes
         while _DEVICE_CACHE_BYTES > cap and _DEVICE_CACHE:
@@ -338,6 +342,28 @@ def clear_device_cache():
     with _CACHE_LOCK:
         _DEVICE_CACHE.clear()
         _DEVICE_CACHE_BYTES = 0
+
+
+def device_luts(luts: dict, device: torch.device) -> dict:
+    """A chain's LUTs ({name: numpy array}) on `device`.  On a CUDA device
+    each is an entry of the feed cache, keyed by its contents (a digest):
+    a warm query's LUTs (a group key's sorted values, a dictionary's
+    translation) are the last query's, so it uploads none; under the
+    cache's budget, counted in its stats, off with it.  LUTs are read-only
+    on the device."""
+    if device.type != "cuda":
+        return {k: torch.as_tensor(v).to(device) for k, v in luts.items()}
+    out = {}
+    for name, v in luts.items():
+        a = np.ascontiguousarray(v)
+        key = ("lut", str(device), a.dtype.str, a.shape,
+               hashlib.blake2b(a, digest_size=16).digest())
+        got = _device_cache_get(key)
+        if got is None:
+            got = {"lut": torch.as_tensor(a).to(device)}
+            _device_cache_put(key, got)
+        out[name] = got["lut"]
+    return out
 
 
 def device_cache_stats() -> dict:
@@ -484,8 +510,11 @@ class ChainKernel:
         time_col: Optional[str],
         device,
         visible: Optional[list[str]] = None,
+        nan_bin: int = 1,
     ):
         self.device = torch.device(device)
+        #: the sketch bin of a NaN value (ops/sketch.py bin_index)
+        self.nan_bin = nan_bin
         self.ctx = _ChainCtx(in_dtypes, in_dicts, registry, self.device, visible)
         self.in_dtypes = dict(in_dtypes)
         self.registry = registry
@@ -690,18 +719,20 @@ class ChainKernel:
         #: what gang_member needs of this aggregate
         self._agg = (udas, where, num_groups)
 
+        nan_kw = [{"nan_bin": self.nan_bin} if uda.bins_nan else {} for _o, uda, _v in udas]
+
         def run(cols, n_valid, t_lo, t_hi, limit_remaining, luts, state, scalars):
             n = _first_len(cols)
             mask, gid, outs, consumed = self.run_segments(
                 segs, cols, n, n_valid, t_lo, t_hi, limit_remaining, luts, scalars)
             j = 0
-            for out_name, uda, vb in udas:
+            for (out_name, uda, vb), kw in zip(udas, nan_kw):
                 v = None
                 if vb is not None:
                     w = where[j]
                     j += 1
                     v = cols[w] if isinstance(w, str) else outs[w]
-                state[out_name] = uda.update(state[out_name], gid, v, mask, num_groups)
+                state[out_name] = uda.update(state[out_name], gid, v, mask, num_groups, **kw)
             return state, mask, consumed
 
         def step(cols, n_valid, t_lo, t_hi, limit_remaining, luts, state, scalars=None):
@@ -737,7 +768,8 @@ class ChainKernel:
                 j += 1
                 v = cols[w] if isinstance(w, str) else w
             for op, leaf, sketch in uda.gang_leaves(state[out_name]):
-                leaves.append(_gang.Leaf(op, leaf, None if op == "count" else v, sketch))
+                leaves.append(_gang.Leaf(op, leaf, None if op == "count" else v, sketch,
+                                         self.nan_bin))
         return _gang.Member(seg.prog, in_cols, in_luts, in_scalars, num_groups, leaves)
 
 
@@ -795,9 +827,27 @@ def f1_key(num_groups: int, init_specs) -> tuple:
     return (num_groups, tuple((name, type(uda), str(dt)) for name, uda, dt in init_specs))
 
 
-#: f1_key → whether every state has a gang update, so that F1 can run the
-#: aggregate
-_F1_GANG_OK: dict = {}
+#: f1_key → (whether every state has a gang update, so that F1 can run the
+#: aggregate; its gang leaf updates; its finalized sketches)
+_F1_SHAPES: dict = {}
+
+
+def f1_shape(num_groups: int, init_specs, udas) -> tuple[bool, int, int]:
+    """An aggregate's F1 table, from its states' shapes alone (cached per
+    f1_key): (every state has a gang update, the leaf updates, the
+    sketches the device finalizes)."""
+    key = f1_key(num_groups, init_specs)
+    got = _F1_SHAPES.get(key)
+    if got is None:
+        template = {name: uda.init(num_groups, dt, "meta") for name, uda, dt in init_specs}
+        leaves = [uda.gang_leaves(template[name]) for name, uda, _dt in init_specs]
+        finals = _fin.finals_of((name, uda) for name, uda, _vb in udas)
+        got = (all(lv is not None for lv in leaves),
+               sum(len(lv) for lv in leaves if lv is not None), len(finals))
+        if len(_F1_SHAPES) > 256:
+            _F1_SHAPES.clear()
+        _F1_SHAPES[key] = got
+    return got
 
 
 # ------------------------------------------------------------ column pruning
@@ -937,10 +987,14 @@ class _AggSetup:
 
 class PlanExecutor:
     def __init__(self, plan: Plan, table_store, registry=None, device=None,
-                 analyze: bool = False, inputs=None, mesh="auto"):
+                 analyze: bool = False, inputs=None, mesh="auto", nan_bin: int = 1):
         from pixie_tpu_torch.udf import registry as default_registry
 
         self.plan = plan
+        #: the sketch bin of a NaN value: 1 as the reference's device route
+        #: bins it (a batch query), 0 as its CPU routes do (a streaming
+        #: poll, engine/stream.py); ops/sketch.py bin_index
+        self.nan_bin = nan_bin
         self.store = table_store
         self.registry = registry or default_registry
         self.device = resolve_device(device)
@@ -1234,7 +1288,7 @@ class PlanExecutor:
         step, out_dtypes, out_dicts = kern.make_output_step(out_names)
         self.stats["chain_leaves"] = self.stats.get("chain_leaves", 0) + kern.n_leaves
         t_lo, t_hi = _time_bounds(head)
-        luts = {k: torch.as_tensor(v).to(self.device) for k, v in kern.luts.items()}
+        luts = device_luts(kern.luts, self.device)
         label = self._chain_label(head, chain, "select")
         op_ids = [head.id] + [op.id for op in chain]
 
@@ -1536,7 +1590,8 @@ class PlanExecutor:
                 vals = {vn: dev[2 + i] for i, vn in enumerate(val_names)}
                 for out_name, uda, vn in udas:
                     v = vals[vn] if vn is not None else None
-                    state[out_name] = uda.update(state[out_name], gid, v, mask, Gb)
+                    kw = {"nan_bin": self.nan_bin} if uda.bins_nan else {}
+                    state[out_name] = uda.update(state[out_name], gid, v, mask, Gb, **kw)
                 if self.analyze and self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
         return (group_cols, out_dtypes, out_dicts, udas, in_types, state, G,
@@ -1617,8 +1672,8 @@ class PlanExecutor:
         route), and what finalizing it needs."""
         s = self._agg_setup(op)
         t_lo, t_hi = _time_bounds(s.head)
-        # LUTs are uploaded once per query
-        luts = {k: torch.as_tensor(v).to(self.device) for k, v in s.kern.luts.items()}
+        # LUTs come from the device LUT cache (device_luts)
+        luts = device_luts(s.kern.luts, self.device)
         state = self._agg_feed_loop(s.kern, s.step, s.init_specs, s.num_groups,
                                     s.src, s.names, s.cap, t_lo, t_hi, luts,
                                     s.origins, s.udas, finalize=finalize,
@@ -1655,7 +1710,7 @@ class PlanExecutor:
     def _agg_kernel(self, op, dtypes, dicts, chain, time_col, visible, src, head):
         """Build the chain kernel, group keys and UDA specs for `op`."""
         kern = ChainKernel(dtypes, dicts, chain, self.registry, time_col,
-                           self.device, visible)
+                           self.device, visible, self.nan_bin)
         keys = self._plan_group_keys(op, kern, src, head)
         num_groups = 1
         for k in keys:
@@ -1763,7 +1818,8 @@ class PlanExecutor:
         spmd = self.mesh is not None and not kern.has_limit
         fin = finalize and not kern.has_limit
         fuse_ok = (fin and fuse and not spmd and not self.analyze
-                   and self._predicted_single_feed(src, cap))
+                   and self._predicted_single_feed(src, cap,
+                                                   f1_shape(num_groups, init_specs, udas)))
         states = None
         held = None
         remaining = kern.init_limits()
@@ -1827,15 +1883,7 @@ class PlanExecutor:
             return {name: uda.init(num_groups, dt, device) for name, uda, dt in init_specs}
 
         key = f1_key(num_groups, init_specs)
-        ok = _F1_GANG_OK.get(key)
-        if ok is None:
-            template = init("meta")
-            ok = all(uda.gang_leaves(template[name]) is not None
-                     for name, uda, _dt in init_specs)
-            if len(_F1_GANG_OK) > 256:
-                _F1_GANG_OK.clear()
-            _F1_GANG_OK[key] = ok
-        if not ok:
+        if not f1_shape(num_groups, init_specs, udas)[0]:
             return None
         cols, n_valid = held
         res = _fin.fused_partial_finalize(
@@ -1853,14 +1901,23 @@ class PlanExecutor:
         finals, rest = res.unpack(transfer.pull(res.buf))
         return {**rest, **{k: _FinalizedCol(v) for k, v in finals.items()}}
 
-    def _predicted_single_feed(self, src, cap) -> bool:
+    def _predicted_single_feed(self, src, cap, f1_table=None) -> bool:
         """At most one feed, predicted from the snapshot's batches by _feed's
         own policy (_feed_batches).  Cursors are immutable snapshots, so a
-        concurrent write cannot invalidate it."""
+        concurrent write cannot invalidate it.  With `f1_table` (f1_shape's
+        triple) an aggregate whose F1 table does not fit one launch
+        (ops/finalize.py f1_fits) is declined before any launch: it takes
+        the multi-feed route, counted in exec_stats["f1_declined"]."""
         if isinstance(src, HostBatch):
-            return True
-        target = max(cap, int(_flags.get("PX_FEED_ROWS")))
-        return sum(1 for _ in itertools.islice(_feed_batches(src, target), 2)) <= 1
+            one = True
+        else:
+            target = max(cap, int(_flags.get("PX_FEED_ROWS")))
+            one = sum(1 for _ in itertools.islice(_feed_batches(src, target), 2)) <= 1
+        if one and f1_table is not None and f1_table[0] and \
+                not _fin.f1_fits(f1_table[1], f1_table[2]):
+            self.stats["f1_declined"] = self.stats.get("f1_declined", 0) + 1
+            return False
+        return one
 
     @staticmethod
     def _device_finalized_k3(state, udas) -> dict:
@@ -2133,9 +2190,8 @@ class PlanExecutor:
         for s in setups:
             union_names.extend(n for n in s.names if n not in union_names)
         t_lo, t_hi = _time_bounds(setups[0].head)
-        # LUTs are uploaded once per query
-        luts = [{k: torch.as_tensor(v).to(self.device) for k, v in s.kern.luts.items()}
-                for s in setups]
+        # LUTs come from the device LUT cache (device_luts)
+        luts = [device_luts(s.kern.luts, self.device) for s in setups]
 
         def run_gang(cols, n_valid, states):
             members = [s.kern.gang_member(cols, n_valid, t_lo, t_hi, lut, st, s.origins)

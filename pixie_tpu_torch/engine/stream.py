@@ -282,9 +282,14 @@ class StreamQuery:
 
     # ---------------------------------------------------------------- plumbing
     def _executor(self, plan: Plan, inputs=None) -> PlanExecutor:
-        # polls run on one device (mesh=None), as the reference's do
+        # polls run on one device (mesh=None), as the reference's do, and bin
+        # a NaN sketch value at 0, as its CPU route (force_backend="cpu",
+        # pixie_tpu/engine/stream.py:298, :351) bins it; the post plan over
+        # a poll's emissions keeps the batch rule
+        poll = inputs is None
         return PlanExecutor(plan, self.store, self.registry, device=self.device,
-                            inputs=inputs, mesh=None if inputs is None else "auto")
+                            inputs=inputs, mesh=None if poll else "auto",
+                            nan_bin=0 if poll else 1)
 
     def _count(self, ex: PlanExecutor) -> None:
         for k, v in ex.stats.items():

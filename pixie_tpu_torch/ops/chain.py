@@ -580,12 +580,39 @@ def _check_tensor(t: torch.Tensor, kind: int, what: str, device, n=None) -> None
         raise TypeError(f"{what}: {t.shape[0]} rows, the feed has {n}")
 
 
+def check_params_size() -> None:
+    """Hold the card's ChainParams size against the ctypes mirror (once)."""
+    global _size_checked
+    if not _size_checked:
+        size = _build.function(_C1, "px_chain_params_size", [])()
+        if size != ctypes.sizeof(_Params):
+            raise Internal(f"C1 parameter struct is {size} bytes on the card, "
+                           f"{ctypes.sizeof(_Params)} in the wrapper")
+        _size_checked = True
+
+
+def fixed_params(prog: Program, device) -> "_Params":
+    """The ChainParams fields a program fixes on `device` (its code and
+    constants there, uploaded once per shape and device; its counts and
+    kinds); the feed's pointers, scalars and n are left 0.  G1 and F1
+    (ops/gang.py) encode their members from it once per shape."""
+    code, consts = _device_program(prog, device)
+    p = _Params()
+    p.code, p.consts = code.data_ptr(), consts.data_ptr()
+    for i, k in enumerate(prog.col_kinds):
+        p.col_kind[i] = k
+    for i, k in enumerate(prog.lut_kinds):
+        p.lut_kind[i] = k
+    for i, k in enumerate(prog.out_kinds):
+        p.out_kind[i] = k
+    p.ncode, p.depth = len(prog.code), prog.depth
+    return p
+
+
 def pack_params(prog: Program, cols: list, luts: list, scalars: list, n: int, device):
     """Check a program's inputs over one feed of n rows and pack them, with
-    the program (uploaded once per shape and device), into the ChainParams
-    of a launch; outputs, mask and group ids are left null.  C1 and G1
-    (ops/gang.py) both launch from it."""
-    global _size_checked
+    the program (fixed_params), into the ChainParams of a C1 launch;
+    outputs, mask and group ids are left null."""
     for i, (c, k) in enumerate(zip(cols, prog.col_kinds)):
         _check_tensor(c, k, f"column {i}", device, n)
     for i, (t, k) in enumerate(zip(luts, prog.lut_kinds)):
@@ -593,24 +620,15 @@ def pack_params(prog: Program, cols: list, luts: list, scalars: list, n: int, de
     if len(cols) != len(prog.col_kinds) or len(luts) != len(prog.lut_kinds) \
             or len(scalars) != prog.n_scalars:
         raise TypeError("chain program bound to the wrong number of inputs")
-    if not _size_checked:
-        size = _build.function(_C1, "px_chain_params_size", [])()
-        if size != ctypes.sizeof(_Params):
-            raise Internal(f"C1 parameter struct is {size} bytes on the card, "
-                           f"{ctypes.sizeof(_Params)} in the wrapper")
-        _size_checked = True
-    code, consts = _device_program(prog, device)
-    p = _Params()
-    p.code, p.consts = code.data_ptr(), consts.data_ptr()
-    for i, (c, k) in enumerate(zip(cols, prog.col_kinds)):
-        p.col[i], p.col_kind[i] = c.data_ptr(), k
-    for i, (t, k) in enumerate(zip(luts, prog.lut_kinds)):
-        p.lut[i], p.lut_len[i], p.lut_kind[i] = t.data_ptr(), t.shape[0], k
-    for i, k in enumerate(prog.out_kinds):
-        p.out_kind[i] = k
+    check_params_size()
+    p = fixed_params(prog, device)
+    for i, c in enumerate(cols):
+        p.col[i] = c.data_ptr()
+    for i, t in enumerate(luts):
+        p.lut[i], p.lut_len[i] = t.data_ptr(), t.shape[0]
     for i, s in enumerate(scalars):
         p.scalar[i] = int(s)
-    p.n, p.ncode, p.depth = n, len(prog.code), prog.depth
+    p.n = n
     return p
 
 

@@ -22,8 +22,15 @@ state.  `build_member(state)` makes the member over the state's tensors and
 shapes alone).
 
 On CUDA tensors each launches its kernel in csrc/finalize.cu
-(`px_merge_finalize`, `px_fused_partial_finalize`: one launch, its table
-uploaded in one pinned non_blocking copy); on CPU tensors each runs its
+(`px_merge_finalize`, `px_fused_partial_finalize`), its table passed by
+value in the launch's parameters: nothing is uploaded on a call.  What a
+shape alone decides is built once and cached — F2's rows per (tree, leaf
+spec, finals, N, device) (`F2Plan`, split into launches of whole rows past
+F2_WORDS), F1's rows per aggregate shape (`F1Plan`) and its member encoding
+and block plan per plan and member shape (`F1Launch`) — and the quantiles and bin values the quantile
+rows read sit in a device buffer uploaded once per finals and device
+(`Consts`).  A call checks its tensors, writes their addresses into its
+thread's rows and makes one C call a launch.  On CPU tensors each runs its
 plain version beside it (`merge_finalize_plain`: merge_states_plain,
 quantile_plain and pack_plain; F1's plain version: the gang's plain
 version, which is the per-sink route's plain steps, then F2's).  The
@@ -34,6 +41,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -52,6 +60,12 @@ _F = "finalize"
 _MERGE, _QUANTILE, _FILL = 0, 1, 2
 _ROW = 6
 MAX_WIDTH = 1024
+#: the int64 words one F2 launch's table may hold, smallest first
+#: (csrc/finalize.cu FinalizeTable capacities, kMaxWords the last)
+F2_WORDS = (64, 512, 4064)
+#: one F1 launch's table: leaf updates, and fill plus quantile rows
+#: (csrc/finalize.cu kF1Leaves, kF1Rows)
+F1_LEAVES, F1_ROWS = 32, 48
 #: csrc/merge.cuh Op and Dtype
 _OPS = {"add": 0, "min": 1, "max": 2}
 _DTYPES = {torch.float32: 0, torch.float64: 1, torch.int64: 2, torch.int32: 3}
@@ -111,6 +125,98 @@ class Finalized:
         return tree.get("finals", {}), tree.get("rest", {})
 
 
+# ------------------------------------------------- the per-plan constants
+
+
+@functools.lru_cache(maxsize=8)
+def _bin_values(sketch: LogHistogram) -> tuple:
+    """gamma^(idx - 1.5) per bin, the host finalize's values (K3's table)."""
+    return tuple(sketch.bin_value(np.arange(sketch.width)).tolist())
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Consts:
+    """The f64 words the quantile rows point to, the same on every call: each
+    final's quantiles and each sketch's bin values, in one buffer on the
+    device, uploaded once (`consts_for`).  at: {name: (address of its
+    quantiles, address of its sketch's bin values)}."""
+
+    buf: torch.Tensor
+    at: dict
+
+
+_CONSTS: dict = {}
+_CONSTS_LOCK = threading.Lock()
+
+
+def consts_for(finals: dict, device) -> Consts:
+    """The cached Consts of `finals` on `device` (one upload per finals and
+    device)."""
+    device = torch.device(device)
+    key = (tuple(finals.items()), str(device))
+    got = _CONSTS.get(key)
+    if got is not None:
+        return got
+    words, where, binv = [], {}, {}
+    for name, f in finals.items():
+        qi = len(words)
+        words.extend(f.qs)
+        if f.sketch not in binv:
+            binv[f.sketch] = len(words)
+            words.extend(_bin_values(f.sketch))
+        where[name] = (qi, binv[f.sketch])
+    buf = torch.tensor(words or [0.0], dtype=torch.float64).to(device)
+    base = buf.data_ptr()
+    got = Consts(buf, {k: (base + 8 * q, base + 8 * b) for k, (q, b) in where.items()})
+    with _CONSTS_LOCK:
+        if len(_CONSTS) > 64:
+            _CONSTS.clear()
+        return _CONSTS.setdefault(key, got)
+
+
+class _Table:
+    """A row table (csrc/finalize.cuh): rows of _ROW + n_states int64."""
+
+    def __init__(self, n_states: int):
+        self.width = _ROW + n_states
+        self.rows: list = []
+
+    def quantile(self, f: Final, groups: int, dst: int, srcs: list, qs_at: int,
+                 binv_at: int) -> None:
+        """A quantile row: the sketch at srcs into [groups, nq] f64 at dst,
+        its quantiles and bin values at the device addresses qs_at,
+        binv_at (Consts)."""
+        self.rows.append(([_QUANTILE, groups, dst, f.sketch.width | (len(f.qs) << 16), qs_at,
+                           binv_at], srcs))
+
+    def merge(self, op: str, dtype, n: int, dst: int, srcs: list, vec: bool = True) -> int:
+        """A merge row; → the blocks it can use."""
+        per_vec = 16 // dtype.itemsize
+        units = -(-n // per_vec) if vec else n
+        flags = _MERGE | (_OPS[op] << 4) | (_DTYPES[dtype] << 8) | (int(vec) << 16)
+        self.rows.append(([flags, n, dst, 0, 0, 0], srcs))
+        return -(-units // 256)
+
+    def fill(self, dtype, n: int, dst: int, bits: int) -> None:
+        self.rows.append(([_FILL | (_DTYPES[dtype] << 8), n, dst, bits, 0, 0], []))
+
+    def array(self) -> np.ndarray:
+        t = np.zeros((len(self.rows), self.width), dtype=np.int64)
+        for i, (head, srcs) in enumerate(self.rows):
+            t[i, :_ROW] = head
+            t[i, _ROW:_ROW + len(srcs)] = srcs
+        return t.reshape(-1)
+
+    def pointer_mask(self) -> np.ndarray:
+        """1 at the words of array() that hold an address in the launch
+        buffer (a row's destination and sources), else 0."""
+        m = np.zeros((len(self.rows), self.width), dtype=np.int64)
+        for i, (_head, srcs) in enumerate(self.rows):
+            m[i, 2] = 1
+            m[i, _ROW:_ROW + len(srcs)] = 1
+        return m.reshape(-1)
+
+
 # ------------------------------------------------------------------ F2
 
 
@@ -119,12 +225,11 @@ def merge_finalize(states: list, reduce_tree: dict, finals: dict) -> Finalized:
     plain version on CPU tensors."""
     if not states:
         raise ValueError("merge_finalize: no states")
-    layout = output_layout(states[0], finals)
     leaves = [leaf for st in states for _p, leaf in flatten(st)]
     if any(x.is_cuda for x in leaves):
         if not all(x.is_cuda for x in leaves):
             raise ValueError("merge_finalize: states on the CPU and on a CUDA device")
-        return Finalized(_launch_f2(states, reduce_tree, finals, layout), layout)
+        return _launch_f2(states, reduce_tree, finals, leaves[0].device)
     return merge_finalize_plain(states, reduce_tree, finals)
 
 
@@ -153,106 +258,134 @@ def _check_sketch(name: str, f: Final, x: torch.Tensor, want) -> None:
                         f"{want} tensor of at most {MAX_WIDTH} cells a group")
 
 
-@functools.lru_cache(maxsize=8)
-def _bin_values(sketch: LogHistogram) -> tuple:
-    """gamma^(idx - 1.5) per bin, the host finalize's values (K3's table)."""
-    return tuple(sketch.bin_value(np.arange(sketch.width)).tolist())
+@dataclasses.dataclass(frozen=True, eq=False)
+class F2Plan:
+    """What F2 launches for N states of one tree and finals on one device,
+    decided once: the output layout; per row the state path it reads and
+    what each source must be (dtype, shape, contiguous); `template`, the
+    [rows, _ROW + N] table with flags (vector flag set), counts, output
+    offsets and the Consts addresses in place; the split into launches of
+    whole rows (at most F2_WORDS[-1] words each) with each launch's blocks
+    when every merge row is vectorized and when one is not."""
 
+    layout: Layout
+    n_states: int
+    paths: tuple
+    sigs: tuple
+    template: np.ndarray
+    is_merge: np.ndarray
+    launches: tuple
+    consts: Consts
+    local: threading.local = dataclasses.field(default_factory=threading.local, repr=False)
 
-class _Table:
-    """A row table (csrc/finalize.cuh) and the f64 words its quantile rows
-    index (the quantiles, one bin-value table per sketch)."""
-
-    def __init__(self, n_states: int):
-        self.width = _ROW + n_states
-        self.rows: list = []
-        self.extra: list = []
-        self._binv: dict = {}
-
-    def quantile(self, f: Final, groups: int, dst: int, srcs: list) -> None:
-        qi = len(self.extra)
-        self.extra.extend(f.qs)
-        if f.sketch not in self._binv:
-            self._binv[f.sketch] = len(self.extra)
-            self.extra.extend(_bin_values(f.sketch))
-        self.rows.append(([_QUANTILE, groups, dst, f.sketch.width | (len(f.qs) << 16)],
-                          (qi, self._binv[f.sketch]), srcs))
-
-    def merge(self, op: str, dtype, n: int, dst: int, srcs: list) -> int:
-        """→ the blocks the row can use."""
-        vec = not any(p & 15 for p in [dst, *srcs])
-        per_vec = 16 // dtype.itemsize
-        units = -(-n // per_vec) if vec else n
-        flags = _MERGE | (_OPS[op] << 4) | (_DTYPES[dtype] << 8) | (int(vec) << 16)
-        self.rows.append(([flags, n, dst, 0], None, srcs))
-        return -(-units // 256)
-
-    def fill(self, dtype, n: int, dst: int, bits: int) -> None:
-        self.rows.append(([_FILL | (_DTYPES[dtype] << 8), n, dst, bits], None, []))
-
-    def array(self) -> np.ndarray:
-        base = len(self.rows) * self.width
-        t = np.zeros(base + len(self.extra), dtype=np.int64)
-        for i, (head, extra_at, srcs) in enumerate(self.rows):
-            row = t[i * self.width:(i + 1) * self.width]
-            row[:4] = head
-            if extra_at is not None:
-                row[4], row[5] = base + extra_at[0], base + extra_at[1]
-            row[_ROW:_ROW + len(srcs)] = srcs
-        t[base:].view(np.float64)[:] = self.extra
-        return t
-
-    def pointer_mask(self) -> np.ndarray:
-        """1 at the words of array() that hold a device address (a row's
-        destination and sources), else 0."""
-        m = np.zeros(len(self.rows) * self.width + len(self.extra), dtype=np.int64)
-        for i, (_head, _extra_at, srcs) in enumerate(self.rows):
-            m[i * self.width + 2] = 1
-            m[i * self.width + _ROW:i * self.width + _ROW + len(srcs)] = 1
-        return m
-
-
-def _launch_f2(states, reduce_tree, finals, layout) -> torch.Tensor:
-    dev = next(leaf for _p, leaf in flatten(states[0])).device
-    out = torch.empty(layout.nbytes, dtype=torch.uint8, device=dev)
-    base = out.data_ptr()
-    table = _Table(len(states))
-    max_blocks = 1
-    for path, d, s, off in zip(layout.paths, layout.dtypes, layout.shapes, layout.offsets):
-        if path[0] == "finals":
-            name, f = path[1], finals[path[1]]
-            xs = [st[name] for st in states]
-            for x in xs:
+    @classmethod
+    def of(cls, state, reduce_tree, finals: dict, n_states: int, device) -> "F2Plan":
+        layout = output_layout(state, finals)
+        consts = consts_for(finals, device)
+        table = _Table(n_states)
+        paths, sigs, vec_blocks, scalar_blocks = [], [], [], []
+        zeros = [0] * n_states
+        for path, d, s, off in zip(layout.paths, layout.dtypes, layout.shapes, layout.offsets):
+            if path[0] == "finals":
+                name, f = path[1], finals[path[1]]
+                x = state[name]
                 _check_sketch(name, f, x, (s[0], f.sketch.width))
-                if x.device != dev:
-                    raise ValueError("merge_finalize: states on different devices")
-            table.quantile(f, s[0], base + off, [x.data_ptr() for x in xs])
-            max_blocks = max(max_blocks, s[0])
-            continue
-        xs = [_get(st, path[1:]) for st in states]
-        sig = (d, s, dev)
-        if any((x.dtype, tuple(x.shape), x.device) != sig or not x.is_contiguous() for x in xs):
-            raise TypeError(f"merge_finalize: leaf {'/'.join(map(str, path[1:]))}: states "
-                            "differ in device, dtype or shape, or are not contiguous")
-        if d not in _DTYPES:
-            raise TypeError(f"merge_finalize: no merge for dtype {d}")
-        op = _get(reduce_tree, path[1:])
-        if op not in _OPS:
-            raise ValueError(f"unknown reduce op {op!r}")
-        n = 1
-        for k in s:
-            n *= k
-        max_blocks = max(max_blocks, table.merge(op, d, n, base + off,
-                                                 [x.data_ptr() for x in xs]))
-    if len(table.rows) > 65535:
-        raise ValueError("merge_finalize: more than 65535 output leaves")
-    t = torch.from_numpy(table.array()).pin_memory().to(dev, non_blocking=True)
-    fn = _build.function(_F, "px_merge_finalize", [_P, _I, _I, _L, _P])
-    with torch.cuda.device(dev):
-        err = fn(_build.ptr(t), len(table.rows), len(states), max_blocks, _build.stream_of(t))
-    _build.check(_F, err, "merge_finalize")
-    _build.KERNELS[_F].count("px_merge_finalize")
-    return out
+                table.quantile(f, s[0], off, zeros, *consts.at[name])
+                paths.append((name,))
+                sigs.append((x.dtype, x.shape, True))
+                vec_blocks.append(s[0])
+                scalar_blocks.append(s[0])
+                continue
+            if d not in _DTYPES:
+                raise TypeError(f"merge_finalize: no merge for dtype {d}")
+            op = _get(reduce_tree, path[1:])
+            if op not in _OPS:
+                raise ValueError(f"unknown reduce op {op!r}")
+            n = 1
+            for k in s:
+                n *= k
+            vec_blocks.append(table.merge(op, d, n, off, zeros))
+            scalar_blocks.append(-(-n // 256))
+            paths.append(path[1:])
+            sigs.append((d, torch.Size(s), True))
+        if len(table.rows) > 65535:
+            raise ValueError("merge_finalize: more than 65535 output leaves")
+        width = _ROW + n_states
+        if width > F2_WORDS[-1]:
+            raise ValueError(f"merge_finalize: {n_states} states, at most "
+                             f"{F2_WORDS[-1] - _ROW}")
+        per = F2_WORDS[-1] // width
+        n_rows = len(table.rows)
+        launches = tuple((a, min(a + per, n_rows), max([1, *vec_blocks[a:a + per]]),
+                          max([1, *scalar_blocks[a:a + per]]))
+                         for a in range(0, n_rows, per))
+        template = table.array().reshape(n_rows, width)
+        is_merge = (template[:, 0] & 0xF) == _MERGE
+        return cls(layout, n_states, tuple(paths), tuple(sigs), template, is_merge, launches,
+                   consts)
+
+    def rows(self, states: list, base: int, device: int) -> tuple[np.ndarray, bool]:
+        """The calling thread's rows for `states` into the buffer at `base`
+        (every source checked against the plan, its pointer written, the
+        vector flag cleared on a merge row with a source not 16-byte
+        aligned) and whether every merge row kept it."""
+        rows = getattr(self.local, "rows", None)
+        if rows is None:
+            rows = self.local.rows = self.template.copy()
+        ptrs, low = [], 0
+        for st in states:
+            for path, sig in zip(self.paths, self.sigs):
+                x = _get(st, path)
+                if (x.dtype, x.shape, x.is_contiguous()) != sig or x.get_device() != device:
+                    raise TypeError(f"merge_finalize: leaf {'/'.join(map(str, path))}: states "
+                                    "differ in device, dtype or shape, or are not contiguous")
+                p = x.data_ptr()
+                low |= p
+                ptrs.append(p)
+        ins = np.array(ptrs, dtype=np.int64).reshape(len(states), -1).T
+        rows[:, _ROW:] = ins
+        np.add(self.template[:, 2], base, out=rows[:, 2])
+        if not low & 15:
+            rows[:, 0] = self.template[:, 0]
+            return rows, True
+        low = np.bitwise_or.reduce(ins, axis=1) & 15
+        keep = ~self.is_merge | (low == 0)
+        rows[:, 0] = np.where(keep, self.template[:, 0], self.template[:, 0] & ~(1 << 16))
+        return rows, False
+
+
+_F2_PLANS: dict = {}
+_F2_LOCK = threading.Lock()
+
+
+def f2_plan_for(states: list, reduce_tree, finals: dict, device) -> F2Plan:
+    """The cached F2Plan for `states` (their tree and leaves' dtypes and
+    shapes, N), `reduce_tree` and `finals` on `device`."""
+    spec = tuple((path, x.dtype, tuple(x.shape)) for path, x in flatten(states[0]))
+    key = (spec, repr(reduce_tree), tuple(finals.items()), len(states), device.index)
+    plan = _F2_PLANS.get(key)
+    if plan is None:
+        plan = F2Plan.of(states[0], reduce_tree, finals, len(states), device)
+        with _F2_LOCK:
+            if len(_F2_PLANS) > 256:
+                _F2_PLANS.clear()
+            plan = _F2_PLANS.setdefault(key, plan)
+    return plan
+
+
+def _launch_f2(states, reduce_tree, finals, dev) -> Finalized:
+    plan = f2_plan_for(states, reduce_tree, finals, dev)
+    out = torch.empty(plan.layout.nbytes, dtype=torch.uint8, device=dev)
+    rows, vec = plan.rows(states, out.data_ptr(), dev.index)
+    fn = _build.function(_F, "px_merge_finalize", [_P, _I, _I, _L, _I, _P])
+    stream = _build.raw_stream(dev.index)
+    addr, row_bytes = rows.ctypes.data, rows.shape[1] * 8
+    for a, b, vec_blocks, scalar_blocks in plan.launches:
+        err = fn(addr + a * row_bytes, b - a, plan.n_states,
+                 vec_blocks if vec else scalar_blocks, dev.index, stream)
+        _build.check(_F, err, "merge_finalize")
+        _build.KERNELS[_F].count("px_merge_finalize")
+    return Finalized(out, plan.layout)
 
 
 # ------------------------------------------------------------------ F1
@@ -267,15 +400,22 @@ def _identity_bits(op: str, dtype) -> int:
     return int(v.view(np.int64 if v.itemsize == 8 else np.int32)[0])
 
 
+def f1_fits(n_leaves: int, n_finals: int) -> bool:
+    """Whether an aggregate of n_leaves gang leaf updates and n_finals
+    finalized sketches fits one F1 launch's table (csrc/finalize.cu
+    kF1Leaves, kF1Rows: a fill row a leaf, a quantile row a final)."""
+    return n_leaves <= F1_LEAVES and n_leaves + n_finals <= F1_ROWS
+
+
 @dataclasses.dataclass(frozen=True)
 class F1Plan:
     """What an F1 launch needs that depends on the aggregate's shape alone,
-    cached per shape key: the output layout; the launch buffer's size (the
-    output, then scratch for the sketches that are finalized); each state
-    leaf's (path, dtype, shape, byte offset) in that buffer; the member's
-    leaf updates as (op, byte offset), in its order; the fill and quantile
-    rows (csrc/finalize.cuh) with buffer offsets in the words `is_ptr`
-    marks; and whether the sketches fit a block's private accumulators."""
+    cached per shape key and device: the output layout; the launch buffer's
+    size (the output, then scratch for the sketches that are finalized);
+    each state leaf's (path, dtype, shape, byte offset) in that buffer; the
+    member's leaf updates as (op, byte offset), in its order; the fill and
+    quantile rows (csrc/finalize.cuh) with buffer offsets in the words
+    `is_ptr` marks and the Consts addresses in place; the Consts."""
 
     layout: Layout
     total: int
@@ -285,7 +425,7 @@ class F1Plan:
     is_ptr: np.ndarray
     n_fill: int
     n_rows: int
-    hist_shared: bool
+    consts: Consts
 
     def table_at(self, base: int) -> np.ndarray:
         """The row table for a launch buffer at device address `base`."""
@@ -313,8 +453,8 @@ def _state_leaves(template, finals: dict) -> tuple[Layout, tuple, int]:
     return layout, tuple(leaves), total
 
 
-def f1_plan(layout: Layout, leaves: tuple, total: int, finals: dict, member,
-            base: int) -> F1Plan:
+def f1_plan(layout: Layout, leaves: tuple, total: int, finals: dict, member, base: int,
+            device) -> F1Plan:
     """The plan of an F1 launch from its first member, built over a buffer
     at address `base` whose state views (_views) the member updates:
     fill rows for every leaf update, then a quantile row per final."""
@@ -323,6 +463,10 @@ def f1_plan(layout: Layout, leaves: tuple, total: int, finals: dict, member,
     if sorted(o for _op, o in fills) != offs:
         raise Internal("fused finalize: the member's leaf updates do not cover its state "
                        "once each")
+    if not f1_fits(len(member.leaves), len(finals)):
+        raise ValueError(f"fused finalize: {len(member.leaves)} leaves and {len(finals)} "
+                         "finals do not fit one launch's table (f1_fits)")
+    consts = consts_for(finals, device)
     table = _Table(1)
     for lf, (_op, off) in zip(member.leaves, fills):
         table.fill(lf.state.dtype, lf.state.numel(), off, _identity_bits(lf.op, lf.state.dtype))
@@ -331,30 +475,65 @@ def f1_plan(layout: Layout, leaves: tuple, total: int, finals: dict, member,
     for path, s, off in zip(layout.paths, layout.shapes, layout.offsets):
         if path[0] == "finals":
             f = finals[path[1]]
-            table.quantile(f, s[0], off, [sketch_at[path[1]]])
-    need = sum(_gang.leaf_shared_bytes(lf, member.num_groups) for lf in member.leaves)
+            table.quantile(f, s[0], off, [sketch_at[path[1]]], *consts.at[path[1]])
     return F1Plan(layout, total, leaves, fills, table.array(), table.pointer_mask(), n_fill,
-                  len(table.rows), need <= _gang.SHARED_STATE_BYTES)
+                  len(table.rows), consts)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class F1Launch:
+    """F1's launch for one plan: the member pass (ops/gang.py plan_f1_pass)
+    and the member's encoding; `head(member, base, n)` the calling thread's
+    host rows: the member and its leaves, then the plan's rows at `base`."""
+
+    plan: F1Plan
+    pass_plan: object
+    codec: object
+    local: threading.local = dataclasses.field(default_factory=threading.local, repr=False)
+
+    def head(self, member, base: int, n: int, device: int) -> np.ndarray:
+        buf = getattr(self.local, "buf", None)
+        cut = self.codec.template.nbytes
+        if buf is None:
+            buf = self.local.buf = np.zeros(cut + self.plan.table.nbytes, dtype=np.uint8)
+            buf[:cut] = self.codec.template
+        buf[:cut].view(np.int64)[self.codec.patch] = self.codec.values([member], n, device)
+        np.add(self.plan.table, self.plan.is_ptr * base, out=buf[cut:].view(np.int64))
+        return buf
+
+
+#: (shape key, finals, device index) → F1Plan; (that, the member's
+#: ops/gang.py gang_key) → F1Launch: the member's encoding holds its
+#: program (code, constants, depth, kinds), so two aggregates of one state
+#: shape but different chains (a filter's literal, a deeper expression)
+#: share the plan and never the launch
 _F1_PLANS: dict = {}
+_F1_LAUNCHES: dict = {}
+
+
+def _cache(cache: dict, key, value):
+    if len(cache) > 256:
+        cache.clear()
+    return cache.setdefault(key, value)
 
 
 def fused_partial_finalize(build_member, init_state, reduce_tree: dict, finals: dict, n: int,
                            device, key=None) -> Finalized:
     """F1 over one feed of n rows: kernel px_fused_partial_finalize on a CUDA
     device, the plain version on the CPU.  `key`, when given, names the
-    aggregate's shape (its state structure); the launch's plan (F1Plan) is
-    then built once per key and finals.  A state within G1's budget
-    (SHARED_STATE_BYTES) keeps every leaf in a block's private shared
-    accumulators; past it the sketches take global atomics and the small
-    leaves stay private."""
+    aggregate's shape (its state structure); the launch's F1Plan is then
+    built once per key, finals and device, and its F1Launch once per plan
+    and member shape (gang_key: program, inputs, leaf updates, NaN bin).
+    The member pass keeps the state in a block's private shared
+    accumulators where it fits (ops/gang.py plan_f1_pass)."""
     device = torch.device(device)
     if device.type != "cuda":
         state = init_state(device)
         _gang.run_plain([build_member(state)], n, device)
         return merge_finalize_plain([state], reduce_tree, finals)
-    key = None if key is None else (key, tuple(finals.items()))
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = None if key is None else (key, tuple(finals.items()), device.index)
     plan = None if key is None else _F1_PLANS.get(key)
     if plan is None:
         layout, leaves, total = _state_leaves(init_state("meta"), finals)
@@ -365,32 +544,28 @@ def fused_partial_finalize(build_member, init_state, reduce_tree: dict, finals: 
     state = _views(buf, leaves)
     member = build_member(state)
     if plan is None:
-        plan = f1_plan(layout, leaves, total, finals, member, base)
+        plan = f1_plan(layout, leaves, total, finals, member, base, device)
         for name, f in finals.items():
             _check_sketch(name, f, state[name], (int(state[name].shape[0]), f.sketch.width))
         if key is not None:
-            if len(_F1_PLANS) > 256:
-                _F1_PLANS.clear()
-            _F1_PLANS[key] = plan
+            plan = _cache(_F1_PLANS, key, plan)
     elif tuple((lf.op, lf.state.data_ptr() - base) for lf in member.leaves) != plan.fills:
         raise Internal("fused finalize: the member's leaf updates differ from its plan's")
-    # G1's budget: config #1's 64-group sketch (131,584 B) privatized leaves
-    # one block of 256 threads a SM, slower than its global atomics (PERF.md)
-    budget = _gang.SHARED_STATE_BYTES
-    enc = _gang.encode([member], n, device, budget, max(_gang.BLOCK_SMEM, budget + 64 * 1024),
-                       hist_shared=plan.hist_shared)
-    head = enc.blob + bytes(-len(enc.blob) % 16)
-    # one upload: the member, its leaves and the row table
-    dev_buf = torch.frombuffer(bytearray(head + plan.table_at(base).tobytes()),
-                               dtype=torch.uint8).pin_memory().to(device, non_blocking=True)
-    at = dev_buf.data_ptr()
+    lkey = None if key is None else (key, _gang.gang_key([member], device))
+    launch = None if lkey is None else _F1_LAUNCHES.get(lkey)
+    if launch is None:
+        _gang.check_sizes()
+        pp = _gang.plan_f1_pass(member)
+        launch = F1Launch(plan, pp, _gang.MemberCodec.of([member], pp, device))
+        if lkey is not None:
+            launch = _cache(_F1_LAUNCHES, lkey, launch)
+    pp = launch.pass_plan
+    head = launch.head(member, base, n, device.index)
     fn = _build.function(_F, "px_fused_partial_finalize",
-                         [_P, _P, _I, _L, _I, _I, _I, _I, _P, _I, _I, _P])
-    with torch.cuda.device(device):
-        err = fn(ctypes.c_void_p(at), ctypes.c_void_p(at + enc.leaves_at), enc.n_leaves, n,
-                 enc.depth, enc.outs, enc.acc_bytes, enc.rows_per_thread,
-                 ctypes.c_void_p(at + len(head)), plan.n_fill, plan.n_rows,
-                 _build.stream_of(buf))
+                         [_P, _I, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P])
+    err = fn(head.ctypes.data, launch.codec.n_leaves, n, pp.depth, pp.outs, pp.acc_bytes,
+             pp.rows_per_thread, pp.block, int(pp.combine), plan.n_fill, plan.n_rows,
+             device.index, _build.raw_stream(device.index))
     _build.check(_F, err, "fused_partial_finalize")
     _build.KERNELS[_F].count("px_fused_partial_finalize")
     return Finalized(buf[:plan.layout.nbytes], plan.layout)

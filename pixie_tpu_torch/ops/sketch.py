@@ -47,16 +47,19 @@ class LogHistogram:
         float32 (a weakly typed Python float meeting a float32 array)."""
         return float(np.float32(math.log(self.gamma)))
 
-    def bin_index(self, v: torch.Tensor) -> torch.Tensor:
+    def bin_index(self, v: torch.Tensor, nan_bin: int = 1) -> torch.Tensor:
         """Bin index per value (int64; plain version of K2's bin).
 
         Follows the reference operation by operation: float32 log of
         max(float32(v), float32(min_value)) divided by float32 log(gamma),
         ceil, +1; the zero-bin test in the value's own dtype; clamp to
         [0, width-1].  The reference converts the ceiling to int32 as XLA
-        does (NaN -> 0, so NaN lands in bin 1; +inf -> INT32_MAX, whose +1
-        wraps negative, so +inf and float32 overflow land in bin 0); those
-        edge results are written out here and in the kernel.
+        does (+inf -> INT32_MAX, whose +1 wraps negative, so +inf and
+        float32 overflow land in bin 0); those edge results are written out
+        here and in the kernel.  NaN lands in `nan_bin`: the reference's
+        device route converts its ceiling to 0 (bin 1, a batch query's),
+        its CPU routes, which its streaming polls take, to INT32_MIN,
+        clamped to bin 0 (csrc/loghist.cuh).
         """
         x = torch.clamp_min(v.to(torch.float32), np.float32(self.min_value).item())
         lg = torch.log(x) / torch.full_like(x, self._log_gamma_f32())
@@ -65,7 +68,7 @@ class LogHistogram:
         idx = idx.clamp(0, self.width - 1)
         idx = torch.where(c >= _INT32_LIMIT, 0, idx)
         idx = torch.where(v <= self.min_value, 0, idx)
-        return torch.where(torch.isnan(v), 1, idx)
+        return torch.where(torch.isnan(v), nan_bin, idx)
 
     def init(self, num_groups: int, device, dtype=torch.float32) -> torch.Tensor:
         return torch.zeros((num_groups, self.width), dtype=dtype, device=device)
@@ -80,23 +83,25 @@ class LogHistogram:
         values: torch.Tensor,
         mask: torch.Tensor,
         num_groups: int,
+        nan_bin: int = 1,
     ) -> torch.Tensor:
-        """Add the masked values into the per-group histograms, in place."""
+        """Add the masked values into the per-group histograms, in place;
+        a NaN value counts in bin `nan_bin` (bin_index)."""
         if gid.is_cuda:
             self._launch_update(hist, gid, values.to(torch.float64).contiguous(),
-                                mask, num_groups)
+                                mask, num_groups, nan_bin)
             return hist
-        return self.update_plain(hist, gid, values, mask, num_groups)
+        return self.update_plain(hist, gid, values, mask, num_groups, nan_bin)
 
-    def update_plain(self, hist, gid, values, mask, num_groups):
+    def update_plain(self, hist, gid, values, mask, num_groups, nan_bin: int = 1):
         """Plain version of K2: bin index, then one flat index_add_."""
-        bins = self.bin_index(values.to(torch.float64))
+        bins = self.bin_index(values.to(torch.float64), nan_bin)
         keep = mask & (gid >= 0) & (gid < num_groups)
         flat = gid.clamp(0, max(num_groups - 1, 0)).long() * self.width + bins
         hist.view(-1).index_add_(0, flat, keep.to(hist.dtype))
         return hist
 
-    def _launch_update(self, hist, gid, values, mask, num_groups):
+    def _launch_update(self, hist, gid, values, mask, num_groups, nan_bin):
         n = gid.shape[0]
         if gid.dtype != torch.int32 or gid.dim() != 1 or not gid.is_contiguous():
             raise TypeError("gid must be a contiguous 1-D int32 tensor")
@@ -114,12 +119,12 @@ class LogHistogram:
             raise ValueError("histogram cells exceed the kernel's int32 index")
         fn = _build.function(_K2, "px_loghist_update",
                              [_P, _P, _P, _L, _P, _I, _I, ctypes.c_float,
-                              ctypes.c_float, ctypes.c_double, _P])
+                              ctypes.c_float, ctypes.c_double, _I, _P])
         with torch.cuda.device(gid.device):
             err = fn(_build.ptr(gid), _build.ptr(mask), _build.ptr(values), n,
                      _build.ptr(hist), num_groups, self.width,
                      self._log_gamma_f32(), float(np.float32(self.min_value)),
-                     self.min_value, _build.stream_of(gid))
+                     self.min_value, int(nan_bin), _build.stream_of(gid))
         _build.check(_K2, err, "loghist_update")
         _build.KERNELS[_K2].count("px_loghist_update")
 

@@ -111,6 +111,9 @@ class UDA:
     needs_dict: bool = False
     #: fixed output semantic type (e.g. quantiles → ST_QUANTILES), or None
     out_st = None
+    #: True if `update` takes `nan_bin`, the bin of a NaN value (the sketch
+    #: UDAs; ops/sketch.py bin_index)
+    bins_nan: bool = False
 
     def out_type(self, in_type: DataType | None) -> DataType:
         raise NotImplementedError
@@ -408,11 +411,13 @@ class _SketchUDA(UDA):
 
         return LogHistogram()
 
+    bins_nan = True
+
     def init(self, num_groups, in_dtype, device):
         return self._sketch.init(num_groups, device)
 
-    def update(self, state, gid, value, mask, num_groups):
-        return self._sketch.update(state, gid, value, mask, num_groups)
+    def update(self, state, gid, value, mask, num_groups, nan_bin: int = 1):
+        return self._sketch.update(state, gid, value, mask, num_groups, nan_bin)
 
     def reduce_ops(self):
         return "add"

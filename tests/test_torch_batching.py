@@ -682,3 +682,112 @@ def test_three_store_cluster_merges_deferred_gang_members_with_m1(monkeypatch):
         r = got[i][0]
         assert r.exec_stats["agents"]["pem1"]["mq_fused"] == len(BATCH_SCRIPTS)
         assert_results_same(r, w)
+
+
+# ------------------------------------------------ G1's encoding and its split
+
+import ctypes  # noqa: E402
+
+import torch  # noqa: E402
+
+from pixie_tpu_torch.ops import chain as c1  # noqa: E402
+from pixie_tpu_torch.ops import gang as g1  # noqa: E402
+from pixie_tpu_torch.ops.sketch import LogHistogram  # noqa: E402
+
+
+def _enc_members(k, n, seed):
+    """k gang members over one feed of n CPU rows, each with a LUT, a
+    scalar, a computed output slot and leaves of every kind of value (a
+    count, a feed column, an output slot, a sketch with NaN in bin 0)."""
+    rng = np.random.default_rng(seed)
+    cols = {"code": torch.from_numpy(rng.integers(0, 5, n).astype(np.int32)),
+            "v": torch.from_numpy(rng.exponential(20.0, n)),
+            "i": torch.from_numpy(rng.integers(-50, 50, n))}
+    sk = LogHistogram()
+    out = []
+    for m in range(k):
+        g = (3, 64, 100, 1 << 12)[m % 4]
+        lut = torch.from_numpy(rng.integers(0, g, 5 + m))
+        b = c1.ProgramBuilder()
+        b.row(); b.scalar("n_valid"); b.op("LT_I"); b.mask_and()
+        b.col("code", c1.I32); b.lut("map", c1.I64, 0); b.combine(g)
+        b.col("v", c1.F64); b.const(1.0 + m, c1.F64); b.op("MUL_F"); b.store()
+        prog, bnd = b.finish(has_gid=True)
+        leaves = [g1.Leaf("count", torch.zeros(g, dtype=torch.int64)),
+                  g1.Leaf("sum", torch.zeros(g, dtype=torch.float64), 0),
+                  g1.Leaf("min", torch.zeros(g, dtype=torch.int64), cols["i"]),
+                  g1.Leaf("hist", torch.zeros(g, sk.width), cols["v"], sk, nan_bin=0)][:2 + m % 3]
+        out.append(g1.Member(prog, [cols[c] for c in bnd.cols], [lut], [n - m], g, leaves))
+    return out
+
+
+def _per_call_g1_table(members, plan, n):
+    """A launch's table as the wrapper encoded it on every call before the
+    encoding was cached: ctypes structs filled from the tensors."""
+    c_members, c_leaves = [], []
+    for m, off in zip(members, plan.offs):
+        p = c1.pack_params(m.prog, m.cols, m.luts, m.scalars, n, torch.device("cpu"))
+        c_members.append(g1._Member(chain=p, groups=m.num_groups, leaf0=len(c_leaves),
+                                    nleaf=len(m.leaves)))
+        for leaf in m.leaves:
+            code, kind = g1._check_leaf(leaf, m, torch.device("cpu"))
+            lf = g1._Leaf(state=leaf.state.data_ptr(), op=code, kind=kind, slot=-1,
+                          groups=m.num_groups, width=1, nan_bin=leaf.nan_bin)
+            if isinstance(leaf.value, int):
+                lf.slot = leaf.value
+            elif leaf.value is not None:
+                lf.col = leaf.value.data_ptr()
+            if leaf.op == "hist":
+                lf.width, lf.min_d = leaf.sketch.width, leaf.sketch.min_value
+                lf.log_gamma = leaf.sketch._log_gamma_f32()
+                lf.min_f = float(np.float32(leaf.sketch.min_value))
+            need = g1.leaf_shared_bytes(leaf, m.num_groups, plan.hist_shared)
+            lf.shared_off = -1 if off is None or not need else off
+            if off is not None and need:
+                off += need
+            c_leaves.append(lf)
+    return bytes((g1._Member * len(c_members))(*c_members)) + \
+        bytes((g1._Leaf * len(c_leaves))(*c_leaves))
+
+
+@pytest.mark.parametrize("k", [1, 4, 16, 17, 24, 40])
+def test_g1_plan_tables_equal_per_call_encoding_and_split(monkeypatch, k):
+    """G1's encoding, cached per gang shape, patched for a call equals the
+    per-call encoding of the same members (pointers, LUT lengths, scalars,
+    n, leaf ops, offsets and NaN bins); a gang past one launch's table
+    (G1_CAPACITY members or leaves) splits into launches of whole members
+    that cover every member once, in order; the plain route's states are
+    the same whether the members run as one gang or launch by launch."""
+    # (the struct sizes are held against the card's library, built on the card)
+    monkeypatch.setattr(c1, "_size_checked", True)
+    monkeypatch.setattr(g1, "_sizes_checked", True)
+    n = 3001
+    members = _enc_members(k, n, k)
+    plan = g1.plan_for(members, torch.device("cpu"))
+    assert g1.plan_for(_enc_members(k, n, k + 1), torch.device("cpu")) is plan
+    cap_m, cap_l = g1.G1_CAPACITY
+    spans = [(a, b) for a, b, _p, _c in plan.launches]
+    assert [i for a, b in spans for i in range(a, b)] == list(range(k))
+    assert all(b - a <= cap_m and sum(len(m.leaves) for m in members[a:b]) <= cap_l
+               for a, b in spans)
+    assert len(spans) == 1 if k <= cap_m else len(spans) >= 2
+    tables = plan.rows(members, n, -1)
+    for table, (a, b, pp, codec) in zip(tables, plan.launches):
+        assert table.tobytes() == _per_call_g1_table(members[a:b], pp, n)
+        assert codec.n_members == b - a
+        assert pp.smem <= g1.BLOCK_SMEM and (pp.block, pp.rows_per_thread) == (256, 4)
+    whole = _enc_members(k, n, k)
+    g1.run(whole, n, "cpu")
+    for a, b in spans:
+        g1.run(members[a:b], n, "cpu")
+    for mw, mg in zip(whole, members):
+        for lw, lg in zip(mw.leaves, mg.leaves):
+            assert torch.equal(lw.state, lg.state)
+    with pytest.raises(TypeError):
+        plan.rows([dataclasses_replace_cols(m) for m in members], n, -1)
+
+
+def dataclasses_replace_cols(m):
+    """The member with its first column narrowed to int16 (G1 refuses it)."""
+    return g1.Member(m.prog, [m.cols[0].to(torch.int16), *m.cols[1:]], m.luts, m.scalars,
+                     m.num_groups, m.leaves)

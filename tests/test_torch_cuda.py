@@ -77,6 +77,23 @@ def test_loghist_update_and_quantile_exact(dev, g):
     assert torch.equal(q.nan_to_num(-1.0), lh.quantile_plain(got, qs).nan_to_num(-1.0))
 
 
+@pytest.mark.parametrize("nan_bin", [0, 1])
+def test_loghist_update_nan_bin_equals_plain(dev, nan_bin):
+    """K2 over values 20% NaN (and +-inf, 0, values <= min_value): each NaN
+    in bin `nan_bin`, exactly as the plain version bins it."""
+    rng, gid, mask = _rows(dev, 1 << 18, 64, 4)
+    lh = LogHistogram()
+    v = rng.exponential(50.0, 1 << 18)
+    v[rng.random(1 << 18) < 0.2] = np.nan
+    v[:6] = [np.inf, -np.inf, 0.0, 1e-9, -1.0, 1e300]
+    v = torch.from_numpy(v).to(dev)
+    got = lh.update(lh.init(64, dev), gid, v, mask, 64, nan_bin)
+    want = lh.update_plain(lh.init(64, dev), gid, v, mask, 64, nan_bin)
+    assert torch.equal(got, want)
+    nan_rows = mask & torch.isnan(v)
+    assert int(got[:, nan_bin].sum()) >= int(nan_rows.sum())
+
+
 @pytest.mark.parametrize("n", [1, 4095, 4097, 1 << 20])
 @pytest.mark.parametrize("density", [0.0, 0.1, 0.9, 1.0])
 def test_compact_equals_stable_partition(dev, n, density):
@@ -725,6 +742,53 @@ def test_gang_equals_plain(dev, groups, case):
                 assert c1_same(lg.state, l0.state), what
 
 
+@pytest.mark.parametrize("nan_bin", [0, 1])
+def test_gang_nan_bin_equals_plain(dev, nan_bin):
+    """G1's sketch leaves over a column with NaN values bin each NaN at the
+    leaf's `nan_bin`, as the plain version does, private (8 groups) and on
+    global atomics (2^20 groups)."""
+    n = 200_003
+    members = _g1_members(dev, n, (8, 1 << 20), 13, n, False)
+    for m in members:
+        for lf in m.leaves:
+            lf.nan_bin = nan_bin
+    got, want = _g1_clone(members), _g1_clone(members)
+    g1.run(got, n, dev)
+    g1.run_plain(want, n, dev)
+    torch.cuda.synchronize()
+    for m_got, m_want in zip(got, want):
+        for lg, lw in zip(m_got.leaves, m_want.leaves):
+            if lg.op == "hist":
+                assert torch.equal(lg.state, lw.state), (m_got.num_groups, nan_bin)
+
+
+def test_gang_past_capacity_splits_and_equals_plain(dev):
+    """24 members of 4 leaves (past G1_CAPACITY's 16 members) run as two
+    launches over the same feed, equal to the plain version leaf by leaf."""
+    n = 100_001
+    base = _g1_members(dev, n, (8, 64), 14, n, False)
+    for m in base:
+        m.leaves = m.leaves[:4]
+    members = _g1_clone(base * 12)
+    assert len(members) == 24
+    plan = g1.plan_for(members, dev)
+    assert len(plan.launches) == 2
+    assert [(a, b) for a, b, _p, _c in plan.launches] == [(0, 16), (16, 24)]
+    got, want = _g1_clone(members), _g1_clone(members)
+    before = _build.KERNELS["gang"].launches
+    g1.run(got, n, dev)
+    assert _build.KERNELS["gang"].launches == before + 2
+    g1.run_plain(want, n, dev)
+    torch.cuda.synchronize()
+    for m_got, m_want in zip(got, want):
+        for lg, lw in zip(m_got.leaves, m_want.leaves):
+            if lg.state.dtype == torch.float64 and lg.op in ("sum", "sumsq"):
+                assert torch.allclose(lg.state, lw.state, rtol=1e-12, atol=0)
+            else:
+                assert torch.equal(lg.state, lw.state) or (
+                    lg.state.dtype == torch.float64 and c1_same(lg.state, lw.state))
+
+
 def test_gang_cuda_tensor_never_reaches_the_plain_version(dev, monkeypatch):
     members = _g1_members(dev, 4097, (8, 64), 12, 4097, False)
 
@@ -1141,7 +1205,7 @@ def test_finalize_cuda_tensors_never_reach_the_plain_versions(dev, monkeypatch):
     torch.cuda.synchronize()
 
 
-def _fin_table(n, seed):
+def _fin_table(n, seed, nan_share=0.0):
     from pixie_tpu_torch.table import TableStore
     from pixie_tpu_torch.types import DataType as DT, Relation
 
@@ -1152,7 +1216,8 @@ def _fin_table(n, seed):
         ("status", DT.INT64)), batch_rows=1 << 14).write({
             "time_": np.sort(rng.integers(0, 600 * 10 ** 9, n)).astype(np.int64),
             "service": rng.choice([f"svc-{i}" for i in range(16)], n),
-            "latency": rng.exponential(50.0, n), "status": rng.choice([200, 404, 500], n)})
+            "latency": np.where(rng.random(n) < nan_share, np.nan, rng.exponential(50.0, n)),
+            "status": rng.choice([200, 404, 500], n)})
     return ts
 
 
@@ -1219,19 +1284,29 @@ def test_device_finalize_on_the_card_equals_cpu_route(dev, script, feeds):
                 g[c].to_numpy(), w[c].to_numpy(), equal_nan=True), c
 
 
+@pytest.mark.parametrize("nan_bin", [0, 1])
+def test_fused_finalize_nan_bin_equals_plain(dev, nan_bin):
+    """F1 over latencies 20% NaN, its executor's NaN bin 0 (a streaming
+    poll's) or 1 (a batch query's), equal to its plain version."""
+    _fused_vs_plain(dev, _fin_table(1 << 15, 36, nan_share=0.2), nan_bin)
+
+
 def test_fused_finalize_shared_and_global_accumulators_equal_plain(dev):
     """F1 directly over one feed, against its plain version on the same CUDA
-    tensors: a state within G1's shared budget (4 groups: every leaf in a
-    block's private accumulators), one past it (64 groups: the sketch on
-    global atomics, the small leaves private) and 1,024 window groups."""
+    tensors: states of 3 and 48 groups (every leaf in a block's private
+    accumulators at 1024 threads) and 1,024 window groups (the sketch on
+    global atomics, the small leaves private)."""
+    _fused_vs_plain(dev, _fin_table(1 << 15, 35), 1)
+
+
+def _fused_vs_plain(dev, ts, nan_bin):
     from pixie_tpu_torch.compiler import compile_pxl
     from pixie_tpu_torch.engine.executor import PlanExecutor, _time_bounds
     from pixie_tpu_torch.plan import AggOp
 
-    ts = _fin_table(1 << 15, 35)
     for script in sorted(_FIN_SCRIPTS):
         plan = compile_pxl(_FIN_SCRIPTS[script], ts.schemas()).plan
-        ex = PlanExecutor(plan, ts, device=dev)
+        ex = PlanExecutor(plan, ts, device=dev, nan_bin=nan_bin)
         (op,) = [o for o in plan.topo_sorted() if isinstance(o, AggOp)]
         s = ex._agg_setup(op)
         cols = {k: torch.from_numpy(np.concatenate(
@@ -1259,3 +1334,41 @@ def test_fused_finalize_shared_and_global_accumulators_equal_plain(dev):
                     np.testing.assert_allclose(x, y, rtol=1e-12, atol=0)
                 else:
                     assert np.array_equal(x, y, equal_nan=x.dtype.kind == "f"), (script, path)
+
+
+#: one state shape (groups and UDAs), three chains: two filter literals and
+#: a deeper filter expression
+_F1_CHAINS = {
+    "not_404": "df = df[df.status != 404]\n",
+    "not_500": "df = df[df.status != 500]\n",
+    "deeper": "df = df[(df.status != 404) & (df.latency * 2.0 + 1.0 > 3.0 * (df.latency - 1.0))]\n",
+}
+
+
+def test_fused_finalize_cached_launch_follows_the_chain(dev):
+    """Three one-feed queries of one state shape (by service and status:
+    count, mean, p50) whose chains differ — a filter's literal, a deeper
+    filter — share F1's cached plan and each get their own launch (the
+    member's program is part of its encoding), and each equals the CPU
+    route, run in turn in one process."""
+    from pixie_tpu_torch.compiler import compile_pxl
+    from pixie_tpu_torch.engine import execute_plan
+
+    ts = _fin_table(1 << 15, 37)
+    fin._F1_PLANS.clear()
+    fin._F1_LAUNCHES.clear()
+    for label in ("not_404", "not_500", "deeper", "not_404"):
+        src = ("df = px.DataFrame(table='http_events')\n" + _F1_CHAINS[label] +
+               "df = df.groupby(['service', 'status']).agg(cnt=('latency', px.count), "
+               "avg=('latency', px.mean), p50=('latency', px.p50))\npx.display(df, 'out')\n")
+        plan = compile_pxl(src, ts.schemas()).plan
+        got = execute_plan(plan, ts, device=dev)["out"]
+        torch.cuda.synchronize()
+        want = execute_plan(plan, ts, device="cpu")["out"]
+        assert got.exec_stats["fused_single_feed"] == 1, label
+        g = got.to_pandas().sort_values(["service", "status"]).reset_index(drop=True)
+        w = want.to_pandas().sort_values(["service", "status"]).reset_index(drop=True)
+        assert len(g) == len(w) and g["status"].tolist() == w["status"].tolist(), label
+        assert g["cnt"].tolist() == w["cnt"].tolist() and g["p50"].tolist() == w["p50"].tolist()
+        np.testing.assert_allclose(g["avg"], w["avg"], rtol=1e-12, atol=0)
+    assert len(fin._F1_PLANS) == 1 and len(fin._F1_LAUNCHES) == 3

@@ -528,8 +528,9 @@ def test_f1_plan_is_the_launch_table_at_any_address(case):
     """F1's plan, built once per aggregate shape, patched with a launch
     buffer's address equals the row table built for that buffer directly
     (fill rows at each leaf update's state with its identity, a quantile
-    row per final reading its sketch), and a member over a second buffer
-    updates the plan's leaves in the plan's order."""
+    row per final reading its sketch, its quantiles and bin values in the
+    plan's constant buffer), and a member over a second buffer updates the
+    plan's leaves in the plan's order."""
     groups, windowed, keep_none = CASES[case]
     ts = _stores(n=12 * (1 << 14))[1]
     plan = interop.plan_from_dict(_plan(groups, windowed, keep_none).to_dict())
@@ -548,7 +549,16 @@ def test_f1_plan_is_the_launch_table_at_any_address(case):
 
     buf = torch.empty(total, dtype=torch.uint8)
     state, member = member_over(buf)
-    f1 = fin.f1_plan(layout, leaves, total, finals, member, buf.data_ptr())
+    f1 = fin.f1_plan(layout, leaves, total, finals, member, buf.data_ptr(), "cpu")
+    consts = fin.consts_for(finals, "cpu")
+    assert f1.consts is consts
+    for name, f in finals.items():
+        qs_at, binv_at = consts.at[name]
+        words = consts.buf.numpy()
+        base = consts.buf.data_ptr()
+        assert tuple(words[(qs_at - base) // 8:][:len(f.qs)]) == f.qs
+        assert np.array_equal(words[(binv_at - base) // 8:][:f.sketch.width],
+                              f.sketch.bin_value(np.arange(f.sketch.width)))
     for b in (buf, torch.empty(total + 64, dtype=torch.uint8)[16:]):
         state, member = member_over(b)
         want = fin._Table(1)
@@ -558,7 +568,7 @@ def test_f1_plan_is_the_launch_table_at_any_address(case):
         for path, shp, off in zip(layout.paths, layout.shapes, layout.offsets):
             if path[0] == "finals":
                 want.quantile(finals[path[1]], shp[0], b.data_ptr() + off,
-                              [state[path[1]].data_ptr()])
+                              [state[path[1]].data_ptr()], *consts.at[path[1]])
         assert np.array_equal(f1.table_at(b.data_ptr()), want.array())
         assert tuple((lf.op, lf.state.data_ptr() - b.data_ptr())
                      for lf in member.leaves) == f1.fills
@@ -716,3 +726,204 @@ def test_batched_gang_reads_back_through_p1(pack_calls):
         assert len(pack_calls) > n_packs  # solo partials read back through P1 too
     finally:
         flags.set_for_testing("PX_MQ_FUSION", saved)
+
+
+# ------------------------------------- F1's and F2's tables past capacity
+
+
+def _wide_plan(values):
+    p = Plan()
+    node = p.add(MemorySourceOp(table="http_events"))
+    agg = p.add(AggOp(groups=["service"], values=[AggExpr(*v) for v in values]),
+                parents=[node])
+    p.add(MemorySinkOp(name="out"), parents=[agg])
+    return p
+
+
+#: aggregates whose F1 table fits one launch, and ones past it: 31 counts
+#: (+ seen: 32 leaf updates, the most), 32 counts (33 leaves), 23 p50s (24
+#: leaves and 47 rows, the most) and 24 p50s (25 leaves, 49 rows)
+WIDE = {
+    "32_leaves": ([(f"c{i}", "count", None) for i in range(31)], True),
+    "33_leaves": ([(f"c{i}", "count", None) for i in range(32)], False),
+    "47_rows": ([(f"p{i}", "p50", "latency") for i in range(23)], True),
+    "49_rows": ([(f"p{i}", "p50", "latency") for i in range(24)], False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE))
+def test_single_feed_prediction_declines_an_f1_table_past_capacity(case):
+    """A one-feed aggregate whose F1 table does not fit one launch (32 leaf
+    updates, 48 fill and quantile rows) is declined by the single-feed
+    prediction before any launch: it takes the multi-feed route (F2),
+    counted in exec_stats["f1_declined"], with the reference's results."""
+    values, fits = WIDE[case]
+    plan = _wide_plan(values)
+    stores = _stores(n=1 << 14)
+    got, want, stats, _rstats = _run_both(plan, stores)
+    assert stats.get("fused_single_feed", 0) == int(fits)
+    assert stats.get("f1_declined", 0) == int(not fits)
+    g = got.to_pandas().sort_values("service").reset_index(drop=True)
+    w = want.to_pandas().sort_values("service").reset_index(drop=True)
+    assert list(g.columns) == list(w.columns) and list(g["service"]) == list(w["service"])
+    for c in w.columns[1:]:
+        a, b = g[c].to_numpy(), w[c].to_numpy()
+        if c.startswith("p"):  # to 1 ulp of the reference's device finalize
+            assert (np.abs(a - b) <= np.spacing(np.abs(b))).all(), c
+        else:
+            assert a.tolist() == b.tolist(), c
+    ex = PlanExecutor(interop.plan_from_dict(plan.to_dict()), stores[1], device="cpu")
+    (op,) = [o for o in ex.plan.topo_sorted() if o.__class__.__name__ == "AggOp"]
+    s = ex._agg_setup(op)
+    from pixie_tpu_torch.engine.executor import f1_shape
+
+    ok, n_leaves, n_finals = f1_shape(s.num_groups, s.init_specs, s.udas)
+    assert ok and fin.f1_fits(n_leaves, n_finals) == fits
+    assert ex._predicted_single_feed(s.src, s.cap) is True
+    assert ex._predicted_single_feed(s.src, s.cap, (ok, n_leaves, n_finals)) == fits
+
+
+def test_f1_launch_key_holds_the_members_program():
+    """F1's launch cache: aggregates of one state shape (by service and
+    status: count, mean, p50) share F1Plan's key (f1_key) whatever their
+    chain; their members' gang_key, which keys the launch (the member's
+    encoding holds its program), differs between two filter literals and
+    for a deeper filter, and is the same for the same chain compiled
+    again (programs are interned by contents)."""
+    from pixie_tpu_torch.engine.executor import f1_key
+    from pixie_tpu_torch.ops import gang as g1
+
+    store = _stores(n=1 << 12)[1]
+    chains = ("df = df[df.status != 404]\n", "df = df[df.status != 500]\n",
+              "df = df[(df.status != 404) & (df.latency * 2.0 > df.latency - 1.0)]\n",
+              "df = df[df.status != 404]\n")
+    keys = []
+    for chain in chains:
+        src = ("df = px.DataFrame(table='http_events')\n" + chain +
+               "df = df.groupby(['service', 'status']).agg(cnt=('latency', px.count), "
+               "avg=('latency', px.mean), p50=('latency', px.p50))\npx.display(df, 'out')\n")
+        ex = PlanExecutor(compile_pxl(src, store.schemas()).plan, store, device="cpu")
+        (op,) = [o for o in ex.plan.topo_sorted() if o.__class__.__name__ == "AggOp"]
+        s = ex._agg_setup(op)
+        state = {name: uda.init(s.num_groups, dt, "cpu") for name, uda, dt in s.init_specs}
+        cols = {k: torch.zeros(4, dtype=torch.float64 if k == "latency" else torch.int64)
+                for k in s.names}
+        luts = {k: torch.as_tensor(v) for k, v in s.kern.luts.items()}
+        m = s.kern.gang_member(cols, 4, 0, 1, luts, state, s.origins)
+        keys.append((f1_key(s.num_groups, s.init_specs), g1.gang_key([m], torch.device("cpu")),
+                     m.prog.depth))
+    assert len({k[0] for k in keys}) == 1
+    assert len({k[1] for k in keys[:3]}) == 3 and keys[3][1] == keys[0][1]
+    assert keys[2][2] > keys[0][2]
+
+
+def _leafy_f2_states(n_states, n_leaves, g, seed):
+    rng = np.random.default_rng(seed)
+    dts = (torch.int64, torch.float64, torch.int32)
+    out = []
+    for _ in range(n_states):
+        st = {f"l{i}": torch.from_numpy(rng.integers(-100, 100, g)).to(dts[i % 3])
+              for i in range(n_leaves)}
+        st["p50"] = torch.from_numpy(rng.integers(0, 8, (g, WIDTH)).astype(np.float32))
+        out.append(st)
+    rt = {**{f"l{i}": ("add", "min", "max")[i % 3] for i in range(n_leaves)}, "p50": "add"}
+    return out, rt
+
+
+def _per_call_f2_rows(states, rt, finals, layout, base, consts):
+    """The row table as the wrapper encoded it on every call before the plan
+    was cached: a quantile row per final, a merge row per other leaf."""
+    table = fin._Table(len(states))
+    for path, d, s, off in zip(layout.paths, layout.dtypes, layout.shapes, layout.offsets):
+        if path[0] == "finals":
+            table.quantile(finals[path[1]], s[0], base + off,
+                           [st[path[1]].data_ptr() for st in states], *consts.at[path[1]])
+            continue
+        n = int(np.prod(s))
+        xs = [fin._get(st, path[1:]) for st in states]
+        vec = not any(p & 15 for p in [base + off, *(x.data_ptr() for x in xs)])
+        table.merge(fin._get(rt, path[1:]), d, n, base + off, [x.data_ptr() for x in xs], vec)
+    return table.array().reshape(len(table.rows), -1)
+
+
+@pytest.mark.parametrize("n_states,n_leaves", [(1, 3), (4, 40), (8, 300), (8, 700)])
+def test_f2_plan_rows_equal_per_call_encoding_and_split(n_states, n_leaves):
+    """F2's plan, cached per tree, finals and N, gives the rows of the
+    per-call encoding (the quantiles and bin values read from the plan's
+    constant buffer); past one launch's table (F2_WORDS) it splits into
+    launches of whole rows that cover every row once, in order, each within
+    the capacity; the plain route's output is the same either way."""
+    states, rt = _leafy_f2_states(n_states, n_leaves, 5, n_leaves)
+    finals = {"p50": fin.Final(fin.LogHistogram(), (0.5,), True)}
+    plan = fin.f2_plan_for(states, rt, finals, torch.device("cpu"))
+    assert fin.f2_plan_for(states, rt, finals, torch.device("cpu")) is plan
+    width = 6 + n_states
+    n_rows = n_leaves + 1
+    assert [i for a, b, _v, _s in plan.launches for i in range(a, b)] == list(range(n_rows))
+    assert all((b - a) * width <= fin.F2_WORDS[-1] for a, b, _v, _s in plan.launches)
+    assert len(plan.launches) == -(-n_rows // (fin.F2_WORDS[-1] // width))
+    base = 1 << 40
+    rows, vec = plan.rows(states, base, -1)
+    want = _per_call_f2_rows(states, rt, finals, plan.layout, base, plan.consts)
+    np.testing.assert_array_equal(rows, want)
+    got = fin.merge_finalize(states, rt, finals)
+    ref = fin.merge_finalize_plain(states, rt, finals)
+    assert torch.equal(got.buf, ref.buf)
+
+
+def test_f1_pass_planner_widths_and_private_leaves():
+    """F1's member pass: 1024 threads of 2 rows with the whole state
+    private where it fits beside the stack and slots (config #1's
+    64-group state), of 1 row for a deeper program; past that the sketch on
+    global atomics and the small leaves private (1,024 groups: 256 threads
+    of 4 rows), 256 threads of one row for a program too deep for the rest;
+    every plan within the 227 KB a block may opt in to.  G1's pass runs 256
+    threads of 4 rows (fewer for a deeper program) within BLOCK_SMEM, its
+    members' states private in order within SHARED_STATE_BYTES.  F1's warps
+    combine their rows of one group in a 1024-thread layout for a member of
+    at most COMBINE_GROUPS groups; G1's never do."""
+    from pixie_tpu_torch.ops import chain as c1
+    from pixie_tpu_torch.ops import gang as g1
+    from pixie_tpu_torch.ops.sketch import LogHistogram
+
+    def member(groups, depth):
+        b = c1.ProgramBuilder()
+        for _ in range(depth):
+            b.col("x", c1.I64)
+        for _ in range(depth - 1):
+            b.op("ADD_I")
+        b.const(0, c1.I64)
+        b.op("GE_I")
+        b.mask_and()
+        prog, _bnd = b.finish()
+        sk = LogHistogram()
+        leaves = [g1.Leaf("count", torch.zeros(groups, dtype=torch.int64)),
+                  g1.Leaf("sum", torch.zeros(groups, dtype=torch.float64), 0),
+                  g1.Leaf("count", torch.zeros(groups, dtype=torch.int64)),
+                  g1.Leaf("hist", torch.zeros(groups, sk.width), 0, sk),
+                  g1.Leaf("count", torch.zeros(groups, dtype=torch.int64))]
+        return g1.Member(prog, [], [], [], groups, leaves)
+
+    cfg1 = g1.plan_f1_pass(member(64, 3))
+    assert (cfg1.block, cfg1.rows_per_thread, cfg1.hist_shared) == (1024, 2, True)
+    assert cfg1.offs == (0,) and cfg1.acc_bytes == 64 * (4 + 8 + 4 + 514 * 4 + 4)
+    assert cfg1.combine
+    deeper = g1.plan_f1_pass(member(64, 7))
+    assert (deeper.block, deeper.rows_per_thread, deeper.hist_shared) == (1024, 1, True)
+    cfg2 = g1.plan_f1_pass(member(1024, 3))
+    assert (cfg2.block, cfg2.rows_per_thread, cfg2.hist_shared) == (256, 4, False)
+    assert cfg2.offs == (0,) and cfg2.acc_bytes == 1024 * (4 + 8 + 4 + 4)
+    deep = g1.plan_f1_pass(member(64, 30))
+    assert (deep.block, deep.rows_per_thread, deep.hist_shared) == (256, 1, False)
+    for p in (cfg1, cfg2, deep):
+        assert p.smem <= g1.SMEM_OPTIN
+    wider = g1.plan_f1_pass(member(g1.COMBINE_GROUPS + 1, 3))
+    assert (wider.block, wider.rows_per_thread, wider.hist_shared) == (1024, 2, True)
+    assert not wider.combine and not cfg2.combine and not deep.combine
+    gang = g1.plan_pass([member(3, 3), member(64, 3), member(1 << 20, 3)])
+    assert (gang.block, gang.rows_per_thread) == (256, 4) and not gang.combine
+    assert gang.offs == (0, None, None) and gang.smem <= g1.BLOCK_SMEM
+    for depth, layout in ((13, (256, 2)), (30, (256, 1))):
+        deep_gang = g1.plan_pass([member(3, depth), member(3, 3)])
+        assert (deep_gang.block, deep_gang.rows_per_thread) == layout
+        assert deep_gang.smem <= g1.BLOCK_SMEM

@@ -150,3 +150,50 @@ def test_quantile_device_matches_reference_device_finalize(g):
 def test_bin_value_matches_reference():
     idx = np.arange(-2, W + 2)
     np.testing.assert_array_equal(LH.bin_value(idx), REF.bin_value(idx))
+
+
+# ------------------------------------------------------------- the NaN bin
+
+from pixie_tpu.engine import np_partial as ref_np  # noqa: E402
+
+
+def _nan_values(n, seed):
+    v = _values(n, seed)
+    v[np.random.default_rng(seed).random(len(v)) < 0.2] = np.nan
+    return v
+
+
+@pytest.mark.parametrize("nan_bin", [0, 1])
+def test_bin_index_nan_bin_is_the_only_difference_of_the_routes(nan_bin):
+    """bin_index(nan_bin=1) is the reference's device rule, nan_bin=0 its
+    CPU route's (`np_partial._bin_index_np`, which its streaming polls
+    take): each NaN lands in nan_bin, every other value where the rule
+    puts it."""
+    v = np.array([np.nan, np.inf, -np.inf, 0.0, -5.0, 1e-9, 1.0000001e-9, 1.0,
+                  1e300, 5e-324, 3.4e38, 3.5e38, 1e-8, 50.0, np.nan])
+    if nan_bin == 1:
+        want = np.asarray(REF.bin_index(jnp.asarray(v))).astype(np.int64)
+    else:
+        want = ref_np._bin_index_np(REF, v).astype(np.int64)
+    got = LH.bin_index(torch.as_tensor(v), nan_bin).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got[np.isnan(v)] == nan_bin).all()
+
+
+@pytest.mark.parametrize("g", [1, 64])
+def test_update_nan_bin_0_equals_reference_cpu_route(g):
+    """K2's plain version at nan_bin 0 over values 20% NaN equals the
+    reference's CPU-route histogram (`np_partial._hist_update`, native or
+    numpy) in every NaN's cell and in every group's total."""
+    v = _nan_values(1 << 14, 7 + g)
+    n = len(v)
+    rng = np.random.default_rng(g)
+    gid = rng.integers(0, g, n).astype(np.int64)
+    mask = rng.random(n) < 0.8
+    want = ref_np._hist_update(REF, np.where(mask, gid, -1), mask, v, g)
+    got = LH.update(LH.init(g, "cpu"), torch.as_tensor(gid.astype(np.int32)),
+                    torch.as_tensor(v), torch.as_tensor(mask), g, nan_bin=0).numpy()
+    np.testing.assert_array_equal(got.sum(axis=1), np.asarray(want).sum(axis=1))
+    nan_cells = np.bincount(gid[mask & np.isnan(v)], minlength=g)
+    assert (got[:, 0] >= nan_cells).all() and (got[:, 1] == np.asarray(want)[:, 1]).all()
+    np.testing.assert_array_equal(got[:, 0], np.asarray(want)[:, 0])

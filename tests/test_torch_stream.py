@@ -437,6 +437,88 @@ def case_cluster_stream_chain_unions_agents(pk, log):
     assert log(cs.poll())["rows"].num_rows == 1
 
 
+NAN_SCRIPT = """
+df = px.DataFrame(table='http_events').stream()
+df = df.rolling('1s').agg(cnt=('latency', px.count), p10=('latency', px.p10),
+                          p50=('latency', px.p50))
+px.display(df, 'out')
+"""
+
+
+def _nan_latencies(rng, n):
+    lat = rng.exponential(20.0, n)
+    lat[rng.random(n) < 0.2] = np.nan
+    return lat
+
+
+def case_stream_quantiles_over_nan_latencies(pk, log):
+    """A NaN latency counts in sketch bin 0 in a streaming poll, as the
+    reference's CPU route bins it: over latencies that are 20% NaN, every
+    window's p10 is 0.0 (bin 1 would give 0.980)."""
+    ts = pk.store()
+    sq = pk.stream(NAN_SCRIPT, ts)
+    rng = np.random.default_rng(21)
+    p10 = []
+    for step in range(4):
+        n = 700
+        ts.table("http_events").write({
+            "time_": step * SEC + np.sort(rng.integers(0, SEC, n)),
+            "service": ["a"] * n, "latency": _nan_latencies(rng, n)})
+        got = log(sq.poll())
+        if "out" in got:
+            p10.extend(got["out"].to_pandas()["p10"])
+    p10.extend(log(sq.close())["out"].to_pandas()["p10"])
+    assert len(p10) == 4 and all(v == 0.0 for v in p10)
+
+
+def case_cluster_stream_quantiles_over_nan_latencies(pk, log):
+    """The cluster stream's agent polls bin a NaN latency at 0 too."""
+    stores = {"pem0": pk.store(), "pem1": pk.store()}
+    cs = pk.cstream(pk.cluster(stores), NAN_SCRIPT)
+    rng = np.random.default_rng(22)
+    for step in range(3):
+        for ts in stores.values():
+            n = 400
+            ts.table("http_events").write({
+                "time_": step * SEC + np.sort(rng.integers(0, SEC, n)),
+                "service": ["a"] * n, "latency": _nan_latencies(rng, n)})
+        log(cs.poll())
+    fin = log(cs.close())
+    assert (fin["out"].to_pandas()["p10"] == 0.0).all()
+
+
+def test_batch_query_bins_nan_as_the_reference_device_route():
+    """A batch query keeps NaN in sketch bin 1, as the reference's device
+    route (force_backend="tpu") bins it: p10 over latencies 20% NaN equals
+    that route's, bin 1's value (a streaming poll's would be 0.0)."""
+    script = ("df = px.DataFrame(table='http_events')\n"
+              "df = df.groupby('service').agg(cnt=('latency', px.count), "
+              "p10=('latency', px.p10), p50=('latency', px.p50))\n"
+              "px.display(df, 'out')\n")
+    rng = np.random.default_rng(23)
+    n = 3000
+    cols = {"time_": np.arange(n, dtype=np.int64),
+            "service": rng.choice(["a", "b", "c"], n).tolist(),
+            "latency": _nan_latencies(rng, n)}
+    frames = {}
+    for pk in (REF, PORT):
+        ts = pk.store()
+        ts.table("http_events").write(cols)
+        if pk is PORT:
+            frames["port"] = _frames(execute_plan(compile_pxl(script, ts.schemas()).plan, ts,
+                                                  device="cpu"))["out"]
+            continue
+        plan = ref_compile(script, ts.schemas()).plan
+        frames["ref"] = _frames(RefExecutor(plan, ts, None, force_backend="tpu").run())["out"]
+    port, dev_route = frames["port"], frames["ref"]
+    assert list(port["service"]) == list(dev_route["service"])
+    assert list(port["cnt"]) == list(dev_route["cnt"])
+    bin1 = GAMMA ** -0.5
+    np.testing.assert_allclose(port["p10"], bin1, rtol=1e-12)
+    np.testing.assert_allclose(dev_route["p10"], bin1, rtol=1e-12)
+    np.testing.assert_allclose(port["p50"], dev_route["p50"], rtol=1e-12)
+
+
 # --------------------------------------------- bench config #5, small
 
 CONFIG5_SCRIPT = """
