@@ -23,10 +23,20 @@ settling ones, ms):
   batch_unbatched,  the four BATCH_SCRIPTS through LocalCluster over the
   batch_batched     --rows table from 16 threads, 4 queries each, query
                     batching off and on: goodput in queries per second;
+  config2           config #2 (chip_smoke `config2_plan`: 10 s windows x
+                    service, count, mean, p50, p99) over bench's
+                    build_http_table at 64M rows (chip_smoke's slice table,
+                    whatever --rows says), PX_FEED_ROWS = 2^24: four feeds;
   g1                kernel G1 alone (`gang.run`) on the four BATCH_SCRIPTS
                     members over the table's first 16M-row feed (chip_smoke
                     `gang_feed`): the median of 5 timings of 20 calls by
-                    CUDA events, ms a call.
+                    CUDA events, ms a call;
+  c1, c1_config2    kernel C1 alone on config #1's and config #2's chains
+                    over chip_smoke's 16M-row chain feed (`chain_programs`),
+                    timed as g1 is;
+  k2, k2_config2    kernel K2 alone on that feed's latency into the group
+                    ids and mask the config #1 chain (64 groups) and the
+                    config #2 chain (1,024 groups) give, timed as g1 is.
 
 --measures names the measures to take (default all; config4 and the batch
 arms alone are the paths where P1 and M1 run).  It prints one JSON line
@@ -100,6 +110,41 @@ for label, feed_rows in (("one_feed", 1 << 24), ("four_feeds", rows // 4),
 flags.set_for_testing("PIXIE_TORCH_VIRTUAL_SHARDS", 1)
 flags.set_for_testing("PX_FEED_ROWS", 1 << 24)
 
+if "config2" in measures:
+    ts2 = TableStore()
+    cs.build_http_table(ts2, cs.ROWS)
+    plan2 = cs.config2_plan()
+
+    def query2():
+        execute_plan(plan2, ts2, device=dev)
+        torch.cuda.synchronize(dev)
+
+    out["config2"] = warm_ms(query2)
+    del ts2
+
+if measures & {"c1", "c1_config2", "k2", "k2_config2"}:
+    from pixie_tpu_torch.ops import chain as c1
+    from pixie_tpu_torch.ops.sketch import LogHistogram
+
+    lh = LogHistogram()
+    chains = cs.chain_programs(dev)
+    for (c_label, k_label, groups), (_l, kern, cols, luts, scalars, _lim, _p) in zip(
+            (("c1", "k2", 64), ("c1_config2", "k2_config2", 1024)), chains):
+        n = cs.FEED
+
+        def run(kern=kern, cols=cols, luts=luts, scalars=scalars, n=n):
+            return kern.run_segments(kern.segments, cols, n, n, -(2 ** 63), 2 ** 63 - 1,
+                                     None, luts, scalars, runner=c1.run)
+
+        if c_label in measures:
+            out[c_label] = sorted(cs.cuda_ms(run, 20) for _ in range(5))[2]
+        if k_label in measures:
+            mask, gid, _outs, _c = run()
+            acc, lat = lh.init(groups, dev), cols["latency"]
+            out[k_label] = sorted(cs.cuda_ms(lambda: lh.update(acc, gid, lat, mask, groups),
+                                             20) for _ in range(5))[2]
+    del chains
+
 if "g1" in measures:
     from pixie_tpu_torch.ops import gang as g1
 
@@ -160,7 +205,8 @@ print(json.dumps(out), flush=True)
 #: measure → True when higher is better
 MEASURES = {"one_feed": False, "four_feeds": False, "four_feeds_mesh4": False,
             "config3": False, "config4": False, "batch_unbatched": True,
-            "batch_batched": True, "g1": False}
+            "batch_batched": True, "config2": False, "g1": False, "c1": False,
+            "c1_config2": False, "k2": False, "k2_config2": False}
 
 
 def quartiles(xs: list) -> tuple[float, float, float]:

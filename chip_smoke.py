@@ -13,7 +13,9 @@ Phases, each of which fails the run if it fails:
                 cases (int64 sums that wrap, an all-false mask, one group,
                 more groups than shared memory holds, values on sketch bin
                 edges and <= 1e-9, K2 over values 20% NaN at NaN bins 0
-                and 1).  Integer results and the quantiles must
+                and 1 in both its regimes — one block's shared memory
+                and global atomics — and with its inputs one value past
+                alignment).  Integer results and the quantiles must
                 match exactly, float64 sums to 1e-12 of each group's sum
                 of |values|.  Each kernel is
                 timed (CUDA events) beside its plain version, the nearest
@@ -425,6 +427,15 @@ def warm_times(query, warmup: int = 2, reps: int = 5) -> list[float]:
     return sorted(times)
 
 
+def _build_fn(lib: str, symbol: str, n_int_args: int):
+    """A kernel library's C entry point that takes n int arguments."""
+    import ctypes
+
+    from pixie_tpu_torch.ops import _build
+
+    return _build.function(lib, symbol, [ctypes.c_int] * n_int_args)
+
+
 def bound(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
     """Least time (ms) the card could take: bytes over the memory rate or
     float32 operations over the peak rate, whichever is larger."""
@@ -441,7 +452,7 @@ def check_kernels(dev) -> list[dict]:
     import torch
 
     from pixie_tpu_torch.ops import groupby as gb
-    from pixie_tpu_torch.ops.sketch import LogHistogram
+    from pixie_tpu_torch.ops.sketch import LogHistogram, update_regime
 
     rng = np.random.default_rng(7)
     rows = []
@@ -591,19 +602,35 @@ def check_kernels(dev) -> list[dict]:
             err = same("K2 " + label + mask_label, a, b)
             log(json.dumps({"check": "K2 " + label + mask_label, "ok": True,
                             "max_abs_err": err}))
-    # a feed 20% NaN at both NaN bins: 0 a streaming poll's, 1 a batch query's
-    vals = rng.exponential(50.0, 1 << 20)
-    vals[rng.random(1 << 20) < 0.2] = np.nan
-    v_n, gid_n, mask_n = t(vals), t(rng.integers(0, 64, 1 << 20).astype(np.int32)), \
-        t(rng.random(1 << 20) < 0.9)
-    for nan_bin in (0, 1):
-        a, b = lh.init(64, dev), lh.init(64, dev)
-        lh.update(a, gid_n, v_n, mask_n, 64, nan_bin)
-        lh.update_plain(b, gid_n, v_n, mask_n, 64, nan_bin)
-        torch.cuda.synchronize()
-        err = same(f"K2 NaN bin {nan_bin}", a, b)
-        log(json.dumps({"check": f"K2 20% NaN, NaN bin {nan_bin}", "ok": True,
-                        "max_abs_err": err}))
+    # the regime of each group count (csrc/loghist_update.cu) as the wrapper's
+    # mirror gives it at the card's opt-in shared memory
+    regime = _build_fn("loghist_update", "px_loghist_regime", 2)
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    regimes = {g_: regime(g_, W) for g_ in (1, 64, 113, 114, 512, 1024)}
+    if any(c != update_regime(g_, W, optin) for g_, c in regimes.items()):
+        raise AssertionError(f"K2 regimes {regimes} differ from ops/sketch.py update_regime")
+    log(json.dumps({"check": "K2 regimes (blocks holding the sketch; 0 global)", "ok": True,
+                    "optin": optin, "regimes": regimes}))
+    # a feed 20% NaN at both NaN bins (0 a streaming poll's, 1 a batch
+    # query's), in both regimes: one block (1, 64, 113 groups) and global
+    # atomics (114, 1,024, 2,000); at 1,024 groups also with its inputs one
+    # value past alignment (the one-row loads)
+    vals = rng.exponential(50.0, (1 << 20) + 1)
+    vals[rng.random((1 << 20) + 1) < 0.2] = np.nan
+    v_all, mask_all = t(vals), t(rng.random((1 << 20) + 1) < 0.9)
+    for g_ in (1, 64, 113, 114, 1024, 2000):
+        gid_all = t(rng.integers(0, g_, (1 << 20) + 1).astype(np.int32))
+        for nan_bin in (0, 1):
+            for off in ((0, 1) if g_ == 1024 else (0,)):
+                v_n, gid_n, mask_n = v_all[off:], gid_all[off:], mask_all[off:]
+                a, b = lh.init(g_, dev), lh.init(g_, dev)
+                lh.update(a, gid_n, v_n, mask_n, g_, nan_bin)
+                lh.update_plain(b, gid_n, v_n, mask_n, g_, nan_bin)
+                torch.cuda.synchronize()
+                err = same(f"K2 G={g_} NaN bin {nan_bin} offset {off}", a, b)
+                log(json.dumps({"check": f"K2 20% NaN, G={g_}, NaN bin {nan_bin}, "
+                                         f"offset {off}", "ok": True,
+                                "blocks": update_regime(g_, W, optin), "max_abs_err": err}))
     # main shapes
     a, b = lh.init(g, dev), lh.init(g, dev)
     lh.update(a, gid, lat, mask, g)
@@ -626,7 +653,10 @@ def check_kernels(dev) -> list[dict]:
         # nearest single call: a weighted bincount of the precomputed cells
         "library_ms": cuda_ms(lambda: torch.bincount(cell, weights=weights,
                                                      minlength=g * W), 10),
-        "shape": {"rows": FEED, "groups": g, "bins": W},
+        "shape": {"rows": FEED, "groups": g, "bins": W,
+                  "blocks": update_regime(g, W, optin),
+                  "device_ms": kernel_device_ms(lambda: lh.update(acc, gid, lat, mask, g), 20),
+                  "host_us": host_us(lambda: lh.update(acc, gid, lat, mask, g))},
     })
 
     # ---- K3: exact against its plain version, incl. empty groups and G = 1
@@ -2616,11 +2646,142 @@ def chain_bound(kern, n: int) -> tuple[float, str]:
     return bound(n * (sum(read.values()) + written))
 
 
+C1_DIVISORS = [1, 2, 3, 7, 10 ** 10, 2 ** 32 + 1, 2 ** 40, 2 ** 62, 2 ** 63 - 1, 0, -1, -3,
+               -(2 ** 63)]
+
+
+def check_chain_fused(dev, rng) -> None:
+    """C1's shortened forms against the plain interpreter: FDIV_I, MOD_I
+    and BIN_I by a constant (the multiply-high, and the plain division for
+    d < 1) over int64 edge dividends; then a program of every fused
+    instruction (MASK_CMP by each compare against a constant and a scalar,
+    and the row bound; DICT_KEY; a bool column into the mask; SEARCH over a
+    3-entry LUT, a count, and a 27-entry one, a binary search; WINDOW by
+    10^10; more columns than CACHE holds) over a feed that ends mid-tile,
+    with its columns aligned and one value past 16 bytes."""
+    import torch
+
+    from pixie_tpu_torch.ops import chain as c1
+
+    n = 1 << 16
+    for op in ("floordiv", "modulo", "bin"):
+        for d in C1_DIVISORS:
+            prog, _bnd = c1.op_program(op, [c1.I64, c1.I64], [None, d])
+            x = rng.integers(-(2 ** 63), 2 ** 63 - 1, n, dtype=np.int64)
+            edges = [v for v in (-(2 ** 63), -(2 ** 63) + 1, -d - 1, -d, -d + 1, -1, 0, 1,
+                                 d - 1, d, d + 1, 2 ** 63 - 1) if -(2 ** 63) <= v < 2 ** 63]
+            x[: len(edges)] = edges
+            cols = [torch.from_numpy(x).to(dev)]
+            got = c1.run(prog, cols, [], [], n, dev)[2][0]
+            c1_compare(f"{op} by {d}", got, c1.run_plain(prog, cols, [], [], n, dev)[2][0])
+    cases = 0
+    m = 3 * 2048 + 123
+    luts = {"short": torch.tensor([200, 404, 500], dtype=torch.int64, device=dev),
+            "long": torch.arange(-40, 40, 3, dtype=torch.int64, device=dev)}
+    for kind in (c1.I64, c1.F64, c1.I32):
+        for off in (0, 1):
+            def column(k, lo=-50, hi=50):
+                if k == c1.F64:
+                    v = rng.normal(0, 40, m + off)
+                    v[off: off + 6] = [np.nan, np.inf, -np.inf, 0.0, -0.0, 3.0]
+                elif k == c1.B:
+                    v = rng.random(m + off) < 0.7
+                else:
+                    v = rng.integers(lo, hi, m + off).astype(np.int32 if k == c1.I32
+                                                             else np.int64)
+                    v[off: off + 3] = [7, -7, 0]
+                return torch.from_numpy(v).to(dev)[off:]
+
+            cols = {"x": column(kind), "y": column(c1.I64, 150, 550),
+                    "code": column(c1.I32, -3, 20), "t": column(c1.I64, -(10 ** 12), 10 ** 12),
+                    "b": column(c1.B)}
+            lit = 3.0 if kind == c1.F64 else 7
+            sfx = "_F" if kind == c1.F64 else "_I"
+            for cmp in ("EQ", "NE", "LT", "LE", "GT", "GE"):
+                b = c1.ProgramBuilder()
+                b.row(); b.scalar("n_valid"); b.op("LT_I"); b.mask_and()
+                b.col("x", kind); b.const(lit, kind); b.op(cmp + sfx); b.store()
+                b.col("x", kind); b.const(lit, kind); b.op(cmp + sfx); b.mask_and()
+                if kind != c1.F64:
+                    b.col("x", kind); b.scalar("s"); b.op(cmp + sfx); b.store()
+                b.col("b", c1.B); b.mask_and()
+                b.col("code", c1.I32); b.dup(); b.const(0, c1.I64); b.op("GE_I")
+                b.mask_and(); b.combine(16)
+                b.col("t", c1.I64); b.window(10 ** 10, "origin"); b.combine(256)
+                b.col("y", c1.I64); b.search("short"); b.store()
+                b.col("y", c1.I64); b.search("long"); b.store()
+                prog, bnd = b.finish(has_gid=True)
+                scal = {"n_valid": m - 77, "s": 5, "origin": -3}
+                args = ([cols[k] for k in bnd.cols], [luts[k] for k in bnd.luts],
+                        [scal[k] for k in bnd.scalars], m, dev)
+                got, want = c1.run(prog, *args), c1.run_plain(prog, *args)
+                label = f"fused {cmp}{sfx} offset {off}"
+                c1_compare(label + " mask", got[0], want[0])
+                c1_compare(label + " gid", got[1], want[1])
+                for j, (g, w) in enumerate(zip(got[2], want[2])):
+                    c1_compare(f"{label} output {j}", g, w)
+                cases += 1
+    torch.cuda.synchronize()
+    log(json.dumps({"check": "C1 fused instructions", "ok": True,
+                    "divisions": 3 * len(C1_DIVISORS), "programs": cases}))
+
+
+def k2_at_config2(dev, cols, chain_out) -> dict:
+    """K2 at config #2's shape: the 16M-row feed's latency into config #2's
+    chain's 1,024 window x service groups (the group ids and mask C1 just
+    computed), on global atomics; held against update_plain at both NaN
+    bins with 20% of the values NaN, then timed on the feed as it is."""
+    import torch
+
+    from pixie_tpu_torch.ops.sketch import LogHistogram, update_regime
+
+    lh = LogHistogram()
+    g, w = 64 * N_SERVICES, lh.width
+    mask, gid = chain_out[0], chain_out[1]
+    lat = cols["latency"]
+    rng = np.random.default_rng(29)
+    lat_nan = lat.clone()
+    lat_nan[torch.from_numpy(rng.random(FEED) < 0.2).to(dev)] = float("nan")
+    for nan_bin in (0, 1):
+        a = lh.update(lh.init(g, dev), gid, lat_nan, mask, g, nan_bin)
+        b = lh.update_plain(lh.init(g, dev), gid, lat_nan, mask, g, nan_bin)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"K2 at config #2's shape, NaN bin {nan_bin}: differs "
+                                 "from update_plain")
+    acc = lh.init(g, dev)
+    cell = gid.long() * w + lh.bin_index(lat)
+    weights = mask.float()
+    b_ms, b_by = bound(FEED * 13 + 2 * g * w * 4, 2 * FEED)
+    row = {
+        "name": "loghist_update (config #2 shape)", "route": "cuda",
+        "source": "pixie_tpu_torch/csrc/loghist_update.cu",
+        "replaces": "pixie_tpu/ops/sketch.py:118 LogHistogram.update (+ bin_index :101)",
+        "entry": ("loghist_update", "px_loghist_update"), "path": "config2",
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: lh.update(acc, gid, lat, mask, g), 20),
+        "plain_ms": cuda_ms(lambda: lh.update_plain(acc, gid, lat, mask, g), 5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: torch.bincount(cell, weights=weights,
+                                                     minlength=g * w), 10),
+        "shape": {"rows": FEED, "groups": g, "bins": w, "kept": int(mask.sum()),
+                  "blocks": update_regime(g, w, torch.cuda.get_device_properties(
+                      dev).shared_memory_per_block_optin),
+                  "device_ms": kernel_device_ms(lambda: lh.update(acc, gid, lat, mask, g), 20),
+                  "host_us": host_us(lambda: lh.update(acc, gid, lat, mask, g))},
+    }
+    log(json.dumps({"check": "K2 at config #2's shape, NaN bins 0 and 1", "ok": True,
+                    "ms": row["ms"], "blocks": row["shape"]["blocks"]}))
+    return row
+
+
 def check_chain_kernel(dev) -> list[dict]:
     """C1 against its plain interpreter on the same CUDA tensors: every
-    `_dev` opcode at edge values, then four chain programs at a 16M-row feed
-    (config #1's, config #2's, a select's, one with two limits), with
-    n_valid < n and an all-false mask; timed beside the plain interpreter."""
+    `_dev` opcode at edge values, the shortened forms (check_chain_fused),
+    then four chain programs at a 16M-row feed (config #1's, config #2's, a
+    select's, one with two limits), with n_valid < n and an all-false mask;
+    timed beside the plain interpreter.  After config #2's chain, K2 at
+    config #2's shape (k2_at_config2) on the group ids it computed."""
     import torch
 
     from pixie_tpu_torch.ops import chain as c1
@@ -2642,6 +2803,7 @@ def check_chain_kernel(dev) -> list[dict]:
             c1_compare(f"{op}({ks}){' const' if consts else ''}", got[0], want[0])
     log(json.dumps({"check": "C1 opcodes", "ok": True, "cases": 2 * len(C1_OPS),
                     "rows": n_ops}))
+    check_chain_fused(dev, rng)
 
     rows = []
     chains = chain_programs(dev)
@@ -2664,6 +2826,8 @@ def check_chain_kernel(dev) -> list[dict]:
             log(json.dumps({"check": "C1 " + label + case, "ok": True,
                             "kept": int(got[0].sum()), "programs": len(kern.segments)}))
         b_ms, b_by = chain_bound(kern, n)
+        if label == "config #2 chain":
+            rows.append(k2_at_config2(dev, cols, run(c1.run)))
         rows.append({
             "name": f"chain C1 ({label})", "route": "cuda",
             "source": "pixie_tpu_torch/csrc/chain.cu",
@@ -2676,7 +2840,10 @@ def check_chain_kernel(dev) -> list[dict]:
             # no single PyTorch call computes a chain program
             "library_ms": None,
             "shape": {"rows": n, "programs": len(kern.segments),
-                      "instructions": [len(s.prog.code) for s in kern.segments]},
+                      "instructions": [len(s.prog.code) for s in kern.segments],
+                      "depth": [s.prog.depth for s in kern.segments],
+                      "device_ms": kernel_device_ms(lambda: run(c1.run), 10),
+                      "host_us": host_us(lambda: run(c1.run), 100)},
         })
     # an all-false mask (every status 404 under config #1's filter)
     label, kern, cols, luts, scalars, limits, _p = chains[0]

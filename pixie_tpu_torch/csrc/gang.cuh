@@ -36,8 +36,9 @@
 // cells (a group times ~100 active bins) rarely share an address within a
 // warp and are not combined.
 //
-// Shared memory: the deepest member's stack and the widest member's output
-// slots (each R x B values of 8 B), then the private accumulators.  A
+// Shared memory: the deepest member's stack under the top the interpreter
+// keeps in registers, and the widest member's output slots
+// (each R x B values of 8 B), then the private accumulators.  A
 // thread touches only its own rows' stack and slots, so the only barriers
 // are after the accumulators' initialisation and before their flush.
 #pragma once
@@ -100,13 +101,18 @@ struct HistCellOp {
   __device__ static void global_add(Out* p, Acc a) { atomicAdd(p, static_cast<float>(a)); }
 };
 
-// STORE: the row's value into tile slot `a` in shared memory, in its kind.
+// STORE: the thread's values into tile slot `a` in shared memory, in its
+// kind.
 template <int R, int B>
 struct SlotStore {
   const ChainParams& p;
   long long* slots;
-  __device__ __forceinline__ void operator()(int a, int r, long long, long long v) const {
-    slots[static_cast<size_t>(a) * (R * B) + r * B + threadIdx.x] = as_kind(p.out_kind[a], v);
+  __device__ __forceinline__ void operator()(int a, const long long (&v)[R], long long) const {
+    const int kind = p.out_kind[a];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      slots[static_cast<size_t>(a) * (R * B) + r * B + threadIdx.x] = as_kind(kind, v[r]);
+    }
   }
 };
 
@@ -260,15 +266,23 @@ __device__ __forceinline__ void fold_hist(const GangLeaf& L, const bool (&keep)[
 template <int R, int B, bool Combine>
 __device__ __forceinline__ void update_leaf(const GangLeaf& leaf, const bool (&keep)[R],
                                             const int (&gid)[R], const unsigned (&peers)[R],
-                                            long long base, const long long* slots,
+                                            long long base, long long n, const long long* slots,
                                             unsigned char* acc) {
   const GangLeaf L = leaf;
-  auto raw = [&](int r) -> long long {
+  // the value of each of the thread's rows: an output slot, or the feed
+  // column's rows loaded wide (chain.cuh load_rows)
+  long long vals[R];
+  if (L.op != L_COUNT) {
     if (L.slot >= 0) {
-      return slots[static_cast<size_t>(L.slot) * (R * B) + r * B + threadIdx.x];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        vals[r] = slots[static_cast<size_t>(L.slot) * (R * B) + r * B + threadIdx.x];
+      }
+    } else {
+      load_rows<R, B>(L.col, L.kind, base, n, vals);
     }
-    return load_kind(L.col, L.kind, base + r * B + threadIdx.x);
-  };
+  }
+  auto raw = [&](int r) -> long long { return vals[r]; };
   auto i64 = [&](int r) -> long long { return raw(r); };
   auto i32 = [&](int r) -> int { return static_cast<int>(raw(r)); };
   auto f64 = [&](int r) -> double {
@@ -307,6 +321,12 @@ __device__ __forceinline__ void update_leaf(const GangLeaf& leaf, const bool (&k
   }
 }
 
+// The columns a member's program holds in registers (chain.cuh CACHE): the
+// pass's launch bounds leave 80 registers a thread at 4 rows (G1) and 64 at
+// 1024 threads (F1), which the leaves' folds need beside the interpreter.
+template <int R>
+constexpr int kGangLocals = R >= 4 ? 0 : 2 / R;
+
 // One block's share of the gang pass over a feed of n rows.  The members
 // and leaves are read where the launch put them, in its parameter space:
 // the interpreter reads a member's fields at a warp-uniform index, and
@@ -324,7 +344,7 @@ __device__ __forceinline__ void gang_pass(const GangMember* __restrict__ members
                                           long long n, int depth, int outs, long long* smem) {
   constexpr int T = R * B;
   long long* stk = smem;
-  long long* slots = stk + static_cast<size_t>(depth) * T;
+  long long* slots = stk + static_cast<size_t>(shared_slots(depth)) * T;
   unsigned char* acc = reinterpret_cast<unsigned char*>(slots + static_cast<size_t>(outs) * T);
   for (int l = 0; l < n_leaves; ++l) dispatch<Init>(leaves[l].op, leaves[l], acc);
   __syncthreads();
@@ -337,10 +357,10 @@ __device__ __forceinline__ void gang_pass(const GangMember* __restrict__ members
       int gid[R];
       unsigned peers[R];
       SlotStore<R, B> store{M.chain, slots};
-      run_tile<R, B>(M.chain, base, stk, mask, gid, store);
+      run_tile<R, B, kGangLocals<R>>(M.chain, base, stk, mask, gid, store);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        mask[r] = mask[r] && base + r * B + threadIdx.x < n;
+        mask[r] = mask[r] && base + Rows<R, B>::at(r) < n;
         peers[r] = 0u;
         // every lane of the warp takes part; a row that is not kept has key -1
         if constexpr (Combine) {
@@ -351,7 +371,7 @@ __device__ __forceinline__ void gang_pass(const GangMember* __restrict__ members
       }
       const int l0 = M.leaf0, l1 = M.leaf0 + M.nleaf;
       for (int l = l0; l < l1; ++l) {
-        update_leaf<R, B, Combine>(leaves[l], mask, gid, peers, base, slots, acc);
+        update_leaf<R, B, Combine>(leaves[l], mask, gid, peers, base, n, slots, acc);
       }
     }
   }
@@ -359,12 +379,13 @@ __device__ __forceinline__ void gang_pass(const GangMember* __restrict__ members
   for (int l = 0; l < n_leaves; ++l) dispatch<Flush>(leaves[l].op, leaves[l], acc);
 }
 
-// Dynamic shared memory of gang_pass: the deepest member's stack and the
-// widest member's output slots (R x B values of 8 B each), then the
-// private accumulators.
+// Dynamic shared memory of gang_pass: the deepest member's stack past its
+// registers (shared_slots) and the widest member's output slots (R x B
+// values of 8 B each), then the private accumulators (ops/gang.py
+// PassPlan.smem).
 __host__ __device__ inline size_t gang_smem_bytes(int R, int B, int depth, int outs,
                                                   int acc_bytes) {
-  return static_cast<size_t>(depth + outs) * R * B * 8 + acc_bytes;
+  return static_cast<size_t>(shared_slots(depth) + outs) * R * B * 8 + acc_bytes;
 }
 
 }  // namespace

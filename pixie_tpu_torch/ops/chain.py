@@ -8,9 +8,14 @@ Replaces the reference's ChainKernel fragment (pixie_tpu/engine/executor.py
 of the UDA updates.
 
 A chain lowers (engine/eval.py emitters, engine/executor.py ChainKernel) to
-a small postfix program over a stack of per-row values: opcodes with two
+a small postfix program over a stack of per-row values: opcodes with three
 int32 arguments, a pool of int64 constants, and the kinds of the columns,
-LUTs and outputs it names.  `intern` keeps one Program per chain shape;
+LUTs and outputs it names.  `shorten` rewrites every program before it is
+interned: the patterns each scan emits become fused instructions (the row
+bound and a column against a literal straight into the mask, a dictionary
+key, a binary op with a literal operand, an integer division by a constant
+as a multiply-high), and the columns read more than once come first, where
+C1 holds them in registers.  `intern` keeps one Program per chain shape;
 runtime scalars (the valid-row count, the time bounds, window origins) are
 not part of it, so a new feed, poll or window origin reuses the program.
 
@@ -19,7 +24,8 @@ C1 (csrc/chain.cu `px_chain_run`): the program is uploaded once per shape
 and device, and the feed's column, LUT and output pointers and its scalars
 travel in the launch's parameter struct.  On CPU tensors it runs the plain
 PyTorch interpreter beside it, one torch op per opcode over whole columns
-(each op the expression the reference's closures compute).  The choice
+(each op the expression the reference's closures compute; a fused
+instruction runs as the instructions it replaces).  The choice
 follows the tensors' device only; a CUDA tensor never reaches the plain
 interpreter, and a missing nvcc or a failed build raises.
 """
@@ -27,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import struct
 import threading
 from typing import Callable, Optional
@@ -50,6 +57,8 @@ OPS = (
     "LOG10", "EXP", "SQRT", "CEIL", "FLOOR", "RINT", "BIN_I",
     "EQ_I", "NE_I", "LT_I", "LE_I", "GT_I", "GE_I", "EQ_F", "NE_F", "LT_F", "LE_F",
     "GT_F", "GE_F", "SELECT", "APPROX_EQ",
+    # fused instructions, emitted by `shorten` alone (see _expand)
+    "MASK_CMP", "DICT_KEY", "CACHE",
 )
 OP = {name: i for i, name in enumerate(OPS)}
 
@@ -59,8 +68,16 @@ DTYPE = {B: torch.bool, I32: torch.int32, I64: torch.int64, F64: torch.float64}
 _NP_KIND = {np.dtype(np.bool_): B, np.dtype(np.int32): I32, np.dtype(np.int64): I64,
             np.dtype(np.float64): F64}
 
-#: limits of one launch (csrc/chain.cu kMax*)
+#: limits of one launch (csrc/chain.cuh kMax*)
 MAX_COLS, MAX_LUTS, MAX_OUTS, MAX_SCALARS = 32, 32, 16, 16
+#: stack entries the interpreter holds in registers, the top (csrc/chain.cuh
+#: kRegSlots); the deeper ones live in shared memory
+REG_SLOTS = 1
+#: columns a program may hold in registers for the whole tile (kLocals)
+LOCALS = 2
+#: the compares MASK_CMP takes, in opcode order (its argument b indexes them)
+MASK_CMPS = ("EQ_I", "NE_I", "LT_I", "LE_I", "GT_I", "GE_I", "EQ_F", "NE_F", "LT_F",
+             "LE_F", "GT_F", "GE_F")
 
 _UNARY = {"CAST_I2F", "CAST_F2I", "CAST_I64", "NOT", "ABS_I", "ABS_F", "NEG_I", "NEG_F",
           "LOG", "LOG2", "LOG10", "EXP", "SQRT", "CEIL", "FLOOR", "RINT", "LUT",
@@ -72,7 +89,8 @@ _BINARY_F = {"ADD_F", "SUB_F", "MUL_F", "DIV_F", "MOD_F", "FDIV_F", "POW_F"}
 #: stack effect of each opcode
 _DELTA = {**{o: 0 for o in _UNARY}, **{o: -1 for o in _CMP | _BINARY_I | _BINARY_F},
           "LOAD_COL": 1, "LOAD_CONST": 1, "LOAD_SCALAR": 1, "LOAD_ROW": 1, "DUP": 1,
-          "STORE": -1, "MASK_AND": -1, "GID_COMBINE": -1, "PAIR": -1, "SELECT": -2}
+          "STORE": -1, "MASK_AND": -1, "GID_COMBINE": -1, "PAIR": -1, "SELECT": -2,
+          "MASK_CMP": 0, "DICT_KEY": 0, "CACHE": 0}
 #: operands each opcode pops (DUP reads the top and pops nothing)
 _POPS = {**{o: 1 for o in _UNARY}, **{o: 2 for o in _CMP | _BINARY_I | _BINARY_F},
          "LOAD_COL": 0, "LOAD_CONST": 0, "LOAD_SCALAR": 0, "LOAD_ROW": 0, "DUP": 0,
@@ -82,6 +100,27 @@ _RESULT = {**{o: B for o in _CMP | {"NOT"}}, **{o: I64 for o in _BINARY_I},
            "CAST_I64": I64, "ABS_I": I64, "NEG_I": I64, "PAIR": I32, "SEARCH": I32,
            "WINDOW": I32, **{o: F64 for o in ("ABS_F", "NEG_F", "LOG", "LOG2", "LOG10",
                                               "EXP", "SQRT", "CEIL", "FLOOR", "RINT")}}
+
+
+def stack_slots(depth: int) -> int:
+    """Stack entries of a program of `depth` that live in shared memory, R x
+    block values of 8 B each (csrc/chain.cuh shared_slots)."""
+    return max(depth - REG_SLOTS, 0)
+
+
+def div_magic(d: int) -> tuple[int, int]:
+    """How the card floor-divides an int64 by the constant d: → (multiplier,
+    mode).  mode >= 0: the quotient of a dividend a >= 0 is the high word
+    of a * multiplier shifted right by mode (Granlund and Montgomery, for
+    63-bit dividends: l = ceil(log2 d), multiplier = 2^(63+l) // d + 1 <
+    2^64, shift l - 1), and of a < 0 the complement of ~a's (csrc/chain.cuh
+    Div); mode -2: d is 1; mode -1: d < 1, the plain division."""
+    if d == 1:
+        return 0, -2
+    if d < 1:
+        return 0, -1
+    ln = (d - 1).bit_length()
+    return (1 << (63 + ln)) // d + 1, ln - 1
 
 
 class CannotLower(Exception):
@@ -119,7 +158,7 @@ def _unbits(bits: int, kind: int):
 class Program:
     """One chain shape: instructions, constants and the kinds it binds."""
 
-    code: tuple  # (op, a, b) triples
+    code: tuple  # (op, a, b, c) quads
     consts: tuple  # (bits, kind) pairs
     col_kinds: tuple
     lut_kinds: tuple
@@ -131,7 +170,7 @@ class Program:
     has_gid: bool
 
     def listing(self) -> list[str]:
-        return [f"{OPS[op]} {a} {b}" for op, a, b in self.code]
+        return [f"{OPS[op]} {a} {b} {c}" for op, a, b, c in self.code]
 
 
 @dataclasses.dataclass
@@ -177,7 +216,7 @@ class ProgramBuilder:
             kind = _RESULT.get(op)
         if _DELTA[op] + pops > 0:
             self.kinds.append(kind)
-        self.code.append((OP[op], int(a), int(b)))
+        self.code.append((OP[op], int(a), int(b), 0))
         self.depth = max(self.depth, len(self.kinds))
 
     @property
@@ -259,8 +298,13 @@ class ProgramBuilder:
         self._emit("SEARCH", self._lut_index(name, I64))
 
     def window(self, width: int, origin: str) -> None:
+        """top = int32(floor(top / width) - origin); the width's constant is
+        followed by its divisor magic (div_magic), which the card reads."""
         idx = self.scalars.setdefault(origin, len(self.scalars))
-        self._emit("WINDOW", self._const_index(width, I64), idx)
+        c = self._const_index(width, I64)
+        for v in div_magic(int(width)):
+            self._const_index(v, I64)
+        self._emit("WINDOW", c, idx)
 
     def store(self) -> int:
         """Pop the top into a new output column; → its index."""
@@ -275,7 +319,7 @@ class ProgramBuilder:
         self._emit("GID_COMBINE", card)
 
     def finish(self, has_mask: bool = True, has_gid: bool = False):
-        """→ (the interned Program, its Binding)."""
+        """→ (the interned Program, shortened, and its Binding)."""
         if self.kinds:
             raise Internal(f"chain program left {len(self.kinds)} values on its stack")
         if (len(self.cols) > MAX_COLS or len(self.luts) > MAX_LUTS
@@ -285,8 +329,10 @@ class ProgramBuilder:
         prog = Program(tuple(self.code), tuple(self.consts), tuple(self.col_kinds),
                        tuple(self.lut_kinds), tuple(self.out_kinds), len(self.scalars),
                        max(self.depth, 1), has_mask, has_gid)
-        return intern(prog), Binding(list(self.cols), list(self.luts), list(self.scalars),
-                                     dict(self.leaves))
+        prog, order = shorten(prog)
+        cols = list(self.cols)
+        return intern(prog), Binding([cols[i] for i in order], list(self.luts),
+                                     list(self.scalars), dict(self.leaves))
 
 
 def emit_value(b: ProgramBuilder, sv) -> None:
@@ -401,6 +447,138 @@ def op_program(op: str, kinds: list, consts: Optional[list] = None):
     return b.finish(has_mask=False)
 
 
+# ------------------------------------------------------- shortening
+
+_CMP0 = OP["EQ_I"]
+_IMM_OPS = frozenset(OP[o] for o in _CMP | _BINARY_I | _BINARY_F)
+_DIV_OPS = frozenset(OP[o] for o in ("BIN_I", "FDIV_I", "MOD_I"))
+_COL_OPS = frozenset(OP[o] for o in ("LOAD_COL", "MASK_CMP", "DICT_KEY"))
+
+
+def _imm(ins) -> Optional[int]:
+    """A literal load as an immediate operand: const k → k + 1, scalar s →
+    -(s + 1); None for any other instruction."""
+    if ins[0] == OP["LOAD_CONST"]:
+        return ins[1] + 1
+    if ins[0] == OP["LOAD_SCALAR"]:
+        return -(ins[1] + 1)
+    return None
+
+
+def _imm_load(c: int) -> tuple:
+    return (OP["LOAD_CONST"], c - 1, 0, 0) if c > 0 else (OP["LOAD_SCALAR"], -c - 1, 0, 0)
+
+
+def shorten(prog: Program) -> tuple:
+    """The program C1 and the plain interpreter run: → (Program, order),
+    column i of the new program being column order[i] of `prog`.
+
+    - An int64 constant cast to float64 becomes a float64 constant.
+    - DICT_KEY a card imm: `LOAD_COL a; DUP; <imm>; GE_I; MASK_AND;
+      GID_COMBINE card` (a dictionary key; its nulls leave the mask).
+    - MASK_CMP a cmp imm: `LOAD_COL a | LOAD_ROW (a = -1); <imm>; <cmp>;
+      MASK_AND` (cmp indexes MASK_CMPS), and `LOAD_COL a; MASK_AND` of a
+      bool column as a != 0.
+    - A binary op whose right operand is `<imm>` takes it as its argument
+      c; BIN_I, FDIV_I and MOD_I by a constant take a block of three
+      constants (the divisor, then div_magic's multiplier and mode).
+    <imm> is a LOAD_CONST or a LOAD_SCALAR (_imm).  Then the columns read
+    more than once come first, the rest in order of first use, and CACHE
+    n loads the first n (at most LOCALS; C1 holds one) into registers once
+    a tile."""
+    consts = list(prog.consts)
+    code = []
+    for ins in prog.code:  # constant folding of CAST_I2F
+        if (ins[0] == OP["CAST_I2F"] and code and code[-1][0] == OP["LOAD_CONST"]
+                and consts[code[-1][1]][1] == I64):
+            consts.append((_bits(float(consts[code[-1][1]][0]), F64), F64))
+            code[-1] = (OP["LOAD_CONST"], len(consts) - 1, 0, 0)
+        else:
+            code.append(ins)
+    n = len(code)
+
+    def is_(j, name):
+        return j < n and code[j][0] == OP[name]
+
+    def imm_at(j):
+        return _imm(code[j]) if j < n else None
+
+    out = []
+    i = 0
+    while i < n:
+        op, a, b, _c = code[i]
+        if (op == OP["LOAD_COL"] and is_(i + 1, "DUP") and imm_at(i + 2) is not None
+                and is_(i + 3, "GE_I") and is_(i + 4, "MASK_AND")
+                and is_(i + 5, "GID_COMBINE")):
+            out.append((OP["DICT_KEY"], a, code[i + 5][1], imm_at(i + 2)))
+            i += 6
+        elif (op in (OP["LOAD_COL"], OP["LOAD_ROW"]) and imm_at(i + 1) is not None
+              and i + 2 < n and 0 <= code[i + 2][0] - _CMP0 < len(MASK_CMPS)
+              and is_(i + 3, "MASK_AND")):
+            out.append((OP["MASK_CMP"], a if op == OP["LOAD_COL"] else -1,
+                        code[i + 2][0] - _CMP0, imm_at(i + 1)))
+            i += 4
+        elif op == OP["LOAD_COL"] and prog.col_kinds[a] == B and is_(i + 1, "MASK_AND"):
+            consts.append((0, I64))
+            out.append((OP["MASK_CMP"], a, MASK_CMPS.index("NE_I"), len(consts)))
+            i += 2
+        elif _imm(code[i]) is not None and i + 1 < n and code[i + 1][0] in _IMM_OPS:
+            nxt, c = code[i + 1][0], _imm(code[i])
+            if nxt in _DIV_OPS and c > 0:
+                s = consts[c - 1][0]
+                m, mode = div_magic((s or 1) if nxt == OP["BIN_I"] else s)
+                consts.extend([(s, I64), (_bits(m, I64), I64), (mode, I64)])
+                c = len(consts) - 2
+            out.append((nxt, 0, 0, c))
+            i += 2
+        else:
+            out.append(code[i])
+            i += 1
+    # columns: the ones read twice or more first, then by first use
+    uses, first = {}, {}
+    for pos, (op, a, _b, _c) in enumerate(out):
+        if op in _COL_OPS and a >= 0:
+            uses[a] = uses.get(a, 0) + 1
+            first.setdefault(a, pos)
+    order = sorted(range(len(prog.col_kinds)),
+                   key=lambda k: (uses.get(k, 0) < 2, first.get(k, len(out))))
+    new_of = {old: new for new, old in enumerate(order)}
+    out = [(op, new_of[a], b, c) if op in _COL_OPS and a >= 0 else (op, a, b, c)
+           for op, a, b, c in out]
+    if order:
+        out.insert(0, (OP["CACHE"], min(len(order), LOCALS), 0, 0))
+    sp = peak = 0
+    for op, _a, _b, c in out:
+        sp += 0 if c != 0 and op in _IMM_OPS else _DELTA[OPS[op]]
+        peak = max(peak, sp)
+    return (dataclasses.replace(prog, code=tuple(out), consts=tuple(consts),
+                                col_kinds=tuple(prog.col_kinds[k] for k in order),
+                                depth=max(peak, 1)), order)
+
+
+@functools.lru_cache(maxsize=1024)
+def _expand(prog: Program) -> tuple:
+    """The program with each fused instruction written out as the
+    instructions it replaces (what the plain interpreter runs)."""
+    raw = []
+    for op, a, b, c in prog.code:
+        name = OPS[op]
+        if name == "CACHE":
+            continue
+        if name == "MASK_CMP":
+            raw += [(OP["LOAD_COL"], a, 0, 0) if a >= 0 else (OP["LOAD_ROW"], 0, 0, 0),
+                    _imm_load(c), (_CMP0 + b, 0, 0, 0), (OP["MASK_AND"], 0, 0, 0)]
+        elif name == "DICT_KEY":
+            raw += [(OP["LOAD_COL"], a, 0, 0), (OP["DUP"], 0, 0, 0), _imm_load(c),
+                    (OP["GE_I"], 0, 0, 0), (OP["MASK_AND"], 0, 0, 0),
+                    (OP["GID_COMBINE"], b, 0, 0)]
+        elif c != 0:
+            raw += [_imm_load(c), (op, a, b, 0)]
+        else:
+            raw.append((op, a, b, c))
+    return tuple(raw)
+
+
 # ------------------------------------------------------------ the programs
 
 _lock = threading.Lock()
@@ -425,7 +603,8 @@ def _device_program(prog: Program, device: torch.device):
     with _lock:
         got = _device_programs.get(key)
     if got is None:
-        code = torch.tensor(np.asarray(prog.code, dtype=np.int32).reshape(-1), device=device)
+        code = torch.tensor(np.asarray(prog.code or [(0, 0, 0, 0)], dtype=np.int32).reshape(-1),
+                            device=device)
         consts = torch.tensor(np.asarray([c for c, _k in prog.consts] or [0], dtype=np.int64),
                               device=device)
         with _lock:
@@ -494,13 +673,14 @@ _PLAIN_UNARY = {
 def run_plain(prog: Program, cols: list, luts: list, scalars: list, n: int,
               device) -> tuple:
     """The plain PyTorch interpreter: one torch op per opcode over whole
-    columns.  → (mask | None, gid | None, [output columns])."""
+    columns, a fused instruction as the ones it replaces (_expand).  →
+    (mask | None, gid | None, [output columns])."""
     device = torch.device(device)
     st: list = []
     mask = torch.ones(n, dtype=torch.bool, device=device)
     gid = torch.zeros(n, dtype=torch.int32, device=device)
     outs: list = [None] * len(prog.out_kinds)
-    for op_i, a, b in prog.code:
+    for op_i, a, b, _c in _expand(prog):
         op = OPS[op_i]
         if op == "LOAD_COL":
             st.append(cols[a])

@@ -267,8 +267,8 @@ class PassPlan:
     @property
     def smem(self) -> int:
         """The block's dynamic shared memory (csrc/gang.cuh gang_smem_bytes)."""
-        return ((max(self.depth, 1) + self.outs) * self.rows_per_thread * self.block * 8
-                + self.acc_bytes)
+        return ((_chain.stack_slots(self.depth) + self.outs) * self.rows_per_thread
+                * self.block * 8 + self.acc_bytes)
 
 
 def plan_pass(members: list) -> PassPlan:
@@ -281,8 +281,8 @@ def plan_pass(members: list) -> PassPlan:
     depth = max(m.prog.depth for m in members)
     outs = max(len(m.prog.out_kinds) for m in members)
     offs, acc = plan_shared(members)
-    r = next((r for r in (4, 2) if (max(depth, 1) + outs) * r * BLOCK * 8 + acc <= BLOCK_SMEM),
-             1)
+    slots = _chain.stack_slots(depth) + outs
+    r = next((r for r in (4, 2) if slots * r * BLOCK * 8 + acc <= BLOCK_SMEM), 1)
     return PassPlan(BLOCK, r, depth, outs, tuple(offs), acc, True)
 
 
@@ -299,7 +299,7 @@ def plan_f1_pass(member: Member) -> PassPlan:
     whole = sum(leaf_shared_bytes(lf, g, True) for lf in member.leaves)
 
     def room(block, r):
-        return SMEM_OPTIN - (max(depth, 1) + outs) * r * block * 8
+        return SMEM_OPTIN - (_chain.stack_slots(depth) + outs) * r * block * 8
 
     for block, r, hist_shared, need in ((1024, 2, True, whole), (1024, 1, True, whole),
                                         (BLOCK, 4, False, small), (BLOCK, 1, False, small)):

@@ -9,7 +9,8 @@ bin"), bins 1..NBINS count positive values by ceil(log_gamma(v)); the last bin
 absorbs overflow. With gamma = 1.0404 and 512 bins the dynamic range is ~6.6e8
 at ~2% relative error.
 
-`update` launches kernel K2 (csrc/loghist_update.cu) on a CUDA tensor and
+`update` launches kernel K2 (csrc/loghist_update.cu; in shared memory or on
+global atomics by the sketch's bytes, `update_regime`) on a CUDA tensor and
 `quantile_device` kernel K3 (csrc/loghist_quantile.cu); on a CPU tensor each
 runs its plain PyTorch version beside it.  `quantile` and `bin_value` are the
 host (numpy) versions.
@@ -29,6 +30,16 @@ _K2 = "loghist_update"
 _K3 = "loghist_quantile"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _INT32_LIMIT = 2.0 ** 31
+#: shared memory one block may opt in to on an H100 (227 KB)
+H100_SMEM_OPTIN = 232_448
+
+
+def update_regime(groups: int, width: int, smem_optin: int = H100_SMEM_OPTIN) -> int:
+    """The blocks K2 holds a [groups, width] sketch's int32 counts in
+    (csrc/loghist_update.cu px_loghist_regime): 1, one block's shared
+    memory, while it fits what a block may opt in to; else 0, none (every
+    row a global atomic)."""
+    return 1 if groups * width * 4 <= smem_optin else 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -446,3 +446,312 @@ px.display(df, 'win')
     q = compile_pxl("df = px.DataFrame(table='http_events')\npx.display(df, 'o')\n",
                     ts.schemas())
     assert execute_plan(q.plan, ts, device="cpu")["o"].exec_stats["chain_leaves"] == 0
+
+
+# ------------------------------------------- shortened programs (ops/chain.py)
+
+import chip_smoke as smoke  # noqa: E402  (its C1 check's four chains)
+from hypothesis import given, settings, strategies as st  # noqa: E402
+
+_I64_MIN, _I64_MAX = int(_I64.min), int(_I64.max)
+
+
+def _unshortened(prog):
+    return prog, list(range(len(prog.col_kinds)))
+
+
+def _smoke_chains(monkeypatch, shortened: bool):
+    """chip_smoke.chain_programs at a 64-row feed, its programs shortened
+    as C1 runs them or as the builder emitted them."""
+    with monkeypatch.context() as m:
+        m.setattr(smoke, "FEED", 64)
+        if not shortened:
+            m.setattr(c1, "shorten", _unshortened)
+        return smoke.chain_programs("cpu")
+
+
+def _work(prog) -> int:
+    """A program's instructions beside CACHE (which only loads columns early)."""
+    return sum(1 for ins in prog.code if c1.OPS[ins[0]] != "CACHE")
+
+
+def _same_bits(a, b) -> bool:
+    if a is None or b is None:
+        return a is None and b is None
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float64:
+        return bool(torch.all((torch.isnan(a) & torch.isnan(b))
+                              | (a.view(torch.int64) == b.view(torch.int64))))
+    return torch.equal(a, b)
+
+
+_INT_EDGE_LIST = [_I64_MIN, _I64_MIN + 1, -(10 ** 12), -7, -1, 0, 1, 7, 10 ** 12,
+                  _I64_MAX - 1, _I64_MAX]
+_int64s = st.one_of(st.sampled_from(_INT_EDGE_LIST), st.integers(_I64_MIN, _I64_MAX))
+_floats = st.one_of(st.sampled_from([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-9, 1e300]),
+                    st.floats(allow_nan=True, allow_infinity=True))
+
+
+@st.composite
+def _feeds(draw):
+    """A feed of config #1's table shape with edge values: negative and
+    out-of-card dictionary codes, statuses the LUT misses, INT64_MIN,
+    negative times, NaN latencies; n_valid, time bounds and a window origin
+    anywhere in range."""
+    n = draw(st.integers(1, 40))
+    col = lambda s: draw(st.lists(s, min_size=n, max_size=n))  # noqa: E731
+    cols = {"time_": np.array(col(_int64s), dtype=np.int64),
+            "service": np.array(col(st.integers(-3, 20)), dtype=np.int32),
+            "latency": np.array(col(_floats), dtype=np.float64),
+            "status": np.array(col(st.one_of(st.sampled_from([200, 404, 500, 201, 499, 0]),
+                                             _int64s)), dtype=np.int64)}
+    return (n, {k: torch.from_numpy(v) for k, v in cols.items()},
+            draw(st.integers(0, n)), draw(_int64s), draw(_int64s), draw(_int64s),
+            [draw(st.integers(0, n)), draw(st.integers(0, n))])
+
+
+@pytest.mark.parametrize("idx,label", enumerate(["config #1 chain", "config #2 chain",
+                                                 "select chain", "two-limit chain"]))
+def test_shortened_chain_equals_unshortened(monkeypatch, idx, label):
+    """Each chain of chip_smoke's C1 check: its shortened programs (fused
+    instructions, cached columns in a new order) and the builder's own give
+    the same mask, group ids, outputs and limit counts through the plain
+    interpreter, on feeds of edge values."""
+    short = _smoke_chains(monkeypatch, True)[idx]
+    raw = _smoke_chains(monkeypatch, False)[idx]
+    assert short[0] == raw[0] == label
+    s_kern, r_kern = short[1], raw[1]
+    assert all(_work(s.prog) <= len(r.prog.code)
+               for s, r in zip(s_kern.segments, r_kern.segments))
+    if idx < 2:  # configs #1 and #2: a stack one deep, a third of the instructions
+        assert all(s.prog.depth == 1 for s in s_kern.segments)
+        assert len(s_kern.segments[0].prog.code) * 2 < len(r_kern.segments[0].prog.code)
+
+    @settings(max_examples=60, deadline=None, derandomize=True)
+    @given(feed=_feeds())
+    def check(feed):
+        n, cols, n_valid, t_lo, t_hi, origin, budgets = feed
+        scalars = {"__origin0": origin} if idx == 1 else {}
+        outs = []
+        for kern in (s_kern, r_kern):
+            limits = (None if kern.init_limits() is None
+                      else torch.tensor(budgets, dtype=torch.int64))
+            luts = {k: torch.as_tensor(v) for k, v in kern.luts.items()}
+            outs.append(kern.run_segments(kern.segments, dict(cols), n, n_valid, t_lo, t_hi,
+                                          limits, luts, scalars, runner=c1.run_plain))
+        (m1, g1, o1, k1), (m2, g2, o2, k2) = outs
+        assert _same_bits(m1, m2) and _same_bits(g1, g2) and _same_bits(k1, k2)
+        assert len(o1) == len(o2) and all(_same_bits(a, b) for a, b in zip(o1, o2))
+
+    check()
+
+
+_OP_CASES = (
+    [(op, k) for op in ("add", "subtract", "multiply", "modulo", "floordiv", "divide", "pow",
+                        "eq", "ne", "lt", "le", "gt", "ge")
+     for k in (("I", "I"), ("F", "F"), ("I", "F"), ("F", "I"))]
+    + [("bin", ("I", "I")), ("approx_eq", ("F", "F")), ("eq", ("B", "B")),
+       ("ne", ("B", "B")), ("and", ("B", "B")), ("or", ("B", "B")),
+       ("select", ("B", "I", "I")), ("select", ("B", "F", "F"))])
+_KIND = {"I": c1.I64, "F": c1.F64, "B": c1.B}
+_LITERAL = {"I": -3, "F": -2.5, "B": True}
+
+
+def _op_pair(monkeypatch, op, kinds, consts):
+    with monkeypatch.context() as m:
+        m.setattr(c1, "shorten", _unshortened)
+        raw = c1.op_program(op, kinds, consts)
+    return c1.op_program(op, kinds, consts), raw
+
+
+def _run_both(short, raw, env, n):
+    got = c1.run_plain(short[0], [env[k] for k in short[1].cols], [], [], n, "cpu")
+    want = c1.run_plain(raw[0], [env[k] for k in raw[1].cols], [], [], n, "cpu")
+    return got[2][0], want[2][0]
+
+
+@pytest.mark.parametrize("op,kinds", _OP_CASES)
+def test_shortened_opcode_with_a_literal_equals_unshortened(monkeypatch, op, kinds):
+    """Every `_dev` opcode whose right operand is a literal (the binary op
+    takes it as its immediate): the shortened program and the builder's
+    own agree bit for bit on edge columns."""
+    consts = [None] * (len(kinds) - 1) + [_LITERAL[kinds[-1]]]
+    short, raw = _op_pair(monkeypatch, op, [_KIND[k] for k in kinds], consts)
+    # (SELECT's literal is its third operand, not a binary op's)
+    assert _work(short[0]) < len(raw[0].code) or op == "select"
+    cols = _inputs([{"I": DT.INT64, "F": DT.FLOAT64, "B": DT.BOOLEAN}[k] for k in kinds], 3)
+    env = {f"a{i}": torch.from_numpy(c) for i, c in enumerate(cols)}
+    got, want = _run_both(short, raw, env, N)
+    assert _same_bits(got, want), (op, kinds, short[0].listing())
+
+
+_DIVISORS = [1, 2, 3, 7, 10, 10 ** 9, 10 ** 10, 2 ** 32 - 1, 2 ** 32 + 1, 2 ** 40,
+             6 * 10 ** 10, 2 ** 62, _I64_MAX, 0, -1, -3, _I64_MIN]
+_DIVIDENDS = sorted({_I64_MIN, _I64_MIN + 1, -(2 ** 62), -(10 ** 10) - 1, -(10 ** 10), -7,
+                     -3, -2, -1, 0, 1, 2, 3, 7, 10 ** 10, 10 ** 10 + 1, 2 ** 62,
+                     _I64_MAX - 1, _I64_MAX})
+
+
+@pytest.mark.parametrize("op", ["floordiv", "modulo", "bin"])
+@pytest.mark.parametrize("d", _DIVISORS)
+def test_division_by_a_constant_shortened_equals_unshortened(monkeypatch, op, d):
+    """BIN_I, FDIV_I and MOD_I by a constant take a divisor block with its
+    multiply-high magic: through the plain interpreter the program computes
+    what the builder's did, for int64 edge dividends."""
+    short, raw = _op_pair(monkeypatch, op, [c1.I64, c1.I64], [None, d])
+    div_op = {"floordiv": "FDIV_I", "modulo": "MOD_I", "bin": "BIN_I"}[op]
+    (ins,) = [i for i in short[0].code if c1.OPS[i[0]] == div_op]
+    block = [b for b, _k in short[0].consts[ins[3] - 1: ins[3] + 2]]
+    m, mode = c1.div_magic((d or 1) if op == "bin" else d)
+    assert block == [d, c1._bits(m, c1.I64), mode]
+    x = np.array(_DIVIDENDS * 3, dtype=np.int64)
+    env = {"a0": torch.from_numpy(x)}
+    got, want = _run_both(short, raw, env, len(x))
+    assert torch.equal(got, want)
+
+
+def floor_div_model(a: int, d: int) -> int:
+    """The card's floor division of int64 a by the constant d in Python
+    ints, step by step as csrc/chain.cuh Div::fdiv computes it from
+    div_magic's multiplier and mode."""
+    m, mode = c1.div_magic(d)
+    if mode == -2:
+        return a
+    if mode == -1:
+        if d == 0:
+            return 0
+        if d == -1:
+            return ((-a + (1 << 63)) % (1 << 64)) - (1 << 63)  # wraps
+        return a // d
+    u = ~a if a < 0 else a
+    q = ((u * m) >> 64) >> mode
+    return ~q if a < 0 else q
+
+
+def floor_mod_model(a: int, d: int) -> int:
+    """Div::fmod: a - d * q, wrapping, for d >= 1; the plain modulo
+    otherwise (0 for d = 0)."""
+    if d < 1:
+        return 0 if d in (0, -1) else a % d
+    return ((a - d * floor_div_model(a, d) + (1 << 63)) % (1 << 64)) - (1 << 63)
+
+
+@pytest.mark.parametrize("d", [1, 3, 10 ** 10, 2 ** 40, 2 ** 62, 2, 7, 10, 2 ** 32 + 1,
+                               6 * 10 ** 10, _I64_MAX])
+def test_device_division_model_equals_floor_div_and_mod(d):
+    """The card's multiply-high division (a pure-Python model of
+    csrc/chain.cuh Div) equals floor division and floor modulo for every
+    int64 edge dividend and divisors 1, 3, 10^10, 2^40 and 2^62 (and
+    others), and for random dividends."""
+    m, mode = c1.div_magic(d)
+    assert 0 <= m < 2 ** 64 and (mode == -2) == (d == 1) and mode <= 62
+    x = np.array(_DIVIDENDS + [v for v in (-d - 1, -d, -d + 1, d - 1, d, d + 1)
+                               if _I64_MIN <= v <= _I64_MAX], dtype=np.int64)
+    want_q = np.floor_divide(x, np.int64(d))
+    want_r = np.mod(x, np.int64(d))
+    assert [floor_div_model(int(a), d) for a in x] == want_q.tolist()
+    assert [floor_mod_model(int(a), d) for a in x] == want_r.tolist()
+
+    @settings(max_examples=300, deadline=None, derandomize=True)
+    @given(a=st.integers(_I64_MIN, _I64_MAX))
+    def check(a):
+        assert floor_div_model(a, d) == a // d
+        assert floor_mod_model(a, d) == a % d
+
+    check()
+
+
+def test_structural_program_shortened_equals_unshortened(monkeypatch):
+    """LUT gathers, a bounded domain, a code pair, a sorted search (short
+    and long LUTs), the window key (a width past 2^32), a dictionary key
+    and the row bound: shortened and unshortened agree on edge feeds."""
+    rng = np.random.default_rng(5)
+    luts = {"f": torch.from_numpy(rng.normal(0, 1, 32)),
+            "s": torch.from_numpy(rng.integers(0, 5, 32).astype(np.int32)),
+            "p": torch.from_numpy(rng.random(40 * 9) < 0.5),
+            "u": torch.from_numpy(np.unique(rng.integers(-1000, 1000, 300))),
+            "u3": torch.tensor([200, 404, 500], dtype=torch.int64),
+            "d": torch.from_numpy(rng.integers(0, 99, 500).astype(np.int64))}
+
+    def build():
+        b = c1.ProgramBuilder()
+        b.row(); b.scalar("n_valid"); b.op("LT_I"); b.mask_and()
+        b.col("t", c1.I64); b.scalar("t_lo"); b.op("GE_I"); b.mask_and()
+        b.col("c", c1.I32); b.lut("f", c1.F64, 0.0); b.store()
+        b.col("c", c1.I32); b.lut("s", c1.I32, -1); b.store()
+        b.col("c", c1.I32); b.col("c2", c1.I32); b.pair(9); b.lut("p", c1.B, False); b.store()
+        b.col("t", c1.I64); b.lut_domain("d", c1.I64, 100, 599, -5); b.store()
+        b.col("t", c1.I64); b.search("u"); b.store()
+        b.col("t", c1.I64); b.search("u3"); b.store()
+        b.col("t", c1.I64); b.window(10 ** 10, "origin"); b.store()
+        b.col("c", c1.I32); b.dup(); b.const(0, c1.I64); b.op("GE_I"); b.mask_and()
+        b.combine(64)
+        b.col("c2", c1.I32); b.combine(16)
+        return b.finish(has_gid=True)
+
+    short = build()
+    with monkeypatch.context() as m:
+        m.setattr(c1, "shorten", _unshortened)
+        raw = build()
+    names = [c1.OPS[i[0]] for i in short[0].code]
+    assert {"MASK_CMP", "DICT_KEY", "CACHE"} <= set(names)
+
+    @settings(max_examples=60, deadline=None, derandomize=True)
+    @given(data=st.data())
+    def check(data):
+        n = data.draw(st.integers(1, 40))
+        env = {"t": torch.tensor(data.draw(st.lists(_int64s, min_size=n, max_size=n)),
+                                 dtype=torch.int64),
+               "c": torch.tensor(data.draw(st.lists(st.integers(-3, 45), min_size=n,
+                                                    max_size=n)), dtype=torch.int32),
+               "c2": torch.tensor(data.draw(st.lists(st.integers(-2, 10), min_size=n,
+                                                     max_size=n)), dtype=torch.int32)}
+        scal = {"n_valid": data.draw(st.integers(0, n)), "t_lo": data.draw(_int64s),
+                "origin": data.draw(st.integers(-(2 ** 40), 2 ** 40))}
+        got, want = [c1.run_plain(p, [env[k] for k in bnd.cols], [luts[k] for k in bnd.luts],
+                                  [scal[k] for k in bnd.scalars], n, "cpu")
+                     for p, bnd in (short, raw)]
+        assert _same_bits(got[0], want[0]) and _same_bits(got[1], want[1])
+        assert all(_same_bits(a, b) for a, b in zip(got[2], want[2]))
+
+    check()
+
+
+@pytest.mark.parametrize("idx", [0, 1])
+def test_config_chain_matches_reference_row_for_row(monkeypatch, idx):
+    """Configs #1 and #2 through the port's ChainKernel (shortened
+    programs, plain interpreter) against the reference's own key functions
+    (pixie_tpu.ops.groupby combine_codes / encode_against and its `bin`
+    registration) and filter: every row's mask and group id bit-equal."""
+    from pixie_tpu.ops.groupby import combine_codes, encode_against
+
+    label, kern, cols, luts, scalars, limits, _path = _smoke_chains(monkeypatch, True)[idx]
+    n = cols["status"].shape[0]
+    rng = np.random.default_rng(17 + idx)
+    cols = dict(cols, service=torch.from_numpy(rng.integers(-2, 18, n).astype(np.int32)),
+                status=torch.from_numpy(rng.choice([200, 404, 500, 302, -1], n)))
+    n_valid, t_lo, t_hi = n - 5, _I64_MIN, _I64_MAX
+    if idx == 1:  # (config #1's chain has no time column)
+        t_lo, t_hi = int(cols["time_"][3]), int(cols["time_"][n - 9])
+    mask, gid, _outs, _consumed = kern.run_segments(
+        kern.segments, cols, n, n_valid, t_lo, t_hi, limits, luts, scalars,
+        runner=c1.run_plain)
+    j = {k: jnp.asarray(v.numpy()) for k, v in cols.items()}
+    want = (jnp.arange(n) < n_valid) & (j["status"] != 404) & (j["service"] >= 0)
+    if idx == 0:
+        lut = jnp.asarray(np.array([200, 404, 500], dtype=np.int64))
+        codes, cards = [j["service"], encode_against(lut, j["status"])], [N_SERVICES, 4]
+    else:
+        want = want & (j["time_"] >= t_lo) & (j["time_"] < t_hi)
+        w = 10 * SEC
+        binned = ref_registry.scalar("bin", [RefDT.TIME64NS, RefDT.INT64]).fn(
+            j["time_"], jnp.int64(w))
+        window = (binned // w - scalars["__origin0"]).astype(jnp.int32)
+        codes, cards = [window, j["service"]], [64, N_SERVICES]
+    want_gid, _ng = combine_codes(codes, cards)
+    assert np.array_equal(mask.numpy(), np.asarray(want)), label
+    assert np.array_equal(gid.numpy(), np.asarray(want_gid)), label
+
+
+N_SERVICES = smoke.N_SERVICES

@@ -77,6 +77,47 @@ def test_loghist_update_and_quantile_exact(dev, g):
     assert torch.equal(q.nan_to_num(-1.0), lh.quantile_plain(got, qs).nan_to_num(-1.0))
 
 
+@pytest.mark.parametrize("g", [1, 64, 113, 114, 1024])
+@pytest.mark.parametrize("nan_bin", [0, 1])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_loghist_update_regimes_equal_plain(dev, g, nan_bin, offset):
+    """K2 in each regime (shared through 113 groups, global atomics at 114
+    and 1,024) against update_plain exactly, over values 20% NaN at both
+    NaN bins and a feed that ends mid-run; offset 1 starts every input one
+    value past alignment (the one-row loads)."""
+    from pixie_tpu_torch.ops.sketch import update_regime
+
+    n = (1 << 20) + 3
+    rng = np.random.default_rng(g + 7 * nan_bin)
+    lh = LogHistogram()
+    gid = torch.from_numpy(rng.integers(-1, g + 1, n + offset).astype(np.int32)).to(dev)
+    mask = torch.from_numpy(rng.random(n + offset) < 0.8).to(dev)
+    v = rng.exponential(50.0, n + offset)
+    v[rng.random(n + offset) < 0.2] = np.nan
+    v[offset: offset + 6] = [np.inf, -np.inf, 0.0, 1e-9, -1.0, 1e300]
+    v = torch.from_numpy(v).to(dev)
+    gid, mask, v = gid[offset:], mask[offset:], v[offset:]
+    assert update_regime(g, lh.width) == {1: 1, 64: 1, 113: 1, 114: 0, 1024: 0}[g]
+    before = _build.KERNELS["loghist_update"].launches
+    got = lh.update(lh.init(g, dev), gid, v, mask, g, nan_bin)
+    assert _build.KERNELS["loghist_update"].launches == before + 1
+    want = lh.update_plain(lh.init(g, dev), gid, v, mask, g, nan_bin)
+    assert torch.equal(got, want)
+
+
+def test_loghist_regime_on_the_card_equals_the_mirror(dev):
+    """px_loghist_regime on the card equals ops/sketch.py update_regime at
+    the card's opt-in shared memory."""
+    import ctypes
+
+    from pixie_tpu_torch.ops.sketch import update_regime
+
+    fn = _build.function("loghist_update", "px_loghist_regime", [ctypes.c_int, ctypes.c_int])
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    for g in (1, 64, 113, 114, 1024, 5000):
+        assert fn(g, 514) == update_regime(g, 514, optin), g
+
+
 @pytest.mark.parametrize("nan_bin", [0, 1])
 def test_loghist_update_nan_bin_equals_plain(dev, nan_bin):
     """K2 over values 20% NaN (and +-inf, 0, values <= min_value): each NaN
@@ -621,6 +662,111 @@ def test_chain_kernel_on_the_card_equals_cpu_route(dev):
     want = execute_plan(p, ts, device="cpu")["out"]
     for k in ("svc", "st", "x"):
         assert np.array_equal(got.columns[k], want.columns[k])
+
+
+_DIVISORS = [1, 2, 3, 7, 10 ** 10, 2 ** 32 + 1, 2 ** 40, 2 ** 62, 2 ** 63 - 1, 0, -1, -3,
+             -(2 ** 63)]
+
+
+@pytest.mark.parametrize("op", ["floordiv", "modulo", "bin"])
+@pytest.mark.parametrize("d", _DIVISORS)
+def test_chain_division_by_a_constant_equals_plain(dev, op, d):
+    """FDIV_I, MOD_I and BIN_I by a constant (the multiply-high for d >= 1,
+    the plain division below): C1 equals the plain interpreter on every
+    int64 edge dividend, negative and INT64_MIN included."""
+    prog, bnd = c1.op_program(op, [c1.I64, c1.I64], [None, d])
+    rng = np.random.default_rng(abs(d) % 1000)
+    x = rng.integers(-(2 ** 63), 2 ** 63 - 1, 1 << 16, dtype=np.int64)
+    edges = [v for v in (-(2 ** 63), -(2 ** 63) + 1, -d - 1, -d, -d + 1, -1, 0, 1, d - 1, d,
+                         d + 1, 2 ** 63 - 1) if -(2 ** 63) <= v < 2 ** 63]
+    x[: len(edges)] = edges
+    cols = [torch.from_numpy(x).to(dev)]
+    _m, _g, got = c1.run(prog, cols, [], [], x.shape[0], dev)
+    _m, _g, want = c1.run_plain(prog, cols, [], [], x.shape[0], dev)
+    assert torch.equal(got[0], want[0]), (op, d)
+
+
+@pytest.mark.parametrize("cmp", ["EQ", "NE", "LT", "LE", "GT", "GE"])
+@pytest.mark.parametrize("kind", [c1.I64, c1.F64, c1.I32, c1.B])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_chain_fused_instructions_equal_plain(dev, cmp, kind, offset):
+    """MASK_CMP (the compare against a constant, and for integers a second
+    against a scalar, and the row bound), the same compare as a binary op
+    with an immediate, DICT_KEY, a bool column into the mask, SEARCH over a
+    short LUT (a count) and a long one (a binary search), WINDOW by a width
+    past 2^32, more columns than CACHE holds, and a feed that ends mid-tile;
+    with offset 1 every column starts one value past 16-byte alignment, so
+    the interpreter takes its one-value loads and stores."""
+    rng = np.random.default_rng(31 + kind + 10 * offset)
+    n = 3 * 2048 + 123
+    pad = n + offset
+
+    def column(k, lo=-50, hi=50):
+        if k == c1.F64:
+            v = rng.normal(0, 40, pad)
+            v[offset: offset + 6] = [np.nan, np.inf, -np.inf, 0.0, -0.0, 3.0]
+            return torch.from_numpy(v).to(dev)[offset:]
+        if k == c1.B:
+            return torch.from_numpy(rng.random(pad) < 0.7).to(dev)[offset:]
+        dt = np.int32 if k == c1.I32 else np.int64
+        v = rng.integers(lo, hi, pad).astype(dt)
+        v[offset: offset + 3] = [7, -7, 0]
+        if k == c1.I64:
+            v[offset + 3: offset + 5] = [-(2 ** 63), 2 ** 63 - 1]
+        return torch.from_numpy(v).to(dev)[offset:]
+
+    cols = {"x": column(kind), "y": column(c1.I64), "code": column(c1.I32, -3, 20),
+            "t": column(c1.I64, -(10 ** 12), 10 ** 12), "b": column(c1.B)}
+    lit = {c1.F64: 3.0, c1.B: True}.get(kind, 7)
+    op = cmp + ("_F" if kind == c1.F64 else "_I")
+    luts = {"short": torch.tensor([-20, 0, 7, 9, 30], dtype=torch.int64, device=dev),
+            "long": torch.arange(-40, 40, 3, dtype=torch.int64, device=dev)}
+    b = c1.ProgramBuilder()
+    b.row(); b.scalar("n_valid"); b.op("LT_I"); b.mask_and()
+    b.col("x", kind); b.const(lit, kind); b.op(op); b.store()
+    b.col("x", kind); b.const(lit, kind); b.op(op); b.mask_and()
+    if kind in (c1.I64, c1.I32):
+        b.col("x", kind); b.scalar("s"); b.op(op); b.store()
+    b.col("b", c1.B); b.mask_and()
+    b.col("code", c1.I32); b.dup(); b.const(0, c1.I64); b.op("GE_I"); b.mask_and()
+    b.combine(16)
+    b.col("t", c1.I64); b.window(10 ** 10, "origin"); b.combine(256)
+    b.col("y", c1.I64); b.search("short"); b.store()
+    b.col("y", c1.I64); b.search("long"); b.store()
+    prog, bnd = b.finish(has_gid=True)
+    names = [c1.OPS[i[0]] for i in prog.code]
+    assert {"MASK_CMP", "DICT_KEY", "CACHE"} <= set(names) and len(bnd.cols) > c1.LOCALS
+    scal = {"n_valid": n - 77, "s": 5, "origin": -3}
+    args = ([cols[k] for k in bnd.cols], [luts[k] for k in bnd.luts],
+            [scal[k] for k in bnd.scalars], n, dev)
+    before = _build.KERNELS["chain"].launches
+    got = c1.run(prog, *args)
+    assert _build.KERNELS["chain"].launches == before + 1
+    want = c1.run_plain(prog, *args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for g, w in zip(got[2], want[2]):
+        assert c1_same(g, w)
+
+
+@pytest.mark.parametrize("idx", range(4))
+def test_chain_smoke_chains_equal_plain(dev, idx, monkeypatch):
+    """chip_smoke's four chains (config #1's, config #2's, the select's,
+    two limits) at a feed of 2^20 + 37 rows: C1 equals the plain
+    interpreter on the same CUDA columns, with n_valid < n."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "FEED", (1 << 20) + 37)
+    label, kern, cols, luts, scalars, limits, _p = chip_smoke.chain_programs(dev)[idx]
+    n = chip_smoke.FEED
+
+    def run(runner):
+        lim = None if limits is None else limits.clone()
+        return kern.run_segments(kern.segments, cols, n, n - 999, -(2 ** 63), 2 ** 63 - 1,
+                                 lim, luts, scalars, runner=runner)
+
+    got, want = run(c1.run), run(c1.run_plain)
+    for g, w in zip((got[0], got[1], got[3], *got[2]), (want[0], want[1], want[3], *want[2])):
+        assert (g is None and w is None) or c1_same(g, w), label
 
 
 def test_chain_cuda_tensor_never_reaches_the_plain_interpreter(dev, monkeypatch):

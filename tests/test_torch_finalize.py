@@ -908,12 +908,12 @@ def test_f1_pass_planner_widths_and_private_leaves():
     assert (cfg1.block, cfg1.rows_per_thread, cfg1.hist_shared) == (1024, 2, True)
     assert cfg1.offs == (0,) and cfg1.acc_bytes == 64 * (4 + 8 + 4 + 514 * 4 + 4)
     assert cfg1.combine
-    deeper = g1.plan_f1_pass(member(64, 7))
+    deeper = g1.plan_f1_pass(member(64, 8))
     assert (deeper.block, deeper.rows_per_thread, deeper.hist_shared) == (1024, 1, True)
     cfg2 = g1.plan_f1_pass(member(1024, 3))
     assert (cfg2.block, cfg2.rows_per_thread, cfg2.hist_shared) == (256, 4, False)
     assert cfg2.offs == (0,) and cfg2.acc_bytes == 1024 * (4 + 8 + 4 + 4)
-    deep = g1.plan_f1_pass(member(64, 30))
+    deep = g1.plan_f1_pass(member(64, 31))
     assert (deep.block, deep.rows_per_thread, deep.hist_shared) == (256, 1, False)
     for p in (cfg1, cfg2, deep):
         assert p.smem <= g1.SMEM_OPTIN
@@ -923,7 +923,7 @@ def test_f1_pass_planner_widths_and_private_leaves():
     gang = g1.plan_pass([member(3, 3), member(64, 3), member(1 << 20, 3)])
     assert (gang.block, gang.rows_per_thread) == (256, 4) and not gang.combine
     assert gang.offs == (0, None, None) and gang.smem <= g1.BLOCK_SMEM
-    for depth, layout in ((13, (256, 2)), (30, (256, 1))):
+    for depth, layout in ((14, (256, 2)), (31, (256, 1))):
         deep_gang = g1.plan_pass([member(3, depth), member(3, 3)])
         assert (deep_gang.block, deep_gang.rows_per_thread) == layout
         assert deep_gang.smem <= g1.BLOCK_SMEM

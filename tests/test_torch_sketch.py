@@ -197,3 +197,17 @@ def test_update_nan_bin_0_equals_reference_cpu_route(g):
     nan_cells = np.bincount(gid[mask & np.isnan(v)], minlength=g)
     assert (got[:, 0] >= nan_cells).all() and (got[:, 1] == np.asarray(want)[:, 1]).all()
     np.testing.assert_array_equal(got[:, 0], np.asarray(want)[:, 0])
+
+
+@pytest.mark.parametrize("groups,blocks", [(1, 1), (64, 1), (113, 1), (114, 0), (1024, 0),
+                                           (1 << 20, 0)])
+def test_update_regime_follows_the_sketch_bytes(groups, blocks):
+    """K2's regime (csrc/loghist_update.cu px_loghist_regime) at W = 514 on
+    an H100's 227 KB of opt-in shared memory: one block's shared memory
+    through 113 groups (config #1's 64), global atomics from 114 (config
+    #2's 1,024); on a card with 48 KB, through 23 groups."""
+    from pixie_tpu_torch.ops.sketch import H100_SMEM_OPTIN, update_regime
+
+    assert update_regime(groups, 514) == blocks
+    assert (groups * 514 * 4 <= H100_SMEM_OPTIN) == bool(blocks)
+    assert update_regime(groups, 514, smem_optin=48 * 1024) == (1 if groups <= 23 else 0)
