@@ -36,7 +36,17 @@ settling ones, ms):
                     timed as g1 is;
   k2, k2_config2    kernel K2 alone on that feed's latency into the group
                     ids and mask the config #1 chain (64 groups) and the
-                    config #2 chain (1,024 groups) give, timed as g1 is.
+                    config #2 chain (1,024 groups) give, timed as g1 is;
+  km2, km3          kernels KM2 (one Lloyd step's sums) and KM3 (one
+                    k-means++ step) alone at 2^20 x 64 points, k = 64, on
+                    chip_smoke.check_kmeans_kernels' seeded data, timed as
+                    g1 is;
+  km2_leaf, km3_leaf,
+  km2_merge         the same at the coreset's shapes: a leaf (2^16 x 64,
+                    k = 8) and a merge (2,048 points);
+  fit               the kmeans_fit wall at chip_smoke's ml.fit shape (2^20
+                    x 64, k = 64, 10 iterations): the median of 5 fits
+                    after 2 settling ones, ms.
 
 --measures names the measures to take (default all; config4 and the batch
 arms alone are the paths where P1 and M1 run).  It prints one JSON line
@@ -153,6 +163,44 @@ if "g1" in measures:
     ms = members(fresh())
     out["g1"] = sorted(cs.cuda_ms(lambda: g1.run(ms, n, dev), 20) for _ in range(5))[2]
 
+KM = {"": (cs.ML_N, cs.ML_K, 41), "_leaf": (cs.TREE_BATCH, cs.TREE_K, 48),
+      "_merge": (2 * cs.TREE_M, cs.TREE_K, 48)}
+for label, (n, k, seed) in KM.items():
+    if not measures & {"km2" + label, "km3" + label}:
+        continue
+    from pixie_tpu_torch.ops import kmeans as kops
+
+    # chip_smoke.check_kmeans_kernels' data (written out here: the parent's
+    # chip_smoke may not have its helper)
+    x, cent = cs.ml_blobs(dev, n, cs.ML_D, k, seed, 10.0)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    c = (cent + 0.5 * torch.randn(cent.shape, generator=g, device=dev)).contiguous()
+    w = torch.rand(n, generator=g, device=dev) + 0.5
+    if "km2" + label in measures:
+        out["km2" + label] = sorted(cs.cuda_ms(lambda: kops.lloyd_step(x, w, c), 20)
+                                    for _ in range(5))[2]
+    if "km3" + label in measures:
+        mind = torch.full((n,), float("inf"), device=dev)
+        kops.seed_step(x, w, c[0], mind)
+        out["km3" + label] = sorted(cs.cuda_ms(lambda: kops.seed_step(x, w, c[1], mind), 20)
+                                    for _ in range(5))[2]
+    del x, cent, c, w
+
+if "fit" in measures:
+    from pixie_tpu_torch.ml import kmeans_fit
+
+    x, _cent = cs.ml_blobs(dev, cs.ML_N, cs.ML_D, cs.ML_K, 17, cs.ML_SPREAD)
+    walls = []
+    for i in range(7):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        kmeans_fit(x, cs.ML_K, max_iters=cs.ML_ITERS, seed=5, device=dev)
+        if i >= 2:
+            walls.append((time.perf_counter() - t0) * 1e3)
+    out["fit"] = sorted(walls)[2]
+    del x, _cent
+
 # the four BATCH_SCRIPTS from 16 threads, batching off and on
 cl = LocalCluster({"pem0": ts}, device=dev)
 
@@ -206,7 +254,9 @@ print(json.dumps(out), flush=True)
 MEASURES = {"one_feed": False, "four_feeds": False, "four_feeds_mesh4": False,
             "config3": False, "config4": False, "batch_unbatched": True,
             "batch_batched": True, "config2": False, "g1": False, "c1": False,
-            "c1_config2": False, "k2": False, "k2_config2": False}
+            "c1_config2": False, "k2": False, "k2_config2": False, "km2": False,
+            "km3": False, "km2_leaf": False, "km3_leaf": False, "km2_merge": False,
+            "fit": False}
 
 
 def quartiles(xs: list) -> tuple[float, float, float]:

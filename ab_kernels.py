@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""A/B of one design choice of C1 or K2 against its alternative, end to end
-of the kernel, on one CUDA card.
+"""A/B of one design choice of C1, K2, KM2 or KM3 against its alternative,
+end to end of the kernel, on one CUDA card; and where KM2's time goes.
 
     python3 ab_kernels.py CHOICE [--pairs N]
 
@@ -22,7 +22,30 @@ its "other" the alternative.
              — measure c1;
   k2_match   K2's shared-memory counts with a warp's rows of one cell added
              by one lane (`__match_any_sync`, a popcount;
-             csrc/loghist_update.cu) — measure k2.
+             csrc/loghist_update.cu) — measure k2;
+  km2_shared_sums
+             KM2's float64 sums in shared memory where the checkout holds
+             them in registers (k <= 64, d <= 64; csrc/kmeans.cu) —
+             measures km2, km2_leaf;
+  km2_tile8x8
+             KM2 at 8 points x 8 centers a thread, 256-point tiles and 1
+             block an SM, where the checkout takes 4 x 8, 128 and 2
+             (csrc/kmeans.cu) — measures km2, km2_leaf, km2_merge;
+  km3_staged KM3 over 128-row tiles staged in shared memory by cp.async,
+             one thread a row, where the checkout's half-warps share rows
+             (csrc/kmeans.cu) — measures km3, km3_leaf;
+  km2_pairs  KM2's accumulate taking two points a warp-iteration, their
+             loads in flight together — measures km2, km2_leaf.
+
+Where KM2's time goes: these switch one part of KM2 off and compute wrong
+sums, so only their times are read (measures km2, km2_leaf):
+
+  km2_no_accumulate  the tile's w and w * x not added (the distances, the
+                     ids and the last blocks' sums stay);
+  km2_no_tail        the blocks' partials not summed (no tickets, no
+                     output);
+  km2_stream_only    neither distances nor the accumulate: x streamed into
+                     shared memory, the tail kept.
 
 It needs one CUDA card (ab_finalize.py exits non-zero without one).
 """
@@ -33,6 +56,130 @@ import pathlib
 import shutil
 import subprocess
 import sys
+
+# KM3's staged design, written into kmeans.cu before launch_norms
+_KM3_STAGED = """constexpr int kSeedTile = 128;  // rows of a staged tile
+
+// x (16-byte aligned, d % 4 == 0) in tiles of kSeedTile rows by cp.async,
+// double-buffered; thread r sums row r of the tile in dimension order.
+__global__ void __launch_bounds__(kSeedTile) seed_step_staged(
+    const float* __restrict__ x, const float* __restrict__ w, long long n, int d,
+    const float* __restrict__ c, float* __restrict__ mind, float* __restrict__ p) {
+  extern __shared__ __align__(16) float ssm[];
+  const int xsd = d + 4;
+  float* cs = ssm + 2 * kSeedTile * xsd;
+  __shared__ float c2s;
+  const int tid = threadIdx.x;
+  for (int j = tid; j < d; j += kSeedTile) cs[j] = c[j];
+  __syncthreads();
+  if (tid == 0) {
+    float s = 0.f;
+    for (int j = 0; j < d; ++j) s = fmaf(cs[j], cs[j], s);
+    c2s = s;
+  }
+  const long long tiles = (n + kSeedTile - 1) / kSeedTile;
+  const long long stages =
+      blockIdx.x < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int per = d >> 2;
+  auto issue = [&](long long s) {
+    const long long p0 = (blockIdx.x + s * gridDim.x) * kSeedTile;
+    const int np = static_cast<int>(min(static_cast<long long>(kSeedTile), n - p0));
+    float* buf = ssm + (s & 1) * (kSeedTile * xsd);
+    for (int i = tid; i < np * per; i += kSeedTile) {
+      const int r = i / per, j = (i - r * per) << 2;
+      cp_async16(buf + r * xsd + j, x + (p0 + r) * d + j);
+    }
+    cp_async_commit();
+  };
+  if (stages > 0) issue(0);
+  __syncthreads();
+  const float c2 = c2s;
+  const float4* c4 = reinterpret_cast<const float4*>(cs);
+  for (long long s = 0; s < stages; ++s) {
+    if (s + 1 < stages) {
+      issue(s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const long long i = (blockIdx.x + s * gridDim.x) * kSeedTile + tid;
+    if (i < n) {
+      const float4* row = reinterpret_cast<const float4*>(ssm + (s & 1) * (kSeedTile * xsd) +
+                                                          tid * xsd);
+      float x2 = 0.f, dot = 0.f;
+      for (int j = 0; j < per; ++j) {
+        const float4 v = row[j], cv = c4[j];
+        x2 = fmaf(v.x, v.x, x2);
+        x2 = fmaf(v.y, v.y, x2);
+        x2 = fmaf(v.z, v.z, x2);
+        x2 = fmaf(v.w, v.w, x2);
+        dot = fmaf(v.x, cv.x, dot);
+        dot = fmaf(v.y, cv.y, dot);
+        dot = fmaf(v.z, cv.z, dot);
+        dot = fmaf(v.w, cv.w, dot);
+      }
+      seed_fold(i, x2, dot, c2, w, mind, p);
+    }
+    __syncthreads();
+  }
+}
+
+int launch_seed_staged(const float* x, const float* w, long long n, int d, const float* c,
+                       float* mind, float* p, cudaStream_t stream) {
+  static size_t opted[PX_MAX_DEVICES] = {0};
+  const size_t smem = sizeof(float) * (2 * kSeedTile * (d + 4) + d);
+  const int err = opt_in(seed_step_staged, smem, opted);
+  if (err != 0) return err;
+  const long long grid = px_grid(seed_step_staged, n, kSeedTile, smem);
+  seed_step_staged<<<static_cast<unsigned>(grid), kSeedTile, smem, stream>>>(x, w, n, d, c,
+                                                                             mind, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+"""
+_KM3_LANES = "  return vec ? launch_seed_lanes<true>("
+# KM2's accumulate in registers, one point a warp-iteration, and two
+_KM2_ONE = """            while (bal) {
+              const int q = q0 + __ffs(bal) - 1;
+              bal &= bal - 1;
+              const float wq = tile_w[q];
+              const float* row = buf + q * kXS;
+              // the float32 product x * w, rounded as the reference rounds
+              // it (no FMA contraction into the float64 add)
+              if (lane < d) rs[sl][0] += static_cast<double>(__fmul_rn(row[lane], wq));
+              if (lane + 32 < d) rs[sl][1] += static_cast<double>(__fmul_rn(row[lane + 32], wq));
+              if (lane == sl) rw += static_cast<double>(wq);
+            }
+"""
+_KM2_TWO = """            while (bal) {
+              const int qa = q0 + __ffs(bal) - 1;
+              bal &= bal - 1;
+              const bool two = bal != 0;
+              const int qb = two ? q0 + __ffs(bal) - 1 : qa;
+              bal &= bal - 1;
+              const float wa = tile_w[qa], wb = tile_w[qb];
+              const float a0 = buf[qa * kXS + lane], a1 = buf[qa * kXS + lane + 32];
+              const float b0 = buf[qb * kXS + lane], b1 = buf[qb * kXS + lane + 32];
+              if (lane < d) {
+                rs[sl][0] += static_cast<double>(__fmul_rn(a0, wa));
+                if (two) rs[sl][0] += static_cast<double>(__fmul_rn(b0, wb));
+              }
+              if (lane + 32 < d) {
+                rs[sl][1] += static_cast<double>(__fmul_rn(a1, wa));
+                if (two) rs[sl][1] += static_cast<double>(__fmul_rn(b1, wb));
+              }
+              if (lane == sl) {
+                rw += static_cast<double>(wa);
+                if (two) rw += static_cast<double>(wb);
+              }
+            }
+"""
+_KM2_ACC = ("kmeans.cu", "      accumulate(buf, p0);\n", "")
+_KM2_TAIL = ("kmeans.cu",
+             "  lloyd_finish(partials, gsums, tickets, rows, d, c_lo, wsum, xsum, flag);\n", "")
+_KM2_DIST = ("kmeans.cu", "      for (int j = 0; j < dc4; j += 4) {",
+             "      for (int j = 0; j < 0; j += 4) {")
 
 #: choice → ([(file under pixie_tpu_torch/csrc, text, its replacement)], measures)
 CHOICES = {
@@ -53,6 +200,26 @@ CHOICES = {
                    "    if (keep && (peers & ((1u << (threadIdx.x & 31u)) - 1u)) == 0u)\n"
                    "      atomicAdd(counts + g * width + bin, static_cast<unsigned>(__popc(peers)));\n")],
                  "k2"),
+    "km2_shared_sums": ([("kmeans.cu",
+                          "{ return k <= kWarps * kRegSlots && d <= kDT; }",
+                          "{ return false; }")], "km2,km2_leaf"),
+    "km2_tile8x8": ([("kmeans.cu", "constexpr int kTP = 128;", "constexpr int kTP = 256;"),
+                     ("kmeans.cu", "constexpr int kLloydPerSM = 2;",
+                      "constexpr int kLloydPerSM = 1;"),
+                     ("kmeans.cu", "CC = 8, PP = 4;", "CC = 8, PP = 8;"),
+                     ("kmeans.cu", "CC = 4, PP = 4;", "CC = 4, PP = 8;"),
+                     ("kmeans.cu", "CC = 4, PP = 1;", "CC = 4, PP = 2;")],
+                    "km2,km2_leaf,km2_merge"),
+    "km3_staged": ([("kmeans.cu", "int launch_norms(", _KM3_STAGED + "int launch_norms("),
+                    ("kmeans.cu", _KM3_LANES,
+                     "  if (vec && sizeof(float) * (2 * kSeedTile * (d + 4) + d) <=\n"
+                     "                 static_cast<size_t>(px_smem_optin())) {\n"
+                     "    return launch_seed_staged(x, w, n, d, c, mind, p, stream);\n"
+                     "  }\n" + _KM3_LANES)], "km3,km3_leaf"),
+    "km2_pairs": ([("kmeans.cu", _KM2_ONE, _KM2_TWO)], "km2,km2_leaf"),
+    "km2_no_accumulate": ([_KM2_ACC], "km2,km2_leaf"),
+    "km2_no_tail": ([_KM2_TAIL], "km2,km2_leaf"),
+    "km2_stream_only": ([_KM2_ACC, _KM2_DIST], "km2,km2_leaf"),
 }
 
 

@@ -122,9 +122,14 @@ synchronize) beside its CUDA-event and device times (device: CUDA events
 around calls enqueued while the device sleeps, `kernel_device_ms`), and
 KM1-KM3 (the k-means assignment, Lloyd sums and seeding step)
 at the fit's shape (2^20 x 64 points, 64 centers) and at edge cases (k = 1,
-k > a block's 256 points, d = 13, d = 150 with k = 200, k = 129, a cluster
-of zero weight), to 1e-5 of |x|^2 + |c|^2 (distances, p) and of the sums
-of |w x| (xsum), ids equal outside near-ties, unit-weight counts exactly.
+k > a block's 256 points, d = 13, d = 150 with k = 200, k = 129, n one
+short of and one past KM2's 128-point tile, one tile past the capped grid,
+every point on one center, rows holding NaN, a cluster of zero weight), to
+1e-5 of |x|^2 + |c|^2 (distances, p) and of the sums of |w x| (xsum), ids
+equal outside near-ties, NaN in the same places, unit-weight counts
+exactly (and equal to KM1's ids' counts), KM2 the same bits twice and with
+its sums in shared memory; KM2 and KM3 are also timed at the coreset's
+shapes (a 2^16 x 64 leaf with k = 8, a 2,048-point merge).
 
 Then, over config #1's 64M-row table (after config #2's phase): G1 (the
 multi-query gang) on the table's first 16M-row feed with the four
@@ -201,6 +206,7 @@ non-zero, printing no result, without a CUDA device or outside the repo.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import subprocess
@@ -2102,14 +2108,44 @@ def ml_blobs(dev, n: int, d: int, k: int, seed: int, spread: float):
     return (cent[ids] + torch.randn(n, d, generator=g, device=dev)).contiguous(), cent
 
 
+def kmeans_data(dev, n: int, d: int, k: int, seed: int, spread: float = 10.0):
+    """The KM checks' seeded inputs: n points of k blobs (`ml_blobs`), the
+    true centers moved by N(0, 0.25) as the centers, and weights in
+    [0.5, 1.5): → (x [n, d], c [k, d], w [n])."""
+    import torch
+
+    x, cent = ml_blobs(dev, n, d, k, seed, spread)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    c = (cent + 0.5 * torch.randn(cent.shape, generator=g, device=dev)).contiguous()
+    w = torch.rand(n, generator=g, device=dev) + 0.5
+    return x, c, w
+
+
+def _rel_err(a, b, scale, what: str) -> float:
+    """max |a - b| / scale where `scale` is finite, after requiring NaN in
+    the same places of a and b (a NaN error would pass any bound)."""
+    import torch
+
+    if not torch.equal(a.isnan(), b.isnan()):
+        raise AssertionError(f"{what}: NaN in other places than the plain version's")
+    keep = torch.isfinite(scale) & ~a.isnan()
+    if not bool(keep.any()):
+        return 0.0
+    return float(((a - b).abs()[keep] / scale[keep].clamp_min(1e-30)).max())
+
+
 def check_kmeans_kernels(dev) -> list[dict]:
     """KM1-KM3 held against their plain versions on the same CUDA tensors at
     the fit's shape (2^20 x 64 points, 64 centers, seeded blobs) and at edge
     cases.  The expansion |x|^2 - 2x.c + |c|^2 rounds relative to |x|^2 +
     |c|^2, so distances and p are compared to 1e-5 of that scale; ids must
     be equal except where the plain version's two nearest distances are
-    within 1e-5 of it; wsum exactly with unit weights; xsum to 1e-5 of each
-    cell's sum of |w x|.  Returns the three kernel rows."""
+    within 1e-5 of it; NaN in the same places; wsum exactly with unit
+    weights (and equal to the counts of KM1's ids, which KM2's assignment
+    equals bit for bit); xsum to 1e-5 of each cell's sum of |w x|.  KM2
+    gives the same bits twice.  The coreset's shapes (a leaf and a merge)
+    are held as well as timed.  Returns the three kernel rows."""
     import torch
 
     from pixie_tpu_torch.ml import kmeans as km
@@ -2125,7 +2161,7 @@ def check_kmeans_kernels(dev) -> list[dict]:
         ids, mind = kops.assign(x, c)
         ids0, mind0 = kops.assign_plain(x, c)
         torch.cuda.synchronize()
-        derr = float(((mind - mind0).abs() / scale).max())
+        derr = _rel_err(mind, mind0, scale, f"KM1 {label}")
         if k > 1:
             two = torch.topk(kops.sq_dists_plain(x, c), 2, dim=1, largest=False).values
             tie = (two[:, 1] - two[:, 0]) <= 1e-5 * scale
@@ -2136,22 +2172,27 @@ def check_kmeans_kernels(dev) -> list[dict]:
             raise AssertionError(f"KM1 {label}: distance err {derr} (of |x|^2 + |c|^2), "
                                  f"{bad_ids} ids differ outside near-ties")
         out = {"km1_dist_err_rel_scale": derr, "km1_near_ties": int(tie.sum()),
-               "km1_max_abs_err": float((mind - mind0).abs().max())}
+               "km1_max_abs_err": float((mind - mind0).nan_to_num().abs().max())}
         werr = 0.0
+        counts = torch.bincount(ids, minlength=k).float()
         for wl, ww in (("unit", torch.ones_like(w)), ("weighted", w)):
             wsum, xsum = kops.lloyd_step(x, ww, c)
+            again = kops.lloyd_step(x, ww, c)
             wsum0, xsum0 = kops.lloyd_step_plain(x, ww, c)
             absx = torch.zeros_like(xsum0).index_add_(0, ids0, (x * ww[:, None]).abs())
             torch.cuda.synchronize()
-            xerr = float(((xsum - xsum0).abs() / absx.clamp_min(1e-30)).max())
-            if wl == "unit" and not torch.equal(wsum, wsum0):
-                raise AssertionError(f"KM2 {label}: unit-weight wsum differs")
-            werr = max(werr, float(((wsum - wsum0).abs() / wsum0.clamp_min(1e-30)).max()))
+            if not (same_bits(wsum, again[0]) and same_bits(xsum, again[1])):
+                raise AssertionError(f"KM2 {label} ({wl}): two calls differ")
+            xerr = _rel_err(xsum, xsum0, absx, f"KM2 {label} ({wl}) xsum")
+            if wl == "unit" and not (torch.equal(wsum, wsum0) and torch.equal(wsum, counts)):
+                raise AssertionError(f"KM2 {label}: unit-weight wsum differs from the plain "
+                                     "version's or from the counts of KM1's ids")
+            werr = max(werr, _rel_err(wsum, wsum0, wsum0.abs(), f"KM2 {label} wsum"))
             if xerr > 1e-5 or werr > 1e-6:
                 raise AssertionError(f"KM2 {label} ({wl}): xsum err {xerr}, wsum err {werr}")
             out[f"km2_xsum_err_{wl}"] = xerr
             out["km2_max_abs_err"] = max(out.get("km2_max_abs_err", 0.0),
-                                         float((xsum - xsum0).abs().max()))
+                                         float((xsum - xsum0).nan_to_num().abs().max()))
         out["km2_wsum_err_weighted"] = werr
         mind_k = torch.full((n,), float("inf"), device=dev)
         mind_p = mind_k.clone()
@@ -2161,7 +2202,8 @@ def check_kmeans_kernels(dev) -> list[dict]:
             p0 = kops.seed_step_plain(x, w, c[j], mind_p)
             torch.cuda.synchronize()
             sc = ((x * x).sum(1) + (c[j] * c[j]).sum()) * w
-            perr = max(perr, float(((p - p0).abs() / sc).max()))
+            _rel_err(mind_k, mind_p, sc, f"KM3 {label} mind")
+            perr = max(perr, _rel_err(p, p0, sc, f"KM3 {label} p"))
             pabs = max(pabs, float((p - p0).abs().max()))
         if perr > 1e-5:
             raise AssertionError(f"KM3 {label}: p err {perr} (of w (|x|^2 + |c|^2))")
@@ -2169,23 +2211,46 @@ def check_kmeans_kernels(dev) -> list[dict]:
         log(json.dumps({"check": f"KM1-KM3 {label}", "ok": True, **out}))
         return out
 
-    def data(n, d, k, seed, spread=10.0):
-        x, cent = ml_blobs(dev, n, d, k, seed, spread)
-        g = torch.Generator(device=dev)
-        g.manual_seed(seed + 1)
-        c = (cent + 0.5 * torch.randn(cent.shape, generator=g, device=dev)).contiguous()
-        w = torch.rand(n, generator=g, device=dev) + 0.5
-        return x, c, w
-
-    # edge cases: k = 1; more centers than a block's 256 points; d not a
+    data = functools.partial(kmeans_data, dev)
+    # KM2's own plan (csrc/kmeans.cu): its tile, its capped grid, and the
+    # centers one launch sums where shared memory holds the sums
+    plan = kops._lloyd_plan(dev.index, ML_N, ML_D, ML_K)
+    grid, tile = plan[2], plan[4]
+    if grid * tile >= ML_N:
+        raise AssertionError(f"KM2's grid of {grid} is not capped at n = {ML_N}")
+    capped = grid * tile
+    big_k = 40000
+    big_rows = kops._lloyd_plan(dev.index, 4099, 64, big_k)[3]
+    # edge cases: k = 1; more centers than a block's points; d not a
     # multiple of 4; n not a multiple of the block; d over one shared tile;
-    # k over one register tile and KM2's shared memory in two center ranges
+    # k over one register tile and KM2's shared memory in two center ranges;
+    # n one short of and one past KM2's tile, and one past a tile for every
+    # block of the capped grid; a k whose norms alone would fill a block's
+    # shared memory (KM2 in many center ranges)
     for label, (n, d, k) in (("k=1", (1 << 16, 64, 1)),
                              ("k=300 > 256 points a block", (4099, 8, 300)),
                              ("d=13, n=2^16+3", ((1 << 16) + 3, 13, 7)),
                              ("d=150, k=200 (two KM2 center ranges)", (3001, 150, 200)),
-                             ("k=129", (10007, 64, 129))):
+                             ("k=129", (10007, 64, 129)),
+                             (f"n={tile - 1}, one short of KM2's tile", (tile - 1, 64, 64)),
+                             (f"n={tile + 1}, one past KM2's tile", (tile + 1, 64, 64)),
+                             (f"n={tile + 1}, k=8", (tile + 1, 64, 8)),
+                             (f"n={capped + 1}, past the capped grid", (capped + 1, 64, 64)),
+                             (f"k={big_k} ({-(-big_k // big_rows)} KM2 center ranges)",
+                              (4099, 64, big_k))):
         hold(label, *data(n, d, k, 40 + n % 97))
+    # every point of every tile on one center
+    x, c, w = data(1 << 14, 64, 64, 44)
+    x = (c[5] + 0.1 * torch.randn(x.shape, generator=torch.Generator(device=dev).manual_seed(45),
+                                  device=dev)).contiguous()
+    hold("skew: every point on center 5", x, c, w)
+    # rows holding NaN: KM1 and KM2 take the first center (better()), KM3
+    # folds NaN into mind and gives p = 0
+    for label, (n, d, k) in (("NaN rows", (4099, 64, 64)), ("NaN rows, d=13", (3001, 13, 7))):
+        x, c, w = data(n, d, k, 46)
+        x[::97, 3] = float("nan")
+        x[5] = float("nan")
+        hold(label, x, c, w)
     # all-zero weights in a cluster: wsum 0, and the update keeps the center
     x, c, w = data(1 << 16, 64, 16, 47)
     ids, _ = kops.assign(x, c)
@@ -2197,31 +2262,67 @@ def check_kmeans_kernels(dev) -> list[dict]:
         raise AssertionError("KM2: a zero-weight cluster moved its center")
     log(json.dumps({"check": "KM2 zero-weight cluster keeps its center", "ok": True}))
 
+    def km2_bound(n, d, k):
+        return bound(n * d * 4 + n * 4 + 2 * k * d * 4 + k * 4,
+                     2.0 * n * k * d + 2.0 * n * (d + 1))
+
+    def km3_bound(n, d):
+        return bound(n * d * 4 + n * 16 + d * 4, 4.0 * n * d)
+
+    def seed_args(x, c, w):
+        mind = torch.full((x.shape[0],), float("inf"), device=dev)
+        kops.seed_step(x, w, c[0], mind)
+        return mind
+
+    # KM1-KM3 held and KM2 timed at the coreset's shapes (a leaf: 2^16 x 64,
+    # k = 8; a merge: 2,048 points), KM3 timed at the leaf
+    small = {}
+    for label, n in (("leaf", TREE_BATCH), ("merge", 2 * TREE_M)):
+        xs_, cs_, ws_ = data(n, ML_D, TREE_K, 48)
+        hold(f"coreset {label} (n={n}, d={ML_D}, k={TREE_K})", xs_, cs_, ws_)
+        small[f"km2_{label}"] = {
+            "n": n, "d": ML_D, "k": TREE_K,
+            "ms": cuda_ms(lambda: kops.lloyd_step(xs_, ws_, cs_), 20),
+            "device_ms": kernel_device_ms(lambda: kops.lloyd_step(xs_, ws_, cs_), 20),
+            "host_us": host_us(lambda: kops.lloyd_step(xs_, ws_, cs_)),
+            "plain_ms": cuda_ms(lambda: kops.lloyd_step_plain(xs_, ws_, cs_), 5),
+            "bound_ms": km2_bound(n, ML_D, TREE_K)[0]}
+        if label == "leaf":
+            mind_s = seed_args(xs_, cs_, ws_)
+            small["km3_leaf"] = {
+                "n": n, "d": ML_D,
+                "ms": cuda_ms(lambda: kops.seed_step(xs_, ws_, cs_[1], mind_s), 20),
+                "device_ms": kernel_device_ms(lambda: kops.seed_step(xs_, ws_, cs_[1], mind_s),
+                                              20),
+                "host_us": host_us(lambda: kops.seed_step(xs_, ws_, cs_[1], mind_s)),
+                "plain_ms": cuda_ms(lambda: kops.seed_step_plain(xs_, ws_, cs_[1], mind_s), 5),
+                "bound_ms": km3_bound(n, ML_D)[0]}
+        log(json.dumps({"check": f"KM2/KM3 at the coreset's {label}",
+                        **{k_: v for k_, v in small.items() if k_.endswith(label)}}))
+
     # the fit's shape
     x, c, w = data(ML_N, ML_D, ML_K, 41)
     main = hold(f"main (n=2^20, d={ML_D}, k={ML_K})", x, c, w)
     n, d, k = ML_N, ML_D, ML_K
     ids = kops.assign(x, c)[0]
-    mind = torch.full((n,), float("inf"), device=dev)
-    kops.seed_step(x, w, c[0], mind)
+    mind = seed_args(x, c, w)
     shape = {"n": n, "d": d, "k": k}
-    common = {"route": "cuda", "source": "pixie_tpu_torch/csrc/kmeans.cu", "path": "ml",
-              "shape": shape}
+    common = {"route": "cuda", "source": "pixie_tpu_torch/csrc/kmeans.cu", "path": "ml"}
     rows = []
     b, by = bound(n * d * 4 + k * d * 4 + n * 12, 2.0 * n * k * d)
     rows.append({
-        **common, "name": "kmeans_assign",
+        **common, "name": "kmeans_assign", "shape": shape,
         "replaces": "pixie_tpu/ml/kmeans.py:21 _sq_dists (+ argmin / min :73, :112, :119)",
         "entry": ("kmeans", "px_kmeans_assign"), "max_abs_err": main["km1_max_abs_err"],
         "ms": cuda_ms(lambda: kops.assign(x, c), 20),
         "plain_ms": cuda_ms(lambda: kops.assign_plain(x, c), 5),
         "bound_ms": b, "bound_by": by,
         "library_ms": cuda_ms(lambda: torch.cdist(x, c).argmin(1), 5)})
-    b, by = bound(n * d * 4 + n * 4 + 2 * k * d * 4 + k * 4, 2.0 * n * k * d + 2.0 * n * (d + 1))
+    b, by = km2_bound(n, d, k)
 
-    def library_sums():
-        torch.zeros(k, device=dev).index_add_(0, ids, w)
-        torch.zeros((k, d), device=dev).index_add_(0, ids, x * w[:, None])
+    def library_sums(ids_):
+        torch.zeros(k, device=dev).index_add_(0, ids_, w)
+        torch.zeros((k, d), device=dev).index_add_(0, ids_, x * w[:, None])
 
     rows.append({
         **common, "name": "kmeans_lloyd",
@@ -2230,17 +2331,27 @@ def check_kmeans_kernels(dev) -> list[dict]:
         "ms": cuda_ms(lambda: kops.lloyd_step(x, w, c), 10),
         "plain_ms": cuda_ms(lambda: kops.lloyd_step_plain(x, w, c), 3),
         "bound_ms": b, "bound_by": by,
-        # the two float32 index_add_ of the reference's segment sums, given
-        # the ids (the assignment is not in it)
-        "library_ms": cuda_ms(library_sums, 5)})
-    b, by = bound(n * d * 4 + n * 16 + d * 4, 4.0 * n * d)
+        # the same function in PyTorch calls: the assignment, then the two
+        # float32 index_add_ of the reference's segment sums
+        "library_ms": cuda_ms(lambda: library_sums(torch.cdist(x, c).argmin(1)), 5),
+        "shape": {**shape, "device_ms": kernel_device_ms(lambda: kops.lloyd_step(x, w, c), 10),
+                  "host_us": host_us(lambda: kops.lloyd_step(x, w, c)),
+                  # the two index_add_ alone, given the ids (not the same
+                  # function: no assignment)
+                  "library_given_ids_ms": cuda_ms(lambda: library_sums(ids), 5),
+                  "leaf": small["km2_leaf"], "merge": small["km2_merge"]}})
+    b, by = km3_bound(n, d)
     rows.append({
         **common, "name": "kmeans_seed_step",
         "replaces": "pixie_tpu/ml/kmeans.py:30 _plusplus_init step",
         "entry": ("kmeans", "px_kmeans_seed_step"), "max_abs_err": main["km3_max_abs_err"],
         "ms": cuda_ms(lambda: kops.seed_step(x, w, c[1], mind), 20),
         "plain_ms": cuda_ms(lambda: kops.seed_step_plain(x, w, c[1], mind), 5),
-        "bound_ms": b, "bound_by": by, "library_ms": None})
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+        "shape": {**shape,
+                  "device_ms": kernel_device_ms(lambda: kops.seed_step(x, w, c[1], mind), 20),
+                  "host_us": host_us(lambda: kops.seed_step(x, w, c[1], mind)),
+                  "leaf": small["km3_leaf"]}})
     del x, c, w, ids, mind
     torch.cuda.empty_cache()
     return rows

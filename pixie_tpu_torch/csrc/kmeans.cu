@@ -25,14 +25,36 @@
 //   dimensions, loop over tiles.
 // KM2 px_kmeans_lloyd: wsum [k] and xsum [k, d] of one Lloyd iteration.
 //   Bound: as KM1 (the assignment), plus n (d + 1) additions.
-//   Design: each block assigns a tile as KM1 does, then adds w and w * x of
-//   each of the tile's points, in point order, into its own [k, d + 1]
-//   float64 partial sums in shared memory (thread j owns column j: no
-//   atomics).  The partials go to a [blocks, k, d + 1] buffer that a second
-//   kernel sums over the blocks in block order.  No float atomics anywhere:
-//   a fit gives the same bits run to run on one card.  Where [k, d + 1]
-//   doubles do not fit in shared memory, the launch repeats over ranges of
-//   centers.
+//   Design: one launch.  Each block (two an SM) walks 128-point tiles
+//   strided over a grid fixed by n and the card.  A tile's rows (64-column chunks, padded
+//   by 16 bytes against bank conflicts) reach shared memory by cp.async,
+//   double-buffered: the next tile lands while this one computes.  The
+//   centers sit in shared memory a tile of them at a time, transposed
+//   ([dim][center]), with the tile's squared norms computed where it is
+//   staged (no separate launch; the fixed shared memory does not grow with
+//   k).  Distances are register
+//   tiled as an SGEMM micro-tile: each thread computes PP points x CC
+//   centers (4 x 8 at k > 32; 8 x 8, which loads fewer floats an FMA but
+//   holds one block an SM, ran slower) out of shared memory, each dot
+//   product a
+//   float32 fmaf chain over the dimensions in order, so ids and distances
+//   equal KM1's bit for bit; the GC threads sharing a point (adjacent lanes)
+//   combine their nearest by shuffles.  Then every warp takes centers and
+//   its lanes take columns: for each of its centers a warp finds the tile's
+//   points of that center by ballots and, in point order, adds w and the
+//   float32 products x * w of each into float64 sums — in registers where
+//   k <= 64 and d <= 64 (lane l: columns l and l + 32; lane s: the weight
+//   of the warp's s-th center), else in shared memory, repeating the launch
+//   over ranges of centers where even those cannot hold them.  No cell has
+//   two writers and no float atomics are used.  Each block writes its
+//   partial sums; the last block of each group of 16 (a __threadfence and
+//   an atomic ticket) sums its group's partials in block order, and the last
+//   group sums the groups in group order and writes wsum and xsum in
+//   float32 (a thread loads 2 cells of 16 blocks before it adds any).  Each
+//   cell thus sums its points in point order within a tile, tiles in the
+//   block's order and blocks in a fixed order: a fit gives the same bits run
+//   to run on one card.  Every ticket is reset to 0 by the block that takes
+//   it last; the wrapper keeps one scratch a stream.
 // KM3 px_kmeans_seed_step: one k-means++ step.  mind = min(mind, d(x, c)) for
 //   the center chosen last, and p = mind * w with non-finite values set to 0.
 //   The reference recomputes all k distances each step and masks the unset
@@ -40,8 +62,14 @@
 //   O(n d) a step.
 //   Bound: bytes.  x, w and mind read once, mind and p written once: at
 //   n = 2^20, d = 64, 0.28 GB, 0.08 ms.
-//   Design: one thread per point, the center read through the read-only
-//   cache (every thread of a warp reads the same address).
+//   Design: x streams from memory once a step (it does not fit the L2), so
+//   its reads are coalesced and carry the evict-first hint (__ldcs): the 16
+//   lanes of a half-warp share a row (16 x float4 = 64 floats), each half
+//   keeps 4 rows in flight, and the dot product and |x|^2 are reduced by
+//   __shfl_xor_sync; 8 lanes of a warp then write 8 consecutive rows.  |c|^2
+//   is computed once a block.  (ab_kernels.py km3_staged times the other
+//   design: 128-row tiles staged in shared memory by cp.async, one thread a
+//   row summing in dimension order.)
 
 #include "common.cuh"
 
@@ -164,70 +192,76 @@ __global__ void __launch_bounds__(kBlock) assign_kernel(
   }
 }
 
-// Shared memory of a lloyd_partials block: the center tile, the tile's ids
-// and weights, and `rows` x (d + 1) float64 partial sums.
+// ------------------------------------------------------------------ KM2
+
+constexpr int kTP = 128;           // points a tile
+constexpr int kLloydPerSM = 2;     // KM2 blocks an SM holds (shared memory and registers)
+constexpr int kXS = kDT + 4;       // floats a staged row chunk (16 bytes of padding)
+constexpr int kWarps = kBlock / 32;
+constexpr int kRegSlots = 8;       // centers a warp sums in registers
+constexpr int kGroup = 16;         // blocks whose partials one block sums first
+
+// The register micro-tile of a center tile of KT: PP points x CC centers a
+// thread; the KT / CC threads that share a point are adjacent lanes.
+template <int KT>
+struct Micro;
+template <>
+struct Micro<64> {
+  static constexpr int CC = 8, PP = 4;
+};
+template <>
+struct Micro<32> {
+  static constexpr int CC = 4, PP = 4;
+};
+template <>
+struct Micro<8> {
+  static constexpr int CC = 4, PP = 1;
+};
+
+__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
+
+// (v, i) comes before (b, bi) in argmin order: the first NaN wins, else the
+// smaller value, a tie going to the lower index.  Folding a point's
+// distances in any order with this rule gives what better() gives folding
+// them in index order from (inf, 0).
+__device__ __forceinline__ bool before(float v, int i, float b, int bi) {
+  if (isnan(v)) return !isnan(b) || i < bi;
+  if (isnan(b)) return false;
+  return v < b || (v == b && i < bi);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared memory of a lloyd_kernel block: two x buffers of kTP x kXS floats,
+// the center tile ([kDT][KT]) and its KT squared norms, the x tile's ids and
+// weights, 4 flag ints, then `rows` x (d + 1) float64 sums (0 rows when
+// the sums are in registers).
 template <int KT>
 size_t lloyd_smem(int d, int rows) {
-  return sizeof(float) * KT * kDT + (sizeof(int) + sizeof(float)) * kBlock +
+  return sizeof(float) * (2 * kTP * kXS + kDT * KT + KT + 2 * kTP) + 16 +
          sizeof(double) * static_cast<size_t>(rows) * (d + 1);
 }
 
-template <int KT, bool kVec>
-__global__ void __launch_bounds__(kBlock) lloyd_partials(
-    const float* __restrict__ x, const float* __restrict__ w, long long n, int d,
-    const float* __restrict__ c, const float* __restrict__ c2, int k, int c_lo, int rows,
-    double* __restrict__ partials) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* cs = reinterpret_cast<float*>(smem_raw);
-  int* tile_ids = reinterpret_cast<int*>(cs + KT * kDT);
-  float* tile_w = reinterpret_cast<float*>(tile_ids + kBlock);
-  double* acc = reinterpret_cast<double*>(
-      smem_raw + ((sizeof(float) * KT * kDT + (sizeof(int) + sizeof(float)) * kBlock + 15) &
-                  ~static_cast<size_t>(15)));
-  const int width = d + 1;
-  const int cells = rows * width;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) acc[i] = 0.0;
-  const long long tiles = (n + kBlock - 1) / kBlock;
-  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long p = tile * kBlock + threadIdx.x;
-    const bool live = p < n;
-    int bi;
-    float bd;
-    nearest<KT, kVec>(x, p, live, d, c, c2, k, cs, bi, bd);
-    tile_ids[threadIdx.x] = live ? bi - c_lo : -1;
-    tile_w[threadIdx.x] = live ? w[p] : 0.f;
-    __syncthreads();
-    // column j (j == d: the weight) of every point of the tile, in point
-    // order; a column belongs to one thread, so no two threads add to one cell
-    const long long base = tile * kBlock;
-    for (int j = threadIdx.x; j < width; j += blockDim.x) {
-      for (int q = 0; q < kBlock; ++q) {
-        const int r = tile_ids[q];
-        if (r < 0 || r >= rows) continue;
-        const float wq = tile_w[q];
-        // the float32 product x * w, rounded as the reference rounds it
-        // (no FMA contraction into the float64 add)
-        const float v = j == d ? wq : __fmul_rn(x[(base + q) * d + j], wq);
-        acc[r * width + j] += static_cast<double>(v);
-      }
-    }
-    // (the next nearest() synchronizes before anyone rewrites the tile)
-  }
-  __syncthreads();
-  double* out = partials + static_cast<long long>(blockIdx.x) * cells;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) out[i] = acc[i];
-}
-
-__global__ void lloyd_reduce(const double* __restrict__ partials, int blocks, int d,
-                             int c_lo, int rows, float* __restrict__ wsum,
-                             float* __restrict__ xsum) {
-  const int width = d + 1;
-  const int cells = rows * width;
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= cells) return;
-  double s = 0.0;
-  for (int b = 0; b < blocks; ++b) s += partials[static_cast<long long>(b) * cells + e];
-  const int r = e / width, j = e % width;
+__device__ __forceinline__ void lloyd_out(int e, double s, int d, int c_lo,
+                                          float* __restrict__ wsum, float* __restrict__ xsum) {
+  const int r = e / (d + 1), j = e - r * (d + 1);
   if (j == d) {
     wsum[c_lo + r] = static_cast<float>(s);
   } else {
@@ -235,40 +269,459 @@ __global__ void lloyd_reduce(const double* __restrict__ partials, int blocks, in
   }
 }
 
+// For every cell e < cells, the sum over b < count of src[b * cells + e] in
+// b order, passed to out(e, sum); a thread loads kSumCells cells of
+// kSumBatch blocks before it adds any, so their loads are in flight together.
+constexpr int kSumCells = 2;
+constexpr int kSumBatch = 16;
+template <typename Out>
+__device__ __forceinline__ void sum_blocks(const double* __restrict__ src, int count, int cells,
+                                           Out out) {
+  for (int e0 = threadIdx.x; e0 < cells; e0 += blockDim.x * kSumCells) {
+    double s[kSumCells];
+#pragma unroll
+    for (int u = 0; u < kSumCells; ++u) s[u] = 0.0;
+    for (int b0 = 0; b0 < count; b0 += kSumBatch) {
+      double v[kSumBatch][kSumCells];
+#pragma unroll
+      for (int b = 0; b < kSumBatch; ++b) {
+        const double* row = src + static_cast<long long>(b0 + b) * cells;
+#pragma unroll
+        for (int u = 0; u < kSumCells; ++u) {
+          const int e = e0 + u * blockDim.x;
+          v[b][u] = b0 + b < count && e < cells ? __ldcg(row + e) : 0.0;
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kSumBatch; ++b) {
+#pragma unroll
+        for (int u = 0; u < kSumCells; ++u) {
+          if (b0 + b < count) s[u] += v[b][u];
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSumCells; ++u) {
+      const int e = e0 + u * blockDim.x;
+      if (e < cells) out(e, s[u]);
+    }
+  }
+}
+
+// After every block has written its partial sums: the last block of each
+// group of kGroup sums the group's partials in block order; the last group
+// sums the groups' sums in group order into wsum and xsum.
+__device__ void lloyd_finish(const double* __restrict__ partials, double* __restrict__ gsums,
+                             unsigned* __restrict__ tickets, int rows, int d, int c_lo,
+                             float* __restrict__ wsum, float* __restrict__ xsum, int* flag) {
+  const int cells = rows * (d + 1);
+  const int groups = (static_cast<int>(gridDim.x) + kGroup - 1) / kGroup;
+  const int g = blockIdx.x / kGroup, b0 = g * kGroup;
+  const int nb = min(kGroup, static_cast<int>(gridDim.x) - b0);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) flag[0] = atomicAdd(tickets + g, 1u) == static_cast<unsigned>(nb - 1);
+  __syncthreads();
+  if (!flag[0]) return;
+  __threadfence();
+  if (threadIdx.x == 0) tickets[g] = 0u;
+  double* gsum = gsums + static_cast<long long>(g) * cells;
+  sum_blocks(partials + static_cast<long long>(b0) * cells, nb, cells, [&](int e, double s) {
+    if (groups == 1) {
+      lloyd_out(e, s, d, c_lo, wsum, xsum);
+    } else {
+      gsum[e] = s;
+    }
+  });
+  if (groups == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    flag[1] = atomicAdd(tickets + groups, 1u) == static_cast<unsigned>(groups - 1);
+  }
+  __syncthreads();
+  if (!flag[1]) return;
+  __threadfence();
+  if (threadIdx.x == 0) tickets[groups] = 0u;
+  sum_blocks(gsums, groups, cells,
+             [&](int e, double s) { lloyd_out(e, s, d, c_lo, wsum, xsum); });
+}
+
+// One Lloyd step's sums for the centers [c_lo, c_lo + rows) (see the file's
+// note).  kVec: rows of x 16-byte aligned with d % 4 == 0; kRegSums: the
+// float64 sums in registers (rows <= kWarps * kRegSlots, d <= kDT).
+template <int KT, bool kVec, bool kRegSums>
+__global__ void __launch_bounds__(kBlock, kLloydPerSM) lloyd_kernel(
+    const float* __restrict__ x, const float* __restrict__ w, long long n, int d,
+    const float* __restrict__ c, int k, int c_lo, int rows, double* __restrict__ partials,
+    double* __restrict__ gsums, unsigned* __restrict__ tickets, float* __restrict__ wsum,
+    float* __restrict__ xsum) {
+  constexpr int CC = Micro<KT>::CC, PP = Micro<KT>::PP;
+  constexpr int GC = KT / CC, GP = kBlock / GC;
+  static_assert(GP * PP == kTP, "a tile is GP x PP points");
+  static_assert(32 % GC == 0, "the threads of a point share a warp");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* xs = reinterpret_cast<float*>(smem_raw);
+  float* cs = xs + 2 * kTP * kXS;
+  float* c2s = cs + kDT * KT;
+  int* tile_ids = reinterpret_cast<int*>(c2s + KT);
+  float* tile_w = reinterpret_cast<float*>(tile_ids + kTP);
+  int* flag = reinterpret_cast<int*>(tile_w + kTP);
+  double* sums = reinterpret_cast<double*>(flag + 4);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tc = tid % GC, tp = tid / GC;
+  const int width = d + 1;
+  const int nc = (d + kDT - 1) / kDT;  // 64-column chunks of a row
+  const int nct = (k + KT - 1) / KT;   // center tiles
+  const bool once = nc == 1 && nct == 1;
+
+  // The centers of a (center tile, column chunk), transposed and padded with
+  // 0; with the first chunk, the tile's |c|^2 as center_norms computes them.
+  auto stage_centers = [&](int kt, int dc) {
+    const int k0 = kt * KT, d0 = dc * kDT;
+    const int kc = min(KT, k - k0), dcw = min(kDT, d - d0);
+    if (dc == 0) {
+      for (int t = tid; t < KT; t += kBlock) {
+        float s = 0.f;
+        if (t < kc) {
+          const float* r = c + static_cast<long long>(k0 + t) * d;
+#pragma unroll 16
+          for (int j = 0; j < d; ++j) s = fmaf(r[j], r[j], s);
+        }
+        c2s[t] = s;
+      }
+    }
+    for (int i = tid; i < KT * kDT; i += kBlock) {
+      const int j = i / KT, t = i - j * KT;
+      cs[i] = (t < kc && j < dcw) ? c[static_cast<long long>(k0 + t) * d + d0 + j] : 0.f;
+    }
+  };
+
+  // prologue: both x buffers zeroed (padding columns stay 0), the sums, and
+  // the centers when one tile holds them all
+  for (int i = tid; i < 2 * kTP * kXS; i += kBlock) xs[i] = 0.f;
+  if constexpr (!kRegSums) {
+    for (int i = tid; i < rows * width; i += kBlock) sums[i] = 0.0;
+  }
+  if (once) stage_centers(0, 0);
+  __syncthreads();
+
+  // x stages: one a tile when a row is one chunk (both passes read it), else
+  // one a (center tile, chunk) of each tile
+  const long long tiles = (n + kTP - 1) / kTP;
+  const long long my_tiles = (tiles - 1 - blockIdx.x) / gridDim.x + 1;
+  const int spt = nc == 1 ? 1 : nct * nc;
+  const long long stages = my_tiles * spt;
+  auto issue = [&](long long s) {
+    const long long p0 = (blockIdx.x + (s / spt) * gridDim.x) * kTP;
+    const int dc = static_cast<int>(s % spt) % nc;
+    const int np = static_cast<int>(min(static_cast<long long>(kTP), n - p0));
+    const int d0 = dc * kDT, dcw = min(kDT, d - d0);
+    float* buf = xs + (s & 1) * (kTP * kXS);
+    const float* src = x + p0 * d + d0;
+    if constexpr (kVec) {
+      const int per = dcw >> 2;
+      for (int i = tid; i < np * per; i += kBlock) {
+        const int r = i / per, j = (i - r * per) << 2;
+        cp_async16(buf + r * kXS + j, src + static_cast<long long>(r) * d + j);
+      }
+    } else {
+      for (int i = tid; i < np * dcw; i += kBlock) {
+        const int r = i / dcw, j = i - r * dcw;
+        cp_async4(buf + r * kXS + j, src + static_cast<long long>(r) * d + j);
+      }
+      // an earlier, wider chunk may have left values in the padding
+      const int pad = round4(dcw) - dcw;
+      for (int i = tid; i < np * pad; i += kBlock) buf[(i / pad) * kXS + dcw + i % pad] = 0.f;
+    }
+    cp_async_commit();
+  };
+
+  // the float64 sums held in registers: slot s of warp v is center
+  // v + kWarps * s; lane l holds its columns l and l + 32, lane s its weight
+  double rs[kRegSums ? kRegSlots : 1][2];
+#pragma unroll
+  for (int s = 0; s < (kRegSums ? kRegSlots : 1); ++s) rs[s][0] = rs[s][1] = 0.0;
+  double rw = 0.0;
+
+  // w and w * x of the tile's points into the sums of their centers: a warp
+  // takes centers, its lanes take columns; for each of its centers a warp
+  // finds the center's points by ballots and adds them in point order
+  auto accumulate = [&](const float* buf, long long p0) {
+    if constexpr (kRegSums) {
+#pragma unroll
+      for (int sl = 0; sl < kRegSlots; ++sl) {
+        const int cr = warp + kWarps * sl;
+        if (cr < rows) {
+          for (int q0 = 0; q0 < kTP; q0 += 32) {
+            unsigned bal = __ballot_sync(0xffffffffu, tile_ids[q0 + lane] == cr);
+            while (bal) {
+              const int q = q0 + __ffs(bal) - 1;
+              bal &= bal - 1;
+              const float wq = tile_w[q];
+              const float* row = buf + q * kXS;
+              // the float32 product x * w, rounded as the reference rounds
+              // it (no FMA contraction into the float64 add)
+              if (lane < d) rs[sl][0] += static_cast<double>(__fmul_rn(row[lane], wq));
+              if (lane + 32 < d) rs[sl][1] += static_cast<double>(__fmul_rn(row[lane + 32], wq));
+              if (lane == sl) rw += static_cast<double>(wq);
+            }
+          }
+        }
+      }
+    } else {
+      for (int cr = warp; cr < rows; cr += kWarps) {
+        double* cell = sums + cr * width;
+        for (int q0 = 0; q0 < kTP; q0 += 32) {
+          unsigned bal = __ballot_sync(0xffffffffu, tile_ids[q0 + lane] == cr);
+          while (bal) {
+            const int q = q0 + __ffs(bal) - 1;
+            bal &= bal - 1;
+            const float wq = tile_w[q];
+            for (int j = lane; j < width; j += 32) {
+              // a row wider than one chunk is read again, from the L2
+              const float v =
+                  j == d ? wq
+                         : __fmul_rn(nc == 1 ? buf[q * kXS + j] : __ldg(x + (p0 + q) * d + j), wq);
+              cell[j] += static_cast<double>(v);
+            }
+          }
+        }
+      }
+    }
+  };
+
+  float acc[PP][CC], x2[PP], bd[PP];
+  int bi[PP];
+  if (stages > 0) issue(0);
+  for (long long s = 0; s < stages; ++s) {
+    cp_async_wait<0>();
+    // stage s has landed, from every thread's copies; and every warp is done
+    // with stage s - 1 (its buffer, the next stage's, and the tile's ids)
+    __syncthreads();
+    if (s + 1 < stages) issue(s + 1);
+    const long long p0 = (blockIdx.x + (s / spt) * gridDim.x) * kTP;
+    const int r = static_cast<int>(s % spt);
+    const int dc = r % nc;
+    const int kt0 = nc == 1 ? 0 : r / nc, kt1 = nc == 1 ? nct : r / nc + 1;
+    const float* buf = xs + (s & 1) * (kTP * kXS);
+    if (r == 0) {
+#pragma unroll
+      for (int i = 0; i < PP; ++i) {
+        x2[i] = 0.f;
+        bd[i] = CUDART_INF_F;
+        bi[i] = 0x7fffffff;
+      }
+    }
+    for (int kt = kt0; kt < kt1; ++kt) {
+      if (!once) {
+        __syncthreads();  // the previous center tile is consumed
+        stage_centers(kt, dc);
+        __syncthreads();
+      }
+      if (dc == 0) {
+#pragma unroll
+        for (int i = 0; i < PP; ++i)
+#pragma unroll
+          for (int t = 0; t < CC; ++t) acc[i][t] = 0.f;
+      }
+      const int dc4 = round4(min(kDT, d - dc * kDT));
+      for (int j = 0; j < dc4; j += 4) {
+        float4 xv[PP];
+#pragma unroll
+        for (int i = 0; i < PP; ++i) {
+          xv[i] = *reinterpret_cast<const float4*>(buf + (tp * PP + i) * kXS + j);
+        }
+        if (kt == 0) {
+#pragma unroll
+          for (int i = 0; i < PP; ++i) {
+            x2[i] = fmaf(xv[i].x, xv[i].x, x2[i]);
+            x2[i] = fmaf(xv[i].y, xv[i].y, x2[i]);
+            x2[i] = fmaf(xv[i].z, xv[i].z, x2[i]);
+            x2[i] = fmaf(xv[i].w, xv[i].w, x2[i]);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float cv[CC];
+#pragma unroll
+          for (int g = 0; g < CC / 4; ++g) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(cs + (j + e) * KT + g * GC * 4 + tc * 4);
+            cv[g * 4 + 0] = v.x;
+            cv[g * 4 + 1] = v.y;
+            cv[g * 4 + 2] = v.z;
+            cv[g * 4 + 3] = v.w;
+          }
+#pragma unroll
+          for (int i = 0; i < PP; ++i) {
+            const float xe = e == 0 ? xv[i].x : e == 1 ? xv[i].y : e == 2 ? xv[i].z : xv[i].w;
+#pragma unroll
+            for (int t = 0; t < CC; ++t) acc[i][t] = fmaf(xe, cv[t], acc[i][t]);
+          }
+        }
+      }
+      if (dc == nc - 1) {
+#pragma unroll
+        for (int t = 0; t < CC; ++t) {
+          const int ct = (t / 4) * GC * 4 + tc * 4 + (t & 3), ci = kt * KT + ct;
+          if (ci < k) {
+            const float c2 = c2s[ct];
+#pragma unroll
+            for (int i = 0; i < PP; ++i) {
+              const float dd = clamp_dist((x2[i] - 2.f * acc[i][t]) + c2);
+              if (before(dd, ci, bd[i], bi[i])) {
+                bd[i] = dd;
+                bi[i] = ci;
+              }
+            }
+          }
+        }
+      }
+    }
+    if (r == spt - 1) {
+      // the nearest over every center: combine the GC threads of a point
+#pragma unroll
+      for (int i = 0; i < PP; ++i) {
+#pragma unroll
+        for (int off = 1; off < GC; off <<= 1) {
+          const float od = __shfl_xor_sync(0xffffffffu, bd[i], off);
+          const int oi = __shfl_xor_sync(0xffffffffu, bi[i], off);
+          if (before(od, oi, bd[i], bi[i])) {
+            bd[i] = od;
+            bi[i] = oi;
+          }
+        }
+      }
+      if (tc == 0) {
+#pragma unroll
+        for (int i = 0; i < PP; ++i) {
+          const int q = tp * PP + i;
+          const bool live = p0 + q < n;
+          const int rel = bi[i] - c_lo;
+          tile_ids[q] = live && rel >= 0 && rel < rows ? rel : -1;
+          tile_w[q] = live ? w[p0 + q] : 0.f;
+        }
+      }
+      __syncthreads();
+      accumulate(buf, p0);
+    }
+  }
+  __syncthreads();  // the x buffers are free (the shared sums are complete)
+
+  double* mine = partials + static_cast<long long>(blockIdx.x) * rows * width;
+  if constexpr (kRegSums) {
+#pragma unroll
+    for (int sl = 0; sl < kRegSlots; ++sl) {
+      const int cr = warp + kWarps * sl;
+      if (cr < rows) {
+        double* o = mine + cr * width;
+        if (lane < d) o[lane] = rs[sl][0];
+        if (lane + 32 < d) o[lane + 32] = rs[sl][1];
+        if (lane == sl) o[d] = rw;
+      }
+    }
+  } else {
+    for (int i = tid; i < rows * width; i += kBlock) mine[i] = sums[i];
+  }
+  lloyd_finish(partials, gsums, tickets, rows, d, c_lo, wsum, xsum, flag);
+}
+
+// ------------------------------------------------------------------ KM3
+
+constexpr int kSeedRows = 4;  // rows a half-warp has in flight
+
+__device__ __forceinline__ void seed_fold(long long i, float x2, float dot, float c2,
+                                          const float* __restrict__ w, float* __restrict__ mind,
+                                          float* __restrict__ p) {
+  const float dd = clamp_dist((x2 - 2.f * dot) + c2);
+  float m = mind[i];
+  // jnp.min over the chosen centers: NaN propagates
+  if (!isnan(m) && (isnan(dd) || dd < m)) m = dd;
+  mind[i] = m;
+  const float v = m * w[i];
+  p[i] = isfinite(v) ? v : 0.f;
+}
+
+// kVec: x and c 16-byte aligned with d % 4 == 0 (a lane reads float4s).
 template <bool kVec>
-__global__ void __launch_bounds__(kBlock) seed_step_kernel(
+__global__ void __launch_bounds__(kBlock) seed_step_lanes(
     const float* __restrict__ x, const float* __restrict__ w, long long n, int d,
     const float* __restrict__ c, float* __restrict__ mind, float* __restrict__ p) {
-  float c2 = 0.f;
-  for (int j = 0; j < d; ++j) c2 = fmaf(__ldg(c + j), __ldg(c + j), c2);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float* row = x + i * d;
-    float x2 = 0.f, dot = 0.f;
-    for (int j = 0; j < d; j += 4) {
-      const float4 xv = load4<kVec>(row, j, d);
-      float4 cv;
-      cv.x = __ldg(c + j);
-      cv.y = j + 1 < d ? __ldg(c + j + 1) : 0.f;
-      cv.z = j + 2 < d ? __ldg(c + j + 2) : 0.f;
-      cv.w = j + 3 < d ? __ldg(c + j + 3) : 0.f;
-      x2 = fmaf(xv.x, xv.x, x2);
-      x2 = fmaf(xv.y, xv.y, x2);
-      x2 = fmaf(xv.z, xv.z, x2);
-      x2 = fmaf(xv.w, xv.w, x2);
-      dot = fmaf(xv.x, cv.x, dot);
-      dot = fmaf(xv.y, cv.y, dot);
-      dot = fmaf(xv.z, cv.z, dot);
-      dot = fmaf(xv.w, cv.w, dot);
+  constexpr int U = kSeedRows;
+  __shared__ float c2s;
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int j = 0; j < d; ++j) s = fmaf(__ldg(c + j), __ldg(c + j), s);
+    c2s = s;
+  }
+  __syncthreads();
+  const float c2 = c2s;
+  const int lane = threadIdx.x & 31, h = lane >> 4, l16 = lane & 15;
+  const long long warps = static_cast<long long>(gridDim.x) * (kBlock / 32);
+  const long long warp0 = (static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x) >> 5;
+  const int units = kVec ? d >> 2 : d;  // float4s (or floats) of a row
+  const float4* c4 = reinterpret_cast<const float4*>(c);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 c_first = kVec && l16 < units ? __ldg(c4 + l16) : zero;
+  for (long long base = warp0 * 2 * U; base < n; base += warps * 2 * U) {
+    float dot[U], x2[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) dot[u] = x2[u] = 0.f;
+    for (int jb = 0; jb < units; jb += 16) {
+      const int j = jb + l16;
+      const bool on = j < units;
+      if constexpr (kVec) {
+        float4 v[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const long long row = base + 2 * u + h;
+          v[u] = on && row < n ? __ldcs(reinterpret_cast<const float4*>(x + row * d) + j) : zero;
+        }
+        const float4 cv = jb == 0 ? c_first : (on ? __ldg(c4 + j) : zero);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          x2[u] = fmaf(v[u].x, v[u].x, x2[u]);
+          x2[u] = fmaf(v[u].y, v[u].y, x2[u]);
+          x2[u] = fmaf(v[u].z, v[u].z, x2[u]);
+          x2[u] = fmaf(v[u].w, v[u].w, x2[u]);
+          dot[u] = fmaf(v[u].x, cv.x, dot[u]);
+          dot[u] = fmaf(v[u].y, cv.y, dot[u]);
+          dot[u] = fmaf(v[u].z, cv.z, dot[u]);
+          dot[u] = fmaf(v[u].w, cv.w, dot[u]);
+        }
+      } else {
+        float v[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const long long row = base + 2 * u + h;
+          v[u] = on && row < n ? __ldcs(x + row * d + j) : 0.f;
+        }
+        const float cv = on ? __ldg(c + j) : 0.f;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          x2[u] = fmaf(v[u], v[u], x2[u]);
+          dot[u] = fmaf(v[u], cv, dot[u]);
+        }
+      }
     }
-    const float dd = clamp_dist((x2 - 2.f * dot) + c2);
-    float m = mind[i];
-    // jnp.min over the chosen centers: NaN propagates
-    if (!isnan(m) && (isnan(dd) || dd < m)) m = dd;
-    mind[i] = m;
-    const float v = m * w[i];
-    p[i] = isfinite(v) ? v : 0.f;
+    float my_dot = 0.f, my_x2 = 0.f;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) {
+        dot[u] += __shfl_xor_sync(0xffffffffu, dot[u], off);
+        x2[u] += __shfl_xor_sync(0xffffffffu, x2[u], off);
+      }
+      if (l16 == u) {
+        my_dot = dot[u];
+        my_x2 = x2[u];
+      }
+    }
+    // lanes 0..U-1 of each half: rows base + 2 l16 + h, 2U consecutive rows
+    const long long row = base + 2 * l16 + h;
+    if (l16 < U && row < n) seed_fold(row, my_x2, my_dot, c2, w, mind, p);
   }
 }
 
@@ -295,55 +748,99 @@ int launch_assign(const float* x, long long n, int d, const float* c, const floa
 // Centers per shared-memory tile for k centers.
 int tile_centers(int k) { return k <= 8 ? 8 : (k <= 32 ? 32 : 64); }
 
-// Blocks of a lloyd_partials launch: a fixed function of n and the card, so
-// the block order of the sums, and with it the result, is the same every run.
+// Blocks of a KM2 launch: a fixed function of n and the card, so the block
+// order of the sums, and with it the result, is the same every run.
 long long lloyd_grid(long long n) {
-  const long long tiles = (n + kBlock - 1) / kBlock;
-  const long long cap = 2LL * px_sm_count();
+  const long long tiles = (n + kTP - 1) / kTP;
+  const long long cap = static_cast<long long>(kLloydPerSM) * px_sm_count();
   const long long g = tiles < cap ? tiles : cap;
   return g < 1 ? 1 : g;
 }
 
-// Centers whose partial sums one launch holds in shared memory.
+long long lloyd_groups(long long grid) { return (grid + kGroup - 1) / kGroup; }
+
+// KM2 keeps its float64 sums in registers when every center fits the
+// warps' slots and a row fits one chunk.
+bool lloyd_in_registers(int k, int d) { return k <= kWarps * kRegSlots && d <= kDT; }
+
+// Centers whose sums one launch holds: all k in registers, else as many as
+// fit the shared memory left beside the fixed part (0: not even one).
 template <int KT>
-int lloyd_rows(int d, int k) {
-  const size_t fixed = lloyd_smem<KT>(d, 0) + 16;
+int lloyd_rows(int k, int d, bool reg) {
+  const size_t fixed = lloyd_smem<KT>(d, 0);
   const size_t budget = static_cast<size_t>(px_smem_optin());
-  if (budget <= fixed) return 0;
+  if (budget < fixed) return 0;
+  if (reg) return k;
   const long long rows = static_cast<long long>((budget - fixed) / (sizeof(double) * (d + 1)));
   return static_cast<int>(rows < k ? rows : k);
 }
 
-template <int KT>
-int launch_lloyd(const float* x, const float* w, long long n, int d, const float* c,
-                 const float* c2, int k, float* wsum, float* xsum, double* partials,
-                 bool vec, cudaStream_t stream) {
-  const int rows = lloyd_rows<KT>(d, k);
-  if (rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+int lloyd_rows_for(int k, int d, bool reg) {
+  switch (tile_centers(k)) {
+    case 8: return lloyd_rows<8>(k, d, reg);
+    case 32: return lloyd_rows<32>(k, d, reg);
+    default: return lloyd_rows<64>(k, d, reg);
+  }
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory on the current
+// card (`opted`: the kernel's sizes set so far, a card each).
+template <typename Kernel>
+int opt_in(Kernel kernel, size_t smem, size_t* opted) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < PX_MAX_DEVICES && opted[dev] >= smem) return 0;
+  const int err = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+  if (err == 0 && dev < PX_MAX_DEVICES) opted[dev] = smem;
+  return err;
+}
+
+template <int KT, bool kVec, bool kReg>
+int launch_lloyd(const float* x, const float* w, long long n, int d, const float* c, int k,
+                 int rows, float* wsum, float* xsum, double* scratch, unsigned* tickets,
+                 cudaStream_t stream) {
+  static size_t opted[PX_MAX_DEVICES] = {0};
+  const size_t smem = lloyd_smem<KT>(d, kReg ? 0 : rows);
+  const int err = opt_in(lloyd_kernel<KT, kVec, kReg>, smem, opted);
+  if (err != 0) return err;
   const long long grid = lloyd_grid(n);
+  const long long cells = static_cast<long long>(rows) * (d + 1);
+  double* gsums = scratch + grid * cells;
   for (int c_lo = 0; c_lo < k; c_lo += rows) {
     const int r = rows < k - c_lo ? rows : k - c_lo;
-    const size_t smem = lloyd_smem<KT>(d, r) + 16;
-    if (vec) {
-      cudaFuncSetAttribute(lloyd_partials<KT, true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      lloyd_partials<KT, true><<<static_cast<unsigned>(grid), kBlock, smem, stream>>>(
-          x, w, n, d, c, c2, k, c_lo, r, partials);
-    } else {
-      cudaFuncSetAttribute(lloyd_partials<KT, false>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      lloyd_partials<KT, false><<<static_cast<unsigned>(grid), kBlock, smem, stream>>>(
-          x, w, n, d, c, c2, k, c_lo, r, partials);
-    }
-    int err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
-    const int cells = r * (d + 1);
-    lloyd_reduce<<<(cells + kBlock - 1) / kBlock, kBlock, 0, stream>>>(
-        partials, static_cast<int>(grid), d, c_lo, r, wsum, xsum);
-    err = static_cast<int>(cudaGetLastError());
+    lloyd_kernel<KT, kVec, kReg><<<static_cast<unsigned>(grid), kBlock, smem, stream>>>(
+        x, w, n, d, c, k, c_lo, r, scratch, gsums, tickets, wsum, xsum);
+    const int err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
   }
   return 0;
+}
+
+template <int KT>
+int launch_lloyd_kt(const float* x, const float* w, long long n, int d, const float* c, int k,
+                    int rows, float* wsum, float* xsum, double* scratch, unsigned* tickets,
+                    bool vec, bool reg, cudaStream_t stream) {
+  if (vec) {
+    return reg ? launch_lloyd<KT, true, true>(x, w, n, d, c, k, rows, wsum, xsum, scratch,
+                                              tickets, stream)
+               : launch_lloyd<KT, true, false>(x, w, n, d, c, k, rows, wsum, xsum, scratch,
+                                               tickets, stream);
+  }
+  return reg ? launch_lloyd<KT, false, true>(x, w, n, d, c, k, rows, wsum, xsum, scratch,
+                                             tickets, stream)
+             : launch_lloyd<KT, false, false>(x, w, n, d, c, k, rows, wsum, xsum, scratch,
+                                              tickets, stream);
+}
+
+template <bool kVec>
+int launch_seed_lanes(const float* x, const float* w, long long n, int d, const float* c,
+                      float* mind, float* p, cudaStream_t stream) {
+  const long long threads = (n + 2 * kSeedRows - 1) / (2 * kSeedRows) * 32;
+  const long long grid = px_grid(seed_step_lanes<kVec>, threads, kBlock, 0);
+  seed_step_lanes<kVec><<<static_cast<unsigned>(grid), kBlock, 0, stream>>>(x, w, n, d, c,
+                                                                           mind, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int launch_norms(const float* c, int k, int d, float* c2, cudaStream_t stream) {
@@ -368,33 +865,47 @@ extern "C" int px_kmeans_assign(const float* x, long long n, int d, const float*
   }
 }
 
-// KM2's scratch: writes the float64 elements of the partial-sum buffer that
-// px_kmeans_lloyd needs for n points, d dimensions and k centers (0 if its
-// shared memory cannot hold even one center's sums).
-extern "C" int px_kmeans_lloyd_scratch(long long n, int d, int k, long long* elems) {
-  int rows = 0;
-  switch (tile_centers(k)) {
-    case 8: rows = lloyd_rows<8>(d, k); break;
-    case 32: rows = lloyd_rows<32>(d, k); break;
-    default: rows = lloyd_rows<64>(d, k); break;
-  }
-  *elems = rows > 0 ? lloyd_grid(n) * rows * static_cast<long long>(d + 1) : 0;
+// KM2's plan for n points, d dimensions and k centers on card `device`:
+// out[0] the float64 elements of the partial sums' scratch, out[1] the
+// uint32 tickets (zeroed once by the caller; every launch leaves them 0),
+// out[2] the grid, out[3] the centers a launch sums (out[0] = 0 when shared
+// memory cannot hold even one center's sums), out[4] the points a tile.
+extern "C" int px_kmeans_lloyd_scratch(long long n, int d, int k, int device, long long* out) {
+  if (d <= 0 || k <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  PxDeviceScope on(device);
+  const bool reg = lloyd_in_registers(k, d);
+  const int rows = lloyd_rows_for(k, d, reg);
+  const long long grid = lloyd_grid(n), groups = lloyd_groups(grid);
+  const long long cells = static_cast<long long>(rows) * (d + 1);
+  out[0] = rows > 0 ? (grid + (groups > 1 ? groups : 0)) * cells : 0;
+  out[1] = groups + 1;
+  out[2] = grid;
+  out[3] = rows;
+  out[4] = kTP;
   return 0;
 }
 
-// KM2.  wsum [k] and xsum [k, d] are written (not added to); partials is
-// px_kmeans_lloyd_scratch's buffer; c2 as for KM1.
+// KM2.  wsum [k] and xsum [k, d] are written (not added to); scratch and
+// tickets are px_kmeans_lloyd_scratch's, used by one stream at a time.
 extern "C" int px_kmeans_lloyd(const float* x, const float* w, long long n, int d,
-                               const float* c, int k, float* c2, float* wsum, float* xsum,
-                               double* partials, cudaStream_t stream) {
+                               const float* c, int k, float* wsum, float* xsum, double* scratch,
+                               unsigned* tickets, int device, cudaStream_t stream) {
   if (d <= 0 || k <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  int err = launch_norms(c, k, d, c2, stream);
-  if (err != 0) return err;
+  PxDeviceScope on(device);
+  const bool reg = lloyd_in_registers(k, d);
+  const int rows = lloyd_rows_for(k, d, reg);
+  if (rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = rows_vectorizable(x, d);
   switch (tile_centers(k)) {
-    case 8: return launch_lloyd<8>(x, w, n, d, c, c2, k, wsum, xsum, partials, vec, stream);
-    case 32: return launch_lloyd<32>(x, w, n, d, c, c2, k, wsum, xsum, partials, vec, stream);
-    default: return launch_lloyd<64>(x, w, n, d, c, c2, k, wsum, xsum, partials, vec, stream);
+    case 8:
+      return launch_lloyd_kt<8>(x, w, n, d, c, k, rows, wsum, xsum, scratch, tickets, vec, reg,
+                                stream);
+    case 32:
+      return launch_lloyd_kt<32>(x, w, n, d, c, k, rows, wsum, xsum, scratch, tickets, vec, reg,
+                                 stream);
+    default:
+      return launch_lloyd_kt<64>(x, w, n, d, c, k, rows, wsum, xsum, scratch, tickets, vec, reg,
+                                 stream);
   }
 }
 
@@ -404,14 +915,7 @@ extern "C" int px_kmeans_seed_step(const float* x, const float* w, long long n, 
                                    cudaStream_t stream) {
   if (n <= 0) return 0;
   if (d <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (rows_vectorizable(x, d)) {
-    const long long grid = px_grid(seed_step_kernel<true>, n, kBlock, 0);
-    seed_step_kernel<true><<<static_cast<unsigned>(grid), kBlock, 0, stream>>>(
-        x, w, n, d, c, mind, p);
-  } else {
-    const long long grid = px_grid(seed_step_kernel<false>, n, kBlock, 0);
-    seed_step_kernel<false><<<static_cast<unsigned>(grid), kBlock, 0, stream>>>(
-        x, w, n, d, c, mind, p);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const bool vec = rows_vectorizable(x, d) && (reinterpret_cast<uintptr_t>(c) & 15) == 0;
+  return vec ? launch_seed_lanes<true>(x, w, n, d, c, mind, p, stream)
+             : launch_seed_lanes<false>(x, w, n, d, c, mind, p, stream);
 }

@@ -24,6 +24,8 @@ device only; a CUDA tensor never reaches a plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
+import threading
 
 import torch
 
@@ -116,6 +118,45 @@ def assign(x: torch.Tensor, c: torch.Tensor):
     return ids, mind
 
 
+#: (device index, stream) -> (float64 scratch, uint32 tickets as int32) of
+#: KM2: grown to the largest call's need, never shrunk.  One a stream, so
+#: two streams never share a ticket; the caching allocator orders a replaced
+#: buffer's reuse after the launches on its stream.
+_SCRATCH: dict = {}
+_SCRATCH_LOCK = threading.Lock()
+
+
+def lloyd_scratch(device: torch.device, stream, elems: int, tickets: int):
+    """KM2's (float64 scratch, int32 tickets) for `stream` on `device`, at
+    least `elems` and `tickets` long: the cached pair when it is long
+    enough, else a new pair, its tickets zeroed (every launch leaves them
+    0), that replaces it."""
+    key = (device.type, device.index, stream)
+    with _SCRATCH_LOCK:
+        have = _SCRATCH.get(key)
+        if have is not None and have[0].numel() >= elems and have[1].numel() >= tickets:
+            return have
+        elems = max(elems, have[0].numel() if have is not None else 0)
+        tickets = max(tickets, have[1].numel() if have is not None else 0)
+        have = (torch.empty(elems, dtype=torch.float64, device=device),
+                torch.zeros(tickets, dtype=torch.int32, device=device))
+        _SCRATCH[key] = have
+        return have
+
+
+@functools.lru_cache(maxsize=512)
+def _lloyd_plan(device: int, n: int, d: int, k: int) -> tuple:
+    """px_kmeans_lloyd_scratch's (float64 elements, tickets, grid, centers a
+    launch, points a tile) for the shape on card `device`, asked once per
+    shape: the kernel's own rule, which the card tests and chip_smoke.py
+    read."""
+    out = (ctypes.c_longlong * 5)()
+    fn = _build.function(_KM, "px_kmeans_lloyd_scratch",
+                         [_L, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong)])
+    _build.check(_KM, fn(n, d, k, device, out), "kmeans lloyd scratch")
+    return tuple(out)
+
+
 def lloyd_step(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor):
     """One Lloyd iteration's sums under the assignment to `c`: (wsum
     float32 [k], xsum float32 [k, d]) — the sum of w and of w * x over the
@@ -129,22 +170,18 @@ def lloyd_step(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor):
         return lloyd_step_plain(x, w, c)
     n, d = x.shape
     k = c.shape[0]
-    elems = ctypes.c_longlong(0)
-    scratch = _build.function(_KM, "px_kmeans_lloyd_scratch",
-                              [_L, _I, _I, ctypes.POINTER(ctypes.c_longlong)])
-    with torch.cuda.device(x.device):
-        _build.check(_KM, scratch(n, d, k, ctypes.byref(elems)), "kmeans lloyd scratch")
-    if elems.value <= 0:
+    dev = x.device
+    elems, tickets = _lloyd_plan(dev.index, n, d, k)[:2]
+    if elems <= 0:
         raise ValueError(f"d = {d}: one center's sums exceed the kernel's shared memory")
-    partials = torch.empty(elems.value, dtype=torch.float64, device=x.device)
-    wsum = torch.empty(k, dtype=torch.float32, device=x.device)
-    xsum = torch.empty((k, d), dtype=torch.float32, device=x.device)
-    c2 = torch.empty(k, dtype=torch.float32, device=x.device)
-    fn = _build.function(_KM, "px_kmeans_lloyd", [_P, _P, _L, _I, _P, _I, _P, _P, _P, _P, _P])
-    with torch.cuda.device(x.device):
-        err = fn(_build.ptr(x), _build.ptr(w), n, d, _build.ptr(c), k, _build.ptr(c2),
-                 _build.ptr(wsum), _build.ptr(xsum), _build.ptr(partials),
-                 _build.stream_of(x))
+    stream = _build.raw_stream(dev.index)
+    scratch, tk = lloyd_scratch(dev, stream, elems, tickets)
+    wsum = torch.empty(k, dtype=torch.float32, device=dev)
+    xsum = torch.empty((k, d), dtype=torch.float32, device=dev)
+    fn = _build.function(_KM, "px_kmeans_lloyd",
+                         [_P, _P, _L, _I, _P, _I, _P, _P, _P, _P, _I, _P])
+    err = fn(x.data_ptr(), w.data_ptr(), n, d, c.data_ptr(), k, wsum.data_ptr(),
+             xsum.data_ptr(), scratch.data_ptr(), tk.data_ptr(), dev.index, stream)
     _build.check(_KM, err, "kmeans lloyd")
     _build.KERNELS[_KM].count("px_kmeans_lloyd")
     return wsum, xsum

@@ -507,6 +507,149 @@ def test_kmeans_fit_on_the_card_is_deterministic_and_counts_launches(dev):
     assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
 
 
+def _nan_close(got, want, scale, rtol):
+    """NaN in the same places, and |got - want| <= rtol * scale elsewhere."""
+    assert torch.equal(got.isnan(), want.isnan())
+    keep = ~want.isnan() & torch.isfinite(scale)
+    assert torch.all((got - want).abs()[keep] <= rtol * scale[keep] + 1e-6)
+
+
+def _km_edge(dev, case):
+    """KM2's and KM3's new edges: n one short of and one past KM2's tile, a
+    tile past every block of the capped grid, every point on one center,
+    rows holding NaN, rows not 16-byte aligned, and a k whose norms alone
+    would fill a block's shared memory.  The tile and the capped grid are
+    the kernel's own plan's."""
+    plan = km_ops._lloyd_plan(dev.index, 1 << 20, 64, 64)
+    grid, tile = plan[2], plan[4]
+    if case == "short":
+        return _km_data(dev, tile - 1, 64, 64, 50)
+    if case == "past":
+        return _km_data(dev, tile + 1, 64, 64, 51)
+    if case == "past_k8":
+        return _km_data(dev, tile + 1, 64, 8, 52)
+    if case == "capped_grid":
+        assert grid * tile < 1 << 20
+        return _km_data(dev, grid * tile + 1, 64, 64, 53)
+    if case == "big_k":
+        # 40,000 blobs, the centers theirs moved by N(0, 0.25): every point
+        # far nearer its own center than any other
+        rng = np.random.default_rng(62)
+        cent = rng.normal(0, 10, (40000, 64)).astype(np.float32)
+        x = cent[rng.integers(0, 40000, 4099)] + rng.normal(0, 1, (4099, 64))
+        c = cent + rng.normal(0, 0.5, cent.shape)
+        return tuple(torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+                     for a in (x, c, rng.random(4099) + 0.5))
+    if case == "skew":
+        x, c, w = _km_data(dev, 1 << 14, 64, 64, 54)
+        g = torch.Generator(device=dev).manual_seed(55)
+        return (c[5] + 0.1 * torch.randn(x.shape, generator=g, device=dev)).contiguous(), c, w
+    if case in ("nan", "nan_d13"):
+        x, c, w = _km_data(dev, 4099, 64 if case == "nan" else 13, 64 if case == "nan" else 7,
+                           56)
+        x[::97, 3] = float("nan")
+        x[5] = float("nan")
+        return x, c, w
+    assert case == "unaligned"
+    x, c, w = _km_data(dev, 3001, 64, 64, 57)
+    flat = torch.empty(x.numel() + 1, device=dev)
+    flat[1:] = x.reshape(-1)
+    return flat[1:].view(x.shape), c, w
+
+
+_KM_EDGES = ["short", "past", "past_k8", "capped_grid", "skew", "nan", "nan_d13", "unaligned",
+             "big_k"]
+
+
+@pytest.mark.parametrize("case", _KM_EDGES)
+def test_kmeans_lloyd_step_edges_equal_plain(dev, case):
+    x, c, w = _km_edge(dev, case)
+    k = c.shape[0]
+    ids, _ = km_ops.assign(x, c)
+    ids0, _ = km_ops.assign_plain(x, c)
+    ones = torch.ones_like(w)
+    wsum, _xsum = km_ops.lloyd_step(x, ones, c)
+    # KM2's assignment is KM1's, bit for bit: unit weights count KM1's ids
+    assert torch.equal(wsum, torch.bincount(ids, minlength=k).float())
+    wsum, xsum = km_ops.lloyd_step(x, w, c)
+    wsum0, xsum0 = km_ops.lloyd_step_plain(x, w, c)
+    absx = torch.zeros_like(xsum0).index_add_(0, ids0, (x * w[:, None]).abs())
+    _nan_close(wsum, wsum0, wsum0.abs(), 1e-6)
+    _nan_close(xsum, xsum0, absx, 1e-5)
+
+
+@pytest.mark.parametrize("case", _KM_EDGES)
+def test_kmeans_seed_step_edges_equal_plain(dev, case):
+    x, c, w = _km_edge(dev, case)
+    n = x.shape[0]
+    mind = torch.full((n,), float("inf"), device=dev)
+    mind0 = mind.clone()
+    for j in range(3):
+        p = km_ops.seed_step(x, w, c[j], mind)
+        p0 = km_ops.seed_step_plain(x, w, c[j], mind0)
+        scale = (x * x).sum(1) + (c[j] * c[j]).sum()
+        _nan_close(mind, mind0, scale, 1e-5)
+        _nan_close(p, p0, scale * w, 1e-5)
+        assert torch.all(torch.isfinite(p))
+
+
+def test_kmeans_lloyd_step_same_bits_over_5_calls(dev):
+    x, c, w = _km_data(dev, 1 << 20, 64, 64, 58)
+    first = km_ops.lloyd_step(x, w, c)
+    for _ in range(4):
+        again = km_ops.lloyd_step(x, w, c)
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+@pytest.mark.parametrize("n,d,k", [(1, 3, 1), (127, 64, 64), (129, 64, 8), (1 << 20, 64, 64),
+                                   (3001, 150, 200), (10000, 64, 129), (4099, 64, 40000)])
+def test_kmeans_lloyd_plan_sizes_its_scratch(dev, n, d, k):
+    elems, tickets, grid, rows, tile = km_ops._lloyd_plan(dev.index, n, d, k)
+    groups = -(-grid // 16)
+    # the grid is fixed by n and the card: the tiles, capped where n is large
+    cap = km_ops._lloyd_plan(dev.index, 1 << 30, d, k)[2]
+    assert grid == min(-(-n // tile), cap) and cap < (1 << 30) // tile
+    assert tickets == groups + 1
+    assert elems == (grid + (groups if groups > 1 else 0)) * rows * (d + 1)
+    # registers hold every center's sums at k <= 64, d <= 64; shared memory
+    # a range of them, as many as fit beside a fixed part that does not
+    # grow with k
+    if k <= 64 and d <= 64:
+        assert rows == k
+    else:
+        assert 0 < rows <= k
+        if rows < k:
+            assert km_ops._lloyd_plan(dev.index, n, d, 4 * k)[3] == rows
+
+
+def test_kmeans_lloyd_repeat_call_reuses_its_scratch(dev):
+    x, c, w = _km_data(dev, 1 << 16, 64, 64, 60)
+    km_ops.lloyd_step(x, w, c)
+    key = (dev.type, dev.index, _build.raw_stream(dev.index))
+    held = km_ops._SCRATCH[key]
+    hits = km_ops._lloyd_plan.cache_info().hits
+    km_ops.lloyd_step(x, w, c)
+    assert km_ops._SCRATCH[key] is held
+    assert km_ops._lloyd_plan.cache_info().hits == hits + 1
+    assert int(held[1].abs().sum()) == 0  # every launch leaves its tickets 0
+
+
+def test_kmeans_lloyd_on_another_stream_has_its_own_tickets(dev):
+    x, c, w = _km_data(dev, 1 << 18, 64, 64, 61)
+    want = km_ops.lloyd_step(x, w, c)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        got = km_ops.lloyd_step(x, w, c)
+        other = km_ops.lloyd_step(x, w, c)
+    torch.cuda.synchronize(dev)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(other[1], want[1])
+    main_key = (dev.type, dev.index, _build.raw_stream(dev.index))
+    assert km_ops._SCRATCH[(dev.type, dev.index, side.cuda_stream)][1].data_ptr() != \
+        km_ops._SCRATCH[main_key][1].data_ptr()
+
+
 def test_kmeans_cuda_tensor_never_reaches_the_plain_versions(dev, monkeypatch):
     def boom(*a, **k):
         raise AssertionError("plain version called on a CUDA tensor")

@@ -156,6 +156,82 @@ def test_seed_step_folds_running_min_and_zeroes_non_finite():
     assert mind.tolist() == [0.0, 0.0, 1.0] and p.tolist() == [0.0, 0.0, 0.0]
 
 
+#: small forms of the card's KM2 / KM3 edge cases (tests/test_torch_cuda.py
+#: _km_edge): n one short of and one past KM2's 128-point tile, more centers
+#: than points, d not a multiple of 4 and over one 64-column chunk, every
+#: point on one center, rows holding NaN
+_EDGES = {"short": (127, 64, 64), "past": (129, 64, 64), "past_k8": (129, 64, 8),
+          "k_over_n": (257, 8, 300), "d13": (300, 13, 7), "d150_k200": (1001, 150, 200),
+          "skew": (1024, 64, 64), "nan": (409, 64, 64), "nan_d13": (301, 13, 7)}
+
+
+def _edge(case):
+    """(x, c, w) float32 for an edge case: blobs at scale 10 and sigma 1, the
+    centers the blobs' moved by N(0, 0.25), weights in [0.5, 1.5)."""
+    n, d, k = _EDGES[case]
+    rng = np.random.default_rng(sorted(_EDGES).index(case))
+    cent = rng.normal(0, 10, (k, d))
+    x = cent[rng.integers(0, k, n)] + rng.normal(0, 1, (n, d))
+    c = cent + rng.normal(0, 0.5, (k, d))
+    if case == "skew":
+        x = c[5] + 0.1 * rng.normal(0, 1, (n, d))
+    if case.startswith("nan"):
+        x[::97, 3] = np.nan
+        x[5] = np.nan
+    w = rng.random(n) + 0.5
+    return x.astype(np.float32), c.astype(np.float32), w.astype(np.float32)
+
+
+@pytest.mark.parametrize("case", sorted(_EDGES))
+def test_one_lloyd_step_matches_reference_at_the_kernels_edges(case):
+    """A NaN row's distances are all NaN: both argmins take center 0, whose
+    update turns NaN in both packages."""
+    x, c, w = _edge(case)
+    want_c, want_a = ref_km._lloyd(jnp.asarray(x), jnp.asarray(w), jnp.asarray(c), 1)
+    got_c, got_a = km._lloyd(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(c), 1)
+    assert got_a.numpy().tolist() == np.asarray(want_a).tolist()
+    np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", sorted(_EDGES))
+def test_seed_steps_match_reference_at_the_kernels_edges(case):
+    """Three k-means++ steps: mind, the min over the chosen centers of the
+    reference's distances (NaN propagating), and p = mind * w with
+    non-finite values 0, to 1e-5 of |x|^2 + |c|^2 (both expansions lie
+    within 8 ulps of it)."""
+    x, c, w = _edge(case)
+    mind = torch.full((x.shape[0],), float("inf"))
+    for j in range(3):
+        p = kops.seed_step(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(c[j]),
+                           mind)
+        want_m = np.asarray(ref_km._sq_dists(jnp.asarray(x), jnp.asarray(c[:j + 1]))).min(1)
+        want_p = want_m * w
+        want_p[~np.isfinite(want_p)] = 0.0
+        scale = (x.astype(np.float64) ** 2).sum(1) + (c[j].astype(np.float64) ** 2).sum()
+        got_m = mind.numpy()
+        assert np.array_equal(np.isnan(got_m), np.isnan(want_m))
+        live = ~np.isnan(want_m)
+        assert np.all(np.abs(got_m - want_m)[live] <= 1e-5 * scale[live])
+        assert np.all(np.isfinite(p.numpy()))
+        assert np.all(np.abs(p.numpy() - want_p)[live] <= 1e-5 * (scale * w)[live])
+        assert np.all(p.numpy()[~live] == 0.0)
+
+
+def test_lloyd_scratch_is_kept_per_stream_and_grows():
+    dev = torch.device("cpu")
+    kops._SCRATCH.clear()
+    f64, tk = kops.lloyd_scratch(dev, 7, 100, 3)
+    assert f64.dtype == torch.float64 and f64.numel() == 100
+    assert tk.dtype == torch.int32 and tk.tolist() == [0, 0, 0]
+    assert kops.lloyd_scratch(dev, 7, 50, 2)[0] is f64  # long enough: the same pair
+    other = kops.lloyd_scratch(dev, 8, 50, 2)  # another stream: its own pair
+    assert other[0] is not f64 and other[1] is not tk
+    grown, tk2 = kops.lloyd_scratch(dev, 7, 200, 2)
+    assert grown.numel() == 200 and tk2.numel() == 3 and int(tk2.abs().sum()) == 0
+    assert kops.lloyd_scratch(dev, 7, 10, 1)[0] is grown
+    kops._SCRATCH.clear()
+
+
 # ------------------------------------------------------------ with JAX's draws
 
 
