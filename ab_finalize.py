@@ -37,13 +37,20 @@ settling ones, ms):
   k2, k2_config2    kernel K2 alone on that feed's latency into the group
                     ids and mask the config #1 chain (64 groups) and the
                     config #2 chain (1,024 groups) give, timed as g1 is;
-  km2, km3          kernels KM2 (one Lloyd step's sums) and KM3 (one
-                    k-means++ step) alone at 2^20 x 64 points, k = 64, on
-                    chip_smoke.check_kmeans_kernels' seeded data, timed as
-                    g1 is;
-  km2_leaf, km3_leaf,
-  km2_merge         the same at the coreset's shapes: a leaf (2^16 x 64,
+  km1, km2, km3     kernels KM1 (the assignment), KM2 (one Lloyd step's
+                    sums) and KM3 (one k-means++ step) alone at 2^20 x 64
+                    points, k = 64, on chip_smoke.check_kmeans_kernels'
+                    seeded data, timed as g1 is;
+  km1_leaf, km2_leaf, km3_leaf,
+  km1_merge, km2_merge
+                    the same at the coreset's shapes: a leaf (2^16 x 64,
                     k = 8) and a merge (2,048 points);
+  j1, j1_phase, j1_half
+                    kernel J1 (the join's build) alone on bench's 2^24
+                    build codes uniform in [0, 2^24) (seed 11), on the device
+                    join phase's 2^22 codes in [0, 2^20), and on the 2^24
+                    codes with half the rows set to one code, timed as g1 is
+                    (10 calls a timing);
   fit               the kmeans_fit wall at chip_smoke's ml.fit shape (2^20
                     x 64, k = 64, 10 iterations): the median of 5 fits
                     after 2 settling ones, ms.
@@ -166,7 +173,7 @@ if "g1" in measures:
 KM = {"": (cs.ML_N, cs.ML_K, 41), "_leaf": (cs.TREE_BATCH, cs.TREE_K, 48),
       "_merge": (2 * cs.TREE_M, cs.TREE_K, 48)}
 for label, (n, k, seed) in KM.items():
-    if not measures & {"km2" + label, "km3" + label}:
+    if not measures & {"km1" + label, "km2" + label, "km3" + label}:
         continue
     from pixie_tpu_torch.ops import kmeans as kops
 
@@ -177,6 +184,9 @@ for label, (n, k, seed) in KM.items():
     g.manual_seed(seed + 1)
     c = (cent + 0.5 * torch.randn(cent.shape, generator=g, device=dev)).contiguous()
     w = torch.rand(n, generator=g, device=dev) + 0.5
+    if "km1" + label in measures:
+        out["km1" + label] = sorted(cs.cuda_ms(lambda: kops.assign(x, c), 20)
+                                    for _ in range(5))[2]
     if "km2" + label in measures:
         out["km2" + label] = sorted(cs.cuda_ms(lambda: kops.lloyd_step(x, w, c), 20)
                                     for _ in range(5))[2]
@@ -186,6 +196,23 @@ for label, (n, k, seed) in KM.items():
         out["km3" + label] = sorted(cs.cuda_ms(lambda: kops.seed_step(x, w, c[1], mind), 20)
                                     for _ in range(5))[2]
     del x, cent, c, w
+
+if measures & {"j1", "j1_phase", "j1_half"}:
+    import numpy as np
+    from pixie_tpu_torch.ops import join_device as jd
+
+    rng = np.random.default_rng(11)
+    uni = rng.integers(0, 1 << 24, 1 << 24)
+    half = np.where(rng.random(1 << 24) < 0.5, 777, uni)
+    for label, codes, K in (("j1", uni, 1 << 24),
+                            ("j1_phase", rng.integers(0, 1 << 20, 1 << 22), 1 << 20),
+                            ("j1_half", half, 1 << 24)):
+        if label in measures:
+            b = torch.from_numpy(codes.astype(np.int64)).to(dev)
+            out[label] = sorted(cs.cuda_ms(lambda: jd.join_build(b, K), 10)
+                                for _ in range(5))[2]
+            del b
+    del uni, half
 
 if "fit" in measures:
     from pixie_tpu_torch.ml import kmeans_fit
@@ -254,9 +281,10 @@ print(json.dumps(out), flush=True)
 MEASURES = {"one_feed": False, "four_feeds": False, "four_feeds_mesh4": False,
             "config3": False, "config4": False, "batch_unbatched": True,
             "batch_batched": True, "config2": False, "g1": False, "c1": False,
-            "c1_config2": False, "k2": False, "k2_config2": False, "km2": False,
-            "km3": False, "km2_leaf": False, "km3_leaf": False, "km2_merge": False,
-            "fit": False}
+            "c1_config2": False, "k2": False, "k2_config2": False, "km1": False,
+            "km2": False, "km3": False, "km1_leaf": False, "km2_leaf": False,
+            "km3_leaf": False, "km1_merge": False, "km2_merge": False, "j1": False,
+            "j1_phase": False, "j1_half": False, "fit": False}
 
 
 def quartiles(xs: list) -> tuple[float, float, float]:

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""A/B of one design choice of C1, K2, KM2 or KM3 against its alternative,
-end to end of the kernel, on one CUDA card; and where KM2's time goes.
+"""A/B of one design choice of C1, K2, KM1-KM3 or J1 against its
+alternative, end to end of the kernel, on one CUDA card; and where KM2's
+time goes.
 
     python3 ab_kernels.py CHOICE [--pairs N]
 
@@ -35,7 +36,19 @@ its "other" the alternative.
              one thread a row, where the checkout's half-warps share rows
              (csrc/kmeans.cu) — measures km3, km3_leaf;
   km2_pairs  KM2's accumulate taking two points a warp-iteration, their
-             loads in flight together — measures km2, km2_leaf.
+             loads in flight together — measures km2, km2_leaf;
+  km1_tile8x8
+             KM1 at 8 points x 8 centers a thread (2 x 4 at k <= 8) in
+             128-thread blocks, where the checkout takes KM2's 4 x 8 (1 x 4)
+             in 256-thread blocks (csrc/kmeans.cu) — measures km1, km1_leaf,
+             km1_merge;
+  j1_digits12
+             J1's sort at 12 bits a pass (two passes at K = 2^24; the 4096
+             digits' counts of 8 warps hold one 256-thread block an SM, 16
+             rows a thread), where the checkout takes 8 bits (csrc/join.cu)
+             — measures j1, j1_phase, j1_half;
+  j1_match   J1's rank with __match_any_sync where the checkout takes a
+             ballot a digit bit (csrc/join.cu) — measures j1, j1_phase.
 
 Where KM2's time goes: these switch one part of KM2 off and compute wrong
 sums, so only their times are read (measures km2, km2_leaf):
@@ -47,6 +60,13 @@ sums, so only their times are read (measures km2, km2_leaf):
   km2_stream_only    neither distances nor the accumulate: x streamed into
                      shared memory, the tail kept.
 
+Where KM1's time goes, the same way (measure km1; the distance pass is
+KM2's, so these edit both):
+
+  km1_stream_only    no distances: x streamed into shared memory, each
+                     point's nearest left at its start;
+  km1_no_x2          the |x|^2 chain off (distances without it).
+
 It needs one CUDA card (ab_finalize.py exits non-zero without one).
 """
 from __future__ import annotations
@@ -57,7 +77,7 @@ import shutil
 import subprocess
 import sys
 
-# KM3's staged design, written into kmeans.cu before launch_norms
+# KM3's staged design, written into kmeans.cu before launch_seed_lanes
 _KM3_STAGED = """constexpr int kSeedTile = 128;  // rows of a staged tile
 
 // x (16-byte aligned, d % 4 == 0) in tiles of kSeedTile rows by cp.async,
@@ -139,6 +159,7 @@ int launch_seed_staged(const float* x, const float* w, long long n, int d, const
 
 """
 _KM3_LANES = "  return vec ? launch_seed_lanes<true>("
+_KM3_BEFORE = "template <bool kVec>\nint launch_seed_lanes("
 # KM2's accumulate in registers, one point a warp-iteration, and two
 _KM2_ONE = """            while (bal) {
               const int q = q0 + __ffs(bal) - 1;
@@ -177,9 +198,23 @@ _KM2_TWO = """            while (bal) {
 """
 _KM2_ACC = ("kmeans.cu", "      accumulate(buf, p0);\n", "")
 _KM2_TAIL = ("kmeans.cu",
-             "  lloyd_finish(partials, gsums, tickets, rows, d, c_lo, wsum, xsum, flag);\n", "")
+             "    lloyd_finish(a.partials, a.gsums, a.tickets, rows, d, c_lo, a.wsum, a.xsum, flag);\n",
+             "")
 _KM2_DIST = ("kmeans.cu", "      for (int j = 0; j < dc4; j += 4) {",
              "      for (int j = 0; j < 0; j += 4) {")
+
+# KM1's micro-tile, and J1's rank of a round's lanes by digit
+_KM1_TILE = """  constexpr int PP = tile_points<KT>();
+  static size_t opted[PX_MAX_DEVICES] = {0};
+  const size_t smem = dist_smem<KT>(a.d, 0);"""
+_J1_BALLOTS = """    unsigned peers = __ballot_sync(0xffffffffu, mine);
+    if (!mine) peers = ~peers;
+#pragma unroll
+    for (int bit = 0; bit < kDigitBits; ++bit) {
+      const bool on = (dg >> bit) & 1;
+      const unsigned bal = __ballot_sync(0xffffffffu, on);
+      peers &= on ? bal : ~bal;
+    }"""
 
 #: choice → ([(file under pixie_tpu_torch/csrc, text, its replacement)], measures)
 CHOICES = {
@@ -204,22 +239,36 @@ CHOICES = {
                           "{ return k <= kWarps * kRegSlots && d <= kDT; }",
                           "{ return false; }")], "km2,km2_leaf"),
     "km2_tile8x8": ([("kmeans.cu", "constexpr int kTP = 128;", "constexpr int kTP = 256;"),
-                     ("kmeans.cu", "constexpr int kLloydPerSM = 2;",
-                      "constexpr int kLloydPerSM = 1;"),
-                     ("kmeans.cu", "CC = 8, PP = 4;", "CC = 8, PP = 8;"),
-                     ("kmeans.cu", "CC = 4, PP = 4;", "CC = 4, PP = 8;"),
-                     ("kmeans.cu", "CC = 4, PP = 1;", "CC = 4, PP = 2;")],
+                     ("kmeans.cu", "constexpr int kPerSM = 2; ", "constexpr int kPerSM = 1; "),
+                     ("kmeans.cu", "constexpr int tile_points() { return KT == 8 ? 1 : 4; }",
+                      "constexpr int tile_points() { return KT == 8 ? 2 : 8; }")],
                     "km2,km2_leaf,km2_merge"),
-    "km3_staged": ([("kmeans.cu", "int launch_norms(", _KM3_STAGED + "int launch_norms("),
+    "km3_staged": ([("kmeans.cu", _KM3_BEFORE, _KM3_STAGED + _KM3_BEFORE),
                     ("kmeans.cu", _KM3_LANES,
                      "  if (vec && sizeof(float) * (2 * kSeedTile * (d + 4) + d) <=\n"
                      "                 static_cast<size_t>(px_smem_optin())) {\n"
                      "    return launch_seed_staged(x, w, n, d, c, mind, p, stream);\n"
                      "  }\n" + _KM3_LANES)], "km3,km3_leaf"),
     "km2_pairs": ([("kmeans.cu", _KM2_ONE, _KM2_TWO)], "km2,km2_leaf"),
+    "km1_tile8x8": ([("kmeans.cu", _KM1_TILE,
+                      _KM1_TILE.replace("tile_points<KT>()", "KT == 8 ? 2 : 8"))],
+                    "km1,km1_leaf,km1_merge"),
+    "j1_digits12": ([("join.cu", "constexpr int kDigitBits = 8;",
+                      "constexpr int kDigitBits = 12;"),
+                     ("join.cu", "constexpr int kSortBlock = 512; ",
+                      "constexpr int kSortBlock = 256; "),
+                     ("join.cu", "constexpr int kSortItems = 8; ",
+                      "constexpr int kSortItems = 16; "),
+                     ("join.cu", "constexpr int kScatterPerSM = 3; ",
+                      "constexpr int kScatterPerSM = 1; ")], "j1,j1_phase,j1_half"),
+    "j1_match": ([("join.cu", _J1_BALLOTS,
+                   "    const unsigned peers = __match_any_sync(0xffffffffu, dg);")],
+                 "j1,j1_phase"),
     "km2_no_accumulate": ([_KM2_ACC], "km2,km2_leaf"),
     "km2_no_tail": ([_KM2_TAIL], "km2,km2_leaf"),
     "km2_stream_only": ([_KM2_ACC, _KM2_DIST], "km2,km2_leaf"),
+    "km1_stream_only": ([_KM2_DIST], "km1"),
+    "km1_no_x2": ([("kmeans.cu", "        if (kt == 0) {\n", "        if (false) {\n")], "km1"),
 }
 
 

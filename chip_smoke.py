@@ -23,11 +23,16 @@ Phases, each of which fails the run if it fails:
                 The phase also holds K4 (stable compaction) against its plain
                 version at 2^24 rows of 4 columns (int32, int64, f64, bool)
                 and mask densities 0.9, 0.1, 1 and 0, exactly and in order;
-                J1-J3 (the join's build, probe and expand) through
-                device_join_codes at bench's device-join shape (16M x 16M
-                codes uniform in [0, 16M), seed 11) and at edge cases (one
-                key with 4096 rows a side, no matches, all-null probe codes,
-                wide sparse codes), as exact pair sets and matched flags; and
+                J1-J3 (the join's build, probe and expand) stage by stage at
+                bench's device-join shape (16M x 16M codes uniform in
+                [0, 16M), seed 11; J1's cnt, first and rows_by_code exactly,
+                rows ascending within a code), J1 also timed at the device
+                join phase's build side (2^22 rows, codes in [0, 2^20)) and
+                with half the 16M rows on one code, each held exactly and
+                twice to the same bits, and through device_join_codes at
+                edge cases (one key with 4096 rows a side, no matches,
+                all-null probe codes, wide sparse codes), as exact pair sets
+                and matched flags; and
                 times K1 min/max at the sorted path's shape (a 2^20-row
                 chunk into 2^23 groups) and at config #1's feed shape;
   4. slice    — bench config #1 (filter status != 404, group by service and
@@ -103,7 +108,7 @@ Phases, each of which fails the run if it fails:
                 point, or a sample on a boundary of its cumulative sum),
                 which the card's rounding may break the other way; more
                 than half the models must be compared.  KM1-KM3 and K1's
-                count must launch.
+                count must launch; KM1's launches are also counted by shape.
 Config #1, the select and config #3 each report a stream median (the tier
 off, the feed cache off and empty: every feed uploaded, the route measured
 before the tier) and a warm median (after the admitting queries; a warm
@@ -122,14 +127,16 @@ synchronize) beside its CUDA-event and device times (device: CUDA events
 around calls enqueued while the device sleeps, `kernel_device_ms`), and
 KM1-KM3 (the k-means assignment, Lloyd sums and seeding step)
 at the fit's shape (2^20 x 64 points, 64 centers) and at edge cases (k = 1,
-k > a block's 256 points, d = 13, d = 150 with k = 200, k = 129, n one
-short of and one past KM2's 128-point tile, one tile past the capped grid,
-every point on one center, rows holding NaN, a cluster of zero weight), to
+k > a block's 256 points, d = 13, d = 150 with k = 200, k = 129, k = 9, 33
+and 65 and d = 65 (where the center and column tiles turn), n one short of
+and one past the 128-point tile, one tile past the capped grid, every point
+on one center, rows holding NaN, a cluster of zero weight), to
 1e-5 of |x|^2 + |c|^2 (distances, p) and of the sums of |w x| (xsum), ids
 equal outside near-ties, NaN in the same places, unit-weight counts
 exactly (and equal to KM1's ids' counts), KM2 the same bits twice and with
-its sums in shared memory; KM2 and KM3 are also timed at the coreset's
-shapes (a 2^16 x 64 leaf with k = 8, a 2,048-point merge).
+its sums in shared memory; KM1 and KM2 are also held and timed at the
+coreset's shapes (a 2^16 x 64 leaf with k = 8, a 2,048-point merge), KM3
+at the leaf.
 
 Then, over config #1's 64M-row table (after config #2's phase): G1 (the
 multi-query gang) on the table's first 16M-row feed with the four
@@ -695,6 +702,68 @@ def check_kernels(dev) -> list[dict]:
     return rows
 
 
+def j1_hold(label: str, b, K: int) -> dict:
+    """J1 on the card against its plain version on the same codes: cnt,
+    first and rows_by_code[:sum(cnt)] equal exactly, and a second call gives
+    the same bits; → the sort's passes and the rows kept."""
+    import torch
+
+    from pixie_tpu_torch.ops import join_device as jd
+
+    got = jd.join_build(b, K)
+    again = jd.join_build(b, K)
+    cnt0, first0, rows0 = jd.join_build_plain(b, K)
+    torch.cuda.synchronize()
+    m = rows0.shape[0]
+    for (name, x, y) in (("cnt", got[0], cnt0), ("first", got[1], first0),
+                         ("rows_by_code", got[2][:m], rows0)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"J1 {label}: {name} differs from the plain version")
+    if not all(torch.equal(x[:m] if i == 2 else x, y[:m] if i == 2 else y)
+               for i, (x, y) in enumerate(zip(got, again))):
+        raise AssertionError(f"J1 {label}: two calls differ")
+    return {"passes": jd._build_plan(b.shape[0], K)[2], "rows": m}
+
+
+def j1_timed(b, K: int) -> dict:
+    """J1's times at one shape: CUDA events, device time, host microseconds
+    a call, its plain version, and its bound (the codes read once; cnt,
+    first and the valid rows written once)."""
+    from pixie_tpu_torch.ops import join_device as jd
+
+    n = b.shape[0]
+    b_ms, by = bound(n * 8 + K * 4 * 2 + n * 4)
+    return {"build": n, "K": K, "ms": cuda_ms(lambda: jd.join_build(b, K), 10),
+            "device_ms": kernel_device_ms(lambda: jd.join_build(b, K), 10),
+            "host_us": host_us(lambda: jd.join_build(b, K), 50),
+            "plain_ms": cuda_ms(lambda: jd.join_build_plain(b, K), 3, 1),
+            "bound_ms": b_ms, "bound_by": by}
+
+
+#: J1's timed shapes beside bench's 16M x 16M: the device join phase's
+#: build side (2^22 rows, codes in [0, 2^20)) and the 16M codes with one
+#: code holding half the rows
+J1_PHASE_ROWS, J1_PHASE_KEYS = 1 << 22, 1 << 20
+
+
+def j1_shapes(dev, b, K: int, rng) -> dict:
+    """J1 held and timed at bench's shape (`b`, K), at the device join
+    phase's and with half the rows on one code; → their details."""
+    import torch
+
+    out = {"uniform": {**j1_hold("16M uniform", b, K), **j1_timed(b, K)}}
+    bh = rng.integers(0, J1_PHASE_KEYS, J1_PHASE_ROWS).astype(np.int64)
+    ph = torch.from_numpy(bh).to(dev)
+    out["phase"] = {**j1_hold("the join phase's shape", ph, J1_PHASE_KEYS),
+                    **j1_timed(ph, J1_PHASE_KEYS)}
+    half = b.clone()
+    half[torch.from_numpy(rng.random(b.shape[0]) < 0.5).to(dev)] = 777
+    out["half_one_code"] = {**j1_hold("half the rows one code", half, K),
+                            **j1_timed(half, K)}
+    log(json.dumps({"kernel_detail": "join.build", **out}))
+    return out
+
+
 def check_new_kernels(dev) -> list[dict]:
     """K1 min/max timed at the sorted path's shape; K4 and J1-J3 held
     against their plain versions.  Returns their kernel rows."""
@@ -814,9 +883,9 @@ def check_new_kernels(dev) -> list[dict]:
     torch.cuda.synchronize()
     checks = {
         "J1 cnt/first": torch.equal(cnt, cnt0) and torch.equal(first, first0),
-        "J1 rows_by_code": torch.equal(torch.sort(b2[rbc[:rbc0.shape[0]].long()] * nj
-                                                  + rbc[:rbc0.shape[0]]).values,
-                                       torch.sort(b2[rbc0.long()] * nj + rbc0).values),
+        # within a code the rows come in ascending order, the plain
+        # version's (a stable argsort)
+        "J1 rows_by_code": torch.equal(rbc[:rbc0.shape[0]], rbc0),
         "J2 count/lo/total": (torch.equal(cnt_p, cnt_p0) and torch.equal(lo_p, lo_p0)
                               and total == int(total0)),
         "J3 pairs": torch.equal(torch.sort(bidx * nj + pidx).values,
@@ -851,6 +920,7 @@ def check_new_kernels(dev) -> list[dict]:
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
             "shape": {"build": nj, "probe": nj, "K": K, "pairs": total},
         })
+    rows[-3]["shape"].update(j1_shapes(dev, b2, K, rng))
     del cnt, first, rbc, cnt_p, lo_p, bidx, pidx, bm, pm
     del cnt0, first0, rbc0, cnt_p0, lo_p0, bidx0, pidx0, bm0, pm0, b2, p2
 
@@ -2232,6 +2302,8 @@ def check_kmeans_kernels(dev) -> list[dict]:
                              ("d=13, n=2^16+3", ((1 << 16) + 3, 13, 7)),
                              ("d=150, k=200 (two KM2 center ranges)", (3001, 150, 200)),
                              ("k=129", (10007, 64, 129)),
+                             ("k=9", (4099, 64, 9)), ("k=33", (4099, 64, 33)),
+                             ("k=65", (4099, 64, 65)), ("d=65", (3001, 65, 64)),
                              (f"n={tile - 1}, one short of KM2's tile", (tile - 1, 64, 64)),
                              (f"n={tile + 1}, one past KM2's tile", (tile + 1, 64, 64)),
                              (f"n={tile + 1}, k=8", (tile + 1, 64, 8)),
@@ -2269,17 +2341,31 @@ def check_kmeans_kernels(dev) -> list[dict]:
     def km3_bound(n, d):
         return bound(n * d * 4 + n * 16 + d * 4, 4.0 * n * d)
 
+    def km1_bound(n, d, k):
+        return bound(n * d * 4 + k * d * 4 + n * 12, 2.0 * n * k * d)
+
+    def km1_times(x, c, reps):
+        n, d = x.shape
+        k = c.shape[0]
+        return {"n": n, "d": d, "k": k, "ms": cuda_ms(lambda: kops.assign(x, c), reps),
+                "device_ms": kernel_device_ms(lambda: kops.assign(x, c), reps),
+                "host_us": host_us(lambda: kops.assign(x, c)),
+                "plain_ms": cuda_ms(lambda: kops.assign_plain(x, c), 5),
+                "bound_ms": km1_bound(n, d, k)[0],
+                "library_ms": cuda_ms(lambda: torch.cdist(x, c).argmin(1), 5)}
+
     def seed_args(x, c, w):
         mind = torch.full((x.shape[0],), float("inf"), device=dev)
         kops.seed_step(x, w, c[0], mind)
         return mind
 
-    # KM1-KM3 held and KM2 timed at the coreset's shapes (a leaf: 2^16 x 64,
-    # k = 8; a merge: 2,048 points), KM3 timed at the leaf
+    # KM1-KM3 held and KM1 and KM2 timed at the coreset's shapes (a leaf:
+    # 2^16 x 64, k = 8; a merge: 2,048 points), KM3 timed at the leaf
     small = {}
     for label, n in (("leaf", TREE_BATCH), ("merge", 2 * TREE_M)):
         xs_, cs_, ws_ = data(n, ML_D, TREE_K, 48)
         hold(f"coreset {label} (n={n}, d={ML_D}, k={TREE_K})", xs_, cs_, ws_)
+        small[f"km1_{label}"] = km1_times(xs_, cs_, 20)
         small[f"km2_{label}"] = {
             "n": n, "d": ML_D, "k": TREE_K,
             "ms": cuda_ms(lambda: kops.lloyd_step(xs_, ws_, cs_), 20),
@@ -2309,15 +2395,16 @@ def check_kmeans_kernels(dev) -> list[dict]:
     shape = {"n": n, "d": d, "k": k}
     common = {"route": "cuda", "source": "pixie_tpu_torch/csrc/kmeans.cu", "path": "ml"}
     rows = []
-    b, by = bound(n * d * 4 + k * d * 4 + n * 12, 2.0 * n * k * d)
+    b, by = km1_bound(n, d, k)
+    km1 = km1_times(x, c, 20)
     rows.append({
-        **common, "name": "kmeans_assign", "shape": shape,
+        **common, "name": "kmeans_assign",
         "replaces": "pixie_tpu/ml/kmeans.py:21 _sq_dists (+ argmin / min :73, :112, :119)",
         "entry": ("kmeans", "px_kmeans_assign"), "max_abs_err": main["km1_max_abs_err"],
-        "ms": cuda_ms(lambda: kops.assign(x, c), 20),
-        "plain_ms": cuda_ms(lambda: kops.assign_plain(x, c), 5),
-        "bound_ms": b, "bound_by": by,
-        "library_ms": cuda_ms(lambda: torch.cdist(x, c).argmin(1), 5)})
+        "ms": km1["ms"], "plain_ms": km1["plain_ms"], "bound_ms": b, "bound_by": by,
+        "library_ms": km1["library_ms"],
+        "shape": {**shape, "device_ms": km1["device_ms"], "host_us": km1["host_us"],
+                  "leaf": small["km1_leaf"], "merge": small["km1_merge"]}})
     b, by = km2_bound(n, d, k)
 
     def library_sums(ids_):
@@ -2456,11 +2543,33 @@ class plain_fit_with_card_draws:
         return False
 
 
+def record_assign_shapes(seen: dict):
+    """Count, in `seen`, the (n, d, k) of every KM1 call on a CUDA tensor
+    (each is one launch) until the returned function is called."""
+    from pixie_tpu_torch.ops import kmeans as kops
+
+    plain = kops.assign
+
+    def assign(x, c):
+        out = plain(x, c)
+        if x.is_cuda:
+            key = f"{x.shape[0]}x{x.shape[1]},k={c.shape[0]}"
+            seen[key] = seen.get(key, 0) + 1
+        return out
+
+    kops.assign = assign
+
+    def restore():
+        kops.assign = plain
+
+    return restore
+
+
 def run_ml(dev) -> dict:
     """The ML path: kmeans_fit and CoresetTree on the card, then the
     service_endpoints pattern and _kmeans_fit from PxL text over an 8M-row
     table.  Launch counts are reset before the first step and read after the
-    last."""
+    last; KM1's launches are also counted by shape."""
     import torch
 
     from pixie_tpu_torch.compiler import compile_pxl
@@ -2471,6 +2580,8 @@ def run_ml(dev) -> dict:
     from pixie_tpu_torch.table import TableStore
 
     out = {}
+    km1_shapes: dict = {}
+    restore = record_assign_shapes(km1_shapes)
     _build.reset_launches()
 
     # 1. kmeans_fit at the kernels' shape: determinism, recovery, launches
@@ -2604,6 +2715,11 @@ def run_ml(dev) -> dict:
                            "near_tie_models": near_tie, "max_centroid_err_vs_plain": worst}
     log(json.dumps({"phase": "ml.kmeans_query", "ok": True, **out["kmeans_query"]}))
     out["launches"] = read_launches("ml", ML_KERNELS)
+    restore()
+    km1 = out["launches"]["kmeans"].get("px_kmeans_assign", 0)
+    if sum(km1_shapes.values()) != km1:
+        raise AssertionError(f"KM1: {km1} launches, {km1_shapes} by shape")
+    out["km1_launches_by_shape"] = dict(sorted(km1_shapes.items(), key=lambda kv: -kv[1]))
     log(json.dumps({"phase": "slice.ml", "ok": True,
                     **{k: v for k, v in out.items() if k != "launches"},
                     "launches": out["launches"]["kmeans"]}))

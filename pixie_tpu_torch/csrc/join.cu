@@ -7,12 +7,23 @@
 // pow2 radix buckets, because XLA needs reusable static shapes and the TPU
 // wants cache-sized working sets.  Neither holds on Hopper, and the
 // executor's codes are dense (unique-inverse codes in [0, K), K <= nb + np),
-// so a code indexes its own slot: no sort, no buckets, no padding.
+// so a code indexes its own slot: no buckets, no padding.
 //
-//  J1 px_join_build:  histogram of the build codes into cnt[K] (privatized in
-//     shared memory while K fits in 48 KB, global atomics above), its
-//     exclusive scan into first[K] (scan.cuh), and a scatter of each build
-//     row id to rows_by_code[first[code] + atomicAdd(fill[code], 1)].
+//  J1 px_join_build:  the build rows with a code in [0, K) sorted by code,
+//     stably (a row's id is its index), by an LSD counting sort of kDigitBits
+//     a pass (three passes at K = 2^24): one block a 4096-row tile counts its
+//     digits in shared memory (16-byte loads), one scan over (digit, tile)
+//     gives each tile its offset of each digit, and one block a tile ranks
+//     the tile's rows in order (a ballot a digit bit, warps' counts summed in
+//     warp order) and writes them out through shared memory.  The rows of
+//     the last pass are rows_by_code.  Then each block of 4096 codes finds
+//     its codes' run starts in the sorted codes (or binary searches, for a
+//     window of many rows) and writes first[K] and cnt[K] for every slot.
+//     No global atomics and no memsets; rows with a code outside [0, K) are
+//     dropped by the first pass.  Within a code the rows come in ascending
+//     order, the plain version's (a stable argsort), every run.  (12-bit
+//     digits, two passes at 2^24, and __match_any_sync ranks ran slower:
+//     ab_kernels.py j1_digits12, j1_match.)
 //  J2 px_join_probe:  per probe row, count = cnt[code] and lo = first[code]
 //     (0 and 0 for a code outside [0, K): the executor's null sentinels -1 and
 //     -2 never match); each warp adds its partial count into one int64 total.
@@ -23,19 +34,17 @@
 //     set for every build row written, probe_matched for count > 0.
 //
 // Pair order: pairs come grouped by probe row in probe-row order, and within
-// a probe row in the order of rows_by_code for its code.  That order is the
-// order in which J1's atomics handed out the slots, which can change from run
-// to run (the join contract leaves pair order unspecified; the set of pairs
-// and both matched flags are exact).
+// a probe row in ascending build row (the order of rows_by_code).  The join
+// contract leaves pair order unspecified; the set of pairs and both matched
+// flags are exact.
 //
 // Bound on the H100: bytes.  At 16M x 16M codes uniform in [0, 16M) (K = 16M,
 // ~16M pairs): J1 reads 128 MB of codes and writes cnt, first (64 MB each)
 // and rows_by_code (64 MB); J2 reads 128 MB of codes plus the gathered slots
 // and writes 128 MB of (count, lo); J3 reads (count, lo, offset) and
-// rows_by_code and writes 256 MB of pairs and 32 MB of flags.  The
-// histogram's and the scatter's atomics land on random addresses of a 64 MB
-// table, larger than the 50 MB L2, so they, not the bytes, are expected to
-// set J1's time.
+// rows_by_code and writes 256 MB of pairs and 32 MB of flags.  J1's sort
+// moves more than that: at K = 16M three passes each read the keys twice
+// and write keys and rows once (about 20 bytes a row a pass).
 
 #include "common.cuh"
 #include "scan.cuh"
@@ -43,49 +52,437 @@
 namespace {
 
 constexpr int kBlock = 256;
-constexpr size_t kSharedHist = 48 * 1024;
+// ------------------------------------------------------------------- J1
+//
+// A stable LSD counting sort of the valid build rows by code, kDigitBits a
+// pass, then the code table from the sorted codes' run boundaries.
 
-__global__ void __launch_bounds__(kBlock) hist_shared(const long long* __restrict__ codes,
-                                                      long long n, int* __restrict__ cnt,
-                                                      int K) {
-  extern __shared__ int h[];
-  for (int i = threadIdx.x; i < K; i += blockDim.x) h[i] = 0;
+constexpr int kDigitBits = 8;
+constexpr int kRadix = 1 << kDigitBits;
+constexpr int kSortBlock = 512;                      // threads of a sort block
+constexpr int kSortWarps = kSortBlock / 32;
+constexpr int kSortItems = 8;                        // rows a thread
+constexpr int kSortTile = kSortBlock * kSortItems;   // 4096 rows a tile (a block)
+constexpr int kScatterPerSM = 3;                     // scatter blocks a SM
+constexpr int kWindowBits = 12;                      // codes a table block: 4096
+constexpr int kWindow = 1 << kWindowBits;
+constexpr int kWindowBlock = 512;
+constexpr int kWindowPer = kWindow / kWindowBlock;   // codes a thread
+constexpr int kWindowStream = 4 * kWindow;           // rows a table block streams
+constexpr int kNone = 0x7fffffff;                    // no run starts at this code
+
+// The sort's shape for nb rows and K codes.
+struct SortPlan {
+  long long n, K;
+  int passes;        // digits of K - 1 (at least one)
+  long long tiles;   // kSortTile-row tiles of the rows: the blocks of a pass
+  long long stride;  // int32 elements of a key or row buffer (n rounded up to 4)
+  long long cells;   // kRadix * tiles counts a pass
+  long long windows; // kWindow-code blocks of the table
+};
+
+SortPlan sort_plan(long long n, long long K) {
+  SortPlan p{};
+  p.n = n;
+  p.K = K;
+  int bits = 0;
+  while (bits < 63 && (1LL << bits) < K) ++bits;  // bits of K - 1
+  p.passes = bits <= kDigitBits ? 1 : (bits + kDigitBits - 1) / kDigitBits;
+  p.tiles = (n + kSortTile - 1) / kSortTile;
+  p.stride = (n + 3) & ~3LL;
+  p.cells = static_cast<long long>(kRadix) * p.tiles;
+  p.windows = (K + kWindow - 1) / kWindow;
+  return p;
+}
+
+// int32 scratch: two key buffers, one row buffer, the counts and their
+// offsets, and the windows' bounds; int64 scratch: the scan's partials and
+// the number of valid rows.
+long long sort_scratch32(const SortPlan& p) { return 3 * p.stride + 2 * p.cells + p.windows + 1; }
+long long sort_scratch64(const SortPlan& p) { return px_scan::tiles(p.cells) + 1; }
+
+template <typename Key>
+__device__ __forceinline__ bool valid_code(Key c, long long K) {
+  return c >= 0 && static_cast<long long>(c) < K;
+}
+
+__device__ __forceinline__ int digit_of(int key, int shift) {
+  return (key >> shift) & (kRadix - 1);
+}
+
+// Counts of each digit over tile t's rows into hist[digit * tiles + t].  Key
+// is long long for the first pass (the build codes, rows outside [0, K) not
+// counted) and int after (the first *count of n rows are the sort's); kVec:
+// 16-byte loads (the input is 16-byte aligned).  A thread adds a run of
+// equal digits in its vector once.
+template <typename Key, bool kVec>
+__global__ void __launch_bounds__(kSortBlock) digit_hist(const Key* __restrict__ in, long long n,
+                                                         const long long* __restrict__ count,
+                                                         long long K, int shift, long long tiles,
+                                                         int* __restrict__ hist) {
+  __shared__ int h[kRadix];
+  for (int i = threadIdx.x; i < kRadix; i += kSortBlock) h[i] = 0;
+  if (count != nullptr) n = min(n, *count);
+  const long long lo = static_cast<long long>(blockIdx.x) * kSortTile;
+  // a tile past the rows of a later pass has none (hi = lo)
+  const long long hi = max(lo, min(n, lo + kSortTile));
+  constexpr int kV = kVec ? 16 / static_cast<int>(sizeof(Key)) : 1;
+  constexpr int kLoads = kSortTile / (kSortBlock * kV);  // vectors a thread
+  const long long vlo = lo / kV, vhi = hi / kV;
+  // every vector of the thread loaded before any is counted
+  Key c[kLoads][kV];
+#pragma unroll
+  for (int u = 0; u < kLoads; ++u) {
+    const long long v = vlo + u * kSortBlock + threadIdx.x;
+#pragma unroll
+    for (int e = 0; e < kV; ++e) c[u][e] = -1;
+    if (v < vhi) {
+      if constexpr (!kVec) {
+        c[u][0] = __ldcs(in + v);
+      } else if constexpr (sizeof(Key) == 8) {
+        const longlong2 q = __ldcs(reinterpret_cast<const longlong2*>(in) + v);
+        c[u][0] = q.x;
+        c[u][1] = q.y;
+      } else {
+        const int4 q = __ldcs(reinterpret_cast<const int4*>(in) + v);
+        c[u][0] = q.x;
+        c[u][1] = q.y;
+        c[u][2] = q.z;
+        c[u][3] = q.w;
+      }
+    }
+  }
+  __syncthreads();  // h is zeroed
+#pragma unroll
+  for (int u = 0; u < kLoads; ++u) {
+    int run = -1, len = 0;
+#pragma unroll
+    for (int e = 0; e < kV; ++e) {
+      if (!valid_code(c[u][e], K)) continue;
+      const int dg = digit_of(static_cast<int>(c[u][e]), shift);
+      if (dg != run) {
+        if (len) atomicAdd(h + run, len);
+        run = dg;
+        len = 0;
+      }
+      ++len;
+    }
+    if (len) atomicAdd(h + run, len);
+  }
+  // the tile's last rows past a whole vector (the end of the input)
+  for (long long i = vhi * kV + threadIdx.x; i < hi; i += kSortBlock) {
+    const Key c1 = in[i];
+    if (valid_code(c1, K)) atomicAdd(h + digit_of(static_cast<int>(c1), shift), 1);
+  }
   __syncthreads();
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const long long c = codes[i];
-    if (c >= 0 && c < K) atomicAdd(&h[c], 1);
+  for (int i = threadIdx.x; i < kRadix; i += kSortBlock) hist[i * tiles + blockIdx.x] = h[i];
+}
+
+// Shared memory of a digit_scatter block: each warp's count of each digit,
+// the tile's offset and exclusive sum of each digit, and the tile's keys
+// and rows in digit order.
+constexpr size_t kScatterSmem =
+    sizeof(int) * (static_cast<size_t>(kSortWarps) * kRadix + 2 * kRadix + 2 * kSortTile);
+
+// One pass of the stable sort: tile t's rows go to out_keys / out_rows at
+// offs[digit * tiles + t] onwards, in row order within a digit.  Key is long
+// long for the first pass (the build codes; a row's id is its index, rows
+// outside [0, K) dropped) and int after (the first *count of n rows, their
+// ids from in_rows).  One block a tile: the blocks start about in tile
+// order, so at any time they work on neighbouring tiles and each digit's
+// rows land in a front that moves through its region (the L2 sees a sector
+// filled while it is still there).
+//
+// A tile's rank: warp w takes its 32 * kSortItems consecutive rows in rounds
+// of 32; in each round the lanes of one digit find each other (a ballot a
+// digit bit) and rank themselves after that digit's earlier rows of the warp
+// (wcnt).  The warps' counts are then summed in warp order, and the tile's
+// digits scanned, so a row's place in the tile is its digit's start, its
+// earlier warps' rows of the digit and its rank in the warp.  The tile is
+// placed in shared memory in digit order and written out from there:
+// neighbouring threads write neighbouring rows of one digit.
+template <typename Key>
+__global__ void __launch_bounds__(kSortBlock, kScatterPerSM) digit_scatter(
+    const Key* __restrict__ in, const int* __restrict__ in_rows, long long n,
+    const long long* __restrict__ count, long long K, int shift, long long tiles,
+    const int* __restrict__ offs, int* __restrict__ out_keys, int* __restrict__ out_rows) {
+  extern __shared__ __align__(16) int ssm[];
+  int* wcnt = ssm;                              // [kSortWarps][kRadix]
+  int* toff = wcnt + kSortWarps * kRadix;       // [kRadix]
+  int* texcl = toff + kRadix;                   // [kRadix]
+  int* skeys = texcl + kRadix;                  // [kSortTile]
+  int* srows = skeys + kSortTile;               // [kSortTile]
+  constexpr int kPer = kRadix / kSortBlock > 0 ? kRadix / kSortBlock : 1;  // digits a thread
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned lt = (1u << lane) - 1u;
+  if (count != nullptr) n = min(n, *count);
+  // the tile's rows are loaded first, so their reads are in flight while
+  // the counts are zeroed and the tile's offsets read
+  const long long base = static_cast<long long>(blockIdx.x) * kSortTile + warp * (32 * kSortItems);
+  // key -1: not a row of the sort (past the rows, or a code outside [0, K))
+  int key[kSortItems], row[kSortItems], rank[kSortItems];
+#pragma unroll
+  for (int r = 0; r < kSortItems; ++r) {
+    const long long i = base + r * 32 + lane;
+    key[r] = -1;
+    row[r] = 0;
+    if (i < n) {
+      const Key c = __ldcs(in + i);
+      row[r] = in_rows != nullptr ? __ldcs(in_rows + i) : static_cast<int>(i);
+      if (valid_code(c, K)) key[r] = static_cast<int>(c);
+    }
+  }
+  auto digit = [shift](int k) { return k < 0 ? kRadix : digit_of(k, shift); };
+  for (int i = tid; i < kSortWarps * kRadix; i += kSortBlock) wcnt[i] = 0;
+  for (int i = tid; i < kRadix; i += kSortBlock) toff[i] = offs[i * tiles + blockIdx.x];
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kSortItems; ++r) {
+    const int dg = digit(key[r]);
+    const bool mine = dg < kRadix;
+    unsigned peers = __ballot_sync(0xffffffffu, mine);
+    if (!mine) peers = ~peers;
+#pragma unroll
+    for (int bit = 0; bit < kDigitBits; ++bit) {
+      const bool on = (dg >> bit) & 1;
+      const unsigned bal = __ballot_sync(0xffffffffu, on);
+      peers &= on ? bal : ~bal;
+    }
+    int* slot = wcnt + warp * kRadix + (mine ? dg : 0);
+    rank[r] = mine ? *slot + __popc(peers & lt) : 0;
+    __syncwarp();
+    if (mine && (peers >> lane) == 1u) *slot += __popc(peers);  // the digit's last lane
+    __syncwarp();
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < K; i += blockDim.x) {
-    if (h[i]) atomicAdd(&cnt[i], h[i]);
+  // each digit's count over the warps; the warps' counts become their
+  // exclusive sums in warp order, and the digits' counts are scanned
+  int local[kPer], sum = 0;
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) {
+    const int dd = tid * kPer + e;
+    int c = 0;
+    if (dd < kRadix) {
+#pragma unroll
+      for (int w = 0; w < kSortWarps; ++w) {
+        const int v = wcnt[w * kRadix + dd];
+        wcnt[w * kRadix + dd] = c;
+        c += v;
+      }
+    }
+    local[e] = c;
+    sum += c;
+  }
+  long long total;
+  int at = static_cast<int>(px_scan::block_excl_scan(sum, &total));
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) {
+    const int dd = tid * kPer + e;
+    if (dd < kRadix) texcl[dd] = at;
+    at += local[e];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kSortItems; ++r) {
+    const int dg = digit(key[r]);
+    if (dg < kRadix) {
+      const int pos = texcl[dg] + wcnt[warp * kRadix + dg] + rank[r];
+      skeys[pos] = key[r];
+      srows[pos] = row[r];
+    }
+  }
+  __syncthreads();
+  const int tn = static_cast<int>(total);
+  for (int j = tid; j < tn; j += kSortBlock) {
+    const int k = skeys[j], dd = digit_of(k, shift);
+    const long long g = static_cast<long long>(toff[dd]) + (j - texcl[dd]);
+    out_keys[g] = k;
+    out_rows[g] = srows[j];
   }
 }
 
-__global__ void __launch_bounds__(kBlock) hist_global(const long long* __restrict__ codes,
-                                                      long long n, int* __restrict__ cnt,
-                                                      long long K) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const long long c = codes[i];
-    if (c >= 0 && c < K) atomicAdd(&cnt[c], 1);
+// bounds[h] = the first sorted position whose code is at least h * kWindow
+// (bounds[windows] = the number of valid rows).
+__global__ void __launch_bounds__(kSortBlock) window_bounds(const int* __restrict__ keys,
+                                                            const long long* __restrict__ total,
+                                                            long long windows,
+                                                            int* __restrict__ bounds) {
+  const long long h = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (h > windows) return;
+  const long long target = h * kWindow;
+  long long lo = 0, hi = *total;
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if (keys[mid] < target) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  bounds[h] = static_cast<int>(lo);
+}
+
+// cnt and first of window h's kWindow codes from the sorted codes: each
+// code's first position (its run's start, or, without a run, the next run's
+// start), and its count as the distance to the next code's first.  A window
+// of up to kWindowStream rows is read once for its run starts; a larger one
+// (a few heavy codes) is searched, a binary search a code, each thread's
+// kWindowPer searches stepping together.
+__global__ void __launch_bounds__(kWindowBlock) code_table(const int* __restrict__ keys,
+                                                           const int* __restrict__ bounds,
+                                                           long long K, int* __restrict__ cnt,
+                                                           int* __restrict__ first) {
+  __shared__ int start[kWindow];
+  __shared__ int wmin[kWindowBlock / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long base = static_cast<long long>(blockIdx.x) * kWindow;
+  const int lo = bounds[blockIdx.x], hi = bounds[blockIdx.x + 1];
+  if (hi - lo <= kWindowStream) {
+    for (int j = tid; j < kWindow; j += kWindowBlock) start[j] = kNone;
+    __syncthreads();
+    // kWindowPer rows a thread a round, their loads in flight together
+    for (int i0 = lo; i0 < hi; i0 += kWindowBlock * kWindowPer) {
+      int c[kWindowPer], prev[kWindowPer];
+#pragma unroll
+      for (int e = 0; e < kWindowPer; ++e) {
+        const int i = i0 + e * kWindowBlock + tid;
+        c[e] = i < hi ? __ldcs(keys + i) : -1;
+        prev[e] = i < hi && i > lo ? keys[i - 1] : -1;
+      }
+#pragma unroll
+      for (int e = 0; e < kWindowPer; ++e) {
+        const int i = i0 + e * kWindowBlock + tid;
+        if (i < hi && c[e] != prev[e]) start[c[e] - base] = i;
+      }
+    }
+  } else {
+    int a[kWindowPer], b[kWindowPer];
+#pragma unroll
+    for (int e = 0; e < kWindowPer; ++e) {
+      a[e] = lo;
+      b[e] = hi;
+    }
+    for (int span = hi - lo; span > 0; span >>= 1) {
+#pragma unroll
+      for (int e = 0; e < kWindowPer; ++e) {
+        if (a[e] < b[e]) {
+          const int mid = (a[e] + b[e]) >> 1;
+          if (keys[mid] < base + tid + e * kWindowBlock) {
+            a[e] = mid + 1;
+          } else {
+            b[e] = mid;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kWindowPer; ++e) start[tid + e * kWindowBlock] = a[e];
+  }
+  __syncthreads();
+  // suffix minimum over start (absent codes take the next code's first;
+  // past the last code, hi): thread t's kWindowPer consecutive entries, then
+  // the threads after it
+  int m = kNone;
+#pragma unroll
+  for (int e = 0; e < kWindowPer; ++e) m = min(m, start[tid * kWindowPer + e]);
+  int incl = m;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_down_sync(0xffffffffu, incl, o);
+    if (lane + o < 32) incl = min(incl, y);
+  }
+  if (lane == 0) wmin[warp] = incl;
+  __syncthreads();
+  int after = hi;
+  for (int w = warp + 1; w < kWindowBlock / 32; ++w) after = min(after, wmin[w]);
+  const int nxt = __shfl_down_sync(0xffffffffu, incl, 1);
+  if (lane < 31) after = min(after, nxt);
+  __syncthreads();
+#pragma unroll
+  for (int e = kWindowPer - 1; e >= 0; --e) {
+    after = min(after, start[tid * kWindowPer + e]);
+    start[tid * kWindowPer + e] = after;
+  }
+  __syncthreads();
+  const int wn = static_cast<int>(min(static_cast<long long>(kWindow), K - base));
+  for (int j = tid; j < wn; j += kWindowBlock) {
+    const int f = start[j];
+    const int nx = j + 1 < kWindow ? start[j + 1] : hi;
+    first[base + j] = f;
+    cnt[base + j] = nx - f;
   }
 }
 
-__global__ void __launch_bounds__(kBlock) fill_rows(const long long* __restrict__ codes,
-                                                    long long n, long long K,
-                                                    const int* __restrict__ first,
-                                                    int* __restrict__ fill,
-                                                    int* __restrict__ rows) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const long long c = codes[i];
-    if (c >= 0 && c < K) rows[first[c] + atomicAdd(&fill[c], 1)] = static_cast<int>(i);
+// The sort's passes and the code table on `s` (see px_join_build).
+cudaError_t join_build_sort(const long long* codes, const SortPlan& p, int* cnt, int* first,
+                            int* rows, int* scratch32, long long* scratch64, cudaStream_t s) {
+  int* keys[2] = {scratch32, scratch32 + p.stride};
+  int* spare = scratch32 + 2 * p.stride;
+  int* hist = scratch32 + 3 * p.stride;
+  int* offs = hist + p.cells;
+  int* bounds = offs + p.cells;
+  long long* partial = scratch64;
+  long long* total = scratch64 + px_scan::tiles(p.cells);
+  cudaError_t e = cudaSuccess;
+  if (p.tiles == 0) {
+    e = cudaMemsetAsync(total, 0, sizeof(long long), s);
   }
+  static size_t opted[PX_MAX_DEVICES][2] = {{0}};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  for (int q = 0; q < 2 && p.tiles > 0 && dev < PX_MAX_DEVICES; ++q) {
+    if (opted[dev][q] >= kScatterSmem) continue;
+    e = q == 0 ? cudaFuncSetAttribute(digit_scatter<long long>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      static_cast<int>(kScatterSmem))
+               : cudaFuncSetAttribute(digit_scatter<int>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      static_cast<int>(kScatterSmem));
+    if (e != cudaSuccess) return e;
+    opted[dev][q] = kScatterSmem;
+  }
+  const unsigned grid = static_cast<unsigned>(p.tiles);
+  // the rows of the last pass land in `rows`; the passes before alternate
+  // between `spare` and `rows`, so no pass reads the buffer it writes
+  for (int pass = 0; pass < p.passes && p.tiles > 0; ++pass) {
+    const int shift = pass * kDigitBits;
+    int* out_keys = keys[pass & 1];
+    int* out_rows = ((p.passes - 1 - pass) & 1) == 0 ? rows : spare;
+    if (pass == 0) {
+      if ((reinterpret_cast<uintptr_t>(codes) & 15) == 0) {
+        digit_hist<long long, true><<<grid, kSortBlock, 0, s>>>(codes, p.n, nullptr, p.K, shift,
+                                                                p.tiles, hist);
+      } else {
+        digit_hist<long long, false><<<grid, kSortBlock, 0, s>>>(codes, p.n, nullptr, p.K,
+                                                                 shift, p.tiles, hist);
+      }
+    } else {
+      digit_hist<int, true><<<grid, kSortBlock, 0, s>>>(keys[(pass - 1) & 1], p.n, total, p.K,
+                                                        shift, p.tiles, hist);
+    }
+    e = px_scan::excl_scan<int, int>(hist, p.cells, offs, partial, total, s);
+    if (e != cudaSuccess) return e;
+    if (pass == 0) {
+      digit_scatter<long long><<<grid, kSortBlock, kScatterSmem, s>>>(
+          codes, nullptr, p.n, nullptr, p.K, shift, p.tiles, offs, out_keys, out_rows);
+    } else {
+      const int* in_rows = ((p.passes - pass) & 1) == 0 ? rows : spare;
+      digit_scatter<int><<<grid, kSortBlock, kScatterSmem, s>>>(
+          keys[(pass - 1) & 1], in_rows, p.n, total, p.K, shift, p.tiles, offs, out_keys,
+          out_rows);
+    }
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  const int* sorted = keys[(p.passes - 1) & 1];
+  window_bounds<<<static_cast<unsigned>((p.windows + 1 + kSortBlock - 1) / kSortBlock),
+                  kSortBlock, 0, s>>>(sorted, total, p.windows, bounds);
+  code_table<<<static_cast<unsigned>(p.windows), kWindowBlock, 0, s>>>(sorted, bounds, p.K, cnt,
+                                                                     first);
+  return cudaGetLastError();
 }
+
+// ------------------------------------------------------------------ J2, J3
 
 __global__ void __launch_bounds__(kBlock) probe(const long long* __restrict__ codes,
                                                 long long n, long long K,
@@ -148,35 +545,31 @@ __global__ void __launch_bounds__(kBlock) expand(const int* __restrict__ cnt_p,
 // (0 = launched) and launches on `stream`.  Codes are int64; K < 2^31 and the
 // row counts < 2^31 (the wrapper checks).
 
-// J1.  cnt, first, fill: K int32 each; rows: nb int32 (the first
-// sum(cnt) are written); partial: ceil(K / 4096) int64 of scratch.
+// J1's scratch for nb build rows and K codes: out[0] the int32 elements,
+// out[1] the int64 elements, out[2] the sort's passes, out[3] its tiles (the
+// blocks of a pass).
+extern "C" int px_join_build_scratch(long long nb, long long K, long long* out) {
+  if (nb < 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const SortPlan p = sort_plan(nb, K);
+  out[0] = sort_scratch32(p);
+  out[1] = sort_scratch64(p);
+  out[2] = p.passes;
+  out[3] = p.tiles;
+  return 0;
+}
+
+// J1.  cnt, first: K int32 each, every slot written; rows: nb int32 (the
+// first sum(cnt) are written: the rows of each code in ascending order, the
+// codes in order); scratch32 and scratch64 as px_join_build_scratch sizes
+// them.  No global atomics: the rows are sorted by code (a stable LSD
+// counting sort), then each code's first and count are read off the sorted
+// codes.
 extern "C" int px_join_build(const long long* codes, long long nb, long long K, int* cnt,
-                             int* first, int* fill, int* rows, long long* partial,
+                             int* first, int* rows, int* scratch32, long long* scratch64,
                              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (K <= 0) return static_cast<int>(cudaSuccess);
-  cudaError_t e = cudaMemsetAsync(cnt, 0, static_cast<size_t>(K) * sizeof(int), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaMemsetAsync(fill, 0, static_cast<size_t>(K) * sizeof(int), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (nb > 0) {
-    const size_t hist_bytes = static_cast<size_t>(K) * sizeof(int);
-    if (hist_bytes <= kSharedHist) {
-      const long long grid = px_grid(hist_shared, nb, kBlock, hist_bytes);
-      hist_shared<<<static_cast<unsigned>(grid), kBlock, hist_bytes, s>>>(
-          codes, nb, cnt, static_cast<int>(K));
-    } else {
-      const long long grid = px_grid(hist_global, nb, kBlock, 0);
-      hist_global<<<static_cast<unsigned>(grid), kBlock, 0, s>>>(codes, nb, cnt, K);
-    }
-  }
-  e = px_scan::excl_scan<int, int>(cnt, K, first, partial, nullptr, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (nb > 0) {
-    const long long grid = px_grid(fill_rows, nb, kBlock, 0);
-    fill_rows<<<static_cast<unsigned>(grid), kBlock, 0, s>>>(codes, nb, K, first, fill, rows);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (K <= 0 || nb < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(join_build_sort(codes, sort_plan(nb, K), cnt, first, rows, scratch32,
+                                          scratch64, static_cast<cudaStream_t>(stream)));
 }
 
 // J2.  cnt_p, lo_p: npr int32; total: one int64 (set to the number of pairs).

@@ -16,13 +16,17 @@
 //   Bound on the H100: operations.  2 n k d float32 operations; at n = 2^20,
 //   d = 64, k = 64 that is 8.6 GFLOP / 67 TFLOP/s = 0.13 ms, against 0.27 GB
 //   of x at 3.35 TB/s = 0.08 ms.
-//   Design: one thread per point, 256-point tiles strided over the grid.  The
-//   centers reach shared memory in tiles of KT centers x 64 dimensions (with
-//   their squared norms, computed once per call by a small first kernel);
-//   each thread keeps KT dot products in registers, reads its row of x 16
-//   bytes at a time where the rows allow it, and reads each center's four
-//   values with one broadcast load.  More than KT centers, or more than 64
-//   dimensions, loop over tiles.
+//   Design: KM2's distance pass (below) without the sums, in one launch (no
+//   norms kernel, no scratch): a persistent grid walks 128-point tiles
+//   staged by cp.async, double-buffered; the centers sit transposed in
+//   shared memory with their |c|^2, once a block when one tile of centers
+//   holds all k; each thread register-tiles KM2's 4 points x 8 centers (1 x
+//   4 at k <= 8) in 256-thread blocks, two a SM (8 x 8 in 128-thread blocks
+//   ran slower: ab_kernels.py km1_tile8x8).  Each distance folds into the
+//   nearest by an integer key (dist_key), one compare a distance; the lanes
+//   sharing a point combine their nearest by shuffles and write ids and
+//   distances.  The same fmaf chains give the same bits as KM2's
+//   assignment.
 // KM2 px_kmeans_lloyd: wsum [k] and xsum [k, d] of one Lloyd iteration.
 //   Bound: as KM1 (the assignment), plus n (d + 1) additions.
 //   Design: one launch.  Each block (two an SM) walks 128-point tiles
@@ -34,11 +38,13 @@
 //   staged (no separate launch; the fixed shared memory does not grow with
 //   k).  Distances are register
 //   tiled as an SGEMM micro-tile: each thread computes PP points x CC
-//   centers (4 x 8 at k > 32; 8 x 8, which loads fewer floats an FMA but
-//   holds one block an SM, ran slower) out of shared memory, each dot
-//   product a
+//   centers (4 x 8 at k > 32; 8 x 8 in 256-point tiles, which loads fewer
+//   floats an FMA but holds one block an SM, ran slower) out of shared
+//   memory, its points a stride of GP rows apart (a warp's point groups read
+//   neighbouring rows, in other banks), each dot product a
 //   float32 fmaf chain over the dimensions in order, so ids and distances
-//   equal KM1's bit for bit; the GC threads sharing a point (adjacent lanes)
+//   equal KM1's bit for bit (one kernel template, dist_kernel, runs both);
+//   the GC threads sharing a point (adjacent lanes)
 //   combine their nearest by shuffles.  Then every warp takes centers and
 //   its lanes take columns: for each of its centers a warp finds the tile's
 //   points of that center by ballots and, in point order, adds w and the
@@ -73,8 +79,6 @@
 
 #include "common.cuh"
 
-#include <math_constants.h>
-
 namespace {
 
 constexpr int kBlock = 256;
@@ -86,148 +90,54 @@ __device__ __forceinline__ float clamp_dist(float v) {
   return v < 0.f ? 0.f : v;
 }
 
-__device__ __forceinline__ bool better(float v, float best) {
-  // argmin order: the first NaN wins, else strictly smaller
-  return isnan(v) ? !isnan(best) : v < best;
-}
-
-template <bool kVec>
-__device__ __forceinline__ float4 load4(const float* __restrict__ row, int j, int dc) {
-  if (kVec) return __ldg(reinterpret_cast<const float4*>(row + j));
-  float4 v;
-  v.x = row[j];
-  v.y = j + 1 < dc ? row[j + 1] : 0.f;
-  v.z = j + 2 < dc ? row[j + 2] : 0.f;
-  v.w = j + 3 < dc ? row[j + 3] : 0.f;
-  return v;
-}
-
-__global__ void center_norms(const float* __restrict__ c, int k, int d,
-                             float* __restrict__ c2) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= k) return;
-  const float* r = c + static_cast<long long>(i) * d;
-  float s = 0.f;
-  for (int j = 0; j < d; ++j) s = fmaf(r[j], r[j], s);
-  c2[i] = s;
-}
-
-// Nearest center of point p (when `live`) among the k centers.  Every thread
-// of the block calls it, live or not: it synchronizes the block around each
-// tile of centers it stages in `cs` ([KT][kDT] floats).
-template <int KT, bool kVec>
-__device__ __forceinline__ void nearest(const float* __restrict__ x, long long p, bool live,
-                                        int d, const float* __restrict__ c,
-                                        const float* __restrict__ c2, int k,
-                                        float* __restrict__ cs, int& best_i, float& best_d) {
-  const float* row = x + p * d;
-  float x2 = 0.f;
-  best_i = 0;
-  best_d = CUDART_INF_F;
-  for (int k0 = 0; k0 < k; k0 += KT) {
-    const int kc = min(KT, k - k0);
-    float acc[KT];
-#pragma unroll
-    for (int t = 0; t < KT; ++t) acc[t] = 0.f;
-    for (int d0 = 0; d0 < d; d0 += kDT) {
-      const int dc = min(kDT, d - d0);
-      __syncthreads();  // the previous tile is consumed
-      for (int i = threadIdx.x; i < KT * kDT; i += blockDim.x) {
-        const int r = i / kDT, j = i % kDT;
-        cs[i] = (r < kc && j < dc) ? c[static_cast<long long>(k0 + r) * d + d0 + j] : 0.f;
-      }
-      __syncthreads();
-      if (live) {
-        for (int j = 0; j < dc; j += 4) {
-          const float4 xv = load4<kVec>(row + d0, j, dc);
-          if (k0 == 0) {
-            x2 = fmaf(xv.x, xv.x, x2);
-            x2 = fmaf(xv.y, xv.y, x2);
-            x2 = fmaf(xv.z, xv.z, x2);
-            x2 = fmaf(xv.w, xv.w, x2);
-          }
-#pragma unroll
-          for (int t = 0; t < KT; ++t) {
-            const float4 cv = *reinterpret_cast<const float4*>(cs + t * kDT + j);
-            acc[t] = fmaf(xv.x, cv.x, acc[t]);
-            acc[t] = fmaf(xv.y, cv.y, acc[t]);
-            acc[t] = fmaf(xv.z, cv.z, acc[t]);
-            acc[t] = fmaf(xv.w, cv.w, acc[t]);
-          }
-        }
-      }
-    }
-    if (live) {
-#pragma unroll
-      for (int t = 0; t < KT; ++t) {
-        if (t < kc) {
-          const float dd = clamp_dist((x2 - 2.f * acc[t]) + c2[k0 + t]);
-          if (better(dd, best_d)) {
-            best_d = dd;
-            best_i = k0 + t;
-          }
-        }
-      }
-    }
-  }
-}
-
-template <int KT, bool kVec>
-__global__ void __launch_bounds__(kBlock) assign_kernel(
-    const float* __restrict__ x, long long n, int d, const float* __restrict__ c,
-    const float* __restrict__ c2, int k, long long* __restrict__ ids,
-    float* __restrict__ mind) {
-  __shared__ __align__(16) float cs[KT * kDT];
-  const long long tiles = (n + kBlock - 1) / kBlock;
-  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long p = tile * kBlock + threadIdx.x;
-    const bool live = p < n;
-    int bi;
-    float bd;
-    nearest<KT, kVec>(x, p, live, d, c, c2, k, cs, bi, bd);
-    if (live) {
-      ids[p] = bi;
-      mind[p] = bd;
-    }
-  }
-}
-
-// ------------------------------------------------------------------ KM2
+// ------------------------------------------------------------ KM1 and KM2
 
 constexpr int kTP = 128;           // points a tile
-constexpr int kLloydPerSM = 2;     // KM2 blocks an SM holds (shared memory and registers)
+constexpr int kPerSM = 2;          // blocks of a KM1 or KM2 launch an SM holds
 constexpr int kXS = kDT + 4;       // floats a staged row chunk (16 bytes of padding)
 constexpr int kWarps = kBlock / 32;
 constexpr int kRegSlots = 8;       // centers a warp sums in registers
 constexpr int kGroup = 16;         // blocks whose partials one block sums first
 
-// The register micro-tile of a center tile of KT: PP points x CC centers a
-// thread; the KT / CC threads that share a point are adjacent lanes.
+// What a dist_kernel launch does with a tile's nearest centers.
+enum Sums { kAssign, kRegisterSums, kSharedSums };
+
+// The register micro-tile of a center tile of KT with PP points a thread:
+// CC centers a thread, GC threads sharing a point (adjacent lanes), kThreads
+// threads covering a tile of kTP points.
+template <int KT, int PP>
+struct Micro {
+  static constexpr int CC = KT == 64 ? 8 : 4;
+  static constexpr int GC = KT / CC;
+  static constexpr int kThreads = GC * kTP / PP;
+};
+
+// Points a thread takes (KM1 and KM2): 4 (1 at k <= 8), so 256 threads a
+// block.  (8 x 8 in 128-thread blocks, which loads fewer floats an FMA, ran
+// slower for KM1: ab_kernels.py km1_tile8x8.)
 template <int KT>
-struct Micro;
-template <>
-struct Micro<64> {
-  static constexpr int CC = 8, PP = 4;
-};
-template <>
-struct Micro<32> {
-  static constexpr int CC = 4, PP = 4;
-};
-template <>
-struct Micro<8> {
-  static constexpr int CC = 4, PP = 1;
-};
+constexpr int tile_points() { return KT == 8 ? 1 : 4; }
 
 __host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
 
-// (v, i) comes before (b, bi) in argmin order: the first NaN wins, else the
-// smaller value, a tie going to the lower index.  Folding a point's
-// distances in any order with this rule gives what better() gives folding
-// them in index order from (inf, 0).
-__device__ __forceinline__ bool before(float v, int i, float b, int bi) {
-  if (isnan(v)) return !isnan(b) || i < bi;
-  if (isnan(b)) return false;
-  return v < b || (v == b && i < bi);
+// A distance's argmin key: max(v, 0)'s bits plus one, as an int.  The card's
+// float arithmetic gives the canonical NaN (0x7fffffff), whose key wraps to
+// the least int; a negative v (or -0) keys as +0; the others keep their
+// order.  So the least key, the lower index on a tie, is argmin's choice
+// over the clamped distances (the first NaN wins, as jnp.argmin's does).
+__device__ __forceinline__ int dist_key(float v) {
+  return static_cast<int>(static_cast<unsigned>(max(__float_as_int(v), 0)) + 1u);
+}
+
+// The clamped distance of a key.
+__device__ __forceinline__ float key_dist(int key) {
+  return __int_as_float(static_cast<int>(static_cast<unsigned>(key) - 1u));
+}
+
+// (key, i) comes before (b, bi): the least key, a tie going to the lower
+// index.
+__device__ __forceinline__ bool before(int key, int i, int b, int bi) {
+  return key < b || (key == b && i < bi);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -249,12 +159,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Shared memory of a lloyd_kernel block: two x buffers of kTP x kXS floats,
+// Shared memory of a dist_kernel block: two x buffers of kTP x kXS floats,
 // the center tile ([kDT][KT]) and its KT squared norms, the x tile's ids and
 // weights, 4 flag ints, then `rows` x (d + 1) float64 sums (0 rows when
-// the sums are in registers).
+// the sums are in registers or not taken).
 template <int KT>
-size_t lloyd_smem(int d, int rows) {
+size_t dist_smem(int d, int rows) {
   return sizeof(float) * (2 * kTP * kXS + kDT * KT + KT + 2 * kTP) + 16 +
          sizeof(double) * static_cast<size_t>(rows) * (d + 1);
 }
@@ -347,19 +257,36 @@ __device__ void lloyd_finish(const double* __restrict__ partials, double* __rest
              [&](int e, double s) { lloyd_out(e, s, d, c_lo, wsum, xsum); });
 }
 
-// One Lloyd step's sums for the centers [c_lo, c_lo + rows) (see the file's
-// note).  kVec: rows of x 16-byte aligned with d % 4 == 0; kRegSums: the
-// float64 sums in registers (rows <= kWarps * kRegSlots, d <= kDT).
-template <int KT, bool kVec, bool kRegSums>
-__global__ void __launch_bounds__(kBlock, kLloydPerSM) lloyd_kernel(
-    const float* __restrict__ x, const float* __restrict__ w, long long n, int d,
-    const float* __restrict__ c, int k, int c_lo, int rows, double* __restrict__ partials,
-    double* __restrict__ gsums, unsigned* __restrict__ tickets, float* __restrict__ wsum,
-    float* __restrict__ xsum) {
-  constexpr int CC = Micro<KT>::CC, PP = Micro<KT>::PP;
-  constexpr int GC = KT / CC, GP = kBlock / GC;
+// A dist_kernel launch's arguments: x [n, d], c [k, d]; KM1 writes ids and
+// mind; KM2 sums w and x * w of the centers [c_lo, c_lo + rows) through
+// partials, gsums and tickets into wsum and xsum.
+struct KmArgs {
+  const float* x;
+  const float* w;
+  long long n;
+  int d;
+  const float* c;
+  int k;
+  long long* ids;
+  float* mind;
+  int c_lo, rows;
+  double* partials;
+  double* gsums;
+  unsigned* tickets;
+  float* wsum;
+  float* xsum;
+};
+
+// KM1 (kSums == kAssign) or one Lloyd step's sums (KM2; see the file's
+// note).  kVec: rows of x 16-byte aligned with d % 4 == 0; kRegisterSums:
+// the float64 sums in registers (rows <= kWarps * kRegSlots, d <= kDT).
+template <int KT, int PP, bool kVec, int kSums>
+__global__ void __launch_bounds__(Micro<KT, PP>::kThreads, kPerSM) dist_kernel(const KmArgs a) {
+  using M = Micro<KT, PP>;
+  constexpr int CC = M::CC, GC = M::GC, kT = M::kThreads, GP = kT / GC;
   static_assert(GP * PP == kTP, "a tile is GP x PP points");
   static_assert(32 % GC == 0, "the threads of a point share a warp");
+  static_assert(kSums == kAssign || kT == kBlock, "the sums take kBlock threads");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* xs = reinterpret_cast<float*>(smem_raw);
   float* cs = xs + 2 * kTP * kXS;
@@ -369,6 +296,10 @@ __global__ void __launch_bounds__(kBlock, kLloydPerSM) lloyd_kernel(
   int* flag = reinterpret_cast<int*>(tile_w + kTP);
   double* sums = reinterpret_cast<double*>(flag + 4);
 
+  const float* __restrict__ x = a.x;
+  const float* __restrict__ c = a.c;
+  const long long n = a.n;
+  const int d = a.d, k = a.k, c_lo = a.c_lo, rows = a.rows;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tc = tid % GC, tp = tid / GC;
   const int width = d + 1;
@@ -377,12 +308,13 @@ __global__ void __launch_bounds__(kBlock, kLloydPerSM) lloyd_kernel(
   const bool once = nc == 1 && nct == 1;
 
   // The centers of a (center tile, column chunk), transposed and padded with
-  // 0; with the first chunk, the tile's |c|^2 as center_norms computes them.
+  // 0; with the first chunk, the tile's |c|^2, an fmaf chain in dimension
+  // order.
   auto stage_centers = [&](int kt, int dc) {
     const int k0 = kt * KT, d0 = dc * kDT;
     const int kc = min(KT, k - k0), dcw = min(kDT, d - d0);
     if (dc == 0) {
-      for (int t = tid; t < KT; t += kBlock) {
+      for (int t = tid; t < KT; t += kT) {
         float s = 0.f;
         if (t < kc) {
           const float* r = c + static_cast<long long>(k0 + t) * d;
@@ -392,7 +324,7 @@ __global__ void __launch_bounds__(kBlock, kLloydPerSM) lloyd_kernel(
         c2s[t] = s;
       }
     }
-    for (int i = tid; i < KT * kDT; i += kBlock) {
+    for (int i = tid; i < KT * kDT; i += kT) {
       const int j = i / KT, t = i - j * KT;
       cs[i] = (t < kc && j < dcw) ? c[static_cast<long long>(k0 + t) * d + d0 + j] : 0.f;
     }
@@ -400,15 +332,15 @@ __global__ void __launch_bounds__(kBlock, kLloydPerSM) lloyd_kernel(
 
   // prologue: both x buffers zeroed (padding columns stay 0), the sums, and
   // the centers when one tile holds them all
-  for (int i = tid; i < 2 * kTP * kXS; i += kBlock) xs[i] = 0.f;
-  if constexpr (!kRegSums) {
-    for (int i = tid; i < rows * width; i += kBlock) sums[i] = 0.0;
+  for (int i = tid; i < 2 * kTP * kXS; i += kT) xs[i] = 0.f;
+  if constexpr (kSums == kSharedSums) {
+    for (int i = tid; i < rows * width; i += kT) sums[i] = 0.0;
   }
   if (once) stage_centers(0, 0);
   __syncthreads();
 
-  // x stages: one a tile when a row is one chunk (both passes read it), else
-  // one a (center tile, chunk) of each tile
+  // x stages: one a tile when a row is one chunk, else one a (center tile,
+  // chunk) of each tile
   const long long tiles = (n + kTP - 1) / kTP;
   const long long my_tiles = (tiles - 1 - blockIdx.x) / gridDim.x + 1;
   const int spt = nc == 1 ? 1 : nct * nc;
@@ -422,34 +354,35 @@ __global__ void __launch_bounds__(kBlock, kLloydPerSM) lloyd_kernel(
     const float* src = x + p0 * d + d0;
     if constexpr (kVec) {
       const int per = dcw >> 2;
-      for (int i = tid; i < np * per; i += kBlock) {
+      for (int i = tid; i < np * per; i += kT) {
         const int r = i / per, j = (i - r * per) << 2;
         cp_async16(buf + r * kXS + j, src + static_cast<long long>(r) * d + j);
       }
     } else {
-      for (int i = tid; i < np * dcw; i += kBlock) {
+      for (int i = tid; i < np * dcw; i += kT) {
         const int r = i / dcw, j = i - r * dcw;
         cp_async4(buf + r * kXS + j, src + static_cast<long long>(r) * d + j);
       }
       // an earlier, wider chunk may have left values in the padding
       const int pad = round4(dcw) - dcw;
-      for (int i = tid; i < np * pad; i += kBlock) buf[(i / pad) * kXS + dcw + i % pad] = 0.f;
+      for (int i = tid; i < np * pad; i += kT) buf[(i / pad) * kXS + dcw + i % pad] = 0.f;
     }
     cp_async_commit();
   };
 
   // the float64 sums held in registers: slot s of warp v is center
   // v + kWarps * s; lane l holds its columns l and l + 32, lane s its weight
-  double rs[kRegSums ? kRegSlots : 1][2];
+  constexpr int kSlots = kSums == kRegisterSums ? kRegSlots : 1;
+  double rs[kSlots][2];
 #pragma unroll
-  for (int s = 0; s < (kRegSums ? kRegSlots : 1); ++s) rs[s][0] = rs[s][1] = 0.0;
+  for (int s = 0; s < kSlots; ++s) rs[s][0] = rs[s][1] = 0.0;
   double rw = 0.0;
 
   // w and w * x of the tile's points into the sums of their centers: a warp
   // takes centers, its lanes take columns; for each of its centers a warp
   // finds the center's points by ballots and adds them in point order
   auto accumulate = [&](const float* buf, long long p0) {
-    if constexpr (kRegSums) {
+    if constexpr (kSums == kRegisterSums) {
 #pragma unroll
       for (int sl = 0; sl < kRegSlots; ++sl) {
         const int cr = warp + kWarps * sl;
@@ -470,7 +403,7 @@ __global__ void __launch_bounds__(kBlock, kLloydPerSM) lloyd_kernel(
           }
         }
       }
-    } else {
+    } else if constexpr (kSums == kSharedSums) {
       for (int cr = warp; cr < rows; cr += kWarps) {
         double* cell = sums + cr * width;
         for (int q0 = 0; q0 < kTP; q0 += 32) {
@@ -492,8 +425,10 @@ __global__ void __launch_bounds__(kBlock, kLloydPerSM) lloyd_kernel(
     }
   };
 
-  float acc[PP][CC], x2[PP], bd[PP];
-  int bi[PP];
+  // point i of this thread is row tp + GP * i of the tile; bk, bi its
+  // nearest center so far (dist_key, index)
+  float acc[PP][CC], x2[PP];
+  int bk[PP], bi[PP];
   if (stages > 0) issue(0);
   for (long long s = 0; s < stages; ++s) {
     cp_async_wait<0>();
@@ -510,7 +445,7 @@ __global__ void __launch_bounds__(kBlock, kLloydPerSM) lloyd_kernel(
 #pragma unroll
       for (int i = 0; i < PP; ++i) {
         x2[i] = 0.f;
-        bd[i] = CUDART_INF_F;
+        bk[i] = 0x7fffffff;
         bi[i] = 0x7fffffff;
       }
     }
@@ -531,7 +466,7 @@ __global__ void __launch_bounds__(kBlock, kLloydPerSM) lloyd_kernel(
         float4 xv[PP];
 #pragma unroll
         for (int i = 0; i < PP; ++i) {
-          xv[i] = *reinterpret_cast<const float4*>(buf + (tp * PP + i) * kXS + j);
+          xv[i] = *reinterpret_cast<const float4*>(buf + (tp + GP * i) * kXS + j);
         }
         if (kt == 0) {
 #pragma unroll
@@ -564,15 +499,17 @@ __global__ void __launch_bounds__(kBlock, kLloydPerSM) lloyd_kernel(
       }
       if (dc == nc - 1) {
 #pragma unroll
+        // a thread meets its centers in index order: the strictly less
+        // key keeps the lower index on a tie
         for (int t = 0; t < CC; ++t) {
           const int ct = (t / 4) * GC * 4 + tc * 4 + (t & 3), ci = kt * KT + ct;
           if (ci < k) {
             const float c2 = c2s[ct];
 #pragma unroll
             for (int i = 0; i < PP; ++i) {
-              const float dd = clamp_dist((x2[i] - 2.f * acc[i][t]) + c2);
-              if (before(dd, ci, bd[i], bi[i])) {
-                bd[i] = dd;
+              const int key = dist_key((x2[i] - 2.f * acc[i][t]) + c2);
+              if (key < bk[i]) {
+                bk[i] = key;
                 bi[i] = ci;
               }
             }
@@ -586,46 +523,60 @@ __global__ void __launch_bounds__(kBlock, kLloydPerSM) lloyd_kernel(
       for (int i = 0; i < PP; ++i) {
 #pragma unroll
         for (int off = 1; off < GC; off <<= 1) {
-          const float od = __shfl_xor_sync(0xffffffffu, bd[i], off);
+          const int ok = __shfl_xor_sync(0xffffffffu, bk[i], off);
           const int oi = __shfl_xor_sync(0xffffffffu, bi[i], off);
-          if (before(od, oi, bd[i], bi[i])) {
-            bd[i] = od;
+          if (before(ok, oi, bk[i], bi[i])) {
+            bk[i] = ok;
             bi[i] = oi;
           }
         }
       }
-      if (tc == 0) {
+      if constexpr (kSums == kAssign) {
+        // every lane of a point group holds its points' nearest: lane tc
+        // writes the points i with i % GC == tc
 #pragma unroll
         for (int i = 0; i < PP; ++i) {
-          const int q = tp * PP + i;
-          const bool live = p0 + q < n;
-          const int rel = bi[i] - c_lo;
-          tile_ids[q] = live && rel >= 0 && rel < rows ? rel : -1;
-          tile_w[q] = live ? w[p0 + q] : 0.f;
+          const long long p = p0 + tp + GP * i;
+          if (i % GC == tc && p < n) {
+            a.ids[p] = bi[i];
+            a.mind[p] = key_dist(bk[i]);
+          }
+        }
+      } else {
+        if (tc == 0) {
+#pragma unroll
+          for (int i = 0; i < PP; ++i) {
+            const int q = tp + GP * i;
+            const bool live = p0 + q < n;
+            const int rel = bi[i] - c_lo;
+            tile_ids[q] = live && rel >= 0 && rel < rows ? rel : -1;
+            tile_w[q] = live ? a.w[p0 + q] : 0.f;
+          }
+        }
+        __syncthreads();
+        accumulate(buf, p0);
+      }
+    }
+  }
+  if constexpr (kSums != kAssign) {
+    __syncthreads();  // the x buffers are free (the shared sums are complete)
+    double* mine = a.partials + static_cast<long long>(blockIdx.x) * rows * width;
+    if constexpr (kSums == kRegisterSums) {
+#pragma unroll
+      for (int sl = 0; sl < kRegSlots; ++sl) {
+        const int cr = warp + kWarps * sl;
+        if (cr < rows) {
+          double* o = mine + cr * width;
+          if (lane < d) o[lane] = rs[sl][0];
+          if (lane + 32 < d) o[lane + 32] = rs[sl][1];
+          if (lane == sl) o[d] = rw;
         }
       }
-      __syncthreads();
-      accumulate(buf, p0);
+    } else {
+      for (int i = tid; i < rows * width; i += kT) mine[i] = sums[i];
     }
+    lloyd_finish(a.partials, a.gsums, a.tickets, rows, d, c_lo, a.wsum, a.xsum, flag);
   }
-  __syncthreads();  // the x buffers are free (the shared sums are complete)
-
-  double* mine = partials + static_cast<long long>(blockIdx.x) * rows * width;
-  if constexpr (kRegSums) {
-#pragma unroll
-    for (int sl = 0; sl < kRegSlots; ++sl) {
-      const int cr = warp + kWarps * sl;
-      if (cr < rows) {
-        double* o = mine + cr * width;
-        if (lane < d) o[lane] = rs[sl][0];
-        if (lane + 32 < d) o[lane + 32] = rs[sl][1];
-        if (lane == sl) o[d] = rw;
-      }
-    }
-  } else {
-    for (int i = tid; i < rows * width; i += kBlock) mine[i] = sums[i];
-  }
-  lloyd_finish(partials, gsums, tickets, rows, d, c_lo, wsum, xsum, flag);
 }
 
 // ------------------------------------------------------------------ KM3
@@ -729,30 +680,14 @@ bool rows_vectorizable(const float* x, int d) {
   return d % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
 }
 
-template <int KT>
-int launch_assign(const float* x, long long n, int d, const float* c, const float* c2, int k,
-                  long long* ids, float* mind, bool vec, cudaStream_t stream) {
-  const long long tiles = (n + kBlock - 1) / kBlock;
-  if (vec) {
-    const long long grid = px_grid(assign_kernel<KT, true>, tiles * kBlock, kBlock, 0);
-    assign_kernel<KT, true><<<static_cast<unsigned>(grid), kBlock, 0, stream>>>(
-        x, n, d, c, c2, k, ids, mind);
-  } else {
-    const long long grid = px_grid(assign_kernel<KT, false>, tiles * kBlock, kBlock, 0);
-    assign_kernel<KT, false><<<static_cast<unsigned>(grid), kBlock, 0, stream>>>(
-        x, n, d, c, c2, k, ids, mind);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Centers per shared-memory tile for k centers.
 int tile_centers(int k) { return k <= 8 ? 8 : (k <= 32 ? 32 : 64); }
 
-// Blocks of a KM2 launch: a fixed function of n and the card, so the block
-// order of the sums, and with it the result, is the same every run.
-long long lloyd_grid(long long n) {
+// Blocks of a KM1 or KM2 launch: a fixed function of n and the card, so the
+// block order of KM2's sums, and with it the result, is the same every run.
+long long dist_grid(long long n) {
   const long long tiles = (n + kTP - 1) / kTP;
-  const long long cap = static_cast<long long>(kLloydPerSM) * px_sm_count();
+  const long long cap = static_cast<long long>(kPerSM) * px_sm_count();
   const long long g = tiles < cap ? tiles : cap;
   return g < 1 ? 1 : g;
 }
@@ -767,7 +702,7 @@ bool lloyd_in_registers(int k, int d) { return k <= kWarps * kRegSlots && d <= k
 // fit the shared memory left beside the fixed part (0: not even one).
 template <int KT>
 int lloyd_rows(int k, int d, bool reg) {
-  const size_t fixed = lloyd_smem<KT>(d, 0);
+  const size_t fixed = dist_smem<KT>(d, 0);
   const size_t budget = static_cast<size_t>(px_smem_optin());
   if (budget < fixed) return 0;
   if (reg) return k;
@@ -796,21 +731,36 @@ int opt_in(Kernel kernel, size_t smem, size_t* opted) {
   return err;
 }
 
-template <int KT, bool kVec, bool kReg>
-int launch_lloyd(const float* x, const float* w, long long n, int d, const float* c, int k,
-                 int rows, float* wsum, float* xsum, double* scratch, unsigned* tickets,
-                 cudaStream_t stream) {
+template <int KT, bool kVec>
+int launch_assign(const KmArgs& a, cudaStream_t stream) {
+  constexpr int PP = tile_points<KT>();
   static size_t opted[PX_MAX_DEVICES] = {0};
-  const size_t smem = lloyd_smem<KT>(d, kReg ? 0 : rows);
-  const int err = opt_in(lloyd_kernel<KT, kVec, kReg>, smem, opted);
+  const size_t smem = dist_smem<KT>(a.d, 0);
+  const int err = opt_in(dist_kernel<KT, PP, kVec, kAssign>, smem, opted);
   if (err != 0) return err;
-  const long long grid = lloyd_grid(n);
-  const long long cells = static_cast<long long>(rows) * (d + 1);
-  double* gsums = scratch + grid * cells;
+  dist_kernel<KT, PP, kVec, kAssign>
+      <<<static_cast<unsigned>(dist_grid(a.n)), Micro<KT, PP>::kThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KT, bool kVec, bool kReg>
+int launch_lloyd(KmArgs a, double* scratch, cudaStream_t stream) {
+  constexpr int PP = tile_points<KT>();
+  constexpr int kSums = kReg ? kRegisterSums : kSharedSums;
+  static size_t opted[PX_MAX_DEVICES] = {0};
+  const int rows = a.rows, k = a.k;
+  const size_t smem = dist_smem<KT>(a.d, kReg ? 0 : rows);
+  const int err = opt_in(dist_kernel<KT, PP, kVec, kSums>, smem, opted);
+  if (err != 0) return err;
+  const long long grid = dist_grid(a.n);
+  const long long cells = static_cast<long long>(rows) * (a.d + 1);
+  a.partials = scratch;
+  a.gsums = scratch + grid * cells;
   for (int c_lo = 0; c_lo < k; c_lo += rows) {
-    const int r = rows < k - c_lo ? rows : k - c_lo;
-    lloyd_kernel<KT, kVec, kReg><<<static_cast<unsigned>(grid), kBlock, smem, stream>>>(
-        x, w, n, d, c, k, c_lo, r, scratch, gsums, tickets, wsum, xsum);
+    a.c_lo = c_lo;
+    a.rows = rows < k - c_lo ? rows : k - c_lo;
+    dist_kernel<KT, PP, kVec, kSums>
+        <<<static_cast<unsigned>(grid), Micro<KT, PP>::kThreads, smem, stream>>>(a);
     const int err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
   }
@@ -818,19 +768,18 @@ int launch_lloyd(const float* x, const float* w, long long n, int d, const float
 }
 
 template <int KT>
-int launch_lloyd_kt(const float* x, const float* w, long long n, int d, const float* c, int k,
-                    int rows, float* wsum, float* xsum, double* scratch, unsigned* tickets,
-                    bool vec, bool reg, cudaStream_t stream) {
+int launch_lloyd_kt(const KmArgs& a, double* scratch, bool vec, bool reg, cudaStream_t stream) {
   if (vec) {
-    return reg ? launch_lloyd<KT, true, true>(x, w, n, d, c, k, rows, wsum, xsum, scratch,
-                                              tickets, stream)
-               : launch_lloyd<KT, true, false>(x, w, n, d, c, k, rows, wsum, xsum, scratch,
-                                               tickets, stream);
+    return reg ? launch_lloyd<KT, true, true>(a, scratch, stream)
+               : launch_lloyd<KT, true, false>(a, scratch, stream);
   }
-  return reg ? launch_lloyd<KT, false, true>(x, w, n, d, c, k, rows, wsum, xsum, scratch,
-                                             tickets, stream)
-             : launch_lloyd<KT, false, false>(x, w, n, d, c, k, rows, wsum, xsum, scratch,
-                                              tickets, stream);
+  return reg ? launch_lloyd<KT, false, true>(a, scratch, stream)
+             : launch_lloyd<KT, false, false>(a, scratch, stream);
+}
+
+template <int KT>
+int launch_assign_kt(const KmArgs& a, bool vec, cudaStream_t stream) {
+  return vec ? launch_assign<KT, true>(a, stream) : launch_assign<KT, false>(a, stream);
 }
 
 template <bool kVec>
@@ -843,25 +792,26 @@ int launch_seed_lanes(const float* x, const float* w, long long n, int d, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_norms(const float* c, int k, int d, float* c2, cudaStream_t stream) {
-  center_norms<<<(k + kBlock - 1) / kBlock, kBlock, 0, stream>>>(c, k, d, c2);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// KM1.  c2: k floats of scratch for the centers' squared norms.
+// KM1: one launch.
 extern "C" int px_kmeans_assign(const float* x, long long n, int d, const float* c, int k,
-                                float* c2, long long* ids, float* mind, cudaStream_t stream) {
+                                long long* ids, float* mind, cudaStream_t stream) {
   if (n <= 0) return 0;
   if (d <= 0 || k <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  int err = launch_norms(c, k, d, c2, stream);
-  if (err != 0) return err;
+  KmArgs a{};
+  a.x = x;
+  a.n = n;
+  a.d = d;
+  a.c = c;
+  a.k = k;
+  a.ids = ids;
+  a.mind = mind;
   const bool vec = rows_vectorizable(x, d);
   switch (tile_centers(k)) {
-    case 8: return launch_assign<8>(x, n, d, c, c2, k, ids, mind, vec, stream);
-    case 32: return launch_assign<32>(x, n, d, c, c2, k, ids, mind, vec, stream);
-    default: return launch_assign<64>(x, n, d, c, c2, k, ids, mind, vec, stream);
+    case 8: return launch_assign_kt<8>(a, vec, stream);
+    case 32: return launch_assign_kt<32>(a, vec, stream);
+    default: return launch_assign_kt<64>(a, vec, stream);
   }
 }
 
@@ -875,7 +825,7 @@ extern "C" int px_kmeans_lloyd_scratch(long long n, int d, int k, int device, lo
   PxDeviceScope on(device);
   const bool reg = lloyd_in_registers(k, d);
   const int rows = lloyd_rows_for(k, d, reg);
-  const long long grid = lloyd_grid(n), groups = lloyd_groups(grid);
+  const long long grid = dist_grid(n), groups = lloyd_groups(grid);
   const long long cells = static_cast<long long>(rows) * (d + 1);
   out[0] = rows > 0 ? (grid + (groups > 1 ? groups : 0)) * cells : 0;
   out[1] = groups + 1;
@@ -895,17 +845,22 @@ extern "C" int px_kmeans_lloyd(const float* x, const float* w, long long n, int 
   const bool reg = lloyd_in_registers(k, d);
   const int rows = lloyd_rows_for(k, d, reg);
   if (rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  KmArgs a{};
+  a.x = x;
+  a.w = w;
+  a.n = n;
+  a.d = d;
+  a.c = c;
+  a.k = k;
+  a.rows = rows;
+  a.tickets = tickets;
+  a.wsum = wsum;
+  a.xsum = xsum;
   const bool vec = rows_vectorizable(x, d);
   switch (tile_centers(k)) {
-    case 8:
-      return launch_lloyd_kt<8>(x, w, n, d, c, k, rows, wsum, xsum, scratch, tickets, vec, reg,
-                                stream);
-    case 32:
-      return launch_lloyd_kt<32>(x, w, n, d, c, k, rows, wsum, xsum, scratch, tickets, vec, reg,
-                                 stream);
-    default:
-      return launch_lloyd_kt<64>(x, w, n, d, c, k, rows, wsum, xsum, scratch, tickets, vec, reg,
-                                 stream);
+    case 8: return launch_lloyd_kt<8>(a, scratch, vec, reg, stream);
+    case 32: return launch_lloyd_kt<32>(a, scratch, vec, reg, stream);
+    default: return launch_lloyd_kt<64>(a, scratch, vec, reg, stream);
   }
 }
 

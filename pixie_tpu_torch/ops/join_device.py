@@ -7,8 +7,8 @@ working sets for the TPU).  On Hopper the executor's codes are dense
 code addresses its own slot and the join is a counting join
 (csrc/join.cu):
 
-  * J1 `join_build`: histogram of the build codes → cnt[K], its exclusive
-    scan → first[K], and the build rows grouped by code → rows_by_code;
+  * J1 `join_build`: the build rows sorted by code, stably → rows_by_code,
+    and from the sorted codes each code's count cnt[K] and start first[K];
   * J2 `join_probe`: per probe row, its match count cnt[code] and start
     first[code] (codes outside [0, K), such as the executor's null sentinels
     -1 and -2, match nothing), and the total number of pairs;
@@ -23,10 +23,9 @@ Each of join_build / join_probe / join_expand launches its kernel on a CUDA
 tensor and runs the plain PyTorch version beside it on a CPU tensor; a CUDA
 tensor never reaches a plain version.  `device_join_codes` is the entry
 point, with the reference's contract: (build_idx, probe_idx, build_matched,
-probe_matched), pair order unspecified.  On the card the
-pairs come grouped by probe row in probe-row order; within a probe row the
-build rows come in the order J1's atomics gave out their slots, which can
-change from run to run.  The plain versions give build rows ascending.
+probe_matched), pair order unspecified.  On the card and in the plain
+versions the pairs come grouped by probe row in probe-row order, and within
+a probe row in ascending build row.
 
 The gate (`device_join_gate`) is the reference's: PX_DEVICE_JOIN forces it
 (0 off, 1 on); -1 decides from the measured host→device bandwidth on a CUDA
@@ -36,6 +35,7 @@ port does not load, so on a CPU device the auto gate is off.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 import time
 
@@ -112,29 +112,42 @@ def _scratch(n: int, dev) -> torch.Tensor:
     return torch.empty(max(1, -(-n // TILE_ROWS)), dtype=torch.int64, device=dev)
 
 
+@functools.lru_cache(maxsize=256)
+def _build_plan(nb: int, K: int) -> tuple:
+    """px_join_build_scratch's (int32 elements, int64 elements, sort passes,
+    sort tiles) for nb build rows and K codes."""
+    out = (ctypes.c_longlong * 4)()
+    fn = _build.function(_J, "px_join_build_scratch",
+                         [_L, _L, ctypes.POINTER(ctypes.c_longlong)])
+    _build.check(_J, fn(nb, K, out), "join_build scratch")
+    return tuple(out)
+
+
 def join_build(codes: torch.Tensor, K: int):
     """J1 → (cnt[K] int32, first[K] int32, rows_by_code int32): the build
-    rows with a code in [0, K), grouped by code, group c at first[c].  On the
-    card rows_by_code has room for every build row and only its first
-    sum(cnt) entries are written; the plain version returns just those."""
+    rows with a code in [0, K), grouped by code in ascending row order,
+    group c at first[c].  On the card rows_by_code has room for every build
+    row and only its first sum(cnt) entries are written; the plain version
+    returns just those."""
     if not codes.is_cuda:
         return join_build_plain(codes, K)
     _check_codes(codes)
     if not 0 < K <= _INT32_MAX:
         raise ValueError(f"code space of {K} slots is outside the kernel's (0, 2^31)")
     dev, nb = codes.device, codes.shape[0]
+    n32, n64 = _build_plan(nb, K)[:2]
     cnt = torch.empty(K, dtype=torch.int32, device=dev)
     first = torch.empty(K, dtype=torch.int32, device=dev)
-    fill = torch.empty(K, dtype=torch.int32, device=dev)
     rows = torch.empty(nb, dtype=torch.int32, device=dev)
-    # held until the launch is enqueued: a block freed before it could go to
-    # another thread's allocation on this stream, whose kernels J1 would race
-    scratch = _scratch(K, dev)
+    # held until the launches are enqueued: a block freed before them could
+    # go to another thread's allocation on this stream, whose kernels J1
+    # would race
+    s32 = torch.empty(n32, dtype=torch.int32, device=dev)
+    s64 = torch.empty(n64, dtype=torch.int64, device=dev)
     fn = _build.function(_J, "px_join_build", [_P, _L, _L, _P, _P, _P, _P, _P, _P])
     with torch.cuda.device(dev):
-        err = fn(_build.ptr(codes), nb, K, _build.ptr(cnt), _build.ptr(first),
-                 _build.ptr(fill), _build.ptr(rows), _build.ptr(scratch),
-                 _build.stream_of(codes))
+        err = fn(_build.ptr(codes), nb, K, _build.ptr(cnt), _build.ptr(first), _build.ptr(rows),
+                 _build.ptr(s32), _build.ptr(s64), _build.stream_of(codes))
     _build.check(_J, err, "join_build")
     _build.KERNELS[_J].count("px_join_build")
     return cnt, first, rows

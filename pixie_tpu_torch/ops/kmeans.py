@@ -108,11 +108,10 @@ def assign(x: torch.Tensor, c: torch.Tensor):
     k = c.shape[0]
     ids = torch.empty(n, dtype=torch.int64, device=x.device)
     mind = torch.empty(n, dtype=torch.float32, device=x.device)
-    c2 = torch.empty(k, dtype=torch.float32, device=x.device)
-    fn = _build.function(_KM, "px_kmeans_assign", [_P, _L, _I, _P, _I, _P, _P, _P, _P])
+    fn = _build.function(_KM, "px_kmeans_assign", [_P, _L, _I, _P, _I, _P, _P, _P])
     with torch.cuda.device(x.device):
-        err = fn(_build.ptr(x), n, d, _build.ptr(c), k, _build.ptr(c2), _build.ptr(ids),
-                 _build.ptr(mind), _build.stream_of(x))
+        err = fn(_build.ptr(x), n, d, _build.ptr(c), k, _build.ptr(ids), _build.ptr(mind),
+                 _build.stream_of(x))
     _build.check(_KM, err, "kmeans assign")
     _build.KERNELS[_KM].count("px_kmeans_assign")
     return ids, mind

@@ -203,15 +203,67 @@ def test_join_stages_equal_plain(dev):
     cnt, first, rows = jd.join_build(b, K)
     cnt0, first0, rows0 = jd.join_build_plain(b, K)
     assert torch.equal(cnt, cnt0) and torch.equal(first, first0)
-    # rows agree as a set within each code (atomics order them per run);
-    # only the first sum(cnt) slots are written (the -1 rows have none)
-    rows = rows[: rows0.shape[0]]
-    assert torch.equal(torch.sort(b[rows.long()] * (1 << 20) + rows).values,
-                       torch.sort(b[rows0.long()] * (1 << 20) + rows0).values)
+    # within a code the rows come in ascending order, as the plain version's
+    # stable argsort gives them; only the first sum(cnt) slots are written
+    # (the -1 rows have none)
+    assert torch.equal(rows[: rows0.shape[0]], rows0)
     cnt_p, lo_p, total = jd.join_probe(p, cnt, first)
     cnt_p0, lo_p0, total0 = jd.join_probe_plain(p, cnt0, first0)
     assert torch.equal(cnt_p, cnt_p0) and torch.equal(lo_p, lo_p0)
     assert int(total) == int(total0)
+
+
+def _j1_case(dev, case):
+    """(build codes, K, the sort's passes) of a J1 card case."""
+    rng = np.random.default_rng(8)
+    n = (1 << 20) + 77
+    if case == "one_pass":
+        return rng.integers(-1, 200, n), 200, 1
+    if case == "two_passes":
+        return rng.integers(-1, 5000, n), 5000, 2
+    if case == "three_passes":
+        return rng.integers(0, 1 << 24, 1 << 22), 1 << 24, 3
+    if case == "four_passes_after_dense":
+        # K past 2^24 as _dense admits it: build codes up to 4 (nb + np) - 1
+        nb = 1 << 22
+        b = rng.integers(0, 8 * nb, nb)
+        b[0] = 8 * nb - 1
+        bd, _pd, K = jd._dense(torch.from_numpy(b).to(dev),
+                               torch.from_numpy(rng.integers(0, 8 * nb, nb)).to(dev))
+        assert K == 8 * nb > 1 << 24
+        return bd.cpu().numpy(), K, 4
+    if case == "all_one_code":
+        return np.full(n, 12345), 1 << 20, 3
+    if case == "half_one_code":
+        b = rng.integers(0, 1 << 20, n)
+        b[rng.random(n) < 0.5] = 777
+        return b, 1 << 20, 3
+    if case == "sentinels":
+        b = rng.integers(0, 70000, n)
+        b[rng.random(n) < 0.3] = -1
+        return b, 70000, 3
+    if case == "n_4095":
+        return rng.integers(0, 300, 4095), 300, 2
+    assert case == "n_4097"
+    return rng.integers(0, 300, 4097), 300, 2
+
+
+@pytest.mark.parametrize("case", ["one_pass", "two_passes", "three_passes",
+                                  "four_passes_after_dense", "all_one_code", "half_one_code",
+                                  "sentinels", "n_4095", "n_4097"])
+def test_join_build_equals_plain_exactly(dev, case):
+    bh, K, passes = _j1_case(dev, case)
+    b = torch.from_numpy(np.ascontiguousarray(bh, dtype=np.int64)).to(dev)
+    assert jd._build_plan(b.shape[0], K)[2] == passes
+    cnt, first, rows = jd.join_build(b, K)
+    cnt0, first0, rows0 = jd.join_build_plain(b, K)
+    m = rows0.shape[0]
+    assert torch.equal(cnt, cnt0) and torch.equal(first, first0)
+    assert torch.equal(rows[:m], rows0)
+    # two runs give the same bits
+    again = jd.join_build(b, K)
+    assert torch.equal(again[0], cnt) and torch.equal(again[1], first)
+    assert torch.equal(again[2][:m], rows[:m])
 
 
 def test_readback_wave_lands_in_pinned_memory_and_is_counted(dev):
@@ -423,9 +475,11 @@ def _scale(x, c):
 
 #: (n, d, k): the fit's shape at test size, k = 1, more centers than a
 #: block's points, d not a multiple of 4, n not a multiple of the block,
-#: d over one shared-memory tile, k over one register tile
+#: d over one shared-memory tile, k over one register tile, and each side of
+#: where the center tile (8, 32, 64) and the column chunk (64) turn
 _KM_SHAPES = [(1 << 16, 64, 64), (5000, 16, 1), (4099, 8, 300), (3001, 13, 7),
-              (1, 3, 1), (2000, 150, 200), (10000, 64, 129)]
+              (1, 3, 1), (2000, 150, 200), (10000, 64, 129), (4099, 64, 8), (4099, 64, 9),
+              (4099, 64, 32), (4099, 64, 33), (4099, 64, 65), (3001, 64, 64), (3001, 65, 64)]
 
 
 @pytest.mark.parametrize("n,d,k", _KM_SHAPES)
@@ -559,6 +613,20 @@ def _km_edge(dev, case):
 
 _KM_EDGES = ["short", "past", "past_k8", "capped_grid", "skew", "nan", "nan_d13", "unaligned",
              "big_k"]
+
+
+@pytest.mark.parametrize("case", _KM_EDGES)
+def test_kmeans_assign_edges_equal_plain(dev, case):
+    x, c, _w = _km_edge(dev, case)
+    ids, mind = km_ops.assign(x, c)
+    ids0, mind0 = km_ops.assign_plain(x, c)
+    scale = _scale(x, c)
+    _nan_close(mind, mind0, scale, 1e-5)
+    # ids equal except where the two nearest distances are within 1e-5 of
+    # the scale (a row of NaN takes the first center on both)
+    two = torch.topk(km_ops.sq_dists_plain(x, c), 2, dim=1, largest=False).values
+    tie = (two[:, 1] - two[:, 0]) <= 1e-5 * scale
+    assert torch.equal(ids[~tie], ids0[~tie])
 
 
 @pytest.mark.parametrize("case", _KM_EDGES)

@@ -421,3 +421,29 @@ def test_join_stages_plain():
                                                        (1, 4)]
     assert bm.tolist() == [True, True, True, False, True, True]
     assert pm.tolist() == [True, False, True, False, True]
+
+
+_J1_ORDER_CASES = {
+    "uniform": lambda rng: rng.integers(0, 300, 5000),
+    "one_code_half": lambda rng: np.where(rng.random(5000) < 0.5, 7, rng.integers(0, 300, 5000)),
+    "one_code": lambda rng: np.full(4097, 3),
+    "sparse": lambda rng: rng.integers(0, 1 << 20, 3001),
+    "past_a_tile": lambda rng: rng.integers(0, 40, 4097),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_J1_ORDER_CASES))
+def test_join_build_orders_rows_as_the_reference_pack_sort(case):
+    """J1's rows_by_code is the reference's packed sort (code << ib | row):
+    grouped by code, ascending rows within a code, with the same counts."""
+    import torch
+    from pixie_tpu.ops.join_device import _pack_sort
+
+    codes = np.asarray(_J1_ORDER_CASES[case](np.random.default_rng(11)), np.int64)
+    n, K = codes.shape[0], int(codes.max()) + 1
+    ib = max(1, int(n).bit_length())
+    s = np.asarray(_pack_sort(codes, ib, 0))
+    cnt, first, rows = jd.join_build(torch.from_numpy(codes), K)
+    np.testing.assert_array_equal(rows.numpy(), s & ((1 << ib) - 1))
+    np.testing.assert_array_equal(cnt.numpy(), np.bincount(s >> ib, minlength=K))
+    np.testing.assert_array_equal(first.numpy(), np.cumsum(cnt.numpy()) - cnt.numpy())
