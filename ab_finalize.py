@@ -51,6 +51,18 @@ settling ones, ms):
                     join phase's 2^22 codes in [0, 2^20), and on the 2^24
                     codes with half the rows set to one code, timed as g1 is
                     (10 calls a timing);
+  x2, x2_8, x2_skew kernel X2 (the mesh exchange's partition scatter) alone
+                    on chip_smoke's x_inputs (2^24 rows: k int64, s int32
+                    codes, v f64, w int64; seed 19) at 4 partitions, at 8,
+                    and at 4 with one key on half the rows, timed as j1 is;
+  x2_phase          X2 at the mesh exchange's shape: 2^21 rows of time_
+                    int64, k int64, s int32 codes, lv int64, 4 partitions;
+  j3, j3_phase, j3_heavy
+                    kernel J3 (the join's pair expansion) alone after J1
+                    and J2 on 2^24 x 2^24 codes uniform in [0, 2^24), on the
+                    device join phase's 2^22 x 2^22 in [0, 2^20), and on one
+                    key with 4,096 rows a side over 2^20 background rows,
+                    timed as j1 is;
   fit               the kmeans_fit wall at chip_smoke's ml.fit shape (2^20
                     x 64, k = 64, 10 iterations): the median of 5 fits
                     after 2 settling ones, ms.
@@ -214,6 +226,58 @@ if measures & {"j1", "j1_phase", "j1_half"}:
             del b
     del uni, half
 
+if measures & {"x2", "x2_8", "x2_skew", "x2_phase"}:
+    import numpy as np
+    from pixie_tpu_torch.ops import repartition as xr
+
+    def x2_time(keys, cols, nv, n_dev):
+        part, counts, tiles = xr.partition_count(keys, nv, n_dev)
+        cap = int(counts.max())
+        return sorted(cs.cuda_ms(lambda: xr.partition_scatter(part, tiles, counts, cols, n_dev,
+                                                              cap), 10) for _ in range(5))[2]
+
+    rng = np.random.default_rng(19)
+    for label, n_dev, skew in (("x2", 4, False), ("x2_8", 8, False), ("x2_skew", 4, True)):
+        if label in measures:
+            keys, cols, nv = cs.x_inputs(dev, n_dev, skew, rng)
+            out[label] = x2_time(keys, cols, nv, n_dev)
+            del keys, cols
+    if "x2_phase" in measures:
+        # the mesh exchange's shape: one agent's left_t, 2^21 rows of time_
+        # int64, k int64 in [0, 2^20), s int32 codes of 16 services, lv int64
+        n = 1 << 21
+        lut = torch.from_numpy(xr.value_hash_lut([f"svc-{i}" for i in range(16)])).to(dev)
+        cols = [torch.from_numpy(a).to(dev) for a in (
+            np.arange(n, dtype=np.int64), rng.integers(0, 1 << 20, n).astype(np.int64),
+            rng.integers(0, 16, n).astype(np.int32), rng.integers(0, 1 << 40, n))]
+        out["x2_phase"] = x2_time([(cols[1], None), (cols[2], lut)], cols,
+                                  np.full(4, n // 4, dtype=np.int64), 4)
+        del cols
+
+if measures & {"j3", "j3_phase", "j3_heavy"}:
+    import numpy as np
+    from pixie_tpu_torch.ops import join_device as jd
+
+    rng = np.random.default_rng(11)
+    bg = rng.integers(100, 1 << 22, 1 << 20)
+    cases = {"j3": (rng.integers(0, 1 << 24, 1 << 24), rng.integers(0, 1 << 24, 1 << 24)),
+             "j3_phase": (rng.integers(0, 1 << 20, 1 << 22), rng.integers(0, 1 << 20, 1 << 22)),
+             # one key with 4,096 rows a side over 2^20 background rows
+             "j3_heavy": (np.concatenate([np.full(4096, 7), bg]),
+                          np.concatenate([np.full(4096, 7), bg[::-1]]))}
+    for label, (bh, ph) in cases.items():
+        if label in measures:
+            b, p, K = jd._dense(torch.from_numpy(bh.astype(np.int64)).to(dev),
+                                torch.from_numpy(ph.astype(np.int64)).to(dev))
+            cnt, first, rbc = jd.join_build(b, K)
+            cnt_p, lo_p, total = jd.join_probe(p, cnt, first)
+            total = int(total)
+            out[label] = sorted(cs.cuda_ms(lambda: jd.join_expand(cnt_p, lo_p, rbc, b.shape[0],
+                                                                  total), 10)
+                                for _ in range(5))[2]
+            del b, p, cnt, first, rbc, cnt_p, lo_p
+    del bg, cases
+
 if "fit" in measures:
     from pixie_tpu_torch.ml import kmeans_fit
 
@@ -284,7 +348,9 @@ MEASURES = {"one_feed": False, "four_feeds": False, "four_feeds_mesh4": False,
             "c1_config2": False, "k2": False, "k2_config2": False, "km1": False,
             "km2": False, "km3": False, "km1_leaf": False, "km2_leaf": False,
             "km3_leaf": False, "km1_merge": False, "km2_merge": False, "j1": False,
-            "j1_phase": False, "j1_half": False, "fit": False}
+            "j1_phase": False, "j1_half": False, "x2": False, "x2_8": False,
+            "x2_skew": False, "x2_phase": False, "j3": False, "j3_phase": False,
+            "j3_heavy": False, "fit": False}
 
 
 def quartiles(xs: list) -> tuple[float, float, float]:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""A/B of one design choice of C1, K2, KM1-KM3 or J1 against its
-alternative, end to end of the kernel, on one CUDA card; and where KM2's
-time goes.
+"""A/B of one design choice of C1, K2, KM1-KM3, J1, J3 or X2 against its
+alternative, end to end of the kernel, on one CUDA card; and where KM2's,
+KM1's, X2's and J3's time goes.
 
     python3 ab_kernels.py CHOICE [--pairs N]
 
@@ -48,7 +48,32 @@ its "other" the alternative.
              rows a thread), where the checkout takes 8 bits (csrc/join.cu)
              — measures j1, j1_phase, j1_half;
   j1_match   J1's rank with __match_any_sync where the checkout takes a
-             ballot a digit bit (csrc/join.cu) — measures j1, j1_phase.
+             ballot a digit bit (csrc/join.cu) — measures j1, j1_phase;
+  x2_match   X2's rank with __match_any_sync where the checkout takes a
+             ballot a bit of the target (csrc/repartition.cu);
+  x2_no_overlap
+             X2 waiting for the next column's copy before it writes the
+             current one (no overlap of the two);
+  x2_gather  X2 writing each column gathered through the tile's
+             permutation straight from device memory, not staged in
+             shared memory;
+  x2_torch_scan
+             the tiles' first ranks by torch.cumsum in the wrapper
+             (ops/repartition.py), not X2's tile_scan launch — the x2
+             choices measure x2, x2_8, x2_phase;
+  j3_pairs4096, j3_pairs8192
+             J3 at 4,096 or 8,192 pairs a block where the checkout takes
+             2,048 (csrc/join.cu);
+  j3_bounds3 J3's expand at 3 blocks a SM (2 in the checkout);
+  j3_ilp     J3 taking 8 pairs a thread a round, their loads in flight
+             together;
+  j3_every_pair
+             J3 setting a build row's bit from every pair, without first
+             reading whether it is set;
+  j3_owners  J3's counts pass claiming each matched code's run for one
+             probe row (an atomicOr that returns the old bit), whose pairs
+             alone set the bits (also ops/join_device.py) — the j3 choices
+             measure j3, j3_phase, j3_heavy.
 
 Where KM2's time goes: these switch one part of KM2 off and compute wrong
 sums, so only their times are read (measures km2, km2_leaf):
@@ -66,6 +91,14 @@ KM2's, so these edit both):
   km1_stream_only    no distances: x streamed into shared memory, each
                      point's nearest left at its start;
   km1_no_x2          the |x|^2 chain off (distances without it).
+
+Where X2's and J3's time goes, the same way (wrong outputs, times only):
+
+  x2_stage_only      the columns staged but not written (x2, x2_8);
+  j3_no_bits         build_matched's bits not set;
+  j3_no_gather       the pairs' build rows not read from rows_by_code;
+  j3_no_pairs        no pair written: the counts pass, the scan and the
+                     expand blocks' search and tile scans alone.
 
 It needs one CUDA card (ab_finalize.py exits non-zero without one).
 """
@@ -216,7 +249,155 @@ _J1_BALLOTS = """    unsigned peers = __ballot_sync(0xffffffffu, mine);
       peers &= on ? bal : ~bal;
     }"""
 
-#: choice → ([(file under pixie_tpu_torch/csrc, text, its replacement)], measures)
+# X2's rank of a round's lanes by target
+_X2_BALLOTS = """    unsigned peers = __ballot_sync(0xffffffffu, mine);
+    if (!mine) peers = ~peers;
+    for (int bit = 0; bit < bits; ++bit) {
+      const bool on = (p >> bit) & 1;
+      const unsigned bal = __ballot_sync(0xffffffffu, on);
+      peers &= on ? bal : ~bal;
+    }"""
+
+# J3: the pair loop's head (one pair a thread a round) and its ILP form
+_J3_ONE = """    for (long long q = a + tid; q < b; q += kExpandBlock) {
+      const long long local = q - base;"""
+_J3_LOOP = """    for (long long q = a + tid; q < b; q += kExpandBlock) {
+      const long long local = q - base;
+      // the last row of the tile whose offset is at most local (its count
+      // is not 0, since the next row's offset is past local)
+      int x = 0;
+#pragma unroll
+      for (int step = px_scan::kTile / 2; step > 0; step >>= 1) {
+        if (soff[x + step] <= local) x += step;
+      }
+      const long long r = r0 + x;
+      const int bi = rows[lo_p[r] + static_cast<int>(local - soff[x])];
+      bidx[q] = bi;
+      pidx[q] = r;
+"""
+_J3_ILP = """    for (long long qa = a + tid; qa < b; qa += kExpandPairs) {
+      int x[8], bi[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const long long local = qa + k * kExpandBlock - base;
+        int y = 0;
+#pragma unroll
+        for (int step = px_scan::kTile / 2; step > 0; step >>= 1) {
+          if (soff[y + step] <= local) y += step;
+        }
+        x[k] = y;
+        bi[k] = static_cast<int>(local - soff[y]);
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if (qa + k * kExpandBlock < b) bi[k] += lo_p[r0 + x[k]];
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if (qa + k * kExpandBlock < b) bi[k] = rows[bi[k]];
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const long long q = qa + k * kExpandBlock;
+        if (q < b) {
+          bidx[q] = bi[k];
+          pidx[q] = r0 + x[k];
+          const unsigned bit = 1u << (bi[k] & 31);
+          if ((bits[bi[k] >> 5] & bit) == 0) atomicOr(bits + (bi[k] >> 5), bit);
+        }
+      }
+    }
+    for (long long q = b; q < b; q += kExpandBlock) {
+      const long long local = q - base;"""
+_J3_CHECK = "      if ((bits[bi >> 5] & bit) == 0) atomicOr(bits + (bi >> 5), bit);"
+# J3 with owners: each matched probe row claims its code's run in the counts
+# pass (an atomicOr returning the old bit of its lo), and only the claiming
+# row's pairs set build_matched bits
+_J3_COUNT = """__global__ void __launch_bounds__(kCountBlock) count_tiles(const int* __restrict__ cnt_p,
+                                                           long long n,
+                                                           long long* __restrict__ partial,
+                                                           uint8_t* __restrict__ pm) {
+  const long long base = static_cast<long long>(blockIdx.x) * px_scan::kTile;
+  long long sum = 0;
+#pragma unroll
+  for (int k = 0; k < px_scan::kTile / (4 * kCountBlock); ++k) {
+    const long long i = base + (static_cast<long long>(k) * kCountBlock + threadIdx.x) * 4;
+    if (i + 4 <= n) {
+      const int4 c = __ldcs(reinterpret_cast<const int4*>(cnt_p + i));
+      sum += static_cast<long long>(c.x) + c.y + c.z + c.w;
+      *reinterpret_cast<uchar4*>(pm + i) = make_uchar4(c.x > 0, c.y > 0, c.z > 0, c.w > 0);
+    } else {
+      for (long long j = i; j < n; ++j) {
+        const int c = cnt_p[j];
+        sum += c;
+        pm[j] = c > 0;
+      }
+    }
+  }"""
+_J3_COUNT_OWNERS = """__global__ void __launch_bounds__(kCountBlock) count_tiles(
+    const int* __restrict__ cnt_p, const int* __restrict__ lo_p, long long n,
+    long long* __restrict__ partial, uint8_t* __restrict__ pm, unsigned* __restrict__ runs,
+    uint8_t* __restrict__ owner) {
+  const long long base = static_cast<long long>(blockIdx.x) * px_scan::kTile;
+  long long sum = 0;
+  auto claim = [runs](int c, int lo) -> uint8_t {
+    if (c <= 0) return 0;
+    const unsigned bit = 1u << (lo & 31);
+    return (atomicOr(runs + (lo >> 5), bit) & bit) == 0;
+  };
+#pragma unroll
+  for (int k = 0; k < px_scan::kTile / (4 * kCountBlock); ++k) {
+    const long long i = base + (static_cast<long long>(k) * kCountBlock + threadIdx.x) * 4;
+    if (i + 4 <= n) {
+      const int4 c = __ldcs(reinterpret_cast<const int4*>(cnt_p + i));
+      const int4 lo = __ldcs(reinterpret_cast<const int4*>(lo_p + i));
+      sum += static_cast<long long>(c.x) + c.y + c.z + c.w;
+      *reinterpret_cast<uchar4*>(pm + i) = make_uchar4(c.x > 0, c.y > 0, c.z > 0, c.w > 0);
+      *reinterpret_cast<uchar4*>(owner + i) = make_uchar4(
+          claim(c.x, lo.x), claim(c.y, lo.y), claim(c.z, lo.z), claim(c.w, lo.w));
+    } else {
+      for (long long j = i; j < n; ++j) {
+        const int c = cnt_p[j];
+        sum += c;
+        pm[j] = c > 0;
+        owner[j] = claim(c, lo_p[j]);
+      }
+    }
+  }"""
+_J3_OWNERS = [
+    ("join.cu", _J3_COUNT, _J3_COUNT_OWNERS),
+    ("join.cu", "    long long total, long long* __restrict__ bidx, long long* __restrict__ pidx,\n"
+                "    unsigned* __restrict__ bits) {",
+     "    long long total, const uint8_t* __restrict__ owner, long long* __restrict__ bidx,\n"
+     "    long long* __restrict__ pidx, unsigned* __restrict__ bits) {"),
+    ("join.cu", _J3_CHECK, "      if (owner[r]) atomicOr(bits + (bi >> 5), bit);"),
+    ("join.cu", "                              long long* partial, unsigned* bits, long long* bidx,\n"
+                "                              long long* pidx, uint8_t* bm, uint8_t* pm, void* stream) {",
+     "                              long long* partial, unsigned* bits, long long* bidx,\n"
+     "                              long long* pidx, uint8_t* bm, uint8_t* pm, void* stream) {\n"
+     "  uint8_t* owner = reinterpret_cast<uint8_t*>(bits + 2 * ((nb + 31) / 32));"),
+    ("join.cu", "  cudaError_t e = cudaMemsetAsync(bits, 0, static_cast<size_t>(words) * sizeof(unsigned), s);",
+     "  cudaError_t e =\n      cudaMemsetAsync(bits, 0, static_cast<size_t>(2 * words) * sizeof(unsigned), s);"),
+    ("join.cu", "    count_tiles<<<static_cast<unsigned>(nt), kCountBlock, 0, s>>>(cnt_p, npr, partial, pm);",
+     "    count_tiles<<<static_cast<unsigned>(nt), kCountBlock, 0, s>>>(cnt_p, lo_p, npr, partial, pm,\n"
+     "                                                                 bits + words, owner);"),
+    ("join.cu", "                                                                  partial, nt, total, bidx, pidx,\n"
+                "                                                                  bits);",
+     "                                                                  partial, nt, total, owner, bidx,\n"
+     "                                                                  pidx, bits);"),
+    ("ops/join_device.py", "    bits = torch.empty(max(1, -(-nb // 32)), dtype=torch.int32, device=dev)",
+     "    bits = torch.empty(2 * -(-nb // 32) + -(-max(1, npr) // 4) + 4, dtype=torch.int32,\n"
+     "                       device=dev)"),
+    ("ops/join_device.py", "    if cnt_p.data_ptr() % 16:  # J3 reads the counts in 16-byte vectors\n"
+                           "        cnt_p = cnt_p.clone()",
+     "    if cnt_p.data_ptr() % 16:  # J3 reads the counts in 16-byte vectors\n"
+     "        cnt_p = cnt_p.clone()\n"
+     "    if lo_p.data_ptr() % 16:\n"
+     "        lo_p = lo_p.clone()"),
+]
+
+#: choice → ([(file under pixie_tpu_torch/csrc, or a path under
+#: pixie_tpu_torch with a "/", text, its replacement)], measures)
 CHOICES = {
     "c1_rows4": ([("chain.cu",
                    "  if (slots * 8 * kBlock * 8 <= kSmallSmem) return launch<8>(*p, s);\n",
@@ -264,6 +445,45 @@ CHOICES = {
     "j1_match": ([("join.cu", _J1_BALLOTS,
                    "    const unsigned peers = __match_any_sync(0xffffffffu, dg);")],
                  "j1,j1_phase"),
+    "x2_match": ([("repartition.cu", _X2_BALLOTS,
+                   "    const unsigned peers = __match_any_sync(0xffffffffu, p);")],
+                 "x2,x2_8,x2_phase"),
+    "x2_no_overlap": ([("repartition.cu", "      cp_async_wait<1>();", "      cp_async_wait<0>();")],
+                      "x2,x2_8,x2_phase"),
+    "x2_gather": ([("repartition.cu",
+                    "  if ((reinterpret_cast<uintptr_t>(g) & 15) == 0) {\n    const int nv",
+                    "  if (false) {\n    const int nv"),
+                   ("repartition.cu", "  for (int b = done + threadIdx.x * col.width; b < bytes;",
+                    "  for (int b = bytes; b < bytes;"),
+                   ("repartition.cu", "    const unsigned char* buf = sbuf[c & 1];",
+                    "    const unsigned char* buf = col.src + (row0 + lo) * col.width;")],
+                  "x2,x2_8,x2_phase"),
+    "x2_torch_scan": ([("ops/repartition.py", "    tile_first = torch.empty_like(tile_counts)",
+                        "    tile_first = (torch.cumsum(tile_counts, 1) - tile_counts).contiguous()"),
+                       ("repartition.cu", "  tile_scan<<<dim3(", "  if (false) tile_scan<<<dim3(")],
+                      "x2,x2_8,x2_phase"),
+    "x2_stage_only": ([("repartition.cu", "    if (d < send[q]) dst[d] = sbuf[sperm[j]];",
+                        "    if (d < 0) dst[d] = sbuf[sperm[j]];")], "x2,x2_8"),
+    "j3_ilp": ([("join.cu", _J3_ONE, _J3_ILP)], "j3,j3_phase,j3_heavy"),
+    "j3_pairs4096": ([("join.cu", "constexpr int kExpandPairs = 2048; ",
+                       "constexpr int kExpandPairs = 4096; ")], "j3,j3_phase,j3_heavy"),
+    "j3_pairs8192": ([("join.cu", "constexpr int kExpandPairs = 2048; ",
+                       "constexpr int kExpandPairs = 8192; ")], "j3,j3_phase,j3_heavy"),
+    "j3_bounds3": ([("join.cu", "constexpr int kExpandPerSM = 2; ",
+                     "constexpr int kExpandPerSM = 3; ")], "j3,j3_phase,j3_heavy"),
+    "j3_every_pair": ([("join.cu", _J3_CHECK, "      atomicOr(bits + (bi >> 5), bit);")],
+                      "j3,j3_phase,j3_heavy"),
+    "j3_owners": (_J3_OWNERS, "j3,j3_phase,j3_heavy"),
+    "j3_no_bits": ([("join.cu", _J3_CHECK, "      if (bi < 0) atomicOr(bits + (bi >> 5), bit);")],
+                   "j3,j3_phase,j3_heavy"),
+    "j3_no_gather": ([("join.cu", "      const int bi = rows[lo_p[r] + static_cast<int>(local - soff[x])];",
+                       "      const int bi = (lo_p[r] + static_cast<int>(local - soff[x])) % nb32;"),
+                      ("join.cu", "  const long long q1 = min(q0 + kExpandPairs, total);\n",
+                       "  const long long q1 = min(q0 + kExpandPairs, total);\n"
+                       "  const int nb32 = 1 << 20;\n")],
+                     "j3,j3_phase,j3_heavy"),
+    "j3_no_pairs": ([("join.cu", _J3_ONE, _J3_ONE.replace("q < b;", "q < a;"))],
+                    "j3,j3_phase,j3_heavy"),
     "km2_no_accumulate": ([_KM2_ACC], "km2,km2_leaf"),
     "km2_no_tail": ([_KM2_TAIL], "km2,km2_leaf"),
     "km2_stream_only": ([_KM2_ACC, _KM2_DIST], "km2,km2_leaf"),
@@ -278,11 +498,13 @@ def write_alternative(here: pathlib.Path, choice: str) -> pathlib.Path:
     out = here / "_archive" / "ab_kernels" / choice
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
+    # the built libraries come along: each is named by a digest of its
+    # sources, so only the edited one builds again
     shutil.copytree(here / "pixie_tpu_torch", out / "pixie_tpu_torch",
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+                    ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy2(here / "chip_smoke.py", out / "chip_smoke.py")
     for name, old, new in CHOICES[choice][0]:
-        path = out / "pixie_tpu_torch" / "csrc" / name
+        path = out / "pixie_tpu_torch" / ("" if "/" in name else "csrc") / name
         text = path.read_text()
         if text.count(old) != 1:
             raise SystemExit(f"ab_kernels: {choice}: the text to replace is not in {name} "

@@ -764,6 +764,58 @@ def j1_shapes(dev, b, K: int, rng) -> dict:
     return out
 
 
+def j3_timed(dev, label: str, bh, ph) -> dict:
+    """J3 held in order against its plain version on J1's and J2's outputs
+    for build codes bh and probe codes ph (numpy), then timed: CUDA events,
+    device time, host microseconds a call, its plain version, and its bound
+    (each probe row's count and lo read once, each matched build row's
+    entry of rows_by_code read once, the pairs and both flags written
+    once)."""
+    import torch
+
+    from pixie_tpu_torch.ops import join_device as jd
+
+    b, p, K = jd._dense(torch.from_numpy(bh.astype(np.int64)).to(dev),
+                        torch.from_numpy(ph.astype(np.int64)).to(dev))
+    cnt, first, rbc = jd.join_build(b, K)
+    cnt_p, lo_p, total = jd.join_probe(p, cnt, first)
+    total = int(total)
+    nb, npr = b.shape[0], p.shape[0]
+    got = jd.join_expand(cnt_p, lo_p, rbc, nb, total)
+    want = jd.join_expand_plain(cnt_p, lo_p, rbc, nb, total)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"J3 {label}: kernel and plain version disagree (in order)")
+    matched = int(got[2].sum())
+    b_ms, by = bound(npr * 8 + matched * 4 + total * 16 + nb + npr)
+    del got, want
+
+    def kern():
+        return jd.join_expand(cnt_p, lo_p, rbc, nb, total)
+
+    return {"build": nb, "probe": npr, "K": K, "pairs": total, "ms": cuda_ms(kern, 10),
+            "device_ms": kernel_device_ms(kern, 10), "host_us": host_us(kern, 50),
+            "plain_ms": cuda_ms(lambda: jd.join_expand_plain(cnt_p, lo_p, rbc, nb, total), 3, 1),
+            "bound_ms": b_ms, "bound_by": by}
+
+
+def j3_shapes(dev) -> dict:
+    """J3 held and timed at the device join phase's shape (2^22 x 2^22
+    codes in [0, 2^20): about 4 pairs a probe row) and at the heavy key
+    (4,096 rows a side on one key over 2^20 background rows: 16M pairs
+    from 4,096 probe rows); → their details."""
+    rng = np.random.default_rng(12)
+    n = J1_PHASE_ROWS
+    out = {"phase": j3_timed(dev, "the join phase's shape", rng.integers(0, J1_PHASE_KEYS, n),
+                             rng.integers(0, J1_PHASE_KEYS, n))}
+    bg = rng.integers(100, 1 << 22, 1 << 20)
+    out["heavy_key"] = j3_timed(dev, "one key, 4096 rows a side",
+                                np.concatenate([np.full(4096, 7), bg]),
+                                np.concatenate([np.full(4096, 7), bg[::-1]]))
+    log(json.dumps({"kernel_detail": "join.expand", **out}))
+    return out
+
+
 def check_new_kernels(dev) -> list[dict]:
     """K1 min/max timed at the sorted path's shape; K4 and J1-J3 held
     against their plain versions.  Returns their kernel rows."""
@@ -888,8 +940,9 @@ def check_new_kernels(dev) -> list[dict]:
         "J1 rows_by_code": torch.equal(rbc[:rbc0.shape[0]], rbc0),
         "J2 count/lo/total": (torch.equal(cnt_p, cnt_p0) and torch.equal(lo_p, lo_p0)
                               and total == int(total0)),
-        "J3 pairs": torch.equal(torch.sort(bidx * nj + pidx).values,
-                                torch.sort(bidx0 * nj + pidx0).values),
+        # grouped by probe row in probe-row order, ascending build rows
+        # within a probe row: the plain version's order exactly
+        "J3 pairs in order": torch.equal(bidx, bidx0) and torch.equal(pidx, pidx0),
         "J3 matched flags": torch.equal(bm, bm0) and torch.equal(pm, pm0),
     }
     bad = [k for k, ok in checks.items() if not ok]
@@ -921,6 +974,7 @@ def check_new_kernels(dev) -> list[dict]:
             "shape": {"build": nj, "probe": nj, "K": K, "pairs": total},
         })
     rows[-3]["shape"].update(j1_shapes(dev, b2, K, rng))
+    rows[-1]["shape"].update(j3_shapes(dev))
     del cnt, first, rbc, cnt_p, lo_p, bidx, pidx, bm, pm
     del cnt0, first0, rbc0, cnt_p0, lo_p0, bidx0, pidx0, bm0, pm0, b2, p2
 
@@ -945,9 +999,7 @@ def check_new_kernels(dev) -> list[dict]:
         bc, pc = t(bh.astype(np.int64)), t(ph.astype(np.int64))
         gi, gp, gbm, gpm = (t(x) for x in jd.device_join_codes(bc, pc))
         wi, wp, wbm, wpm = plain_join(bc, pc)
-        npr = pc.shape[0]
-        ok = (gi.shape == wi.shape
-              and torch.equal(torch.sort(gi * npr + gp).values, torch.sort(wi * npr + wp).values)
+        ok = (gi.shape == wi.shape and torch.equal(gi, wi) and torch.equal(gp, wp)
               and torch.equal(gbm, wbm) and torch.equal(gpm, wpm))
         if not ok:
             raise AssertionError(f"J1-J3 {label}: kernels and plain route disagree")
@@ -4440,12 +4492,38 @@ def x_inputs(dev, n_dev: int, skew: bool, rng):
     return [(cols[0], None), (cols[1], lut)], cols, nv
 
 
+#: the mesh exchange's shape: one agent's left_t (time_exchange)
+X_PHASE_ROWS = 1 << 21
+X_PHASE_LABEL = "the mesh exchange's shape, 4 partitions"
+
+
+def x_phase_inputs(dev):
+    """One agent's left_t as the mesh exchange sends it: X_PHASE_ROWS rows
+    of time_ (int64), k (int64 in [0, MESH_JOIN_KEYS)), s (int32 codes of
+    N_SERVICES services) and lv (int64), keyed on (k, s), over MESH_SHARDS
+    shards."""
+    import torch
+
+    from pixie_tpu_torch.ops import repartition as xr
+
+    rng = np.random.default_rng(20)
+    n = X_PHASE_ROWS
+    cols = [torch.from_numpy(a).to(dev) for a in (
+        np.arange(n, dtype=np.int64), rng.integers(0, MESH_JOIN_KEYS, n).astype(np.int64),
+        rng.integers(0, N_SERVICES, n).astype(np.int32), rng.integers(0, 1 << 40, n))]
+    lut = torch.from_numpy(xr.value_hash_lut([f"svc-{i}" for i in range(N_SERVICES)])).to(dev)
+    return ([(cols[1], None), (cols[2], lut)], cols,
+            np.full(MESH_SHARDS, n // MESH_SHARDS, dtype=np.int64))
+
+
 def check_repartition_kernels(dev) -> list[dict]:
     """X1 and X2 held against their plain versions at X_ROWS rows over 4
-    and 8 partitions, and over 4 with one key holding half the rows: part,
+    and 8 partitions, over 4 with one key holding half the rows, and at the
+    mesh exchange's own shape (x_phase_inputs): part,
     the counts and the tile counts exactly; the received counts exactly and
-    every block's received rows bit for bit.  Timed (CUDA events) beside the
-    plain versions and the bound; no single PyTorch call partitions stably,
+    every block's received rows bit for bit.  Timed (CUDA events; X2 also
+    device time and host microseconds a call) beside the plain versions and
+    the bound; no single PyTorch call partitions stably,
     so the library column is null.  Rows: X1, X2 at 4 partitions."""
     import torch
 
@@ -4454,8 +4532,13 @@ def check_repartition_kernels(dev) -> list[dict]:
     rng = np.random.default_rng(19)
     out = {}
     for label, n_dev, skew in (("4 partitions", 4, False), ("8 partitions", 8, False),
-                               ("4 partitions, one key half the rows", 4, True)):
-        keys, cols, nv = x_inputs(dev, n_dev, skew, rng)
+                               ("4 partitions, one key half the rows", 4, True),
+                               (X_PHASE_LABEL, MESH_SHARDS, False)):
+        if label == X_PHASE_LABEL:
+            keys, cols, nv = x_phase_inputs(dev)
+        else:
+            keys, cols, nv = x_inputs(dev, n_dev, skew, rng)
+        n = cols[0].shape[0]
         part, counts, tiles = xr.partition_count(keys, nv, n_dev)
         wpart, wcounts, wtiles = xr.partition_count_plain(keys, nv, n_dev)
         torch.cuda.synchronize()
@@ -4466,24 +4549,28 @@ def check_repartition_kernels(dev) -> list[dict]:
         outs, recv = xr.partition_scatter(part, tiles, counts, cols, n_dev, cap)
         wouts, wrecv = xr.partition_scatter_plain(part, tiles, counts, cols, n_dev, cap)
         torch.cuda.synchronize()
-        if not torch.equal(recv, wrecv) or int(recv.sum()) != X_ROWS:
+        if not torch.equal(recv, wrecv) or int(recv.sum()) != n:
             raise AssertionError(f"X2 {label}: received counts differ or lost rows")
         valid = torch.arange(cap, device=dev).view(1, cap) < recv.view(-1, 1)
         for g, w in zip(outs, wouts):
             if not torch.equal(g.view(-1, cap)[valid], w.view(-1, cap)[valid]):
                 raise AssertionError(f"X2 {label}: kernel and plain version disagree")
         del wouts
-        x1_bytes = X_ROWS * (8 + 4 + 4)
-        x2_bytes = X_ROWS * (4 + 2 * sum(c.element_size() for c in cols))
+        x1_bytes = n * (8 + 4 + 4)
+        x2_bytes = n * (4 + 2 * sum(c.element_size() for c in cols))
         b1, by1 = bound(x1_bytes)
         b2, by2 = bound(x2_bytes)
+
+        def x2():
+            return xr.partition_scatter(part, tiles, counts, cols, n_dev, cap)
+
         out[label] = {
-            "partitions": n_dev, "cap": cap, "skew": skew,
+            "rows": n, "partitions": n_dev, "cap": cap, "skew": skew,
             "x1_ms": cuda_ms(lambda: xr.partition_count(keys, nv, n_dev), 20),
             "x1_plain_ms": cuda_ms(lambda: xr.partition_count_plain(keys, nv, n_dev), 3),
             "x1_bound_ms": b1, "x1_bound_by": by1,
-            "x2_ms": cuda_ms(lambda: xr.partition_scatter(part, tiles, counts, cols, n_dev,
-                                                          cap), 10),
+            "x2_ms": cuda_ms(x2, 10), "x2_device_ms": kernel_device_ms(x2, 10),
+            "x2_host_us": host_us(x2, 50),
             "x2_plain_ms": cuda_ms(lambda: xr.partition_scatter_plain(
                 part, tiles, counts, cols, n_dev, cap), 3),
             "x2_bound_ms": b2, "x2_bound_by": by2}
@@ -4493,7 +4580,7 @@ def check_repartition_kernels(dev) -> list[dict]:
         torch.cuda.empty_cache()
     main = out["4 partitions"]
     shape = {"rows": X_ROWS, "columns": "k int64, s int32 codes, v f64, w int64",
-             "cases": out}
+             "phase_columns": "time_ int64, k int64, s int32 codes, lv int64", "cases": out}
     return [{
         "name": "partition_count", "route": "cuda",
         "source": "pixie_tpu_torch/csrc/repartition.cu",

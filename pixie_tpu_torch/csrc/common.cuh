@@ -51,6 +51,28 @@ static long long px_grid(Kernel kernel, long long n, int block, size_t smem) {
   return grid < 1 ? 1 : grid;
 }
 
+// Asynchronous copies from device memory into shared memory (cp.async):
+// 16 bytes (both addresses 16-byte aligned, L2 only) or 4, then a group
+// committed and waited for until at most N groups are in flight.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Makes `device` the calling thread's current device for one launch and
 // restores the caller's device on return.  A wrapper that passes its
 // tensors' device index here needs no device context of its own on the host

@@ -27,11 +27,30 @@
 //  J2 px_join_probe:  per probe row, count = cnt[code] and lo = first[code]
 //     (0 and 0 for a code outside [0, K): the executor's null sentinels -1 and
 //     -2 never match); each warp adds its partial count into one int64 total.
-//  J3 px_join_expand: exclusive scan of the counts into each probe row's pair
-//     offset, then ONE WARP PER PROBE ROW writes its pairs
-//     (rows_by_code[lo + j], row) for j < count, lanes striding over j, so a
-//     heavy key spreads over 32 lanes instead of one thread; build_matched is
-//     set for every build row written, probe_matched for count > 0.
+//  J3 px_join_expand: load-balanced over the pairs.  One pass sums the
+//     counts of each 4,096-row tile of probe rows and writes probe_matched;
+//     one block scans the tiles' sums.  Then each expand block takes 2,048
+//     consecutive pairs, scans the counts of the tile (or tiles) they come
+//     from in shared memory, and each thread finds its pair's probe row by
+//     a binary search over those offsets and writes (rows_by_code[lo + j],
+//     row).  A block's stores are one contiguous run; a row of 1-4 pairs
+//     costs a thread, not a warp; a heavy key (4,096 rows a side: 16M
+//     pairs) spreads over 8,192 blocks on the whole card.  build_matched is
+//     kept as bits in the L2 (nb / 8 bytes), a bit set by an atomicOr from
+//     the pairs that find it clear (a key met by many probe rows would
+//     otherwise queue an atomic on the same word from each of its pairs),
+//     then written out as bytes by a coalesced pass.  No per-row offsets in
+//     device memory and no byte stores scattered over build_matched.
+//     Alternatives (ab_kernels.py): 4,096 pairs a block lost at the heavy key
+//     (j3_pairs4096); a bit set by every pair won at the uniform and phase
+//     shapes and lost 20x at the heavy key (j3_every_pair); each matched
+//     code's run claimed by one probe row in the counts pass, whose pairs
+//     alone set the bits, won at the phase's shape and the heavy key and
+//     lost at uniform, and its claims are atomics that return, which probe
+//     rows sharing one code would queue on one word (j3_owners); eight
+//     pairs a thread with their loads in flight together, 8,192 pairs a
+//     block and three blocks a SM made no clear difference (j3_ilp,
+//     j3_pairs8192, j3_bounds3).
 //
 // Pair order: pairs come grouped by probe row in probe-row order, and within
 // a probe row in ascending build row (the order of rows_by_code).  The join
@@ -41,8 +60,9 @@
 // Bound on the H100: bytes.  At 16M x 16M codes uniform in [0, 16M) (K = 16M,
 // ~16M pairs): J1 reads 128 MB of codes and writes cnt, first (64 MB each)
 // and rows_by_code (64 MB); J2 reads 128 MB of codes plus the gathered slots
-// and writes 128 MB of (count, lo); J3 reads (count, lo, offset) and
-// rows_by_code and writes 256 MB of pairs and 32 MB of flags.  J1's sort
+// and writes 128 MB of (count, lo); J3 reads (count, lo) and rows_by_code
+// and writes 256 MB of pairs and 32 MB of flags.  J3's gather of
+// rows_by_code is random (a probe row's lo), a 32-byte sector a pair.  J1's sort
 // moves more than that: at K = 16M three passes each read the keys twice
 // and write keys and rows once (about 20 bytes a row a pass).
 
@@ -512,29 +532,155 @@ __global__ void __launch_bounds__(kBlock) probe(const long long* __restrict__ co
   }
 }
 
-__global__ void __launch_bounds__(kBlock) expand(const int* __restrict__ cnt_p,
-                                                 const int* __restrict__ lo_p,
-                                                 const long long* __restrict__ offs,
-                                                 long long npr, const int* __restrict__ rows,
-                                                 long long* __restrict__ bidx,
-                                                 long long* __restrict__ pidx,
-                                                 uint8_t* __restrict__ bm,
-                                                 uint8_t* __restrict__ pm) {
-  const int lane = threadIdx.x & 31;
-  const long long warp = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const long long nwarps = (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
-  for (long long r = warp; r < npr; r += nwarps) {
-    const int c = cnt_p[r];
-    if (lane == 0) pm[r] = c > 0 ? 1 : 0;
-    if (c == 0) continue;
-    const long long at = offs[r];
-    const int lo = lo_p[r];
-    for (int j = lane; j < c; j += 32) {
-      const int b = rows[lo + j];
-      bidx[at + j] = b;
-      pidx[at + j] = r;
-      bm[b] = 1;
+// J3.  Pair q of the join lies in probe row r where off[r] <= q < off[r] +
+// cnt_p[r], off the exclusive sum of the counts.  Only the tiles' sums are
+// scanned in device memory; an expand block takes kExpandPairs consecutive
+// pairs, finds the tile of its first pair (a 32-way search a step over the
+// tiles' offsets) and scans that tile's counts in shared memory; each
+// thread then finds its pair's row by a binary search over the tile's
+// offsets.  So a block's stores are one contiguous run of bidx and pidx
+// (neighbouring threads on neighbouring pairs), a probe row of 1-4 pairs
+// costs a thread, and a heavy row is spread over as many blocks as its
+// pairs fill.
+
+constexpr int kCountBlock = px_scan::kBlock;          // threads of a counts block
+constexpr int kExpandBlock = 512;                     // threads of an expand block
+constexpr int kExpandRows = px_scan::kTile / kExpandBlock;  // a tile's rows a thread: 8
+constexpr int kExpandPairs = 2048;                    // pairs an expand block writes
+constexpr int kExpandPerSM = 2;                       // expand blocks a SM
+
+// partial[t] = the counts' sum over tile t of px_scan::kTile probe rows, and
+// pm[i] = count > 0 for its rows; 4 rows a thread a round, 16-byte loads.
+__global__ void __launch_bounds__(kCountBlock) count_tiles(const int* __restrict__ cnt_p,
+                                                           long long n,
+                                                           long long* __restrict__ partial,
+                                                           uint8_t* __restrict__ pm) {
+  const long long base = static_cast<long long>(blockIdx.x) * px_scan::kTile;
+  long long sum = 0;
+#pragma unroll
+  for (int k = 0; k < px_scan::kTile / (4 * kCountBlock); ++k) {
+    const long long i = base + (static_cast<long long>(k) * kCountBlock + threadIdx.x) * 4;
+    if (i + 4 <= n) {
+      const int4 c = __ldcs(reinterpret_cast<const int4*>(cnt_p + i));
+      sum += static_cast<long long>(c.x) + c.y + c.z + c.w;
+      *reinterpret_cast<uchar4*>(pm + i) = make_uchar4(c.x > 0, c.y > 0, c.z > 0, c.w > 0);
+    } else {
+      for (long long j = i; j < n; ++j) {
+        const int c = cnt_p[j];
+        sum += c;
+        pm[j] = c > 0;
+      }
     }
+  }
+  long long total;
+  px_scan::block_excl_scan(sum, &total);
+  if (threadIdx.x == 0) partial[blockIdx.x] = total;
+}
+
+// The last t in [0, n) with a[t] <= x, where a is nondecreasing and a[0] <=
+// x: a 32-way search by one warp (each step a load a lane and a ballot).
+__device__ __forceinline__ long long warp_last_le(const long long* __restrict__ a, long long n,
+                                                  long long x) {
+  const int lane = threadIdx.x & 31;
+  long long lo = 0, len = n;  // the answer lies in [lo, lo + len)
+  while (len > 1) {
+    const long long step = (len + 31) / 32;
+    const long long i = lo + lane * step;
+    const unsigned le = __ballot_sync(0xffffffffu, i < lo + len && a[i] <= x);
+    const long long k = 31 - __clz(le);  // lane 0 always holds: a[lo] <= x
+    const long long end = lo + len;
+    lo += k * step;
+    len = min(step, end - lo);
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kExpandBlock, kExpandPerSM) expand(
+    const int* __restrict__ cnt_p, const int* __restrict__ lo_p, long long npr,
+    const int* __restrict__ rows, const long long* __restrict__ partial, long long ntiles,
+    long long total, long long* __restrict__ bidx, long long* __restrict__ pidx,
+    unsigned* __restrict__ bits) {
+  __shared__ long long soff[px_scan::kTile];  // the tile's rows' offsets, from its first pair
+  __shared__ long long s_tile;
+  const int tid = threadIdx.x;
+  const long long q0 = static_cast<long long>(blockIdx.x) * kExpandPairs;
+  const long long q1 = min(q0 + kExpandPairs, total);
+  if (tid < 32) {
+    const long long t = warp_last_le(partial, ntiles, q0);
+    if (tid == 0) s_tile = t;
+  }
+  __syncthreads();
+  for (long long t = s_tile;; ++t) {
+    // the tile's offsets: thread tid's kExpandRows consecutive rows
+    const long long r0 = t * px_scan::kTile;
+    const long long first = r0 + tid * kExpandRows;
+    int c[kExpandRows];
+    if (first + kExpandRows <= npr) {
+      const int4 a = *reinterpret_cast<const int4*>(cnt_p + first);
+      const int4 b = *reinterpret_cast<const int4*>(cnt_p + first + 4);
+      c[0] = a.x, c[1] = a.y, c[2] = a.z, c[3] = a.w;
+      c[4] = b.x, c[5] = b.y, c[6] = b.z, c[7] = b.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < kExpandRows; ++e) c[e] = first + e < npr ? cnt_p[first + e] : 0;
+    }
+    long long sum = 0;
+#pragma unroll
+    for (int e = 0; e < kExpandRows; ++e) sum += c[e];
+    long long tile_total;
+    long long at = px_scan::block_excl_scan(sum, &tile_total);
+#pragma unroll
+    for (int e = 0; e < kExpandRows; ++e) {
+      soff[tid * kExpandRows + e] = at;
+      at += c[e];
+    }
+    __syncthreads();
+    const long long base = partial[t];
+    const long long a = max(q0, base), b = min(q1, base + tile_total);
+    for (long long q = a + tid; q < b; q += kExpandBlock) {
+      const long long local = q - base;
+      // the last row of the tile whose offset is at most local (its count
+      // is not 0, since the next row's offset is past local)
+      int x = 0;
+#pragma unroll
+      for (int step = px_scan::kTile / 2; step > 0; step >>= 1) {
+        if (soff[x + step] <= local) x += step;
+      }
+      const long long r = r0 + x;
+      const int bi = rows[lo_p[r] + static_cast<int>(local - soff[x])];
+      bidx[q] = bi;
+      pidx[q] = r;
+      // a build row's bit is set by the first pairs to find it clear: the
+      // rows of a key that many probe rows meet would otherwise take an
+      // atomic on the same word from every one of them
+      const unsigned bit = 1u << (bi & 31);
+      if ((bits[bi >> 5] & bit) == 0) atomicOr(bits + (bi >> 5), bit);
+    }
+    if (base + tile_total >= q1) break;
+    __syncthreads();  // soff is rewritten for the next tile
+  }
+}
+
+// bm[i] = bit i of bits: a thread a 32-bit word, 32 flag bytes in two
+// 16-byte stores (byte by byte past the last whole word).
+__global__ void __launch_bounds__(kCountBlock) matched_bytes(const unsigned* __restrict__ bits,
+                                                            long long nb,
+                                                            uint8_t* __restrict__ bm) {
+  const long long w = static_cast<long long>(blockIdx.x) * kCountBlock + threadIdx.x;
+  const long long i = w * 32;
+  if (i >= nb) return;
+  const unsigned v = bits[w];
+  if (i + 32 <= nb) {
+    unsigned out[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const unsigned n = v >> (4 * e);
+      out[e] = (n & 1u) | ((n >> 1) & 1u) << 8 | ((n >> 2) & 1u) << 16 | ((n >> 3) & 1u) << 24;
+    }
+    reinterpret_cast<uint4*>(bm + i)[0] = make_uint4(out[0], out[1], out[2], out[3]);
+    reinterpret_cast<uint4*>(bm + i)[1] = make_uint4(out[4], out[5], out[6], out[7]);
+  } else {
+    for (long long e = i; e < nb; ++e) bm[e] = (v >> (e - i)) & 1u;
   }
 }
 
@@ -585,21 +731,36 @@ extern "C" int px_join_probe(const long long* codes, long long npr, long long K,
   return static_cast<int>(cudaGetLastError());
 }
 
-// J3.  offs: npr int64 of scratch (each probe row's pair offset); partial:
-// ceil(npr / 4096) int64 of scratch; bidx, pidx: room for every pair (the
-// total J2 returned); bm: nb bytes; pm: npr bytes.
+// J3.  partial: ceil(npr / 4096) int64 of scratch (the tiles' sums, then
+// their offsets); bits: ceil(nb / 32) uint32 of scratch (build_matched as
+// bits); total: the pairs (J2's total); bidx, pidx: room for them; bm: nb
+// bytes; pm: npr bytes.  cnt_p and bm 16-byte aligned.
 extern "C" int px_join_expand(const int* cnt_p, const int* lo_p, long long npr,
-                              const int* rows, long long nb, long long* offs,
-                              long long* partial, long long* bidx, long long* pidx,
-                              uint8_t* bm, uint8_t* pm, void* stream) {
+                              const int* rows, long long nb, long long total,
+                              long long* partial, unsigned* bits, long long* bidx,
+                              long long* pidx, uint8_t* bm, uint8_t* pm, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(bm, 0, static_cast<size_t>(nb), s);
-  if (e != cudaSuccess || npr <= 0) return static_cast<int>(e);
-  e = px_scan::excl_scan<int, long long>(cnt_p, npr, offs, partial, nullptr, s);
+  if (total < 0 ||
+      ((reinterpret_cast<uintptr_t>(cnt_p) | reinterpret_cast<uintptr_t>(bm)) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long words = (nb + 31) / 32;
+  cudaError_t e = cudaMemsetAsync(bits, 0, static_cast<size_t>(words) * sizeof(unsigned), s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  // one warp per probe row: kBlock / 32 rows per block and round
-  const long long grid = px_grid(expand, npr * 32, kBlock, 0);
-  expand<<<static_cast<unsigned>(grid), kBlock, 0, s>>>(cnt_p, lo_p, offs, npr, rows, bidx,
-                                                        pidx, bm, pm);
+  if (npr > 0) {
+    const long long nt = px_scan::tiles(npr);
+    count_tiles<<<static_cast<unsigned>(nt), kCountBlock, 0, s>>>(cnt_p, npr, partial, pm);
+    if (total > 0) {
+      px_scan::scan_partials<<<1, px_scan::kPartialBlock, 0, s>>>(partial, nt, nullptr);
+      const long long grid = (total + kExpandPairs - 1) / kExpandPairs;
+      if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+      expand<<<static_cast<unsigned>(grid), kExpandBlock, 0, s>>>(cnt_p, lo_p, npr, rows,
+                                                                  partial, nt, total, bidx, pidx,
+                                                                  bits);
+    }
+  }
+  if (words > 0) {
+    matched_bytes<<<static_cast<unsigned>((words + kCountBlock - 1) / kCountBlock), kCountBlock,
+                    0, s>>>(bits, nb, bm);
+  }
   return static_cast<int>(cudaGetLastError());
 }

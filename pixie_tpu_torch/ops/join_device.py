@@ -12,8 +12,9 @@ code addresses its own slot and the join is a counting join
   * J2 `join_probe`: per probe row, its match count cnt[code] and start
     first[code] (codes outside [0, K), such as the executor's null sentinels
     -1 and -2, match nothing), and the total number of pairs;
-  * J3 `join_expand`: each probe row's pair offset (an exclusive scan of the
-    counts) and the pairs themselves, with both sides' matched flags.
+  * J3 `join_expand`: the pairs, load-balanced over the card (each block a
+    run of consecutive pairs, its probe rows found from the scanned counts
+    of their 4,096-row tile), with both sides' matched flags.
 
 Codes that are negative on both sides, or too wide to address directly, are
 first made dense with one `torch.unique(..., return_inverse=True)` over both
@@ -183,7 +184,7 @@ def join_expand(cnt_p: torch.Tensor, lo_p: torch.Tensor, rows: torch.Tensor, nb:
     build_matched bool[nb], probe_matched bool[npr])."""
     if not cnt_p.is_cuda:
         return join_expand_plain(cnt_p, lo_p, rows, nb, total)
-    dev, npr = cnt_p.device, cnt_p.shape[0]
+    dev, npr, total = cnt_p.device, cnt_p.shape[0], int(total)
     for t in (cnt_p, lo_p, rows):
         if t.device != dev or t.dtype != torch.int32 or t.dim() != 1 \
                 or not t.is_contiguous():
@@ -191,18 +192,22 @@ def join_expand(cnt_p: torch.Tensor, lo_p: torch.Tensor, rows: torch.Tensor, nb:
                             "one device")
     if lo_p.shape != (npr,):
         raise TypeError(f"lo must have shape ({npr},)")
+    if cnt_p.data_ptr() % 16:  # J3 reads the counts in 16-byte vectors
+        cnt_p = cnt_p.clone()
     bidx = torch.empty(total, dtype=torch.int64, device=dev)
     pidx = torch.empty(total, dtype=torch.int64, device=dev)
     bm = torch.empty(nb, dtype=torch.bool, device=dev)
     pm = torch.empty(npr, dtype=torch.bool, device=dev)
-    offs = torch.empty(npr, dtype=torch.int64, device=dev)
-    scratch = _scratch(npr, dev)  # held until the launch is enqueued (see join_build)
+    # held until the launches are enqueued (see join_build): the tiles'
+    # sums, and build_matched as bits
+    scratch = _scratch(npr, dev)
+    bits = torch.empty(max(1, -(-nb // 32)), dtype=torch.int32, device=dev)
     fn = _build.function(_J, "px_join_expand",
-                         [_P, _P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _P])
+                         [_P, _P, _L, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P])
     with torch.cuda.device(dev):
-        err = fn(_build.ptr(cnt_p), _build.ptr(lo_p), npr, _build.ptr(rows), nb,
-                 _build.ptr(offs), _build.ptr(scratch), _build.ptr(bidx),
-                 _build.ptr(pidx), _build.ptr(bm), _build.ptr(pm), _build.stream_of(cnt_p))
+        err = fn(_build.ptr(cnt_p), _build.ptr(lo_p), npr, _build.ptr(rows), nb, total,
+                 _build.ptr(scratch), _build.ptr(bits), _build.ptr(bidx), _build.ptr(pidx),
+                 _build.ptr(bm), _build.ptr(pm), _build.stream_of(cnt_p))
     _build.check(_J, err, "join_expand")
     _build.KERNELS[_J].count("px_join_expand")
     return bidx, pidx, bm, pm

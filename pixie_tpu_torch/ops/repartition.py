@@ -41,6 +41,8 @@ _X = "repartition"
 TILE = 4096
 MAX_KEYS = 8
 MAX_PARTS = 1024
+#: columns X2 takes by value in its launch; more are read from a device table
+SCATTER_INLINE_COLS = 32
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 _U64 = 1 << 64
@@ -223,8 +225,9 @@ def partition_scatter(part, tile_counts, counts, cols, n_dev: int, cap: int):
     if part.device.type != "cuda":
         return partition_scatter_plain(part, tile_counts, counts, cols, n_dev, cap)
     dev = part.device
-    # each tile's first rank per target: an exclusive scan over the tiles
-    tile_first = (torch.cumsum(tile_counts, 1) - tile_counts).contiguous()
+    tile_counts = tile_counts.contiguous()
+    # each tile's first rank per target, written by X2's first launch
+    tile_first = torch.empty_like(tile_counts)
     srcs = [c.contiguous() for c in cols]
     part, counts = part.contiguous(), counts.contiguous()
     outs = [torch.empty(n_dev * n_dev * cap, dtype=c.dtype, device=dev) for c in srcs]
@@ -233,12 +236,19 @@ def partition_scatter(part, tile_counts, counts, cols, n_dev: int, cap: int):
     src_p = (_P * max(k, 1))(*[c.data_ptr() for c in srcs])
     dst_p = (_P * max(k, 1))(*[o.data_ptr() for o in outs])
     width = (_I * max(k, 1))(*[c.element_size() for c in srcs])
+    table = None
+    if k > SCATTER_INLINE_COLS:
+        # past the launch's by-value columns X2 reads (src, dst, width) a
+        # column from the device; held until the launch is enqueued
+        words = [w for c, o in zip(srcs, outs) for w in (c.data_ptr(), o.data_ptr(),
+                                                          c.element_size())]
+        table = torch.tensor(words, dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
     fn = _build.function(_X, "px_partition_scatter",
-                         [_I, _P, _P, _P, _P, _P, _P, _L, _I, _L, _P, _P])
+                         [_I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _P, _P])
     with torch.cuda.device(dev):
-        err = fn(k, src_p, dst_p, width, _build.ptr(part), _build.ptr(tile_first),
-                 _build.ptr(counts), per, n_dev, cap, _build.ptr(recv),
-                 _build.stream_of(part))
+        err = fn(k, src_p, dst_p, width, None if table is None else _build.ptr(table),
+                 _build.ptr(part), _build.ptr(tile_counts), _build.ptr(tile_first),
+                 _build.ptr(counts), per, n_dev, cap, _build.ptr(recv), _build.stream_of(part))
     _build.check(_X, err, "partition scatter")
     _build.KERNELS[_X].count("px_partition_scatter")
     return outs, recv

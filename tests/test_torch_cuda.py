@@ -211,6 +211,78 @@ def test_join_stages_equal_plain(dev):
     cnt_p0, lo_p0, total0 = jd.join_probe_plain(p, cnt0, first0)
     assert torch.equal(cnt_p, cnt_p0) and torch.equal(lo_p, lo_p0)
     assert int(total) == int(total0)
+    # J3's pairs in order (by probe row, then ascending build row), and
+    # both flags
+    got = jd.join_expand(cnt_p, lo_p, rows, b.shape[0], int(total))
+    want = jd.join_expand_plain(cnt_p0, lo_p0, rows0, b.shape[0], int(total0))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _j3_case(case):
+    """(build codes, probe codes) of a J3 card case, as numpy int64."""
+    rng = np.random.default_rng(9)
+    if case == "uniform":
+        n = 1 << 20
+        return rng.integers(0, n, n), rng.integers(0, n, n)
+    if case == "phase":
+        # the device join phase's shape: 2^22 a side, codes in [0, 2^20)
+        return rng.integers(0, 1 << 20, 1 << 22), rng.integers(0, 1 << 20, 1 << 22)
+    if case == "heavy":
+        # one key with 4,096 rows a side (16M pairs) over 2^20 background rows
+        bg = rng.integers(100, 1 << 22, 1 << 20)
+        return (np.concatenate([np.full(4096, 7), bg]),
+                np.concatenate([np.full(4096, 7), bg[::-1]]))
+    if case == "no_match":
+        return rng.integers(0, 1 << 16, 1 << 16), rng.integers(1 << 16, 1 << 17, 1 << 16)
+    if case == "total_0":
+        return rng.integers(0, 1 << 16, 1 << 16), np.full(3 * 4096 + 5, -2)
+    if case == "one_row_2_20_pairs":
+        p = rng.integers(1 << 21, 1 << 22, 3 * 4096)
+        p[5000] = 5
+        return np.full(1 << 20, 5), p
+    if case == "one_probe_row":
+        return rng.integers(0, 50, 5000), np.array([17])
+    assert case == "npr_ragged"
+    return rng.integers(0, 3000, 3 * 4096 + 77), rng.integers(0, 3000, 3 * 4096 + 77)
+
+
+@pytest.mark.parametrize("case", ["uniform", "phase", "heavy", "no_match", "total_0",
+                                  "one_row_2_20_pairs", "one_probe_row", "npr_ragged"])
+def test_join_expand_equals_plain_in_order(dev, case):
+    """J3's pairs equal the plain version's exactly and in order, and both
+    matched flags, on J1's and J2's outputs on the card."""
+    bh, ph = _j3_case(case)
+    b, p, K = jd._dense(torch.from_numpy(bh.astype(np.int64)).to(dev),
+                        torch.from_numpy(ph.astype(np.int64)).to(dev))
+    cnt, first, rows = jd.join_build(b, K)
+    cnt_p, lo_p, total = jd.join_probe(p, cnt, first)
+    total = int(total)
+    before = _build.KERNELS["join"].by_entry.get("px_join_expand", 0)
+    got = jd.join_expand(cnt_p, lo_p, rows, b.shape[0], total)
+    assert _build.KERNELS["join"].by_entry["px_join_expand"] == before + 1
+    want = jd.join_expand_plain(cnt_p, lo_p, rows, b.shape[0], total)
+    torch.cuda.synchronize()
+    assert got[0].shape == (total,)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if case in ("no_match", "total_0"):
+        assert total == 0
+    if case == "one_row_2_20_pairs":
+        assert total == 1 << 20
+
+
+def test_join_expand_cuda_tensor_never_reaches_the_plain_version(dev, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version reached with CUDA tensors")
+
+    for name in ("join_build_plain", "join_probe_plain", "join_expand_plain"):
+        monkeypatch.setattr(jd, name, boom)
+    b = torch.arange(5000, device=dev) % 300
+    cnt, first, rows = jd.join_build(b, 300)
+    cnt_p, lo_p, total = jd.join_probe(b, cnt, first)
+    jd.join_expand(cnt_p, lo_p, rows, 5000, int(total))
+    torch.cuda.synchronize()
 
 
 def _j1_case(dev, case):
@@ -1285,6 +1357,72 @@ def test_partition_scatter_equals_plain(dev, n_dev, per, skew):
         w = w.cpu().view(n_dev * n_dev, cap)
         for b in range(n_dev * n_dev):
             assert torch.equal(g[b, : rc[b]], w[b, : rc[b]])
+
+
+#: X2's column dtypes: widths 1, 2, 4 and 8 in turn
+_X2_DTYPES = [np.uint8, np.int16, np.float32, np.int64, np.bool_, np.int32, np.float64]
+
+
+def _x2_cols(dev, n, ncols, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for c in range(ncols):
+        dt = _X2_DTYPES[c % len(_X2_DTYPES)]
+        if dt == np.bool_:
+            a = rng.random(n) < 0.5
+        elif np.issubdtype(dt, np.floating):
+            a = rng.normal(size=n).astype(dt)
+        else:
+            a = rng.integers(np.iinfo(dt).min, np.iinfo(dt).max, n, dtype=dt)
+        out.append(torch.from_numpy(a).to(dev))
+    return out
+
+
+def _x2_hold(dev, n_dev, per, ncols, cap=None, seed=26):
+    """X2 on the card against its plain version: recv exactly, every
+    block's received rows bit for bit, one launch; → recv."""
+    from pixie_tpu_torch.ops import repartition as xr
+
+    keys, nv = _x1_inputs(dev, n_dev, per, seed)
+    part, counts, tiles = xr.partition_count(keys, nv, n_dev)
+    cap = int(counts.max()) if cap is None else cap
+    cols = _x2_cols(dev, n_dev * per, ncols, seed + 1)
+    before = _build.KERNELS["repartition"].by_entry.get("px_partition_scatter", 0)
+    got, grecv = xr.partition_scatter(part, tiles, counts, cols, n_dev, cap)
+    assert _build.KERNELS["repartition"].by_entry["px_partition_scatter"] == before + 1
+    want, wrecv = xr.partition_scatter_plain(part, tiles, counts, cols, n_dev, cap)
+    assert torch.equal(grecv.cpu(), wrecv.cpu())
+    valid = torch.arange(cap, device=dev).view(1, cap) < grecv.view(-1, 1)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert torch.equal(g.view(-1, cap)[valid], w.view(-1, cap)[valid])
+    return grecv, nv
+
+
+@pytest.mark.parametrize("ncols", [17, 40])
+def test_partition_scatter_many_columns_equal_plain(dev, ncols):
+    """Columns of widths 1, 2, 4 and 8, by value in the launch (17) and
+    from the device table past 32 (40): one launch ranks each tile once for
+    all of them."""
+    recv, nv = _x2_hold(dev, 4, 5000, ncols)
+    assert int(recv.sum()) == int(nv.sum())
+
+
+@pytest.mark.parametrize("n_dev,per", [(1, 9001), (3, 4096 * 2 + 5), (1024, 300)])
+def test_partition_scatter_partition_counts_equal_plain(dev, n_dev, per):
+    recv, nv = _x2_hold(dev, n_dev, per, 5)
+    assert int(recv.sum()) == int(nv.sum())
+
+
+def test_partition_scatter_short_cap_equals_plain(dev):
+    """At a cap below the largest bucket the rows below cap equal the plain
+    version's, the rows at rank >= cap are not written, and recv says so."""
+    from pixie_tpu_torch.ops import repartition as xr
+
+    keys, nv = _x1_inputs(dev, 4, 4096 * 3 + 11, 27)
+    _part, counts, _tiles = xr.partition_count(keys, nv, 4)
+    recv, nv = _x2_hold(dev, 4, 4096 * 3 + 11, 6, cap=int(counts.max()) - 100, seed=27)
+    assert int(recv.sum()) < int(nv.sum())
 
 
 def test_partition_scatter_short_cap_drops_rows_visibly(dev):

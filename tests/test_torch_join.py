@@ -423,6 +423,50 @@ def test_join_stages_plain():
     assert pm.tolist() == [True, False, True, False, True]
 
 
+def _plain_route(b, p):
+    """J1-J3's plain versions over two sides' codes → their four outputs
+    as numpy."""
+    import torch
+
+    bd, pd_, K = jd._dense(torch.from_numpy(b), torch.from_numpy(p))
+    cnt, first, rows = jd.join_build_plain(bd, K)
+    cnt_p, lo_p, total = jd.join_probe_plain(pd_, cnt, first)
+    return [x.numpy() for x in jd.join_expand_plain(cnt_p, lo_p, rows, len(b), int(total))]
+
+
+_EXPAND_CASES = {
+    # one key with 1,024 rows a side over 2^16 background rows
+    "heavy_key": lambda rng: (
+        np.concatenate([np.full(1024, 7), rng.integers(100, 1 << 18, 1 << 16)]),
+        np.concatenate([np.full(1024, 7), rng.integers(100, 1 << 18, 1 << 16)])),
+    # the device join phase's ratio: codes in a quarter of the rows' range,
+    # about 4 pairs a probe row
+    "four_pairs_a_row": lambda rng: (rng.integers(0, 1 << 12, 1 << 14),
+                                     rng.integers(0, 1 << 12, 1 << 14)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_EXPAND_CASES))
+def test_join_expand_plain_equals_reference_device_join(case):
+    """join_expand_plain's pairs and both flags equal the reference's
+    device join; its pairs come grouped by probe row in probe-row order,
+    and within a probe row in ascending build row (the order J3 keeps)."""
+    from pixie_tpu.ops.join_device import device_join_codes as ref_device_join
+
+    b, p = (np.asarray(x, np.int64) for x in _EXPAND_CASES[case](np.random.default_rng(5)))
+    bidx, pidx, bm, pm = _plain_route(b, p)
+    want = ref_device_join(b, p)
+    np.testing.assert_array_equal(_pairs(bidx, pidx), _pairs(want[0], want[1]))
+    np.testing.assert_array_equal(bm, want[2])
+    np.testing.assert_array_equal(pm, want[3])
+    order = np.lexsort((bidx, pidx))
+    np.testing.assert_array_equal(order, np.arange(len(bidx)))
+    if case == "four_pairs_a_row":
+        assert 3.5 < len(bidx) / len(p) < 4.5
+    else:
+        assert len(bidx) >= 1024 * 1024
+
+
 _J1_ORDER_CASES = {
     "uniform": lambda rng: rng.integers(0, 300, 5000),
     "one_code_half": lambda rng: np.where(rng.random(5000) < 0.5, 7, rng.integers(0, 300, 5000)),

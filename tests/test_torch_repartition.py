@@ -252,6 +252,53 @@ def test_x2_plain_equals_mesh_repartition_stable_order():
                     assert np.all(blocks[p, i, :c] % n_dev == p)
 
 
+#: the X2 card tests' column dtypes: widths 1, 2, 4 and 8 in turn
+_MIXED = [np.uint8, np.int16, np.float32, np.int64, np.bool_, np.int32, np.float64]
+
+
+def test_x2_plain_equals_mesh_repartition_mixed_widths():
+    """At 3 partitions, 17 columns of widths 1, 2, 4 and 8: X2's plain
+    version lays every column out as mesh_repartition does, and its recv
+    equals the reference's counts."""
+    rng = np.random.default_rng(2)
+    n_dev, per = 3, 700
+    total = n_dev * per
+    cols = {}
+    for c in range(17):
+        dt = _MIXED[c % len(_MIXED)]
+        if dt == np.bool_:
+            cols[f"c{c}"] = rng.random(total) < 0.5
+        elif np.issubdtype(dt, np.floating):
+            cols[f"c{c}"] = rng.normal(size=total).astype(dt)
+        else:
+            cols[f"c{c}"] = rng.integers(np.iinfo(dt).min, np.iinfo(dt).max, total, dtype=dt)
+    keys = cols["c3"]  # the int64 column
+    fn = ref_rp.mesh_repartition(ref_spmd.make_mesh(n_dev), "agents",
+                                 key_fn=lambda cs: cs["c3"], n_cols={k: None for k in cols})
+    nv = np.array([per, per - 9, per // 2], dtype=np.int64)
+    want, want_counts = fn(cols, nv)
+    want_counts = np.asarray(want_counts).reshape(n_dev, n_dev)
+    part = torch.from_numpy((keys % n_dev).astype(np.int32)).view(n_dev, per).clone()
+    part[torch.arange(per).view(1, per) >= torch.from_numpy(nv).view(n_dev, 1)] = n_dev
+    part = part.view(-1)
+    counts = torch.stack([torch.bincount(part.view(n_dev, per)[s].long(),
+                                         minlength=n_dev + 1)[:n_dev] for s in range(n_dev)])
+    cap = int(counts.max())
+    outs, recv = rk.partition_scatter(part, counts.view(n_dev, 1, n_dev), counts,
+                                      [torch.from_numpy(v) for v in cols.values()], n_dev, cap)
+    got_counts = recv.numpy().reshape(n_dev, n_dev)
+    np.testing.assert_array_equal(got_counts, want_counts)
+    assert got_counts.sum() == nv.sum()
+    for name, out in zip(cols, outs):
+        assert out.numpy().dtype == cols[name].dtype
+        blocks = out.numpy().reshape(n_dev, n_dev, cap)
+        ref = np.asarray(want[name]).reshape(n_dev, n_dev, per)
+        for p in range(n_dev):
+            for i in range(n_dev):
+                c = got_counts[p, i]
+                np.testing.assert_array_equal(blocks[p, i, :c], ref[p, i, :c])
+
+
 def test_mesh_repartition_routes_by_key():
     """tests/test_repartition.py: every row lands on its partition, none
     lost, the (key, val) multiset preserved — X1 and X2 end to end."""
