@@ -65,7 +65,24 @@ settling ones, ms):
                     timed as j1 is;
   fit               the kmeans_fit wall at chip_smoke's ml.fit shape (2^20
                     x 64, k = 64, 10 iterations): the median of 5 fits
-                    after 2 settling ones, ms.
+                    after 2 settling ones, ms;
+  k1_min_sorted, k1_max_sorted, k1_count_sorted, k1_sum_i64_sorted,
+  k1_sum_f64_sorted
+                    kernel K1 alone at the sorted path's chunk (2^20 rows,
+                    ids uniform in [0, 2^23), 95% kept, exponential(50)
+                    values, int64 values in [0, 2^24); seed 8): f64 min,
+                    f64 max, count, int64 sum and f64 sum, each call into
+                    the same state, timed as g1 is;
+  k1_min_g64, k1_max_g64
+                    the same f64 min and max at config #1's feed shape
+                    (2^24 rows into 64 groups: the shared route);
+  k1_min_s1         K1's f64 min over S1's pattern: 16 different such
+                    chunks into one fresh state (filled before the timed
+                    launches), the median of 5 sequences, ms a chunk;
+  k4, k4_half, k4_dense
+                    kernel K4 alone on chip_smoke's 2^24 rows of int32,
+                    int64, f64 and bool (seed 9) at mask density 0.1, 0.5
+                    and 0.9, timed as g1 is.
 
 --measures names the measures to take (default all; config4 and the batch
 arms alone are the paths where P1 and M1 run).  It prints one JSON line
@@ -278,6 +295,73 @@ if measures & {"j3", "j3_phase", "j3_heavy"}:
             del b, p, cnt, first, rbc, cnt_p, lo_p
     del bg, cases
 
+K1_MEASURES = {"k1_min_sorted", "k1_max_sorted", "k1_count_sorted", "k1_sum_i64_sorted",
+               "k1_sum_f64_sorted", "k1_min_s1", "k1_min_g64", "k1_max_g64"}
+if measures & K1_MEASURES:
+    import numpy as np
+    from pixie_tpu_torch.ops import groupby as gb
+
+    n, g = 1 << 20, 1 << 23
+    rng = np.random.default_rng(8)
+    chunks = [tuple(torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, g, n).astype(np.int32), rng.random(n) < 0.95,
+        rng.exponential(50.0, n))) for _ in range(16)]
+    gid, mask, lat = chunks[0]
+    nbytes = torch.from_numpy(rng.integers(0, 1 << 24, n)).to(dev)
+    feed = tuple(torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, 64, cs.FEED).astype(np.int32), rng.random(cs.FEED) < 0.95,
+        rng.exponential(50.0, cs.FEED)))
+    for label, op, (gi, m, v), groups in (
+            ("k1_min_sorted", "min", chunks[0], g), ("k1_max_sorted", "max", chunks[0], g),
+            ("k1_min_g64", "min", feed, 64), ("k1_max_g64", "max", feed, 64)):
+        if label in measures:
+            acc = torch.full((groups,), gb._identity_for(torch.float64, op),
+                             dtype=torch.float64, device=dev)
+            fn = getattr(gb, f"masked_segment_{op}")
+            out[label] = sorted(cs.cuda_ms(lambda: fn(v, gi, groups, m, out=acc), 20)
+                                for _ in range(5))[2]
+    if "k1_count_sorted" in measures:
+        acc = torch.zeros(g, dtype=torch.int64, device=dev)
+        out["k1_count_sorted"] = sorted(cs.cuda_ms(lambda: gb.masked_segment_count(
+            gid, g, mask, out=acc), 20) for _ in range(5))[2]
+    for label, v in (("k1_sum_i64_sorted", nbytes), ("k1_sum_f64_sorted", lat)):
+        if label in measures:
+            acc = torch.zeros(g, dtype=v.dtype, device=dev)
+            out[label] = sorted(cs.cuda_ms(lambda: gb.masked_segment_sum(
+                v, gid, g, mask, out=acc), 20) for _ in range(5))[2]
+    if "k1_min_s1" in measures:
+        acc = torch.empty(g, dtype=torch.float64, device=dev)
+        seqs = []
+        for _ in range(7):
+            acc.fill_(float("inf"))
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            for gi, m, v in chunks:
+                gb.masked_segment_min(v, gi, g, m, out=acc)
+            stop.record()
+            torch.cuda.synchronize()
+            seqs.append(start.elapsed_time(stop) / len(chunks))
+        out["k1_min_s1"] = sorted(seqs[2:])[2]
+    del chunks, gid, mask, lat, nbytes, feed
+
+if measures & {"k4", "k4_half", "k4_dense"}:
+    import numpy as np
+    from pixie_tpu_torch.ops import compact as k4
+
+    # chip_smoke.check_new_kernels' K4 inputs (seed 9)
+    rng = np.random.default_rng(9)
+    n = cs.FEED
+    cols = [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(-2 ** 31, 2 ** 31 - 1, n).astype(np.int32),
+        rng.integers(-2 ** 62, 2 ** 62, n), rng.normal(size=n), rng.random(n) < 0.5)]
+    u = torch.from_numpy(rng.random(n)).to(dev)
+    for label, density in (("k4", 0.1), ("k4_half", 0.5), ("k4_dense", 0.9)):
+        if label in measures:
+            m = u < density
+            out[label] = sorted(cs.cuda_ms(lambda: k4.compact(m, cols), 20)
+                                for _ in range(5))[2]
+    del cols, u
+
 if "fit" in measures:
     from pixie_tpu_torch.ml import kmeans_fit
 
@@ -350,7 +434,11 @@ MEASURES = {"one_feed": False, "four_feeds": False, "four_feeds_mesh4": False,
             "km3_leaf": False, "km1_merge": False, "km2_merge": False, "j1": False,
             "j1_phase": False, "j1_half": False, "x2": False, "x2_8": False,
             "x2_skew": False, "x2_phase": False, "j3": False, "j3_phase": False,
-            "j3_heavy": False, "fit": False}
+            "j3_heavy": False, "fit": False, "k1_min_sorted": False,
+            "k1_max_sorted": False, "k1_count_sorted": False, "k1_sum_i64_sorted": False,
+            "k1_sum_f64_sorted": False, "k1_min_s1": False, "k1_min_g64": False,
+            "k1_max_g64": False,
+            "k4": False, "k4_half": False, "k4_dense": False}
 
 
 def quartiles(xs: list) -> tuple[float, float, float]:

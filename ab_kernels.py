@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""A/B of one design choice of C1, K2, KM1-KM3, J1, J3 or X2 against its
-alternative, end to end of the kernel, on one CUDA card; and where KM2's,
+"""A/B of one design choice of C1, K1, K2, K4, KM1-KM3, J1, J3 or X2 against
+its alternative, end to end of the kernel, on one CUDA card; and where KM2's,
 KM1's, X2's and J3's time goes.
 
     python3 ab_kernels.py CHOICE [--pairs N]
@@ -73,7 +73,38 @@ its "other" the alternative.
   j3_owners  J3's counts pass claiming each matched code's run for one
              probe row (an atomicOr that returns the old bit), whose pairs
              alone set the bits (also ops/join_device.py) — the j3 choices
-             measure j3, j3_phase, j3_heavy.
+             measure j3, j3_phase, j3_heavy;
+  k1_cas     K1's f64 min / max folding each row (and each block's flush)
+             into device memory with the compare-and-swap loop of
+             segment_ops.cuh, where the checkout loads the state word and
+             folds a winning row with one non-returning integer min / max
+             (csrc/segment_reduce.cu);
+  k1_no_filter
+             K1's f64 min / max folding every kept row with the
+             non-returning integer min / max, without loading the state
+             word first (a state's NaN of the other sign is then lost);
+  k1_returning
+             the same by a returning integer min / max, putting the op's
+             NaN back where the old value was NaN (no load first);
+  k1_batch2, k1_batch4, k1_batch8
+             K1's f64 min / max loading 2, 4 or all 8 of a thread's state
+             words at a time before folding those rows, where the checkout
+             loads one, folds its row, then loads the next — the k1 choices
+             measure k1_min_sorted, k1_max_sorted, k1_min_s1;
+  k4_gather_only, k4_staged_only
+             K4 gathering every tile's kept rows through its index list
+             from device memory, or staging every tile's columns in shared
+             memory by 16-byte cp.async, where the checkout stages a tile
+             with half of its rows kept or more and gathers the rest
+             (csrc/compact.cu);
+  k4_dense4  K4 staging from a quarter of a tile's rows kept;
+  k4_look_back
+             K4's tile offsets by a decoupled look-back in one launch
+             (after a memset of the tiles' status words and a ticket that
+             hands out the tiles in the order blocks start), where the
+             checkout takes three (the tiles' counts, a one-block scan, then
+             the write; also ops/compact.py) — the k4 choices measure k4,
+             k4_half, k4_dense.
 
 Where KM2's time goes: these switch one part of KM2 off and compute wrong
 sums, so only their times are read (measures km2, km2_leaf):
@@ -396,6 +427,163 @@ _J3_OWNERS = [
      "        lo_p = lo_p.clone()"),
 ]
 
+# K1's f64 fold of a row (csrc/segment_reduce.cu), and the same by a
+# returning integer min / max whose old value, when NaN, puts the op's NaN
+# back (no load of the state word first)
+_K1_RED = """  if (isnan(cur) || !(isnan(v) || (kMin ? v < cur : v > cur))) return;
+  const long long b = isnan(v) ? (kMin ? kMinNaN64 : kMaxNaN64) : __double_as_longlong(v);
+  long long* sp = reinterpret_cast<long long*>(p);
+  unsigned long long* up = reinterpret_cast<unsigned long long*>(p);
+  if (b >= 0) {
+    if (kMin) atomicMin(sp, b); else atomicMax(sp, b);
+  } else {
+    if (kMin) atomicMax(up, static_cast<unsigned long long>(b));
+    else atomicMin(up, static_cast<unsigned long long>(b));
+  }
+"""
+_K1_RETURNING = """  const long long b = isnan(v) ? (kMin ? kMinNaN64 : kMaxNaN64) : __double_as_longlong(v);
+  long long* sp = reinterpret_cast<long long*>(p);
+  unsigned long long* up = reinterpret_cast<unsigned long long*>(p);
+  unsigned long long old;
+  if (b >= 0) {
+    old = static_cast<unsigned long long>(kMin ? atomicMin(sp, b) : atomicMax(sp, b));
+  } else {
+    old = kMin ? atomicMax(up, static_cast<unsigned long long>(b))
+               : atomicMin(up, static_cast<unsigned long long>(b));
+  }
+  if (isnan(__longlong_as_double(static_cast<long long>(old)))) {
+    atomicExch(up, static_cast<unsigned long long>(kMin ? kMinNaN64 : kMaxNaN64));
+  }
+"""
+_K1_LOAD = ("struct PickF64 : PickF64Op<kMin> {\n  static constexpr bool kLoad = true;",
+            "struct PickF64 : PickF64Op<kMin> {\n  static constexpr bool kLoad = false;")
+
+# K4's tile offsets by a decoupled look-back in the first launch
+# (csrc/compact.cu, ops/compact.py): a memset of the tiles' status words and
+# a ticket, then each block takes the next tile from the ticket, so every
+# tile before it belongs to a block that already runs or has ended and the
+# look-back cannot wait on a block that has not started; a later launch of
+# more than 16 columns reads the offsets the first one wrote
+_K4_STATUS = """// A tile's status word: the flag in the top two bits, a count below.
+constexpr unsigned long long kAggregate = 1ull << 62;
+constexpr unsigned long long kPrefix = 2ull << 62;
+constexpr unsigned long long kValue = (1ull << 62) - 1;
+
+__device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p, unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = v;
+}
+
+// Warp 0 of tile `tile` (tile > 0): the kept rows of every tile before it,
+// from the status words of the tiles before it, 32 at a time, back to the
+// nearest one that holds its inclusive prefix.  Every lane returns the sum.
+__device__ __forceinline__ long long look_back(const unsigned long long* status, long long tile) {
+  const int lane = threadIdx.x & 31;
+  long long excl = 0;
+  for (long long end = tile - 1;; end -= 32) {
+    const long long i = end - lane;
+    unsigned long long st = kPrefix;  // before tile 0: a prefix of 0
+    if (i >= 0) {
+      do {
+        st = load_status(status + i);
+      } while ((st & ~kValue) == 0);
+    }
+    const unsigned prefixes = __ballot_sync(0xffffffffu, (st & ~kValue) == kPrefix);
+    const int first = prefixes ? __ffs(prefixes) - 1 : 32;
+    long long v = lane <= first ? static_cast<long long>(st & kValue) : 0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    excl += v;
+    if (prefixes) return excl;
+  }
+}
+
+"""
+_K4_LOOK_BACK = [
+    ("compact.cu", "// Gathered: the kept rows", _K4_STATUS + "// Gathered: the kept rows"),
+    ("compact.cu",
+     "                                                        long long n, Columns cols,\n"
+     "                                                        const long long* __restrict__ offset) {",
+     "                                                        long long n, Columns cols,\n"
+     "                                                        long long* __restrict__ offset,\n"
+     "                                                        unsigned long long* __restrict__ status,\n"
+     "                                                        unsigned long long* __restrict__ ticket,\n"
+     "                                                        long long ntiles,\n"
+     "                                                        long long* __restrict__ count) {"),
+    ("compact.cu", "  const long long tile = blockIdx.x;\n",
+     "  __shared__ long long s_tile;\n"
+     "  if (tid == 0) s_tile = status ? static_cast<long long>(atomicAdd(ticket, 1ull)) : blockIdx.x;\n"
+     "  __syncthreads();\n"
+     "  const long long tile = s_tile;\n"),
+    ("compact.cu", "  if (tid == 0) s_off = offset[tile];\n",
+     """  if (status == nullptr) {
+    if (tid == 0) s_off = offset[tile];
+  } else if (tid < 32) {
+    if (tile == 0) {
+      if (tid == 0) {
+        store_status(status, kPrefix | static_cast<unsigned long long>(kept));
+        s_off = 0;
+      }
+    } else {
+      if (tid == 0) store_status(status + tile, kAggregate | static_cast<unsigned long long>(kept));
+      const long long excl = look_back(status, tile);
+      if (tid == 0) {
+        store_status(status + tile, kPrefix | static_cast<unsigned long long>(excl + kept));
+        s_off = excl;
+      }
+    }
+    if (tid == 0) {
+      offset[tile] = s_off;
+      if (tile == ntiles - 1) *count = s_off + kept;
+    }
+  }
+"""),
+    ("compact.cu",
+     "  tile_counts<<<static_cast<unsigned>(nt), kCountBlock, 0, s>>>(mask, n, offset);\n"
+     "  px_scan::scan_partials<<<1, px_scan::kPartialBlock, 0, s>>>(offset, nt, count);\n"
+     "  // (with no column the count is all there is to do)\n"
+     "  for (int c0 = 0; c0 < ncols; c0 += kMaxCols) {",
+     "  unsigned long long* status = reinterpret_cast<unsigned long long*>(scratch + nt);\n"
+     "  const cudaError_t e = cudaMemsetAsync(status, 0, sizeof(long long) * (nt + 1), s);\n"
+     "  if (e != cudaSuccess) return static_cast<int>(e);\n"
+     "  for (int c0 = 0; c0 < ncols || c0 == 0; c0 += kMaxCols) {"),
+    ("compact.cu",
+     "    compact_tiles<<<static_cast<unsigned>(nt), kBlock, 0, s>>>(mask, n, cols, offset);",
+     "    compact_tiles<<<static_cast<unsigned>(nt), kBlock, 0, s>>>(\n"
+     "        mask, n, cols, offset, c0 == 0 ? status : nullptr, status + nt, nt, count);"),
+    ("ops/compact.py",
+     "    scratch = torch.empty(-(-n // TILE_ROWS), dtype=torch.int64, device=mask.device)",
+     "    scratch = torch.empty(2 * -(-n // TILE_ROWS) + 1, dtype=torch.int64, device=mask.device)"),
+]
+
+# K1's global route loading b of a run's state words before folding those
+# rows (csrc/segment_reduce.cu), where the checkout loads one word, folds its
+# row, then loads the next
+_K1_ONE_ROW = """#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (!keep[r]) continue;
+      Out cur = Out(0);
+      if constexpr (Op::kLoad) cur = load_state(out + g[r]);
+      Op::row(out + g[r], x[r], cur);
+    }"""
+_K1_BATCH = """#pragma unroll
+    for (int r0 = 0; r0 < kRows; r0 += {b}) {{
+      Out cur[{b}];
+      if constexpr (Op::kLoad) {{
+#pragma unroll
+        for (int r = 0; r < {b}; ++r) {{
+          cur[r] = keep[r0 + r] ? load_state(out + g[r0 + r]) : Out(0);
+        }}
+      }}
+#pragma unroll
+      for (int r = 0; r < {b}; ++r) {{
+        if (keep[r0 + r]) Op::row(out + g[r0 + r], x[r0 + r], cur[r]);
+      }}
+    }}"""
+
 #: choice → ([(file under pixie_tpu_torch/csrc, or a path under
 #: pixie_tpu_torch with a "/", text, its replacement)], measures)
 CHOICES = {
@@ -484,6 +672,34 @@ CHOICES = {
                      "j3,j3_phase,j3_heavy"),
     "j3_no_pairs": ([("join.cu", _J3_ONE, _J3_ONE.replace("q < b;", "q < a;"))],
                     "j3,j3_phase,j3_heavy"),
+    "k1_cas": ([("segment_reduce.cu",
+                 "  __device__ static void global_add(double* p, long long key) {\n"
+                 "    red_pick_f64<kMin>(p, f64_of_key(key, kMin), __ldcg(p));\n  }\n"
+                 "  __device__ static void row(double* p, double x, double cur) "
+                 "{ red_pick_f64<kMin>(p, x, cur); }",
+                 "  __device__ static void global_add(double* p, long long key) {\n"
+                 "    atomic_pick_f64<kMin>(p, f64_of_key(key, kMin));\n  }\n"
+                 "  __device__ static void row(double* p, double x, double) "
+                 "{ atomic_pick_f64<kMin>(p, x); }"),
+                ("segment_reduce.cu", *_K1_LOAD)],
+               "k1_min_sorted,k1_max_sorted,k1_min_s1"),
+    "k1_no_filter": ([("segment_reduce.cu",
+                       "  if (isnan(cur) || !(isnan(v) || (kMin ? v < cur : v > cur))) return;\n"
+                       "  const long long b", "  const long long b"),
+                      ("segment_reduce.cu", *_K1_LOAD)],
+                     "k1_min_sorted,k1_max_sorted,k1_min_s1"),
+    "k1_returning": ([("segment_reduce.cu", _K1_RED, _K1_RETURNING),
+                      ("segment_reduce.cu", *_K1_LOAD)],
+                     "k1_min_sorted,k1_max_sorted,k1_min_s1"),
+    **{f"k1_batch{b}": ([("segment_reduce.cu", _K1_ONE_ROW, _K1_BATCH.format(b=b))],
+                        "k1_min_sorted,k1_max_sorted,k1_min_s1") for b in (2, 4, 8)},
+    "k4_gather_only": ([("compact.cu", "constexpr int kDense = 8;",
+                         "constexpr int kDense = 17;")], "k4,k4_half,k4_dense"),
+    "k4_staged_only": ([("compact.cu", "constexpr int kDense = 8;",
+                         "constexpr int kDense = 0;")], "k4,k4_half,k4_dense"),
+    "k4_dense4": ([("compact.cu", "constexpr int kDense = 8;",
+                    "constexpr int kDense = 4;")], "k4,k4_half,k4_dense"),
+    "k4_look_back": (_K4_LOOK_BACK, "k4,k4_half,k4_dense"),
     "km2_no_accumulate": ([_KM2_ACC], "km2,km2_leaf"),
     "km2_no_tail": ([_KM2_TAIL], "km2,km2_leaf"),
     "km2_stream_only": ([_KM2_ACC, _KM2_DIST], "km2,km2_leaf"),

@@ -22,7 +22,9 @@ Phases, each of which fails the run if it fails:
                 single PyTorch library call and its bound on the card.
                 The phase also holds K4 (stable compaction) against its plain
                 version at 2^24 rows of 4 columns (int32, int64, f64, bool)
-                and mask densities 0.9, 0.1, 1 and 0, exactly and in order;
+                and mask densities 0.9, 0.1, 1, 0, 0.001 and 0.5, exactly
+                and in order, timed at 0.1 and 0.9 (with its device time
+                and host microseconds a call);
                 J1-J3 (the join's build, probe and expand) stage by stage at
                 bench's device-join shape (16M x 16M codes uniform in
                 [0, 16M), seed 11; J1's cnt, first and rows_by_code exactly,
@@ -34,7 +36,18 @@ Phases, each of which fails the run if it fails:
                 all-null probe codes, wide sparse codes), as exact pair sets
                 and matched flags; and
                 times K1 min/max at the sorted path's shape (a 2^20-row
-                chunk into 2^23 groups) and at config #1's feed shape;
+                chunk into 2^23 groups: the global route) and at config
+                #1's feed shape (G = 64: shared memory), each with its
+                device time, host microseconds a call and the 32-byte
+                sector figure beside its bound, and K1's count, int64 sum
+                and f64 sum at the sorted chunk (S1's other leaves, held
+                exactly and to 1e-12); on both shapes K1's f64 and f32 min
+                and max over values 1% NaN with +-0.0 and +-inf into a
+                state that enters holding NaN of either sign, against the
+                plain version with NaN compared as NaN (every entering NaN
+                stays, a NaN a row brings is the op's own); and J2 timed at
+                the device join phase's shape (2^22 x 2^22, codes in
+                [0, 2^20));
   4. slice    — bench config #1 (filter status != 404, group by service and
                 status, count / mean / p50 of latency) over an http_events
                 table of 64M rows (bench's headline size) built with the
@@ -816,6 +829,157 @@ def j3_shapes(dev) -> dict:
     return out
 
 
+def same_values(a, b) -> bool:
+    """Equal dtype and shape, NaN in the same places, equal values elsewhere
+    (-0.0 equal to +0.0: which of the two a min / max keeps is unspecified)."""
+    import torch
+
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.nan_to_num(), b.nan_to_num()))
+
+
+#: the NaN that K1 writes where a row brings one (csrc/segment_reduce.cu):
+#: a min state's is the negative quiet NaN, a max state's the positive one
+K1_NAN_BITS = {("f64", "min"): -(1 << 51), ("f64", "max"): 0x7FF8 << 48,
+               ("f32", "min"): -(1 << 22), ("f32", "max"): 0x7FC00000}
+
+
+def k1_nan_states(dev, gid, mask, lat, g: int, label: str, rng) -> None:
+    """K1 f64 and f32 min / max on one shape's ids: the values 1% NaN with
+    +-0.0 and +-inf, into a state that enters holding the positive NaN in
+    its first eighth of groups and the negative NaN in its second, against
+    the plain version (NaN as NaN).  Every entering NaN stays with its bits;
+    a NaN a row brings is the op's own NaN."""
+    import torch
+
+    from pixie_tpu_torch.ops import groupby as gb
+
+    n = gid.shape[0]
+    nan_rows = torch.from_numpy(rng.random(n) < 0.01).to(dev)
+    specials = torch.tensor([0.0, -0.0, float("inf"), float("-inf")], dtype=torch.float64,
+                            device=dev)
+    at = torch.from_numpy(rng.integers(0, n, 4096)).to(dev)
+    v64 = torch.where(nan_rows, float("nan"), lat)
+    v64[at] = specials.repeat(1024)
+    for name, v, ints, pos in (("f64", v64, torch.int64, 0x7FF8 << 48),
+                               ("f32", v64.float(), torch.int32, 0x7FC00000)):
+        for op in ("min", "max"):
+            state = torch.full((g,), gb._identity_for(v.dtype, op), dtype=v.dtype, device=dev)
+            state.view(ints)[: g // 8] = pos
+            state.view(ints)[g // 8: g // 4] = K1_NAN_BITS[(name, "min")]
+            entered, entered_bits = state.isnan(), state.view(ints).clone()
+            want = state.clone()
+            getattr(gb, f"masked_segment_{op}")(v, gid, g, mask, out=state)
+            gb.segment_pick_plain(v, gid, g, mask, want, op)
+            torch.cuda.synchronize()
+            from_rows = state.isnan() & ~entered
+            ok = (same_values(state, want)
+                  and torch.equal(state.view(ints)[entered], entered_bits[entered])
+                  and bool((state.view(ints)[from_rows] == K1_NAN_BITS[(name, op)]).all()))
+            if not ok:
+                raise AssertionError(f"K1 {op} {name} at {label}: NaN states differ from the "
+                                     "plain version or lost their NaN")
+            log(json.dumps({"check": f"K1 {op} {name} at {label} with NaN states", "ok": True,
+                            "groups": g, "entered_nan": int(entered.sum()),
+                            "nan_from_rows": int(from_rows.sum()), "max_abs_err": 0.0}))
+    del v64, nan_rows, at
+
+
+def k1_sorted_adds(dev, gid, mask, lat, g: int, touched: int, rng) -> dict:
+    """K1 count, int64 sum and f64 sum at the sorted chunk's shape (S1's
+    other leaves), each held against its plain version (counts and int64
+    sums exactly, f64 sums to 1e-12 of each group's sum of |values|) and
+    timed: CUDA events, device time, host microseconds a call, its plain
+    version, index_add_ and its bound (each row's id, mask and value read
+    once, each touched group's state read and written once)."""
+    import torch
+
+    from pixie_tpu_torch.ops import groupby as gb
+
+    n = gid.shape[0]
+    nbytes = torch.from_numpy(rng.integers(0, 1 << 24, n)).to(dev)
+    gid64 = gid.long()
+    out = {}
+    for op, v, dt in (("count", None, torch.int64), ("sum_i64", nbytes, torch.int64),
+                      ("sum_f64", lat, torch.float64)):
+        got, want, acc = (torch.zeros(g, dtype=dt, device=dev) for _ in range(3))
+        if v is None:
+            def kern(acc=acc):
+                return gb.masked_segment_count(gid, g, mask, out=acc)
+
+            def plain(acc=acc):
+                return gb.segment_count_plain(gid, g, mask, acc)
+
+            addend = mask.long()
+            gb.masked_segment_count(gid, g, mask, out=got)
+            gb.segment_count_plain(gid, g, mask, want)
+        else:
+            def kern(acc=acc, v=v):
+                return gb.masked_segment_sum(v, gid, g, mask, out=acc)
+
+            def plain(acc=acc, v=v):
+                return gb.segment_sum_plain(v, gid, g, mask, acc)
+
+            addend = torch.where(mask, v, 0)
+            gb.masked_segment_sum(v, gid, g, mask, out=got)
+            gb.segment_sum_plain(v, gid, g, mask, want)
+        torch.cuda.synchronize()
+        if dt == torch.float64:
+            scale = gb.segment_sum_plain(v.abs(), gid, g, mask, torch.zeros_like(want))
+            err = float((got - want).abs().max())
+            ok = bool(((got - want).abs() <= 1e-12 * scale).all())
+        else:
+            err, ok = 0.0, torch.equal(got, want)
+        if not ok:
+            raise AssertionError(f"K1 {op} at the sorted chunk: kernel and plain version "
+                                 "disagree")
+        b_ms, by = bound(n * (4 + 1 + (0 if v is None else 8)) + 2 * touched * 8,
+                         n if dt == torch.float64 else 0)
+        out[op] = {"max_abs_err": err, "ms": cuda_ms(kern, 20),
+                   "device_ms": kernel_device_ms(kern, 20), "host_us": host_us(kern),
+                   "plain_ms": cuda_ms(plain, 5), "bound_ms": b_ms, "bound_by": by,
+                   "library_ms": cuda_ms(lambda acc=acc: acc.index_add_(0, gid64, addend), 10)}
+    return out
+
+
+J2_PHASE_LABEL = "the device join phase's shape (2^22 x 2^22, codes in [0, 2^20))"
+
+
+def j2_phase(dev) -> dict:
+    """J2 (the join's probe) at the device join phase's shape: 2^22 build
+    and 2^22 probe codes uniform in [0, 2^20) (seed 14), held exactly against
+    its plain version (each probe row's count and first build row, and the
+    total) and timed: CUDA events, device time, host microseconds a call,
+    its plain version and its bound (each probe code read once, the code's
+    cnt and first read once a table slot, count and lo written once)."""
+    import torch
+
+    from pixie_tpu_torch.ops import join_device as jd
+
+    rng = np.random.default_rng(14)
+    n = J1_PHASE_ROWS
+    b, p, K = jd._dense(torch.from_numpy(rng.integers(0, J1_PHASE_KEYS, n)).to(dev),
+                        torch.from_numpy(rng.integers(0, J1_PHASE_KEYS, n)).to(dev))
+    cnt, first, _rbc = jd.join_build(b, K)
+    got = jd.join_probe(p, cnt, first)
+    want = jd.join_probe_plain(p, cnt, first)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            and int(got[2]) == int(want[2])):
+        raise AssertionError(f"J2 at {J2_PHASE_LABEL}: kernel and plain version disagree")
+
+    def kern():
+        return jd.join_probe(p, cnt, first)
+
+    b_ms, by = bound(n * 8 + min(K, n) * 8 + n * 8 + 8)
+    out = {"build": n, "probe": n, "K": K, "pairs": int(got[2]), "ms": cuda_ms(kern, 10),
+           "device_ms": kernel_device_ms(kern, 10), "host_us": host_us(kern, 50),
+           "plain_ms": cuda_ms(lambda: jd.join_probe_plain(p, cnt, first), 3, 1),
+           "bound_ms": b_ms, "bound_by": by}
+    log(json.dumps({"kernel_detail": "join.probe", "shape": J2_PHASE_LABEL, **out}))
+    return out
+
+
 def check_new_kernels(dev) -> list[dict]:
     """K1 min/max timed at the sorted path's shape; K4 and J1-J3 held
     against their plain versions.  Returns their kernel rows."""
@@ -830,9 +994,10 @@ def check_new_kernels(dev) -> list[dict]:
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    # ---- K1 min / max: at the sorted path's shape (one 2^20-row chunk into
-    # state of 2^23 groups: global atomics), and at config #1's feed shape
-    # (16M rows, G = 64: shared memory)
+    # ---- K1 at the sorted path's shape (one 2^20-row chunk into state of
+    # 2^23 groups: the global route) and at config #1's feed shape (16M
+    # rows, G = 64: shared memory): min / max everywhere, count and sums at
+    # the sorted chunk (S1's other leaves)
     rng = np.random.default_rng(8)
     for label, n, g in (("sorted", 1 << 20, 1 << 23), ("feed", FEED, 64)):
         gid = t(rng.integers(0, g, n).astype(np.int32))
@@ -848,25 +1013,33 @@ def check_new_kernels(dev) -> list[dict]:
             getattr(gb, f"masked_segment_{op}")(lat, gid, g, mask, out=a)
             gb.segment_pick_plain(lat, gid, g, mask, b, op)
             torch.cuda.synchronize()
-            if not torch.equal(a, b):
+            if not same_values(a, b):
                 raise AssertionError(f"K1 {op} {label}: kernel and plain version disagree")
             acc = out0.clone()
             lat_id = torch.where(mask, lat, ident)
             red = "amin" if op == "min" else "amax"
+
+            def kern(op=op, acc=acc):
+                return getattr(gb, f"masked_segment_{op}")(lat, gid, g, mask, out=acc)
+
             # each row's id, mask and value read once; each touched group's
             # state read and written once
             b_ms, by = bound(n * (4 + 1 + 8) + 2 * touched * 8, n)
             detail[op] = {
-                "ms": cuda_ms(lambda: getattr(gb, f"masked_segment_{op}")(
-                    lat, gid, g, mask, out=acc), 20),
+                "ms": cuda_ms(kern, 20), "device_ms": kernel_device_ms(kern, 20),
+                "host_us": host_us(kern),
                 "plain_ms": cuda_ms(lambda: gb.segment_pick_plain(lat, gid, g, mask, acc, op),
                                     5),
                 "bound_ms": b_ms, "bound_by": by,
+                # a random atomic moves a 32-byte sector each way
+                "sector_ms": (n * (4 + 1 + 8) + 2 * touched * 32) / PEAK_BYTES * 1e3,
                 "library_ms": cuda_ms(lambda: acc.scatter_reduce_(
                     0, gid64, lat_id, reduce=red, include_self=True), 10),
             }
-        log(json.dumps({"kernel_detail": "segment_reduce.min/max_f64", "shape": label,
-                        "rows": n, "groups": g, "touched": touched, **detail}))
+        if label == "sorted":
+            detail.update(k1_sorted_adds(dev, gid, mask, lat, g, touched, rng))
+        log(json.dumps({"kernel_detail": "segment_reduce at " + label, "rows": n, "groups": g,
+                        "touched": touched, **detail}))
         if label == "sorted":
             for op in ("min", "max"):
                 rows.append({
@@ -874,13 +1047,32 @@ def check_new_kernels(dev) -> list[dict]:
                     "source": "pixie_tpu_torch/csrc/segment_reduce.cu",
                     "replaces": f"pixie_tpu/ops/groupby.py:{188 if op == 'min' else 194} "
                                 f"masked_segment_{op}",
-                    "entry": ("segment_reduce", f"px_segment_{op}_f64"), "path": "sorted",
-                    "max_abs_err": 0.0, **detail[op],
-                    "shape": {"rows": n, "groups": g, "touched": touched},
+                    "entry": ("segment_reduce", f"px_segment_{op}_f64"), "path": "sorted_s1",
+                    "max_abs_err": 0.0,
+                    **{k: v for k, v in detail[op].items()
+                       if k not in ("device_ms", "host_us", "sector_ms")},
+                    "shape": {"rows": n, "groups": g, "touched": touched,
+                              **{k: detail[op][k] for k in ("device_ms", "host_us",
+                                                            "sector_ms")}},
                 })
+            for op, entry, replaces in (
+                    ("count", "px_segment_count", "177 masked_segment_count"),
+                    ("sum_i64", "px_segment_sum_i64", "136 masked_segment_sum"),
+                    ("sum_f64", "px_segment_sum_f64", "136 masked_segment_sum")):
+                d = detail[op]
+                rows.append({
+                    "name": f"segment_reduce.{op} (sorted chunk)", "route": "cuda",
+                    "source": "pixie_tpu_torch/csrc/segment_reduce.cu",
+                    "replaces": "pixie_tpu/ops/groupby.py:" + replaces,
+                    "entry": ("segment_reduce", entry), "path": "sorted_s1",
+                    **{k: v for k, v in d.items() if k not in ("device_ms", "host_us")},
+                    "shape": {"rows": n, "groups": g, "touched": touched,
+                              "device_ms": d["device_ms"], "host_us": d["host_us"]},
+                })
+        k1_nan_states(dev, gid, mask, lat, g, label, rng)
         del gid, mask, lat, gid64, acc, lat_id
 
-    # ---- K4: 2^24 rows, 4 columns, four densities; exact and in order
+    # ---- K4: 2^24 rows, 4 columns, six densities; exact and in order
     rng = np.random.default_rng(9)
     n = FEED
     cols = [t(rng.integers(-2 ** 31, 2 ** 31 - 1, n).astype(np.int32)),
@@ -889,7 +1081,7 @@ def check_new_kernels(dev) -> list[dict]:
     width = sum(c.element_size() for c in cols)
     u = t(rng.random(n))
     timed = {}
-    for density in (0.9, 0.1, 1.0, 0.0):
+    for density in (0.9, 0.1, 1.0, 0.0, 0.001, 0.5):
         m = u < density
         got, count = k4.compact(m, cols)
         want, want_count = k4.compact_plain(m, cols)
@@ -902,8 +1094,13 @@ def check_new_kernels(dev) -> list[dict]:
                         "max_abs_err": 0.0}))
         if density in (0.9, 0.1):
             b_ms, by = bound(n + 2 * c * width + 8)
+
+            def kern(m=m):
+                return k4.compact(m, cols)
+
             timed[density] = {
-                "ms": cuda_ms(lambda: k4.compact(m, cols), 20),
+                "ms": cuda_ms(kern, 20), "device_ms": kernel_device_ms(kern, 20),
+                "host_us": host_us(kern),
                 "plain_ms": cuda_ms(lambda: k4.compact_plain(m, cols), 5),
                 "library_ms": cuda_ms(lambda: [x[m] for x in cols], 10),
                 "bound_ms": b_ms, "bound_by": by, "kept": c}
@@ -913,9 +1110,10 @@ def check_new_kernels(dev) -> list[dict]:
         "name": "compact", "route": "cuda", "source": "pixie_tpu_torch/csrc/compact.cu",
         "replaces": "pixie_tpu/engine/executor.py:603 ChainKernel.make_output_step",
         "entry": ("compact", "px_compact"), "path": "select", "max_abs_err": 0.0,
-        **{k: v for k, v in timed[0.1].items() if k != "kept"},
+        **{k: v for k, v in timed[0.1].items() if k not in ("kept", "device_ms", "host_us")},
         "shape": {"rows": n, "columns": "int32,int64,f64,bool", "density": 0.1,
-                  "kept": timed[0.1]["kept"]},
+                  **{k: timed[0.1][k] for k in ("kept", "device_ms", "host_us")},
+                  "density_0.9": timed[0.9]},
     })
     del cols, u, m, got, want
 
@@ -974,6 +1172,7 @@ def check_new_kernels(dev) -> list[dict]:
             "shape": {"build": nj, "probe": nj, "K": K, "pairs": total},
         })
     rows[-3]["shape"].update(j1_shapes(dev, b2, K, rng))
+    rows[-2]["shape"]["phase"] = j2_phase(dev)
     rows[-1]["shape"].update(j3_shapes(dev))
     del cnt, first, rbc, cnt_p, lo_p, bidx, pidx, bm, pm
     del cnt0, first0, rbc0, cnt_p0, lo_p0, bidx0, pidx0, bm0, pm0, b2, p2
@@ -1839,9 +2038,10 @@ def run_sorted(dev) -> dict:
     exact, rel = check_p50(np.asarray(r2.columns["p50"])[o], p50_bin[present], median2[present])
     st2.update({"groups": len(present), "p50_exact_bin": exact, "p50_max_rel_err_vs_median": rel,
                 "bound_ms": sorted_bound(per_query["S2"], n, len(present))[0]})
-    out = {"S1": st1, "S2": st2, "launches": launches, "device_memory": device_memory()}
+    out = {"S1": st1, "S2": st2, "launches": launches, "s1_launches": per_query["S1"],
+           "device_memory": device_memory()}
     log(json.dumps({"phase": "sorted", "ok": True,
-                    **{k: v for k, v in out.items() if k != "launches"}}))
+                    **{k: v for k, v in out.items() if k not in ("launches", "s1_launches")}}))
     return out
 
 
@@ -4969,7 +5169,8 @@ def main() -> int:
     paths["cluster_stream"] = run_cluster_stream(dev)["launches"]
     paths["device_join"] = run_device_join(dev, args.profile)["launches"]
     paths["resident"] = run_resident(dev)["launches"]
-    paths["sorted"] = run_sorted(dev)["launches"]
+    sorted_run = run_sorted(dev)
+    paths["sorted"], paths["sorted_s1"] = sorted_run["launches"], sorted_run["s1_launches"]
     check_dicthist_library(dev)
     paths["ml"] = run_ml(dev)["launches"]
     log(json.dumps({"phase": "launches", "per_path": paths}))

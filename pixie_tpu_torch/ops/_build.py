@@ -187,6 +187,16 @@ def check(lib: str, err: int, what: str) -> None:
         raise Internal(f"{what}: CUDA error {err} ({msg})")
 
 
+def call(index: int, fn, *args) -> int:
+    """fn(*args) with CUDA device `index` current, under torch.cuda.device
+    only when another device is current (that context costs microseconds a
+    call on the launch path)."""
+    if torch.cuda.current_device() == index:
+        return fn(*args)
+    with torch.cuda.device(index):
+        return fn(*args)
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

@@ -6,9 +6,10 @@ every output column, in input order, and counts them; the host then reads
 back exactly `count` rows of each column.
 
 On a CUDA tensor `compact` launches kernel K4 (csrc/compact.cu): one C call
-compacts every column.  On a CPU tensor it runs the plain PyTorch version
-beside it, which repeats the reference's arithmetic: a stable argsort of the
-negated mask and one gather per column.  The choice follows the mask's device
+compacts every column (the tiles' counts, their scan, then one launch a 16
+columns).  On a CPU tensor it runs the plain PyTorch version beside it,
+which repeats the reference's arithmetic: a stable argsort of the negated
+mask and one gather per column.  The choice follows the mask's device
 only; a CUDA tensor never reaches the plain version.
 """
 from __future__ import annotations
@@ -20,8 +21,8 @@ import torch
 from pixie_tpu_torch.ops import _build
 
 _K4 = "compact"
-#: rows per tile of the kernels' scans (csrc/scan.cuh kTile): one int64 of
-#: scratch each
+#: rows per tile of the kernels' scans (csrc/compact.cu and csrc/scan.cuh
+#: kTile); K4 keeps one int64 of scratch a tile (its offset)
 TILE_ROWS = 4096
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -50,16 +51,16 @@ def _launch_k4(mask: torch.Tensor, cols: list[torch.Tensor]):
     _check(mask, cols)
     n = mask.shape[0]
     outs = [torch.empty_like(c) for c in cols]
-    partial = torch.empty(max(1, -(-n // TILE_ROWS)), dtype=torch.int64, device=mask.device)
+    scratch = torch.empty(-(-n // TILE_ROWS), dtype=torch.int64, device=mask.device)
     count = torch.empty(1, dtype=torch.int64, device=mask.device)
     k = len(cols)
     src = (_P * max(k, 1))(*[c.data_ptr() for c in cols])
     dst = (_P * max(k, 1))(*[o.data_ptr() for o in outs])
     width = (_I * max(k, 1))(*[c.element_size() for c in cols])
     fn = _build.function(_K4, "px_compact", [_P, _L, _I, _P, _P, _P, _P, _P, _P])
-    with torch.cuda.device(mask.device):
-        err = fn(_build.ptr(mask), n, k, src, dst, width, _build.ptr(partial),
-                 _build.ptr(count), _build.stream_of(mask))
+    dev = mask.device.index
+    err = _build.call(dev, fn, mask.data_ptr(), n, k, src, dst, width, scratch.data_ptr(),
+                      count.data_ptr(), _build.raw_stream(dev))
     _build.check(_K4, err, "compact")
     _build.KERNELS[_K4].count("px_compact")
     return outs, count.reshape(())

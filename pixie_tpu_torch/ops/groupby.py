@@ -120,13 +120,14 @@ def _check_rows(gid: torch.Tensor, mask: torch.Tensor, values, out: torch.Tensor
 def _launch_k1(kind: str, gid, mask, values, out, num_groups: int) -> None:
     """Launch K1 for `kind` ("count" | "sum" | "min" | "max") into `out`."""
     _check_rows(gid, mask, values, out, num_groups)
+    dev = gid.device.index
     if kind == "count":
         if out.dtype != torch.int64:
             raise TypeError("count state must be int64")
         sym = "px_segment_count"
         fn = _build.function(_K1, sym, [_P, _P, _L, _P, _I, _P])
-        args = (_build.ptr(gid), _build.ptr(mask), gid.shape[0], _build.ptr(out),
-                num_groups, _build.stream_of(gid))
+        args = (gid.data_ptr(), mask.data_ptr(), gid.shape[0], out.data_ptr(),
+                num_groups, _build.raw_stream(dev))
     else:
         if out.dtype not in _KINDS[kind] or values.dtype != out.dtype:
             raise TypeError(
@@ -134,10 +135,9 @@ def _launch_k1(kind: str, gid, mask, values, out, num_groups: int) -> None:
                 f"not supported")
         sym = f"px_segment_{kind}_{_SUFFIX[out.dtype]}"
         fn = _build.function(_K1, sym, [_P, _P, _P, _L, _P, _I, _P])
-        args = (_build.ptr(gid), _build.ptr(mask), _build.ptr(values),
-                gid.shape[0], _build.ptr(out), num_groups, _build.stream_of(gid))
-    with torch.cuda.device(gid.device):
-        err = fn(*args)
+        args = (gid.data_ptr(), mask.data_ptr(), values.data_ptr(), gid.shape[0],
+                out.data_ptr(), num_groups, _build.raw_stream(dev))
+    err = _build.call(dev, fn, *args)
     _build.check(_K1, err, f"segment_reduce {kind}")
     _build.KERNELS[_K1].count(sym)
 

@@ -135,8 +135,114 @@ def test_loghist_update_nan_bin_equals_plain(dev, nan_bin):
     assert int(got[:, nan_bin].sum()) >= int(nan_rows.sum())
 
 
-@pytest.mark.parametrize("n", [1, 4095, 4097, 1 << 20])
-@pytest.mark.parametrize("density", [0.0, 0.1, 0.9, 1.0])
+#: K1's NaN bits: a NaN that a row brings into a min state is the negative
+#: quiet NaN, into a max state the positive one (csrc/segment_reduce.cu)
+_K1_NAN = {(torch.float64, "min"): -(1 << 51), (torch.float64, "max"): 0x7FF8 << 48,
+           (torch.float32, "min"): -(1 << 22), (torch.float32, "max"): 0x7FC00000}
+
+
+def _edge_values(rng, n, dtype):
+    """Values with NaN rows (1%), +-0.0, +-inf and the type's extremes."""
+    v = rng.normal(0.0, 10.0, n)
+    v[rng.random(n) < 0.01] = np.nan
+    special = [0.0, -0.0, np.inf, -np.inf, 1e-300, -1e-300, 1e300, -1e300]
+    at = rng.integers(0, n, 8 * len(special))
+    v[at] = np.resize(special, at.shape[0])
+    with np.errstate(over="ignore"):  # +-1e300 are +-inf in float32
+        return torch.from_numpy(v.astype(np.float64 if dtype == torch.float64 else np.float32))
+
+
+def _same_pick(got, want):
+    """NaN where the plain version has NaN, equal values elsewhere (which of
+    -0.0 and +0.0 a group keeps is unspecified)."""
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("op", ["min", "max"])
+@pytest.mark.parametrize("g", [64, 1 << 16])
+def test_segment_pick_float_edges_equal_plain(dev, dtype, op, g):
+    """K1 min / max on the shared route (G = 64) and the global route (G =
+    2^16, past a block's shared memory) against the plain version: NaN rows,
+    +-0.0, +-inf, ids outside [0, G), a state that enters holding NaN of
+    either sign in some groups (which stays NaN), two calls accumulating in
+    place, and inputs one value past alignment (the row-by-row loads)."""
+    n = (1 << 18) + 5
+    rng = np.random.default_rng(21 + g)
+    gid = torch.from_numpy(rng.integers(-2, g + 2, n).astype(np.int32)).to(dev)
+    mask = torch.from_numpy(rng.random(n) < 0.8).to(dev)
+    v = _edge_values(rng, n, dtype).to(dev)
+    state = torch.full((g,), gb._identity_for(dtype, op), dtype=dtype, device=dev)
+    ints = torch.int64 if dtype == torch.float64 else torch.int32
+    pos_nan = 0x7FF8 << 48 if dtype == torch.float64 else 0x7FC00000
+    neg_nan = _K1_NAN[(dtype, "min")]
+    state.view(ints)[: g // 8] = pos_nan
+    state.view(ints)[g // 8: g // 4] = neg_nan
+    entered, entered_bits = state.isnan(), state.view(ints).clone()
+    want = state.clone()
+    fn = getattr(gb, f"masked_segment_{op}")
+    before = _build.KERNELS["segment_reduce"].launches
+    for lo, hi in ((0, n // 2), (n // 2 + 1, n)):  # the second half starts unaligned
+        fn(v[lo:hi], gid[lo:hi], g, mask[lo:hi], out=state)
+        gb.segment_pick_plain(v[lo:hi], gid[lo:hi], g, mask[lo:hi], want, op)
+    assert _build.KERNELS["segment_reduce"].launches == before + 2
+    _same_pick(state, want)
+    assert bool(state[entered].isnan().all())
+    # a NaN a row brought is the op's own NaN; an entering NaN keeps its bits
+    from_rows = state.isnan() & ~entered
+    assert bool(from_rows.any())
+    assert bool((state.view(ints)[from_rows] == _K1_NAN[(dtype, op)]).all())
+    assert torch.equal(state.view(ints)[entered], entered_bits[entered])
+
+
+@pytest.mark.parametrize("op", ["count", "sum_i64", "sum_f64", "sum_f32", "min_i64", "max_i32"])
+def test_segment_global_route_equals_plain(dev, op):
+    """The global route (2^20 rows into 2^23 groups, the sorted path's chunk)
+    for the entry points other than the float min / max: counts, integer
+    sums, min and max exactly, float sums to 1e-12 of the sum of |values|
+    (f32: integer values, exact); aligned and one row past alignment."""
+    n, g = 1 << 20, 1 << 23
+    rng = np.random.default_rng(31)
+    gid = torch.from_numpy(rng.integers(-1, g + 1, n + 1).astype(np.int32)).to(dev)
+    mask = torch.from_numpy(rng.random(n + 1) < 0.9).to(dev)
+    raw = {"count": None,
+           "sum_i64": rng.integers(-(2 ** 62), 2 ** 62, n + 1),
+           "sum_f64": rng.normal(0, 1e3, n + 1),
+           "sum_f32": rng.integers(-100, 100, n + 1).astype(np.float32),
+           "min_i64": rng.integers(-(2 ** 62), 2 ** 62, n + 1),
+           "max_i32": rng.integers(-(2 ** 31), 2 ** 31 - 1, n + 1).astype(np.int32)}[op]
+    v = None if raw is None else torch.from_numpy(raw).to(dev)
+    kind = op.split("_")[0]
+    dt = torch.int64 if v is None else v.dtype  # the state's type
+    for off in (0, 1):
+        gi, m = gid[off: off + n], mask[off: off + n]
+        x = None if v is None else v[off: off + n]
+        if kind in ("min", "max"):
+            init = torch.full((g,), gb._identity_for(dt, kind), dtype=dt, device=dev)
+        else:
+            init = torch.zeros(g, dtype=dt, device=dev)
+        got, want = init.clone(), init.clone()
+        for _ in range(2):  # twice, accumulating in place
+            if kind == "count":
+                gb.masked_segment_count(gi, g, m, out=got)
+                gb.segment_count_plain(gi, g, m, want)
+            elif kind == "sum":
+                gb.masked_segment_sum(x, gi, g, m, out=got)
+                gb.segment_sum_plain(x, gi, g, m, want)
+            else:
+                getattr(gb, f"masked_segment_{kind}")(x, gi, g, m, out=got)
+                gb.segment_pick_plain(x, gi, g, m, want, kind)
+        if op == "sum_f64":
+            # 1e-12 of the sum of |values| the two calls added
+            scale = 2 * gb.segment_sum_plain(x.abs(), gi, g, m, torch.zeros_like(want))
+            assert bool(((got - want).abs() <= 1e-12 * scale).all())
+        else:
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 31, 4095, 4097, 1 << 20, (1 << 20) + 3])
+@pytest.mark.parametrize("density", [0.0, 0.001, 0.1, 0.5, 0.9, 1.0])
 def test_compact_equals_stable_partition(dev, n, density):
     rng = np.random.default_rng(5)
     m = torch.from_numpy(rng.random(n) < density).to(dev)
@@ -144,10 +250,30 @@ def test_compact_equals_stable_partition(dev, n, density):
             torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62, n)).to(dev),
             torch.from_numpy(rng.normal(size=n)).to(dev),
             torch.from_numpy(rng.random(n) < 0.5).to(dev),
-            torch.from_numpy(rng.integers(0, 100, n).astype(np.int16)).to(dev)]
+            torch.from_numpy(rng.integers(0, 100, n).astype(np.int16)).to(dev),
+            torch.from_numpy(rng.integers(-128, 127, n).astype(np.int8)).to(dev),
+            torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev)]
     before = _build.KERNELS["compact"].launches
     got, count = k4.compact(m, cols)
     assert _build.KERNELS["compact"].launches == before + 1
+    want, want_count = k4.compact_plain(m, cols)
+    c = int(count)
+    assert c == int(want_count)
+    for g, w in zip(got, want):
+        assert torch.equal(g[:c], w[:c])
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8])
+def test_compact_unaligned_inputs(dev, offset):
+    """Mask and columns that start past 16-byte alignment (views of a larger
+    buffer): the row-by-row mask read and the columns' element loads."""
+    n = 3 * 4096 + 17
+    rng = np.random.default_rng(offset)
+    big_m = torch.from_numpy(rng.random(n + offset) < 0.3).to(dev)
+    big_c = [torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62, n + offset)).to(dev),
+             torch.from_numpy(rng.integers(0, 100, n + offset).astype(np.int16)).to(dev)]
+    m, cols = big_m[offset:], [c[offset:] for c in big_c]
+    got, count = k4.compact(m, cols)
     want, want_count = k4.compact_plain(m, cols)
     c = int(count)
     assert c == int(want_count)
@@ -161,6 +287,26 @@ def test_compact_more_columns_than_one_launch_holds(dev):
     got, count = k4.compact(m, cols)
     for i, g in enumerate(got):
         assert torch.equal(g[:int(count)], cols[i][m])
+
+
+def test_compact_forty_columns_of_every_width(dev):
+    """40 columns of widths 1, 2, 4 and 8 (three launches of one C call, one
+    count on the launch counter) over a mask of density 0.1, and no column
+    at all (the count alone)."""
+    n = (1 << 16) + 9
+    rng = np.random.default_rng(40)
+    m = torch.from_numpy(rng.random(n) < 0.1).to(dev)
+    kinds = [np.int8, np.int16, np.float32, np.int64]
+    cols = [torch.from_numpy(rng.integers(-100, 100, n).astype(kinds[i % 4])).to(dev)
+            for i in range(40)]
+    before = _build.KERNELS["compact"].launches
+    got, count = k4.compact(m, cols)
+    assert _build.KERNELS["compact"].launches == before + 1
+    assert int(count) == int(m.sum())
+    for g, c in zip(got, cols):
+        assert torch.equal(g[:int(count)], c[m])
+    outs, count = k4.compact(m, [])
+    assert outs == [] and int(count) == int(m.sum())
 
 
 def _pair_keys(bidx, pidx, npr):

@@ -135,6 +135,58 @@ def test_accumulates_in_place(op):
     _assert_same(state, want)
 
 
+def _edge_rows(g, dtype, seed):
+    """Ids in [-2, g + 2) (out-of-range rows drop) and values 1% NaN with
+    +-0.0, +-inf and the type's extremes, as the kernel's tests feed K1."""
+    rng = np.random.default_rng(seed)
+    gid = rng.integers(-2, g + 2, N).astype(np.int32)
+    mask = rng.random(N) < 0.8
+    v = rng.normal(0.0, 10.0, N)
+    v[rng.random(N) < 0.01] = np.nan
+    special = [0.0, -0.0, np.inf, -np.inf, 1e-300, -1e-300, 1e300, -1e300]
+    v[rng.integers(0, N, 64)] = np.resize(special, 64)
+    with np.errstate(over="ignore"):  # +-1e300 are +-inf in float32
+        return gid, mask, v.astype(dtype)
+
+
+@pytest.mark.parametrize("g", GROUPS + [1 << 16])
+@pytest.mark.parametrize("op", ["min", "max"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_min_max_edge_values(g, op, dtype):
+    """NaN rows, +-0.0, +-inf and ids outside [0, G), on both of K1's
+    routes' group counts (G = 2^16 is past a block's shared memory): NaN
+    where the reference has NaN, equal values elsewhere (which zero a group
+    keeps is unspecified)."""
+    gid, mask, v = _edge_rows(g, dtype, 11 + g)
+    fref = getattr(ref, f"masked_segment_{op}")
+    fport = getattr(port, f"masked_segment_{op}")
+    want = fref(jnp.asarray(v), jnp.asarray(gid), g, jnp.asarray(mask))
+    _assert_same(fport(_t(v), _t(gid), g, _t(mask)), want)
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_min_max_state_entering_nan_stays_nan(op, dtype, sign):
+    """A state that enters holding NaN (of either sign) in some groups, two
+    feeds accumulating in place: the reference's per-feed result folded into
+    the same state with minimum / maximum, NaN kept wherever it was."""
+    g = 64
+    gid, mask, v = _edge_rows(g, dtype, 17)
+    ident = np.inf if op == "min" else -np.inf
+    state0 = np.full(g, ident, dtype=dtype)
+    state0[:8] = np.copysign(np.nan, sign)
+    state = _t(state0.copy())
+    for h in (slice(0, N // 2), slice(N // 2, N)):
+        state = getattr(port, f"masked_segment_{op}")(_t(v[h]), _t(gid[h]), g, _t(mask[h]),
+                                                       out=state)
+    fold = jnp.minimum if op == "min" else jnp.maximum
+    want = fold(jnp.asarray(state0), getattr(ref, f"masked_segment_{op}")(
+        jnp.asarray(v), jnp.asarray(gid), g, jnp.asarray(mask)))
+    _assert_same(state, want)
+    assert np.isnan(state.numpy()[:8]).all()
+
+
 def test_out_of_range_ids_drop():
     """Rows whose group id lies outside [0, G) are dropped, as the reference's
     scatter drops them."""

@@ -209,8 +209,56 @@ def test_output_step_matches_reference(density):
                                       err_msg=k)
 
 
+#: the reference's output step and its kernel, one for every feed length
+#: (jax traces it once a shape): a chain that keeps the rows of the bool
+#: column `keep`
+_REF_KEEP_STEPS: dict = {}
+
+
+def _keep_steps():
+    if not _REF_KEEP_STEPS:
+        from pixie_tpu.types import DataType as DT
+
+        dtypes = {"time_": DT.TIME64NS, "latency": DT.FLOAT64, "status": DT.INT64,
+                  "flag": DT.BOOLEAN, "keep": DT.BOOLEAN}
+        chain = [FilterOp(expr=Column("keep"))]
+        names = ["time_", "latency", "status", "flag"]
+        ref = RefChainKernel(dtypes, {}, chain, ref_registry, "time_", names)
+        pchain = [op for op in interop.plan_from_dict(_select(chain).to_dict()).ops()
+                  if op.kind == "filter"]
+        pk = ChainKernel({k: PDT(int(v)) for k, v in dtypes.items()}, {}, pchain,
+                         port_registry, "time_", torch.device("cpu"), names)
+        _REF_KEEP_STEPS.update(ref=ref, rstep=ref.make_output_step(names)[0], pk=pk,
+                               pstep=pk.make_output_step(names)[0], names=names)
+    return _REF_KEEP_STEPS
+
+
+@pytest.mark.parametrize("n", [1, 31, 4095, 4097])
+@pytest.mark.parametrize("density", [0.0, 0.001, 0.1, 0.5, 0.9, 1.0])
+def test_output_step_edge_shapes_match_reference(n, density):
+    """Feeds of 1, 31 and one row short of and past K4's 4,096-row tile at
+    six mask densities, through the reference's jitted output step and the
+    port's (K4's plain version): the same count, and the first `count` rows
+    of every column equal, in order."""
+    import jax.numpy as jnp
+
+    st = _keep_steps()
+    rng = np.random.default_rng(n + int(1000 * density))
+    cols = {**_feed(rng, n), "keep": rng.random(n) < density}
+    routs, rcnt, _ = st["rstep"]({k: jnp.asarray(v) for k, v in cols.items()}, np.int64(n),
+                                 np.int64(0), np.int64(7 * n), st["ref"].init_limits(),
+                                 st["ref"].luts)
+    pouts, pcnt, _ = st["pstep"]({k: torch.from_numpy(v) for k, v in cols.items()}, n, 0,
+                                 7 * n, st["pk"].init_limits(), {})
+    c = int(rcnt)
+    assert int(pcnt) == c == int(cols["keep"].sum())
+    for k in st["names"]:
+        np.testing.assert_array_equal(pouts[k][:c].numpy(), np.asarray(routs[k])[:c],
+                                      err_msg=k)
+
+
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float64, torch.bool,
-                                   torch.int16])
+                                   torch.int16, torch.int8, torch.float32])
 def test_compact_plain_is_a_stable_partition(dtype):
     rng = np.random.default_rng(4)
     n = 10_000
