@@ -62,7 +62,24 @@ settling ones, ms):
                     and J2 on 2^24 x 2^24 codes uniform in [0, 2^24), on the
                     device join phase's 2^22 x 2^22 in [0, 2^20), and on one
                     key with 4,096 rows a side over 2^20 background rows,
-                    timed as j1 is;
+                    timed as j1 is; where the tree's J2 gives its tiles
+                    (`join_probe(..., tiles=True)`), J3 is given them and
+                    skips its counts pass, as the device join runs it;
+  j2, j2_phase      kernel J2 (the join's probe) alone, in the device
+                    join's form (with its tiles where the tree has them), on
+                    j3's and j3_phase's codes, timed as j1 is;
+  j2_j3, j2_j3_phase, j2_j3_heavy
+                    J2 then J3 as the device join runs them, on j3's three
+                    shapes: the sum of work that the tiles move between the
+                    two kernels;
+  k3, k3_s2         kernel K3 (the sketch's quantile finalize) alone, one
+                    quantile, on Poisson(8) counts (seed 7) of 64 groups
+                    (config #1's) and of 4,096 (S2's), timed as g1 is;
+  k3_dev, k3_s2_dev the same by device time (chip_smoke
+                    `kernel_device_ms`: calls queued while the card sleeps,
+                    so the host's launch path is hidden; a tree whose K3
+                    uploads from pageable memory every call waits for the
+                    card in each call and cannot be timed so);
   fit               the kmeans_fit wall at chip_smoke's ml.fit shape (2^20
                     x 64, k = 64, 10 iterations): the median of 5 fits
                     after 2 settling ones, ms;
@@ -271,28 +288,63 @@ if measures & {"x2", "x2_8", "x2_skew", "x2_phase"}:
                                   np.full(4, n // 4, dtype=np.int64), 4)
         del cols
 
-if measures & {"j3", "j3_phase", "j3_heavy"}:
+if measures & {"k3", "k3_s2", "k3_dev", "k3_s2_dev"}:
+    import numpy as np
+    from pixie_tpu_torch.ops.sketch import LogHistogram
+
+    lh = LogHistogram()
+    rng = np.random.default_rng(7)
+    for label, g in (("k3", 64), ("k3_s2", 4096)):
+        h = torch.from_numpy(rng.poisson(8.0, (g, lh.width)).astype(np.float32)).to(dev)
+        if label in measures:
+            out[label] = sorted(cs.cuda_ms(lambda: lh.quantile_device(h, [0.5]), 20)
+                                for _ in range(5))[2]
+        if label + "_dev" in measures:
+            out[label + "_dev"] = sorted(cs.kernel_device_ms(
+                lambda: lh.quantile_device(h, [0.5]), 20) for _ in range(5))[2]
+        del h
+
+JOIN_MEASURES = {"j2", "j2_phase", "j3", "j3_phase", "j3_heavy", "j2_j3", "j2_j3_phase",
+                 "j2_j3_heavy"}
+if measures & JOIN_MEASURES:
+    import inspect
+
     import numpy as np
     from pixie_tpu_torch.ops import join_device as jd
 
+    # the device join's own form: J2 with its tiles and J3 given them, where
+    # the tree's J2 gives them
+    tiled = "tiles" in inspect.signature(jd.join_probe).parameters
+
+    def probe(p, cnt, first):
+        return jd.join_probe(p, cnt, first, tiles=True) if tiled else jd.join_probe(p, cnt, first)
+
+    def expand(got, rbc, nb, total):
+        tail = (got[3],) if tiled else ()
+        return jd.join_expand(got[0], got[1], rbc, nb, total, *tail)
+
     rng = np.random.default_rng(11)
     bg = rng.integers(100, 1 << 22, 1 << 20)
-    cases = {"j3": (rng.integers(0, 1 << 24, 1 << 24), rng.integers(0, 1 << 24, 1 << 24)),
-             "j3_phase": (rng.integers(0, 1 << 20, 1 << 22), rng.integers(0, 1 << 20, 1 << 22)),
+    cases = {"": (rng.integers(0, 1 << 24, 1 << 24), rng.integers(0, 1 << 24, 1 << 24)),
+             "_phase": (rng.integers(0, 1 << 20, 1 << 22), rng.integers(0, 1 << 20, 1 << 22)),
              # one key with 4,096 rows a side over 2^20 background rows
-             "j3_heavy": (np.concatenate([np.full(4096, 7), bg]),
-                          np.concatenate([np.full(4096, 7), bg[::-1]]))}
-    for label, (bh, ph) in cases.items():
-        if label in measures:
-            b, p, K = jd._dense(torch.from_numpy(bh.astype(np.int64)).to(dev),
-                                torch.from_numpy(ph.astype(np.int64)).to(dev))
-            cnt, first, rbc = jd.join_build(b, K)
-            cnt_p, lo_p, total = jd.join_probe(p, cnt, first)
-            total = int(total)
-            out[label] = sorted(cs.cuda_ms(lambda: jd.join_expand(cnt_p, lo_p, rbc, b.shape[0],
-                                                                  total), 10)
-                                for _ in range(5))[2]
-            del b, p, cnt, first, rbc, cnt_p, lo_p
+             "_heavy": (np.concatenate([np.full(4096, 7), bg]),
+                        np.concatenate([np.full(4096, 7), bg[::-1]]))}
+    for suffix, (bh, ph) in cases.items():
+        if not measures & {m + suffix for m in ("j2", "j3", "j2_j3")}:
+            continue
+        b, p, K = jd._dense(torch.from_numpy(bh.astype(np.int64)).to(dev),
+                            torch.from_numpy(ph.astype(np.int64)).to(dev))
+        nb = b.shape[0]
+        cnt, first, rbc = jd.join_build(b, K)
+        got = probe(p, cnt, first)
+        total = int(got[2])
+        for label, fn in (("j2", lambda: probe(p, cnt, first)),
+                          ("j3", lambda: expand(got, rbc, nb, total)),
+                          ("j2_j3", lambda: expand(probe(p, cnt, first), rbc, nb, total))):
+            if label + suffix in measures:
+                out[label + suffix] = sorted(cs.cuda_ms(fn, 10) for _ in range(5))[2]
+        del b, p, cnt, first, rbc, got
     del bg, cases
 
 K1_MEASURES = {"k1_min_sorted", "k1_max_sorted", "k1_count_sorted", "k1_sum_i64_sorted",
@@ -434,7 +486,9 @@ MEASURES = {"one_feed": False, "four_feeds": False, "four_feeds_mesh4": False,
             "km3_leaf": False, "km1_merge": False, "km2_merge": False, "j1": False,
             "j1_phase": False, "j1_half": False, "x2": False, "x2_8": False,
             "x2_skew": False, "x2_phase": False, "j3": False, "j3_phase": False,
-            "j3_heavy": False, "fit": False, "k1_min_sorted": False,
+            "j3_heavy": False, "k3": False, "k3_s2": False, "k3_dev": False,
+            "k3_s2_dev": False, "j2": False, "j2_phase": False, "j2_j3": False,
+            "j2_j3_phase": False, "j2_j3_heavy": False, "fit": False, "k1_min_sorted": False,
             "k1_max_sorted": False, "k1_count_sorted": False, "k1_sum_i64_sorted": False,
             "k1_sum_f64_sorted": False, "k1_min_s1": False, "k1_min_g64": False,
             "k1_max_g64": False,

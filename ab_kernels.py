@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""A/B of one design choice of C1, K1, K2, K4, KM1-KM3, J1, J3 or X2 against
+"""A/B of one design choice of C1, K1-K4, KM1-KM3, J1-J3 or X2 against
 its alternative, end to end of the kernel, on one CUDA card; and where KM2's,
 KM1's, X2's and J3's time goes.
 
@@ -104,7 +104,26 @@ its "other" the alternative.
              hands out the tiles in the order blocks start), where the
              checkout takes three (the tiles' counts, a one-block scan, then
              the write; also ops/compact.py) — the k4 choices measure k4,
-             k4_half, k4_dense.
+             k4_half, k4_dense;
+  k3_block   K3 as first designed: one block a group, one thread a bin, a
+             Hillis-Steele scan in shared memory and one __syncthreads_count
+             a quantile, where the checkout takes a warp a group and
+             shuffles (csrc/loghist_quantile.cu) — measures k3, k3_s2,
+             k3_dev, k3_s2_dev;
+  j2_unfused J2 without its tiles: J3 runs its own counts pass and scan,
+             where the checkout's J2 hands J3 its tile offsets and
+             probe_matched (ops/join_device.py) — measures j2, j2_phase,
+             j3, j3_phase, j3_heavy, j2_j3, j2_j3_phase, j2_j3_heavy;
+  j2_two_tables
+             J1's code table as two tables, cnt and first apart, gathered
+             by J2 in two loads, where the checkout interleaves them into
+             one 8-byte (count, first) slot a code (csrc/join.cu,
+             ops/join_device.py; J1's sort untouched) — measures j1,
+             j1_phase, j2, j2_phase, j2_j3_phase;
+  j2_block256
+             J2 at 256 threads x 16 rows a 4,096-row tile, where the
+             checkout takes 1,024 x 4 (csrc/join.cu) — measures j2,
+             j2_phase.
 
 Where KM2's time goes: these switch one part of KM2 off and compute wrong
 sums, so only their times are read (measures km2, km2_leaf):
@@ -402,11 +421,12 @@ _J3_OWNERS = [
      "    long long total, const uint8_t* __restrict__ owner, long long* __restrict__ bidx,\n"
      "    long long* __restrict__ pidx, unsigned* __restrict__ bits) {"),
     ("join.cu", _J3_CHECK, "      if (owner[r]) atomicOr(bits + (bi >> 5), bit);"),
-    ("join.cu", "                              long long* partial, unsigned* bits, long long* bidx,\n"
-                "                              long long* pidx, uint8_t* bm, uint8_t* pm, void* stream) {",
-     "                              long long* partial, unsigned* bits, long long* bidx,\n"
-     "                              long long* pidx, uint8_t* bm, uint8_t* pm, void* stream) {\n"
-     "  uint8_t* owner = reinterpret_cast<uint8_t*>(bits + 2 * ((nb + 31) / 32));"),
+    ("join.cu", "                              long long* bidx, long long* pidx, uint8_t* bm, uint8_t* pm,\n"
+                "                              void* stream) {",
+     "                              long long* bidx, long long* pidx, uint8_t* bm, uint8_t* pm,\n"
+     "                              void* stream) {\n"
+     "  uint8_t* owner = reinterpret_cast<uint8_t*>(bits + 2 * ((nb + 31) / 32));\n"
+     "  counted = 0;  // the owners are claimed in J3's own counts pass"),
     ("join.cu", "  cudaError_t e = cudaMemsetAsync(bits, 0, static_cast<size_t>(words) * sizeof(unsigned), s);",
      "  cudaError_t e =\n      cudaMemsetAsync(bits, 0, static_cast<size_t>(2 * words) * sizeof(unsigned), s);"),
     ("join.cu", "    count_tiles<<<static_cast<unsigned>(nt), kCountBlock, 0, s>>>(cnt_p, npr, partial, pm);",
@@ -584,6 +604,73 @@ _K1_BATCH = """#pragma unroll
       }}
     }}"""
 
+# K3 as it was designed first: one block a group, one thread a bin, a
+# Hillis-Steele scan in shared memory and one __syncthreads_count a
+# quantile (csrc/loghist_quantile.cu), taking the checkout's parameters
+_K3_BLOCK = """__global__ void block_quantile_kernel(const float* __restrict__ hist, int width,
+                                      const Quantiles qs, int nq,
+                                      const double* __restrict__ bin_values,
+                                      double* __restrict__ out, int stride, int col0) {
+  extern __shared__ float cum[];
+  const int g = blockIdx.x;
+  const int t = threadIdx.x;
+  cum[t] = t < width ? hist[static_cast<long long>(g) * width + t] : 0.0f;
+  __syncthreads();
+  for (int off = 1; off < blockDim.x; off <<= 1) {
+    const float add = t >= off ? cum[t - off] : 0.0f;
+    __syncthreads();
+    cum[t] += add;
+    __syncthreads();
+  }
+  const float total = cum[width - 1];
+  const float mine = cum[t];
+  for (int j = 0; j < nq; ++j) {
+    const float target = fminf(fmaxf(qs.q[j], 0.0f), 1.0f) * total;
+    const int below = __syncthreads_count(t < width && mine < target);
+    if (t == 0) {
+      const int idx = below < width - 1 ? below : width - 1;
+      out[static_cast<long long>(g) * stride + col0 + j] =
+          total > 0.0f ? bin_values[idx] : CUDART_NAN;
+    }
+  }
+}
+
+"""
+_K3_LAUNCH = """  if (width <= 17 * 32) return launch<17>(hist, groups, width, q, nq, bin_values, out, stride,
+                                          col0, s);"""
+_K3_LAUNCH_BLOCK = """  const int block = (width + 31) / 32 * 32;
+  block_quantile_kernel<<<groups, block, block * sizeof(float), s>>>(hist, width, q, nq,
+                                                                   bin_values, out, stride, col0);
+  return static_cast<int>(cudaGetLastError());"""
+# J2 not giving J3 its tiles: J3 runs its own counts pass and scan
+# (ops/join_device.py; ab_finalize's join measures then take the unfused
+# form, since join_probe has no `tiles` parameter)
+_J2_UNFUSED = [
+    ("ops/join_device.py", "               tiles: bool = False):\n    \"\"\"J2",
+     "               _tiles: bool = False):\n    \"\"\"J2"),
+    ("ops/join_device.py", "    if not codes.is_cuda:\n        return join_probe_plain(codes, cnt, first, tiles)",
+     "    tiles = _tiles\n    if not codes.is_cuda:\n        return join_probe_plain(codes, cnt, first, tiles)"),
+    ("ops/join_device.py", "    cnt_p, lo_p, total, tiles = join_probe(p, cnt, first, tiles=True)",
+     "    (cnt_p, lo_p, total), tiles = join_probe(p, cnt, first), None"),
+]
+# J1's code table as two tables, cnt and first apart (in the slot table's
+# 2K ints: the counts, then the firsts), so that a probe row gathers two
+# sectors, where the checkout's interleaved slot gathers one
+# (csrc/join.cu, ops/join_device.py)
+_J2_TWO_TABLES = [
+    ("join.cu", "    slots[base + j] = make_int2(nx - f, f);",
+     "    reinterpret_cast<int*>(slots)[base + j] = nx - f;\n"
+     "    reinterpret_cast<int*>(slots)[K + base + j] = f;"),
+    ("join.cu", "      const int2 slot = hit ? __ldg(slots + c[r][e]) : make_int2(0, 0);\n"
+                "      k[r][e] = slot.x;\n      lo[r][e] = slot.y;",
+     "      k[r][e] = hit ? __ldg(reinterpret_cast<const int*>(slots) + c[r][e]) : 0;\n"
+     "      lo[r][e] = hit ? __ldg(reinterpret_cast<const int*>(slots) + K + c[r][e]) : 0;"),
+    ("ops/join_device.py", "    return slots[:, 0], slots[:, 1], rows",
+     "    return slots.view(-1)[:K], slots.view(-1)[K:], rows"),
+    ("ops/join_device.py", "    K = cnt.shape[0]\n    if (cnt.device != dev",
+     "    return cnt.data_ptr()\n    K = cnt.shape[0]\n    if (cnt.device != dev"),
+]
+
 #: choice → ([(file under pixie_tpu_torch/csrc, or a path under
 #: pixie_tpu_torch with a "/", text, its replacement)], measures)
 CHOICES = {
@@ -700,6 +787,14 @@ CHOICES = {
     "k4_dense4": ([("compact.cu", "constexpr int kDense = 8;",
                     "constexpr int kDense = 4;")], "k4,k4_half,k4_dense"),
     "k4_look_back": (_K4_LOOK_BACK, "k4,k4_half,k4_dense"),
+    "k3_block": ([("loghist_quantile.cu", "template <int ROWS>\nint launch(",
+                   _K3_BLOCK + "template <int ROWS>\nint launch("),
+                  ("loghist_quantile.cu", _K3_LAUNCH, _K3_LAUNCH_BLOCK)],
+                 "k3,k3_s2,k3_dev,k3_s2_dev"),
+    "j2_unfused": (_J2_UNFUSED, "j2,j2_phase,j3,j3_phase,j3_heavy,j2_j3,j2_j3_phase,j2_j3_heavy"),
+    "j2_two_tables": (_J2_TWO_TABLES, "j1,j1_phase,j2,j2_phase,j2_j3_phase"),
+    "j2_block256": ([("join.cu", "constexpr int kProbeBlock = 1024;",
+                      "constexpr int kProbeBlock = 256;")], "j2,j2_phase"),
     "km2_no_accumulate": ([_KM2_ACC], "km2,km2_leaf"),
     "km2_no_tail": ([_KM2_TAIL], "km2,km2_leaf"),
     "km2_stream_only": ([_KM2_ACC, _KM2_DIST], "km2,km2_leaf"),

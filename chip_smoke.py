@@ -45,9 +45,14 @@ Phases, each of which fails the run if it fails:
                 and max over values 1% NaN with +-0.0 and +-inf into a
                 state that enters holding NaN of either sign, against the
                 plain version with NaN compared as NaN (every entering NaN
-                stays, a NaN a row brings is the op's own); and J2 timed at
+                stays, a NaN a row brings is the op's own); J2 timed at
                 the device join phase's shape (2^22 x 2^22, codes in
-                [0, 2^20));
+                [0, 2^20)) with its tiles, and J2 + J3 there as the join
+                runs them (J3 given J2's tiles) and as two stages that each
+                count; J3 held with and without J2's tiles; and K3 at 64
+                and at S2's 4,096 groups (CUDA events, device time, host
+                microseconds a call), its warm call profiled for
+                host-to-device copies (0 wanted);
   4. slice    — bench config #1 (filter status != 404, group by service and
                 status, count / mean / p50 of latency) over an http_events
                 table of 64M rows (bench's headline size) built with the
@@ -685,32 +690,56 @@ def check_kernels(dev) -> list[dict]:
                   "host_us": host_us(lambda: lh.update(acc, gid, lat, mask, g))},
     })
 
-    # ---- K3: exact against its plain version, incl. empty groups and G = 1
+    # ---- K3: exact against its plain version and the host finalize, incl.
+    # empty groups, G = 1 and 17 quantiles (two launches)
     qs = [0.0, 0.01, 0.5, 0.9, 0.99, 1.0]
-    for label, g_ in (("G=64", 64), ("G=1", 1), ("G=4096", 4096)):
+    for label, g_, qs_ in (("G=64", 64, qs), ("G=1", 1, qs), ("G=4096", 4096, qs),
+                           ("G=4096 nq=17", 4096, np.linspace(0.0, 1.0, 17).tolist())):
         h = torch.from_numpy(rng.poisson(3.0, (g_, W)).astype(np.float32)).to(dev)
         h[g_ // 2] = 0  # an empty group → NaN
-        got, want = lh.quantile_device(h, qs), lh.quantile_plain(h, qs)
+        got, want = lh.quantile_device(h, qs_), lh.quantile_plain(h, qs_)
         torch.cuda.synchronize()
         same("K3 " + label, got, want)
-        host = lh.quantile(h.cpu().numpy(), qs)
+        host = lh.quantile(h.cpu().numpy(), qs_)
         same("K3 vs host " + label, got, torch.from_numpy(host))
-        log(json.dumps({"check": "K3 " + label, "ok": True, "max_abs_err": 0.0}))
+        log(json.dumps({"check": "K3 " + label, "ok": True, "quantiles": len(qs_),
+                        "max_abs_err": 0.0}))
     got, want = lh.quantile_device(a, [0.5]), lh.quantile_plain(a, [0.5])
     torch.cuda.synchronize()
     err = same("K3 main", got, want)
+    # S2's shape: bin(bytes, 4096) gives 4,096 groups of about 4,096 rows
+    s2 = torch.from_numpy(rng.poisson(8.0, (4096, W)).astype(np.float32)).to(dev)
+    same("K3 at S2's shape", lh.quantile_device(s2, [0.5]), lh.quantile_plain(s2, [0.5]))
+    k3 = {}
+    for label, hist in (("G=64", a), ("S2 G=4096", s2)):
+        g_ = hist.shape[0]
+        b_ms, by = bound(g_ * W * 4 + 4 + W * 8 + g_ * 8)
+
+        def kern(hist=hist):
+            return lh.quantile_device(hist, [0.5])
+
+        k3[label] = {"groups": g_, "ms": cuda_ms(kern, 50),
+                     "device_ms": kernel_device_ms(kern, 50), "host_us": host_us(kern),
+                     "plain_ms": cuda_ms(lambda hist=hist: lh.quantile_plain(hist, [0.5]), 20),
+                     "bound_ms": b_ms, "bound_by": by}
+    # a warm call uploads nothing: the bin values are cached on the card and
+    # the quantiles travel in the launch's parameters
+    copies = h2d_copies(lambda: lh.quantile_device(a, list(qs)))
+    if copies["h2d_per_call"] != 0 or copies["device_events_per_call"] == 0:
+        raise AssertionError(f"K3: a warm call's profile {copies}, want 0 H2D copies beside "
+                             "its kernel")
+    log(json.dumps({"kernel_detail": "loghist_quantile", **k3, "warm_call": copies}))
     rows.append({
         "name": "loghist_quantile", "route": "cuda",
         "source": "pixie_tpu_torch/csrc/loghist_quantile.cu",
         "replaces": "pixie_tpu/ops/sketch.py:257 LogHistogram.quantile_device",
         "entry": ("loghist_quantile", "px_loghist_quantile"), "path": "sorted",
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: lh.quantile_device(a, [0.5]), 50),
-        "plain_ms": cuda_ms(lambda: lh.quantile_plain(a, [0.5]), 20),
-        "bound_ms": bound(g * W * 4 + 4 + W * 8 + g * 8)[0],
-        "bound_by": "bytes",
+        **{k: k3["G=64"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
-        "shape": {"groups": g, "bins": W, "quantiles": 1},
+        "shape": {"groups": g, "bins": W, "quantiles": 1, "device_ms": k3["G=64"]["device_ms"],
+                  "host_us": k3["G=64"]["host_us"], "s2": k3["S2 G=4096"],
+                  "warm_h2d_per_call": copies["h2d_per_call"]},
     })
     return rows
 
@@ -779,11 +808,12 @@ def j1_shapes(dev, b, K: int, rng) -> dict:
 
 def j3_timed(dev, label: str, bh, ph) -> dict:
     """J3 held in order against its plain version on J1's and J2's outputs
-    for build codes bh and probe codes ph (numpy), then timed: CUDA events,
-    device time, host microseconds a call, its plain version, and its bound
-    (each probe row's count and lo read once, each matched build row's
-    entry of rows_by_code read once, the pairs and both flags written
-    once)."""
+    for build codes bh and probe codes ph (numpy), given J2's tiles as the
+    main path gives them and counting its own, then timed as the main path
+    runs it: CUDA events, device time, host microseconds a call, its plain
+    version, and its bound (each probe row's count and lo read once, each
+    matched build row's entry of rows_by_code read once, the pairs and
+    build_matched written once)."""
     import torch
 
     from pixie_tpu_torch.ops import join_device as jd
@@ -791,20 +821,23 @@ def j3_timed(dev, label: str, bh, ph) -> dict:
     b, p, K = jd._dense(torch.from_numpy(bh.astype(np.int64)).to(dev),
                         torch.from_numpy(ph.astype(np.int64)).to(dev))
     cnt, first, rbc = jd.join_build(b, K)
-    cnt_p, lo_p, total = jd.join_probe(p, cnt, first)
+    cnt_p, lo_p, total, tiles = jd.join_probe(p, cnt, first, tiles=True)
     total = int(total)
     nb, npr = b.shape[0], p.shape[0]
-    got = jd.join_expand(cnt_p, lo_p, rbc, nb, total)
+    got = jd.join_expand(cnt_p, lo_p, rbc, nb, total, tiles)
+    alone = jd.join_expand(cnt_p, lo_p, rbc, nb, total)
     want = jd.join_expand_plain(cnt_p, lo_p, rbc, nb, total)
     torch.cuda.synchronize()
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError(f"J3 {label}: kernel and plain version disagree (in order)")
+    if not all(torch.equal(g, w) and torch.equal(x, w) for g, x, w in zip(got, alone, want)):
+        raise AssertionError(f"J3 {label}: kernel (with and without J2's tiles) and plain "
+                             "version disagree (in order)")
     matched = int(got[2].sum())
-    b_ms, by = bound(npr * 8 + matched * 4 + total * 16 + nb + npr)
-    del got, want
+    # probe_matched is J2's since J2 gives J3 its tiles
+    b_ms, by = bound(npr * 8 + matched * 4 + total * 16 + nb)
+    del got, alone, want
 
     def kern():
-        return jd.join_expand(cnt_p, lo_p, rbc, nb, total)
+        return jd.join_expand(cnt_p, lo_p, rbc, nb, total, tiles)
 
     return {"build": nb, "probe": npr, "K": K, "pairs": total, "ms": cuda_ms(kern, 10),
             "device_ms": kernel_device_ms(kern, 10), "host_us": host_us(kern, 50),
@@ -945,13 +978,23 @@ def k1_sorted_adds(dev, gid, mask, lat, g: int, touched: int, rng) -> dict:
 J2_PHASE_LABEL = "the device join phase's shape (2^22 x 2^22, codes in [0, 2^20))"
 
 
+def j2_bytes(npr: int, slots: int) -> int:
+    """J2's bytes: each probe code read once, each table slot a probe can
+    touch read once (its count and first), count and lo written once,
+    probe_matched, the tiles' offsets and the total written once."""
+    return npr * 8 + slots * 8 + npr * 8 + npr + -(-npr // 4096) * 8 + 8
+
+
 def j2_phase(dev) -> dict:
     """J2 (the join's probe) at the device join phase's shape: 2^22 build
     and 2^22 probe codes uniform in [0, 2^20) (seed 14), held exactly against
-    its plain version (each probe row's count and first build row, and the
-    total) and timed: CUDA events, device time, host microseconds a call,
-    its plain version and its bound (each probe code read once, the code's
-    cnt and first read once a table slot, count and lo written once)."""
+    its plain version (each probe row's count and first build row, the
+    total, the tiles' offsets and probe_matched) and timed as the main path
+    runs it (with its tiles): CUDA events, device time, host microseconds a
+    call, its plain version and its bound; then J2 + J3 as the device join
+    runs them (J3 given J2's tiles) and as two stages that each count
+    (J2 without tiles, J3 with its own counts pass), summed on one
+    timeline."""
     import torch
 
     from pixie_tpu_torch.ops import join_device as jd
@@ -960,22 +1003,39 @@ def j2_phase(dev) -> dict:
     n = J1_PHASE_ROWS
     b, p, K = jd._dense(torch.from_numpy(rng.integers(0, J1_PHASE_KEYS, n)).to(dev),
                         torch.from_numpy(rng.integers(0, J1_PHASE_KEYS, n)).to(dev))
-    cnt, first, _rbc = jd.join_build(b, K)
-    got = jd.join_probe(p, cnt, first)
-    want = jd.join_probe_plain(p, cnt, first)
+    cnt, first, rbc = jd.join_build(b, K)
+    got = jd.join_probe(p, cnt, first, tiles=True)
+    want = jd.join_probe_plain(p, cnt, first, tiles=True)
     torch.cuda.synchronize()
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-            and int(got[2]) == int(want[2])):
+            and int(got[2]) == int(want[2]) and torch.equal(got[3][0], want[3][0])
+            and torch.equal(got[3][1], want[3][1])):
         raise AssertionError(f"J2 at {J2_PHASE_LABEL}: kernel and plain version disagree")
+    total = int(got[2])
+    del got, want
 
     def kern():
-        return jd.join_probe(p, cnt, first)
+        return jd.join_probe(p, cnt, first, tiles=True)
 
-    b_ms, by = bound(n * 8 + min(K, n) * 8 + n * 8 + 8)
-    out = {"build": n, "probe": n, "K": K, "pairs": int(got[2]), "ms": cuda_ms(kern, 10),
+    def fused():
+        cp, lp, _t, tiles = jd.join_probe(p, cnt, first, tiles=True)
+        return jd.join_expand(cp, lp, rbc, n, total, tiles)
+
+    def unfused():
+        cp, lp, _t = jd.join_probe(p, cnt, first)
+        return jd.join_expand(cp, lp, rbc, n, total)
+
+    b_ms, by = bound(j2_bytes(n, min(K, n)))
+    out = {"build": n, "probe": n, "K": K, "pairs": total, "ms": cuda_ms(kern, 10),
            "device_ms": kernel_device_ms(kern, 10), "host_us": host_us(kern, 50),
-           "plain_ms": cuda_ms(lambda: jd.join_probe_plain(p, cnt, first), 3, 1),
+           "plain_ms": cuda_ms(lambda: jd.join_probe_plain(p, cnt, first, tiles=True), 3, 1),
            "bound_ms": b_ms, "bound_by": by}
+    matched = int(fused()[2].sum())
+    out["j2_j3"] = {
+        "ms": cuda_ms(fused, 10), "device_ms": kernel_device_ms(fused, 10),
+        "host_us": host_us(fused, 50),
+        "unfused_ms": cuda_ms(unfused, 10), "unfused_device_ms": kernel_device_ms(unfused, 10),
+        "bound_ms": b_ms + bound(n * 8 + matched * 4 + total * 16 + n)[0]}
     log(json.dumps({"kernel_detail": "join.probe", "shape": J2_PHASE_LABEL, **out}))
     return out
 
@@ -1124,11 +1184,12 @@ def check_new_kernels(dev) -> list[dict]:
     p = t(rng.integers(0, nj, nj).astype(np.int64))
     b2, p2, K = jd._dense(b, p)
     cnt, first, rbc = jd.join_build(b2, K)
-    cnt_p, lo_p, total_t = jd.join_probe(p2, cnt, first)
+    cnt_p, lo_p, total_t, tiles = jd.join_probe(p2, cnt, first, tiles=True)
     total = int(total_t)
-    bidx, pidx, bm, pm = jd.join_expand(cnt_p, lo_p, rbc, nj, total)
+    bidx, pidx, bm, pm = jd.join_expand(cnt_p, lo_p, rbc, nj, total, tiles)
+    alone = jd.join_expand(cnt_p, lo_p, rbc, nj, total)
     cnt0, first0, rbc0 = jd.join_build_plain(b2, K)
-    cnt_p0, lo_p0, total0 = jd.join_probe_plain(p2, cnt0, first0)
+    cnt_p0, lo_p0, total0, tiles0 = jd.join_probe_plain(p2, cnt0, first0, tiles=True)
     bidx0, pidx0, bm0, pm0 = jd.join_expand_plain(cnt_p0, lo_p0, rbc0, nj, int(total0))
     torch.cuda.synchronize()
     checks = {
@@ -1138,6 +1199,10 @@ def check_new_kernels(dev) -> list[dict]:
         "J1 rows_by_code": torch.equal(rbc[:rbc0.shape[0]], rbc0),
         "J2 count/lo/total": (torch.equal(cnt_p, cnt_p0) and torch.equal(lo_p, lo_p0)
                               and total == int(total0)),
+        "J2 tiles": torch.equal(tiles[0], tiles0[0]) and torch.equal(tiles[1], tiles0[1]),
+        # J3 counting its own tiles gives what J3 given J2's gives
+        "J3 without J2's tiles": all(torch.equal(x, y) for x, y in
+                                     zip(alone, (bidx, pidx, bm, pm))),
         # grouped by probe row in probe-row order, ascending build rows
         # within a probe row: the plain version's order exactly
         "J3 pairs in order": torch.equal(bidx, bidx0) and torch.equal(pidx, pidx0),
@@ -1154,13 +1219,13 @@ def check_new_kernels(dev) -> list[dict]:
          lambda: jd.join_build(b2, K), lambda: jd.join_build_plain(b2, K),
          nj * 8 + K * 4 * 2 + nj * 4),
         ("join.probe", "px_join_probe", "pixie_tpu/ops/join_device.py:161 _bucket_match",
-         lambda: jd.join_probe(p2, cnt, first), lambda: jd.join_probe_plain(p2, cnt0, first0),
-         nj * 8 + hit * 8 + nj * 8 + 8),
+         lambda: jd.join_probe(p2, cnt, first, tiles=True),
+         lambda: jd.join_probe_plain(p2, cnt0, first0, tiles=True), j2_bytes(nj, hit)),
         ("join.expand", "px_join_expand",
          "pixie_tpu/ops/join_device.py:188 _bucket_expand (+ _expand :103, match_ranges :87)",
-         lambda: jd.join_expand(cnt_p, lo_p, rbc, nj, total),
-         lambda: jd.join_expand_plain(cnt_p0, lo_p0, rbc0, nj, total),
-         nj * 8 + min(total, nj) * 4 + total * 16 + nj + nj),
+         lambda: jd.join_expand(cnt_p, lo_p, rbc, nj, total, tiles),
+         lambda: jd.join_expand_plain(cnt_p0, lo_p0, rbc0, nj, total, tiles0),
+         nj * 8 + int(bm0.sum()) * 4 + total * 16 + nj),
     ]
     for name, entry, replaces, kern, plain, nbytes in stages:
         b_ms, by = bound(nbytes)
@@ -1172,10 +1237,11 @@ def check_new_kernels(dev) -> list[dict]:
             "shape": {"build": nj, "probe": nj, "K": K, "pairs": total},
         })
     rows[-3]["shape"].update(j1_shapes(dev, b2, K, rng))
-    rows[-2]["shape"]["phase"] = j2_phase(dev)
+    rows[-2]["shape"].update(device_ms=kernel_device_ms(stages[1][3], 10),
+                             host_us=host_us(stages[1][3], 50), phase=j2_phase(dev))
     rows[-1]["shape"].update(j3_shapes(dev))
-    del cnt, first, rbc, cnt_p, lo_p, bidx, pidx, bm, pm
-    del cnt0, first0, rbc0, cnt_p0, lo_p0, bidx0, pidx0, bm0, pm0, b2, p2
+    del cnt, first, rbc, cnt_p, lo_p, tiles, bidx, pidx, bm, pm, alone, stages
+    del cnt0, first0, rbc0, cnt_p0, lo_p0, tiles0, bidx0, pidx0, bm0, pm0, b2, p2
 
     # ---- J1-J3 edge cases through device_join_codes, against the plain route
     def plain_join(bc, pc):

@@ -18,25 +18,34 @@
 //     warp order) and writes them out through shared memory.  The rows of
 //     the last pass are rows_by_code.  Then each block of 4096 codes finds
 //     its codes' run starts in the sorted codes (or binary searches, for a
-//     window of many rows) and writes first[K] and cnt[K] for every slot.
+//     window of many rows) and writes every code's slot (count, first):
+//     one 8-byte pair a code, so that J2 gathers one sector a probe row.
 //     No global atomics and no memsets; rows with a code outside [0, K) are
 //     dropped by the first pass.  Within a code the rows come in ascending
 //     order, the plain version's (a stable argsort), every run.  (12-bit
 //     digits, two passes at 2^24, and __match_any_sync ranks ran slower:
 //     ab_kernels.py j1_digits12, j1_match.)
-//  J2 px_join_probe:  per probe row, count = cnt[code] and lo = first[code]
-//     (0 and 0 for a code outside [0, K): the executor's null sentinels -1 and
-//     -2 never match); each warp adds its partial count into one int64 total.
-//  J3 px_join_expand: load-balanced over the pairs.  One pass sums the
-//     counts of each 4,096-row tile of probe rows and writes probe_matched;
-//     one block scans the tiles' sums.  Then each expand block takes 2,048
-//     consecutive pairs, scans the counts of the tile (or tiles) they come
-//     from in shared memory, and each thread finds its pair's probe row by
-//     a binary search over those offsets and writes (rows_by_code[lo + j],
-//     row).  A block's stores are one contiguous run; a row of 1-4 pairs
-//     costs a thread, not a warp; a heavy key (4,096 rows a side: 16M
-//     pairs) spreads over 8,192 blocks on the whole card.  build_matched is
-//     kept as bits in the L2 (nb / 8 bytes), a bit set by an atomicOr from
+//  J2 px_join_probe:  per probe row, (count, lo) = the slot of its code
+//     ((0, 0) for a code outside [0, K): the executor's null sentinels -1
+//     and -2 never match).  One block a 4,096-row tile: a thread loads its
+//     4 codes in 16-byte loads, issues its 4 slot gathers (one 8-byte load
+//     each) before its first store and writes count and lo in 16-byte
+//     stores; the block sums its tile's counts, and one block scans the
+//     tiles' sums into their offsets and the total (no atomic on one word,
+//     no memset).  With probe_matched asked for, J2 writes it too, and its
+//     tile offsets are J3's: J3 then skips its own counts pass and scan
+//     (device_join_codes does this).
+//  J3 px_join_expand: load-balanced over the pairs.  Unless J2 gave them,
+//     one pass sums the counts of each 4,096-row tile of probe rows and
+//     writes probe_matched, and one block scans the tiles' sums.  Then each
+//     expand block takes 2,048 consecutive pairs, scans the counts of the
+//     tile (or tiles) they come from in shared memory, and each thread
+//     finds its pair's probe row by a binary search over those offsets and
+//     writes (rows_by_code[lo + j], row).  A block's stores are one
+//     contiguous run; a row of 1-4 pairs costs a thread, not a warp; a
+//     heavy key (4,096 rows a side: 16M pairs) spreads over 8,192 blocks on
+//     the whole card.  build_matched is kept as bits in the L2 (nb / 8
+//     bytes), a bit set by an atomicOr from
 //     the pairs that find it clear (a key met by many probe rows would
 //     otherwise queue an atomic on the same word from each of its pairs),
 //     then written out as bytes by a coalesced pass.  No per-row offsets in
@@ -58,10 +67,14 @@
 // flags are exact.
 //
 // Bound on the H100: bytes.  At 16M x 16M codes uniform in [0, 16M) (K = 16M,
-// ~16M pairs): J1 reads 128 MB of codes and writes cnt, first (64 MB each)
+// ~16M pairs): J1 reads 128 MB of codes and writes the slots (128 MB)
 // and rows_by_code (64 MB); J2 reads 128 MB of codes plus the gathered slots
-// and writes 128 MB of (count, lo); J3 reads (count, lo) and rows_by_code
-// and writes 256 MB of pairs and 32 MB of flags.  J3's gather of
+// and writes 128 MB of (count, lo) and 16 MB of probe_matched; J3 reads
+// (count, lo) and rows_by_code and writes 256 MB of pairs and 16 MB of
+// build_matched.  J2's gathers of the slots are random, a 32-byte sector a
+// row from device memory once the table misses the L2 (past K = 2^22 or
+// so); at the device join phase's K = 2^20 its 8 MB stay in the L2, where
+// the sectors' rate still sets J2's time.  J3's gather of
 // rows_by_code is random (a probe row's lo), a 32-byte sector a pair.  J1's sort
 // moves more than that: at K = 16M three passes each read the keys twice
 // and write keys and rows once (about 20 bytes a row a pass).
@@ -71,7 +84,6 @@
 
 namespace {
 
-constexpr int kBlock = 256;
 // ------------------------------------------------------------------- J1
 //
 // A stable LSD counting sort of the valid build rows by code, kDigitBits a
@@ -342,16 +354,16 @@ __global__ void __launch_bounds__(kSortBlock) window_bounds(const int* __restric
   bounds[h] = static_cast<int>(lo);
 }
 
-// cnt and first of window h's kWindow codes from the sorted codes: each
-// code's first position (its run's start, or, without a run, the next run's
-// start), and its count as the distance to the next code's first.  A window
-// of up to kWindowStream rows is read once for its run starts; a larger one
-// (a few heavy codes) is searched, a binary search a code, each thread's
-// kWindowPer searches stepping together.
+// The slots (count, first) of window h's kWindow codes from the sorted
+// codes: each code's first position (its run's start, or, without a run,
+// the next run's start), and its count as the distance to the next code's
+// first.  A window of up to kWindowStream rows is read once for its run
+// starts; a larger one (a few heavy codes) is searched, a binary search a
+// code, each thread's kWindowPer searches stepping together.
 __global__ void __launch_bounds__(kWindowBlock) code_table(const int* __restrict__ keys,
                                                            const int* __restrict__ bounds,
-                                                           long long K, int* __restrict__ cnt,
-                                                           int* __restrict__ first) {
+                                                           long long K,
+                                                           int2* __restrict__ slots) {
   __shared__ int start[kWindow];
   __shared__ int wmin[kWindowBlock / 32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -428,13 +440,12 @@ __global__ void __launch_bounds__(kWindowBlock) code_table(const int* __restrict
   for (int j = tid; j < wn; j += kWindowBlock) {
     const int f = start[j];
     const int nx = j + 1 < kWindow ? start[j + 1] : hi;
-    first[base + j] = f;
-    cnt[base + j] = nx - f;
+    slots[base + j] = make_int2(nx - f, f);
   }
 }
 
 // The sort's passes and the code table on `s` (see px_join_build).
-cudaError_t join_build_sort(const long long* codes, const SortPlan& p, int* cnt, int* first,
+cudaError_t join_build_sort(const long long* codes, const SortPlan& p, int2* slots,
                             int* rows, int* scratch32, long long* scratch64, cudaStream_t s) {
   int* keys[2] = {scratch32, scratch32 + p.stride};
   int* spare = scratch32 + 2 * p.stride;
@@ -497,39 +508,84 @@ cudaError_t join_build_sort(const long long* codes, const SortPlan& p, int* cnt,
   const int* sorted = keys[(p.passes - 1) & 1];
   window_bounds<<<static_cast<unsigned>((p.windows + 1 + kSortBlock - 1) / kSortBlock),
                   kSortBlock, 0, s>>>(sorted, total, p.windows, bounds);
-  code_table<<<static_cast<unsigned>(p.windows), kWindowBlock, 0, s>>>(sorted, bounds, p.K, cnt,
-                                                                     first);
+  code_table<<<static_cast<unsigned>(p.windows), kWindowBlock, 0, s>>>(sorted, bounds, p.K,
+                                                                     slots);
   return cudaGetLastError();
 }
 
 // ------------------------------------------------------------------ J2, J3
 
-__global__ void __launch_bounds__(kBlock) probe(const long long* __restrict__ codes,
-                                                long long n, long long K,
-                                                const int* __restrict__ cnt,
-                                                const int* __restrict__ first,
-                                                int* __restrict__ cnt_p, int* __restrict__ lo_p,
-                                                long long* __restrict__ total) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  long long mine = 0;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const long long c = codes[i];
-    int k = 0, lo = 0;
-    if (c >= 0 && c < K) {
-      k = cnt[c];
-      lo = first[c];
-    }
-    cnt_p[i] = k;
-    lo_p[i] = lo;
-    mine += k;
-  }
+// J2.  One block a tile of px_scan::kTile probe rows: kProbeRounds rounds
+// of kProbeVec consecutive rows a thread.  A thread loads all of its codes
+// (16-byte loads), then issues all of its rows' gathers of their slots (one
+// 8-byte load a row: count and first side by side), then stores count and
+// lo in 16-byte vectors (and, with pm, probe_matched as 4 bytes).
+// partial[tile] = the tile's sum of counts, for px_scan::scan_partials.
+// The gathers' 32-byte sectors are J2's time: with cnt and first apart, two
+// a row, it took 1.6x (2^22 probe rows, K = 2^20) and 1.8x (2^24, K = 2^24)
+// as long (ab_kernels.py j2_two_tables; j2_block256 for 256 threads x 16
+// rows a tile).
+constexpr int kProbeBlock = 1024;
+constexpr int kProbeVec = 4;
+constexpr int kProbeRounds = px_scan::kTile / (kProbeVec * kProbeBlock);  // 1
+
+__global__ void __launch_bounds__(kProbeBlock) probe_tiles(
+    const long long* __restrict__ codes, long long n, long long K, const int2* __restrict__ slots,
+    int* __restrict__ cnt_p, int* __restrict__ lo_p,
+    long long* __restrict__ partial, uint8_t* __restrict__ pm) {
+  const long long base = static_cast<long long>(blockIdx.x) * px_scan::kTile;
+  long long c[kProbeRounds][kProbeVec];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) mine += __shfl_down_sync(0xffffffffu, mine, o);
-  if ((threadIdx.x & 31) == 0 && mine != 0) {
-    atomicAdd(reinterpret_cast<unsigned long long*>(total),
-              static_cast<unsigned long long>(mine));
+  for (int r = 0; r < kProbeRounds; ++r) {
+    const long long i = base + (static_cast<long long>(r) * kProbeBlock + threadIdx.x) * kProbeVec;
+    if (i + kProbeVec <= n) {
+      const longlong2 a = __ldcs(reinterpret_cast<const longlong2*>(codes + i));
+      const longlong2 b = __ldcs(reinterpret_cast<const longlong2*>(codes + i + 2));
+      c[r][0] = a.x, c[r][1] = a.y, c[r][2] = b.x, c[r][3] = b.y;
+    } else {
+#pragma unroll
+      for (int e = 0; e < kProbeVec; ++e) c[r][e] = i + e < n ? codes[i + e] : -1;
+    }
   }
+  int k[kProbeRounds][kProbeVec], lo[kProbeRounds][kProbeVec];
+#pragma unroll
+  for (int r = 0; r < kProbeRounds; ++r) {
+#pragma unroll
+    for (int e = 0; e < kProbeVec; ++e) {
+      // one unsigned compare: a negative code (a null sentinel) is past K
+      const bool hit = static_cast<unsigned long long>(c[r][e]) <
+                       static_cast<unsigned long long>(K);
+      const int2 slot = hit ? __ldg(slots + c[r][e]) : make_int2(0, 0);
+      k[r][e] = slot.x;
+      lo[r][e] = slot.y;
+    }
+  }
+  long long sum = 0;
+#pragma unroll
+  for (int r = 0; r < kProbeRounds; ++r) {
+    const long long i = base + (static_cast<long long>(r) * kProbeBlock + threadIdx.x) * kProbeVec;
+    sum += static_cast<long long>(k[r][0]) + k[r][1] + k[r][2] + k[r][3];
+    if (i + kProbeVec <= n) {
+      *reinterpret_cast<int4*>(cnt_p + i) = make_int4(k[r][0], k[r][1], k[r][2], k[r][3]);
+      *reinterpret_cast<int4*>(lo_p + i) = make_int4(lo[r][0], lo[r][1], lo[r][2], lo[r][3]);
+      if (pm != nullptr) {
+        *reinterpret_cast<uchar4*>(pm + i) =
+            make_uchar4(k[r][0] > 0, k[r][1] > 0, k[r][2] > 0, k[r][3] > 0);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kProbeVec; ++e) {
+        if (i + e < n) {
+          cnt_p[i + e] = k[r][e];
+          lo_p[i + e] = lo[r][e];
+          if (pm != nullptr) pm[i + e] = k[r][e] > 0;
+        }
+      }
+    }
+  }
+  long long tile_sum;
+  px_scan::block_excl_scan(sum, &tile_sum);
+  if (threadIdx.x == 0) partial[blockIdx.x] = tile_sum;
 }
 
 // J3.  Pair q of the join lies in probe row r where off[r] <= q < off[r] +
@@ -704,41 +760,54 @@ extern "C" int px_join_build_scratch(long long nb, long long K, long long* out) 
   return 0;
 }
 
-// J1.  cnt, first: K int32 each, every slot written; rows: nb int32 (the
-// first sum(cnt) are written: the rows of each code in ascending order, the
-// codes in order); scratch32 and scratch64 as px_join_build_scratch sizes
-// them.  No global atomics: the rows are sorted by code (a stable LSD
-// counting sort), then each code's first and count are read off the sorted
-// codes.
-extern "C" int px_join_build(const long long* codes, long long nb, long long K, int* cnt,
-                             int* first, int* rows, int* scratch32, long long* scratch64,
-                             void* stream) {
-  if (K <= 0 || nb < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(join_build_sort(codes, sort_plan(nb, K), cnt, first, rows, scratch32,
-                                          scratch64, static_cast<cudaStream_t>(stream)));
+// J1.  slots: K (count, first) int32 pairs, 8-byte aligned, every slot
+// written; rows: nb int32 (the first sum(count) are written: the rows of
+// each code in ascending order, the codes in order); scratch32 and scratch64
+// as px_join_build_scratch sizes them.  No global atomics: the rows are
+// sorted by code (a stable LSD counting sort), then each code's first and
+// count are read off the sorted codes.
+extern "C" int px_join_build(const long long* codes, long long nb, long long K, int* slots,
+                             int* rows, int* scratch32, long long* scratch64, void* stream) {
+  if (K <= 0 || nb < 0 || (reinterpret_cast<uintptr_t>(slots) & 7) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(join_build_sort(codes, sort_plan(nb, K), reinterpret_cast<int2*>(slots),
+                                          rows, scratch32, scratch64,
+                                          static_cast<cudaStream_t>(stream)));
 }
 
-// J2.  cnt_p, lo_p: npr int32; total: one int64 (set to the number of pairs).
+// J2.  slots: J1's K (count, first) pairs; cnt_p, lo_p: npr int32;
+// partial: ceil(npr / 4096) int64, left holding each tile's offset (the
+// exclusive sum of the counts before it); pm: npr bytes of probe_matched,
+// or null for none; total: one int64 (set to the number of pairs).  codes,
+// cnt_p, lo_p 16-byte aligned, slots 8-byte aligned.  Two launches: the
+// tiles, then one block scanning their sums.
 extern "C" int px_join_probe(const long long* codes, long long npr, long long K,
-                             const int* cnt, const int* first, int* cnt_p, int* lo_p,
-                             long long* total, void* stream) {
+                             const int* slots, int* cnt_p, int* lo_p, long long* partial,
+                             uint8_t* pm, long long* total, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(total, 0, sizeof(long long), s);
-  if (e != cudaSuccess || npr <= 0) return static_cast<int>(e);
-  const long long grid = px_grid(probe, npr, kBlock, 0);
-  probe<<<static_cast<unsigned>(grid), kBlock, 0, s>>>(codes, npr, K, cnt, first, cnt_p, lo_p,
-                                                       total);
+  if (npr < 0 || (reinterpret_cast<uintptr_t>(slots) & 7) != 0 ||
+      ((reinterpret_cast<uintptr_t>(codes) | reinterpret_cast<uintptr_t>(cnt_p) |
+        reinterpret_cast<uintptr_t>(lo_p) | reinterpret_cast<uintptr_t>(pm)) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long nt = px_scan::tiles(npr);
+  if (nt > 0) {
+    probe_tiles<<<static_cast<unsigned>(nt), kProbeBlock, 0, s>>>(
+        codes, npr, K, reinterpret_cast<const int2*>(slots), cnt_p, lo_p, partial, pm);
+  }
+  px_scan::scan_partials<<<1, px_scan::kPartialBlock, 0, s>>>(partial, nt, total);
   return static_cast<int>(cudaGetLastError());
 }
 
-// J3.  partial: ceil(npr / 4096) int64 of scratch (the tiles' sums, then
-// their offsets); bits: ceil(nb / 32) uint32 of scratch (build_matched as
-// bits); total: the pairs (J2's total); bidx, pidx: room for them; bm: nb
-// bytes; pm: npr bytes.  cnt_p and bm 16-byte aligned.
+// J3.  partial: ceil(npr / 4096) int64: with counted, J2's tile offsets
+// (and pm already written by J2); else scratch (the tiles' sums, then their
+// offsets, and pm written here); bits: ceil(nb / 32) uint32 of scratch
+// (build_matched as bits); total: the pairs (J2's total); bidx, pidx: room
+// for them; bm: nb bytes; pm: npr bytes.  cnt_p and bm 16-byte aligned.
 extern "C" int px_join_expand(const int* cnt_p, const int* lo_p, long long npr,
                               const int* rows, long long nb, long long total,
-                              long long* partial, unsigned* bits, long long* bidx,
-                              long long* pidx, uint8_t* bm, uint8_t* pm, void* stream) {
+                              long long* partial, int counted, unsigned* bits,
+                              long long* bidx, long long* pidx, uint8_t* bm, uint8_t* pm,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (total < 0 ||
       ((reinterpret_cast<uintptr_t>(cnt_p) | reinterpret_cast<uintptr_t>(bm)) & 15) != 0)
@@ -748,9 +817,13 @@ extern "C" int px_join_expand(const int* cnt_p, const int* lo_p, long long npr,
   if (e != cudaSuccess) return static_cast<int>(e);
   if (npr > 0) {
     const long long nt = px_scan::tiles(npr);
-    count_tiles<<<static_cast<unsigned>(nt), kCountBlock, 0, s>>>(cnt_p, npr, partial, pm);
+    if (!counted) {
+      count_tiles<<<static_cast<unsigned>(nt), kCountBlock, 0, s>>>(cnt_p, npr, partial, pm);
+    }
     if (total > 0) {
-      px_scan::scan_partials<<<1, px_scan::kPartialBlock, 0, s>>>(partial, nt, nullptr);
+      if (!counted) {
+        px_scan::scan_partials<<<1, px_scan::kPartialBlock, 0, s>>>(partial, nt, nullptr);
+      }
       const long long grid = (total + kExpandPairs - 1) / kExpandPairs;
       if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
       expand<<<static_cast<unsigned>(grid), kExpandBlock, 0, s>>>(cnt_p, lo_p, npr, rows,

@@ -8,13 +8,17 @@ code addresses its own slot and the join is a counting join
 (csrc/join.cu):
 
   * J1 `join_build`: the build rows sorted by code, stably → rows_by_code,
-    and from the sorted codes each code's count cnt[K] and start first[K];
+    and from the sorted codes each code's count cnt[K] and start first[K]
+    (on the card one [K, 2] table of (count, first) slots);
   * J2 `join_probe`: per probe row, its match count cnt[code] and start
     first[code] (codes outside [0, K), such as the executor's null sentinels
-    -1 and -2, match nothing), and the total number of pairs;
+    -1 and -2, match nothing), and the total number of pairs; asked for its
+    tiles, also each 4,096-row tile's offset among the pairs and
+    probe_matched;
   * J3 `join_expand`: the pairs, load-balanced over the card (each block a
     run of consecutive pairs, its probe rows found from the scanned counts
-    of their 4,096-row tile), with both sides' matched flags.
+    of their 4,096-row tile), with both sides' matched flags.  Given J2's
+    tiles it starts at the pairs; without them it counts the tiles itself.
 
 Codes that are negative on both sides, or too wide to address directly, are
 first made dense with one `torch.unique(..., return_inverse=True)` over both
@@ -62,7 +66,7 @@ _J = "join"
 #: input row (or 2^20, whichever is larger); wider code spaces are densified
 _DIRECT_SLOTS_PER_ROW = 4
 _INT32_MAX = (1 << 31) - 1
-_P, _L = ctypes.c_void_p, ctypes.c_longlong
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 # --------------------------------------------------------------- plain versions
@@ -77,16 +81,29 @@ def join_build_plain(codes: torch.Tensor, K: int):
     return cnt, first, rows.to(torch.int32)
 
 
-def join_probe_plain(codes: torch.Tensor, cnt: torch.Tensor, first: torch.Tensor):
+def probe_tiles_plain(cnt_p: torch.Tensor):
+    """(tile offsets int64[ceil(npr / TILE_ROWS)], probe_matched bool[npr]):
+    each TILE_ROWS-row tile's exclusive sum of the counts before it, and
+    count > 0 a row."""
+    npr = cnt_p.shape[0]
+    nt = -(-npr // TILE_ROWS)
+    pad = torch.zeros(nt * TILE_ROWS - npr, dtype=torch.int64, device=cnt_p.device)
+    sums = torch.cat([cnt_p.to(torch.int64), pad]).view(nt, TILE_ROWS).sum(1)
+    return torch.cumsum(sums, 0) - sums, cnt_p > 0
+
+
+def join_probe_plain(codes: torch.Tensor, cnt: torch.Tensor, first: torch.Tensor,
+                     tiles: bool = False):
     K = cnt.shape[0]
     valid = (codes >= 0) & (codes < K)
     c = codes.clamp(0, K - 1)
     zero = torch.zeros((), dtype=torch.int32, device=codes.device)
     cnt_p = torch.where(valid, cnt[c], zero)
-    return cnt_p, torch.where(valid, first[c], zero), torch.sum(cnt_p, dtype=torch.int64)
+    out = (cnt_p, torch.where(valid, first[c], zero), torch.sum(cnt_p, dtype=torch.int64))
+    return (*out, probe_tiles_plain(cnt_p)) if tiles else out
 
 
-def join_expand_plain(cnt_p, lo_p, rows, nb: int, total: int):
+def join_expand_plain(cnt_p, lo_p, rows, nb: int, total: int, tiles=None):
     npr = cnt_p.shape[0]
     counts = cnt_p.to(torch.int64)
     offs = torch.cumsum(counts, 0) - counts
@@ -96,7 +113,7 @@ def join_expand_plain(cnt_p, lo_p, rows, nb: int, total: int):
     bidx = rows[lo_p[pidx].to(torch.int64) + within].to(torch.int64)
     bm = torch.zeros(nb, dtype=torch.bool, device=cnt_p.device)
     bm[bidx] = True
-    return bidx, pidx, bm, cnt_p > 0
+    return bidx, pidx, bm, (cnt_p > 0) if tiles is None else tiles[1]
 
 
 # -------------------------------------------------------------------- kernels
@@ -127,9 +144,10 @@ def _build_plan(nb: int, K: int) -> tuple:
 def join_build(codes: torch.Tensor, K: int):
     """J1 → (cnt[K] int32, first[K] int32, rows_by_code int32): the build
     rows with a code in [0, K), grouped by code in ascending row order,
-    group c at first[c].  On the card rows_by_code has room for every build
-    row and only its first sum(cnt) entries are written; the plain version
-    returns just those."""
+    group c at first[c].  On the card cnt and first are the two columns of
+    one [K, 2] slot table (J2 gathers a code's pair in one load), and
+    rows_by_code has room for every build row and only its first sum(cnt)
+    entries are written; the plain version returns just those."""
     if not codes.is_cuda:
         return join_build_plain(codes, K)
     _check_codes(codes)
@@ -137,53 +155,74 @@ def join_build(codes: torch.Tensor, K: int):
         raise ValueError(f"code space of {K} slots is outside the kernel's (0, 2^31)")
     dev, nb = codes.device, codes.shape[0]
     n32, n64 = _build_plan(nb, K)[:2]
-    cnt = torch.empty(K, dtype=torch.int32, device=dev)
-    first = torch.empty(K, dtype=torch.int32, device=dev)
+    slots = torch.empty((K, 2), dtype=torch.int32, device=dev)
     rows = torch.empty(nb, dtype=torch.int32, device=dev)
     # held until the launches are enqueued: a block freed before them could
     # go to another thread's allocation on this stream, whose kernels J1
     # would race
     s32 = torch.empty(n32, dtype=torch.int32, device=dev)
     s64 = torch.empty(n64, dtype=torch.int64, device=dev)
-    fn = _build.function(_J, "px_join_build", [_P, _L, _L, _P, _P, _P, _P, _P, _P])
-    with torch.cuda.device(dev):
-        err = fn(_build.ptr(codes), nb, K, _build.ptr(cnt), _build.ptr(first), _build.ptr(rows),
-                 _build.ptr(s32), _build.ptr(s64), _build.stream_of(codes))
+    fn = _build.function(_J, "px_join_build", [_P, _L, _L, _P, _P, _P, _P, _P])
+    d = dev.index
+    err = _build.call(d, fn, codes.data_ptr(), nb, K, slots.data_ptr(), rows.data_ptr(),
+                      s32.data_ptr(), s64.data_ptr(), _build.raw_stream(d))
     _build.check(_J, err, "join_build")
     _build.KERNELS[_J].count("px_join_build")
-    return cnt, first, rows
+    return slots[:, 0], slots[:, 1], rows
 
 
-def join_probe(codes: torch.Tensor, cnt: torch.Tensor, first: torch.Tensor):
+def _slot_table(cnt: torch.Tensor, first: torch.Tensor, dev) -> int:
+    """The address of the [K, 2] slot table whose columns are cnt and first
+    (J1's layout on the card); raises on any other layout."""
+    K = cnt.shape[0]
+    if (cnt.device != dev or first.device != dev or cnt.dtype != torch.int32
+            or first.dtype != torch.int32 or cnt.shape != (K,) or first.shape != (K,)
+            or cnt.stride() != (2,) or first.stride() != (2,)
+            or first.data_ptr() != cnt.data_ptr() + 4):
+        raise TypeError("cnt and first must be the two columns of one [K, 2] int32 slot "
+                        "table on the codes' device, as join_build gives them")
+    return cnt.data_ptr()
+
+
+def join_probe(codes: torch.Tensor, cnt: torch.Tensor, first: torch.Tensor,
+               tiles: bool = False):
     """J2 → (count int32, lo int32 per probe row, total pairs as a 0-dim
-    int64 tensor)."""
+    int64 tensor); with `tiles`, also (tile offsets int64, probe_matched
+    bool[npr]) as a fourth element (probe_tiles_plain), which join_expand
+    takes in place of its own counts pass."""
     if not codes.is_cuda:
-        return join_probe_plain(codes, cnt, first)
+        return join_probe_plain(codes, cnt, first, tiles)
     _check_codes(codes)
     dev, npr = codes.device, codes.shape[0]
-    for t in (cnt, first):
-        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
-            raise TypeError("cnt and first must be contiguous int32 tensors on the "
-                            "codes' device")
+    slots = _slot_table(cnt, first, dev)
+    if codes.data_ptr() % 16:  # J2 reads the codes in 16-byte vectors
+        codes = codes.clone()
+    nt = -(-npr // TILE_ROWS)
     cnt_p = torch.empty(npr, dtype=torch.int32, device=dev)
     lo_p = torch.empty(npr, dtype=torch.int32, device=dev)
-    total = torch.empty(1, dtype=torch.int64, device=dev)
-    fn = _build.function(_J, "px_join_probe", [_P, _L, _L, _P, _P, _P, _P, _P, _P])
-    with torch.cuda.device(dev):
-        err = fn(_build.ptr(codes), npr, cnt.shape[0], _build.ptr(cnt), _build.ptr(first),
-                 _build.ptr(cnt_p), _build.ptr(lo_p), _build.ptr(total),
-                 _build.stream_of(codes))
+    # the tiles' offsets, then the total
+    offs = torch.empty(nt + 1, dtype=torch.int64, device=dev)
+    pm = torch.empty(npr, dtype=torch.bool, device=dev) if tiles else None
+    total = offs[nt]
+    fn = _build.function(_J, "px_join_probe", [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P])
+    d = dev.index
+    err = _build.call(d, fn, codes.data_ptr(), npr, cnt.shape[0], slots, cnt_p.data_ptr(),
+                      lo_p.data_ptr(), offs.data_ptr(), pm.data_ptr() if tiles else None,
+                      total.data_ptr(), _build.raw_stream(d))
     _build.check(_J, err, "join_probe")
     _build.KERNELS[_J].count("px_join_probe")
-    return cnt_p, lo_p, total.reshape(())
+    out = (cnt_p, lo_p, total)
+    return (*out, (offs[:nt], pm)) if tiles else out
 
 
 def join_expand(cnt_p: torch.Tensor, lo_p: torch.Tensor, rows: torch.Tensor, nb: int,
-                total: int):
+                total: int, tiles=None):
     """J3 → (build_idx int64[total], probe_idx int64[total],
-    build_matched bool[nb], probe_matched bool[npr])."""
+    build_matched bool[nb], probe_matched bool[npr]).  With `tiles`, J2's
+    (tile offsets, probe_matched) for these counts, J3 skips its counts
+    pass and returns that probe_matched."""
     if not cnt_p.is_cuda:
-        return join_expand_plain(cnt_p, lo_p, rows, nb, total)
+        return join_expand_plain(cnt_p, lo_p, rows, nb, total, tiles)
     dev, npr, total = cnt_p.device, cnt_p.shape[0], int(total)
     for t in (cnt_p, lo_p, rows):
         if t.device != dev or t.dtype != torch.int32 or t.dim() != 1 \
@@ -194,20 +233,29 @@ def join_expand(cnt_p: torch.Tensor, lo_p: torch.Tensor, rows: torch.Tensor, nb:
         raise TypeError(f"lo must have shape ({npr},)")
     if cnt_p.data_ptr() % 16:  # J3 reads the counts in 16-byte vectors
         cnt_p = cnt_p.clone()
+    nt = -(-npr // TILE_ROWS)
+    if tiles is None:
+        # held until the launches are enqueued (see join_build): the tiles' sums
+        partial = _scratch(npr, dev)
+        pm = torch.empty(npr, dtype=torch.bool, device=dev)
+    else:
+        partial, pm = tiles
+        if (partial.device != dev or partial.dtype != torch.int64 or partial.shape != (nt,)
+                or pm.device != dev or pm.dtype != torch.bool or pm.shape != (npr,)):
+            raise TypeError(f"tiles must be ({nt} int64 tile offsets, {npr} bools) on the "
+                            "counts' device")
     bidx = torch.empty(total, dtype=torch.int64, device=dev)
     pidx = torch.empty(total, dtype=torch.int64, device=dev)
     bm = torch.empty(nb, dtype=torch.bool, device=dev)
-    pm = torch.empty(npr, dtype=torch.bool, device=dev)
-    # held until the launches are enqueued (see join_build): the tiles'
-    # sums, and build_matched as bits
-    scratch = _scratch(npr, dev)
+    # build_matched as bits, held until the launches are enqueued
     bits = torch.empty(max(1, -(-nb // 32)), dtype=torch.int32, device=dev)
     fn = _build.function(_J, "px_join_expand",
-                         [_P, _P, _L, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P])
-    with torch.cuda.device(dev):
-        err = fn(_build.ptr(cnt_p), _build.ptr(lo_p), npr, _build.ptr(rows), nb, total,
-                 _build.ptr(scratch), _build.ptr(bits), _build.ptr(bidx), _build.ptr(pidx),
-                 _build.ptr(bm), _build.ptr(pm), _build.stream_of(cnt_p))
+                         [_P, _P, _L, _P, _L, _L, _P, _I, _P, _P, _P, _P, _P, _P])
+    d = dev.index
+    err = _build.call(d, fn, cnt_p.data_ptr(), lo_p.data_ptr(), npr, rows.data_ptr(), nb, total,
+                      partial.data_ptr(), int(tiles is not None), bits.data_ptr(),
+                      bidx.data_ptr(), pidx.data_ptr(), bm.data_ptr(), pm.data_ptr(),
+                      _build.raw_stream(d))
     _build.check(_J, err, "join_expand")
     _build.KERNELS[_J].count("px_join_expand")
     return bidx, pidx, bm, pm
@@ -267,10 +315,10 @@ def device_join_codes(build_codes, probe_codes, device=None, timings: dict | Non
     clock.lap("densify")
     cnt, first, rows = join_build(b, K)
     clock.lap("j1_build")
-    cnt_p, lo_p, total = join_probe(p, cnt, first)
+    cnt_p, lo_p, total, tiles = join_probe(p, cnt, first, tiles=True)
     total = int(total)
     clock.lap("j2_probe")
-    out = join_expand(cnt_p, lo_p, rows, nb, total)
+    out = join_expand(cnt_p, lo_p, rows, nb, total, tiles)
     clock.lap("j3_expand")
     bidx, pidx, bm, pm = pull(list(out))
     clock.lap("d2h")

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -30,6 +31,9 @@ _K2 = "loghist_update"
 _K3 = "loghist_quantile"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _INT32_LIMIT = 2.0 ** 31
+#: quantiles one K3 launch takes in its parameters (csrc/loghist_quantile.cu
+#: kMaxQ); more take one launch a block of this many
+K3_QUANTILES = 16
 #: shared memory one block may opt in to on an H100 (227 KB)
 H100_SMEM_OPTIN = 232_448
 
@@ -131,11 +135,11 @@ class LogHistogram:
         fn = _build.function(_K2, "px_loghist_update",
                              [_P, _P, _P, _L, _P, _I, _I, ctypes.c_float,
                               ctypes.c_float, ctypes.c_double, _I, _P])
-        with torch.cuda.device(gid.device):
-            err = fn(_build.ptr(gid), _build.ptr(mask), _build.ptr(values), n,
-                     _build.ptr(hist), num_groups, self.width,
-                     self._log_gamma_f32(), float(np.float32(self.min_value)),
-                     self.min_value, int(nan_bin), _build.stream_of(gid))
+        dev = gid.device.index
+        err = _build.call(dev, fn, gid.data_ptr(), mask.data_ptr(), values.data_ptr(), n,
+                          hist.data_ptr(), num_groups, self.width, self._log_gamma_f32(),
+                          float(np.float32(self.min_value)), self.min_value, int(nan_bin),
+                          _build.raw_stream(dev))
         _build.check(_K2, err, "loghist_update")
         _build.KERNELS[_K2].count("px_loghist_update")
 
@@ -163,15 +167,11 @@ class LogHistogram:
 
     # ------------------------------------------------- device finalize (K3)
     def _bin_values(self, device) -> torch.Tensor:
-        """gamma^(idx - 1.5) per bin in f64, computed on the host by
-        bin_value, so the device finalize equals the host one bit for bit.
-        Built per call: the finalize runs once per quantile UDA per query."""
-        return torch.as_tensor(self.bin_value(np.arange(self.width)),
-                               dtype=torch.float64, device=device)
-
-    @staticmethod
-    def _quantiles(qs, device) -> torch.Tensor:
-        return torch.as_tensor([float(q) for q in qs], dtype=torch.float32, device=device)
+        """gamma^(idx - 1.5) per bin in f64 (bin_value), on `device`, built
+        once per (gamma, min_value, width, device): the quantile UDAs make a
+        new LogHistogram every finalize, so the cache is keyed by the values
+        that define the table, never by the instance."""
+        return _bin_value_table(self.gamma, self.min_value, self.width, torch.device(device))
 
     def quantile_device(self, hist: torch.Tensor, qs: list[float]) -> torch.Tensor:
         """DEVICE finalize (same rank rule as `quantile`): [G, width] float32
@@ -185,7 +185,7 @@ class LogHistogram:
         h = hist.to(torch.float32)
         totals = h.sum(dim=-1, keepdim=True)
         cum = torch.cumsum(h, dim=-1)
-        qv = self._quantiles(qs, h.device)
+        qv = torch.as_tensor([float(q) for q in qs], dtype=torch.float32, device=h.device)
         target = torch.clamp(qv, 0.0, 1.0)[None, :] * totals  # [G, nq]
         idx = (cum[:, None, :] < target[:, :, None]).sum(dim=-1)
         idx = torch.clamp(idx, max=h.shape[-1] - 1)
@@ -198,15 +198,30 @@ class LogHistogram:
             raise TypeError(f"hist must be a contiguous float32 [G, {self.width}] tensor")
         if self.width > 1024:
             raise ValueError("the quantile kernel takes at most 1024 bins")
-        groups = hist.shape[0]
-        qv = self._quantiles(qs, hist.device)
-        out = torch.empty((groups, len(qs)), dtype=torch.float64, device=hist.device)
+        groups, nq = hist.shape[0], len(qs)
+        dev = hist.device.index
+        out = torch.empty((groups, nq), dtype=torch.float64, device=hist.device)
         binv = self._bin_values(hist.device)
         fn = _build.function(_K3, "px_loghist_quantile",
-                             [_P, _I, _I, _P, _I, _P, _P, _P])
-        with torch.cuda.device(hist.device):
-            err = fn(_build.ptr(hist), groups, self.width, _build.ptr(qv), len(qs),
-                     _build.ptr(binv), _build.ptr(out), _build.stream_of(hist))
-        _build.check(_K3, err, "loghist_quantile")
-        _build.KERNELS[_K3].count("px_loghist_quantile")
+                             [_P, _I, _I, _P, _I, _P, _P, _I, _I, _P])
+        stream = _build.raw_stream(dev)
+        # the quantiles go into the launch's parameters, K3_QUANTILES a launch
+        for j in range(0, nq, K3_QUANTILES):
+            block = qs[j:j + K3_QUANTILES]
+            err = _build.call(dev, fn, hist.data_ptr(), groups, self.width,
+                              (ctypes.c_float * len(block))(*map(float, block)), len(block),
+                              binv.data_ptr(), out.data_ptr(), nq, j, stream)
+            _build.check(_K3, err, "loghist_quantile")
+            _build.KERNELS[_K3].count("px_loghist_quantile")
         return out
+
+
+@functools.lru_cache(maxsize=64)
+def _bin_value_table(gamma: float, min_value: float, width: int,
+                     device: torch.device) -> torch.Tensor:
+    """The bin-value table of the sketch (gamma, min_value, width) on
+    `device`, computed on the host by bin_value so the device finalize equals
+    the host one bit for bit."""
+    sketch = LogHistogram(nbins=width - 2, gamma=gamma, min_value=min_value)
+    return torch.as_tensor(sketch.bin_value(np.arange(width)), dtype=torch.float64,
+                           device=device)

@@ -77,6 +77,55 @@ def test_loghist_update_and_quantile_exact(dev, g):
     assert torch.equal(q.nan_to_num(-1.0), lh.quantile_plain(got, qs).nan_to_num(-1.0))
 
 
+#: K3's quantile sets: 1, 5 (QuantilesUDA's), 16 (one launch), 17 (two).
+#: The 16 and 17 are multiples of 1/16, exact in float32, so the device's
+#: f32 target q * total equals the host finalize's f64 one; a q such as 0.2
+#: can put the two on either side of a running count (the reference's own
+#: device and host finalizes differ there: tests/test_torch_sketch.py)
+_K3_QS = {1: [0.5], 5: [0.01, 0.1, 0.5, 0.9, 0.99],
+          16: [k / 16 for k in range(1, 17)], 17: [k / 16 for k in range(17)]}
+
+
+@pytest.mark.parametrize("nq", sorted(_K3_QS))
+@pytest.mark.parametrize("g", [1, 64, 4096])
+def test_loghist_quantile_equals_plain_and_host(dev, g, nq):
+    """K3 bit for bit (NaN as NaN) against its plain version and the host
+    finalize, with empty groups (and at G = 1 an empty sketch), in
+    ceil(nq / 16) launches."""
+    rng = np.random.default_rng(g + nq)
+    lh, qs = LogHistogram(), _K3_QS[nq]
+    h = rng.poisson(2.0, (g, lh.width)).astype(np.float32)
+    h[rng.random(g) < 0.1] = 0
+    h[0] = 0
+    t = torch.from_numpy(h).to(dev)
+    before = _build.KERNELS["loghist_quantile"].launches
+    got = lh.quantile_device(t, qs)
+    assert _build.KERNELS["loghist_quantile"].launches == before + -(-nq // 16)
+    want = lh.quantile_plain(t, qs)
+    torch.cuda.synchronize()
+    assert got.shape == (g, nq) and got.dtype == torch.float64
+    assert torch.equal(got.isnan(), want.isnan()) and bool(got[0].isnan().all())
+    assert torch.equal(got.nan_to_num(-1.0), want.nan_to_num(-1.0))
+    np.testing.assert_array_equal(got.cpu().numpy(), lh.quantile(h, qs))
+
+
+def test_loghist_quantile_two_gammas_and_a_large_group(dev):
+    """Two sketches of different gamma in one process read their own cached
+    bin values; a group of total 2^24 - 1 keeps the f32 rank rule."""
+    rng = np.random.default_rng(3)
+    h = rng.poisson(3.0, (64, 514)).astype(np.float32)
+    h[7] = rng.multinomial(2 ** 24 - 1, np.full(514, 1.0 / 514))
+    t = torch.from_numpy(h).to(dev)
+    qs = _K3_QS[17]
+    for _ in range(2):
+        for lh in (LogHistogram(gamma=1.0404), LogHistogram(gamma=1.02), LogHistogram()):
+            got = lh.quantile_device(t, qs)
+            assert torch.equal(got, lh.quantile_plain(t, qs))
+            np.testing.assert_array_equal(got.cpu().numpy(), lh.quantile(h, qs))
+    a, b = LogHistogram(gamma=1.0404), LogHistogram(gamma=1.02)
+    assert not torch.equal(a.quantile_device(t, qs), b.quantile_device(t, qs))
+
+
 @pytest.mark.parametrize("g", [1, 64, 113, 114, 1024])
 @pytest.mark.parametrize("nan_bin", [0, 1])
 @pytest.mark.parametrize("offset", [0, 1])
@@ -365,6 +414,70 @@ def test_join_stages_equal_plain(dev):
         assert torch.equal(g, w)
 
 
+def _j2_case(dev, case):
+    """(probe codes, cnt, first) of a J2 card case."""
+    rng = np.random.default_rng(12)
+    K = 1 if case == "k_1" else 1 << 12
+    b = torch.from_numpy(rng.integers(-1, K, 1 << 16)).to(dev)
+    cnt, first, _rows = jd.join_build(b, K)
+    if case.startswith("npr_"):
+        p = rng.integers(-2, K + 100, int(case[4:]))
+    elif case == "sentinels":
+        p = np.where(rng.random(3 * 4096 + 5) < 0.5, -1, -2)
+    elif case == "k_1":
+        p = rng.integers(-2, 3, 4097)
+    else:
+        assert case == "unaligned"
+        return torch.from_numpy(rng.integers(-2, K + 100, 9001)).to(dev)[1:], cnt, first
+    return torch.from_numpy(p.astype(np.int64)).to(dev), cnt, first
+
+
+@pytest.mark.parametrize("case", ["npr_1", "npr_3", "npr_4095", "npr_4097", "npr_4194304",
+                                  "sentinels", "k_1", "unaligned"])
+def test_join_probe_equals_plain(dev, case):
+    """J2's count, lo and total exactly as its plain version's, and with its
+    tiles, their offsets and probe_matched; one launch of px_join_probe a
+    call."""
+    p, cnt, first = _j2_case(dev, case)
+    before = _build.KERNELS["join"].by_entry.get("px_join_probe", 0)
+    got = jd.join_probe(p, cnt, first)
+    tiled = jd.join_probe(p, cnt, first, tiles=True)
+    assert _build.KERNELS["join"].by_entry["px_join_probe"] == before + 2
+    want = jd.join_probe_plain(p, cnt, first, tiles=True)
+    torch.cuda.synchronize()
+    for x in (got, tiled):
+        assert torch.equal(x[0], want[0]) and torch.equal(x[1], want[1])
+        assert x[2].shape == () and int(x[2]) == int(want[2])
+    assert torch.equal(tiled[3][0], want[3][0]) and torch.equal(tiled[3][1], want[3][1])
+    if case == "sentinels":
+        assert int(want[2]) == 0
+
+
+@pytest.mark.parametrize("case", ["uniform", "phase", "heavy", "no_match", "total_0",
+                                  "one_probe_row", "npr_ragged"])
+def test_join_expand_with_and_without_the_counts_pass_equal(dev, case):
+    """J3 given J2's tiles (no counts pass) and J3 counting its own tiles
+    give the same pairs in the same order and the same flags, equal to the
+    plain version's; device_join_codes (which passes the tiles) equals the
+    stages."""
+    bh, ph = _j3_case(case)
+    b, p, K = jd._dense(torch.from_numpy(bh.astype(np.int64)).to(dev),
+                        torch.from_numpy(ph.astype(np.int64)).to(dev))
+    cnt, first, rows = jd.join_build(b, K)
+    cnt_p, lo_p, total, tiles = jd.join_probe(p, cnt, first, tiles=True)
+    total = int(total)
+    nb = b.shape[0]
+    fused = jd.join_expand(cnt_p, lo_p, rows, nb, total, tiles)
+    alone = jd.join_expand(cnt_p, lo_p, rows, nb, total)
+    want = jd.join_expand_plain(cnt_p, lo_p, rows, nb, total)
+    torch.cuda.synchronize()
+    for f, a, w in zip(fused, alone, want):
+        assert torch.equal(f, w) and torch.equal(a, w)
+    got = jd.device_join_codes(b, p)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.cpu().numpy())
+
+
 def _j3_case(case):
     """(build codes, probe codes) of a J3 card case, as numpy int64."""
     rng = np.random.default_rng(9)
@@ -422,7 +535,8 @@ def test_join_expand_cuda_tensor_never_reaches_the_plain_version(dev, monkeypatc
     def boom(*a, **k):
         raise AssertionError("plain version reached with CUDA tensors")
 
-    for name in ("join_build_plain", "join_probe_plain", "join_expand_plain"):
+    for name in ("join_build_plain", "join_probe_plain", "join_expand_plain",
+                 "probe_tiles_plain"):
         monkeypatch.setattr(jd, name, boom)
     b = torch.arange(5000, device=dev) % 300
     cnt, first, rows = jd.join_build(b, 300)
@@ -505,7 +619,8 @@ def test_cuda_tensor_never_reaches_the_plain_version(dev, monkeypatch):
     monkeypatch.setattr(LogHistogram, "update_plain", boom)
     for name in ("compact_plain",):
         monkeypatch.setattr(k4, name, boom)
-    for name in ("join_build_plain", "join_probe_plain", "join_expand_plain"):
+    for name in ("join_build_plain", "join_probe_plain", "join_expand_plain",
+                 "probe_tiles_plain"):
         monkeypatch.setattr(jd, name, boom)
     for name in ("fold_plain", "move_plain"):
         monkeypatch.setattr(rk, name, boom)

@@ -423,6 +423,31 @@ def test_join_stages_plain():
     assert pm.tolist() == [True, False, True, False, True]
 
 
+@pytest.mark.parametrize("npr", [0, 1, 3, 4095, 4096, 4097, 3 * 4096 + 77])
+def test_probe_tiles_are_the_cumsum_of_the_counts(npr):
+    """J2's tiles (plain version): each 4,096-row tile's offset is the
+    cumsum of the counts before it and probe_matched is count > 0; J3 given
+    them gives what J3 counting its own tiles gives, in order."""
+    import torch
+
+    rng = np.random.default_rng(npr)
+    b = torch.from_numpy(rng.integers(-1, 300, 5000))
+    p = torch.from_numpy(rng.integers(-2, 400, npr))
+    cnt, first, rows = jd.join_build(b, 300)
+    cnt_p, lo_p, total, tiles = jd.join_probe(p, cnt, first, tiles=True)
+    for x, y in zip((cnt_p, lo_p, total), jd.join_probe(p, cnt, first)):
+        assert torch.equal(x, y)
+    counts = cnt_p.numpy().astype(np.int64)
+    cum = np.concatenate([[0], np.cumsum(counts)])
+    np.testing.assert_array_equal(tiles[0].numpy(), cum[np.arange(0, npr, 4096)])
+    np.testing.assert_array_equal(tiles[1].numpy(), counts > 0)
+    assert int(total) == cum[-1]
+    fused = jd.join_expand(cnt_p, lo_p, rows, 5000, int(total), tiles)
+    alone = jd.join_expand(cnt_p, lo_p, rows, 5000, int(total))
+    for x, y in zip(fused, alone):
+        assert torch.equal(x, y)
+
+
 def _plain_route(b, p):
     """J1-J3's plain versions over two sides' codes → their four outputs
     as numpy."""

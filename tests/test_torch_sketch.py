@@ -147,6 +147,90 @@ def test_quantile_device_matches_reference_device_finalize(g):
     assert (np.abs(got[ok] - want[ok]) <= np.spacing(np.abs(want[ok]))).all()
 
 
+def _within_ulp(got, want):
+    """The module's rule against the reference's device finalize: the same
+    NaNs, the values within 1 ulp (XLA's pow against libm's)."""
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    assert (np.abs(got[ok] - want[ok]) <= np.spacing(np.abs(want[ok]))).all()
+
+
+def test_bin_value_table_is_cached_by_the_sketch_values():
+    """K3's bin-value table is cached by (gamma, min_value, width, device),
+    not by instance: two gammas in one process give their own values, each
+    equal to the reference's finalizes of that gamma, and a new instance of
+    equal values (the quantile UDAs make one every finalize) reads the same
+    table."""
+    h = _hist(64, 31)
+    pairs = [(LogHistogram(gamma=1.0404), RefHist(gamma=1.0404)),
+             (LogHistogram(gamma=1.02), RefHist(gamma=1.02))]
+    for _ in range(2):  # the second round reads the cached tables
+        for port, ref in pairs + [(LogHistogram(), RefHist())]:
+            got = port.quantile_device(torch.as_tensor(h), QS).numpy()
+            np.testing.assert_array_equal(got, ref.quantile(h, QS))
+            _within_ulp(got, np.asarray(ref.quantile_device(jnp.asarray(h), QS)))
+    a, b = pairs[0][0], pairs[1][0]
+    assert a._bin_values("cpu") is LogHistogram()._bin_values("cpu")
+    assert a._bin_values("cpu") is not b._bin_values("cpu")
+    assert a._bin_values("cpu") is not LogHistogram(min_value=1e-6)._bin_values("cpu")
+    assert not np.array_equal(a.quantile_plain(torch.as_tensor(h), QS).numpy(),
+                              b.quantile_plain(torch.as_tensor(h), QS).numpy())
+
+
+#: quantile sets of 1, 5 (QuantilesUDA's), 16 (one K3 launch) and 17 (two)
+#: quantiles, each with q = 0 or q = 1; the 16 and 17 are multiples of 1/16,
+#: exact in float32 (see the f32 target test below)
+RANK_QS = {1: [1.0], 5: [0.0, 0.01, 0.5, 0.99, 1.0],
+           16: [k / 16 for k in range(1, 17)], 17: [k / 16 for k in range(17)]}
+
+
+def _rank_hist():
+    """Six groups: Poisson counts, one empty group, one of total 2^24 - 1
+    spread over every bin, one whose rows all sit in bin 100, one with
+    rows only in the zero bin and the overflow bin."""
+    rng = np.random.default_rng(5)
+    h = rng.poisson(3.0, (6, W)).astype(np.float32)
+    h[1] = 0
+    h[2] = rng.multinomial(2 ** 24 - 1, np.full(W, 1.0 / W))
+    h[3] = 0
+    h[3, 100] = 1000
+    h[4] = 0
+    h[4, 0], h[4, W - 1] = 3, 5
+    assert h[2].sum(dtype=np.float64) == 2 ** 24 - 1
+    return h
+
+
+@pytest.mark.parametrize("nq", sorted(RANK_QS))
+def test_quantile_plain_rank_rule_matches_reference(nq):
+    """quantile_plain (K3's plain version) at nq = 1, 5, 16 and 17, with q
+    = 0 and q = 1, an empty group and a group of total just under 2^24:
+    the reference's device finalize's bins (values within 1 ulp) and its
+    host finalize's values exactly."""
+    h, qs = _rank_hist(), RANK_QS[nq]
+    got = LH.quantile_plain(torch.as_tensor(h), qs).numpy()
+    assert got.shape == (6, nq) and got.dtype == np.float64
+    assert np.isnan(got[1]).all() and not np.isnan(np.delete(got, 1, 0)).any()
+    np.testing.assert_array_equal(got, REF.quantile(h, qs))
+    np.testing.assert_array_equal(LH.quantile(h, qs), REF.quantile(h, qs))
+    _within_ulp(got, np.asarray(REF.quantile_device(jnp.asarray(h), qs)))
+    np.testing.assert_array_equal(LH.quantile_device(torch.as_tensor(h), qs).numpy(), got)
+
+
+def test_quantile_target_is_formed_in_float32_as_the_reference_device():
+    """The device rule forms q * total in float32, as the reference's
+    quantile_device does: with q = 1/15 and 45 rows the float32 target is
+    3.0000002, so a running count of exactly 3 is below it and the next bin
+    is picked, where the host finalize's float64 target is 3.0 exactly.
+    K3's plain version follows the device rule (the card tests hold K3 to
+    the host finalize only at quantiles exact in float32)."""
+    h = np.zeros((1, W), np.float32)
+    h[0, 10], h[0, 11] = 3, 42
+    got = LH.quantile_plain(torch.as_tensor(h), [1 / 15]).numpy()
+    _within_ulp(got, np.asarray(REF.quantile_device(jnp.asarray(h), [1 / 15])))
+    assert got[0, 0] == LH.bin_value(np.array([11]))[0]
+    assert REF.quantile(h, [1 / 15])[0, 0] == LH.bin_value(np.array([10]))[0]
+
+
 def test_bin_value_matches_reference():
     idx = np.arange(-2, W + 2)
     np.testing.assert_array_equal(LH.bin_value(idx), REF.bin_value(idx))
