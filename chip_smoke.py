@@ -224,6 +224,24 @@ operator times) as sorted frames; one agent's side exchanged in the mesh
 and on the host, equal and each timed; and the same join with one agent at
 one device (a host exchange beside a mesh one).
 
+Slice 18 (views off in every other phase): the union phase, right after
+config #1 over its 64M-row table: `a.append(b)` of the status-500 and
+status-404 rows (~9.6M) grouped by service (count, mean, p50) from PxL
+text, each parent through C1 and K4, the aggregate over the union's host
+batch (one F1 launch), against a numpy oracle as config #1, the median of 5
+warm runs, its launches and H2D bytes; the matview phase, after config
+#4, on config #4's 8 agent stores of 2M rows with standing views on: query
+1 registers (a rescan, M1 once), query 2 builds (each agent's state pulled
+to the host), queries 3-7 are hits that must scan no row and launch no C1,
+then 2^20 rows (16 batches of 65,536, another seed) are appended to pem0
+and query 8 folds them (rows_folded 2^20 on pem0 alone: C1, K1, K2 and P1
+over the delta, which is uploaded); every answer equals a fresh views-off
+cluster (cnt and p50 exactly, avg_lat to rtol 1e-12); and the shard_bench
+phase, after the mesh cluster (4 co-located shards): run_local at 2^26 rows
+(3 repeats, bit_equal) and run_shuffled_join at 2^21 rows a side (X1 and X2
+on both sides, J1-J3 a partition, bit_equal), each arm's launches read
+from one more warm query of its path alone.
+
 It prints one JSON line per kernel, a {"kernels": [...]} line, the card's
 name and power limit, and last {"ok": true, "device": {...}}.  It exits
 non-zero, printing no result, without a CUDA device or outside the repo.
@@ -5169,6 +5187,260 @@ def run_mesh_cluster(dev) -> dict:
     return out
 
 
+
+# ------------------------------------------- unions, standing views, shard_bench
+
+#: the union phase's script over config #1's table: the 500s and the 404s
+#: (~15% of the rows) appended, then grouped by service
+UNION_SCRIPT = """
+df = px.DataFrame(table='http_events')
+a = df[df.status == 500]
+b = df[df.status == 404]
+u = a.append(b)
+u = u.groupby('service').agg(
+    cnt=('latency', px.count), avg_lat=('latency', px.mean), p50=('latency', px.p50))
+px.display(u, 'output')
+"""
+#: each parent: C1 and K4 over the table's feeds; the aggregate over the
+#: union's host batch: one feed, one F1 launch
+UNION_KERNELS = [C1, ("compact", "px_compact"), F1]
+#: the view fold: C1, K1 and K2 over the delta, P1 packing the state
+MATVIEW_FOLD_KERNELS = [C1, ("segment_reduce", "px_segment_count"),
+                        ("segment_reduce", "px_segment_sum_f64"),
+                        ("loghist_update", "px_loghist_update"), P1]
+#: rows appended to pem0 before the view fold: 16 batches of 65,536
+MATVIEW_APPEND = 1 << 20
+#: warm view hits timed after the build
+MATVIEW_HITS = 5
+#: shard_bench's arms: run_local's rows, the join's rows a side
+SHARD_LOCAL_ROWS = 1 << 26
+SHARD_JOIN_ROWS = 1 << 21
+SHARD_LOCAL_KERNELS = [C1, ("segment_reduce", "px_segment_count"),
+                       ("loghist_update", "px_loghist_update"), F2]
+#: the shuffled join: X1 and X2 exchange both sides, each partition's join
+#: runs J1-J3
+SHARD_JOIN_KERNELS = [("repartition", "px_partition_count"),
+                      ("repartition", "px_partition_scatter"),
+                      ("join", "px_join_build"), ("join", "px_join_probe"),
+                      ("join", "px_join_expand")]
+
+
+def union_oracle(table, res) -> dict:
+    """numpy oracle of UNION_SCRIPT over the table's rows, held as
+    oracle_check holds config #1; raises on mismatch."""
+    cols = _table_columns(table, ("service", "latency", "status"))
+    sel = (cols["status"] == 500) | (cols["status"] == 404)
+    svc, lat = cols["service"][sel].astype(np.int64), cols["latency"][sel]
+    ng = int(svc.max()) + 1
+    cnt, mean, sketch_p50, median = sketch_oracle(svc, lat, ng)
+    names = table.dictionaries["service"].values()
+    got_key = np.array([names.index(v) for v in res.decoded("service")], dtype=np.int64)
+    if res.num_rows != int((cnt > 0).sum()):
+        raise AssertionError(f"union: groups {res.num_rows}, want {(cnt > 0).sum()}")
+    if not np.array_equal(np.asarray(res.columns["cnt"]), cnt[got_key]):
+        raise AssertionError("union: counts differ from the oracle")
+    if not np.allclose(res.columns["avg_lat"], mean[got_key], rtol=1e-9, atol=0):
+        raise AssertionError("union: means differ from the oracle beyond rtol 1e-9")
+    exact, rel = check_p50(np.asarray(res.columns["p50"]), sketch_p50[got_key],
+                           median[got_key])
+    if not all(np.isfinite(np.asarray(res.columns[c], dtype=np.float64)).all()
+               for c in ("cnt", "avg_lat", "p50")):
+        raise AssertionError("union: non-finite results")
+    return {"groups": res.num_rows, "union_rows": int(sel.sum()), "p50_exact_bin": exact,
+            "p50_max_rel_err_vs_median": rel}
+
+
+def run_union(dev, ts, table) -> dict:
+    """UNION_SCRIPT from PxL text over config #1's 64M-row table: each
+    parent's filtered scan through C1 and K4 (its feeds from the resident
+    tier), the union on the host (dictionaries mapped onto the first
+    parent's), the aggregate over the union's host batch (uploaded every
+    query: one feed, F1).  Held against the numpy oracle; the median of 5
+    warm runs, the launches and H2D bytes of one query."""
+    import torch
+
+    from pixie_tpu_torch.compiler import compile_pxl
+    from pixie_tpu_torch.engine import execute_plan
+    from pixie_tpu_torch.ops import _build
+
+    plan = compile_pxl(UNION_SCRIPT, ts.schemas()).plan
+
+    def query():
+        r = execute_plan(plan, ts, device=dev)["output"]
+        torch.cuda.synchronize(dev)
+        return r
+
+    query()  # the tier admits the table's feeds if no phase did yet
+    _build.reset_launches()
+    res = query()
+    launches = read_launches("union", UNION_KERNELS)
+    check_leaves("union", res.exec_stats)
+    check = union_oracle(table, res)
+    times = warm_times(query, warmup=1, reps=5)
+    out = {"launches": launches, **check, "warm_median_s": times[len(times) // 2],
+           "warm_s": times, "h2d_bytes": res.exec_stats["h2d_bytes"],
+           "feeds": res.exec_stats["feeds"],
+           "resident_feeds": res.exec_stats.get("resident_feeds", 0),
+           "fused_single_feed": res.exec_stats.get("fused_single_feed", 0),
+           "operators": [{k: o[k] for k in ("label", "wall_ns", "rows_out")}
+                         for o in res.exec_stats.get("operators", [])]}
+    log(json.dumps({"phase": "slice.union", "ok": True,
+                    **{k: v for k, v in out.items() if k != "launches"}}))
+    return out
+
+
+def run_matview(dev) -> dict:
+    """Standing views on config #4's 8 agent stores of 2M rows (views on for
+    this phase only).  Query 1 registers (a rescan: M1 once), query 2 builds
+    (each agent's state computed and pulled to the host), queries 3-7 are
+    hits with an empty delta (no row scanned, no C1 launch), then 2^20 rows
+    are appended to pem0 and query 8 folds them (rows_folded 2^20 on pem0, 0
+    elsewhere).  Every answer is held against a fresh views-off cluster
+    over the same stores: cnt and p50 exactly, avg_lat to rtol 1e-12."""
+    import torch
+
+    from pixie_tpu_torch import flags
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.parallel import LocalCluster
+
+    t0 = time.perf_counter()
+    stores, tables = _agent_stores(CONFIG4_ROWS // CONFIG4_AGENTS)
+    data_s = time.perf_counter() - t0
+
+    def cold():
+        res = LocalCluster(stores, device=dev).query(CONFIG4_SCRIPT)["output"]
+        torch.cuda.synchronize(dev)
+        return res
+
+    want = cold()
+    flags.set_for_testing("PL_MATVIEW_ENABLED", True)
+    try:
+        cluster = LocalCluster(stores, device=dev)
+
+        def query(label, m1: int):
+            before = {lib: k.launches for lib, k in _build.KERNELS.items()}
+            t = time.perf_counter()
+            res = cluster.query(CONFIG4_SCRIPT)["output"]
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t
+            ran = {lib: k.launches - before[lib] for lib, k in _build.KERNELS.items()}
+            if ran["merge"] != m1:
+                raise AssertionError(f"matview {label}: M1 launched {ran['merge']} times, "
+                                     f"want {m1}")
+            return res, wall, ran
+
+        def views(res) -> dict:
+            return {a: s.get("matview") or {} for a, s in res.exec_stats["agents"].items()}
+
+        res, register_s, _ran = query("register", 1)
+        same_frame("matview register", res, want, ["service", "status"], exact=("p50",))
+        if any(views(res).values()):
+            raise AssertionError("matview: the first sight served from a view")
+        res, build_s, build_ran = query("build", 0)
+        same_frame("matview build", res, want, ["service", "status"], exact=("p50",))
+        mv = views(res)
+        per_agent = CONFIG4_ROWS // CONFIG4_AGENTS
+        if not all(i.get("hit") and i["rows_folded"] == per_agent for i in mv.values()):
+            raise AssertionError(f"matview build: {mv}")
+        build_h2d = sum(i["h2d_bytes"] for i in mv.values())
+        hits = []
+        for q in range(MATVIEW_HITS):
+            res, wall, ran = query(f"hit {q}", 0)
+            same_frame("matview hit", res, want, ["service", "status"], exact=("p50",))
+            scanned = sum(i["rows_folded"] for i in views(res).values())
+            if scanned or ran["chain"] or not all(i.get("hit") for i in views(res).values()):
+                raise AssertionError(f"matview hit {q}: {scanned} rows folded, "
+                                     f"{ran['chain']} C1 launches")
+            hits.append(wall)
+        hits.sort()
+        gen = HttpRows(tables[0], per_agent)  # the table's time step, another seed
+        gen.rng = np.random.default_rng(13)
+        gen.written = per_agent
+        gen.write(MATVIEW_APPEND)
+        _build.reset_launches()
+        res, fold_s, _ran = query("fold", 0)
+        fold_launches = read_launches("matview fold", MATVIEW_FOLD_KERNELS)
+        mv = views(res)
+        folded = {a: i["rows_folded"] for a, i in mv.items()}
+        if folded != {a: (MATVIEW_APPEND if a == "pem0" else 0) for a in mv}:
+            raise AssertionError(f"matview fold: rows folded {folded}")
+        flags.set_for_testing("PL_MATVIEW_ENABLED", False)
+        same_frame("matview fold", res, cold(), ["service", "status"], exact=("p50",))
+    finally:
+        flags.set_for_testing("PL_MATVIEW_ENABLED", False)
+    out = {"agents": CONFIG4_AGENTS, "rows": CONFIG4_ROWS, "data_s": data_s,
+           "register_s": register_s, "build_s": build_s,
+           "build_h2d_bytes": build_h2d,
+           "build_launches": {k: v for k, v in build_ran.items() if v},
+           "hit_median_s": hits[len(hits) // 2], "hit_s": hits,
+           "fold_s": fold_s, "fold_rows": MATVIEW_APPEND,
+           "fold_h2d_bytes": mv["pem0"]["h2d_bytes"],
+           "fold_refresh_ms": mv["pem0"]["refresh_ms"],
+           "fold_launches": {lib: {e: n for e, n in by.items() if n}
+                             for lib, by in fold_launches.items() if any(by.values())},
+           "state_bytes": mv["pem0"]["state_bytes"], "groups": mv["pem0"]["groups"]}
+    log(json.dumps({"phase": "slice.matview", "ok": True, **out}))
+    out["launches"] = fold_launches
+    return out
+
+
+def run_shard_bench(dev) -> dict:
+    """parallel/shard_bench.py's one-process arms on the card, over 4
+    co-located shards: run_local (filter → map → partial agg over 64M rows,
+    each shard's C1, K1 and K2, F2 over the shards' states, bit-equal to
+    the single-device executor) and run_shuffled_join (2^21 rows a side, one
+    agent's mesh exchanging both sides with X1 and X2, each partition joined
+    by J1-J3, bit-equal to the single-device join).  Each arm's launches are
+    read from one more warm query of its path alone, on the arm's store:
+    the arm's own runs (cold, warm, the single-device comparison) are not
+    counted."""
+    import torch
+
+    from pixie_tpu_torch.engine.executor import PlanExecutor
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.parallel import shard_bench
+    from pixie_tpu_torch.parallel.cluster import LocalCluster
+    from pixie_tpu_torch.parallel.spmd import make_mesh
+
+    def launched(launches):
+        return {lib: {e: n for e, n in by.items() if n}
+                for lib, by in launches.items() if any(by.values())}
+
+    with virtual_shards(MESH_SHARDS):
+        ts = shard_bench.build_store(SHARD_LOCAL_ROWS)
+        t0 = time.perf_counter()
+        local = shard_bench.run_local(SHARD_LOCAL_ROWS, repeats=3, n_devices=MESH_SHARDS,
+                                      device=dev, store=ts)
+        local["wall_s"] = time.perf_counter() - t0
+        if local["bit_equal"] is not True or local["spmd_feeds"] < 1:
+            raise AssertionError(f"shard_bench run_local: {local}")
+        query = PlanExecutor(shard_bench.agg_plan(), ts, device=dev,
+                             mesh=make_mesh(MESH_SHARDS, device=dev))
+        _build.reset_launches()
+        query.run()
+        torch.cuda.synchronize()
+        local_launches = read_launches("shard_bench run_local", SHARD_LOCAL_KERNELS)
+        local["launches"] = launched(local_launches)
+        log(json.dumps({"phase": "shard_bench.run_local", "ok": True, **local}))
+        del ts, query
+        ts = shard_bench.build_join_store(SHARD_JOIN_ROWS)
+        t0 = time.perf_counter()
+        join = shard_bench.run_shuffled_join(SHARD_JOIN_ROWS, n_devices=MESH_SHARDS,
+                                             device=dev, store=ts)
+        join["wall_s"] = time.perf_counter() - t0
+        if join["bit_equal"] is not True or join["all_to_all_exchanges"] < 2:
+            raise AssertionError(f"shard_bench run_shuffled_join: {join}")
+        cluster = LocalCluster({"pem0": ts}, device=dev, n_devices_per_agent=MESH_SHARDS)
+        plan = shard_bench.join_plan()
+        _build.reset_launches()
+        cluster.execute(plan)
+        torch.cuda.synchronize()
+        join_launches = read_launches("shard_bench run_shuffled_join", SHARD_JOIN_KERNELS)
+        join["launches"] = launched(join_launches)
+        log(json.dumps({"phase": "shard_bench.run_shuffled_join", "ok": True, **join}))
+    return {"local_launches": local_launches, "join_launches": join_launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5182,8 +5454,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     import pixie_tpu_torch  # noqa: F401  (fails outside the repo)
+    import pixie_tpu_torch.matview  # noqa: F401  (defines PL_MATVIEW_ENABLED)
+    from pixie_tpu_torch import flags
     from pixie_tpu_torch.ops import _build
 
+    # every phase but the matview phase measures the rescan route
+    flags.set_for_testing("PL_MATVIEW_ENABLED", False)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     name = torch.cuda.get_device_name(0)
@@ -5204,6 +5480,9 @@ def main() -> int:
     sl, ts, table = run_slice(dev, args.profile)
     log(json.dumps({"phase": "slice", "card": smi, **sl}))
     paths = {"config1": sl["launches"]}
+    t0 = time.perf_counter()
+    paths["union"] = run_union(dev, ts, table)["launches"]
+    log(json.dumps({"phase": "union", "card": smi, "seconds": time.perf_counter() - t0}))
     paths["select"] = run_select(dev, ts, table, args.profile)["select"]["launches"]
     paths["config2"] = run_config2(dev, ts, table)["launches"]
     rows += check_gang_kernel(dev, ts)
@@ -5229,8 +5508,17 @@ def main() -> int:
     paths["mesh_cluster"] = run_mesh_cluster(dev)["launches"]
     log(json.dumps({"phase": "mesh_cluster", "card": smi,
                     "seconds": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
+    sb = run_shard_bench(dev)
+    paths["shard_bench_local"], paths["shard_bench_join"] = (sb["local_launches"],
+                                                             sb["join_launches"])
+    log(json.dumps({"phase": "shard_bench", "card": smi,
+                    "seconds": time.perf_counter() - t0}))
     paths["config3"] = run_config3(dev)["launches"]
     paths["config4"] = run_config4(dev)["launches"]
+    t0 = time.perf_counter()
+    paths["matview"] = run_matview(dev)["launches"]
+    log(json.dumps({"phase": "matview", "card": smi, "seconds": time.perf_counter() - t0}))
     paths["config5"] = run_config5(dev)["launches"]
     paths["cluster_stream"] = run_cluster_stream(dev)["launches"]
     paths["device_join"] = run_device_join(dev, args.profile)["launches"]

@@ -55,7 +55,10 @@ Ported so far are the aggregate, select, join, sorted-fallback and
 distributed agent paths of the reference executor
 (pixie_tpu/engine/executor.py), with `run_agent_stream` (the chunk stream
 the streaming fold consumes) and the streaming polls of engine/stream.py.
-Unions and UDTF sources raise Unimplemented and name the slice that brings
+A union materializes each parent on the host (a filtered scan through C1
+and K4), maps every dictionary column onto the first parent's dictionary
+and concatenates the parts; an aggregate over a union uploads that host
+batch.  UDTF sources raise Unimplemented and name the slice that brings
 them.  The agent plan of a batched query (serving/batching.py) holds several
 partial aggregates over one shared scan: they run as a multi-query gang
 (`_gang_agg_payloads`, `_multi_partial_agg`), one launch of kernel G1
@@ -117,6 +120,7 @@ from pixie_tpu_torch.plan.plan import (
     Plan,
     RemoteSourceOp,
     ResultSinkOp,
+    UnionOp,
 )
 from pixie_tpu_torch.status import CompilerError, Internal, Unavailable, Unimplemented
 from pixie_tpu_torch.table.dictionary import Dictionary
@@ -1238,6 +1242,8 @@ class PlanExecutor:
                 out = self._run_join(op)
             elif isinstance(op, MemorySourceOp):
                 out = self._consume_to_batch(op, [])
+            elif isinstance(op, UnionOp):
+                out = self._run_union(op)
             elif isinstance(op, RemoteSourceOp):
                 got = self.inputs.get(op.channel)
                 if got is None:
@@ -1245,8 +1251,8 @@ class PlanExecutor:
                 out = got
             else:
                 raise Unimplemented(
-                    f"operator {op.kind!r} is not ported yet: unions (Queue 1 "
-                    "item 4) and UDTF sources (the host-layer slice) come with later slices")
+                    f"operator {op.kind!r} is not ported yet: UDTF sources come with the "
+                    "host-layer slice (ROADMAP Queue 1 item 6c)")
             rec["rows_out"] = out.num_rows
             rec["bytes_out"] = sum(v.nbytes for v in out.cols.values())
         self._materialized[op.id] = out
@@ -1352,6 +1358,27 @@ class PlanExecutor:
     def _consume_to_batch(self, terminal_parent, out_names=None) -> HostBatch:
         out_dtypes, out_dicts, out_names, gen = self._consume_chain(terminal_parent, out_names)
         return HostBatch(out_dtypes, out_dicts, _concat_parts(gen, out_names, out_dtypes))
+
+    def _run_union(self, op: UnionOp) -> HostBatch:
+        """Concatenate the parents' rows (reference exec/union_node.*): each
+        dictionary column maps onto a copy of the first parent's dictionary,
+        extended with the other parents' values.  A parent whose codes
+        already are the target's (the first, and every scan of the same
+        table) keeps its column as it is."""
+        batches = [self._materialize_parent(p) for p in self.plan.parents(op)]
+        first = batches[0]
+        cols: dict[str, np.ndarray] = {}
+        dicts: dict[str, Dictionary] = {}
+        for name in first.dtypes:
+            parts = [b.cols[name] for b in batches]
+            if name in first.dicts:
+                target = dicts[name] = Dictionary(first.dicts[name].values())
+                for i, b in enumerate(batches):
+                    lut = b.dicts[name].translate_to(target, insert=True)
+                    if not np.array_equal(lut, np.arange(len(lut))):
+                        parts[i] = apply_lut_np(lut, parts[i])
+            cols[name] = np.concatenate(parts)
+        return HostBatch(dict(first.dtypes), dicts, cols)
 
     def _materialize_parent(self, parent) -> HostBatch:
         head, chain = self._upstream_chain(parent)

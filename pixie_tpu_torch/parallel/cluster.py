@@ -32,9 +32,16 @@ demuxed results with exec_stats["batch"].  The batch window is the static
 flag (the reference's autotuned window is host-layer work), a fused batch is
 not verified (no plan verification yet), and there are no tenant namespaces.
 
+Standing views (PL_MATVIEW_ENABLED, on by default, matview/) run as in the
+reference: each agent has a MatViewManager on the cluster's device; the
+first sight of a partial-agg fragment registers a view, and later sights
+(not under analyze) answer from the view's standing state after folding
+the rows appended since its watermark.  Such an agent's payload is a host
+PartialAggBatch; the other agents' device states gang-merge among
+themselves and then merge by key values with it.
+
 Not ported yet: meshes over several distinct cards (the multi-card slice),
-standing views (PL_MATVIEW_ENABLED: the port behaves as the reference does
-with the flag off), plan verification (PX_PLAN_VERIFY), the flight recorder
+plan verification (PX_PLAN_VERIFY), the flight recorder
 and tracepoint mutations (the host-layer slice), and the semantic-type
 restamp of results (the host-layer slice: results carry physical types).
 Streaming queries over a cluster run through parallel/streaming.py.
@@ -60,6 +67,7 @@ from pixie_tpu_torch.engine.executor import (
 )
 from pixie_tpu_torch.engine.plancache import QueryPlanCache
 from pixie_tpu_torch.engine.result import QueryResult
+from pixie_tpu_torch.matview import MatViewManager
 from pixie_tpu_torch.parallel.distributed import DistributedPlanner
 from pixie_tpu_torch.parallel.partial import PartialAggBatch, merge_partials
 from pixie_tpu_torch.parallel.repartition import (
@@ -171,7 +179,10 @@ class LocalCluster:
         #: whole-query plan cache (PL_QUERY_FASTPATH): warm repeated scripts
         #: skip re-trace/re-split (engine/plancache.py documents soundness)
         self.plan_cache = QueryPlanCache()
-        #: guards the batching state below
+        #: per-agent standing-view maintainers (matview/): repeated
+        #: partial-agg fragments answer from O(delta)-refreshed state
+        self._mv_managers: dict = {}
+        #: guards the batching state below and the view maintainers
         self._mesh_lock = threading.Lock()
         #: concurrent-query batching rendezvous (PL_QUERY_BATCHING):
         #: groupable concurrent queries fuse into one dispatch, results demux
@@ -183,6 +194,16 @@ class LocalCluster:
         #: concurrent query() calls in flight: the batching gate's
         #: concurrent-traffic signal
         self._query_inflight = 0
+
+    def matviews(self, agent_name: str):
+        # under _mesh_lock: concurrent execute() calls must not each
+        # construct a manager and orphan one side's view registrations
+        with self._mesh_lock:
+            mgr = self._mv_managers.get(agent_name)
+            if mgr is None:
+                mgr = self._mv_managers[agent_name] = MatViewManager(
+                    self.stores[agent_name], self.registry, device=self.device)
+            return mgr
 
     def schemas(self) -> dict:
         return self.spec.combined_schemas()
@@ -316,14 +337,27 @@ class LocalCluster:
         items = list(dp.agent_plans.items())
 
         def run_one(agent_name, plan):
+            mesh = self._agent_mesh(agent_name)
+            # Standing-view fast path: first sight registers, later sights
+            # answer from O(delta)-refreshed state; analyze runs bypass to
+            # measure the real scan.
+            miss: dict = {}
+            if not analyze:
+                served = self.matviews(agent_name).serve(plan, mesh=mesh, miss=miss)
+                if served is not None:
+                    cid, pb, info = served
+                    return agent_name, {cid: pb}, {"matview": info}
             ex = PlanExecutor(plan, self.stores[agent_name], self.registry,
-                              device=self.device, analyze=analyze,
-                              mesh=self._agent_mesh(agent_name))
+                              device=self.device, analyze=analyze, mesh=mesh)
             # Colocated agents share one device: defer each agent's partial
             # readback so ALL agents' states merge there and come back in ONE
             # transfer wave below.
             ex.defer_agg_pull = len(items) > 1
-            return agent_name, ex.run_agent(), dict(ex.stats)
+            out = ex.run_agent()
+            stats = dict(ex.stats)
+            if miss:  # a view whose refresh failed: the rescan says why
+                stats["matview"] = miss
+            return agent_name, out, stats
 
         if len(items) > 1:
             with ThreadPoolExecutor(max_workers=min(len(items), 16)) as pool:
@@ -333,7 +367,9 @@ class LocalCluster:
         # Deferred agent partials: per channel, either merge all agents'
         # states ON DEVICE (equal layouts: one M1 launch and one readback
         # instead of N) or pull everything in one transfer wave and merge by
-        # key values on the host.
+        # key values on the host.  View-served agents' host batches are not
+        # deferred: they join the channel's key-value merge below, copied
+        # by the wire round trip (a view's batch is shared, never mutated).
         by_channel: dict[str, list] = {}
         for _name, out, _stats in outs:
             for cid, payload in out.items():

@@ -35,10 +35,7 @@ path untouched (counted under px_batch_fallback_total):
 Flag-off (`PL_QUERY_BATCHING=0`) every query takes the pre-batching path
 bit-identically.
 
-Copied from the reference package (pixie_tpu/serving/batching.py).  The port
-has no standing views yet, so it runs as the reference does with
-PL_MATVIEW_ENABLED off: `leaves_for_matview` is always False (`view_shaped`
-is kept, and tested, for the slice that brings the views).
+Copied from the reference package (pixie_tpu/serving/batching.py).
 """
 from __future__ import annotations
 
@@ -167,10 +164,12 @@ def view_shaped(plan: Plan, registry=None) -> bool:
 
 def leaves_for_matview(plan: Plan, registry=None) -> bool:
     """True when matviews are enabled and this plan would take the
-    standing-view serve — the member leaves the batch.  The port has no
-    standing views yet (the reference with PL_MATVIEW_ENABLED off), so no
-    member leaves."""
-    return False
+    standing-view serve — the member leaves the batch."""
+    import pixie_tpu_torch.matview  # noqa: F401 — defines PL_MATVIEW_ENABLED
+
+    if not _flags.get("PL_MATVIEW_ENABLED"):
+        return False
+    return view_shaped(plan, registry)
 
 
 # -------------------------------------------------------- fused-plan helpers

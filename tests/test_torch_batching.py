@@ -137,12 +137,14 @@ REF_ONLY = ("PL_MATVIEW_ENABLED", "PL_TRACING_ENABLED")
 @pytest.fixture(autouse=True)
 def _flags():
     """Each test sets flags through both packages' set_for_testing; all are
-    restored after it.  The reference runs with standing views and tracing
-    off, as the port runs."""
-    saved = {n: flags.get(n) for n in FLAG_NAMES}
+    restored after it.  Both packages run with standing views off (a
+    view-shaped member would leave its batch), the reference without
+    tracing (the port has no flight recorder)."""
+    saved = {n: flags.get(n) for n in FLAG_NAMES + ("PL_MATVIEW_ENABLED",)}
     ref_saved = {n: ref_flags.get(n) for n in FLAG_NAMES + REF_ONLY}
     for n in REF_ONLY:
         ref_flags.set_for_testing(n, False)
+    flags.set_for_testing("PL_MATVIEW_ENABLED", False)
     yield
     for n, v in saved.items():
         flags.set_for_testing(n, v)
@@ -274,8 +276,14 @@ def test_group_key_and_view_shape_match_reference(pair, script):
     rq, pq = ref_compile(script, ref.schemas()), compile_pxl(script, port.schemas())
     assert batching.group_key(pq.plan) == ref_batching.group_key(rq.plan)
     assert batching.view_shaped(pq.plan) == ref_batching.view_shaped(rq.plan)
-    # no standing views in the port: no member leaves a batch for one
-    assert batching.leaves_for_matview(pq.plan) is False
+    # a member leaves its batch for a standing view as in the reference:
+    # with views on in both packages, and never with them off
+    for on in (True, False):
+        flags.set_for_testing("PL_MATVIEW_ENABLED", on)
+        ref_flags.set_for_testing("PL_MATVIEW_ENABLED", on)
+        leaves = batching.leaves_for_matview(pq.plan)
+        assert leaves == ref_batching.leaves_for_matview(rq.plan)
+        assert leaves == (on and batching.view_shaped(pq.plan))
 
 
 def test_group_key_shapes(pair):

@@ -731,6 +731,7 @@ def test_merge_states_equals_plain(dev, n, g, offset):
 def test_cluster_gang_merge_launches_m1_once(dev):
     """8 agents with identical data on the card: one M1 launch per query,
     and the result equals the same cluster's CPU run."""
+    from pixie_tpu_torch import flags
     from pixie_tpu_torch.parallel import LocalCluster
     from pixie_tpu_torch.table import TableStore
     from pixie_tpu_torch.types import DataType as DT, Relation
@@ -768,21 +769,26 @@ px.display(df, 'output')
         pulls.append((states, transfer.stats["leaves"] - leaves0))
         return out
 
-    cluster = LocalCluster(stores(), device=dev)
-    cluster.query(script)  # warm: tier admission, the plan cache
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    transfer.pull_states = pull_states
+    saved = flags.get("PL_MATVIEW_ENABLED")
+    flags.set_for_testing("PL_MATVIEW_ENABLED", False)  # the rescan route
     try:
-        got = cluster.query(script)["output"].to_pandas()
+        cluster = LocalCluster(stores(), device=dev)
+        cluster.query(script)  # warm: tier admission, the plan cache
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        transfer.pull_states = pull_states
+        try:
+            got = cluster.query(script)["output"].to_pandas()
+        finally:
+            transfer.pull_states = real_pull
+        want = LocalCluster(stores(), device="cpu").query(script)["output"].to_pandas()
     finally:
-        transfer.pull_states = real_pull
+        flags.set_for_testing("PL_MATVIEW_ENABLED", saved)
     assert _build.KERNELS["merge"].launches == 1
     # the merged state is M1's packed buffer: no P1, one copy
     assert _build.KERNELS["pack"].launches == 0
     assert len(pulls) == 1 and len(pulls[0][0]) == 1
     assert isinstance(pulls[0][0][0], m1.Packed) and pulls[0][1] == 1
-    want = LocalCluster(stores(), device="cpu").query(script)["output"].to_pandas()
     got, want = (f.sort_values(["service", "status"]).reset_index(drop=True)
                  for f in (got, want))
     assert got.cnt.tolist() == want.cnt.tolist() and got.p50.tolist() == want.p50.tolist()
@@ -2128,3 +2134,119 @@ def test_fused_finalize_cached_launch_follows_the_chain(dev):
         assert g["cnt"].tolist() == w["cnt"].tolist() and g["p50"].tolist() == w["p50"].tolist()
         np.testing.assert_allclose(g["avg"], w["avg"], rtol=1e-12, atol=0)
     assert len(fin._F1_PLANS) == 1 and len(fin._F1_LAUNCHES) == 3
+
+
+# ------------------------------------------------- standing views, unions
+
+VIEW_SCRIPT = """
+df = px.DataFrame(table='http_events')
+df = df[df.status != 404]
+df = df.groupby(['service', 'status']).agg(
+    cnt=('latency', px.count), avg_lat=('latency', px.mean), p50=('latency', px.p50))
+px.display(df, 'output')
+"""
+
+
+def _http_store(n, seed, services=16, name="http_events", ts=None):
+    from pixie_tpu_torch.table import TableStore
+    from pixie_tpu_torch.types import DataType as DT, Relation
+
+    ts = TableStore() if ts is None else ts
+    t = ts.create(name, Relation.of(
+        ("time_", DT.TIME64NS), ("service", DT.STRING), ("latency", DT.FLOAT64),
+        ("status", DT.INT64)), batch_rows=1 << 14)
+    _append_http(t, n, seed, services)
+    return ts
+
+
+def _append_http(t, n, seed, services=16):
+    rng = np.random.default_rng(seed)
+    t.write({"time_": np.arange(n, dtype=np.int64),
+             "service": np.array([f"svc-{i}" for i in range(services)])[
+                 rng.integers(0, services, n)],
+             "latency": rng.exponential(50.0, n),
+             "status": rng.choice([200, 404, 500], n, p=[0.85, 0.05, 0.10])})
+
+
+def _same_result(got, want, keys):
+    g = got.to_pandas().sort_values(keys).reset_index(drop=True)
+    w = want.to_pandas().sort_values(keys).reset_index(drop=True)
+    assert list(g.columns) == list(w.columns) and len(g) == len(w)
+    for c in g.columns:
+        if c.startswith("avg"):
+            np.testing.assert_allclose(g[c], w[c], rtol=1e-12, atol=0, err_msg=c)
+        else:
+            assert g[c].tolist() == w[c].tolist(), c
+
+
+def test_matview_build_and_fold_on_the_card_equal_a_rescan(dev):
+    """4 agents with views on: the build (every agent's state computed on
+    the card and pulled to the host) and the fold of rows appended to one
+    agent (C1 and K1 over the delta) equal a views-off rescan on the card,
+    counts and p50 exactly, means to rtol 1e-12; a hit with no delta
+    launches no kernel of the chain."""
+    from pixie_tpu_torch import flags
+    from pixie_tpu_torch.parallel import LocalCluster
+
+    stores = {f"pem{a}": _http_store(1 << 18, 40 + a) for a in range(4)}
+
+    def rescan():
+        flags.set_for_testing("PL_MATVIEW_ENABLED", False)
+        try:
+            return LocalCluster(stores, device=dev).query(VIEW_SCRIPT)["output"]
+        finally:
+            flags.set_for_testing("PL_MATVIEW_ENABLED", True)
+
+    saved = flags.get("PL_MATVIEW_ENABLED")
+    flags.set_for_testing("PL_MATVIEW_ENABLED", True)
+    try:
+        cluster = LocalCluster(stores, device=dev)
+        cluster.query(VIEW_SCRIPT)  # first sight: registers
+        built = cluster.query(VIEW_SCRIPT)["output"]
+        info = {a: s["matview"] for a, s in built.exec_stats["agents"].items()}
+        assert all(i["hit"] and i["rows_folded"] == 1 << 18 for i in info.values())
+        _same_result(built, rescan(), ["service", "status"])
+        _build.reset_launches()
+        hit = cluster.query(VIEW_SCRIPT)["output"]
+        torch.cuda.synchronize()
+        assert _build.KERNELS["chain"].launches == 0
+        _same_result(hit, built, ["service", "status"])
+        _append_http(stores["pem2"].table("http_events"), 1 << 16, 99)
+        _build.reset_launches()
+        folded = cluster.query(VIEW_SCRIPT)["output"]
+        torch.cuda.synchronize()
+        rows = {a: s["matview"]["rows_folded"]
+                for a, s in folded.exec_stats["agents"].items()}
+        assert rows == {"pem0": 0, "pem1": 0, "pem2": 1 << 16, "pem3": 0}
+        assert _build.KERNELS["chain"].launches >= 1
+        assert _build.KERNELS["segment_reduce"].launches >= 1
+        _same_result(folded, rescan(), ["service", "status"])
+    finally:
+        flags.set_for_testing("PL_MATVIEW_ENABLED", saved)
+
+
+def test_union_on_the_card_equals_the_cpu(dev):
+    """A union of two filtered scans of tables with different dictionaries,
+    grouped: C1 and K4 for the parents on the card, equal to device="cpu"."""
+    from pixie_tpu_torch.compiler import compile_pxl
+    from pixie_tpu_torch.engine import execute_plan
+
+    ts = _http_store(1 << 18, 50, name="a_events")
+    _http_store(1 << 17, 51, services=24, name="b_events", ts=ts)
+    src = """
+a = px.DataFrame(table='a_events')
+a = a[a.status == 500]
+b = px.DataFrame(table='b_events')
+b = b[b.status == 404]
+u = a.append(b)
+u = u.groupby('service').agg(cnt=('latency', px.count), avg_lat=('latency', px.mean),
+                             p50=('latency', px.p50))
+px.display(u, 'output')
+"""
+    plan = compile_pxl(src, ts.schemas()).plan
+    _build.reset_launches()
+    got = execute_plan(plan, ts, device=dev)["output"]
+    torch.cuda.synchronize()
+    assert _build.KERNELS["chain"].launches >= 2 and _build.KERNELS["compact"].launches >= 2
+    want = execute_plan(plan, ts, device="cpu")["output"]
+    _same_result(got, want, ["service"])

@@ -6,8 +6,8 @@ dictionary code spaces per agent): the reference with one device per agent
 on the JAX CPU, the port with device="cpu".  Each compares the distributed
 split (`DistributedPlan.to_dict()`) and the results: counts, int sums,
 min / max and sketch quantiles exactly, float64 sums and means to rtol 1e-12
-(a different summation order).  The union case waits for the port's UnionOp
-(ROADMAP Queue 1 item 4) and raises Unimplemented there.
+(a different summation order).  Both packages run with standing views off
+(tests/test_torch_matview.py runs them on).
 
 Beyond the reference's cases: 8 agents with identical dictionaries (bench
 config #4's shape, small) take the gang route — every agent's state merges
@@ -31,13 +31,13 @@ from pixie_tpu.parallel import LocalCluster as RefCluster
 from pixie_tpu.table import TableStore as RefStore
 from pixie_tpu.types import DataType as RefDT, Relation as RefRelation
 
+from pixie_tpu_torch import flags as port_flags
 import pixie_tpu_torch.engine.executor as port_executor
 from pixie_tpu_torch.compiler import compile_pxl
 from pixie_tpu_torch.engine import execute_plan
 from pixie_tpu_torch.ops import _build
 from pixie_tpu_torch.parallel import LocalCluster
 from pixie_tpu_torch.plan.plan import AggOp, MemorySourceOp, RemoteSourceOp
-from pixie_tpu_torch.status import Unimplemented
 from pixie_tpu_torch.table import TableStore
 from pixie_tpu_torch.types import DataType as DT, Relation
 
@@ -49,14 +49,18 @@ SERVICES = {"pem0": ["cart", "frontend"], "pem1": ["frontend", "checkout", "cart
 
 @pytest.fixture(scope="module", autouse=True)
 def reference_flags():
-    """The port has no standing views or flight recorder yet: run the
-    reference as it runs with both off."""
+    """These cases measure the rescan route: both packages run with standing
+    views off (tests/test_torch_matview.py runs them on), and the reference
+    without its flight recorder, which the port does not have."""
     saved = {f: ref_flags.get(f) for f in ("PL_MATVIEW_ENABLED", "PL_TRACING_ENABLED")}
     for f in saved:
         ref_flags.set_for_testing(f, False)
+    port_views = port_flags.get("PL_MATVIEW_ENABLED")
+    port_flags.set_for_testing("PL_MATVIEW_ENABLED", False)
     yield
     for f, v in saved.items():
         ref_flags.set_for_testing(f, v)
+    port_flags.set_for_testing("PL_MATVIEW_ENABLED", port_views)
 
 
 def _http_cols(seed: int, services, n: int = N_PER_AGENT) -> dict:
@@ -375,7 +379,9 @@ px.display(top)
     assert dict(zip(got.service, got.combos)) == exp
 
 
-def test_union_waits_for_the_port_union(pair):
+def test_union_waits_for_the_port_union(pair, oracle_df):
+    """The distributed union: each agent's filtered scans ship as rows, the
+    merger unions them (UnionOp) and aggregates; equal to the reference."""
     src = """
 import px
 a = px.DataFrame(table='http_events')
@@ -386,12 +392,9 @@ u = a.append(b)
 u = u.groupby('service').agg(cnt=('latency', px.count))
 px.display(u)
 """
-    ref, port = pair
-    rdp = ref.planner.plan(ref_compile(src, ref.schemas(), now=NOW).plan)
-    q = compile_pxl(src, port.schemas(), now=NOW)
-    assert port.planner.plan(q.plan).to_dict() == rdp.to_dict()
-    with pytest.raises(Unimplemented, match="Queue 1 item 4"):
-        port.execute(q.plan)
+    got, _dp = run_both(pair, src, ["service"])
+    exp = oracle_df[oracle_df.status.isin([200, 500])].groupby("service").size().to_dict()
+    assert dict(zip(got.service, got.cnt)) == exp
 
 
 CONFIG4 = """

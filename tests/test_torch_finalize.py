@@ -71,16 +71,20 @@ WIDTH = 514
 
 @pytest.fixture(autouse=True)
 def _env():
-    """The reference without standing views and the flight recorder (the
-    port has neither); empty tiers and caches around each test."""
+    """Both packages without standing views (these cases measure the rescan
+    route), the reference without its flight recorder (the port has none);
+    empty tiers and caches around each test."""
     saved = {f: ref_flags.get(f) for f in ("PL_MATVIEW_ENABLED", "PL_TRACING_ENABLED")}
     for f in saved:
         ref_flags.set_for_testing(f, False)
+    port_views = flags.get("PL_MATVIEW_ENABLED")
+    flags.set_for_testing("PL_MATVIEW_ENABLED", False)
     resident.clear_for_testing()
     clear_device_cache()
     yield
     for f, v in saved.items():
         ref_flags.set_for_testing(f, v)
+    flags.set_for_testing("PL_MATVIEW_ENABLED", port_views)
     resident.clear_for_testing()
     clear_device_cache()
 

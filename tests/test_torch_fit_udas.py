@@ -34,6 +34,7 @@ from pixie_tpu.status import Unimplemented as RefUnimplemented
 from pixie_tpu.table import TableStore as RefStore
 from pixie_tpu.types import DataType as RefDT, Relation as RefRelation
 
+from pixie_tpu_torch import flags as port_flags
 from pixie_tpu_torch.compiler import compile_pxl
 from pixie_tpu_torch.engine import execute_plan
 from pixie_tpu_torch.ml import kmeans as km
@@ -335,14 +336,18 @@ def test_kmeans_fit_uda_needs_init_for_its_device():
 
 @pytest.fixture(scope="module")
 def reference_flags():
-    """The port has no standing views or flight recorder yet: run the
-    reference as it runs with both off."""
+    """These cases measure the rescan route: both packages run with standing
+    views off (tests/test_torch_matview.py runs them on), and the reference
+    without its flight recorder, which the port does not have."""
     saved = {f: ref_flags.get(f) for f in ("PL_MATVIEW_ENABLED", "PL_TRACING_ENABLED")}
     for f in saved:
         ref_flags.set_for_testing(f, False)
+    port_views = port_flags.get("PL_MATVIEW_ENABLED")
+    port_flags.set_for_testing("PL_MATVIEW_ENABLED", False)
     yield
     for f, v in saved.items():
         ref_flags.set_for_testing(f, v)
+    port_flags.set_for_testing("PL_MATVIEW_ENABLED", port_views)
 
 
 @pytest.mark.parametrize("src,table", [(CLUSTER_GROUPED, "http"), (KMEANS_NONE, "embs")])

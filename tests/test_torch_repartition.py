@@ -58,11 +58,14 @@ def _mesh_env():
     saved = {f: ref_flags.get(f) for f in ("PL_MATVIEW_ENABLED", "PL_TRACING_ENABLED")}
     for f in saved:
         ref_flags.set_for_testing(f, False)
+    port_views = port_flags.get("PL_MATVIEW_ENABLED")
+    port_flags.set_for_testing("PL_MATVIEW_ENABLED", False)
     port_flags.set_for_testing("PIXIE_TORCH_VIRTUAL_SHARDS", N_DEV)
     yield
     port_flags.set_for_testing("PIXIE_TORCH_VIRTUAL_SHARDS", 1)
     for f, v in saved.items():
         ref_flags.set_for_testing(f, v)
+    port_flags.set_for_testing("PL_MATVIEW_ENABLED", port_views)
 
 
 # -------------------------------------------------------------- hash basics

@@ -75,11 +75,14 @@ CPU = torch.device("cpu")
 @pytest.fixture(autouse=True)
 def _mesh_env():
     """8 co-located CPU shards for the port (the reference's conftest gives
-    it 8 virtual devices); the reference without standing views and the
-    flight recorder, which the port does not have; empty tiers."""
+    it 8 virtual devices); both packages without standing views (these
+    cases measure the rescan route), the reference without its flight
+    recorder, which the port does not have; empty tiers."""
     saved = {f: ref_flags.get(f) for f in ("PL_MATVIEW_ENABLED", "PL_TRACING_ENABLED")}
     for f in saved:
         ref_flags.set_for_testing(f, False)
+    port_views = port_flags.get("PL_MATVIEW_ENABLED")
+    port_flags.set_for_testing("PL_MATVIEW_ENABLED", False)
     port_flags.set_for_testing("PIXIE_TORCH_VIRTUAL_SHARDS", N_DEV)
     for clear in (ref_resident.clear_for_testing, ref_clear_cache,
                   resident.clear_for_testing, clear_device_cache):
@@ -88,6 +91,7 @@ def _mesh_env():
     port_flags.set_for_testing("PIXIE_TORCH_VIRTUAL_SHARDS", 1)
     for f, v in saved.items():
         ref_flags.set_for_testing(f, v)
+    port_flags.set_for_testing("PL_MATVIEW_ENABLED", port_views)
     for clear in (ref_resident.clear_for_testing, ref_clear_cache,
                   resident.clear_for_testing, clear_device_cache):
         clear()

@@ -3,7 +3,7 @@
 Every case of tests/test_stream.py and tests/test_cluster_stream.py runs
 through both packages: the same writes and the same poll sequence, the
 reference on the JAX CPU (its LocalCluster with one device per agent and
-standing views and tracing off), the port with device="cpu".  The emitted
+tracing off), the port with device="cpu", both with standing views off.  The emitted
 frames must be equal: counts and int64 sums exactly, float sums and means to
 rtol 1e-12, quantiles in the same sketch bin.  Each case also keeps the
 reference test's own assertions, checked on both packages.
@@ -39,6 +39,7 @@ from pixie_tpu.table import TableStore as RefStore
 from pixie_tpu.types import DataType as RefDT, Relation as RefRelation
 from pixie_tpu.udf import registry as ref_registry
 
+from pixie_tpu_torch import flags as port_flags
 from pixie_tpu_torch import plan as port_plan
 from pixie_tpu_torch.compiler import compile_pxl
 from pixie_tpu_torch.engine import execute_plan
@@ -63,14 +64,18 @@ QUANTILES = {"p50", "p99"}
 
 @pytest.fixture(scope="module", autouse=True)
 def reference_flags():
-    """The port has no standing views or flight recorder yet: run the
-    reference as it runs with both off."""
+    """These cases measure the rescan route: both packages run with standing
+    views off (tests/test_torch_matview.py runs them on), and the reference
+    without its flight recorder, which the port does not have."""
     saved = {f: ref_flags.get(f) for f in ("PL_MATVIEW_ENABLED", "PL_TRACING_ENABLED")}
     for f in saved:
         ref_flags.set_for_testing(f, False)
+    port_views = port_flags.get("PL_MATVIEW_ENABLED")
+    port_flags.set_for_testing("PL_MATVIEW_ENABLED", False)
     yield
     for f, v in saved.items():
         ref_flags.set_for_testing(f, v)
+    port_flags.set_for_testing("PL_MATVIEW_ENABLED", port_views)
 
 
 class _Pkg:
