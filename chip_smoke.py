@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port (pixie_tpu_torch) once on one CUDA card.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --only-cpu-route   (the kernel build and the
+                                              cpu_route phase alone)
 
 Phases, each of which fails the run if it fails:
 
@@ -242,6 +244,30 @@ phase, after the mesh cluster (4 co-located shards): run_local at 2^26 rows
 on both sides, J1-J3 a partition, bit_equal), each arm's launches read
 from one more warm query of its path alone.
 
+Slice 19: every phase above runs pinned to the card route (PX_AUTOTUNE=0
+and PX_CPU_CROSSOVER_ROWS=0, set before the port is imported so worker
+processes inherit them; one "pinned" line a phase, printed from those
+flags), so no aggregate or join moves onto the host fast paths or under
+autotune's probes, and every launch, H2D and readback check holds as
+before.  Last, the cpu_route phase
+(`run_cpu_route`): g++ builds the native library; config #1 over
+build_http_table at 2^14, 2^16, ..., 2^24 rows with each arm pinned, the
+warm median of 5 of each and the CPU route's cold wall, every CPU-routed
+query moving 0 H2D bytes and launching nothing and agreeing with the card
+route (counts and integers exactly, floats to rtol 1e-12, the quantiles in
+the same sketch bin or the adjacent one; the raw states' sketch values at
+most one bin apart, counted); the default crossover, the largest size at
+which the CPU route's warm median beats the card's (0 if none), beside the
+flag's; with autotune off and that crossover, each size's unpinned run on
+the arm it says, and with autotune on (the port's default) config #1 at
+2^20 and 2^24 rows unpinned against pinned to the card, p50 and p99 of 100
+queries each, with no cpu_crossover decision taken while the crossover is
+0; the np_partial query (groupby service: count, mean, p99)
+at 2^20 rows; config #4's 8 stores of 2^18 rows through LocalCluster,
+routed by the query's 2,097,152 rows; the native host join against J1-J3
+at 2^16 rows a side (equal pair sets and flags); and autotune_bench's A/B
+with the static crossover mis-set (its answers held by those tolerances).
+
 It prints one JSON line per kernel, a {"kernels": [...]} line, the card's
 name and power limit, and last {"ok": true, "device": {...}}.  It exits
 non-zero, printing no result, without a CUDA device or outside the repo.
@@ -252,6 +278,7 @@ import argparse
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -5441,10 +5468,364 @@ def run_shard_bench(dev) -> dict:
     return {"local_launches": local_launches, "join_launches": join_launches}
 
 
+#: the cpu_route phase's sweep: config #1 over build_http_table at these sizes
+CPU_ROUTE_SIZES = [1 << 14, 1 << 16, 1 << 18, 1 << 20, 1 << 22, 1 << 24]
+#: the np_partial query's rows, config #4's stores for the cluster decision,
+#: and the native join's rows a side
+NP_PARTIAL_ROWS = 1 << 20
+CLUSTER_ROUTE_ROWS = 1 << 18
+NATIVE_JOIN_ROWS = 1 << 16
+
+
+#: the flags that pin every phase before cpu_route to the card route: no
+#: size routes to the CPU and no autotune gate (the CPU route's, the join
+#: gate's, mq fusion's) probes another arm
+PIN_FLAGS = {"PX_AUTOTUNE": "0", "PX_CPU_CROSSOVER_ROWS": "0"}
+
+
+def pinned(phase: str) -> None:
+    """Log that `phase` runs pinned to the card route, from the PIN_FLAGS
+    values the port reads (set before it is imported, so worker processes
+    inherit them; the cpu_route phase restores them when it ends)."""
+    import pixie_tpu_torch.engine.executor  # noqa: F401  (defines the flags)
+    from pixie_tpu_torch import flags
+
+    got = {"PX_AUTOTUNE": flags.get("PX_AUTOTUNE"),
+           "PX_CPU_CROSSOVER_ROWS": flags.get("PX_CPU_CROSSOVER_ROWS")}
+    if got != {"PX_AUTOTUNE": False, "PX_CPU_CROSSOVER_ROWS": 0}:
+        raise AssertionError(f"{phase}: the card route is not pinned: {got}")
+    log(json.dumps({"phase": phase, "pinned": "device", **got}))
+
+
+def _launch_total() -> int:
+    from pixie_tpu_torch.ops import _build
+
+    return sum(k.launches for k in _build.KERNELS.values())
+
+
+def _state_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _state_leaves(tree[k], f"{prefix}.{k}")
+    else:
+        yield prefix, np.asarray(tree)
+
+
+def same_across_routes(cpu_state, dev_state, label: str) -> int:
+    """A CPU-route state against the card route's on the same rows: integer
+    leaves (counts, int64 sums, min, max) exactly, float64 leaves to rtol
+    1e-12 (the card's atomics add floats in another order), each sketch
+    group's total exactly with a value moved at most to the adjacent bin:
+    the CPU route bins as the reference's CPU routes (f32 log times
+    1/log(gamma)), the card as its device route (divided by log(gamma)),
+    and the two differ for a value within an ulp of a bin edge.  → the
+    number of sketch values in another bin."""
+    got, want = dict(_state_leaves(cpu_state)), dict(_state_leaves(dev_state))
+    if got.keys() != want.keys():
+        raise AssertionError(f"{label}: state leaves {sorted(got)} != {sorted(want)}")
+    moved = 0
+    for k, w in want.items():
+        g = got[k]
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{label}: leaf {k} has another dtype or shape")
+        if w.dtype == np.float32 and w.ndim == 2:  # a sketch: [groups, bins]
+            step = np.abs(np.cumsum(g.astype(np.int64) - w.astype(np.int64), axis=1))
+            ok = not step[:, -1].any() and step.sum() <= max(16, w.sum() * 1e-5)
+            moved += int(step.sum())
+        elif w.dtype == np.float64:
+            ok = np.allclose(g, w, rtol=1e-12, atol=0)
+        else:
+            ok = np.array_equal(g, w)
+        if not ok:
+            raise AssertionError(f"{label}: leaf {k} differs across the routes")
+    return moved
+
+
+def same_results(a, b, keys, label: str, quantiles=()) -> None:
+    """Two finalized results over the same rows: keys and integer columns
+    exactly, float columns to rtol 1e-12, the `quantiles` columns in the
+    same sketch bin or the adjacent one (ratio at most gamma)."""
+    def rows(r):
+        o = np.lexsort([np.asarray(r.columns[k]) for k in reversed(keys)])
+        return {c: np.asarray(v)[o] for c, v in r.columns.items()}
+
+    ra, rb = rows(a), rows(b)
+    if ra.keys() != rb.keys():
+        raise AssertionError(f"{label}: columns differ")
+    for c, x in ra.items():
+        y = rb[c]
+        if x.shape != y.shape:
+            ok = False
+        elif c in quantiles:
+            ok = bool(np.all(np.abs(np.log(x / y)) <= math.log(GAMMA) * (1 + 1e-9)))
+        elif x.dtype.kind == "f":
+            ok = np.allclose(x, y, rtol=1e-12, atol=0)
+        else:
+            ok = np.array_equal(x, y)
+        if not ok:
+            raise AssertionError(f"{label}: column {c} differs across the routes")
+
+
+def _route_states(ts, plan, dev):
+    """The aggregate's raw state on each arm: (CPU numpy state, the card's
+    pulled state, the CPU executor's stats, the CPU run's launches)."""
+    import torch
+
+    from pixie_tpu_torch.engine import transfer
+    from pixie_tpu_torch.engine.executor import PlanExecutor
+    from pixie_tpu_torch.ops import _build
+
+    agg = next(op for op in plan.ops() if op.kind == "agg")
+    cpu = PlanExecutor(plan, ts, device=dev, force_backend="cpu", mesh=None)
+    _build.reset_launches()
+    cpu_state = cpu._agg_state(agg)[2]
+    launches = _launch_total()
+    card = PlanExecutor(plan, ts, device=dev, force_backend="device", mesh=None)
+    dev_state = transfer.pull_states([card._agg_state(agg)[2]])[0]
+    torch.cuda.synchronize()
+    return cpu_state, dev_state, cpu.stats, launches
+
+
+def np_partial_plan():
+    """groupby('service') → count, mean(latency), p99(latency): no filter,
+    no map, so the np_partial loop owns it."""
+    from pixie_tpu_torch.plan import AggExpr, AggOp, MemorySinkOp, MemorySourceOp, Plan
+
+    p = Plan()
+    src = p.add(MemorySourceOp(table="http_events"))
+    agg = p.add(AggOp(groups=["service"], values=[
+        AggExpr("cnt", "count", None), AggExpr("avg_lat", "mean", "latency"),
+        AggExpr("p99", "p99", "latency")]), parents=[src])
+    p.add(MemorySinkOp(name="output"), parents=[agg])
+    return p
+
+
+def run_cpu_route(dev) -> dict:
+    """The CPU route (slice 19): the host fast paths against the card.
+
+    The sweep: config #1 (http_plan, the whole-plan loop) over
+    build_http_table at each CPU_ROUTE_SIZES size, each arm pinned in turn
+    (force_backend), the warm median of 5 after 2 warm-ups, and the CPU
+    route's cold wall (its first query on the table); every CPU-routed query
+    moves 0 H2D bytes and launches no kernel, and its answer and its raw
+    state agree with the card route's.  The default crossover is the largest
+    size at which the CPU route's warm median beats the card's (0 if none).
+    With PX_AUTOTUNE off and the crossover at that default, the unpinned run
+    of each size must take the arm the default says.  Then the np_partial
+    query at 2^20 rows, config #4's 8 stores of 2^18 rows through
+    LocalCluster (routed by their 2,097,152 rows, not one store's), the
+    native host join against J1-J3 at 2^16 rows a side (equal pair sets),
+    and the autotune harness with the static arm's crossover mis-set."""
+    import torch
+
+    from pixie_tpu_torch import flags
+    from pixie_tpu_torch.engine import autotune_bench
+    from pixie_tpu_torch.engine.executor import PlanExecutor
+    from pixie_tpu_torch.native import build as native_build
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.ops import join_device as jd
+    from pixie_tpu_torch.parallel.cluster import LocalCluster
+    from pixie_tpu_torch.table import TableStore
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    if native_build.load_native() is None:
+        raise AssertionError(f"native library: {native_build.build_error()}")
+    log(json.dumps({"phase": "cpu_route.native_build", "wall_s": time.perf_counter() - t0,
+                    "g++_s": native_build.build_seconds,
+                    "library": native_build.library_path().name}))
+    # the port's own defaults (the smoke's pins set both through the env)
+    defaults = flags.dump()
+    compiled_default = int(defaults["PX_CPU_CROSSOVER_ROWS"]["default"])
+    autotune_default = bool(defaults["PX_AUTOTUNE"]["default"])
+    flags.set_for_testing("PX_AUTOTUNE", False)
+    plan = http_plan()
+
+    def run(ts, arm):
+        ex = PlanExecutor(plan, ts, device=dev, force_backend=arm, mesh=None)
+        res = ex.run()["output"]
+        torch.cuda.synchronize()
+        return ex, res
+
+    sweep, tables = [], {}
+    for rows in CPU_ROUTE_SIZES:
+        ts = TableStore()
+        build_http_table(ts, rows)
+        tables[rows] = ts
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        ex, cpu_res = run(ts, "cpu")
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        if ex.stats.get("wholeplan_native") != 1 or ex.stats["h2d_bytes"] != 0 \
+                or _launch_total() != 0:
+            raise AssertionError(f"cpu_route {rows}: the CPU route ran {ex.stats}")
+        cpu_ms = float(np.median(warm_times(lambda: run(ts, "cpu")))) * 1e3
+        _ex, dev_res = run(ts, "device")
+        dev_ms = float(np.median(warm_times(lambda: run(ts, "device")))) * 1e3
+        same_results(cpu_res, dev_res, ["service", "status"], f"cpu_route {rows}",
+                     quantiles=("p50",))
+        row = {"rows": rows, "cpu_warm_ms": cpu_ms, "device_warm_ms": dev_ms,
+               "cpu_cold_ms": cold_ms, "cpu_wins": cpu_ms < dev_ms}
+        sweep.append(row)
+        log(json.dumps({"phase": "cpu_route.sweep", **row}))
+    default = max((r["rows"] for r in sweep if r["cpu_wins"]), default=0)
+    log(json.dumps({"phase": "cpu_route.default", "crossover_rows": default,
+                    "flag_default": compiled_default,
+                    "flag_matches_sweep": default == compiled_default}))
+
+    # raw states across the routes at the sweep's 2^20 rows: bins and
+    # integers exactly
+    cpu_state, dev_state, _st, launches = _route_states(tables[NP_PARTIAL_ROWS], plan, dev)
+    if launches:
+        raise AssertionError(f"cpu_route: the CPU state launched {launches} kernels")
+    moved = same_across_routes(cpu_state, dev_state, "cpu_route config #1 state")
+    log(json.dumps({"phase": "cpu_route.states", "rows": NP_PARTIAL_ROWS,
+                    "sketch_values_in_the_adjacent_bin": moved}))
+
+    # routing: the unpinned run of each size takes the arm the default says
+    flags.set_for_testing("PX_CPU_CROSSOVER_ROWS", default)
+    routed = {}
+    for rows, ts in tables.items():
+        ex = PlanExecutor(plan, ts, device=dev, mesh=None)
+        ex.run()
+        arm = ex.stats["routes"][0]["arm"]
+        want = "cpu" if rows <= default else "device"
+        if arm != want:
+            raise AssertionError(f"cpu_route: {rows} rows routed to {arm}, want {want}")
+        routed[rows] = arm
+    log(json.dumps({"phase": "cpu_route.routing", "crossover_rows": default, "arms": routed}))
+
+    # the default config, unpinned, under autotune at its default against the
+    # pinned card route: p50 and p99 of 100 warm queries, at 2^20 and 2^24
+    flags.set_for_testing("PX_AUTOTUNE", autotune_default)
+    for rows in (1 << 20, 1 << 24):
+        ts = tables[rows]
+        pct = {}
+        decisions = []
+        for arm in ("device", None, "device", None):
+            times = []
+            for _ in range(50):
+                t0 = time.perf_counter()
+                ex, _res = run(ts, arm)
+                times.append(time.perf_counter() - t0)
+                if arm is None:
+                    decisions += [d for d in ex.stats.get("autotune", [])
+                                  if d["gate"] == "cpu_crossover"]
+                    if default == 0 and ex.stats["routes"][0]["arm"] != "device":
+                        raise AssertionError(f"cpu_route: unpinned {rows} rows left the card")
+            pct.setdefault(arm or "unpinned", []).extend(times)
+        if default == 0 and decisions:
+            raise AssertionError(f"cpu_route: {len(decisions)} cpu_crossover decisions "
+                                 "at crossover 0")
+        log(json.dumps({"phase": "cpu_route.default_path", "rows": rows,
+                        "autotune": autotune_default, "crossover_rows": default,
+                        "queries_each": len(pct["unpinned"]),
+                        "cpu_crossover_decisions": len(decisions),
+                        **{f"{k}_{q}_ms": float(np.percentile(v, p)) * 1e3
+                           for k, v in pct.items() for q, p in (("p50", 50), ("p99", 99))}}))
+    flags.set_for_testing("PX_AUTOTUNE", False)
+    del tables
+
+    # the np_partial loop at 2^20 rows
+    ts = TableStore()
+    build_http_table(ts, NP_PARTIAL_ROWS)
+    npp = np_partial_plan()
+    cpu_state, dev_state, st, launches = _route_states(ts, npp, dev)
+    if st.get("np_fast_polls") != 1 or st["h2d_bytes"] != 0 or launches:
+        raise AssertionError(f"cpu_route np_partial: {st}, {launches} launches")
+    moved = same_across_routes(cpu_state, dev_state, "cpu_route np_partial state")
+    outs = {}
+    for arm in ("cpu", "device"):
+        ex = PlanExecutor(npp, ts, device=dev, force_backend=arm, mesh=None)
+        outs[arm] = ex.run()["output"]
+        if arm == "cpu":
+            np_ms = float(np.median(warm_times(lambda: PlanExecutor(
+                npp, ts, device=dev, force_backend="cpu", mesh=None).run()))) * 1e3
+    same_results(outs["cpu"], outs["device"], ["service"], "cpu_route np_partial",
+                 quantiles=("p99",))
+    log(json.dumps({"phase": "cpu_route.np_partial", "rows": NP_PARTIAL_ROWS,
+                    "np_fast_polls": st["np_fast_polls"], "h2d_bytes": st["h2d_bytes"],
+                    "launches": launches, "cpu_warm_ms": np_ms,
+                    "sketch_values_in_the_adjacent_bin": moved}))
+    del ts
+
+    # the cluster: 8 stores of 2^18 rows route by the query's 2^21 rows, at
+    # the sweep's crossover and at one between a store's rows and the query's
+    stores, _tables = _agent_stores(CLUSTER_ROUTE_ROWS)
+    flags.set_for_testing("PX_CPU_CROSSOVER_ROWS", 0)
+    card = LocalCluster(stores, device=dev).query(CONFIG4_SCRIPT)["output"]
+    query_rows = CLUSTER_ROUTE_ROWS * CONFIG4_AGENTS
+    for crossover in (default, 2 * CLUSTER_ROUTE_ROWS):
+        flags.set_for_testing("PX_CPU_CROSSOVER_ROWS", crossover)
+        cluster = LocalCluster(stores, device=dev)
+        want = "cpu" if query_rows <= crossover else "device"
+        one_store = "cpu" if CLUSTER_ROUTE_ROWS <= crossover else "device"
+        _build.reset_launches()
+        res = cluster.query(CONFIG4_SCRIPT)["output"]
+        torch.cuda.synchronize()
+        launches = _launch_total()
+        arms = {r["arm"] for s in res.exec_stats["agents"].values() for r in s["routes"]}
+        h2d = res.exec_stats["transfer"]["h2d_bytes"]
+        if arms != {want} or (want == "cpu" and (h2d or launches)):
+            raise AssertionError(f"cpu_route cluster: arms {arms} (want {want}), h2d {h2d}, "
+                                 f"{launches} launches")
+        same_results(res, card, ["service", "status"], "cpu_route cluster", quantiles=("p50",))
+        log(json.dumps({"phase": "cpu_route.cluster", "agents": CONFIG4_AGENTS,
+                        "rows_each": CLUSTER_ROUTE_ROWS, "query_rows": query_rows,
+                        "crossover_rows": crossover, "decision": want,
+                        "one_store_alone_would_route": one_store, "h2d_bytes": h2d,
+                        "launches": launches}))
+    flags.set_for_testing("PX_CPU_CROSSOVER_ROWS", default)
+    del stores, cluster
+
+    # the native host join against J1-J3
+    rng = np.random.default_rng(19)
+    b = rng.integers(0, NATIVE_JOIN_ROWS // 4, NATIVE_JOIN_ROWS).astype(np.int64)
+    p = rng.integers(0, NATIVE_JOIN_ROWS // 4, NATIVE_JOIN_ROWS).astype(np.int64)
+    nat = jd.native_join_codes(b, p)
+    dj = jd.device_join_codes(b, p, device=dev)
+
+    def pairs(out):
+        o = np.lexsort((out[1], out[0]))
+        return out[0][o], out[1][o]
+
+    (nb_, np_), (db_, dp_) = pairs(nat), pairs(dj)
+    if not (np.array_equal(nb_, db_) and np.array_equal(np_, dp_)
+            and np.array_equal(nat[2], dj[2]) and np.array_equal(nat[3], dj[3])):
+        raise AssertionError("cpu_route: the native join's pairs differ from J1-J3's")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        jd.native_join_codes(b, p)
+    nat_ms = (time.perf_counter() - t0) / 5 * 1e3
+    t0 = time.perf_counter()
+    for _ in range(5):
+        jd.device_join_codes(b, p, device=dev)
+    dj_ms = (time.perf_counter() - t0) / 5 * 1e3
+    log(json.dumps({"phase": "cpu_route.native_join", "rows_a_side": NATIVE_JOIN_ROWS,
+                    "pairs": int(len(nb_)), "pair_sets_equal": True,
+                    "native_ms": nat_ms, "j1_j3_ms": dj_ms}))
+
+    # the autotune harness: the static arm's crossover set to the wrong arm
+    bench_rows = 400_000
+    mis_set = 4096 if bench_rows <= default else 1 << 40
+    at = autotune_bench.run_adaptive_gates(rows=bench_rows, device=dev, mis_set=mis_set)
+    if at["tolerance_equal_frac"] != 1.0:
+        raise AssertionError(f"cpu_route autotune: answers differ across arms: {at}")
+    log(json.dumps({"phase": "cpu_route.autotune", "comparison": "tolerance (ints exact, "
+                    "floats rtol 1e-12), not bits", **at}))
+    for f, v in PIN_FLAGS.items():
+        flags.set_for_testing(f, v)
+    log(json.dumps({"phase": "cpu_route", "seconds": time.perf_counter() - t_phase}))
+    return {"sweep": sweep, "default": default}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace one warm query with torch.profiler")
+    ap.add_argument("--only-cpu-route", action="store_true",
+                    help="build the kernels and run the cpu_route phase alone "
+                         "(no contract lines: not the smoke)")
     args = ap.parse_args()
 
     t_start = time.perf_counter()
@@ -5453,6 +5834,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    # every phase before cpu_route pins the card route: set before the port
+    # reads its flags, so worker processes inherit them
+    os.environ.update(PIN_FLAGS)
     import pixie_tpu_torch  # noqa: F401  (fails outside the repo)
     import pixie_tpu_torch.matview  # noqa: F401  (defines PL_MATVIEW_ENABLED)
     from pixie_tpu_torch import flags
@@ -5474,59 +5858,86 @@ def main() -> int:
     log(json.dumps({"phase": "build", "wall_s": time.perf_counter() - t0,
                     "nvcc_s": secs}))
 
+    if args.only_cpu_route:
+        run_cpu_route(dev)
+        log("only the cpu_route phase ran: this is not the smoke's result")
+        return 0
+    pinned("kernels")
     rows = (check_kernels(dev) + check_new_kernels(dev) + check_resident_kernels(dev)
             + check_merge_kernel(dev) + check_kmeans_kernels(dev) + check_chain_kernel(dev)
             + check_repartition_kernels(dev) + check_collective_merge(dev))
+    pinned("slice")
     sl, ts, table = run_slice(dev, args.profile)
     log(json.dumps({"phase": "slice", "card": smi, **sl}))
     paths = {"config1": sl["launches"]}
     t0 = time.perf_counter()
+    pinned("union")
     paths["union"] = run_union(dev, ts, table)["launches"]
     log(json.dumps({"phase": "union", "card": smi, "seconds": time.perf_counter() - t0}))
+    pinned("select")
     paths["select"] = run_select(dev, ts, table, args.profile)["select"]["launches"]
+    pinned("config2")
     paths["config2"] = run_config2(dev, ts, table)["launches"]
+    pinned("gang_checks")
     rows += check_gang_kernel(dev, ts)
     t0 = time.perf_counter()
+    pinned("finalize_checks")
     rows += check_finalize_kernels(dev, ts)
     log(json.dumps({"phase": "finalize_checks", "card": smi,
                     "seconds": time.perf_counter() - t0}))
     t0 = time.perf_counter()
+    pinned("batch")
     batch = run_batch(dev, ts, table)
     log(json.dumps({"phase": "batch", "card": smi, "seconds": time.perf_counter() - t0,
                     **{k: v for k, v in batch.items() if k != "launches"}}))
     paths["batch"] = batch["launches"]
     t0 = time.perf_counter()
+    pinned("mesh_config1")
     paths["mesh_config1"] = run_mesh_config1(dev, ts, table)["launches"]
     log(json.dumps({"phase": "mesh_config1", "card": smi,
                     "seconds": time.perf_counter() - t0}))
     del ts, table
     t0 = time.perf_counter()
+    pinned("config1_one_feed")
     paths["config1_one_feed"] = run_config1_one_feed(dev)["launches"]
     log(json.dumps({"phase": "config1_one_feed", "card": smi,
                     "seconds": time.perf_counter() - t0}))
     t0 = time.perf_counter()
+    pinned("mesh_cluster")
     paths["mesh_cluster"] = run_mesh_cluster(dev)["launches"]
     log(json.dumps({"phase": "mesh_cluster", "card": smi,
                     "seconds": time.perf_counter() - t0}))
     t0 = time.perf_counter()
+    pinned("shard_bench")
     sb = run_shard_bench(dev)
     paths["shard_bench_local"], paths["shard_bench_join"] = (sb["local_launches"],
                                                              sb["join_launches"])
     log(json.dumps({"phase": "shard_bench", "card": smi,
                     "seconds": time.perf_counter() - t0}))
+    pinned("config3")
     paths["config3"] = run_config3(dev)["launches"]
+    pinned("config4")
     paths["config4"] = run_config4(dev)["launches"]
     t0 = time.perf_counter()
+    pinned("matview")
     paths["matview"] = run_matview(dev)["launches"]
     log(json.dumps({"phase": "matview", "card": smi, "seconds": time.perf_counter() - t0}))
+    pinned("config5")
     paths["config5"] = run_config5(dev)["launches"]
+    pinned("cluster_stream")
     paths["cluster_stream"] = run_cluster_stream(dev)["launches"]
+    pinned("device_join")
     paths["device_join"] = run_device_join(dev, args.profile)["launches"]
+    pinned("resident")
     paths["resident"] = run_resident(dev)["launches"]
+    pinned("sorted")
     sorted_run = run_sorted(dev)
     paths["sorted"], paths["sorted_s1"] = sorted_run["launches"], sorted_run["s1_launches"]
+    pinned("dicthist_library")
     check_dicthist_library(dev)
+    pinned("ml")
     paths["ml"] = run_ml(dev)["launches"]
+    run_cpu_route(dev)
     log(json.dumps({"phase": "launches", "per_path": paths}))
     idle = [lib for lib in _build.KERNELS if not any(p_[lib] for p_ in paths.values())]
     if idle:

@@ -75,9 +75,25 @@ The reference instead merges once per feed; add, min and max are
 associative, so the results agree.  Sealed feeds come from the resident
 tier's sharded entry (keyed by the mesh width).  A partition sink (the producer half of a repartitioned
 join) exchanges its rows in the mesh (kernels X1, X2) when the mesh width is
-the partition count, else on the host (parallel/repartition.py).  Unlike the
-reference, no query is routed to the CPU by size: on the card every query,
-and every streaming poll, runs the device path.
+the partition count, else on the host (parallel/repartition.py).
+
+Routing (the reference's `_route_backend` / `_backend_for`): an aggregate
+whose input rows times `route_scale` (the agents running the fragment) are
+at most PX_CPU_CROSSOVER_ROWS takes the CPU arm, and under PX_AUTOTUNE the
+cpu_crossover cost model (engine/autotune.py) picks the arm with that
+static decision as its default.  The CPU arm is the reference's host fast
+paths and nothing else: the np_partial loop (engine/np_partial.py), then
+the native whole-plan loop (native/codegen.py); a CPU-routed query neither
+admits runs the card route.  Neither runs over a mesh, and a multi-query
+gang declines when its first member is CPU-routed.  On a CUDA device the
+host arms (the CPU route and the join gate's host arm) stay off while the
+crossover is 0, the H100 sweep's answer: no size routes there and no
+autotune probe runs there.  `force_backend` ("cpu" or "device") pins the
+arm, the join gate's static decision with it; streaming polls pin the
+card.  exec_stats carries the decisions ("autotune"), the fast-path
+counts (np_fast_polls, wholeplan_native) and a route for each aggregate
+chain ("routes").  On the card no query runs the plain PyTorch versions of
+the kernels: those are a CPU executor's card route (the tests').
 """
 from __future__ import annotations
 
@@ -87,6 +103,7 @@ import dataclasses
 import functools
 import hashlib
 import itertools
+import json
 import threading
 import time as _time
 from typing import Callable, Optional
@@ -95,9 +112,12 @@ import numpy as np
 import torch
 
 from pixie_tpu_torch import flags as _flags
-from pixie_tpu_torch.engine import resident, transfer
+from pixie_tpu_torch.engine import autotune as _autotune
+from pixie_tpu_torch.engine import np_partial, resident, transfer
 from pixie_tpu_torch.engine.eval import ExprCompiler, SVal, apply_lut_np
 from pixie_tpu_torch.engine.result import QueryResult
+from pixie_tpu_torch.native import build as _native_build
+from pixie_tpu_torch.native import codegen as _codegen
 from pixie_tpu_torch.ops import chain as _chain
 from pixie_tpu_torch.ops import finalize as _fin
 from pixie_tpu_torch.ops import gang as _gang
@@ -170,6 +190,46 @@ def mq_fusion_enabled(device) -> bool:
     if v >= 1:
         return True
     return torch.device(device).type == "cuda"
+
+
+# --------------------------------------------------------------- CPU route
+#: Inputs of at most this many rows (times the executor's route_scale) run
+#: on the CPU route: the host fast paths (engine/np_partial.py, the native
+#: whole-plan loop native/codegen.py), with no upload, no launch and no
+#: readback.  The value is the largest size of chip_smoke.py's cpu_route
+#: sweep (config #1 over 2^14 ... 2^24 rows) at which the CPU route's warm
+#: median beat the card's, and the card won at every size: 0 (at 2^14 rows
+#: 2.17 ms on the CPU route against 1.66 on the card), on "NVIDIA H100 80GB
+#: HBM3, 700.00 W" (PERF.md, the cpu_route sweep).  So only an empty input
+#: takes the CPU route by default, and a CUDA executor consults no autotune
+#: model for its host arms while the value is 0 (PlanExecutor._host_arms_live).
+CPU_CROSSOVER_ROWS = _flags.define_int(
+    "PX_CPU_CROSSOVER_ROWS", 0,
+    "inputs at/below this row count (times the executor's route_scale) run "
+    "on the CPU route: the host fast paths, no card")
+
+#: the two arms of the route (autotune's cpu_crossover gate)
+CPU, DEVICE = "cpu", "device"
+
+
+def _src_rows(src) -> Optional[int]:
+    if isinstance(src, HostBatch):
+        return src.num_rows
+    try:
+        return src.num_rows()
+    except Exception:
+        return None
+
+
+def _route_backend(src, scale: int = 1) -> str:
+    """Arm for this input by size.  `scale` is the distributed fan-out (the
+    agents running the same fragment): routing must consider the QUERY's
+    size, not the local shard's — 8 agents each holding 2M rows are a
+    16M-row query."""
+    n = _src_rows(src)
+    if n is not None and n * max(1, scale) <= int(_flags.get("PX_CPU_CROSSOVER_ROWS")):
+        return CPU
+    return DEVICE
 
 
 def resolve_device(device=None) -> torch.device:
@@ -987,14 +1047,39 @@ class _AggSetup:
     val_dicts: dict
     #: window origins of this run (chain program scalars)
     origins: dict
+    #: the pruned feed's types and dictionaries, and the source's time
+    #: column (what the whole-plan lowering reads)
+    dtypes: dict
+    dicts: dict
+    time_col: Optional[str]
 
 
 class PlanExecutor:
     def __init__(self, plan: Plan, table_store, registry=None, device=None,
-                 analyze: bool = False, inputs=None, mesh="auto", nan_bin: int = 1):
+                 analyze: bool = False, inputs=None, mesh="auto", nan_bin: int = 1,
+                 route_scale: int = 1, force_backend: Optional[str] = None):
         from pixie_tpu_torch.udf import registry as default_registry
 
         self.plan = plan
+        #: distributed fan-out: how many agents run this same fragment.  The
+        #: CPU/card routing multiplies local input sizes by it, so a sharded
+        #: query routes by its TOTAL size (see _route_backend).
+        self.route_scale = max(1, int(route_scale))
+        #: pin the arm regardless of input size: "cpu" (the host fast paths
+        #: where they admit the query) or "device" (the card route); None
+        #: routes by size.  A pinned executor's joins take the gate's static
+        #: decision (no autotune probe)
+        if force_backend not in (None, CPU, DEVICE):
+            raise Internal(f"force_backend {force_backend!r}: want 'cpu' or 'device'")
+        self.force_backend = force_backend
+        #: adaptive-routing decisions taken for this query, one per size
+        #: bucket (engine/autotune.py; empty with PX_AUTOTUNE=0)
+        self._at_route: dict[str, dict] = {}
+        #: the arm the last aggregate ran on (CPU: its state is numpy)
+        self._route_of_last_agg = DEVICE
+        #: (src, arm, t0_ns) of the last aggregate, folded into its routing
+        #: decision once its state is on the host (_fold_route_wall)
+        self._route_wall = None
         #: the sketch bin of a NaN value: 1 as the reference's device route
         #: bins it (a batch query), 0 as its CPU routes do (a streaming
         #: poll, engine/stream.py); ops/sketch.py bin_index
@@ -1148,6 +1233,82 @@ class PlanExecutor:
             "px_shard_skew_frac", skew,
             help_="max/mean rows per mesh shard over this process's latest "
                   "SPMD query feeds (placement-skew visibility; 1.0 = even)")
+
+    # ------------------------------------------------------------- routing
+    def _backend_for(self, src) -> str:
+        """The arm of this input: CPU (the host fast paths) or DEVICE (the
+        card route).  force_backend pins it; else the static crossover
+        decides, or, under PX_AUTOTUNE, the cpu_crossover gate's cost model
+        with the crossover as its static arm."""
+        if self.force_backend is not None:
+            return self.force_backend
+        static = _route_backend(src, self.route_scale)
+        if not _autotune.enabled() or not self._host_arms_live():
+            return static
+        n = _src_rows(src)
+        if n is None:
+            return static
+        # one decision per size bucket per executor: every _backend_for
+        # call for this query's inputs routes consistently, and
+        # stats["autotune"] carries exactly the decisions it ran under
+        bucket = _autotune.size_bucket(n * self.route_scale)
+        dec = self._at_route.get(bucket)
+        if dec is None:
+            dec = _autotune.MODEL.decide(_autotune.GATE_CPU_CROSSOVER, "agg", bucket, static,
+                                         (CPU, DEVICE))
+            self._at_route[bucket] = dec
+            self.stats.setdefault("autotune", []).append(dec)
+        return dec["arm"]
+
+    def _host_arms_live(self) -> bool:
+        """Whether autotune may send this executor's work to a host arm (the
+        CPU route, the join gate's host match).  Always on a CPU device, where
+        the host fast paths are the fast paths.  On a CUDA device only while
+        PX_CPU_CROSSOVER_ROWS is above 0: at 0 (the H100 sweep: the card won
+        at every size, and J1-J3 beat the native join 14x at 2^16 rows a
+        side, PERF.md) no probe sends card work to the host."""
+        return (self.device.type != "cuda"
+                or int(_flags.get("PX_CPU_CROSSOVER_ROWS")) > 0)
+
+    def _fold_route_wall(self) -> None:
+        """Fold the last aggregate's wall, from its start to its state on the
+        host, into the routing decision that picked its arm — only when the
+        chain ran on that arm (a CPU decision whose query no fast path admits
+        runs the card route, whose cost is not the CPU arm's).  Callers call
+        it once the state is pulled; a deferred partial's state stays on the
+        card for the cluster's merge, so its wall ends at a sync."""
+        obs, self._route_wall = self._route_wall, None
+        if obs is None or not self._at_route:
+            return
+        src, arm, t0 = obs
+        n = _src_rows(src)
+        if n is None:
+            return
+        dec = self._at_route.get(_autotune.size_bucket(n * self.route_scale))
+        if dec is None or dec["arm"] != arm:
+            return
+        if arm == DEVICE and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        _autotune.MODEL.observe_decision(dec, (_time.perf_counter_ns() - t0) / 1e9)
+
+    def _host_feed(self, src, names, cap):
+        """Yield (cols dict of host numpy arrays, n_valid) feeds for the CPU
+        route: the same coalescing as _feed (_feed_batches), with nothing
+        uploaded."""
+        if isinstance(src, HostBatch):
+            yield {k: np.asarray(src.cols[k]) for k in names}, src.num_rows
+            return
+        target = max(cap, int(_flags.get("PX_FEED_ROWS")))
+        for batches in _feed_batches(src, target):
+            nrows = sum(rb.num_valid for rb, _gen in batches)
+            self.stats["rows_scanned"] += nrows
+            self.stats["batches"] += len(batches)
+            if len(batches) == 1:
+                rb = batches[0][0]
+                yield {k: rb.columns[k][:rb.num_valid] for k in names}, nrows
+            else:
+                yield {k: np.concatenate([rb.columns[k][:rb.num_valid] for rb, _g in batches])
+                       for k in names}, nrows
 
     def _feed(self, src, names, cap, spmd: bool = False):
         """Yield (cols dict of device tensors, n_valid) feeds.
@@ -1486,6 +1647,7 @@ class PlanExecutor:
                 op, finalize=True)
         except GroupKeyFallback:
             return self._run_agg_sorted(op)
+        self._fold_route_wall()  # the finalize route's state is pulled
         return self._finalize_agg(op, keys, udas, state_np, seen_name, in_types,
                                   val_dicts)
 
@@ -1690,7 +1852,8 @@ class PlanExecutor:
             op=op, head=head, chain=chain, src=src, names=names, cap=cap,
             kern=kern, keys=keys, udas=udas, in_types=in_types,
             init_specs=init_specs, num_groups=num_groups, seen_name=seen_name,
-            step=step, val_dicts=val_dicts, origins=origins)
+            step=step, val_dicts=val_dicts, origins=origins, dtypes=dtypes, dicts=dicts,
+            time_col=time_col)
 
     def _agg_state(self, op: AggOp, finalize: bool = False):
         """Run the aggregation; returns the device state (a _DeferredState
@@ -1699,16 +1862,71 @@ class PlanExecutor:
         route), and what finalizing it needs."""
         s = self._agg_setup(op)
         t_lo, t_hi = _time_bounds(s.head)
-        # LUTs come from the device LUT cache (device_luts)
-        luts = device_luts(s.kern.luts, self.device)
-        state = self._agg_feed_loop(s.kern, s.step, s.init_specs, s.num_groups,
-                                    s.src, s.names, s.cap, t_lo, t_hi, luts,
-                                    s.origins, s.udas, finalize=finalize,
-                                    fuse=not s.val_dicts)
-        if self._defer_active:
-            state = _DeferredState(
-                [state], {name: uda.reduce_ops() for name, uda, _vb in s.udas})
+        t0 = _time.perf_counter_ns()
+        route, state = self._cpu_route_state(s, t_lo, t_hi)
+        arm = CPU if route else DEVICE
+        if not route:
+            # LUTs come from the device LUT cache (device_luts)
+            luts = device_luts(s.kern.luts, self.device)
+            state = self._agg_feed_loop(s.kern, s.step, s.init_specs, s.num_groups,
+                                        s.src, s.names, s.cap, t_lo, t_hi, luts,
+                                        s.origins, s.udas, finalize=finalize,
+                                        fuse=not s.val_dicts)
+            if self._defer_active:
+                state = _DeferredState(
+                    [state], {name: uda.reduce_ops() for name, uda, _vb in s.udas})
+        self._route_of_last_agg = arm
+        self.stats.setdefault("routes", []).append(
+            {"chain": self._chain_label(s.head, s.chain, "agg"), "arm": arm,
+             "route": route or "device"})
+        self._route_wall = (s.src, arm, t0)
         return s.keys, s.udas, state, s.seen_name, s.in_types, s.val_dicts
+
+    def _cpu_route_state(self, s: _AggSetup, t_lo: int, t_hi: int) -> tuple:
+        """→ (the host fast path that ran, the aggregate's state as numpy),
+        or (None, None) when the query is routed to the card, or routed to
+        the CPU but admitted by neither fast path (it then runs the card
+        route).  The np_partial loop first, then the whole-plan loop, as the
+        reference tries them; neither runs over a mesh.  Counted in
+        np_fast_polls and wholeplan_native."""
+        if self.mesh is not None or self._backend_for(s.src) != CPU:
+            return None, None
+        if _native_build.load_native() is None and _native_build.build_error():
+            self.stats["native_build_error"] = _native_build.build_error()
+        # the host paths read each window key's origin from luts[name][0]
+        luts = {**s.kern.luts,
+                **{k: np.asarray([v], dtype=np.int64) for k, v in s.origins.items()}}
+        if (np_partial.eligible(s.kern, s.keys, s.udas, s.val_dicts, t_lo, t_hi, s.src)
+                and np_partial.value_args_ok(s.kern, s.op, s.names)):
+            state = np_partial.run(self, s.src, s.names, s.cap, s.kern, s.keys, s.init_specs,
+                                   s.num_groups, t_lo, t_hi, luts,
+                                   np_partial.value_args(s.kern, s.op))
+            self.stats["np_fast_polls"] = self.stats.get("np_fast_polls", 0) + 1
+            return "np_partial", state
+        prog = self._wholeplan_program(s)
+        if prog is None or not _codegen.applicable(prog, t_lo, t_hi):
+            return None, None
+        state = _codegen.run(self, prog, s.src, s.num_groups, s.init_specs, t_lo, t_hi, luts)
+        self.stats["wholeplan_native"] = self.stats.get("wholeplan_native", 0) + 1
+        return "wholeplan_native", state
+
+    def _wholeplan_program(self, s: _AggSetup):
+        """Fetch-or-lower the native whole-plan micro-program for this agg
+        chain (engine.plancache.native_programs, keyed by `_native_sig`).
+        None = out of scope: the query runs the card route instead."""
+        if s.val_dicts or not hasattr(s.src, "__iter__"):
+            return None
+        # the flag is re-read HERE, outside the program cache: a cached
+        # program must not outlive an operator flipping the kill switch,
+        # and flag-off-at-first-query must not poison the sig with None
+        if not _flags.get("PX_WHOLEPLAN_NATIVE"):
+            return None
+        from pixie_tpu_torch.engine.plancache import native_programs
+
+        return native_programs.get_or_lower(
+            _native_sig(s),
+            lambda: _codegen.lower(s.kern, s.chain, s.op, s.keys, s.init_specs, s.dtypes,
+                                   s.dicts, s.names, s.time_col))
 
     def _refresh_window_keys(self, keys, src, head):
         """Per-run window-origin resolution.
@@ -2039,9 +2257,13 @@ class PlanExecutor:
         finish_state = functools.partial(self._finish_partial_batch, keys, udas,
                                          seen_name=seen_name, in_types=in_types)
         if isinstance(state, _DeferredState):
+            self._fold_route_wall()
             return self._deferred_partial(state.partials, state.reduce_tree, keys, udas,
                                           seen_name, in_types, finish_state)
-        return finish_state(transfer.pull_states([state])[0])
+        if self._route_of_last_agg != CPU:  # else a host fast path's numpy state
+            state = transfer.pull_states([state])[0]
+        self._fold_route_wall()
+        return finish_state(state)
 
     def _deferred_partial(self, partials, reduce_tree, keys, udas, seen_name, in_types,
                           finish_state) -> _DeferredPartial:
@@ -2174,6 +2396,14 @@ class PlanExecutor:
                 continue
             for cid, parent in g:
                 out[cid] = got[parent.id]
+        if out and _autotune.enabled():
+            # record-only gate: the gang's choice is PX_MQ_FUSION's; the
+            # model attributes it but never flips it per query
+            self.stats.setdefault("autotune", []).append({
+                "gate": _autotune.GATE_MQ_FUSION, "plan_class": "agg",
+                "size_bucket": _autotune.size_bucket(len(out)),
+                "arm": "fused", "static_arm": "fused", "source": "static",
+                "model_ms": None, "static_ms": None, "n": len(out)})
         return out
 
     def _multi_partial_agg(self, ops: list) -> Optional[dict]:
@@ -2199,6 +2429,13 @@ class PlanExecutor:
             except GroupKeyFallback:
                 s = None
             if s is None or s.kern.has_limit or s.val_dicts:
+                self.stats["chain_leaves"] = leaves0
+                return None
+            if not setups and self.mesh is None and self._backend_for(s.src) != DEVICE:
+                # CPU-routed queries keep the per-member np_partial /
+                # whole-plan loops (memory-speed host paths); the gang
+                # amortizes the card's launches and readback wave — decided
+                # on the FIRST setup so a decline wastes only one
                 self.stats["chain_leaves"] = leaves0
                 return None
             setups.append(s)
@@ -2372,11 +2609,14 @@ class PlanExecutor:
         into one shared int64 code space (`_composite_codes`); the match
         phase then runs on the host (`_match_pairs`) or, when both sides
         reach 2^16 rows and the gate is on, as kernels J1-J3 on this
-        executor's device (ops/join_device.py).  Null keys (dict code -1 or
-        untranslatable values) never match but their rows still surface as
-        unmatched in left/right/outer joins (pandas semantics).  The
-        reference's autotune arm is not ported: the gate's static decision
-        stands, as in the reference under PX_AUTOTUNE=0.
+        executor's device — on a CPU device, where the native library loads,
+        as the native host join (ops/join_device.py).  Null keys (dict code
+        -1 or untranslatable values) never match but their rows still
+        surface as unmatched in left/right/outer joins (pandas semantics).
+        Under PX_AUTOTUNE the gate's decision is the static arm of the
+        device_join cost model (engine/autotune.py), except on an executor
+        whose force_backend pins it, and on a CUDA device while its host arms
+        are off (_host_arms_live).
         """
         parents = self.plan.parents(op)
         if len(parents) != 2:
@@ -2423,26 +2663,50 @@ class PlanExecutor:
         lc, rc = _composite_codes(lcodes, rcodes)
         split = {"composite_codes": (_time.perf_counter_ns() - t_codes0) / 1e9}
 
+        at_dec = None
         if min(nl, nr) >= (1 << 16):
-            # the gate decides from the measured H2D link on the card (or a
-            # forced flag) and its decision is recorded, not silent
+            # the gate decides from the measured H2D link on the card, the
+            # native join's availability on a CPU device (or a forced flag),
+            # and its decision is recorded, not silent
             gate = _jd.device_join_gate(self.device)
             self.stats.setdefault("device", {})["join_gate"] = {
                 k: v for k, v in gate.items() if k != "flag"}
+            if (_autotune.enabled() and gate.get("flag") == -1
+                    and self.force_backend is None and self._host_arms_live()):
+                # under autotune the gate's decision becomes the STATIC arm
+                # of a measured device-vs-host cost model; epsilon probes
+                # keep the unfavored arm's cost current.  Both arms return
+                # the same matched-pair SET (pair ORDER is unspecified by
+                # the join contract either way).  Forced flag settings (0/1)
+                # are never overridden.
+                at_dec = _autotune.MODEL.decide(
+                    _autotune.GATE_DEVICE_JOIN, "join", _autotune.size_bucket(min(nl, nr)),
+                    "device" if gate["enabled"] else "host", ("device", "host"))
+                self.stats.setdefault("autotune", []).append(at_dec)
         else:
             gate = {"enabled": False}
+        use_device = at_dec["arm"] == "device" if at_dec is not None else gate["enabled"]
         t_match0 = _time.perf_counter_ns()
-        if gate["enabled"]:
-            # J1-J3 on this executor's device, or raise: the nulls become
-            # sentinels that cannot match (-1 build vs -2 probe)
+        if use_device:
+            # the nulls become sentinels that cannot match (-1 build vs -2
+            # probe); then the native host join on a CPU device where the
+            # gate took it, else J1-J3 on this executor's device, or raise
             lcx = np.where(lnull, np.int64(-1), lc)
             rcx = np.where(rnull, np.int64(-2), rc)
-            lidx, ridx, l_matched, r_matched = _jd.device_join_codes(
-                lcx, rcx, device=self.device, timings=split if self.analyze else None)
+            if gate.get("path") == "native_cpu":
+                lidx, ridx, l_matched, r_matched = _jd.native_join_codes(lcx, rcx)
+            else:
+                lidx, ridx, l_matched, r_matched = _jd.device_join_codes(
+                    lcx, rcx, device=self.device, timings=split if self.analyze else None)
             self.stats["device_joins"] = self.stats.get("device_joins", 0) + 1
         else:
             lidx, ridx, l_matched, r_matched = _match_pairs(lc, rc, lnull, rnull)
         split["match"] = (_time.perf_counter_ns() - t_match0) / 1e9
+        if at_dec is not None:
+            _autotune.MODEL.observe_decision(at_dec, split["match"])
+            # joins often run inside repartition-stage executors whose stats
+            # are consumed, not forwarded: the event buffer keeps the record
+            _autotune.MODEL.record_row(at_dec)
         lsel, rsel = [lidx], [ridx]
         if op.how in ("left", "outer"):
             lum = np.nonzero(~l_matched)[0]
@@ -2508,6 +2772,25 @@ class PlanExecutor:
 
 
 # --------------------------------------------------------------------- helpers
+
+
+def _native_sig(s: _AggSetup) -> tuple:
+    """Structural key of an aggregate's whole-plan program: everything
+    native/codegen.py lower() bakes in (the chain's and the aggregate's
+    operator fields, the pruned feed's column names, types and dictionary
+    columns, the time column, each key's kind, card, width and LUT name,
+    each UDA and its input dtype)."""
+    def op_sig(o):
+        d = o.to_dict()
+        d.pop("id", None)
+        return json.dumps(d, sort_keys=True, default=repr)
+
+    return (tuple(op_sig(o) for o in s.chain), op_sig(s.op),
+            tuple(sorted((n, str(dt)) for n, dt in s.dtypes.items())), tuple(sorted(s.dicts)),
+            tuple(s.names), s.time_col,
+            tuple((k.name, k.kind, k.card, k.width, k.lut_name, k.src_name) for k in s.keys),
+            tuple((n, type(u).__name__, None if d is None else str(np.dtype(d)))
+                  for n, u, d in s.init_specs))
 
 
 def _time_bounds(head) -> tuple[int, int]:
@@ -2678,8 +2961,10 @@ def _dtype_of(arr) -> DT:
 
 
 def execute_plan(plan: Plan, table_store, registry=None, device=None,
-                 analyze: bool = False, mesh="auto") -> dict[str, QueryResult]:
+                 analyze: bool = False, mesh="auto",
+                 force_backend: Optional[str] = None) -> dict[str, QueryResult]:
     """Run a plan against a table store on `device` (CUDA unless given),
-    over `mesh` (see PlanExecutor); returns {sink_name: QueryResult}."""
+    over `mesh`, routed by size unless `force_backend` pins the arm (see
+    PlanExecutor); returns {sink_name: QueryResult}."""
     return PlanExecutor(plan, table_store, registry, device=device,
-                        analyze=analyze, mesh=mesh).run()
+                        analyze=analyze, mesh=mesh, force_backend=force_backend).run()

@@ -28,9 +28,9 @@ Copied from the reference package (pixie_tpu/engine/plancache.py): the
 QueryPlanCache.  The hit/miss counters stay on the instance (the reference
 also exports them as metrics, which come with the observability slice).  Not
 ported: the per-tenant namespaces (PL_TENANT_ISOLATION: tenants arrive with
-the services slice, so every entry here is in the one shared namespace), the
-admission gate's `contains` peek, and the native whole-plan program cache
-(native/codegen.py).
+the services slice, so every entry here is in the one shared namespace) and
+the admission gate's `contains` peek.  Also here: the native whole-plan
+program cache (`native_programs`, native/codegen.py).
 """
 from __future__ import annotations
 
@@ -134,3 +134,45 @@ class QueryPlanCache:
         # last-writer-wins on a race: both racers computed identical values
         entry.split = (split_fp, val)
         return val, False
+
+
+class NativeProgramCache:
+    """Lowered whole-plan micro-programs (native/codegen.py) keyed by the
+    executor's structural signature of the chain, the aggregate and its
+    group keys (`executor._native_sig`): everything a program bakes in —
+    column names and dtypes, predicates, key kinds, cards, widths and LUT
+    names, the UDAs and their input dtypes.  `None` results are cached too:
+    an ineligible plan must not pay the lowering walk on every query."""
+
+    MAX = 256
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._entries: OrderedDict = OrderedDict()
+
+    def get_or_lower(self, sig, lower_fn):
+        """→ lowered program or None.  Uncacheable signatures (sig None)
+        lower fresh every call — the walk is cheap relative to a query."""
+        if sig is None:
+            return lower_fn()
+        with self._lock:
+            if sig in self._entries:
+                self._entries.move_to_end(sig)
+                return self._entries[sig]
+        prog = lower_fn()
+        with self._lock:
+            self._entries[sig] = prog
+            while len(self._entries) > self.MAX:
+                self._entries.popitem(last=False)
+        return prog
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+
+#: process-wide program cache (programs are structural — no per-store data)
+native_programs = NativeProgramCache()

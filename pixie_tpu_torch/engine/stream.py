@@ -285,11 +285,14 @@ class StreamQuery:
         # polls run on one device (mesh=None), as the reference's do, and bin
         # a NaN sketch value at 0, as its CPU route (force_backend="cpu",
         # pixie_tpu/engine/stream.py:298, :351) bins it; the post plan over
-        # a poll's emissions keeps the batch rule
+        # a poll's emissions keeps the batch rule.  Polls keep the card
+        # route whatever their size (force_backend="device"): the port does
+        # not move them to the host fast paths
         poll = inputs is None
         return PlanExecutor(plan, self.store, self.registry, device=self.device,
                             inputs=inputs, mesh=None if poll else "auto",
-                            nan_bin=0 if poll else 1)
+                            nan_bin=0 if poll else 1,
+                            force_backend="device" if poll else None)
 
     def _count(self, ex: PlanExecutor) -> None:
         for k, v in ex.stats.items():

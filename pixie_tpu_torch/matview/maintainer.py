@@ -34,12 +34,13 @@ device)`: the card unless the caller asks for another): the delta is a
 row-id-bounded scan, which the executor uploads fresh (a delta cursor never
 takes the resident tier or the feed cache), through the same chain and
 aggregate kernels as a cold query (C1, K1, K2), and its state comes back
-to the host as a PartialAggBatch (P1 where it has several leaves); the
-fold is parallel/partial.combine_partials on the host.  A fold retries
-once, and falls back to a rescan, only where the table went away under it
-(NotFound, Unavailable); any other error of the fold (a kernel's, a
-torch error) propagates.  What the port leaves out: no query routing by
-size (no `route_scale`), no tenant namespaces (every view is in the
+to the host as a PartialAggBatch (P1 where it has several leaves) — or,
+where the delta times `route_scale` is at most PX_CPU_CROSSOVER_ROWS, the
+executor's CPU route computes it on the host; the fold is
+parallel/partial.combine_partials on the host.  A fold retries once, and
+falls back to a rescan, only where the table went away under it
+(NotFound, Unavailable); any other error of the fold (a kernel's, a torch
+error) propagates.  What the port leaves out: no tenant namespaces (every view is in the
 reference's no-tenant namespace, so one budget), no tablets (a tablet head
 never matches), and no durable snapshots: they need table/journal.py's
 record framing (ROADMAP Queue 1 item 6b), so `set_snapshot_dir` with a path
@@ -210,7 +211,7 @@ class MatViewManager:
         return t if isinstance(t, Table) else None
 
     # ----------------------------------------------------------------- serve
-    def serve(self, plan: Plan, mesh="auto", stale_ok: bool = False,
+    def serve(self, plan: Plan, route_scale: int = 1, mesh="auto", stale_ok: bool = False,
               miss: Optional[dict] = None):
         """Answer an eligible agent plan from standing state.
 
@@ -223,6 +224,10 @@ class MatViewManager:
         the view and must be treated as immutable — every consumer (wire
         encode, combine, slice, finalize) already copies rather than
         mutates.
+
+        `route_scale` is the number of agents the query fans out to: the
+        fold routes between the CPU and the card by the query's size, as
+        the agents' executors do (PlanExecutor route_scale).
 
         `stale_ok` is the serving front's degradation hint: a
         view with standing state answers WITHOUT folding its pending delta
@@ -253,8 +258,8 @@ class MatViewManager:
         t0 = time.perf_counter()
         errors: list = []
         with view.lock:
-            info = self._refresh_locked(view, table, mesh=mesh, stale_ok=stale_ok,
-                                        errors=errors)
+            info = self._refresh_locked(view, table, route_scale=route_scale, mesh=mesh,
+                                        stale_ok=stale_ok, errors=errors)
             if info is None:
                 with self._lock:
                     self._views.pop(key, None)
@@ -278,8 +283,8 @@ class MatViewManager:
         return pref.channel, state, info
 
     # --------------------------------------------------------------- refresh
-    def _refresh_locked(self, view: StandingView, table, mesh="auto",
-                        stale_ok: bool = False,
+    def _refresh_locked(self, view: StandingView, table, route_scale: int = 1,
+                        mesh="auto", stale_ok: bool = False,
                         errors: Optional[list] = None) -> Optional[dict]:
         """Fold the unread delta into the standing state (view.lock held).
         Returns the refresh info dict, or None after two failed attempts
@@ -335,7 +340,7 @@ class MatViewManager:
                                 since_row_id=lo, stop_row_id=hi):
                     try:
                         delta, rows, h2d = self._compute_partial(
-                            view.prefix, lo, hi, mesh)
+                            view.prefix, lo, hi, route_scale, mesh)
                     except (NotFound, Unavailable) as e:
                         if errors is not None:
                             errors.append(e)
@@ -373,9 +378,12 @@ class MatViewManager:
             rebuilt = view.cursor.status(table)
         return None
 
-    def _compute_partial(self, pref: ViewPrefix, lo: int, hi: int, mesh) -> tuple:
-        """Run the prefix over rows [lo, hi) on the manager's device →
-        (PartialAggBatch on the host, rows scanned, bytes uploaded)."""
+    def _compute_partial(self, pref: ViewPrefix, lo: int, hi: int, route_scale: int,
+                         mesh) -> tuple:
+        """Run the prefix over rows [lo, hi) on the manager's device (or, at
+        most PX_CPU_CROSSOVER_ROWS rows times route_scale, on the CPU
+        route) → (PartialAggBatch on the host, rows scanned, bytes
+        uploaded)."""
         from pixie_tpu_torch.engine.executor import PlanExecutor
 
         p = Plan()
@@ -393,7 +401,8 @@ class MatViewManager:
         agg.partial = True
         p.add(agg, parents=[node])
         p.add(ResultSinkOp(channel="mv", payload="agg_state"), parents=[agg])
-        ex = PlanExecutor(p, self.store, self.registry, device=self.device, mesh=mesh)
+        ex = PlanExecutor(p, self.store, self.registry, device=self.device, mesh=mesh,
+                          route_scale=route_scale)
         out = ex.run_agent()
         return (out["mv"], int(ex.stats.get("rows_scanned", 0)),
                 int(ex.stats.get("h2d_bytes", 0)))

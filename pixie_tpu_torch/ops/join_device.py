@@ -33,9 +33,11 @@ versions the pairs come grouped by probe row in probe-row order, and within
 a probe row in ascending build row.
 
 The gate (`device_join_gate`) is the reference's: PX_DEVICE_JOIN forces it
-(0 off, 1 on); -1 decides from the measured host→device bandwidth on a CUDA
-device.  The reference's CPU decision rests on its native C++ join, which the
-port does not load, so on a CPU device the auto gate is off.
+(0 off, 1 on: the device kernels, their plain versions on a CPU device); -1
+decides from the measured host→device bandwidth on a CUDA device, and on a
+CPU device takes the native host join (`native_join_codes`, the port's copy
+of the reference's native/join.cc radix hash join) where the native library
+loads, as the reference's CPU dispatch does.
 """
 from __future__ import annotations
 
@@ -53,8 +55,8 @@ from pixie_tpu_torch.ops.compact import TILE_ROWS
 
 DEVICE_JOIN = flags.define_int(
     "PX_DEVICE_JOIN", -1,
-    "-1 = auto (measured H2D probe on a CUDA device; off on the CPU), "
-    "0 = force host match, 1 = force device kernels")
+    "-1 = auto (measured H2D probe on a CUDA device; the native host join "
+    "on a CPU device), 0 = force host match, 1 = force device kernels")
 
 MIN_H2D_MBPS = flags.define_int(
     "PX_DEVICE_JOIN_MIN_H2D_MBPS", 1000,
@@ -342,10 +344,66 @@ class _Clock:
         self.t = now
 
 
-def join_path(device) -> str:
-    """Which kernels `device_join_codes` takes on `device`: "cuda_counting"
-    (J1-J3) on a CUDA device, "plain_cpu" (their plain versions) else."""
-    return "cuda_counting" if torch.device(device).type == "cuda" else "plain_cpu"
+def join_path(device, forced: bool = False) -> str:
+    """Which join the executor's enabled gate runs on `device`:
+    "cuda_counting" (J1-J3) on a CUDA device; on a CPU device "native_cpu"
+    (`native_join_codes`) where the native library loads and the device
+    kernels are not `forced`, else "plain_cpu" (J1-J3's plain versions)."""
+    if torch.device(device).type == "cuda":
+        return "cuda_counting"
+    if not forced and native_join_available():
+        return "native_cpu"
+    return "plain_cpu"
+
+
+# ------------------------------------------------------ native host join
+
+
+def native_join_available() -> bool:
+    from pixie_tpu_torch.native.build import load_native
+
+    return load_native() is not None
+
+
+def native_join(bh: np.ndarray, ph: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The native radix hash join (native/join.cc) over int64 codes → the
+    (build_idx, probe_idx) pairs, bucket-major: pair order unspecified."""
+    from pixie_tpu_torch.native.build import load_native
+
+    lib = load_native()
+    bh = np.ascontiguousarray(bh, dtype=np.int64)
+    ph = np.ascontiguousarray(ph, dtype=np.int64)
+    total = ctypes.c_int64(0)
+    h = lib.px_join_run(
+        bh.ctypes.data_as(ctypes.c_void_p), len(bh),
+        ph.ctypes.data_as(ctypes.c_void_p), len(ph), ctypes.byref(total))
+    try:
+        n = total.value
+        bidx = np.empty(n, np.int64)
+        pidx = np.empty(n, np.int64)
+        if n:
+            lib.px_join_fetch(h, bidx.ctypes.data_as(ctypes.c_void_p),
+                              pidx.ctypes.data_as(ctypes.c_void_p))
+    finally:
+        lib.px_join_free(h)
+    return bidx, pidx
+
+
+def native_join_codes(build_codes, probe_codes):
+    """`device_join_codes`'s contract on the host through the native join:
+    (build_idx, probe_idx, build_matched[nb], probe_matched[np]) as numpy,
+    pair order unspecified (the executor's null sentinels -1 and -2 never
+    match)."""
+    nb, npr = int(build_codes.shape[0]), int(probe_codes.shape[0])
+    if nb == 0 or npr == 0:
+        z = np.zeros(0, np.int64)
+        return z, z.copy(), np.zeros(nb, bool), np.zeros(npr, bool)
+    bidx, pidx = native_join(np.asarray(build_codes), np.asarray(probe_codes))
+    bm = np.zeros(nb, bool)
+    pm = np.zeros(npr, bool)
+    bm[bidx] = True
+    pm[pidx] = True
+    return bidx, pidx, bm, pm
 
 
 # ---------------------------------------------------------------- auto-gate
@@ -359,13 +417,14 @@ def device_join_gate(device, refresh: bool = False) -> dict:
     """The device-join decision for `device`, measured once per process.
 
     → {"enabled", "reason", "path", "h2d_mbps" (CUDA only), "flag"}.
-    PX_DEVICE_JOIN forces it (0/1); -1 = auto: on a CUDA device on iff the
-    measured H2D bandwidth (transfer.h2d_bandwidth_probe) reaches
+    PX_DEVICE_JOIN forces it (0/1; forced on, a CPU device runs J1-J3's
+    plain versions); -1 = auto: on a CUDA device on iff the measured H2D
+    bandwidth (transfer.h2d_bandwidth_probe) reaches
     PX_DEVICE_JOIN_MIN_H2D_MBPS ("h2d_direct_attached", else
-    "h2d_tunneled"; a failing probe raises); on the CPU off
-    ("no_native_kernel": the reference's CPU decision needs its native join,
-    which the port does not load).  The auto decision is cached until the
-    probe it rests on expires."""
+    "h2d_tunneled"; a failing probe raises); on a CPU device on iff the
+    native join loads ("native_cpu", else "no_native_kernel"), as the
+    reference's CPU decision.  The auto decision is cached until the probe
+    it rests on expires."""
     from pixie_tpu_torch.engine import transfer as _transfer
 
     dev = torch.device(device)
@@ -376,13 +435,14 @@ def device_join_gate(device, refresh: bool = False) -> dict:
         if hit is not None and not refresh and hit[0].get("flag") == flag \
                 and hit[1] == _transfer.probe_epoch():
             return hit[0]
-        out = {"flag": flag, "path": join_path(dev)}
+        out = {"flag": flag, "path": join_path(dev, forced=flag == 1)}
         if flag == 0:
             out.update(enabled=False, reason="forced_off")
         elif flag == 1:
             out.update(enabled=True, reason="forced_on")
         elif out["path"] != "cuda_counting":
-            out.update(enabled=False, reason="no_native_kernel")
+            ok = out["path"] == "native_cpu"
+            out.update(enabled=ok, reason="native_cpu" if ok else "no_native_kernel")
         else:
             mbps = _transfer.h2d_bandwidth_probe(device=dev)["mbps"]
             out["h2d_mbps"] = mbps

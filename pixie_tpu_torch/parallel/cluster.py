@@ -241,6 +241,11 @@ class LocalCluster:
         plan IS the plan a recompile would produce).  A cacheable query may
         run as a member of a batch with concurrent queries over the same scan
         (PL_QUERY_BATCHING, `_maybe_batched_query`)."""
+        from pixie_tpu_torch.engine import autotune as _autotune
+
+        if _autotune.enabled():
+            # arrival-rate signal for the batch-window controller
+            _autotune.MODEL.observe_arrival()
         with self._mesh_lock:
             self._query_inflight += 1
         try:
@@ -343,12 +348,17 @@ class LocalCluster:
             # measure the real scan.
             miss: dict = {}
             if not analyze:
-                served = self.matviews(agent_name).serve(plan, mesh=mesh, miss=miss)
+                served = self.matviews(agent_name).serve(plan, route_scale=len(items), mesh=mesh,
+                                                         miss=miss)
                 if served is not None:
                     cid, pb, info = served
                     return agent_name, {cid: pb}, {"matview": info}
+            # route_scale: the CPU/card routing must see the QUERY size (all
+            # agents' shards), not this agent's shard alone (see
+            # executor._route_backend)
             ex = PlanExecutor(plan, self.stores[agent_name], self.registry,
-                              device=self.device, analyze=analyze, mesh=mesh)
+                              device=self.device, analyze=analyze, mesh=mesh,
+                              route_scale=len(items))
             # Colocated agents share one device: defer each agent's partial
             # readback so ALL agents' states merge there and come back in ONE
             # transfer wave below.

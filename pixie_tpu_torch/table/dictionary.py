@@ -14,9 +14,12 @@ lives here, on the host.  Consequences used throughout the engine:
   * cross-table code spaces are reconciled with translation LUTs
     (`translate_to`).
 
-This port takes the numpy route of the reference's dictionary only (no native
-C++ index): `np.unique` over the batch, then a Python loop over the unique
-values in first-occurrence order, so the same writes give the same codes.
+As in the reference, a numpy 'U' string array encodes through the native
+C++ index (native/dictionary.cc, the port's copy, one ctypes call, zero
+copies); anything else, or no toolchain, takes the numpy route: `np.unique`
+over the batch, then a Python loop over the unique values in
+first-occurrence order.  Both routes give the reference's codes for the
+same writes.
 """
 from __future__ import annotations
 
@@ -34,14 +37,32 @@ class Dictionary:
     because values are appended before codes are handed out.
     """
 
-    __slots__ = ("_values", "_index", "_lock")
+    __slots__ = ("_values", "_index", "_lock", "_nd", "_native_ok")
 
     def __init__(self, values: Iterable | None = None):
         self._values: list = []
         self._index: dict = {}
         self._lock = threading.Lock()
+        #: native (C++) index handle, created lazily on the first UCS4 batch
+        #: (native/dictionary.cc); None until then.  _native_ok latches False
+        #: the moment a non-string value enters (UPID tuples) — the native
+        #: index only mirrors pure-string dictionaries.
+        self._nd = None
+        self._native_ok = True
         if values:
             self.encode(list(values))
+
+    def __del__(self):
+        nd = getattr(self, "_nd", None)
+        if nd is not None:
+            try:
+                from pixie_tpu_torch.native.build import load_native
+
+                lib = load_native()
+                if lib is not None:
+                    lib.px_dict_free(nd)
+            except Exception:
+                pass  # interpreter shutdown
 
     def __len__(self) -> int:
         return len(self._values)
@@ -70,19 +91,81 @@ class Dictionary:
                     c = len(self._values)
                     self._values.append(value)
                     self._index[value] = c
+                    if not isinstance(value, str) or value.endswith("\x00"):
+                        # Non-strings (UPID tuples) and trailing-NUL strings
+                        # can't live in the native index: numpy 'U' conversion
+                        # drops trailing NULs, which would collapse distinct
+                        # keys and skew every later code.  (Batch inputs can't
+                        # carry trailing NULs — numpy already trimmed them.)
+                        self._native_ok = False
+                    elif self._nd is not None:
+                        # keep the native index in sync (it would otherwise
+                        # assign this value a duplicate code later)
+                        self._native_insert_locked(value)
         return c
+
+    # ------------------------------------------------------------- native path
+    def _native_insert_locked(self, value: str) -> None:
+        from pixie_tpu_torch.native.build import load_native
+
+        lib = load_native()
+        arr = np.array([value], dtype=np.str_)
+        lib.px_dict_insert_ucs4(self._nd, arr.ctypes.data, arr.itemsize // 4)
+
+    def _encode_native_locked(self, arr: np.ndarray) -> np.ndarray | None:
+        """Batch encode a numpy 'U' array through the C++ index; returns codes
+        or None if the native path is unavailable for this dictionary."""
+        from pixie_tpu_torch.native.build import load_native
+
+        lib = load_native()
+        if lib is None or not self._native_ok or arr.itemsize == 0:
+            return None
+        if self._nd is None:
+            # first use: seed the native index with existing values
+            self._nd = lib.px_dict_new()
+            if self._values:
+                seed = np.array(self._values, dtype=np.str_)
+                codes = np.empty(len(seed), dtype=np.int32)
+                new_idx = np.empty(len(seed), dtype=np.int64)
+                lib.px_dict_encode_ucs4(
+                    self._nd, seed.ctypes.data, len(seed),
+                    seed.itemsize // 4, codes.ctypes.data, new_idx.ctypes.data,
+                )
+        arr = np.ascontiguousarray(arr)
+        n = len(arr)
+        codes = np.empty(n, dtype=np.int32)
+        new_idx = np.empty(n, dtype=np.int64)
+        n_new = lib.px_dict_encode_ucs4(
+            self._nd, arr.ctypes.data, n, max(arr.itemsize // 4, 1),
+            codes.ctypes.data, new_idx.ctypes.data,
+        )
+        # Mirror newly-discovered values into the Python-side list/index —
+        # append BEFORE indexing: lock-free readers rely on "a published code
+        # always has its value present" (class docstring).
+        for i in range(n_new):
+            v = str(arr[new_idx[i]])
+            self._values.append(v)
+            self._index[v] = len(self._values) - 1
+        return codes
 
     def encode(self, values: Sequence) -> np.ndarray:
         """Vectorized encode of a batch of values → int32 codes.
 
-        O(rows) inverse mapping plus a Python loop over *unique* values only.
-        A numpy 'U' array is uniqued as it stands (a C string sort): it cannot
-        hold trailing-NUL values, so its uniques equal those of the object
-        conversion.  Anything else (lists, tuples) goes through an object
+        Fast path: numpy 'U' string ARRAYS go through the native C++ index
+        (native/dictionary.cc) — one ctypes call, zero copies.  Fallback
+        (lists, tuples, object arrays, no toolchain): O(rows) inverse mapping
+        plus a Python loop over *unique* values only.  A numpy 'U' array is
+        uniqued as it stands (a C string sort): it cannot hold trailing-NUL
+        values, so its uniques — and the native index's codes — equal those
+        of the object conversion.  Anything else goes through an object
         array, which keeps trailing NULs intact.
         """
         if isinstance(values, np.ndarray) and values.dtype.kind == "U" \
                 and values.ndim == 1:
+            with self._lock:
+                codes = self._encode_native_locked(values)
+            if codes is not None:
+                return codes
             arr = values
         else:
             arr = np.asarray(values, dtype=object)

@@ -377,6 +377,10 @@ class Cursor:
     def __len__(self) -> int:
         return len(self._items)
 
+    def num_rows(self) -> int:
+        """Rows in the snapshot (the executor routes by it)."""
+        return sum(b.num_valid for b, _, _ in self._items)
+
     def time_range(self) -> tuple[int, int] | None:
         """(min, max) time over the snapshot, using seal-time bounds — only the
         hot remainder is scanned, so this is O(sealed batches + hot rows)."""

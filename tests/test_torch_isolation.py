@@ -248,3 +248,52 @@ def test_fused_finalize_on_a_cuda_device_never_reaches_the_plain_version(monkeyp
         fin.fused_partial_finalize(lambda st: None, lambda d: {"n": uda.init(4, None, d)},
                                    {"n": "add"}, {}, 16, torch.device("cuda"))
     assert "plain version reached" not in str(e.value)
+
+
+@pytest.mark.parametrize("mod", ["pixie_tpu_torch.native.build", "pixie_tpu_torch.native.codegen",
+                                 "pixie_tpu_torch.engine.np_partial",
+                                 "pixie_tpu_torch.engine.autotune",
+                                 "pixie_tpu_torch.engine.autotune_bench"])
+def test_cpu_route_modules_import_alone(mod):
+    """Each module of the CPU route, imported on its own, pulls in no JAX and
+    nothing of the reference."""
+    code = (
+        f"import importlib, sys\nimportlib.import_module({mod!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pixie_tpu'))\n"
+        "sys.exit('imported: ' + ', '.join(bad) if bad else 0)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def _code_strings(tree):
+    """String constants of a module that are not docstrings."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                docs.add(id(body[0].value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str) and id(n) not in docs]
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
+                                        [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]))
+def test_no_module_reads_the_reference_native_directory(path):
+    """No code string names the repo-root native/ directory or
+    pixie_tpu/native: the port builds from its own copies
+    (pixie_tpu_torch/native/*.cc)."""
+    for s in _code_strings(ast.parse((ROOT / path).read_text())):
+        assert s != "native" and not s.startswith("native/"), (path, s)
+        assert "pixie_tpu/native" not in s and "libpixie_native.so" not in s, (path, s)
+
+
+def test_native_build_reads_only_the_port_sources():
+    from pixie_tpu_torch.native import build
+
+    assert build.SRC_DIR == PKG / "native"
+    assert build.BUILD_DIR == PKG / "_build"
+    assert all((build.SRC_DIR / s).is_file() for s in build.SOURCES)

@@ -284,13 +284,16 @@ def test_gate_forced_off_and_on():
 
 
 def test_auto_gate_on_the_cpu_keeps_the_host_match(device_join_stores):
+    """On a CPU device the auto gate takes the host's native join, as the
+    reference's CPU dispatch does (reason native_cpu in both packages)."""
     jd.reset_gate_for_testing()
     g = jd.device_join_gate("cpu")
-    assert g == {"flag": -1, "path": "plain_cpu", "enabled": False,
-                 "reason": "no_native_kernel"}
-    _, _, ex = run_both(device_join_stores, _kv_plan("left"), sink="out")
-    assert ex.stats.get("device_joins", 0) == 0
-    assert ex.stats["device"]["join_gate"]["reason"] == "no_native_kernel"
+    assert g == {"flag": -1, "path": "native_cpu", "enabled": True,
+                 "reason": "native_cpu"}
+    _, want, ex = run_both(device_join_stores, _kv_plan("left"), sink="out")
+    assert ex.stats["device_joins"] == 1
+    assert ex.stats["device"]["join_gate"]["reason"] == "native_cpu"
+    assert want.exec_stats["device"]["join_gate"]["reason"] == "native_cpu"
 
 
 def test_analyze_records_the_join_split(device_join_stores, gate):

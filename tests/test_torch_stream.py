@@ -511,7 +511,7 @@ def test_batch_query_bins_nan_as_the_reference_device_route():
         ts.table("http_events").write(cols)
         if pk is PORT:
             frames["port"] = _frames(execute_plan(compile_pxl(script, ts.schemas()).plan, ts,
-                                                  device="cpu"))["out"]
+                                                  device="cpu", force_backend="device"))["out"]
             continue
         plan = ref_compile(script, ts.schemas()).plan
         frames["ref"] = _frames(RefExecutor(plan, ts, None, force_backend="tpu").run())["out"]
