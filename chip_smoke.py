@@ -268,6 +268,21 @@ routed by the query's 2,097,152 rows; the native host join against J1-J3
 at 2^16 rows a side (equal pair sets and flags); and autotune_bench's A/B
 with the static crossover mis-set (its answers held by those tolerances).
 
+Slice 20, the multihost phase (after shard_bench): shard_bench.run_subprocess
+at bench.py's sharded_agg_64m size (64M rows, 2 worker processes x 4
+shards, 3 repeats), both ranks on this one card over gloo (a shared-card
+figure, not a multi-card one), each rank feeding only its shards: rank 0
+bit-equal to the single-device step over the full data, both ranks the same
+merged bytes, and on every rank a step that launches C1, K1 (count, int64
+sum, min, max), K2 and M1 exactly twice (its shards, then the world's
+buffers); then each rank's keyed exchange of 2^21 rows (X1, X2, K4 and one
+all_to_all_single a column), every block held against the sender's rows;
+then a one-rank NCCL world in this process whose world merge of 4 shards of
+config #1's state equals M1 and its plain version bit for bit (and a
+one-rank gloo group beside it says whether gloo takes CUDA tensors).  Backend,
+processes, shards, rows, rows/s, p50, launches, the world merge's gathered
+bytes and wall and the exchange's bytes and wall are printed.
+
 It prints one JSON line per kernel, a {"kernels": [...]} line, the card's
 name and power limit, and last {"ok": true, "device": {...}}.  It exits
 non-zero, printing no result, without a CUDA device or outside the repo.
@@ -5468,6 +5483,179 @@ def run_shard_bench(dev) -> dict:
     return {"local_launches": local_launches, "join_launches": join_launches}
 
 
+# ----------------------------------------------------- the mesh across processes
+#: bench.py's sharded_agg_64m: 64M rows over 2 processes x 4 shards (two
+#: ranks sharing the one card over gloo), 3 repeats; the exchange's rows a rank
+MULTIHOST_ROWS = 64_000_000
+MULTIHOST_PROCESSES = 2
+MULTIHOST_SHARDS = 4
+MULTIHOST_EXCHANGE_ROWS = 1 << 21
+#: a rank's step: each local shard's C1, K1 and K2, M1 twice (the local
+#: merge, then the world's buffers)
+MULTIHOST_KERNELS = [C1, ("segment_reduce", "px_segment_count"),
+                     ("segment_reduce", "px_segment_sum_i64"),
+                     ("segment_reduce", "px_segment_min_f64"),
+                     ("segment_reduce", "px_segment_max_f64"),
+                     ("loghist_update", "px_loghist_update"), ("merge", "px_merge_states")]
+#: a rank's exchange: X1, X2, then K4 closing the blocks' gaps
+MULTIHOST_EXCHANGE_KERNELS = [("repartition", "px_partition_count"),
+                              ("repartition", "px_partition_scatter"), ("compact", "px_compact")]
+
+
+def _rank_launches(phase: str, rank: int, launches: dict, required) -> dict:
+    """A worker's reported launches ({lib: {entry: n}}), every library
+    present; raises if a kernel of the phase did not launch on the rank."""
+    from pixie_tpu_torch.ops import _build
+
+    missing = [f"{lib}.{e}" for lib, e in required if not launches.get(lib, {}).get(e)]
+    if missing:
+        raise AssertionError(f"kernels not launched on rank {rank} of the {phase} path: "
+                             f"{missing}")
+    return {lib: dict(launches.get(lib, {})) for lib in _build.KERNELS}
+
+
+def run_nccl_world(dev) -> dict:
+    """A one-rank NCCL world in this process: the world merge (M1 over 4
+    local shards of config #1's state, one NCCL all_gather, the world's one
+    buffer) equal bit for bit to M1 over the same states and to its plain
+    version; its launches (M1 once) read from the merge alone."""
+    import torch
+
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.ops import merge as m1
+    from pixie_tpu_torch.ops.pack import flatten
+    from pixie_tpu_torch.parallel import multihost, spmd
+    from pixie_tpu_torch.udf.udf import tree_map
+
+    rng = np.random.default_rng(20)
+    g = 64
+    rt = {"cnt": "add", "avg_lat": {"sum": "add", "count": "add"}, "p50": "add",
+          "__seen": "add", "lo": "min", "hi": "max"}
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with virtual_shards(MESH_SHARDS):
+        if not multihost.init_multihost(f"127.0.0.1:{multihost.free_port()}", 1, 0,
+                                        device="cuda"):
+            raise AssertionError("the one-rank world did not start")
+        try:
+            desc = multihost.describe()
+            if desc["backend"] != "nccl":
+                raise AssertionError(f"one rank on one card is not NCCL: {desc}")
+            mesh = multihost.global_mesh()
+            sts = [tree_map(lambda a: torch.from_numpy(a).to(dev), {
+                "cnt": rng.integers(0, 1 << 20, g),
+                "avg_lat": {"sum": rng.exponential(50.0, g) * 1e4,
+                            "count": rng.integers(0, 1 << 20, g)},
+                "p50": rng.integers(0, 1 << 12, (g, WIDTH)).astype(np.float32),
+                "__seen": rng.integers(0, 1 << 20, g),
+                "lo": rng.normal(size=g), "hi": rng.normal(size=g)})
+                for _ in range(mesh.local_size)]
+            spmd.collective_merge(sts, rt, mesh=mesh)  # the layout check
+            multihost.reset_exec_stats()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            got = spmd.collective_merge(sts, rt, mesh=mesh)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1000
+            launches = read_launches("nccl_world", [("merge", "px_merge_states")])
+            stats = multihost.exec_stats()
+            want = m1.merge_states(rt, sts)
+            plain = m1.merge_states_plain(rt, sts)
+            torch.cuda.synchronize()
+            if not torch.equal(got.buf, want.buf):
+                raise AssertionError("NCCL world merge != M1 over the same states")
+            if not all(same_bits(a, b) for (_p, a), (_q, b) in zip(flatten(got.tree()),
+                                                                    flatten(plain))):
+                raise AssertionError("NCCL world merge != M1's plain version")
+            gloo_cuda = gloo_takes_cuda(dev)
+            out = {"backend": desc["backend"], "processes": 1, "shards": mesh.local_size,
+                   "gloo_takes_cuda_tensors": gloo_cuda,
+                   "m1_launches": launches["merge"]["px_merge_states"],
+                   "gathered_bytes": stats["gathered_bytes"],
+                   "staged_bytes": stats["staged_bytes"], "wall_ms": wall_ms,
+                   "state_bytes": got.layout.nbytes, "bit_equal": True}
+        finally:
+            multihost.shutdown()
+    log(json.dumps({"phase": "multihost.nccl_world", "ok": True, **out}))
+    out["launches"] = launches
+    return out
+
+
+def gloo_takes_cuda(dev) -> dict:
+    """Whether this torch build's gloo takes CUDA tensors in all_gather and
+    all_to_all_single (a one-rank gloo group beside the world): the port
+    stages them through pinned host memory either way."""
+    import torch
+    import torch.distributed as dist
+
+    group = dist.new_group(backend="gloo")
+    x = torch.arange(8, dtype=torch.int64, device=dev)
+    got = {}
+    for name, call in (("all_gather", lambda: dist.all_gather([torch.empty_like(x)], x,
+                                                               group=group)),
+                       ("all_to_all_single", lambda: dist.all_to_all_single(
+                           torch.empty_like(x), x, group=group))):
+        try:
+            call()
+            torch.cuda.synchronize()
+            got[name] = True
+        except RuntimeError as e:
+            got[name] = f"refused: {str(e).splitlines()[0][:120]}"
+    dist.destroy_process_group(group)
+    return got
+
+
+def run_multihost_phase(dev, smi: str) -> dict:
+    """parallel/shard_bench.py's multi-process arm on the card: run_subprocess
+    at bench.py's sharded_agg_64m size (64M rows, 2 processes x 4 shards,
+    both ranks on this one card, so gloo with pinned staging: not a
+    multi-card figure) with the exchange at 2^21 rows a rank; rank 0
+    bit-equal to the single-device step, both ranks the same merged bytes,
+    every rank's step launching C1, K1, K2 and M1 twice and its exchange X1,
+    X2 and K4.  Then the one-rank NCCL world (run_nccl_world)."""
+    from pixie_tpu_torch.parallel import shard_bench
+
+    t0 = time.perf_counter()
+    doc = shard_bench.run_subprocess(MULTIHOST_ROWS, repeats=3, processes=MULTIHOST_PROCESSES,
+                                     devices_per_proc=MULTIHOST_SHARDS, timeout=900.0,
+                                     device="cuda", exchange_rows=MULTIHOST_EXCHANGE_ROWS)
+    wall = time.perf_counter() - t0
+    if (doc["mode"] != "multihost" or doc["bit_equal"] is not True
+            or doc["ranks_equal"] is not True or doc["n_devices"] != 8):
+        raise AssertionError(f"multihost run_subprocess: {doc}")
+    paths = {}
+    for r in doc["ranks"]:
+        got = _rank_launches("multihost", r["rank"], r["launches"], MULTIHOST_KERNELS)
+        if got["merge"].get("px_merge_states") != 2:
+            raise AssertionError(f"rank {r['rank']}: M1 launched "
+                                 f"{got['merge'].get('px_merge_states')} times a step, not 2")
+        x = _rank_launches("multihost exchange", r["rank"], r["exchange"]["launches"],
+                           MULTIHOST_EXCHANGE_KERNELS)
+        if not r["exchange"]["rows_equal"]:
+            raise AssertionError(f"rank {r['rank']}: the exchange's rows differ")
+        if r["rank"] == 0:
+            paths["multihost"], paths["multihost_exchange"] = got, x
+    log(json.dumps({"phase": "multihost.sharded_agg", "ok": True, "card": smi,
+                    "shared_card": True, "backend": doc["backend"],
+                    "processes": doc["processes"], "shards_per_process": doc["shards_per_process"],
+                    "rows": doc["rows"], "rows_per_sec": doc["rows_per_sec"],
+                    "p50_ms": doc["p50_ms"], "bit_equal": doc["bit_equal"],
+                    "ranks_equal": doc["ranks_equal"], "wall_s": wall}))
+    for r in doc["ranks"]:
+        log(json.dumps({"phase": "multihost.rank", "rank": r["rank"], "p50_ms": r["p50_ms"],
+                        "launches_a_step": r["launches"],
+                        "world_merge": {"gathered_bytes": r["gathered_bytes"],
+                                        "staged_bytes": r["staged_bytes"],
+                                        "wall_ms": r["world_merge_ms"]}}))
+        x = r["exchange"]
+        log(json.dumps({"phase": "multihost.exchange", "rank": r["rank"], "card": smi,
+                        "rows_per_rank": x["rows_per_rank"], "sent_bytes": x["sent_bytes"],
+                        "recv_bytes": x["recv_bytes"], "staged_bytes": x["staged_bytes"],
+                        "all_to_all_calls": x["all_to_all_calls"], "wall_ms": x["wall_ms"],
+                        "launches": x["launches"], "rows_equal": x["rows_equal"]}))
+    paths["nccl_world"] = run_nccl_world(dev)["launches"]
+    return paths
+
+
 #: the cpu_route phase's sweep: config #1 over build_http_table at these sizes
 CPU_ROUTE_SIZES = [1 << 14, 1 << 16, 1 << 18, 1 << 20, 1 << 22, 1 << 24]
 #: the np_partial query's rows, config #4's stores for the cluster decision,
@@ -5914,6 +6102,10 @@ def main() -> int:
                                                              sb["join_launches"])
     log(json.dumps({"phase": "shard_bench", "card": smi,
                     "seconds": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
+    pinned("multihost")
+    paths.update(run_multihost_phase(dev, smi))
+    log(json.dumps({"phase": "multihost", "card": smi, "seconds": time.perf_counter() - t0}))
     pinned("config3")
     paths["config3"] = run_config3(dev)["launches"]
     pinned("config4")

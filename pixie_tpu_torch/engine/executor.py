@@ -1111,10 +1111,18 @@ class PlanExecutor:
 
         if mesh == "auto":
             mesh = _spmd.default_mesh(self.device)
+        if mesh is not None and mesh.spans_processes:
+            # the reference keeps the executor per process on this path
+            # (parallel/shard_bench.py: each process feeds the chain kernel)
+            raise Unimplemented(
+                f"a mesh over {len(set(mesh.processes))} processes for an executor: "
+                "parallel/multihost.py runs such a mesh under the chain kernel "
+                "(shard_bench.run_multihost); the executor over it waits for a later slice")
         if mesh is not None and any(d != self.device for d in mesh.devices):
             raise Unimplemented(
                 f"a mesh over {sorted({str(d) for d in mesh.devices})} for an executor on "
-                f"{self.device}: meshes over distinct devices wait for the multi-card slice")
+                f"{self.device}: one process over distinct devices waits for the multi-card slice "
+                "(parallel/multihost.py spans cards with one process a card)")
         self.mesh = mesh
         if mesh is not None:
             # the collective-serialization decision, recorded per query as

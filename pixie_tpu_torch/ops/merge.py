@@ -35,6 +35,9 @@ a CUDA tensor never reaches the plain version.
 `collective_merge(reduce_tree, shard_states)` is the same merge over the
 shards of one mesh (row 13: parallel/spmd.py's psum / pmin / pmax of each
 state leaf over the mesh axis), used by the port's co-located shards.
+`merge_packed` returns the merged state as a Packed whatever the tree (one
+state packed by P1 when it is not one already): the buffer a mesh across
+processes gathers and merges again (parallel/multihost.py world_merge).
 """
 from __future__ import annotations
 
@@ -46,7 +49,9 @@ import numpy as np
 import torch
 
 from pixie_tpu_torch.ops import _build
-from pixie_tpu_torch.ops.pack import Layout, Packed, pack_plain, unflatten, worth_packing
+from pixie_tpu_torch.ops.pack import (
+    Layout, Packed, pack, pack_plain, unflatten, worth_packing,
+)
 
 _M1 = "merge"
 _OPS = {"add": 0, "min": 1, "max": 2}
@@ -267,6 +272,20 @@ def _launch_m1(plan: M1Plan, states: list, dev: torch.device) -> torch.Tensor:
     return out
 
 
+def _merge_buffer(reduce_tree, plan: M1Plan, states: list) -> torch.Tensor:
+    """N >= 2 states merged into one uint8 buffer of plan.layout: kernel M1
+    on CUDA states, the plain version packed by P1's plain version on CPU
+    states."""
+    dev = _device_of(states[0])
+    if dev.type == "cuda":
+        return _launch_m1(plan, states, dev)
+    trees = [_tree(s) for s in states]
+    if any(x.is_cuda for _p, _o, xs in _leaves(reduce_tree, trees) for x in xs):
+        raise ValueError("merge_states: states on the CPU and on a CUDA device")
+    merged = merge_states_plain(reduce_tree, trees)
+    return pack_plain([_at(merged, path) for path in plan.layout.paths], plan.layout)
+
+
 def merge_states(reduce_tree, states: list, packed: bool = True):
     """→ one state: every leaf reduced over `states` (N >= 1 trees shaped
     like `reduce_tree`, whose leaves name the op, or Packed states of its
@@ -280,15 +299,23 @@ def merge_states(reduce_tree, states: list, packed: bool = True):
     plan = plan_for(reduce_tree, states)
     if not plan.ops:
         return {}
-    dev = _device_of(states[0])
-    if dev.type == "cuda":
-        return _result(plan, _launch_m1(plan, states, dev), packed)
-    trees = [_tree(s) for s in states]
-    if any(x.is_cuda for _p, _o, xs in _leaves(reduce_tree, trees) for x in xs):
-        raise ValueError("merge_states: states on the CPU and on a CUDA device")
-    merged = merge_states_plain(reduce_tree, trees)
-    leaves = [_at(merged, path) for path in plan.layout.paths]
-    return _result(plan, pack_plain(leaves, plan.layout), packed)
+    return _result(plan, _merge_buffer(reduce_tree, plan, states), packed)
+
+
+def merge_packed(reduce_tree, states: list) -> Packed:
+    """→ the merged state as a Packed whatever the tree, the buffer that
+    crosses processes (parallel/multihost.py `world_merge`): M1 over N >= 2
+    states; one state as it is when it is a Packed, else its leaves packed
+    into the same layout (P1)."""
+    if not states:
+        raise ValueError("merge_states: no states")
+    plan = plan_for(reduce_tree, states)
+    if len(states) > 1:
+        return Packed(_merge_buffer(reduce_tree, plan, states), plan.layout)
+    if isinstance(states[0], Packed):
+        return states[0]
+    leaves = [_at(states[0], path).contiguous() for path in plan.layout.paths]
+    return Packed(pack(leaves, plan.layout), plan.layout)
 
 
 def collective_merge(reduce_tree, shard_states: list, packed: bool = True):

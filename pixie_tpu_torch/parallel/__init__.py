@@ -1,8 +1,9 @@
-"""Distributed execution on one device: the planner's split of a logical
-plan across agents (distributed.py), value-keyed partial aggregates
-(partial.py), SPMD aggregation over a mesh of co-located shards (spmd.py),
-the keyed repartition of join sides (repartition.py) and the in-process
-cluster that runs them (cluster.py)."""
+"""Distributed execution: the planner's split of a logical plan across
+agents (distributed.py), value-keyed partial aggregates (partial.py), SPMD
+aggregation over a mesh of co-located shards (spmd.py) or of shards across
+processes joined by torch.distributed (multihost.py), the keyed
+repartition of join sides (repartition.py) and the in-process cluster that
+runs them (cluster.py)."""
 from pixie_tpu_torch.parallel.spmd import (
     collective_merge,
     collective_merge_carry,
@@ -18,6 +19,13 @@ from pixie_tpu_torch.parallel.distributed import (
 )
 from pixie_tpu_torch.parallel.partial import PartialAggBatch, merge_partials
 from pixie_tpu_torch.parallel.cluster import LocalCluster
+from pixie_tpu_torch.parallel.multihost import (
+    global_mesh,
+    host_local_slice,
+    init_multihost,
+    world_merge,
+)
+from pixie_tpu_torch.parallel.repartition import mesh_bucket_counts, mesh_repartition
 
 __all__ = [
     "make_mesh",
@@ -33,4 +41,10 @@ __all__ = [
     "PartialAggBatch",
     "merge_partials",
     "LocalCluster",
+    "init_multihost",
+    "global_mesh",
+    "host_local_slice",
+    "world_merge",
+    "mesh_bucket_counts",
+    "mesh_repartition",
 ]

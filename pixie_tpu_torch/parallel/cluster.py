@@ -40,7 +40,8 @@ the rows appended since its watermark.  Such an agent's payload is a host
 PartialAggBatch; the other agents' device states gang-merge among
 themselves and then merge by key values with it.
 
-Not ported yet: meshes over several distinct cards (the multi-card slice),
+Not ported yet: one process over several distinct cards (the multi-card
+slice; parallel/multihost.py spans cards with one process a card),
 plan verification (PX_PLAN_VERIFY), the flight recorder
 and tracepoint mutations (the host-layer slice), and the semantic-type
 restamp of results (the host-layer slice: results carry physical types).

@@ -22,7 +22,9 @@ from __future__ import annotations
 
 import collections
 import threading
+import time
 import zlib
+from typing import Optional
 
 import numpy as np
 import torch
@@ -250,3 +252,151 @@ def mesh_partition_exchange(hb, keys, n_parts: int, mesh):
         help_="max/mean rows received per join partition in this "
               "process's latest mesh shuffle (key-hash skew; 1.0 = even)")
     return out
+
+
+# ------------------------------------------------ exchange across processes
+def _local_blocks(mesh, cols: dict, n_valid):
+    """This process's shards as X1 / X2 see them across processes: the
+    local batch (n_local shards of `per` rows, each padded to a multiple of
+    the process count) cut into mesh.size sub-shards of q rows, so that X1
+    and X2, which take as many shards as targets, hash every local row to
+    a mesh position.  Sub-shard s * n_proc + j is rows [j * q, (j + 1) * q)
+    of local shard s.  → (flat columns, sub-shard valid counts, n_local, q)."""
+    from pixie_tpu_torch.parallel.spmd import local_valid
+
+    n_local = mesh.local_size
+    n_proc = mesh.size // n_local
+    nv = np.asarray(local_valid(n_valid, mesh), dtype=np.int64)
+    flat, per = {}, None
+    for name, v in cols.items():
+        blocks = v if v.dim() == 2 else v.view(n_local, v.shape[0] // n_local)
+        if blocks.shape[0] != n_local or (per is not None and blocks.shape[1] != per):
+            raise Internal(f"{name}: {tuple(blocks.shape)} is not {n_local} local shards")
+        per = blocks.shape[1]
+        q = -(-per // n_proc)
+        if q * n_proc != per:
+            padded = torch.zeros((n_local, q * n_proc), dtype=blocks.dtype,
+                                 device=blocks.device)
+            padded[:, :per] = blocks
+            blocks = padded
+        flat[name] = blocks.reshape(-1)
+    q = -(-per // n_proc)
+    starts = np.arange(n_proc, dtype=np.int64) * q
+    sub_nv = np.clip(nv[:, None] - starts[None, :], 0, q).reshape(-1)
+    return flat, sub_nv, n_local, q
+
+
+def _key_inputs(flat: dict, keys: list, luts: dict) -> list:
+    return [(flat[k], (luts or {}).get(k)) for k in keys]
+
+
+def mesh_bucket_counts(mesh, keys: list, luts: Optional[dict] = None):
+    """The counts pass of the exchange across a mesh's processes (reference
+    `mesh_bucket_counts`): → fn(cols, n_valid) -> (part, counts).  X1 hashes
+    this process's rows by the key columns' values (partition_ids' hash, bit
+    for bit) into mesh positions: part int32 [n_local, per] (mesh.size past
+    a shard's valid rows) and counts int64 [n_local, mesh.size], each local
+    shard's rows per target position, on the shards' device.  `luts` maps a
+    dictionary key column (int32 codes) to its value-hash LUT on that
+    device (ops/repartition.py value_hash_lut).  No collective."""
+    def run(cols, n_valid):
+        flat, sub_nv, n_local, _q = _local_blocks(mesh, cols, n_valid)
+        n_dev = mesh.size
+        part, sub_counts, _tiles = _rp.partition_count(_key_inputs(flat, keys, luts),
+                                                       sub_nv, n_dev)
+        per = next(iter(cols.values())).numel() // n_local
+        part = part.view(n_local, -1)[:, :per]
+        return part, sub_counts.view(n_local, n_dev // n_local, n_dev).sum(1)
+
+    return run
+
+
+class Exchanged:
+    """What one rank received from a keyed exchange across processes.
+
+    cols[name] is one flat tensor holding every block (j, s): the rows
+    source position s sent to this process's j-th position, in the source's
+    row order; counts[j, s] and offsets[j, s] (numpy int64 [n_local,
+    mesh.size]) give each block's length and start.  Nothing past a block's
+    count is held."""
+
+    def __init__(self, cols: dict, counts: np.ndarray, offsets: np.ndarray,
+                 sent_bytes: int, recv_bytes: int):
+        self.cols, self.counts, self.offsets = cols, counts, offsets
+        self.sent_bytes, self.recv_bytes = sent_bytes, recv_bytes
+
+    def block(self, name: str, j: int, s: int) -> torch.Tensor:
+        o = int(self.offsets[j, s])
+        return self.cols[name][o:o + int(self.counts[j, s])]
+
+    def rows(self, j: int) -> dict:
+        """{name: local position j's rows, grouped by source position in
+        mesh order} as numpy arrays."""
+        return {name: np.concatenate([transfer.pull(self.block(name, j, s))
+                                      for s in range(self.counts.shape[1])])
+                for name in self.cols}
+
+
+def mesh_repartition(mesh, keys: list, luts: Optional[dict] = None):
+    """The keyed repartition across a mesh's processes (reference
+    `mesh_repartition`): → fn(cols, n_valid) -> Exchanged.
+
+    Each process passes its own shards (cols {name: [n_local, per] or
+    padded 1-D}, on its device; n_valid per local shard or per mesh
+    position).  X1 counts every local shard's rows by target position
+    (mesh_bucket_counts' pass); one all_to_all_single exchanges the counts;
+    X2 scatters each local shard stably into blocks by (target, shard) and
+    K4 closes the blocks' gaps, so the rows for each rank lie contiguous in
+    (target, source, row) order; one all_to_all_single a column sends them
+    with the counted splits.  Rows arrive grouped by source position, in
+    the reference's order and with its counts, and rows past a block's
+    count are never sent."""
+    from pixie_tpu_torch.ops.compact import compact
+    from pixie_tpu_torch.parallel import multihost
+
+    def run(cols, n_valid) -> Exchanged:
+        t0 = time.perf_counter()
+        n_dev = mesh.size
+        flat, sub_nv, n_local, _q = _local_blocks(mesh, cols, n_valid)
+        n_proc = n_dev // n_local
+        names = list(flat)
+        # ---- X1: targets and counts of every sub-shard (one small readback)
+        part, sub_counts, tiles = _rp.partition_count(_key_inputs(flat, keys, luts),
+                                                      sub_nv, n_dev)
+        sc = transfer.pull(sub_counts).reshape(n_dev, n_dev)  # [sub-shard, target]
+        if int(sc.sum()) != int(sub_nv.sum()):
+            raise Internal(f"exchange counted {int(sc.sum())} of {int(sub_nv.sum())} rows")
+        # per (target, local shard): the rows each source position sends
+        by_src = sc.reshape(n_local, n_proc, n_dev).sum(1).T  # [target, local shard]
+        # ---- the counts exchange: rank r gets [its targets, my shards]
+        send_counts = by_src.reshape(n_proc, n_local * n_local)
+        got = multihost.all_to_all_counts(send_counts, mesh).reshape(
+            n_proc, n_local, n_local)  # [source rank, my target, its shard]
+        counts = got.transpose(1, 0, 2).reshape(n_local, n_dev)  # [my target, source]
+        # ---- X2 then K4: this rank's rows in (target, sub-shard, row) order
+        cap = max(1, int(sc.max()) if sc.size else 1)
+        outs, recv = _rp.partition_scatter(part, tiles, sub_counts,
+                                           [flat[n] for n in names], n_dev, cap)
+        dev = part.device
+        keep = (torch.arange(cap, device=dev).view(1, cap) < recv.view(-1, 1)).view(-1)
+        dense, _n = compact(keep, outs)
+        send = by_src.reshape(n_proc, n_local * n_local).sum(1)  # rows to each rank
+        recv_rows = got.reshape(n_proc, -1).sum(1)  # rows from each rank
+        total_send = int(send.sum())
+        out_cols = {name: multihost.all_to_all_rows(col[:total_send], send.tolist(),
+                                                    recv_rows.tolist(), mesh)
+                    for name, col in zip(names, dense)}
+        # block (j, s) sits in rank r's segment (s // n_local) at its
+        # (target j, shard) place, the segment's blocks target-major
+        offsets = np.zeros((n_local, n_dev), dtype=np.int64)
+        base = np.concatenate([[0], np.cumsum(recv_rows)[:-1]])
+        for r in range(n_proc):
+            seg = got[r].reshape(-1)  # [my target, its shard], target-major
+            starts = base[r] + np.concatenate([[0], np.cumsum(seg)[:-1]])
+            offsets[:, r * n_local:(r + 1) * n_local] = starts.reshape(n_local, n_local)
+        width = sum(flat[n].element_size() for n in names)
+        multihost._count(exchanges=1, exchange_wall_s=time.perf_counter() - t0)
+        return Exchanged(out_cols, counts, offsets, total_send * width,
+                         int(recv_rows.sum()) * width)
+
+    return run

@@ -1,10 +1,10 @@
-"""Real-size sharded execution bench: the one-process arms.
+"""Real-size sharded execution bench.
 
 filter→map→partial-agg runs shard-local over a mesh with one collective
 merge at the blocking boundary, at real sizes, and reports rows/s + p50
 with bit-equality against the single-device executor verified on every run.
 
-Two runners, sharing one workload (`build_store` / chain shape):
+Three runners, sharing one workload (`build_store` / chain shape):
 
   * `run_local(...)` — the engine path: a real TableStore + PlanExecutor
     over an n-shard mesh (parallel/spmd.py `make_mesh`: n co-located
@@ -16,27 +16,32 @@ Two runners, sharing one workload (`build_store` / chain shape):
     the planner widening the repartition to the mesh width, both sides
     exchanged in the mesh (X1, X2), per-partition joins riding the device
     join (J1-J3) — compared against the single-device join.
+  * `run_multihost(...)` (via `run_subprocess` and `main --worker`) — the
+    multi-process job (parallel/multihost.py): each process feeds ONLY its
+    host-local shards and the collective merge spans processes (M1 over the
+    local shards, one all_gather, M1 over the world's buffers), with
+    `run_exchange` timing the keyed exchange across them (X1, X2, K4 and
+    one all_to_all_single a column) — rank 0 compared
+    bit for bit against the single-device step over the full data.
 
 Every aggregate in the workload is ORDER-INDEPENDENT at the bit level
 (count/sum/mean over ints, min/max, log-histogram p50 whose counts are
 integer-valued), so "bit-equal to the single-device result" is a checked
 invariant, not an rtol claim — see `assert_bitequal`.
 
-Both take `device` (None: the card) and need PIXIE_TORCH_VIRTUAL_SHARDS of at
-least `n_devices` (the mesh's shards).  Copied from the reference package
-(pixie_tpu/parallel/shard_bench.py).  Its multi-process arm (`run_multihost`,
-`run_subprocess`, `main --worker`) raises Unimplemented: processes that
-each feed their own shards wait for the multi-card slice (ROADMAP Queue 1
-item 5).
+The one-process arms take `device` (None: the card) and need
+PIXIE_TORCH_VIRTUAL_SHARDS of at least `n_devices` (the mesh's shards).
+Copied from the reference package (pixie_tpu/parallel/shard_bench.py),
+except that `run_subprocess` has no one-process fallback: a worker that
+fails raises.
 """
 from __future__ import annotations
 
+import json
 import sys
 import time
 
 import numpy as np
-
-from pixie_tpu_torch.status import Unimplemented
 
 SEC = 1_000_000_000
 N_SERVICES = 16
@@ -285,31 +290,342 @@ def run_shuffled_join(rows_per_side: int, n_devices: int = 8, device=None,
 
 
 # ------------------------------------------------------- multihost runner
-def _multi_process(what: str):
-    raise Unimplemented(
-        f"{what}: processes that each feed their own shards are not ported yet "
-        "(ROADMAP Queue 1 item 5, the multi-card slice)")
+def _chain_kernel(device):
+    """The multihost bench's fragment kernel: the same filter→map→partial-agg
+    chain, at the ChainKernel level (the multihost data plane feeds the
+    kernel directly — each process owns only its host-local shards, so the
+    TableStore/executor layer stays per-process)."""
+    from pixie_tpu_torch.engine.executor import ChainKernel, GroupKey
+    from pixie_tpu_torch.plan import AggExpr, Call, Column, FilterOp, MapOp, lit
+    from pixie_tpu_torch.table.dictionary import Dictionary
+    from pixie_tpu_torch.types import DataType as DT
+    from pixie_tpu_torch.udf import registry
+
+    svc_dict = Dictionary([f"svc-{i}" for i in range(N_SERVICES)])
+    dtypes = {"time_": DT.TIME64NS, "service": DT.STRING,
+              "status": DT.INT64, "bytes": DT.INT64, "latency": DT.FLOAT64}
+    chain = [
+        FilterOp(expr=Call("not_equal", (Column("status"), lit(404)))),
+        MapOp(exprs=[
+            ("service", Column("service")),
+            ("status", Column("status")),
+            ("bytes", Column("bytes")),
+            ("lat_us", Call("multiply", (Column("latency"), lit(1000.0)))),
+        ]),
+    ]
+    kern = ChainKernel(dtypes, {"service": svc_dict}, chain, registry, "time_", device)
+    status_lut = kern.ctx.ec._add_lut(np.asarray(STATUSES, dtype=np.int64))
+    keys = [
+        GroupKey("service", "dict", N_SERVICES, DT.STRING, svc_dict,
+                 key_sval=kern.ctx.sym["service"]),
+        GroupKey("status", "intdevice", 4, DT.INT64, Dictionary(list(STATUSES)),
+                 src_name="status", lut_name=status_lut),
+    ]
+    num_groups = N_SERVICES * 4
+    udas, init_specs = [], []
+    for ae in [AggExpr("cnt", "count", None), AggExpr("b", "sum", "bytes"),
+               AggExpr("lo", "min", "lat_us"), AggExpr("hi", "max", "lat_us"),
+               AggExpr("p50", "p50", "lat_us")]:
+        uda = registry.uda(ae.fn)
+        vb = kern.ctx.sym[ae.arg] if ae.arg else None
+        in_dt = np.int64 if ae.arg == "bytes" else (np.float64 if ae.arg else None)
+        udas.append((ae.out_name, uda, vb))
+        init_specs.append((ae.out_name, uda, in_dt))
+    kern.make_agg_step(keys, udas, num_groups)
+    return kern, udas, init_specs, num_groups
 
 
-def run_multihost(rows: int, repeats: int, mesh) -> dict:
-    """One process's share of the multihost sharded agg (not ported)."""
-    _multi_process("run_multihost")
+_NAMES = ("time_", "service", "status", "bytes", "latency")
+#: rows a call of the single-device oracle (the executor's feed size)
+ORACLE_FEED = 1 << 24
+
+
+def _launched() -> dict:
+    """Kernel launches since the last reset, by library and entry point."""
+    from pixie_tpu_torch.ops import _build
+
+    return {lib: {e: n for e, n in k.by_entry.items() if n}
+            for lib, k in _build.KERNELS.items() if any(k.by_entry.values())}
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _state_bytes(state) -> list:
+    """The leaves of a state tree as numpy arrays, in key order."""
+    from pixie_tpu_torch.engine import transfer
+    from pixie_tpu_torch.ops.pack import flatten
+
+    return [np.ascontiguousarray(a) for _p, a in flatten(transfer.pull(state))]
+
+
+def run_multihost(rows: int, repeats: int, mesh, device=None) -> dict:
+    """One process's share of the benched multihost sharded agg: feed ONLY
+    host-local shards, run the lifted partial step (each local shard's C1,
+    K1 and K2, M1 over the local shards, one all_gather, M1 over the
+    world's buffers) over the mesh, and check bit-equality against the
+    single-device step over the regenerated full data on process 0.
+    `device` None: the mesh's local device."""
+    import hashlib
+
+    import torch
+
+    from pixie_tpu_torch.engine.executor import INT64_MAX, INT64_MIN, device_luts
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.parallel import multihost
+    from pixie_tpu_torch.parallel.spmd import (
+        per_shard_valid, reduce_tree_for, spmd_partial_step,
+    )
+
+    dev = torch.device(device) if device is not None else mesh.device
+    kern, udas, init_specs, num_groups = _chain_kernel(dev)
+    n_dev = int(mesh.size)
+    per = -(-rows // n_dev)
+    padded = per * n_dev
+    lo, hi = mesh.local_slice
+    shards = [shard_cols(padded, i, n_dev) for i in range(lo, hi)]
+    cols = {k: torch.from_numpy(np.concatenate([c[k] for c in shards])).to(dev)
+            for k in _NAMES}
+    del shards
+    nv = per_shard_valid(rows, padded, n_dev)
+    luts = device_luts(kern.luts, dev)
+
+    def init_fn():
+        return {name: uda.init(num_groups, in_dt, dev) for name, uda, in_dt in init_specs}
+
+    step = spmd_partial_step(kern.raw_agg_step, init_fn, reduce_tree_for(udas),
+                             len(kern.limit_ns), mesh)
+
+    def run_once():
+        t0 = time.perf_counter()
+        out = step(cols, nv, INT64_MIN, INT64_MAX, luts)
+        _sync(dev)
+        return time.perf_counter() - t0, out
+
+    run_once()  # warm: the kernel plans, the layout check
+    _build.reset_launches()
+    multihost.reset_exec_stats()
+    run_once()  # the counted step
+    launches = _launched()
+    merge = multihost.exec_stats()
+    times, out = [], None
+    for _ in range(max(repeats, 2)):
+        dt, out = run_once()
+        times.append(dt)
+    state = _state_bytes(out)
+    digest = hashlib.blake2b(b"".join(a.tobytes() for a in state), digest_size=16).hexdigest()
+    desc = multihost.describe()
+    result = {
+        "rows": rows,
+        "n_devices": n_dev,
+        "processes": len(set(mesh.processes)),
+        "shards_per_process": hi - lo,
+        "backend": desc["backend"],
+        "device": dev.type,
+        "rows_per_sec": round(rows / _p50(times)),
+        "p50_ms": round(_p50(times) * 1000, 1),
+        "rank": mesh.rank,
+        "launches": launches,
+        "gathered_bytes": merge["gathered_bytes"],
+        "staged_bytes": merge["staged_bytes"],
+        "world_merge_ms": merge["merge_wall_s"] * 1000,
+        "state_digest": digest,
+    }
+    if mesh.rank == 0:
+        # single-device oracle over the FULL regenerated data — bit-equal
+        # (fed ORACLE_FEED rows a call into one state: the same bits as one
+        # call, every leaf of this workload exact)
+        full = {k: np.concatenate([shard_cols(padded, i, n_dev)[k] for i in range(n_dev)])
+                for k in _NAMES}
+        limits = torch.full((max(1, len(kern.limit_ns)),), INT64_MAX, dtype=torch.int64,
+                            device=dev)
+        ref = init_fn()
+        for a in range(0, rows, ORACLE_FEED):
+            feed = {k: torch.from_numpy(v[a:a + ORACLE_FEED]).to(dev) for k, v in full.items()}
+            ref = kern.raw_agg_step(feed, min(ORACLE_FEED, rows - a), INT64_MIN, INT64_MAX,
+                                    limits, luts, ref)[0]
+        del full, feed
+        want = _state_bytes(ref)
+        result["bit_equal"] = len(want) == len(state) and all(
+            a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+            for a, b in zip(state, want))
+        assert result["bit_equal"], "sharded state != single-device state"
+    return result
+
+
+def exchange_cols(rows: int, position: int) -> dict:
+    """The exchange's rows of one mesh position, seeded by it: an int64 key
+    over 2^40 values, an int32 and a float64 value (20 bytes a row)."""
+    rng = np.random.default_rng(4321 + position)
+    return {"k": rng.integers(0, 1 << 40, rows).astype(np.int64),
+            "v": rng.integers(0, 1 << 31, rows).astype(np.int32),
+            "w": rng.normal(size=rows)}
+
+
+def run_exchange(rows_per_rank: int, repeats: int, mesh, device=None) -> dict:
+    """One process's share of a keyed exchange across the mesh's processes
+    (parallel/repartition.py mesh_repartition: X1, the counts'
+    all_to_all_single, X2 and K4, one all_to_all_single a column) over
+    `rows_per_rank` rows split over its shards.  Every block it receives is
+    held against the sender's regenerated rows of that target, in order."""
+    import torch
+
+    from pixie_tpu_torch.engine.executor import HostBatch
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.parallel import multihost
+    from pixie_tpu_torch.parallel.repartition import mesh_repartition, partition_ids
+    from pixie_tpu_torch.types import DataType as DT
+
+    dev = torch.device(device) if device is not None else mesh.device
+    n_dev = mesh.size
+    lo, hi = mesh.local_slice
+    per = rows_per_rank // (hi - lo)
+    mine = [exchange_cols(per, g) for g in range(lo, hi)]
+    cols = {k: torch.from_numpy(np.concatenate([c[k] for c in mine])).to(dev) for k in mine[0]}
+    nv = np.full(hi - lo, per, dtype=np.int64)
+    exchange = mesh_repartition(mesh, ["k"])
+
+    def run_once():
+        t0 = time.perf_counter()
+        got = exchange(cols, nv)
+        _sync(dev)
+        return time.perf_counter() - t0, got
+
+    run_once()
+    _build.reset_launches()
+    multihost.reset_exec_stats()
+    _dt, got = run_once()
+    launches = _launched()
+    stats = multihost.exec_stats()
+    times = [run_once()[0] for _ in range(max(repeats, 2))]
+    dtypes = {"k": DT.INT64}
+    for s in range(n_dev):
+        src = exchange_cols(per, s)
+        part = partition_ids(HostBatch(dtypes, {}, {"k": src["k"]}), ["k"], n_dev)
+        for j in range(hi - lo):
+            sel = part == lo + j
+            for name, want in src.items():
+                have = got.block(name, j, s).cpu().numpy()
+                if not np.array_equal(have, want[sel]):
+                    raise AssertionError(f"exchange block ({lo + j}, {s}) of {name} differs")
+    return {"rows_per_rank": rows_per_rank, "n_devices": n_dev,
+            "sent_bytes": got.sent_bytes, "recv_bytes": got.recv_bytes,
+            "all_to_all_calls": stats["all_to_all_calls"],
+            "staged_bytes": stats["staged_bytes"],
+            "wall_ms": _p50(times) * 1000, "rows_equal": True, "launches": launches}
+
+
+# ---------------------------------------------------- subprocess harness
+def _repo_root() -> str:
+    import os
+
+    return os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def _worker_env(devices_per_proc: int) -> dict:
-    _multi_process("_worker_env")
+    """A worker's environment: this one's, with the port's flags as this
+    process holds them (flags.env_exports: whatever was overridden, by env
+    or set_for_testing, re-parses in the worker, PX_AUTOTUNE and
+    PX_CPU_CROSSOVER_ROWS included), PIXIE_TORCH_VIRTUAL_SHARDS =
+    devices_per_proc (its local shards) and the checkout on PYTHONPATH.
+    The rendezvous flags are set a rank by multihost.launch."""
+    import os
+
+    from pixie_tpu_torch import flags as _flags
+    import pixie_tpu_torch.engine.executor  # noqa: F401  (defines the route flags)
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PX_JAX_")}
+    env.update(_flags.env_exports())
+    for k in ("PX_JAX_COORDINATOR", "PX_JAX_NUM_PROCESSES", "PX_JAX_PROCESS_ID"):
+        env.pop(k, None)
+    env["PIXIE_TORCH_VIRTUAL_SHARDS"] = str(devices_per_proc)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [_repo_root()] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
+    return env
+
+
+#: keys of each rank's report that run_subprocess lists by rank
+_RANK_KEYS = ("rank", "launches", "gathered_bytes", "staged_bytes", "world_merge_ms",
+              "state_digest", "p50_ms", "exchange")
 
 
 def run_subprocess(rows: int, repeats: int = 3, processes: int = 2,
-                   devices_per_proc: int = 4, timeout: float = 1200.0) -> dict:
-    """The multihost sharded agg in subprocesses (not ported)."""
-    _multi_process("run_subprocess")
+                   devices_per_proc: int = 4, timeout: float = 1200.0, device=None,
+                   exchange_rows: int = 0) -> dict:
+    """Drive the benched multihost sharded agg in `processes` fresh worker
+    processes of `devices_per_proc` shards each, joined by torch.distributed
+    (parallel/multihost.py), on `device` (None: the card; every worker on
+    its card by the topology rule, the CPU with "cpu").  On a card every
+    kernel library is built first, so the workers do not run nvcc at once.
+    With `exchange_rows`, each worker then runs the keyed exchange over
+    that many rows (run_exchange).  → rank 0's report, mode "multihost",
+    with every rank's launches, bytes and state digest under "ranks".
+    There is no one-process fallback: a worker that fails or outlives
+    `timeout` raises with its stderr."""
+    from pixie_tpu_torch.engine.executor import resolve_device
+    from pixie_tpu_torch.parallel import multihost
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        from pixie_tpu_torch.ops import _build
+
+        _build.build_all()
+    argv = ["-m", "pixie_tpu_torch.parallel.shard_bench", "--worker", "--rows", str(rows),
+            "--repeats", str(repeats), "--device", dev.type,
+            "--exchange-rows", str(exchange_rows)]
+    outs = multihost.launch(lambda rank: argv, processes, _worker_env(devices_per_proc),
+                            timeout)
+    docs = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    doc = dict(docs[0])
+    doc["mode"] = "multihost"
+    doc["ranks"] = [{k: d.get(k) for k in _RANK_KEYS} for d in docs]
+    doc["ranks_equal"] = len({d["state_digest"] for d in docs}) == 1
+    if not doc["ranks_equal"]:
+        raise AssertionError(f"the ranks' merged states differ: {doc['ranks']}")
+    return doc
 
 
 def main(argv=None) -> int:
-    """`python -m pixie_tpu_torch.parallel.shard_bench --worker ...`, the
-    multihost worker (not ported)."""
-    _multi_process("shard_bench --worker")
+    """`python -m pixie_tpu_torch.parallel.shard_bench --worker ...`: one
+    rank of the multihost job.  The rendezvous comes from --coordinator /
+    --processes / --process-id or the PX_JAX_* flags; without either the
+    worker runs one process over its local shards.  Every rank prints its
+    report as its last line."""
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--worker", action="store_true")
+    ap.add_argument("--rows", type=int, default=64_000_000)
+    ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--coordinator", type=str, default="")
+    ap.add_argument("--processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--device", type=str, default=None)
+    ap.add_argument("--exchange-rows", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    from pixie_tpu_torch.parallel import multihost
+    from pixie_tpu_torch.parallel.spmd import local_devices, make_mesh
+
+    try:
+        if multihost.init_multihost(args.coordinator or None, args.processes,
+                                    args.process_id, device=args.device):
+            mesh = multihost.global_mesh()
+        else:
+            mesh = make_mesh(len(local_devices(args.device)), device=args.device)
+        if mesh is None or mesh.size < 2:
+            raise RuntimeError("no multi-shard mesh available")
+        out = run_multihost(args.rows, args.repeats, mesh)
+        if args.exchange_rows:
+            out["exchange"] = run_exchange(args.exchange_rows, args.repeats, mesh)
+        print(json.dumps(out), flush=True)
+    finally:
+        multihost.shutdown()
+    return 0
 
 
 if __name__ == "__main__":

@@ -12,8 +12,15 @@ every feed and its own state, and the collective merge is kernel M1
 min or max of N states in one launch, which is what psum, pmin and pmax are.
 The local device list is the executor's device (a card, or the CPU) repeated
 PIXIE_TORCH_VIRTUAL_SHARDS times, the port's counterpart of XLA's
-`--xla_force_host_platform_device_count`.  A mesh over several distinct cards
-waits for the multi-card slice.
+`--xla_force_host_platform_device_count`.
+
+A mesh may also span processes (parallel/multihost.py `global_mesh`): each
+position carries its process index, each process runs only its own
+positions (`host_local_slice`), and the collective merge becomes M1 over the
+local shards, one all_gather of the packed buffer and M1 over the world's
+buffers (multihost.world_merge); the passed-row total is one int64
+all_reduce.  One process over several distinct cards waits for a later
+slice.
 
 Correctness requirement, as in the reference: UDA init states are reduction
 identities (zeros for add, +-inf for min/max), so a shard that gets no valid
@@ -65,11 +72,23 @@ _gate_cache: Optional[dict] = None
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One mesh axis of `size` shards; `devices[i]` holds shard i.  Every
-    entry is the same device (co-located shards)."""
+    """One mesh axis of `size` shards; `devices[i]` holds shard i and
+    `processes[i]` is the process that runs it (default: every position on
+    process 0, co-located shards of one device).  `group` is the
+    torch.distributed group a mesh over processes spans (multihost.py), else
+    None; it takes no part in equality."""
 
     devices: tuple
     axis_names: tuple = (AGENT_AXIS,)
+    processes: tuple = ()
+    group: object = dataclasses.field(default=None, compare=False, repr=False)
+
+    def __post_init__(self):
+        if not self.processes:
+            object.__setattr__(self, "processes", (0,) * len(self.devices))
+        if len(self.processes) != len(self.devices):
+            raise InvalidArgument(f"{len(self.devices)} positions, "
+                                  f"{len(self.processes)} process indices")
 
     @property
     def size(self) -> int:
@@ -80,8 +99,35 @@ class Mesh:
         return {self.axis_names[0]: self.size}
 
     @property
+    def rank(self) -> int:
+        """This process's index in the mesh's group (0 without one)."""
+        if self.group is None:
+            return 0
+        import torch.distributed as dist
+
+        return dist.get_rank(self.group)
+
+    @property
+    def spans_processes(self) -> bool:
+        return len(set(self.processes)) > 1
+
+    @property
+    def local_slice(self) -> tuple[int, int]:
+        """[start, stop) of this process's positions (contiguous: a mesh
+        lists the processes' positions in process order)."""
+        me = self.rank
+        idx = [i for i, p in enumerate(self.processes) if p == me]
+        return (idx[0], idx[-1] + 1) if idx else (0, 0)
+
+    @property
+    def local_size(self) -> int:
+        lo, hi = self.local_slice
+        return hi - lo
+
+    @property
     def device(self) -> torch.device:
-        return self.devices[0]
+        """The device of this process's positions."""
+        return self.devices[self.local_slice[0]]
 
 
 def local_devices(device=None) -> list:
@@ -179,12 +225,18 @@ def reduce_tree_for(udas: list) -> dict:
     return {name: uda.reduce_ops() for name, uda, _vb in udas}
 
 
-def collective_merge(shard_states: list, reduce_tree, packed: bool = True):
+def collective_merge(shard_states: list, reduce_tree, packed: bool = True, mesh=None):
     """Merge the shards' partial agg states into one (row 13: psum / pmin /
     pmax of each leaf over the mesh axis): kernel M1 on the card, its plain
     version on the CPU.  The merged state is packed (ops/merge.py): a
     `pack.Packed` for a readback, or with `packed=False` the tree of views
-    of its buffer."""
+    of its buffer.  Over a `mesh` in a process group `shard_states` are this
+    process's shards and the merge spans the group (multihost.world_merge):
+    every rank gets the same bytes."""
+    if mesh is not None and mesh.group is not None:
+        from pixie_tpu_torch.parallel import multihost
+
+        return multihost.world_merge(reduce_tree, list(shard_states), mesh, packed)
     return _m1_merge(reduce_tree, list(shard_states), packed)
 
 
@@ -194,16 +246,17 @@ def _map2(tree, carry, states, fn):
     return fn(tree, carry, states)
 
 
-def collective_merge_carry(carry, new_states: list, reduce_tree):
+def collective_merge_carry(carry, new_states: list, reduce_tree, mesh=None):
     """Merge shard states that were each seeded from a REPLICATED carry.
 
     Summing the full states would count the carried prefix once per shard,
     so an add leaf is `c + sum_i (x_i - c)`: M1 sums the per-shard deltas
     (integer deltas wrap, as the adds do).  Min and max are idempotent over
-    the replicated carry, so M1 merges the full states."""
+    the replicated carry, so M1 merges the full states.  Over a mesh in a
+    process group the deltas merge across it (collective_merge)."""
     deltas = [_map2(reduce_tree, carry, [s], lambda op, c, xs: xs[0] - c if op == "add"
                     else xs[0]) for s in new_states]
-    merged = collective_merge(deltas, reduce_tree, packed=False)
+    merged = collective_merge(deltas, reduce_tree, packed=False, mesh=mesh)
     return _map2(reduce_tree, carry, [merged],
                  lambda op, c, xs: c + xs[0] if op == "add" else xs[0])
 
@@ -228,22 +281,38 @@ def shard_views(cols: dict, n_dev: int) -> list:
     return out
 
 
-def shard_step(fn: Callable, mesh: Mesh) -> Callable:
-    """Lift fn(cols, n_valid, state) over the mesh's shards: every shard runs
-    it over its own row block and its own state (the executor keeps one
-    state per shard, updated in place across a query's feeds, and merges
-    them once, with `collective_merge`, after the last feed).
+def local_valid(n_valid, mesh: Mesh) -> list:
+    """This process's per-shard valid counts from counts of every mesh
+    position or of this process's alone."""
+    nv = [int(x) for x in np.asarray(n_valid).reshape(-1)]
+    lo, hi = mesh.local_slice
+    if len(nv) == mesh.size and mesh.size != hi - lo:
+        return nv[lo:hi]
+    if len(nv) != hi - lo:
+        raise InvalidArgument(f"{len(nv)} valid counts for a mesh of {mesh.size} "
+                              f"positions, {hi - lo} of them local")
+    return nv
 
-      lifted(cols, n_valid, states) → [fn's result per shard]
-        cols:    1-D padded columns (length % n_dev == 0) or [n_dev, rows]
-        n_valid: per-shard valid counts (per_shard_valid)
-        states:  one state per shard
+
+def shard_step(fn: Callable, mesh: Mesh) -> Callable:
+    """Lift fn(cols, n_valid, state) over this process's shards of the
+    mesh: every shard runs it over its own row block and its own state (the
+    executor keeps one state per shard, updated in place across a query's
+    feeds, and merges them once, with `collective_merge`, after the last
+    feed).
+
+      lifted(cols, n_valid, states) → [fn's result per local shard]
+        cols:    this process's shards: 1-D padded columns (length %
+                 n_local == 0) or [n_local, rows]
+        n_valid: per-shard valid counts (per_shard_valid) of every mesh
+                 position or of this process's
+        states:  one state per local shard
     """
-    n_dev = mesh.size
+    n_local = mesh.local_size
 
     def lifted(cols, n_valid, states):
-        nv = [int(x) for x in np.asarray(n_valid).reshape(-1)]
-        return [fn(c, v, st) for c, v, st in zip(shard_views(cols, n_dev), nv, states)]
+        nv = local_valid(n_valid, mesh)
+        return [fn(c, v, st) for c, v, st in zip(shard_views(cols, n_local), nv, states)]
 
     return serialize_cpu_collectives(lifted, mesh)
 
@@ -257,12 +326,17 @@ def spmd_agg_step(raw_step: Callable, reduce_tree, mesh: Mesh) -> Callable:
     step takes [n_dev, rows_per_dev] (or padded 1-D) columns, int64[n_dev]
     per-shard valid counts and a REPLICATED state; every shard updates its
     own copy of it, and the lifted step returns the merged state (see
-    collective_merge_carry) and the global passed-row count."""
+    collective_merge_carry) and the global passed-row count (over a mesh in
+    a process group: one int64 all_reduce, the reference's lax.psum(cnt))."""
     def lifted(cols, n_valid, t_lo, t_hi, limits, luts, state, scalars=None):
         outs = shard_step(lambda c, v, st: raw_step(c, v, t_lo, t_hi, limits, luts, st, scalars),
-                          mesh)(cols, n_valid, [_clone(state) for _ in range(mesh.size)])
-        merged = collective_merge_carry(state, [o[0] for o in outs], reduce_tree)
+                          mesh)(cols, n_valid, [_clone(state) for _ in range(mesh.local_size)])
+        merged = collective_merge_carry(state, [o[0] for o in outs], reduce_tree, mesh)
         total = sum(int(o[1]) for o in outs)
+        if mesh.group is not None:
+            from pixie_tpu_torch.parallel import multihost
+
+            total = multihost.all_reduce_int(total, mesh)
         return merged, total
 
     return lifted
@@ -277,15 +351,16 @@ def spmd_partial_step(raw_step: Callable, init_state_fn: Callable, reduce_tree,
                       n_limits: int, mesh: Mesh) -> Callable:
     """Lift an agg step into an independent per-feed SPMD partial step: every
     shard starts from an identity state (init_state_fn()), runs over its row
-    block, and the shards' states merge into one.
+    block, and the shards' states merge into one (across the processes of a
+    mesh in a process group: cols are then this process's shards).
 
       lifted(cols, n_valid, t_lo, t_hi, luts, scalars=None) -> merged state
     """
     def lifted(cols, n_valid, t_lo, t_hi, luts, scalars=None):
         limits = _identity_limits(n_limits, mesh.device)
         outs = shard_step(lambda c, v, st: raw_step(c, v, t_lo, t_hi, limits, luts, st, scalars),
-                          mesh)(cols, n_valid, [init_state_fn() for _ in range(mesh.size)])
-        return collective_merge([o[0] for o in outs], reduce_tree, packed=False)
+                          mesh)(cols, n_valid, [init_state_fn() for _ in range(mesh.local_size)])
+        return collective_merge([o[0] for o in outs], reduce_tree, packed=False, mesh=mesh)
 
     return lifted
 

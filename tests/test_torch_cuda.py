@@ -2250,3 +2250,56 @@ px.display(u, 'output')
     assert _build.KERNELS["chain"].launches >= 2 and _build.KERNELS["compact"].launches >= 2
     want = execute_plan(plan, ts, device="cpu")["output"]
     _same_result(got, want, ["service"])
+
+
+# ------------------------------------------------- the mesh across processes
+def test_multihost_two_ranks_share_the_card(dev):
+    """shard_bench's multi-process arm with both ranks on this card: gloo,
+    the world merge's buffer staged through pinned host memory, M1 twice a
+    step on each rank (its local shards, then the world's buffers), rank 0
+    bit-equal to the single-device step and both ranks the same bytes; the
+    exchange's X1, X2 and K4 on each rank, every block as the sender's rows."""
+    from pixie_tpu_torch.parallel import shard_bench as sb
+
+    out = sb.run_subprocess(1 << 20, repeats=1, processes=2, devices_per_proc=2,
+                            device="cuda", timeout=600.0, exchange_rows=1 << 16)
+    assert out["mode"] == "multihost" and out["backend"] == "gloo"
+    assert out["bit_equal"] is True and out["ranks_equal"] is True
+    for r in out["ranks"]:
+        assert r["launches"]["merge"]["px_merge_states"] == 2
+        assert r["launches"]["chain"]["px_chain_run"] >= 2
+        assert r["staged_bytes"] > 0
+        x = r["exchange"]
+        assert x["rows_equal"] is True and x["staged_bytes"] > 0
+        assert x["launches"]["repartition"]["px_partition_count"] == 1
+        assert x["launches"]["repartition"]["px_partition_scatter"] == 1
+        assert x["launches"]["compact"]["px_compact"] == 1
+
+
+def test_world_merge_in_a_one_rank_nccl_world(dev):
+    """One rank on one card is NCCL; its world merge (M1 over the local
+    shards, an NCCL all_gather of the packed buffer) equals M1 over the same
+    states bit for bit."""
+    from pixie_tpu_torch import flags
+    from pixie_tpu_torch.parallel import multihost, spmd
+
+    rng = np.random.default_rng(3)
+    rt = {"n": "add", "s": "add", "lo": "min", "hi": "max"}
+    saved = flags.get("PIXIE_TORCH_VIRTUAL_SHARDS")
+    flags.set_for_testing("PIXIE_TORCH_VIRTUAL_SHARDS", 4)
+    try:
+        assert multihost.init_multihost(f"127.0.0.1:{multihost.free_port()}", 1, 0,
+                                        device="cuda")
+        assert multihost.describe()["backend"] == "nccl"
+        mesh = multihost.global_mesh()
+        sts = [{"n": torch.from_numpy(rng.integers(0, 9, 100)).to(dev),
+                "s": torch.from_numpy(rng.normal(size=100)).to(dev),
+                "lo": torch.from_numpy(rng.normal(size=100)).to(dev),
+                "hi": torch.from_numpy(rng.normal(size=100)).to(dev)} for _ in range(4)]
+        got = spmd.collective_merge(sts, rt, mesh=mesh)
+        want = m1.merge_states(rt, sts)
+        assert torch.equal(got.buf, want.buf)
+        assert multihost.exec_stats()["gathered_bytes"] == want.layout.nbytes
+    finally:
+        multihost.shutdown()
+        flags.set_for_testing("PIXIE_TORCH_VIRTUAL_SHARDS", saved)

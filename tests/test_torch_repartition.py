@@ -561,3 +561,145 @@ def test_run_agent_stream_yields_partition_buckets():
     for cid in want:
         for c in want[cid].cols:
             np.testing.assert_array_equal(got[cid].cols[c], want[cid].cols[c])
+
+
+# ------------------------------------------- the exchange across processes
+#: the two-rank exchange: 2 ranks x 2 shards of an odd row count (padded to
+#: split over the processes), each shard's valid rows
+X_RANKS, X_SHARDS, X_PER = 2, 2, 301
+X_VALID = (301, 250, 301, 0)
+X_DICT = ["svc-a", "svc-b", "svc-c", "svc-d", "svc-e"]
+X_KEYS = {"int": ["k"], "dict_and_int": ["svc", "k"]}
+
+X_WORKER = r'''
+import json, sys
+import numpy as np
+import torch
+
+from pixie_tpu_torch.ops.repartition import value_hash_lut
+from pixie_tpu_torch.parallel import multihost
+from pixie_tpu_torch.parallel.repartition import mesh_bucket_counts, mesh_repartition
+
+out_dir, per, valid, dict_size, key_sets = (sys.argv[1], int(sys.argv[2]),
+                                            json.loads(sys.argv[3]), int(sys.argv[4]),
+                                            json.loads(sys.argv[5]))
+assert multihost.init_multihost(device="cpu")
+mesh = multihost.global_mesh(device="cpu")
+lo, hi = mesh.local_slice
+
+def shard(g):
+    rng = np.random.default_rng(700 + g)
+    return {"k": rng.integers(0, 1000, per).astype(np.int64),
+            "svc": rng.integers(-1, dict_size, per).astype(np.int32),
+            "v": rng.normal(size=per), "b": rng.random(per) < 0.5}
+
+mine = [shard(g) for g in range(lo, hi)]
+cols = {k: torch.from_numpy(np.stack([m[k] for m in mine])) for k in mine[0]}
+names = [f"svc-{c}" for c in "abcde"][:dict_size]
+luts = {"svc": torch.from_numpy(value_hash_lut(names))}
+save, doc = {}, {}
+for label, keys in key_sets.items():
+    ex = mesh_repartition(mesh, keys, luts)(cols, np.asarray(valid))
+    save[f"{label}/counts"] = ex.counts
+    for j in range(hi - lo):
+        for name in cols:
+            save[f"{label}/{name}/{j}"] = ex.rows(j)[name]
+    _part, counts = mesh_bucket_counts(mesh, keys, luts)(cols, np.asarray(valid))
+    save[f"{label}/bucket_counts"] = counts.numpy()
+    doc[label] = {"sent": ex.sent_bytes, "recv": ex.recv_bytes}
+doc["stats"] = multihost.exec_stats()
+np.savez(f"{out_dir}/rank{mesh.rank}.npz", **save)
+print(json.dumps(doc), flush=True)
+multihost.shutdown()
+'''
+
+
+def _x_shard(g):
+    rng = np.random.default_rng(700 + g)
+    return {"k": rng.integers(0, 1000, X_PER).astype(np.int64),
+            "svc": rng.integers(-1, len(X_DICT), X_PER).astype(np.int32),
+            "v": rng.normal(size=X_PER), "b": rng.random(X_PER) < 0.5}
+
+
+@pytest.fixture(scope="module")
+def x_job(tmp_path_factory):
+    """One gloo job of 2 CPU ranks x 2 shards running both key sets."""
+    import json
+
+    from pixie_tpu_torch.parallel import multihost, shard_bench
+
+    out = tmp_path_factory.mktemp("exchange")
+    script = out / "worker.py"
+    script.write_text(X_WORKER)
+    argv = [str(script), str(out), str(X_PER), json.dumps(list(X_VALID)), str(len(X_DICT)),
+            json.dumps(X_KEYS)]
+    outs = multihost.launch(lambda rank: argv, X_RANKS, shard_bench._worker_env(X_SHARDS),
+                            180.0)
+    docs = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    return docs, [dict(np.load(out / f"rank{r}.npz")) for r in range(X_RANKS)]
+
+
+def _x_reference(keys):
+    """The reference's mesh_repartition and mesh_bucket_counts over its 4
+    virtual devices on the same rows: → (blocks [dest, source, per] by
+    column, counts [dest, source], bucket counts [sender, bucket])."""
+    n_dev = X_RANKS * X_SHARDS
+    shards = [_x_shard(g) for g in range(n_dev)]
+    cols = {k: np.concatenate([s[k] for s in shards]) for k in shards[0]}
+    d = RefDictionary(X_DICT)
+    hb = RefHostBatch({"k": DT.INT64, "svc": DT.STRING}, {"svc": d},
+                      {"k": cols["k"], "svc": cols["svc"]})
+    key_fn = ref_rp._device_key_fn(hb, keys)
+    mesh = ref_spmd.make_mesh(n_dev)
+    nv = np.asarray(X_VALID, dtype=np.int64)
+    n_cols = {k: None for k in cols}
+    got, counts = ref_rp.mesh_repartition(mesh, "agents", key_fn, n_cols)(cols, nv)
+    blocks = {k: np.asarray(v).reshape(n_dev, n_dev, X_PER) for k, v in got.items()}
+    _marked, bucket = ref_rp.mesh_bucket_counts(mesh, "agents", key_fn, n_cols)(cols, nv)
+    return (blocks, np.asarray(counts).reshape(n_dev, n_dev),
+            np.asarray(bucket).reshape(n_dev, n_dev))
+
+
+@pytest.mark.parametrize("label", list(X_KEYS))
+def test_mesh_repartition_across_ranks_equals_reference(x_job, label):
+    """Each rank's received rows for every (destination, source) equal the
+    reference's block up to its count, in order, with its counts; no row
+    past a count arrives."""
+    _docs, states = x_job
+    blocks, counts, _bucket = _x_reference(X_KEYS[label])
+    n_dev = X_RANKS * X_SHARDS
+    assert counts.sum() == sum(X_VALID)
+    for r, st in enumerate(states):
+        lo = r * X_SHARDS
+        np.testing.assert_array_equal(st[f"{label}/counts"], counts[lo:lo + X_SHARDS])
+        for j in range(X_SHARDS):
+            for name, want in blocks.items():
+                got = st[f"{label}/{name}/{j}"]
+                assert len(got) == counts[lo + j].sum()
+                at = 0
+                for s in range(n_dev):
+                    c = counts[lo + j, s]
+                    np.testing.assert_array_equal(got[at:at + c], want[lo + j, s, :c])
+                    at += c
+
+
+@pytest.mark.parametrize("label", list(X_KEYS))
+def test_mesh_bucket_counts_across_ranks_equals_reference(x_job, label):
+    _docs, states = x_job
+    _blocks, _counts, bucket = _x_reference(X_KEYS[label])
+    for r, st in enumerate(states):
+        lo = r * X_SHARDS
+        np.testing.assert_array_equal(st[f"{label}/bucket_counts"], bucket[lo:lo + X_SHARDS])
+
+
+def test_exchange_across_ranks_moves_counted_rows_only(x_job):
+    """Besides the counts' all_to_all_single, one a column an exchange; the
+    bytes sent are the valid rows' (what one rank sends, another receives)."""
+    docs, _states = x_job
+    width = 8 + 4 + 8 + 1
+    for label in X_KEYS:
+        assert sum(d[label]["sent"] for d in docs) == sum(X_VALID) * width
+        assert sum(d[label]["recv"] for d in docs) == sum(X_VALID) * width
+    for d in docs:
+        assert d["stats"]["exchanges"] == 2 and d["stats"]["all_to_all_calls"] == 2 * 4
+        assert d["stats"]["staged_bytes"] == 0

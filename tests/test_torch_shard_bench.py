@@ -7,7 +7,9 @@ the port's single-device executor; their reports must equal the
 reference's runs of the same arms on its 8 virtual JAX CPU devices (the
 timings and the padding of the warm hot remainder's upload aside).  Each workload's decoded answer on the port's mesh must
 equal the reference's single-device answer: exactly, the mean to rtol
-1e-12 (a different summation order).  The multi-process arm is refused.
+1e-12 (a different summation order).  The multi-process arm runs as 2
+spawned CPU ranks over gloo (its own timeout), bit-equal on rank 0 and the
+same bytes on both ranks, and a failed worker raises.
 """
 import numpy as np
 import pytest
@@ -27,10 +29,11 @@ from pixie_tpu_torch.engine.executor import PlanExecutor, clear_device_cache
 from pixie_tpu_torch.parallel import LocalCluster
 from pixie_tpu_torch.parallel import shard_bench as sb
 from pixie_tpu_torch.parallel.spmd import make_mesh
-from pixie_tpu_torch.status import Unimplemented
 
 N_DEV = 8
 TIMINGS = ("rows_per_sec", "p50_ms")
+#: the multihost chain's groups: 16 services x 4 status slots
+N_SERVICES_X4 = 64
 
 
 @pytest.fixture(autouse=True)
@@ -150,12 +153,74 @@ def test_mesh_wider_than_the_virtual_shards_is_refused():
         sb.run_local(4096, repeats=1, n_devices=4, device="cpu")
 
 
-@pytest.mark.parametrize("call", [
-    lambda: sb.run_multihost(1024, 1, None),
-    lambda: sb.run_subprocess(1024),
-    lambda: sb._worker_env(4),
-    lambda: sb.main(["--worker", "--rows", "1024"]),
-], ids=["run_multihost", "run_subprocess", "worker_env", "main_worker"])
-def test_multi_process_arm_is_refused(call):
-    with pytest.raises(Unimplemented, match="item 5"):
-        call()
+def test_run_subprocess_two_ranks_bit_equal():
+    """The multi-process arm: 2 spawned CPU ranks x 2 shards over gloo, each
+    feeding only its own shards; rank 0 bit-equal to the single-device step
+    over the full data, both ranks' merged states the same bytes, and never
+    a one-process "local" run."""
+    out = sb.run_subprocess(20_000, repeats=2, processes=2, devices_per_proc=2,
+                            device="cpu", timeout=180.0, exchange_rows=2048)
+    assert out["mode"] == "multihost" and out["n_devices"] == 4
+    assert out["processes"] == 2 and out["shards_per_process"] == 2
+    assert out["bit_equal"] is True and out["ranks_equal"] is True
+    assert out["backend"] == "gloo" and [r["rank"] for r in out["ranks"]] == [0, 1]
+    assert all(r["gathered_bytes"] == out["gathered_bytes"] > 0 for r in out["ranks"])
+    assert all(r["exchange"]["rows_equal"] for r in out["ranks"])
+    assert sum(r["exchange"]["sent_bytes"] for r in out["ranks"]) == 2 * 2048 * 20
+
+
+def test_run_subprocess_raises_when_a_worker_fails(monkeypatch):
+    """A worker that exits non-zero makes run_subprocess raise with its
+    stderr: no fallback to a one-process run."""
+    from pixie_tpu_torch.status import Internal
+
+    env = sb._worker_env
+
+    def failing(devices_per_proc):
+        return {**env(devices_per_proc), "PX_TORCH_DIST_BACKEND": "nccl"}
+
+    monkeypatch.setattr(sb, "_worker_env", failing)
+    with pytest.raises(Internal, match="NCCL needs CUDA devices"):
+        sb.run_subprocess(4096, repeats=1, processes=2, devices_per_proc=2, device="cpu",
+                          timeout=120.0)
+
+
+def test_worker_env_carries_the_flags():
+    """The flags this process overrode cross the spawn (the card-route pin
+    included); the worker's shards and the checkout are set, and no
+    rendezvous flag leaks from this process."""
+    import os
+
+    saved = port_flags.get("PX_CPU_CROSSOVER_ROWS")
+    port_flags.set_for_testing("PX_CPU_CROSSOVER_ROWS", 12345)
+    try:
+        env = sb._worker_env(4)
+    finally:
+        port_flags.set_for_testing("PX_CPU_CROSSOVER_ROWS", saved)
+    assert env["PX_CPU_CROSSOVER_ROWS"] == "12345" and env["PX_AUTOTUNE"] == "0"
+    assert env["PIXIE_TORCH_VIRTUAL_SHARDS"] == "4"
+    assert sb._repo_root() in env["PYTHONPATH"].split(os.pathsep)
+    assert not any(k.startswith("PX_JAX_") for k in env)
+
+
+def test_main_worker_without_rendezvous_runs_one_process(capsys):
+    """`main --worker` with no rendezvous runs one process over its local
+    shards and prints its report, bit-equal to the single-device step."""
+    import json
+
+    assert sb.main(["--worker", "--rows", "4096", "--repeats", "1", "--device", "cpu"]) == 0
+    doc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert doc["bit_equal"] is True and doc["n_devices"] == N_DEV and doc["processes"] == 1
+
+
+def test_multihost_chain_kernel_matches_reference():
+    """The multihost fragment kernel is the reference's: the same chain,
+    keys, aggregates and state layout."""
+    import torch
+
+    kern, udas, specs, groups = sb._chain_kernel(torch.device("cpu"))
+    rk, rudas, rspecs, rgroups = ref_sb._chain_kernel()
+    assert groups == rgroups == N_SERVICES_X4
+    assert [n for n, _u, _v in udas] == [n for n, _u, _v in rudas]
+    assert [(n, dt) for n, _u, dt in specs] == [(n, dt) for n, _u, dt in rspecs]
+    assert len(kern.limit_ns) == len(rk.limit_ns) == 0
