@@ -4,6 +4,8 @@
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --only-cpu-route   (the kernel build and the
                                               cpu_route phase alone)
+    python3 chip_smoke.py --only-host-layers (the kernel build and the
+                                              host_layers phase alone)
 
 Phases, each of which fails the run if it fails:
 
@@ -282,6 +284,30 @@ config #1's state equals M1 and its plain version bit for bit (and a
 one-rank gloo group beside it says whether gloo takes CUDA tensors).  Backend,
 processes, shards, rows, rows/s, p50, launches, the world merge's gathered
 bytes and wall and the exchange's bytes and wall are printed.
+
+Slice 21, the host_layers phase (last, after cpu_route, pinned; alone:
+--only-host-layers): (a) config #1 over build_http_table's 64M rows declared
+with semantic types, through execute_plan and through a one-agent
+LocalCluster, each with tracing (PL_TRACING_ENABLED) on and off in turns
+(warm medians of 5, twice each way), the answers equal (counts and p50
+exactly, means to rtol 1e-12: K1's float64 atomics add in another order
+each run), the heat model's rows equal to the rows scanned, the profile and
+op_stats rows the traced cluster wrote, and 0 H2D copies in a warm traced
+query's CUDA-only profile; (b) the result's semantic types against the
+port's CPU run of the plan; (f) 4M rows of config #1 as 16 tablets by
+service (cut from 64M: the routing's host np.unique), the whole group and
+one tablet against a plain table, cold and warm; (c) config #4 over
+LocalCluster (8 x 2M rows) with explain=True: per-op ns with the device
+synchronized, one plan verification cold and none over 5 warm queries, and
+a split with a dtype flipped across a shuffle refused before any launch;
+(d) the same stores written with the journal on (PL_JOURNAL_FSYNC always)
+under a temporary PL_DATA_DIR, ingest rows/s with and without it, replayed
+into fresh stores that answer as the live ones; (e) the stores written with
+the cold tier on and PL_COLD_MAX_HOT_MB 29 (half the 256 batches demote),
+three queries equal to the live answer, the cold tier in the heat model, no
+cold batch resident or cached, every cold batch promoted at the third read;
+(g) a view's snapshot restored into a new manager, serving the live hit's
+state byte for byte.  Every line carries the card's name and power limit.
 
 It prints one JSON line per kernel, a {"kernels": [...]} line, the card's
 name and power limit, and last {"ok": true, "device": {...}}.  It exits
@@ -1457,14 +1483,22 @@ class HttpRows:
             self.written += n
 
 
-def build_http_table(ts, rows: int, batch_rows: int = 1 << 16, max_bytes: int = 1 << 36):
+def build_http_table(ts, rows: int, batch_rows: int = 1 << 16, max_bytes: int = 1 << 36,
+                     semantic: bool = False, tablet_col: str | None = None):
     """bench.build_http_table's table, written into the port's store; →
-    (table, its generator, for appends)."""
-    from pixie_tpu_torch.types import DataType as DT, Relation
+    (table, its generator, for appends).  `semantic` declares the columns'
+    semantic types (time_ ST_TIME_NS, service ST_SERVICE_NAME, latency
+    ST_DURATION_NS); `tablet_col` makes it a tabletized table."""
+    from pixie_tpu_torch.types import DataType as DT, Relation, SemanticType as ST
 
-    rel = Relation.of(("time_", DT.TIME64NS), ("service", DT.STRING),
-                      ("latency", DT.FLOAT64), ("status", DT.INT64))
-    t = ts.create("http_events", rel, batch_rows=batch_rows, max_bytes=max_bytes)
+    rel = (Relation.of(("time_", DT.TIME64NS, ST.ST_TIME_NS),
+                       ("service", DT.STRING, ST.ST_SERVICE_NAME),
+                       ("latency", DT.FLOAT64, ST.ST_DURATION_NS), ("status", DT.INT64))
+           if semantic else
+           Relation.of(("time_", DT.TIME64NS), ("service", DT.STRING),
+                       ("latency", DT.FLOAT64), ("status", DT.INT64)))
+    t = ts.create("http_events", rel, batch_rows=batch_rows, max_bytes=max_bytes,
+                  tablet_col=tablet_col)
     gen = HttpRows(t, rows)
     gen.write(rows)
     return t, gen
@@ -5668,6 +5702,393 @@ NATIVE_JOIN_ROWS = 1 << 16
 #: the flags that pin every phase before cpu_route to the card route: no
 #: size routes to the CPU and no autotune gate (the CPU route's, the join
 #: gate's, mq fusion's) probes another arm
+# ------------------------------------------------------------ the host layers
+
+#: the host-layer phase's config #1 runs: C1, K1, K2, F2 (and R1 admitting)
+HOST_LAYERS_KERNELS = CONFIG1_KERNELS
+#: rows of the tablets check (cut from config #1's 64M: TabletsGroup.write
+#: routes each 2^21-row chunk by a host np.unique over its strings, 2.7 s a
+#: chunk on the card's host)
+TABLET_ROWS = 1 << 22
+#: the cold-tier run's sealed-RAM ceiling a store (MB): 2^21 rows in 32
+#: batches of 65,536 x 28 B (1.84 MB each) hold ~59 MB, so about half demote
+COLD_CEILING_MB = 29
+
+
+def _held(label: str, got, want, keys) -> dict:
+    """same_frame (counts and p50 exactly, means to rtol 1e-12: K1's float64
+    sums add in a different order each run), and how many mean cells are
+    bit-identical."""
+    same_frame(label, got, want, keys, exact=("p50",))
+    g = got.to_pandas().sort_values(keys).reset_index(drop=True)
+    w = want.to_pandas().sort_values(keys).reset_index(drop=True)
+    bits = int((g["avg_lat"].to_numpy().view(np.int64)
+                == w["avg_lat"].to_numpy().view(np.int64)).sum())
+    return {"groups": len(g), "avg_lat_bit_identical": bits}
+
+
+def _relation(res) -> list:
+    return [[c.name, c.data_type.name, c.semantic_type.name] for c in res.relation]
+
+
+def host_layers_config1(dev, smi: str) -> dict:
+    """(a) config #1 over build_http_table's 64M rows with tracing on and
+    off; (b) its semantic types against the port's CPU run; (f) tablets."""
+    import torch
+
+    from pixie_tpu_torch import flags
+    from pixie_tpu_torch import observe
+    from pixie_tpu_torch.engine import execute_plan
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.parallel import LocalCluster
+    from pixie_tpu_torch.plan import MemorySourceOp
+    from pixie_tpu_torch.table import TableStore
+    from pixie_tpu_torch.table import heat
+
+    t0 = time.perf_counter()
+    ts = TableStore()
+    table, _gen = build_http_table(ts, ROWS, semantic=True)
+    log(json.dumps({"phase": "host_layers.data", "rows": ROWS, "card": smi,
+                    "seconds": time.perf_counter() - t0}))
+    plan = http_plan()
+
+    def query():
+        r = execute_plan(plan, ts, device=dev)["output"]
+        torch.cuda.synchronize(dev)
+        return r
+
+    # (a) the first query with tracing on: the path's launches and heat
+    flags.set_for_testing("PL_TRACING_ENABLED", True)
+    heat.reset_for_testing()
+    _build.reset_launches()
+    first = query()
+    launches = read_launches("host_layers config #1", HOST_LAYERS_KERNELS)
+    cells = heat.snapshot_rows()
+    heat_rows = sum(r["rows_scanned"] for r in cells)
+    if heat_rows != first.exec_stats["rows_scanned"] or heat_rows != ROWS:
+        raise AssertionError(f"host_layers: heat counts {heat_rows} rows, the query "
+                             f"scanned {first.exec_stats['rows_scanned']}")
+    oracle_check(table, first)
+    medians, results = {}, {}
+    for on in (True, False, True, False):  # alternating, each arm twice
+        flags.set_for_testing("PL_TRACING_ENABLED", on)
+        times = warm_times(query, warmup=2, reps=5)
+        medians.setdefault(on, []).append(times[len(times) // 2])
+        results[on] = query()
+    flags.set_for_testing("PL_TRACING_ENABLED", True)
+    held = _held("host_layers tracing on/off", results[True], results[False],
+                 ["service", "status"])
+    warm_copies = h2d_copies(query)
+    if warm_copies["h2d_per_call"]:
+        raise AssertionError(f"host_layers: a warm traced query copied to the card: "
+                             f"{warm_copies}")
+    # the same through LocalCluster (profile, op_stats, verification,
+    # restamp), each arm's cluster made under its own setting, alternating
+    clusters = {}
+    for on in (True, False):
+        flags.set_for_testing("PL_TRACING_ENABLED", on)
+        clusters[on] = LocalCluster({"pem0": ts}, device=dev)
+
+    def cquery(cluster):
+        r = cluster.query(CONFIG4_SCRIPT)["output"]
+        torch.cuda.synchronize(dev)
+        return r
+
+    cl_medians = {}
+    for on in (True, False, True, False):
+        flags.set_for_testing("PL_TRACING_ENABLED", on)
+        times = warm_times(lambda: cquery(clusters[on]), warmup=2, reps=5)
+        cl_medians.setdefault(on, []).append(times[len(times) // 2])
+    flags.set_for_testing("PL_TRACING_ENABLED", True)
+    clusters[True].flush_telemetry()
+    written = {t: ts.table(t).stats()["rows_written"]
+               for t in (observe.PROFILES_TABLE, observe.OP_STATS_TABLE)}
+    profile = cquery(clusters[True]).exec_stats["profile"]
+    if written[observe.PROFILES_TABLE] != 14:
+        raise AssertionError(f"host_layers: profile rows written {written}")
+    a = {"rows": ROWS, "card": smi,
+         "warm_median_s_tracing_on": min(medians[True]),
+         "warm_median_s_tracing_off": min(medians[False]),
+         "warm_medians_s": {"on": medians[True], "off": medians[False]},
+         "cluster_warm_median_s_tracing_on": min(cl_medians[True]),
+         "cluster_warm_median_s_tracing_off": min(cl_medians[False]),
+         "cluster_warm_medians_s": {"on": cl_medians[True], "off": cl_medians[False]},
+         "profile_rows_written": written[observe.PROFILES_TABLE],
+         "op_stats_rows_written": written[observe.OP_STATS_TABLE],
+         "heat_rows_scanned": heat_rows, "heat_cells": len(cells),
+         "heat_tiers": sorted({r["tier"] for r in cells}),
+         "warm_h2d_copies": warm_copies["h2d_per_call"], **held,
+         "profile_warm": {k: profile[k] for k in ("wall_ns", "exec_ns", "merge_ns",
+                                                   "rows_scanned", "h2d_bytes",
+                                                   "plan_cache_hit", "split_cache_hit",
+                                                   "resident_feeds")}}
+    log(json.dumps({"phase": "host_layers.tracing", "ok": True, **a}))
+
+    # (b) semantic types: the card's relation against the CPU run's
+    small = TableStore()
+    build_http_table(small, 1 << 20, semantic=True)
+    cpu = execute_plan(plan, small, device="cpu")["output"]
+    got, want = _relation(first), _relation(cpu)
+    if got != want or dict((n, st) for n, _d, st in got) != {
+            "service": "ST_SERVICE_NAME", "status": "ST_NONE", "cnt": "ST_NONE",
+            "avg_lat": "ST_DURATION_NS", "p50": "ST_DURATION_NS"}:
+        raise AssertionError(f"host_layers: semantic types {got} against the CPU's {want}")
+    log(json.dumps({"phase": "host_layers.semantic_types", "ok": True, "card": smi,
+                    "relation": got}))
+
+    # (f) tablets: config #1's rows (cut to TABLET_ROWS) as 16 tablets
+    t0 = time.perf_counter()
+    tts, plain = TableStore(), TableStore()
+    group, _g = build_http_table(tts, TABLET_ROWS, semantic=True, tablet_col="service")
+    build_http_table(plain, TABLET_ROWS, semantic=True)
+    write_s = time.perf_counter() - t0
+    if group.tablet_ids() != sorted(f"svc-{i}" for i in range(N_SERVICES)):
+        raise AssertionError(f"host_layers: tablets {group.tablet_ids()}")
+    whole = execute_plan(plan, tts, device=dev)["output"]
+    want_all = execute_plan(plan, plain, device=dev)["output"]
+    held_all = _held("host_layers tablets whole group", whole, want_all, ["service", "status"])
+    tplan = http_plan()
+    src = next(op for op in tplan.ops() if isinstance(op, MemorySourceOp))
+    src.tablet = "svc-3"
+    one = execute_plan(tplan, tts, device=dev)["output"]
+    df_all = want_all.to_pandas()
+    df_one = one.to_pandas().sort_values("status").reset_index(drop=True)
+    sub = df_all[df_all["service"] == "svc-3"].sort_values("status").reset_index(drop=True)
+    if (df_one["cnt"].tolist() != sub["cnt"].tolist()
+            or df_one["p50"].tolist() != sub["p50"].tolist()
+            or not np.allclose(df_one["avg_lat"], sub["avg_lat"], rtol=1e-12, atol=0)):
+        raise AssertionError("host_layers: the one-tablet query differs from the plain "
+                             "answer restricted to its service")
+    for _ in range(2):  # warm: the tablets' feeds must not alias in the caches
+        again = execute_plan(tplan, tts, device=dev)["output"]
+        same_frame("host_layers tablet warm", again, one, ["status"], exact=("p50",))
+    f = {"rows": TABLET_ROWS, "tablets": len(group.tablet_ids()), "write_s": write_s,
+         "card": smi, "whole_group": held_all, "one_tablet_groups": len(df_one)}
+    log(json.dumps({"phase": "host_layers.tablets", "ok": True, **f}))
+    return {"launches": launches, "tracing": a, "tablets": f}
+
+
+def host_layers_cluster(dev, smi: str) -> dict:
+    """(c) config #4 over LocalCluster with EXPLAIN and plan verification;
+    (d) the journal; (e) the cold tier; (g) a view snapshot."""
+    import copy
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pixie_tpu_torch import flags, metrics
+    from pixie_tpu_torch.check import planverify
+    from pixie_tpu_torch.compiler import compile_pxl
+    from pixie_tpu_torch.engine import resident
+    from pixie_tpu_torch.engine import executor as _executor
+    from pixie_tpu_torch.matview import MatViewManager
+    from pixie_tpu_torch.parallel import LocalCluster
+    from pixie_tpu_torch.plan import Column, MapOp, Plan
+    from pixie_tpu_torch.table import TableStore, heat, journal, lifecycle
+
+    rows_each = CONFIG4_ROWS // CONFIG4_AGENTS
+    out: dict = {"card": smi}
+    # (c) config #4: EXPLAIN, one verification cold and none warm
+    t0 = time.perf_counter()
+    stores, tables = _agent_stores(rows_each)
+    plain_s = time.perf_counter() - t0
+    cluster = LocalCluster(stores, device=dev)
+    v0 = metrics.counter_value("px_plan_verify_total")
+    live = cluster.query(CONFIG4_SCRIPT, explain=True)["output"]
+    torch.cuda.synchronize(dev)
+    v1 = metrics.counter_value("px_plan_verify_total")
+    cluster_oracle(tables, live)
+    text = live.exec_stats["explain"]
+    op_lines = [ln.split() for ln in text.splitlines()
+                if ln.startswith("  pem") and "partial_agg" in ln]
+    if ("torch.cuda.synchronize" not in text or len(op_lines) != CONFIG4_AGENTS
+            or not all(float(p[2].rstrip("ms")) > 0 for p in op_lines)):
+        raise AssertionError(f"host_layers: EXPLAIN ANALYZE lacks synchronized op times:\n{text}")
+    for _ in range(5):
+        cluster.query(CONFIG4_SCRIPT)
+    v2 = metrics.counter_value("px_plan_verify_total")
+    if (v1 - v0, v2 - v1) != (1, 0):
+        raise AssertionError(f"host_layers: verified {v1 - v0} times cold, {v2 - v1} warm")
+    # a dtype flipped across a shuffle: refused before any launch
+    limit_src = "df = px.DataFrame(table='http_events')\ndf = df.head(20)\npx.display(df, 'o')\n"
+    q = compile_pxl(limit_src, cluster.schemas())
+    real = cluster.planner
+
+    class Flip:
+        """The planner, with one agent's LIMIT fragment re-typing latency
+        (FLOAT64) as status (INT64) before it ships."""
+
+        def plan(self, logical):
+            dp = real.plan(logical)
+            victim = sorted(dp.agent_plans)[1]
+            ops = [copy.copy(o) for o in dp.agent_plans[victim].topo_sorted()]
+            *chain, sink = ops
+            cast = MapOp(exprs=[("time_", Column("time_")), ("service", Column("service")),
+                                ("latency", Column("status")), ("status", Column("status"))])
+            new, node = Plan(), None
+            for op in chain + [cast, sink]:
+                op.id = -1
+                node = new.add(op, parents=[] if node is None else [node])
+            dp.agent_plans[victim] = new
+            return dp
+
+    cluster.planner = Flip()
+    before = _launch_total()
+    try:
+        cluster.execute(q.plan)
+    except planverify.PlanVerifyError as e:
+        if e.invariant != "shuffle-schema-mismatch":
+            raise
+        refused = e.invariant
+    else:
+        raise AssertionError("host_layers: a dtype flipped across a shuffle was not refused")
+    finally:
+        cluster.planner = real
+    if _launch_total() != before:
+        raise AssertionError("host_layers: a refused split launched a kernel")
+    out["explain"] = {"verify_cold": int(v1 - v0), "verify_warm_5": int(v2 - v1),
+                      "refused": refused, "op_ns_synchronized": True,
+                      "agent_op_ms": [float(p[2].rstrip("ms")) for p in op_lines]}
+    log(json.dumps({"phase": "host_layers.explain", "ok": True, "card": smi,
+                    **out["explain"]}))
+    log(text)
+
+    base = tempfile.mkdtemp(prefix="px_host_layers_")
+    saved = {k: flags.get(k) for k in ("PL_DATA_DIR", "PL_COLD_TIER", "PL_COLD_MAX_HOT_MB",
+                                       "PL_COLD_AFTER_S", "PL_MATVIEW_ENABLED")}
+    try:
+        # (d) the journal: ingest with it on, replay, answer as live
+        flags.set_for_testing("PL_DATA_DIR", base)
+        jstores = {}
+        t0 = time.perf_counter()
+        for a in range(CONFIG4_AGENTS):
+            st = TableStore()
+            t, _g = build_http_table(st, 0)
+            journal.attach_store(st, journal.node_dir(f"pem{a}"))
+            HttpRows(t, rows_each).write(rows_each)
+            jstores[f"pem{a}"] = st
+        journal_s = time.perf_counter() - t0
+        jbytes = sum(s.table("http_events").journal.disk_usage()[0] for s in jstores.values())
+        for st in jstores.values():
+            journal.detach_store(st)
+        t0 = time.perf_counter()
+        replayed = {}
+        for a in range(CONFIG4_AGENTS):
+            st = TableStore()
+            stats = journal.attach_store(st, journal.node_dir(f"pem{a}"))
+            journal.detach_store(st)
+            if stats["rows"] != rows_each:
+                raise AssertionError(f"host_layers: replay restored {stats}")
+            replayed[f"pem{a}"] = st
+        replay_s = time.perf_counter() - t0
+        got = LocalCluster(replayed, device=dev).query(CONFIG4_SCRIPT)["output"]
+        torch.cuda.synchronize(dev)
+        held = _held("host_layers journal replay", got, live, ["service", "status"])
+        out["journal"] = {"rows": CONFIG4_ROWS, "fsync": flags.get("PL_JOURNAL_FSYNC"),
+                          "ingest_rows_per_s_without": CONFIG4_ROWS / plain_s,
+                          "ingest_rows_per_s_with": CONFIG4_ROWS / journal_s,
+                          "ingest_s_without": plain_s, "ingest_s_with": journal_s,
+                          "journal_bytes": jbytes, "replay_s": replay_s,
+                          "replay_rows_per_s": CONFIG4_ROWS / replay_s, **held}
+        log(json.dumps({"phase": "host_layers.journal", "ok": True, "card": smi,
+                        **out["journal"]}))
+        del jstores, replayed
+
+        # (e) the cold tier: about half the sealed batches demote on write
+        flags.set_for_testing("PL_COLD_TIER", 1)
+        flags.set_for_testing("PL_COLD_AFTER_S", 0.0)
+        flags.set_for_testing("PL_COLD_MAX_HOT_MB", COLD_CEILING_MB)
+        cstores, ctables = {}, []
+        t0 = time.perf_counter()
+        for a in range(CONFIG4_AGENTS):
+            st = TableStore()
+            t, _g = build_http_table(st, 0)
+            lifecycle.attach_table(t, os.path.join(base, f"cold{a}"))
+            HttpRows(t, rows_each).write(rows_each)
+            cstores[f"pem{a}"] = st
+            ctables.append(t)
+        demote_s = time.perf_counter() - t0
+        flags.set_for_testing("PL_COLD_MAX_HOT_MB", 0)  # no headroom gate for promotion
+        n_sealed = sum(len(t._sealed) for t in ctables)
+        cold_gens = [{sb.gen for sb in t._sealed if getattr(sb, "is_cold", False)}
+                     for t in ctables]
+        n_cold = sum(len(g) for g in cold_gens)
+        if not 0.3 * n_sealed <= n_cold <= 0.7 * n_sealed:
+            raise AssertionError(f"host_layers: {n_cold} of {n_sealed} batches demoted")
+        ccluster = LocalCluster(cstores, device=dev)
+        heat.reset_for_testing()
+        reads = []
+        for i in range(int(flags.get("PL_COLD_PROMOTE_READS"))):
+            t0 = time.perf_counter()
+            res = ccluster.query(CONFIG4_SCRIPT)["output"]
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            promoted = sum(t.cold.promotions for t in ctables)
+            h2d = sum(s.get("h2d_bytes", 0) for s in res.exec_stats["agents"].values())
+            reads.append({"query_s": wall, "promoted": promoted, "h2d_bytes": h2d})
+            _held(f"host_layers cold query {i}", res, live, ["service", "status"])
+            for t, gens in zip(ctables, cold_gens):
+                for key, entry in list(resident._TIER.items()):
+                    if key[0] == t.uid and entry.gen_lo <= max(gens):
+                        raise AssertionError("host_layers: a cold batch is resident")
+                for key in list(_executor._DEVICE_CACHE):
+                    if key[0] == t.uid and set(key[1]) & gens:
+                        raise AssertionError("host_layers: a cold batch is in the feed cache")
+        tiers = {}
+        for r in heat.snapshot_rows():
+            tiers[r["tier"]] = tiers.get(r["tier"], 0) + r["rows_scanned"]
+        if ([r["promoted"] for r in reads[:-1]] != [0] * (len(reads) - 1)
+                or reads[-1]["promoted"] != n_cold or "cold" not in tiers):
+            raise AssertionError(f"host_layers: promotion {reads}, heat tiers {tiers}")
+        after = ccluster.query(CONFIG4_SCRIPT)["output"]
+        _held("host_layers promoted", after, live, ["service", "status"])
+        demotions = sum(t.cold.stats()["demotions"] for t in ctables)
+        cold_disk = sum(t.cold.stats()["cold_bytes"] for t in ctables)
+        out["cold"] = {"sealed_batches": n_sealed, "demoted": n_cold,
+                       "demote_write_s": demote_s, "queries": reads, "heat_tiers": tiers,
+                       "promoted": reads[-1]["promoted"], "demotions": demotions,
+                       "cold_disk_bytes_after": cold_disk,
+                       "promote_reads": int(flags.get("PL_COLD_PROMOTE_READS"))}
+        log(json.dumps({"phase": "host_layers.cold", "ok": True, "card": smi, **out["cold"]}))
+        del ccluster, cstores, ctables
+
+        # (g) a view snapshot: restored, it serves the live hit's state
+        flags.set_for_testing("PL_MATVIEW_ENABLED", True)
+        agent_plan = cluster.planner.plan(
+            compile_pxl(CONFIG4_SCRIPT, cluster.schemas()).plan).agent_plans["pem0"]
+        snap_dir = os.path.join(base, "snapshots")
+        mgr = MatViewManager(stores["pem0"], device=dev)
+        mgr.set_snapshot_dir(snap_dir)
+        mgr.serve(agent_plan)  # first sight registers
+        _cid, live_pb, info = mgr.serve(agent_plan)
+        restored = MatViewManager(stores["pem0"], device=dev)
+        restored.set_snapshot_dir(snap_dir)
+        t0 = time.perf_counter()
+        _cid, snap_pb, sinfo = restored.serve(agent_plan)
+        restore_s = time.perf_counter() - t0
+        if sinfo["rows_folded"] or live_pb.to_bytes() != snap_pb.to_bytes():
+            raise AssertionError("host_layers: the restored view differs from the live hit")
+        out["snapshot"] = {"rows_folded_live": info["rows_folded"], "restore_s": restore_s,
+                           "state_bytes": len(live_pb.to_bytes()),
+                           "files": len(os.listdir(snap_dir))}
+        log(json.dumps({"phase": "host_layers.snapshot", "ok": True, "card": smi,
+                        **out["snapshot"]}))
+    finally:
+        for k, v in saved.items():
+            flags.set_for_testing(k, v)
+        shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def run_host_layers(dev, smi: str) -> dict:
+    """The host layers on the card: (a)-(b), (f) over config #1's table,
+    then (c)-(e), (g) over config #4's stores."""
+    first = host_layers_config1(dev, smi)
+    rest = host_layers_cluster(dev, smi)
+    return {**first, **rest}
+
+
 PIN_FLAGS = {"PX_AUTOTUNE": "0", "PX_CPU_CROSSOVER_ROWS": "0"}
 
 
@@ -6014,6 +6435,9 @@ def main() -> int:
     ap.add_argument("--only-cpu-route", action="store_true",
                     help="build the kernels and run the cpu_route phase alone "
                          "(no contract lines: not the smoke)")
+    ap.add_argument("--only-host-layers", action="store_true",
+                    help="build the kernels and run the host_layers phase alone "
+                         "(no contract lines: not the smoke)")
     args = ap.parse_args()
 
     t_start = time.perf_counter()
@@ -6049,6 +6473,11 @@ def main() -> int:
     if args.only_cpu_route:
         run_cpu_route(dev)
         log("only the cpu_route phase ran: this is not the smoke's result")
+        return 0
+    if args.only_host_layers:
+        pinned("host_layers")
+        run_host_layers(dev, smi)
+        log("only the host_layers phase ran: this is not the smoke's result")
         return 0
     pinned("kernels")
     rows = (check_kernels(dev) + check_new_kernels(dev) + check_resident_kernels(dev)
@@ -6130,6 +6559,12 @@ def main() -> int:
     pinned("ml")
     paths["ml"] = run_ml(dev)["launches"]
     run_cpu_route(dev)
+    t0 = time.perf_counter()
+    pinned("host_layers")
+    paths["host_layers"] = run_host_layers(dev, smi)["launches"]
+    log(json.dumps({"phase": "host_layers", "card": smi, "seconds": time.perf_counter() - t0,
+                    "launches": {lib: {e: n for e, n in by.items() if n}
+                                 for lib, by in paths["host_layers"].items() if any(by.values())}}))
     log(json.dumps({"phase": "launches", "per_path": paths}))
     idle = [lib for lib in _build.KERNELS if not any(p_[lib] for p_ in paths.values())]
     if idle:

@@ -77,6 +77,21 @@ tier's sharded entry (keyed by the mesh width).  A partition sink (the producer 
 join) exchanges its rows in the mesh (kernels X1, X2) when the mesh width is
 the partition count, else on the host (parallel/repartition.py).
 
+The host layers (pixie_tpu/engine/executor.py's own hooks): every sink's
+relation carries the semantic types the plan propagates from its sources
+(engine/semantics.py `sink_relation`).  With tracing on (PL_TRACING_ENABLED)
+every scan path bumps the shard-heat model (table/heat.py) with the tier that
+served each feed — resident, hbm_cache (the feed cache), stream or cold —
+from host metadata only, and the operator frames become trace spans;
+`sync_op_timing` (EXPLAIN ANALYZE) synchronizes a CUDA device at both ends
+of every frame.  A tabletized table (table/tablets.py) is read one tablet at
+a time (`MemorySourceOp.tablet`: the tablet's own Table) or chained, its
+gens (tablet, gen) pairs, so the feed cache never answers one tablet with
+another's feed and the resident tier declines the chain.  A cold-tier batch
+(table/lifecycle.py) is decoded when the scan reaches it, fed apart from the
+RAM batches, uploaded fresh every scan (never cached) and counted toward its
+promotion back to RAM.
+
 Routing (the reference's `_route_backend` / `_backend_for`): an aggregate
 whose input rows times `route_scale` (the agents running the fragment) are
 at most PX_CPU_CROSSOVER_ROWS takes the CPU arm, and under PX_AUTOTUNE the
@@ -102,7 +117,6 @@ import contextlib
 import dataclasses
 import functools
 import hashlib
-import itertools
 import json
 import threading
 import time as _time
@@ -116,6 +130,7 @@ from pixie_tpu_torch.engine import autotune as _autotune
 from pixie_tpu_torch.engine import np_partial, resident, transfer
 from pixie_tpu_torch.engine.eval import ExprCompiler, SVal, apply_lut_np
 from pixie_tpu_torch.engine.result import QueryResult
+from pixie_tpu_torch.engine.semantics import sink_relation
 from pixie_tpu_torch.native import build as _native_build
 from pixie_tpu_torch.native import codegen as _codegen
 from pixie_tpu_torch.ops import chain as _chain
@@ -142,10 +157,10 @@ from pixie_tpu_torch.plan.plan import (
     ResultSinkOp,
     UnionOp,
 )
-from pixie_tpu_torch.status import CompilerError, Internal, Unavailable, Unimplemented
+from pixie_tpu_torch.status import CompilerError, Internal, InvalidArgument, Unavailable, Unimplemented
 from pixie_tpu_torch.table.dictionary import Dictionary
 from pixie_tpu_torch.table.table import Table
-from pixie_tpu_torch.types import STORAGE_DTYPE, ColumnSchema, DataType as DT, Relation
+from pixie_tpu_torch.types import STORAGE_DTYPE, DataType as DT
 from pixie_tpu_torch.udf.udf import CountUDA, to_torch_dtype, tree_map
 
 INT64_MIN = int(np.iinfo(np.int64).min)
@@ -862,27 +877,70 @@ def _first_len(cols: dict) -> int:
 
 
 def _feed_batches(src, target: int):
-    """The feed policy: a cursor's batches → one list of (batch, gen) per
-    feed.  Empty batches are skipped; sealed batches coalesce until the
-    feed holds `target` rows; the hot remainder (gen None) never joins the
-    sealed rows before it — sealed feeds are immutable and cached, the hot
-    tail changes every write, so mixing them would re-upload the feed per
-    query."""
-    pend, nrows = [], 0
+    """The feed policy: a cursor's batches → (list of (batch, gen), cold) per
+    feed.  Empty batches are skipped; sealed batches coalesce until the feed
+    holds `target` rows; the hot remainder (gen None) never joins the sealed
+    rows before it — sealed feeds are immutable and cached, the hot tail
+    changes every write, so mixing them would re-upload the feed per query.
+    Cold-tier batches (the cursor's `cold_gens`, table/lifecycle.py) never
+    share a feed with RAM batches either: a cold feed is decoded on read and
+    never cached, so a cold batch in a RAM feed would keep the whole feed out
+    of the caches (and a RAM batch in a cold feed would stream every query).
+    A cold batch decodes from disk when the scan reaches it
+    (Cursor.__iter__), one at a time.  `_feed_count_at_most_one` applies the
+    same policy to the cursor's metadata."""
+    cold_gens = getattr(src, "cold_gens", None) or frozenset()
+    pend, nrows, pend_cold = [], 0, False
     for rb, _row_id, gen in src:
         n = rb.num_valid
         if n == 0:
             continue
-        if pend and gen is None:
-            yield pend
+        is_cold = gen in cold_gens
+        if pend and (gen is None or is_cold != pend_cold):
+            yield pend, pend_cold
             pend, nrows = [], 0
+        pend_cold = is_cold
         pend.append((rb, gen))
         nrows += n
         if nrows >= target:
-            yield pend
+            yield pend, pend_cold
             pend, nrows = [], 0
     if pend:
-        yield pend
+        yield pend, pend_cold
+
+
+def _feed_count_at_most_one(src, target: int) -> bool:
+    """Whether _feed_batches makes at most one feed of `src`, from its
+    batches' row counts alone: sizing feeds must never decode a cold batch,
+    so a cursor with `iter_meta` (table.Cursor) answers from metadata."""
+    if hasattr(src, "iter_meta"):
+        meta = src.iter_meta()
+    else:
+        meta = ((rb.num_valid, rid, gen) for rb, rid, gen in src)
+    cold_gens = getattr(src, "cold_gens", None) or frozenset()
+    feeds, nrows, pend_cold = 0, 0, False
+    for n, _rid, gen in meta:
+        if n == 0:
+            continue
+        is_cold = gen in cold_gens
+        if nrows and (gen is None or is_cold != pend_cold):
+            feeds, nrows = feeds + 1, 0
+        pend_cold = is_cold
+        nrows += n
+        if nrows >= target:
+            feeds, nrows = feeds + 1, 0
+        if feeds > 1:
+            return False
+    return feeds + (nrows > 0) <= 1
+
+
+def _note_cold_reads(src, gens) -> None:
+    """The cold tier's read-heat promotion hook, once per cold feed: enough
+    decodes of one cold batch move it back to RAM (PL_COLD_PROMOTE_READS).
+    Data plane, not gated on tracing."""
+    tier = getattr(src.table, "cold", None)
+    if tier is not None:
+        tier.note_reads(gens)
 
 
 def f1_key(num_groups: int, init_specs) -> tuple:
@@ -1103,6 +1161,10 @@ class PlanExecutor:
         self.analyze = analyze
         #: one wall-time frame per operator chain or blocking op (see _timed)
         self.op_stats: list[dict] = []
+        #: EXPLAIN ANALYZE timing: synchronize a CUDA device at every
+        #: frame's boundaries, so a frame's ns hold its device work and not
+        #: only its enqueue (set by LocalCluster.query(explain=True) only)
+        self.sync_op_timing = False
         self._stat_stack: list[dict] = []
         # Mesh of co-located shards for SPMD aggregation (parallel/spmd.py):
         # every unlimited agg shards its feeds over it.  "auto" = the default
@@ -1136,21 +1198,65 @@ class PlanExecutor:
         """Record a wall-time frame; nesting attributes child time so
         self_ns = wall_ns - nested frames.  The parent is captured at enter
         and the frame removed by identity: frames opened inside generators
-        close at exhaustion, not in LIFO order."""
+        close at exhaustion, not in LIFO order.
+
+        Kernel launches are asynchronous, so by default a frame times what
+        the host enqueued.  With `sync_op_timing` (EXPLAIN ANALYZE) a CUDA
+        executor synchronizes the device at both ends of every frame, so
+        the frame holds its device work too."""
         rec = {"ops": ops, "label": label, "wall_ns": 0, "rows_out": 0,
-               "bytes_out": 0, "_child_ns": 0}
+               "bytes_out": 0, "_child_ns": 0,
+               # wall-clock anchor so the frame adapts into a trace span
+               # and a flight-recorder op row without extra timing calls
+               "t0_unix_ns": _time.time_ns()}
         parent = self._stat_stack[-1] if self._stat_stack else None
         self._stat_stack.append(rec)
+        sync = self.sync_op_timing and self.device.type == "cuda"
+        if sync:
+            torch.cuda.synchronize(self.device)
         t0 = _time.perf_counter_ns()
         try:
             yield rec
         finally:
+            if sync:
+                torch.cuda.synchronize(self.device)
             rec["wall_ns"] = _time.perf_counter_ns() - t0
             self._stat_stack = [r for r in self._stat_stack if r is not rec]
             if parent is not None and "_child_ns" in parent:
                 parent["_child_ns"] += rec["wall_ns"]
             rec["self_ns"] = rec["wall_ns"] - rec.pop("_child_ns")
             self.op_stats.append(rec)
+
+    def _emit_op_spans(self) -> None:
+        """Adapt the per-op exec stats into trace spans (the frames already
+        carry wall-clock anchors; under no active trace this is one
+        ContextVar read)."""
+        from pixie_tpu_torch import trace
+
+        if not self.op_stats or trace.current() is None:
+            return
+        for rec in self.op_stats:
+            t0 = rec.get("t0_unix_ns")
+            if t0 is None:
+                continue
+            trace.event_span(rec["label"], t0, rec["wall_ns"],
+                             rows_out=rec.get("rows_out", 0))
+
+    def _heat_recorder(self, src):
+        """Shard-heat accounting hook shared by every scan path (the
+        coalescing `_feed`, the CPU route's `_host_feed`, np_partial's fused
+        window loop): a per-stream FeedRecorder (table/heat.py), or None
+        when tracing is off or `src` is not a storage cursor — flag-off
+        never touches the model.  It reads only host-side batch metadata."""
+        from pixie_tpu_torch import observe as _observe
+
+        table = getattr(src, "table", None)
+        if table is None or not _observe.enabled():
+            return None
+        from pixie_tpu_torch.table import heat as _heat
+
+        return _heat.FeedRecorder(
+            table, getattr(self.store, "node_name", "") or "local")
 
     @staticmethod
     def _chain_label(head, chain, terminal: str = "") -> str:
@@ -1181,9 +1287,16 @@ class PlanExecutor:
         time bounds can be applied; visible_names excludes it.
         """
         if isinstance(head, MemorySourceOp):
-            if head.tablet is not None:
-                raise Unimplemented("tablet sources are not ported yet (the host-layer slice)")
             table = self.store.table(head.table)
+            if head.tablet is not None:
+                from pixie_tpu_torch.table.tablets import TabletsGroup
+
+                if not isinstance(table, TabletsGroup):
+                    raise InvalidArgument(
+                        f"table {head.table!r} is not tabletized (tablet="
+                        f"{head.tablet!r} requested)"
+                    )
+                table = table.tablet(head.tablet)
             if head.since_row_id is not None or head.stop_row_id is not None:
                 cursor = table.cursor_since(
                     head.since_row_id or 0, head.stop_row_id,
@@ -1307,16 +1420,21 @@ class PlanExecutor:
             yield {k: np.asarray(src.cols[k]) for k in names}, src.num_rows
             return
         target = max(cap, int(_flags.get("PX_FEED_ROWS")))
-        for batches in _feed_batches(src, target):
+        heat_rec = self._heat_recorder(src)
+        for batches, cold in _feed_batches(src, target):
             nrows = sum(rb.num_valid for rb, _gen in batches)
             self.stats["rows_scanned"] += nrows
             self.stats["batches"] += len(batches)
-            if len(batches) == 1:
-                rb = batches[0][0]
-                yield {k: rb.columns[k][:rb.num_valid] for k in names}, nrows
+            parts = [{k: rb.columns[k][:rb.num_valid] for k in names} for rb, _g in batches]
+            gens = [gen for _rb, gen in batches]
+            if heat_rec is not None:
+                heat_rec.record(parts, gens, "cold" if cold else "stream", rows=nrows)
+            if cold:
+                _note_cold_reads(src, gens)
+            if len(parts) == 1:
+                yield parts[0], nrows
             else:
-                yield {k: np.concatenate([rb.columns[k][:rb.num_valid] for rb, _g in batches])
-                       for k in names}, nrows
+                yield {k: np.concatenate([p[k] for p in parts]) for k in names}, nrows
 
     def _feed(self, src, names, cap, spmd: bool = False):
         """Yield (cols dict of device tensors, n_valid) feeds.
@@ -1355,10 +1473,29 @@ class PlanExecutor:
         table_id = src.table.uid
         is_delta = getattr(src, "is_delta", False)
         dev = str(self.device)
+        # Shard-heat accounting (table/heat.py): one recorder per feed
+        # stream, bumped per coalesced feed with the tier that served it.
+        # Gated on the tracing master switch, and host metadata only.
+        heat_rec = self._heat_recorder(src)
 
-        def emit(parts, gens, n):
+        def emit(parts, gens, n, cold):
             self.stats["feeds"] += 1
+            if cold:
+                # A cold-tier feed is decoded on read and uploaded fresh:
+                # caching it (resident or feed cache) would promote it
+                # through the back door and pin the demoted window on the
+                # device.  Promotion is the cold tier's own call, by read
+                # heat (PL_COLD_PROMOTE_READS).  fresh() copies the decoded
+                # arrays into a pinned buffer before its non-blocking copy,
+                # so they may be freed at once; its bytes count in h2d_bytes.
+                cols = fresh(parts, n)
+                if heat_rec is not None:
+                    heat_rec.record(parts, gens, "cold", rows=n)
+                _note_cold_reads(src, gens)
+                return cols, n
             if is_delta or any(g is None for g in gens):
+                if heat_rec is not None:
+                    heat_rec.record(parts, gens, "stream", rows=n)
                 return fresh(parts, n), n
             key = (table_id, tuple(gens), tuple(names), dev, n_dev)
             # Resident tier first: a new seal FOLDS into its buffers (only
@@ -1373,11 +1510,17 @@ class PlanExecutor:
                 rcols, h2d = got
                 self.stats["resident_feeds"] = self.stats.get("resident_feeds", 0) + 1
                 self.stats["h2d_bytes"] += h2d
+                if heat_rec is not None:
+                    heat_rec.record(parts, gens, "resident", rows=n)
                 return rows_of(rcols, n), n
             cached = _device_cache_get(key)
             if cached is not None:
                 self.stats["feed_cache_hits"] = self.stats.get("feed_cache_hits", 0) + 1
+                if heat_rec is not None:
+                    heat_rec.record(parts, gens, "hbm_cache", rows=n)
                 return rows_of(cached, n), n
+            if heat_rec is not None:
+                heat_rec.record(parts, gens, "stream", rows=n)
             bucket = resident.bucket_rows(n)
             if bucket * sum(parts[0][k].dtype.itemsize for k in names) > _device_cache_max():
                 return fresh(parts, n), n  # the cache cannot keep it
@@ -1386,12 +1529,12 @@ class PlanExecutor:
             _device_cache_put(key, cols)
             return rows_of(cols, n), n
 
-        for batches in _feed_batches(src, target):
+        for batches, cold in _feed_batches(src, target):
             nrows = sum(rb.num_valid for rb, _gen in batches)
             self.stats["rows_scanned"] += nrows
             self.stats["batches"] += len(batches)
             yield emit([{k: rb.columns[k][:rb.num_valid] for k in names} for rb, _gen in batches],
-                       [gen for _rb, gen in batches], nrows)
+                       [gen for _rb, gen in batches], nrows, cold)
 
     # ---------------------------------------------------------------- blocking
     def _eval_blocking(self, op) -> HostBatch:
@@ -1871,18 +2014,20 @@ class PlanExecutor:
         s = self._agg_setup(op)
         t_lo, t_hi = _time_bounds(s.head)
         t0 = _time.perf_counter_ns()
-        route, state = self._cpu_route_state(s, t_lo, t_hi)
+        with self._timed(self._chain_label(s.head, s.chain, "partial_agg"),
+                         ([s.head.id] if s.head.id >= 0 else []) + [o.id for o in s.chain]):
+            route, state = self._cpu_route_state(s, t_lo, t_hi)
+            if not route:
+                # LUTs come from the device LUT cache (device_luts)
+                luts = device_luts(s.kern.luts, self.device)
+                state = self._agg_feed_loop(s.kern, s.step, s.init_specs, s.num_groups,
+                                            s.src, s.names, s.cap, t_lo, t_hi, luts,
+                                            s.origins, s.udas, finalize=finalize,
+                                            fuse=not s.val_dicts)
+                if self._defer_active:
+                    state = _DeferredState(
+                        [state], {name: uda.reduce_ops() for name, uda, _vb in s.udas})
         arm = CPU if route else DEVICE
-        if not route:
-            # LUTs come from the device LUT cache (device_luts)
-            luts = device_luts(s.kern.luts, self.device)
-            state = self._agg_feed_loop(s.kern, s.step, s.init_specs, s.num_groups,
-                                        s.src, s.names, s.cap, t_lo, t_hi, luts,
-                                        s.origins, s.udas, finalize=finalize,
-                                        fuse=not s.val_dicts)
-            if self._defer_active:
-                state = _DeferredState(
-                    [state], {name: uda.reduce_ops() for name, uda, _vb in s.udas})
         self._route_of_last_agg = arm
         self.stats.setdefault("routes", []).append(
             {"chain": self._chain_label(s.head, s.chain, "agg"), "arm": arm,
@@ -2164,8 +2309,7 @@ class PlanExecutor:
         if isinstance(src, HostBatch):
             one = True
         else:
-            target = max(cap, int(_flags.get("PX_FEED_ROWS")))
-            one = sum(1 for _ in itertools.islice(_feed_batches(src, target), 2)) <= 1
+            one = _feed_count_at_most_one(src, max(cap, int(_flags.get("PX_FEED_ROWS"))))
         if one and f1_table is not None and f1_table[0] and \
                 not _fin.f1_fits(f1_table[1], f1_table[2]):
             self.stats["f1_declined"] = self.stats.get("f1_declined", 0) + 1
@@ -2550,6 +2694,7 @@ class PlanExecutor:
                 out[sink.channel] = self._materialize_parent(parent)
         self.stats["wall_ns"] = _time.perf_counter_ns() - t0
         self.stats["operators"] = self.op_stats
+        self._emit_op_spans()
         return out
 
     def run_agent_stream(self, agg_chunk_groups: int = 0):
@@ -2608,6 +2753,7 @@ class PlanExecutor:
                          for name in out_names})
         self.stats["wall_ns"] = _time.perf_counter_ns() - t0
         self.stats["operators"] = self.op_stats
+        self._emit_op_spans()
 
     # -------------------------------------------------------------------- join
     def _run_join(self, op: JoinOp) -> HostBatch:
@@ -2759,9 +2905,10 @@ class PlanExecutor:
             out_dtypes, out_dicts, out_names, gen = self._consume_chain(
                 parent, sink.columns)
             cols = _concat_parts(gen, out_names, out_dtypes)
-            # Semantic types (engine/semantics.py) come with the host-layer
-            # slice; the port's relation carries the physical types.
-            rel = Relation([ColumnSchema(n, out_dtypes[n]) for n in out_names])
+            # physical dtypes + the semantic types the plan propagates from
+            # the source schemas (engine/semantics.py)
+            rel = sink_relation(self.plan, sink, out_names, out_dtypes,
+                                self.store, self.registry)
             nrows = len(next(iter(cols.values()))) if cols else 0
             self.stats["rows_output"] += nrows
             results[sink.name] = QueryResult(
@@ -2773,6 +2920,7 @@ class PlanExecutor:
             )
         self.stats["wall_ns"] = _time.perf_counter_ns() - t0
         self.stats["operators"] = self.op_stats
+        self._emit_op_spans()
         for r in results.values():
             r.exec_stats["wall_ns"] = self.stats["wall_ns"]
             r.exec_stats["operators"] = self.op_stats

@@ -424,12 +424,15 @@ def run(executor, src, names, cap, kern, keys, init_specs, num_groups,
         acc = _FusedWindowAcc(lh, keys[0], t0, kern.time_col, init_specs,
                               value_args, num_groups)
         # straight off the STORAGE batches — no coalescing/padding copies
+        heat_rec = executor._heat_recorder(src)
         for rb, _row_id, _gen in src:
             n = rb.num_valid
             if n:
                 acc.add(rb.columns, n)
                 executor.stats["rows_scanned"] += n
                 executor.stats["batches"] += 1
+                if heat_rec is not None:
+                    heat_rec.record_batch(rb, n, _gen)
         return acc.merge_into(state)
     for cols, n_valid in executor._host_feed(src, names, cap):
         gid, mask, prefix = _gid_and_mask(

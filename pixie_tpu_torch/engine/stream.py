@@ -26,9 +26,9 @@ The host drives polls, the device does the math:
 
 Copied from the reference package (pixie_tpu/engine/stream.py).  Polls run
 on the StreamQuery's device (CUDA unless the caller asks for another; the
-reference pins them to its CPU backend).  Emissions carry physical types:
-the semantic-type restamp (engine/semantics.py) is not ported yet, so the
-port runs as the reference does without it.  This module is single-store
+reference pins them to its CPU backend).  Emissions carry the logical
+plan's semantic types (engine/semantics.py restamp_result, computed once a
+sink), as the reference's do.  This module is single-store
 (agent-local); parallel/streaming.py composes per-agent StreamQueries.
 """
 from __future__ import annotations
@@ -40,6 +40,7 @@ import numpy as np
 
 from pixie_tpu_torch.engine.executor import HostBatch, PlanExecutor, resolve_device
 from pixie_tpu_torch.engine.result import QueryResult
+from pixie_tpu_torch.engine.semantics import restamp_result
 from pixie_tpu_torch.plan.plan import (
     AggOp,
     Call,
@@ -125,7 +126,11 @@ class StreamQuery:
         #: per-sink end tokens snapshotted by freeze(); None = live (polls
         #: read to the table head).  Bounds close() under concurrent writers.
         self._ends: Optional[dict] = None
+        #: the logical plan — kept for semantic-type restamping of emissions
+        #: (post plans read a channel source with no ST knowledge)
         self.plan = plan
+        #: sink name → ST-stamped relation, computed once (constant per sink)
+        self._st_rel_cache: dict[str, object] = {}
         #: the executors' exec_stats summed over this stream's polls
         self.stats: dict = {}
         self.pipelines: list[_Pipeline] = []
@@ -399,7 +404,23 @@ class StreamQuery:
     def _run_post(self, pl: _Pipeline, hb: HostBatch) -> Optional[QueryResult]:
         ex = self._executor(pl.post, inputs={self.CHANNEL: hb})
         res = ex.run()[pl.sink_name]
-        return res if res.num_rows else None
+        if not res.num_rows:
+            return None
+        restamp_cached(res, self._st_rel_cache, pl.sink_name, self.plan, self.store,
+                       self.registry)
+        return res
+
+
+def restamp_cached(res: QueryResult, cache: dict, sink_name: str, plan, store,
+                   registry) -> None:
+    """Stamp an emission's relation with the logical plan's semantic types:
+    once a sink (the relation is constant per sink), then from `cache`."""
+    rel = cache.get(sink_name)
+    if rel is not None and rel.names() == res.relation.names():
+        res.relation = rel  # constant per sink; skip the plan walk
+    else:
+        restamp_result(res, plan, store, registry)
+        cache[sink_name] = res.relation
 
 
 def split_closing_windows(acc, window_key: str, close_below: int,

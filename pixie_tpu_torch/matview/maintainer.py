@@ -40,11 +40,15 @@ executor's CPU route computes it on the host; the fold is
 parallel/partial.combine_partials on the host.  A fold retries once, and
 falls back to a rescan, only where the table went away under it
 (NotFound, Unavailable); any other error of the fold (a kernel's, a torch
-error) propagates.  What the port leaves out: no tenant namespaces (every view is in the
-reference's no-tenant namespace, so one budget), no tablets (a tablet head
-never matches), and no durable snapshots: they need table/journal.py's
-record framing (ROADMAP Queue 1 item 6b), so `set_snapshot_dir` with a path
-raises Unimplemented.
+error) propagates.  A view over one tablet of a tabletized table
+(table/tablets.py) folds that tablet's own row-id space.  With a snapshot
+directory (`set_snapshot_dir`) every folding refresh persists the view's
+mergeable partial state and watermark as one CRC-framed wire partial_agg
+record in table/journal.py's framing, written atomically after the view's
+lock is released, and a manager rebuilt over the same rows ADOPTS the
+snapshot at first sight instead of rescanning.  What the port leaves out:
+no tenant namespaces (every view is in the reference's no-tenant
+namespace, so one budget).
 """
 from __future__ import annotations
 
@@ -59,9 +63,10 @@ import numpy as np
 from pixie_tpu_torch import flags, metrics, trace
 from pixie_tpu_torch.matview.registry import ViewPrefix, match_prefix, view_key
 from pixie_tpu_torch.plan.plan import Plan, ResultSinkOp
-from pixie_tpu_torch.status import NotFound, Unavailable, Unimplemented
+from pixie_tpu_torch.status import NotFound, Unavailable
 from pixie_tpu_torch.table.delta import OK as CURSOR_OK, DeltaCursor
 from pixie_tpu_torch.table.table import Table
+from pixie_tpu_torch.table.tablets import TabletsGroup
 
 flags.define_bool(
     "PL_MATVIEW_ENABLED", True,
@@ -189,15 +194,20 @@ class MatViewManager:
         self._views: dict[str, StandingView] = {}
         self._lock = threading.Lock()
         self._ticker = None
+        #: durable standing-state snapshots (PL_DATA_DIR): folding refreshes
+        #: persist the mergeable partial state + watermark, and a restarted
+        #: agent ADOPTS the snapshot at first sight instead of rescanning —
+        #: refresh resumes at O(delta) after a pod restart
+        self.snapshot_dir: Optional[str] = None
         _MANAGERS.add(self)
         _register_gauges()
 
     def set_snapshot_dir(self, path: Optional[str]) -> None:
-        """Durable standing-state snapshots: refused (None is a no-op)."""
         if path:
-            raise Unimplemented(
-                "standing-view snapshots need table/journal.py's record framing, which "
-                "is not ported yet (ROADMAP Queue 1 item 6b)")
+            import os
+
+            os.makedirs(path, exist_ok=True)
+        self.snapshot_dir = path or None
 
     # ---------------------------------------------------------------- lookup
     def _resolve_table(self, head) -> Optional[Table]:
@@ -206,8 +216,14 @@ class MatViewManager:
         except Exception:
             return None
         if head.tablet is not None:
-            return None  # tablets are not ported (a non-TabletsGroup table)
-        # Only plain Tables expose the row-id delta surface.
+            if not isinstance(t, TabletsGroup):
+                return None
+            try:
+                t = t.tablet(head.tablet)
+            except Exception:
+                return None
+        # Only plain Tables expose the row-id delta surface (a TabletsGroup
+        # without a tablet selector has no single row-id space).
         return t if isinstance(t, Table) else None
 
     # ----------------------------------------------------------------- serve
@@ -243,13 +259,23 @@ class MatViewManager:
         if table is None:
             return None
         key = view_key(pref)
+        fresh = False
         with self._lock:
             view = self._views.get(key)
             if view is None:
                 # first sight: register only.  Anchoring the cursor NOW means
                 # the second run folds [frontier-at-first-sight, head) — the
                 # same rows the first run scanned plus whatever arrived since.
-                self._views[key] = StandingView(key, pref, table)
+                # With a durable snapshot on disk the state ADOPTS instead
+                # (outside the manager lock — refresh_all's pop path orders
+                # view.lock before it): the first sight after a restart
+                # already serves, folding only the post-snapshot delta.
+                view = self._views[key] = StandingView(key, pref, table)
+                fresh = True
+        if fresh:
+            with view.lock:
+                adopted = self._try_adopt_snapshot(view, table)
+            if not adopted:
                 metrics.counter_inc(
                     "px_matview_misses_total",
                     labels={"reason": "register"},
@@ -272,6 +298,9 @@ class MatViewManager:
             view.hits += 1
             view.last_access = time.monotonic()
             state = view.state
+        snap = info.pop("_snap", None)
+        if snap is not None:
+            self._save_snapshot(key, view.prefix.head.table, *snap)
         self._evict_over_budget(keep=key)
         info["hit"] = True
         info["serve_ms"] = round((time.perf_counter() - t0) * 1000, 3)
@@ -374,9 +403,105 @@ class MatViewManager:
                     # too slow for the empty-delta poll hot path
                     view.state_bytes = _pb_nbytes(view.state)
                     out["state_bytes"] = view.state_bytes
+                    if self.snapshot_dir is not None:
+                        # capture under the lock, WRITE after release: the
+                        # snapshot fsync must not serialize concurrent
+                        # serves of this view (same rule as Table.write's
+                        # journal append).  state is replaced, never
+                        # mutated, so the captured reference is stable.
+                        out["_snap"] = (view.state, view.cursor.watermark,
+                                        view.cursor.base_row_id)
                 return out
             rebuilt = view.cursor.status(table)
         return None
+
+    # ------------------------------------------------------------- snapshots
+    def _snap_path(self, key: str) -> str:
+        import hashlib
+        import os
+
+        return os.path.join(self.snapshot_dir,
+                            hashlib.sha1(key.encode()).hexdigest() + ".snap")
+
+    def _save_snapshot(self, key: str, table_name: str, state, wm: int,
+                       base: int) -> None:
+        """Persist the mergeable partial state + watermark (runs OUTSIDE
+        the view lock — the fsync must not serialize serves; the state
+        reference is replace-on-refresh immutable).  One CRC-framed wire
+        partial_agg record, written atomically — a crash mid-write leaves
+        the previous snapshot intact, and a torn record is rejected at
+        adoption by its CRC."""
+        if self.snapshot_dir is None or state is None:
+            return
+        import os
+
+        from pixie_tpu_torch.services import wire
+        from pixie_tpu_torch.table import journal as _journal
+
+        try:
+            payload = wire.encode_partial_agg(state, {
+                "snap_key": key, "table": table_name,
+                "wm": int(wm), "base": int(base),
+            })
+            path = self._snap_path(key)
+            tmp = path + ".tmp"
+            with open(tmp, "wb") as f:
+                f.write(_journal.pack_record(payload))
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+            metrics.counter_inc(
+                "px_matview_snapshots_total",
+                help_="standing-view state snapshots persisted")
+        except Exception:
+            metrics.counter_inc(
+                "px_matview_snapshot_errors_total",
+                help_="failed standing-view snapshot writes (state stays "
+                      "memory-only; next refresh retries)")
+
+    def _try_adopt_snapshot(self, view: StandingView, table) -> bool:
+        """Restore a persisted snapshot into a freshly registered view
+        (view.lock held).  Adoption requires scan-equivalence: the snapshot
+        base must sit exactly at the table's live retention frontier (state
+        covering trimmed rows — or missing retained ones — would diverge
+        from a cold rescan) and the watermark must not run ahead of the
+        restored rows."""
+        if self.snapshot_dir is None:
+            return False
+        import os
+
+        from pixie_tpu_torch.services import wire
+        from pixie_tpu_torch.table import journal as _journal
+
+        path = self._snap_path(view.key)
+        if not os.path.exists(path):
+            return False
+        try:
+            payloads, _valid, _clean = _journal.scan_segment(path)
+            if not payloads:
+                return False
+            kind, pb = wire.decode_frame(payloads[0])
+            if kind != "partial_agg":
+                return False
+            meta = pb.wire_meta
+            if (meta.get("snap_key") != view.key
+                    or meta.get("table") != view.prefix.head.table):
+                return False
+            base, wm = int(meta["base"]), int(meta["wm"])
+            if base != table.first_row_id() or wm > table.last_row_id():
+                return False
+            view.state = pb
+            view.cursor.table_uid = table.uid
+            view.cursor.base_row_id = base
+            view.cursor.watermark = wm
+            view.state_bytes = _pb_nbytes(pb)
+            metrics.counter_inc(
+                "px_matview_snapshot_restores_total",
+                help_="standing views restored from durable snapshots "
+                      "(refresh resumed at O(delta) after restart)")
+            return True
+        except Exception:
+            return False
 
     def _compute_partial(self, pref: ViewPrefix, lo: int, hi: int, route_scale: int,
                          mesh) -> tuple:
@@ -423,6 +548,9 @@ class MatViewManager:
                     with self._lock:
                         self._views.pop(view.key, None)
                     continue
+            snap = info.pop("_snap", None)
+            if snap is not None:
+                self._save_snapshot(view.key, view.prefix.head.table, *snap)
             ok += 1
         self._evict_over_budget()
         return ok

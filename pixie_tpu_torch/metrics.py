@@ -7,10 +7,11 @@ transport ({"msg": "metrics"} on the broker) and anything in-process can
 scrape via the module API.
 
 Copied whole from the reference package (pixie_tpu/metrics.py).  In the port
-its readers so far are query batching's counters and histogram
-(serving/batching.py: px_batch_formed_total, px_batch_queries_total,
-px_batch_size, px_batch_fallback_total); the services that render it come
-with the host-layer slice.
+its writers include query batching (serving/batching.py), plan verification
+(px_plan_verify_total), the journal and the cold tier (px_journal_*,
+px_cold_*), the views and the SLO monitor; observe.sample_metrics_rows
+folds it into self_telemetry.metrics.  The services that render it come
+with the host-layer slice (services).
 """
 from __future__ import annotations
 

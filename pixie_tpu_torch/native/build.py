@@ -40,7 +40,24 @@ _flags.define_str(
     "ANY value except ''/0/false/no/off disables native.  Live: read at "
     "first load_native() use, not import", live=True)
 
+_flags.define_str(
+    "PX_NATIVE_SANITIZE", "",
+    "sanitizer build mode for the native STANDALONE test harnesses "
+    "(tests/test_torch_native_sanitize.py): 'address' = ASan+UBSan, "
+    "'thread' = TSan over the concurrent pthread driver (the slow lane).  "
+    "Sanitizers never apply to the ctypes .so — they need an instrumented "
+    "host binary", live=True)
+
+#: g++ flags per sanitizer mode (the harness tests compile with these)
+SANITIZER_ARGS = {
+    "address": ["-fsanitize=address,undefined", "-fno-omit-frame-pointer"],
+    "thread": ["-fsanitize=thread", "-fno-omit-frame-pointer"],
+}
+
 SRC_DIR = pathlib.Path(__file__).resolve().parent
+#: the standalone sanitizer harnesses (the port's copies of the reference's
+#: native/sanitize/*.cc), built and run by tests/test_torch_native_sanitize.py
+SANITIZE_DIR = SRC_DIR / "sanitize"
 BUILD_DIR = SRC_DIR.parent / "_build"
 SOURCES = ("dictionary.cc", "join.cc", "stream_agg.cc", "wholeplan.cc")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")

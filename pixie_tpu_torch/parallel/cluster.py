@@ -29,8 +29,22 @@ leader fuses the member plans, splits the fused plan once per batch
 signature and executes it once (its agents run the members' partial
 aggregates as one multi-query gang, kernel G1), and each member gets its
 demuxed results with exec_stats["batch"].  The batch window is the static
-flag (the reference's autotuned window is host-layer work), a fused batch is
-not verified (no plan verification yet), and there are no tenant namespaces.
+flag (the reference's autotuned window is host-layer work), and there are no
+tenant namespaces.
+
+Plan verification (PX_PLAN_VERIFY, check/planverify.py) runs on every
+freshly computed split, the fused split of a batch included; a split-cache
+hit is a verified split, so a warm query verifies nothing.  Results carry
+the logical plan's semantic types (engine/semantics.py restamp_result).
+With tracing on (PL_TRACING_ENABLED) every query leaves a flight-recorder
+profile (observe.py) in `self_telemetry.query_profiles` and its operators in
+`self_telemetry.op_stats` on the first agent store, and SLO alerts
+(serving/slo.py) and autotune decisions there too; each agent's feeds bump
+the shard-heat model (table/heat.py), which `fold_storage_observatory`
+writes with every store's storage state.  All of it reads host-side
+counters only.  `query(explain=True)` adds the EXPLAIN ANALYZE text, whose
+per-operator ns come from executors that synchronize a CUDA device at every
+operator boundary (the default path never synchronizes for them).
 
 Standing views (PL_MATVIEW_ENABLED, on by default, matview/) run as in the
 reference: each agent has a MatViewManager on the cluster's device; the
@@ -41,10 +55,8 @@ PartialAggBatch; the other agents' device states gang-merge among
 themselves and then merge by key values with it.
 
 Not ported yet: one process over several distinct cards (the multi-card
-slice; parallel/multihost.py spans cards with one process a card),
-plan verification (PX_PLAN_VERIFY), the flight recorder
-and tracepoint mutations (the host-layer slice), and the semantic-type
-restamp of results (the host-layer slice: results carry physical types).
+slice; parallel/multihost.py spans cards with one process a card) and
+tracepoint mutations (the host-layer slice).
 Streaming queries over a cluster run through parallel/streaming.py.
 """
 from __future__ import annotations
@@ -57,6 +69,9 @@ from typing import Optional
 
 import numpy as np
 
+from pixie_tpu_torch import observe as _observe
+from pixie_tpu_torch import trace as _trace
+from pixie_tpu_torch.check import planverify
 from pixie_tpu_torch.engine import transfer
 from pixie_tpu_torch.engine.eval import apply_lut_np
 from pixie_tpu_torch.engine.executor import (
@@ -68,6 +83,7 @@ from pixie_tpu_torch.engine.executor import (
 )
 from pixie_tpu_torch.engine.plancache import QueryPlanCache
 from pixie_tpu_torch.engine.result import QueryResult
+from pixie_tpu_torch.engine.semantics import SchemaStore, restamp_result
 from pixie_tpu_torch.matview import MatViewManager
 from pixie_tpu_torch.parallel.distributed import DistributedPlanner
 from pixie_tpu_torch.parallel.partial import PartialAggBatch, merge_partials
@@ -151,6 +167,16 @@ class LocalCluster:
     def __init__(self, stores: dict, merger_store: Optional[TableStore] = None,
                  registry=None, device=None, n_devices_per_agent: Optional[int] = None):
         self.stores = dict(stores)
+        for name, store in self.stores.items():
+            # shard identity for the heat model (table/heat.py): feeds over
+            # each agent store account as that agent's shard
+            store.node_name = name
+        if self.stores and _trace.enabled():
+            # flight-recorder tables live in the FIRST agent store, created
+            # UP FRONT: a lazy creation mid-run would bump the store's schema
+            # epoch and invalidate warm plan-cache entries between otherwise
+            # identical queries
+            _observe.ensure_self_tables(self.stores[sorted(self.stores)[0]])
         self.merger_store = merger_store or TableStore()
         self.registry = registry
         #: the device every agent's and the merger's PlanExecutor runs on
@@ -195,6 +221,10 @@ class LocalCluster:
         #: concurrent query() calls in flight: the batching gate's
         #: concurrent-traffic signal
         self._query_inflight = 0
+        #: query flight recorder (observe.py): per-query profile and op-stat
+        #: rows buffered here and flushed into the first agent store in
+        #: batches (a table write a query would be the instrumentation tax)
+        self._telemetry = _observe.RowBuffer()
 
     def matviews(self, agent_name: str):
         # under _mesh_lock: concurrent execute() calls must not each
@@ -234,41 +264,156 @@ class LocalCluster:
     def query(self, pxl_source: str, func: Optional[str] = None,
               func_args: Optional[dict] = None, now: Optional[int] = None,
               default_limit: Optional[int] = None,
-              analyze: bool = False) -> dict[str, QueryResult]:
+              analyze: bool = False, explain: bool = False) -> dict[str, QueryResult]:
         """Compile a PxL script against the cluster's combined schemas and
         execute it distributed (the ExecuteScript analog).  Warm repeats of
         the same script hit the whole-query plan cache and skip the compile
         and distributed-split work entirely (bit-equal results — the cached
         plan IS the plan a recompile would produce).  A cacheable query may
         run as a member of a batch with concurrent queries over the same scan
-        (PL_QUERY_BATCHING, `_maybe_batched_query`)."""
+        (PL_QUERY_BATCHING, `_maybe_batched_query`).
+
+        With tracing on (PL_TRACING_ENABLED) every query also leaves a
+        flight-recorder profile in `self_telemetry.query_profiles` on the
+        first agent store; `explain=True` additionally attaches the EXPLAIN
+        ANALYZE text to each result's ``exec_stats["explain"]`` (and works
+        with tracing off)."""
         from pixie_tpu_torch.engine import autotune as _autotune
 
         if _autotune.enabled():
             # arrival-rate signal for the batch-window controller
             _autotune.MODEL.observe_arrival()
+        prof_on = _trace.enabled() or explain
+        prof: dict = {}
+        t0 = _time.perf_counter_ns()
+        t0_unix = _time.time_ns()
         with self._mesh_lock:
             self._query_inflight += 1
         try:
-            return self._query(pxl_source, func, func_args, now, default_limit, analyze)
+            results = self._query(pxl_source, func, func_args, now, default_limit,
+                                  analyze, prof if prof_on else None, explain=explain)
+        except Exception as e:
+            if _trace.enabled():
+                self._observe_query(None, prof, t0_unix, _time.perf_counter_ns() - t0,
+                                    explain=False, error=str(e))
+            raise
         finally:
             with self._mesh_lock:
                 self._query_inflight -= 1
+        if prof_on:
+            self._observe_query(results, prof, t0_unix, _time.perf_counter_ns() - t0,
+                                explain=explain)
+        return results
 
-    def _query(self, pxl_source, func, func_args, now, default_limit, analyze):
+    def _observe_query(self, results, prof: dict, t0_unix: int, wall_ns: int,
+                       explain: bool, error: str = "") -> None:
+        """Assemble and record one query's flight-recorder profile from its
+        results' exec_stats and the phase timers `_query` filled.  Host
+        counters only: it reads no device tensor and synchronizes nothing."""
+        import secrets as _secrets
+
+        from pixie_tpu_torch.serving import slo as _slo
+
+        first = next(iter(results.values())) if results else None
+        es = first.exec_stats if first is not None else {}
+        stats = {
+            "agents": es.get("agents") or {},
+            "merger": {"operators": es.get("operators") or [],
+                       "rows_output": es.get("rows_output", 0)},
+            "phases": prof.get("phases") or {},
+            "fastpath": prof.get("fastpath") or {},
+            "batch": es.get("batch") or {},
+            "autotune": es.get("autotune") or [],
+        }
+        c = _trace.current()
+        qid = c[1].trace_id if c is not None else _secrets.token_hex(16)
+        profile, op_rows = _observe.build_profile(
+            qid, "", "cluster", t0_unix, wall_ns, stats,
+            status="error" if error else "ok", error=error)
+        if explain and results:
+            text = _observe.render_explain(
+                profile, op_rows, plan_text=prof.get("plan_text"),
+                op_timing=_op_timing_note(self.device))
+            for r in results.values():
+                r.exec_stats["explain"] = text
+        if results:
+            for r in results.values():
+                r.exec_stats["profile"] = profile
+        if _trace.enabled():
+            self._telemetry.add(_observe.PROFILES_TABLE, [profile])
+            self._telemetry.add(_observe.OP_STATS_TABLE, op_rows)
+            from pixie_tpu_torch.engine import autotune as _autotune
+
+            if _autotune.enabled():
+                # per-query decisions + pending model events (the
+                # LocalCluster analog of the broker's self-metrics cron)
+                at_rows = _autotune.rows_from_stats(stats, qid)
+                at_rows += _autotune.MODEL.drain_rows()
+                if at_rows:
+                    self._telemetry.add(_observe.AUTOTUNE_TABLE, at_rows)
+            _slo.record_query("", wall_ns / 1e9, not error)
+            if _slo.configured():
+                # burn-rate edges reach self_telemetry.alerts on a
+                # LocalCluster-only deployment too
+                mon = _slo.monitor()
+                mon.maybe_evaluate()
+                self._telemetry.add(_observe.ALERTS_TABLE, mon.drain_alerts())
+            store = self.stores[sorted(self.stores)[0]]
+            self._telemetry.flush_into(store)
+
+    def flush_telemetry(self) -> int:
+        """Force-flush buffered flight-recorder rows into the first agent
+        store (tests and shutdown paths; the query path flushes in
+        batches)."""
+        store = self.stores[sorted(self.stores)[0]]
+        return self._telemetry.flush_into(store, force=True)
+
+    def fold_storage_observatory(self) -> int:
+        """The broker-less analog of the agents' PL_SELF_METRICS_S cron:
+        fold the decayed shard-heat snapshot plus EVERY agent store's
+        storage state into the telemetry store (table/heat.py), so
+        self_telemetry.shard_heat / .storage_state answer on a LocalCluster
+        deployment too.  Returns rows written (0 with tracing off)."""
+        from pixie_tpu_torch.table import heat as _heat
+
+        if not _observe.enabled() or not self.stores:
+            return 0
+        telemetry_store = self.stores[sorted(self.stores)[0]]
+        n = _observe.write_rows(telemetry_store, _observe.SHARD_HEAT_TABLE,
+                                _heat.snapshot_rows())
+        for name in sorted(self.stores):
+            n += _observe.write_rows(
+                telemetry_store, _observe.STORAGE_STATE_TABLE,
+                _heat.storage_state_rows(
+                    self.stores[name], name,
+                    matviews=self._mv_managers.get(name)))
+        return n
+
+    def _query(self, pxl_source, func, func_args, now, default_limit, analyze,
+               prof=None, explain: bool = False):
         from pixie_tpu_torch.compiler import compile_pxl
 
         fp = self._schemas_fp()
         key = self.plan_cache.key(pxl_source, func, func_args, default_limit, fp)
+        t_c0 = _time.perf_counter_ns()
         q, entry, _hit = self.plan_cache.get_query(
             key, lambda: compile_pxl(pxl_source, self.schemas(), func=func,
                                      func_args=func_args, now=now,
                                      default_limit=default_limit,
                                      registry=self.registry))
+        phases = None
+        if prof is not None:
+            phases = prof.setdefault("phases", {})
+            phases["compile_ns"] = _time.perf_counter_ns() - t_c0
+            prof["fastpath"] = {"plan_cache_hit": _hit}
+            if explain:
+                from pixie_tpu_torch.plan.debug import explain as _plan_explain
+
+                prof["plan_text"] = _plan_explain(q.plan)
         if q.mutations:
             raise Unimplemented("tracepoint mutations are not ported yet "
                                 "(the host-layer slice)")
-        if not analyze and not getattr(q, "now_sensitive", True):
+        if not analyze and not explain and not getattr(q, "now_sensitive", True):
             # Concurrent-query batching: groupable concurrent queries over the
             # same (table, scan window, schema epoch) rendezvous and dispatch
             # as ONE fused plan with a shared scan; per-member results demux
@@ -276,9 +421,21 @@ class LocalCluster:
             got = self._maybe_batched_query(q, key, fp)
             if got is not None:
                 return got
-        (dp, _extras), _shit = QueryPlanCache.get_split(
-            entry, fp, lambda: (self.planner.plan(q.plan), {}))
-        return self.execute(q.plan, analyze=analyze, dp=dp)
+
+        def _split():
+            dp = self.planner.plan(q.plan)
+            # verification rides the fresh split: a split-cache hit IS a
+            # verified split, so warm queries pay zero re-verification
+            planverify.maybe_verify(dp, self.schemas(), self.registry)
+            return dp, {}
+
+        t_s0 = _time.perf_counter_ns()
+        (dp, _extras), _shit = QueryPlanCache.get_split(entry, fp, _split)
+        if phases is not None:
+            phases["plan_split_ns"] = _time.perf_counter_ns() - t_s0
+            prof["fastpath"]["split_cache_hit"] = _shit
+        return self.execute(q.plan, analyze=analyze, dp=dp, phases=phases,
+                            sync_op_timing=explain)
 
     # ------------------------------------------------- query batching
     def _maybe_batched_query(self, q, key, fp):
@@ -314,8 +471,16 @@ class LocalCluster:
 
         slot, plans, slot_of = batching.fused_slot(
             self._batch_splits, self._mesh_lock, members, self.schemas())
-        (dp, _extras), _hit = QueryPlanCache.get_split(
-            slot, fp, lambda: (self.planner.plan(slot.fused), {}))
+
+        def _split():
+            dp = self.planner.plan(slot.fused)
+            # the fused form verifies once per batch signature, riding the
+            # split cache exactly like single-query verification
+            planverify.maybe_verify(dp, self.schemas(), self.registry)
+            planverify.maybe_verify_fused_batch(dp, slot.sink_map)
+            return dp, {}
+
+        (dp, _extras), _hit = QueryPlanCache.get_split(slot, fp, _split)
         results = self.execute(slot.fused, dp=dp)
         batching.note_formed(len(members))
         out = []
@@ -327,11 +492,19 @@ class LocalCluster:
             out.append(res)
         return out
 
-    def execute(self, logical: Plan, analyze: bool = False,
-                dp=None) -> dict[str, QueryResult]:
+    def execute(self, logical: Plan, analyze: bool = False, dp=None,
+                phases: Optional[dict] = None,
+                sync_op_timing: bool = False) -> dict[str, QueryResult]:
+        """Run a logical plan distributed.  `phases` (the flight recorder's
+        timers) receives exec_ns and merge_ns; `sync_op_timing` (EXPLAIN)
+        makes every executor time its operators with the device synchronized
+        at their boundaries."""
         t_exec0 = _time.perf_counter_ns()
         if dp is None:
             dp = self.planner.plan(logical)
+            # direct-plan callers (no plan cache in front) verify here;
+            # query() verifies inside its split-cache fill instead
+            planverify.maybe_verify(dp, self.schemas(), self.registry)
 
         # 1. run agent fragments (reference: per-agent Carnot::ExecutePlan),
         #    each over the agent's mesh (AgentInfo.n_devices).
@@ -360,6 +533,7 @@ class LocalCluster:
             ex = PlanExecutor(plan, self.stores[agent_name], self.registry,
                               device=self.device, analyze=analyze, mesh=mesh,
                               route_scale=len(items))
+            ex.sync_op_timing = sync_op_timing
             # Colocated agents share one device: defer each agent's partial
             # readback so ALL agents' states merge there and come back in ONE
             # transfer wave below.
@@ -371,8 +545,11 @@ class LocalCluster:
             return agent_name, out, stats
 
         if len(items) > 1:
+            # worker threads inherit the active trace context, so their
+            # executors' op spans parent correctly
+            calls = [_trace.propagating_call(run_one, *kv) for kv in items]
             with ThreadPoolExecutor(max_workers=min(len(items), 16)) as pool:
-                outs = list(pool.map(lambda kv: run_one(*kv), items))
+                outs = list(pool.map(lambda c: c(), calls))
         else:
             outs = [run_one(*kv) for kv in items]
         # Deferred agent partials: per channel, either merge all agents'
@@ -458,6 +635,7 @@ class LocalCluster:
         # 4. run the merger plan over the injected channels.
         ex = PlanExecutor(dp.merger_plan, self.merger_store, self.registry,
                           device=self.device, inputs=inputs, analyze=analyze)
+        ex.sync_op_timing = sync_op_timing
         results = ex.run()
         # Per-agent exec stats ride along with every result (reference:
         # AgentExecutionStats shipped with the final chunk, carnot.cc:227-275),
@@ -473,10 +651,24 @@ class LocalCluster:
                  if isinstance(s.get("shard_skew_frac"), (int, float))]
         if skews:
             xfer["shard_skew_frac"] = max(skews)
-        phases = {"exec_ns": t_merge0 - t_exec0,
+        # The merger plan's sources are channels (no ST knowledge): restamp
+        # semantic types from the LOGICAL plan and the agents' schemas.
+        sstore = SchemaStore(self.schemas())
+        timers = {"exec_ns": t_merge0 - t_exec0,
                   "merge_ns": _time.perf_counter_ns() - t_merge0}
+        if phases is not None:
+            phases.update(timers)
         for r in results.values():
+            restamp_result(r, logical, sstore, reg)
             r.exec_stats["agents"] = agent_stats
             r.exec_stats["transfer"] = xfer
-            r.exec_stats["phases"] = phases
+            r.exec_stats["phases"] = timers
         return results
+
+
+def _op_timing_note(device) -> str:
+    """How EXPLAIN's per-operator ns were taken on `device`."""
+    if device.type == "cuda":
+        return ("device synchronized at every operator boundary "
+                "(torch.cuda.synchronize), so each op's ns hold its kernels")
+    return "host wall time (CPU device: every op runs synchronously)"

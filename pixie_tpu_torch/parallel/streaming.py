@@ -20,8 +20,8 @@ Chain (non-agg) streaming pipelines simply union per-agent row emissions.
 
 Copied from the reference package (pixie_tpu/parallel/streaming.py).  Every
 agent's polls run on the cluster's one device (LocalCluster.device); the
-agents poll in turn.  Emissions carry physical types (no semantic restamp
-yet, as in engine/stream.py), and tracepoint mutations are refused as
+agents poll in turn.  Emissions carry the logical plan's semantic types,
+as in engine/stream.py, and tracepoint mutations are refused as
 LocalCluster.query refuses them.
 """
 from __future__ import annotations
@@ -32,7 +32,7 @@ import numpy as np
 
 from pixie_tpu_torch.engine.executor import PlanExecutor
 from pixie_tpu_torch.engine.result import QueryResult
-from pixie_tpu_torch.engine.stream import StreamQuery, _concat_results
+from pixie_tpu_torch.engine.stream import StreamQuery, _concat_results, restamp_cached
 from pixie_tpu_torch.parallel.partial import combine_partials
 from pixie_tpu_torch.status import Unimplemented
 
@@ -78,6 +78,8 @@ class ClusterStreamQuery:
         # as the reference for post-plans / window metadata
         ref = next(iter(self._agent_sqs.values()))
         self._ref = ref
+        #: sink name → ST-stamped relation, computed once (constant per sink)
+        self._st_rel_cache: dict[str, object] = {}
         self._state: dict[str, _SinkState] = {
             pl.sink_name: _SinkState() for pl in ref.pipelines if pl.agg is not None
         }
@@ -163,7 +165,11 @@ class ClusterStreamQuery:
             device=self.cluster.device, inputs={StreamQuery.CHANNEL: hb},
         )
         res = ex.run()[pl.sink_name]
-        return res if res.num_rows else None
+        if not res.num_rows:
+            return None
+        restamp_cached(res, self._st_rel_cache, pl.sink_name, self._ref.plan,
+                       self._ref.store, self._ref.registry)
+        return res
 
     def lagging(self) -> bool:
         """True while any agent has unprocessed rows (per-poll deltas are

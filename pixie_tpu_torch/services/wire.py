@@ -26,12 +26,13 @@ lz4 module is absent), empty/`0`/`off` = disabled.  The decoder honors
 whatever the header announces regardless of the local setting, with a
 MAX_FRAME guard on the announced raw size (no zip bombs).
 
-Kinds (reference pixie_tpu/services/wire.py): json (control messages),
-host_batch (a HostBatch) and partial_agg (a PartialAggBatch: key values +
-flattened UDA state leaves).  The port carries the partial_agg frame only,
-byte for byte the reference's: LocalCluster round-trips every partial through
-it.  The json and host_batch frames come with the host-layer slice
-(services).
+Kinds (copied from the reference package, pixie_tpu/services/wire.py, and
+byte for byte its frames):
+  json         — control messages ({} metadata only)
+  host_batch   — HostBatch: dtypes, dictionaries, columns (the journal's and
+                 the cold tier's record payload)
+  partial_agg  — PartialAggBatch: key values + flattened UDA state leaves
+                 (LocalCluster round-trips every partial through it)
 """
 from __future__ import annotations
 
@@ -42,8 +43,9 @@ import zlib
 import numpy as np
 
 from pixie_tpu_torch import flags as _flags
-from pixie_tpu_torch.status import InvalidArgument, Unimplemented
-from pixie_tpu_torch.types import DataType as DT
+from pixie_tpu_torch.status import InvalidArgument
+from pixie_tpu_torch.table.dictionary import Dictionary
+from pixie_tpu_torch.types import STORAGE_DTYPE, DataType as DT
 
 _flags.define_str(
     "PL_WIRE_COMPRESS", "",
@@ -178,8 +180,60 @@ def _frame(kind: str, meta: dict, bufs: list[tuple[str, np.ndarray]]) -> bytes:
         if len(blob) < len(raw):  # incompressible payloads ship raw
             hdr["comp"] = {"codec": codec, "raw": len(raw)}
             chunks = [blob]
+            from pixie_tpu_torch import metrics as _metrics
+
+            _metrics.counter_inc(
+                "px_wire_compressed_frames_total",
+                help_="wire frames whose buffer section was compressed")
+            _metrics.counter_inc(
+                "px_wire_compressed_bytes_saved_total",
+                float(len(raw) - len(blob)),
+                help_="buffer bytes saved by wire compression")
     header = json.dumps(hdr).encode()
     return b"".join([_HDR.pack(MAGIC, len(header)), header, *chunks])
+
+
+def encode_json(meta: dict) -> bytes:
+    return _frame("json", meta, [])
+
+
+def encode_error(req_id, error, retry_after_s=None, retryable=None) -> bytes:
+    """The error envelope, optionally carrying an admission-control
+    retry-after hint (seconds) and/or a retryable marker.  Clients surface
+    `retry_after_s` so a shed query backs off instead of hammering a
+    saturated broker; `retryable=True` marks an INFRASTRUCTURE failure of
+    an idempotent (non-mutation) query — agent eviction with the retry
+    budget exhausted, no live agents — that a client may transparently
+    re-issue.  Compile/exec errors never set it: retrying won't fix them."""
+    meta = {"msg": "error", "req_id": req_id, "error": str(error)}
+    if retry_after_s is not None:
+        meta["retry_after_s"] = round(float(retry_after_s), 3)
+    if retryable is not None:
+        meta["retryable"] = bool(retryable)
+    return _frame("json", meta, [])
+
+
+def encode_json_raw(meta: dict, raw_fields: dict[str, str]) -> bytes:
+    """encode_json with PRE-SERIALIZED JSON values spliced in as extra
+    top-level meta keys.
+
+    The broker's warm-query dispatch caches each agent plan's JSON once per
+    compiled split; re-running json.dumps over the whole plan dict on every
+    query was measurable interactive latency.  The decoder is unchanged —
+    the spliced frame is byte-for-byte a normal json frame.
+    """
+    for k in raw_fields:
+        if k in meta:
+            raise InvalidArgument(f"wire: raw field {k!r} collides with meta")
+    meta_json = json.dumps(meta)
+    items = ",".join(f"{json.dumps(k)}:{v}" for k, v in raw_fields.items())
+    if items:
+        merged = (f"{{{items}}}" if meta_json == "{}"
+                  else f"{meta_json[:-1]},{items}}}")
+    else:
+        merged = meta_json
+    header = (f'{{"kind":"json","meta":{merged},"bufs":[]}}').encode()
+    return b"".join([_HDR.pack(MAGIC, len(header)), header])
 
 
 def _u128_jsonable(v):
@@ -219,6 +273,12 @@ def _strbuf_decode(data: np.ndarray, offs: np.ndarray) -> list:
     return [blob[a:b].decode() for a, b in zip(ends, ends[1:])]
 
 
+def _dict_values_jsonable(d: Dictionary, dt: DT) -> list:
+    if dt == DT.UINT128:
+        return [_u128_jsonable(v) for v in d.values()]
+    return d.values()
+
+
 def _dict_values_restore(vals: list, dt: DT) -> list:
     if dt == DT.UINT128:
         from pixie_tpu_torch.types import UInt128
@@ -226,6 +286,30 @@ def _dict_values_restore(vals: list, dt: DT) -> list:
         # canonical in-memory form is UInt128 (metadata UDFs read .high/.pid)
         return [UInt128(*v) if v is not None else None for v in vals]
     return vals
+
+
+def encode_host_batch(hb, extra_meta: dict | None = None) -> bytes:
+    """HostBatch → frame (reference: RowBatchData on the result stream)."""
+    dicts_meta: dict = {}
+    bufs: list[tuple[str, np.ndarray]] = []
+    for n, d in hb.dicts.items():
+        packed = (_strbuf_encode(d.values())
+                  if hb.dtypes[n] == DT.STRING else None)
+        if packed is not None:
+            data, offs = packed
+            dicts_meta[n] = {"strbuf": True}
+            bufs.append((f"d:{n}", data))
+            bufs.append((f"do:{n}", offs))
+        else:
+            dicts_meta[n] = {"jsonvals": _dict_values_jsonable(d, hb.dtypes[n])}
+    meta = {
+        "dtypes": {n: int(t) for n, t in hb.dtypes.items()},
+        "dicts": dicts_meta,
+        "order": list(hb.cols),
+    }
+    if extra_meta:
+        meta.update(extra_meta)
+    return _frame("host_batch", meta, bufs + [(n, hb.cols[n]) for n in hb.cols])
 
 
 def encode_partial_agg(pb, extra_meta: dict | None = None) -> bytes:
@@ -313,9 +397,10 @@ def _strbuf_lookup(bufs: dict, data_name: str, offs_name: str) -> list:
 def decode_frame(data: bytes):
     """bytes → (kind, payload).
 
-    partial_agg → (kind, PartialAggBatch-with-meta); the original meta dict
-    is attached as `.wire_meta`.  The json and host_batch kinds raise
-    Unimplemented (services slice).
+    json        → (kind, meta dict)
+    host_batch  → (kind, HostBatch-with-meta)
+    partial_agg → (kind, PartialAggBatch-with-meta)
+    The original meta dict is attached as `.wire_meta` on decoded objects.
     """
     if len(data) < _HDR.size:
         raise InvalidArgument("wire: truncated frame")
@@ -353,6 +438,28 @@ def decode_frame(data: bytes):
         bufs[b["name"]] = arr.reshape(shape).copy()  # writable, owned
         off += nb
 
+    if kind == "json":
+        return kind, meta
+    if kind == "host_batch":
+        from pixie_tpu_torch.engine.executor import HostBatch
+
+        dtypes = {n: DT(v) for n, v in meta["dtypes"].items()}
+        dicts = {}
+        for n, spec in meta["dicts"].items():
+            if isinstance(spec, dict) and spec.get("strbuf"):
+                dicts[n] = Dictionary(_strbuf_lookup(bufs, f"d:{n}", f"do:{n}"))
+            else:
+                vals = spec["jsonvals"] if isinstance(spec, dict) else spec
+                dicts[n] = Dictionary(_dict_values_restore(vals, dtypes[n]))
+        cols = {}
+        for n in meta["order"]:
+            if n not in bufs:
+                raise InvalidArgument(f"wire: missing column buffer {n!r}")
+            want = STORAGE_DTYPE[dtypes[n]]
+            cols[n] = bufs[n].astype(want, copy=False)
+        hb = HostBatch(dtypes, dicts, cols)
+        hb.wire_meta = meta  # type: ignore[attr-defined]
+        return kind, hb
     if kind == "partial_agg":
         from pixie_tpu_torch.parallel.partial import PartialAggBatch
 
@@ -394,7 +501,4 @@ def decode_frame(data: bytes):
         )
         pb.wire_meta = meta  # type: ignore[attr-defined]
         return kind, pb
-    if kind in ("json", "host_batch"):
-        raise Unimplemented(
-            f"wire: {kind} frames are not ported yet (the host-layer slice, services)")
     raise InvalidArgument(f"wire: unknown kind {kind!r}")

@@ -25,10 +25,11 @@ Reference analogs: opentelemetry-go's span/context split, and the reference
 platform's own query profiling hooks (src/carnot/exec exec stats + the
 plugin OTLP export path, exec/otel_export_sink_node.*).
 
-Copied from the reference package (pixie_tpu/trace.py), host only.  The
-port's standing views (matview/) open spans under an active root; the
-executor and the cluster open none yet (they wait for observe.py, ROADMAP
-Queue 1 item 6a).  The OTLP encoder (engine/otel.py, Queue 1 item 6e) is
+Copied from the reference package (pixie_tpu/trace.py), host only.  Under
+an active root the port's standing views (matview/) open spans, every
+executor adapts its operator frames into spans (`_emit_op_spans`), and
+LocalCluster's agent threads inherit the root (`propagating_call`); the
+same switch gates the flight recorder (observe.py).  The OTLP encoder (engine/otel.py, Queue 1 item 6e) is
 not ported: `spans_to_otlp` and `Tracer(exporter=...)` raise Unimplemented,
 and the reference's PL_TRACE_OTLP_URL comes with that item.
 """

@@ -519,7 +519,7 @@ def test_single_feed_prediction_follows_the_feeds(shape):
         s = ex._agg_setup(op)
         feeds = [n_valid for _cols, n_valid in ex._feed(s.src, s.names, s.cap)]
         policy = [sum(rb.num_valid for rb, _g in b)
-                  for b in _feed_batches(s.src, max(s.cap, feed_rows))]
+                  for b, _cold in _feed_batches(s.src, max(s.cap, feed_rows))]
     finally:
         flags.set_for_testing("PX_FEED_ROWS", saved)
     assert feeds == policy and sum(feeds) == n

@@ -297,3 +297,69 @@ def test_native_build_reads_only_the_port_sources():
     assert build.SRC_DIR == PKG / "native"
     assert build.BUILD_DIR == PKG / "_build"
     assert all((build.SRC_DIR / s).is_file() for s in build.SOURCES)
+
+
+@pytest.mark.parametrize("mod", ["pixie_tpu_torch.engine.semantics", "pixie_tpu_torch.check",
+                                 "pixie_tpu_torch.check.planverify", "pixie_tpu_torch.serving.slo",
+                                 "pixie_tpu_torch.observe", "pixie_tpu_torch.table.heat",
+                                 "pixie_tpu_torch.table.journal",
+                                 "pixie_tpu_torch.table.lifecycle",
+                                 "pixie_tpu_torch.table.tablets",
+                                 "pixie_tpu_torch.services.wire"])
+def test_host_layer_modules_import_alone(mod):
+    """Each module of the host-layer slice, imported on its own, pulls in no
+    JAX and nothing of the reference."""
+    code = (
+        f"import importlib, sys\nimportlib.import_module({mod!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pixie_tpu'))\n"
+        "sys.exit('imported: ' + ', '.join(bad) if bad else 0)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_journal_and_cold_tier_write_only_under_the_data_dir(tmp_path, monkeypatch):
+    """With PL_DATA_DIR set, a journaled table with the cold tier on writes
+    its segments, schema and cold files under PL_DATA_DIR/<node> and
+    nowhere else: not in the working directory, not beside the package."""
+    import numpy as np
+
+    from pixie_tpu_torch import flags
+    from pixie_tpu_torch.table import journal, lifecycle
+    from pixie_tpu_torch.table import TableStore
+    from pixie_tpu_torch.types import DataType as DT, Relation
+
+    data_dir, cwd = tmp_path / "data", tmp_path / "cwd"
+    cwd.mkdir()
+    monkeypatch.chdir(cwd)
+    def package_files():
+        return {p for p in PKG.rglob("*")
+                if "_build" not in p.parts and "__pycache__" not in p.parts}
+
+    before = package_files()
+    saved = {k: flags.get(k) for k in ("PL_DATA_DIR", "PL_COLD_TIER", "PL_COLD_MAX_HOT_MB")}
+    flags.set_for_testing("PL_DATA_DIR", str(data_dir))
+    flags.set_for_testing("PL_COLD_TIER", 1)
+    flags.set_for_testing("PL_COLD_MAX_HOT_MB", 1)
+    try:
+        store = TableStore()
+        t = store.create("t", Relation.of(("time_", DT.TIME64NS), ("s", DT.STRING),
+                                          ("x", DT.INT64)), batch_rows=4096)
+        journal.attach_store(store, journal.node_dir("pem0"))
+        n = 200_000
+        t.write({"time_": np.arange(n, dtype=np.int64), "s": ["a", "b"] * (n // 2),
+                 "x": np.arange(n, dtype=np.int64)})
+        assert t.cold is not None and t.cold.stats()["demotions"] > 0
+        journal.detach_store(store)
+    finally:
+        for k, v in saved.items():
+            flags.set_for_testing(k, v)
+    written = [p for p in data_dir.rglob("*") if p.is_file()]
+    assert any(p.suffix == ".jrn" for p in written)
+    assert any(p.suffix == ".pxc" for p in written)
+    assert all(p.relative_to(data_dir).parts[0] == "pem0" for p in written)
+    assert list(cwd.iterdir()) == []
+    assert package_files() == before
+    assert lifecycle.cold_dir(str(data_dir / "pem0"), "t").startswith(str(data_dir))

@@ -41,7 +41,7 @@ from pixie_tpu_torch.engine.executor import PlanExecutor
 from pixie_tpu_torch.matview import MatViewManager
 from pixie_tpu_torch.matview import registry as port_registry
 from pixie_tpu_torch.parallel import LocalCluster
-from pixie_tpu_torch.status import Unavailable, Unimplemented
+from pixie_tpu_torch.status import Unavailable
 from pixie_tpu_torch.table import TableStore
 from pixie_tpu_torch.types import DataType as DT, Relation
 
@@ -502,11 +502,44 @@ def test_background_refresher_folds_the_delta():
     both(case)
 
 
-def test_snapshot_dir_is_refused():
+def test_snapshot_dir_is_refused(tmp_path):
+    """Durable view snapshots are ported (no longer refused): a folding
+    refresh writes the view's state in the journal's record framing, and a
+    manager rebuilt over the same rows adopts it at first sight and serves
+    the live hit's state, in both packages.  A snapshot written by either
+    package is adopted by the other."""
+
+    def case(pkg):
+        store = pkg.store(61)
+        d = tmp_path / pkg.name
+        mgr = pkg.manager(store)
+        mgr.set_snapshot_dir(str(d))
+        plan = pkg.partial_plan()
+        assert mgr.serve(plan) is None  # first sight registers
+        _cid, live, info = mgr.serve(plan)
+        assert info["rows_folded"] == 30_000
+        again = pkg.manager(store)
+        again.set_snapshot_dir(str(d))
+        _cid, restored, info2 = again.serve(plan)  # first sight adopts
+        assert info2["rows_folded"] == 0
+        order = np.argsort(np.asarray(live.key_cols["service"], dtype=str))
+        rorder = np.argsort(np.asarray(restored.key_cols["service"], dtype=str))
+        got = np.asarray(restored.states["cnt"])[rorder]
+        np.testing.assert_array_equal(got, np.asarray(live.states["cnt"])[order])
+        return {"cnt": got.tolist(), "files": sorted(p.name for p in d.iterdir())}
+
+    ref, port = both(case)
+    # each package adopts the other's snapshot file
+    for src_pkg, dst_pkg in ((PKGS[0], PKGS[1]), (PKGS[1], PKGS[0])):
+        store = dst_pkg.store(61)
+        mgr = dst_pkg.manager(store)
+        mgr.set_snapshot_dir(str(tmp_path / src_pkg.name))
+        _cid, pb, info = mgr.serve(dst_pkg.partial_plan())
+        assert info["rows_folded"] == 0
+        assert sorted(np.asarray(pb.states["cnt"]).tolist()) == sorted(port["cnt"])
     mgr = MatViewManager(TableStore(), device="cpu")
-    mgr.set_snapshot_dir(None)  # no directory: nothing to refuse
-    with pytest.raises(Unimplemented, match="6b"):
-        mgr.set_snapshot_dir("/nonexistent/snapshots")
+    mgr.set_snapshot_dir(None)
+    assert mgr.snapshot_dir is None
 
 
 def test_a_fold_that_faults_propagates(monkeypatch):

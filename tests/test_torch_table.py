@@ -109,10 +109,13 @@ def test_rejected_write_leaves_dictionaries_alone():
 
 
 def test_unported_hooks_raise():
+    """Seal replication (`on_seal`, the services slice) is still refused, on
+    a write and on a forced seal.  Tablets and the journal are ported
+    (tests/test_torch_tablets.py, tests/test_torch_journal.py)."""
     store = TableStore()
-    with pytest.raises(Unimplemented, match="tablets"):
-        store.create("tab", PortRelation.from_dict(REL.to_dict()), tablet_col="service")
     t = store.create("t", PortRelation.from_dict(REL.to_dict()))
-    t.journal = object()
-    with pytest.raises(Unimplemented, match="journal"):
-        next(iter([t.write(next(_writes(1, [4])))]))
+    t.on_seal = lambda table, batches: None
+    with pytest.raises(Unimplemented, match="replication"):
+        t.write(next(_writes(1, [4])))
+    with pytest.raises(Unimplemented, match="replication"):
+        t.seal_hot()

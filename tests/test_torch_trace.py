@@ -275,7 +275,8 @@ def test_span_buffer_gauges():
 
 def test_matview_spans_land_under_a_root():
     """The views' spans (matview_refresh, matview_hit) parent under an
-    active root, as the reference's agent records them."""
+    active root, and the fold executor's operator span under the refresh,
+    as the reference's agent records them."""
     from pixie_tpu_torch.matview import MatViewManager
     from pixie_tpu_torch.plan import AggExpr, AggOp, MemorySourceOp, Plan, ResultSinkOp
     from pixie_tpu_torch.types import DataType as DT, Relation
@@ -295,6 +296,7 @@ def test_matview_spans_land_under_a_root():
         assert mgr.serve(p) is None
         assert mgr.serve(p) is not None
     spans = {s.name: s for s in tr.drain()}
-    assert set(spans) == {"exec", "matview_refresh", "matview_hit"}
+    assert set(spans) == {"exec", "matview_refresh", "matview_hit", "scan(t)->partial_agg"}
     assert spans["matview_refresh"].parent_span_id == root.span_id
+    assert spans["scan(t)->partial_agg"].parent_span_id == spans["matview_refresh"].span_id
     assert spans["matview_hit"].attributes["rows_folded"] == 1000

@@ -17,7 +17,7 @@ from pixie_tpu.types import DataType as RefDT, UInt128 as RefU128
 from pixie_tpu_torch import flags as port_flags
 from pixie_tpu_torch.parallel.partial import PartialAggBatch
 from pixie_tpu_torch.services import wire
-from pixie_tpu_torch.status import InvalidArgument, Unimplemented
+from pixie_tpu_torch.status import InvalidArgument
 from pixie_tpu_torch.types import DataType as DT, UInt128
 
 
@@ -105,7 +105,16 @@ def test_partial_agg_frame_decodes_across_packages(compress, kind):
 
 
 def test_other_frames_wait_for_the_services_slice():
-    with pytest.raises(Unimplemented):
-        wire.decode_frame(ref_wire.encode_json({"msg": "hello"}))
+    """The json frame is ported (byte for byte the reference's, decoded
+    across packages; tests/test_torch_journal.py holds the host_batch
+    frame); a frame of no known kind is still refused."""
+    meta = {"msg": "hello", "req_id": 7, "nested": {"a": [1, 2.5, None]}}
+    assert wire.encode_json(meta) == ref_wire.encode_json(meta)
+    assert wire.decode_frame(ref_wire.encode_json(meta)) == ("json", meta)
+    assert ref_wire.decode_frame(wire.encode_json(meta)) == ("json", meta)
+    assert (wire.encode_error(3, "boom", retry_after_s=0.25, retryable=True)
+            == ref_wire.encode_error(3, "boom", retry_after_s=0.25, retryable=True))
+    raw = {"plan": '{"ops": [1, 2]}'}
+    assert wire.encode_json_raw({"msg": "run"}, raw) == ref_wire.encode_json_raw({"msg": "run"}, raw)
     with pytest.raises(InvalidArgument):
         wire.decode_frame(b"XXXX\x00\x00\x00\x00")
