@@ -553,7 +553,10 @@ def main() -> int:
         for tree in ((other, here) if i % 2 == 0 else (here, other)):
             proc = subprocess.run([sys.executable, "-c", CHILD, tree, str(args.rows),
                                    str(args.reps), ",".join(measures)], cwd=tree, capture_output=True, text=True,
-                                  env=dict(os.environ, PYTHONPATH=tree), timeout=900)
+                                  # views off: each measure times the rescan route
+                                  # (config4's second query would be a view hit)
+                                  env=dict(os.environ, PYTHONPATH=tree,
+                                           PL_MATVIEW_ENABLED="0"), timeout=900)
             if proc.returncode != 0:
                 print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
                 return proc.returncode or 1

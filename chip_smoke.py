@@ -6,6 +6,9 @@
                                               cpu_route phase alone)
     python3 chip_smoke.py --only-host-layers (the kernel build and the
                                               host_layers phase alone)
+    python3 chip_smoke.py --only-metadata-collect (the kernel build and
+                                              the metadata_collect phase
+                                              alone)
 
 Phases, each of which fails the run if it fails:
 
@@ -221,7 +224,8 @@ Mesh cluster: a LocalCluster of 2 agents of 4 shards: config #4's script
 over 2 x 8M rows, equal to the one-device-per-agent cluster and the oracle
 (M1 3 times a query: each agent's shards, then the agents; P1 never),
 stream and
-warm medians; a repartitioned join of two 2^22-row tables spread over both
+warm medians; a repartitioned join of two 2^21-row tables (cut from
+2^22 for the run's time) spread over both
 agents on (int64, string) keys, each side exchanged in each agent's mesh
 (X1, X2), equal to the single-device join (run once with analyze, for its
 operator times) as sorted frames; one agent's side exchanged in the mesh
@@ -309,6 +313,33 @@ cold batch resident or cached, every cold batch promoted at the third read;
 (g) a view's snapshot restored into a new manager, serving the live hit's
 state byte for byte.  Every line carries the card's name and power limit.
 
+Slice 22, the metadata_collect phase (last, pinned; alone:
+--only-metadata-collect), under a metadata snapshot of 1,088 UPIDs (1,024
+on 4 nodes bound to 256 pods of 16 services in 4 namespaces, 64 with no
+pod) and with the perf profiler sampling the process at 99 Hz throughout:
+the canonical http_events relation (collect/schemas.py, 18 columns) at
+64M rows in 65,536-row batches (the UPID column written as uint64 words);
+the ctx query (resp_status != 404, df.ctx['service'] and ['namespace'],
+group by service and status: count, int64 sum, mean and p50 of the int64
+latency) from PxL text, its launches (C1 with the LUT opcode over the UPID
+codes, K1 count, int64 and float64 sums, K2, F2) held against a numpy
+oracle of its own (keys, counts and int64 sums exactly, means to rtol
+1e-12, p50 in the oracle's sketch bin or the next), stream and warm
+medians and the host time of the two ctx LUTs; C1 on that chain at a
+16M-row feed against its plain interpreter (a kernel row); an epoch change
+(32 pods recreated under another service, a service renamed) whose next
+warm query groups by the new snapshot against the oracle, moving 0 column
+bytes and uploading one LUT; the query through a 4-agent LocalCluster (2^22
+rows an agent, each of its node's UPIDs; M1 once a query) and the UDTFs
+GetAgentStatus, GetTables, GetSchemas and GetUDFList (135 names) with
+px.asid() and px.node_name() through it; seq_gen and the process and
+network stats connectors on the Collector's thread while 50 warm queries
+run over seq0 (counts never decrease, each sum that of a prefix); 2^22
+http_events rows replayed with time rewritten, then the ctx query over them
+against the oracle; and the profiler's stack_traces.beta with native frames
+of the interpreter symbolized through ElfReader, grouped by stack on the
+card.
+
 It prints one JSON line per kernel, a {"kernels": [...]} line, the card's
 name and power limit, and last {"ok": true, "device": {...}}.  It exits
 non-zero, printing no result, without a CUDA device or outside the repo.
@@ -351,6 +382,8 @@ K3 = ("loghist_quantile", "px_loghist_quantile")
 F1 = ("finalize", "px_fused_partial_finalize")
 F2 = ("finalize", "px_merge_finalize")
 P1 = ("pack", "px_state_pack")
+#: the device merge of partial states across agents or shards
+M1 = ("merge", "px_merge_states")
 #: config #1 over 4 feeds: the per-feed route, then F2 (no K3)
 CONFIG1_KERNELS = [C1, ("segment_reduce", "px_segment_count"),
                    ("segment_reduce", "px_segment_sum_f64"),
@@ -2060,6 +2093,39 @@ ROW_READ_BYTES = {"px_segment_count": 4 + 1, "px_segment_sum_i64": 4 + 1 + 8,
                   "px_segment_max_f64": 4 + 1 + 8, "px_loghist_update": 4 + 1 + 8}
 
 
+class plain_routes:
+    """K1-K3's and KM1-KM3's wrappers run their plain versions on the same
+    CUDA tensors (no launch, none counted), for the plain time of a row
+    that is host code over those kernels (rows 9 and 17d)."""
+
+    def __enter__(self):
+        from pixie_tpu_torch.ops import groupby as gb
+        from pixie_tpu_torch.ops import kmeans as kops
+        from pixie_tpu_torch.ops.sketch import LogHistogram
+
+        def k1(kind, gid, mask, values, out, num_groups):
+            if kind == "count":
+                gb.segment_count_plain(gid, num_groups, mask, out)
+            elif kind == "sum":
+                gb.segment_sum_plain(values, gid, num_groups, mask, out)
+            else:
+                gb.segment_pick_plain(values, gid, num_groups, mask, out, kind)
+
+        swaps = [(gb, "_launch_k1", k1),
+                 (LogHistogram, "_launch_update", LogHistogram.update_plain),
+                 (LogHistogram, "_launch_quantile", LogHistogram.quantile_plain),
+                 (kops, "assign", kops.assign_plain),
+                 (kops, "lloyd_step", kops.lloyd_step_plain),
+                 (kops, "seed_step", kops.seed_step_plain)]
+        self.saved = [(owner, name, getattr(owner, name)) for owner, name, _f in swaps]
+        for owner, name, f in swaps:
+            setattr(owner, name, f)
+
+    def __exit__(self, *exc):
+        for owner, name, f in self.saved:
+            setattr(owner, name, f)
+
+
 def sorted_bound(launches: dict, n: int, g: int) -> tuple[float, str]:
     """Row 9's bound: the sum of its kernels' bounds over one sorted query of
     n rows into g groups, from the query's launches — each K1 / K2 launch
@@ -2151,6 +2217,20 @@ def run_sorted(dev) -> dict:
     after1 = by_entry()
     r2, st2 = run(s2)
     launches = read_launches("sorted", SORTED_KERNELS)
+    # row 9's plain time: the same queries with K1-K3's plain versions
+    with plain_routes():
+        r1p, st1p = run(s1)
+        r2p, st2p = run(s2)
+    for label, key, got, want in (("S1", "conn_id", r1p, r1), ("S2", "b", r2p, r2)):
+        og, ow = np.argsort(got.columns[key]), np.argsort(want.columns[key])
+        for c in want.columns:
+            g, w = np.asarray(got.columns[c])[og], np.asarray(want.columns[c])[ow]
+            ok = (np.allclose(g, w, rtol=1e-12, atol=0) if c == "avg"
+                  else np.array_equal(g, w))
+            if not ok:
+                raise AssertionError(f"sorted {label}: {c} differs on the plain routes")
+    st1["plain_operators_s"], st2["plain_operators_s"] = (st1p["operators_s"],
+                                                          st2p["operators_s"])
     per_query = {"S1": after1, "S2": {lib: {e: c - after1[lib].get(e, 0) for e, c in es.items()}
                                       for lib, es in launches.items()}}
 
@@ -2987,6 +3067,7 @@ def run_ml(dev) -> dict:
     from pixie_tpu_torch.compiler import compile_pxl
     from pixie_tpu_torch.engine import execute_plan
     from pixie_tpu_torch.ml import CoresetTree, kmeans_fit
+    from pixie_tpu_torch.ml.coreset import kmeans_coreset
     from pixie_tpu_torch.ml.fit import KMeansFitUDA
     from pixie_tpu_torch.ops import _build
     from pixie_tpu_torch.table import TableStore
@@ -3048,9 +3129,24 @@ def run_ml(dev) -> dict:
     if rms.max() >= 1.0 or len(pts) > TREE_M or abs(float(w.sum()) / stream - 1) > 0.05:
         raise AssertionError(f"CoresetTree: centers {d_true} (per dimension {rms}), "
                              f"{len(pts)} points of weight {w.sum()} for {stream}")
+    # row 17d: one leaf coreset of the stream's last batch with the
+    # kernels, then on the plain routes
+    ones = np.ones(len(batch), dtype=np.float32)
+
+    def leaf():
+        return kmeans_coreset(batch, ones, TREE_M, TREE_K, seed=3, device=dev)
+
+    leaf_ms = cuda_ms(leaf, 5)
+    with plain_routes():
+        leaf_plain_ms = cuda_ms(leaf, 5)
+        plain_pts, plain_w = leaf()
+    if len(plain_pts) != TREE_M or abs(float(plain_w.sum()) / len(batch) - 1) > 0.05:
+        raise AssertionError(f"leaf coreset on the plain routes: {len(plain_pts)} points of "
+                             f"weight {plain_w.sum()}")
     out["tree"] = {"m": TREE_M, "k": TREE_K, "batches": TREE_BATCHES, "batch": TREE_BATCH,
                    "coreset_bound_ms": {"leaf": coreset_bound(TREE_BATCH, ML_D, TREE_K)[0],
                                         "merge": coreset_bound(2 * TREE_M, ML_D, TREE_K)[0]},
+                   "leaf_coreset_ms": leaf_ms, "leaf_coreset_plain_ms": leaf_plain_ms,
                    "seconds": tree_s, "update_median_s": sorted(upd)[len(upd) // 2],
                    "update_max_s": max(upd), "levels": sorted(tree._levels),
                    "weight_over_stream": float(w.sum()) / stream,
@@ -4557,8 +4653,9 @@ def one_feed_h2d_probe(rows: int) -> None:
 
 def check_dicthist_library(dev) -> dict:
     """Row 18's yardstick: K1's count over gid * 256 + code (DictHistUDA's
-    update) beside torch.bincount of the same flat ids, one call each, at
-    the ml phase's shape (8M rows into 16 x 256 cells)."""
+    update) beside its plain version and torch.bincount of the same flat
+    ids, one call each, at the ml phase's shape (8M rows into 16 x 256
+    cells)."""
     import torch
 
     from pixie_tpu_torch.ops import groupby as gb
@@ -4571,11 +4668,18 @@ def check_dicthist_library(dev) -> dict:
     flat = gid * cap + code
     got = gb.masked_segment_count(flat, g * cap, mask)
     want = torch.bincount(flat, minlength=g * cap)
+
+    def plain():
+        return gb.segment_count_plain(flat, g * cap, mask,
+                                      torch.zeros(g * cap, dtype=torch.int64, device=dev))
+
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("DictHist count: K1 and torch.bincount disagree")
+    if not torch.equal(got, want) or not torch.equal(plain(), want):
+        raise AssertionError("DictHist count: K1, its plain version and torch.bincount "
+                             "disagree")
     out = {"rows": n, "cells": g * cap,
            "k1_ms": cuda_ms(lambda: gb.masked_segment_count(flat, g * cap, mask), 20),
+           "plain_ms": cuda_ms(plain, 5),
            "library_ms": cuda_ms(lambda: torch.bincount(flat, minlength=g * cap), 20),
            "bound_ms": bound(n * (4 + 1) + g * cap * 8)[0]}
     log(json.dumps({"check": "row 18 DictHist count (K1) vs torch.bincount", "ok": True, **out}))
@@ -4800,7 +4904,7 @@ MESH_CONFIG1_KERNELS = CONFIG1_KERNELS
 X_KERNELS = [("repartition", "px_partition_count"), ("repartition", "px_partition_scatter")]
 #: the mesh cluster: agents, config #4's rows over them, the join's rows a side
 MESH_AGENTS = 2
-MESH_JOIN_ROWS = 1 << 22
+MESH_JOIN_ROWS = 1 << 21
 MESH_JOIN_KEYS = 1 << 20
 #: bench config #4's script with a repartitioned join of two tables spread
 #: over the agents, keyed on an int64 and a string column
@@ -5176,7 +5280,7 @@ def run_mesh_cluster(dev) -> dict:
     config #4's 16M rows (2 x 8M), equal to the n_devices_per_agent = 1
     cluster and to the oracle (every agent's shards merge by M1, then the
     agents by M1: 3 launches a query); then a repartitioned join of two
-    2^22-row tables spread over both agents, keyed on (k int64, s string):
+    MESH_JOIN_ROWS-row tables spread over both agents, keyed on (k int64, s string):
     each agent exchanges both sides in its mesh (X1, X2), four partition
     joins run, equal to the single-device join as sorted frames; then the
     same join with one agent at n_devices_per_agent = 1 (a host exchange
@@ -6089,6 +6193,735 @@ def run_host_layers(dev, smi: str) -> dict:
     return {**first, **rest}
 
 
+# ------------------------------------------------- slice 22: metadata_collect
+#: the metadata_collect phase: the canonical http_events relation (the port's
+#: collect/schemas.py, all 18 columns) at config #1's rows; 1,024 UPIDs over
+#: 4 nodes (asid 1-4) bound to 256 pods of 16 services in 4 namespaces, 64
+#: more with no pod
+MD_BOUND, MD_UNBOUND, MD_PODS, MD_NODES = 1024, 64, 256, 4
+MD_UPIDS = MD_BOUND + MD_UNBOUND
+#: pods recreated under another service at the epoch change; the service
+#: renamed there
+MD_MOVED_PODS, MD_RENAMED = 32, 5
+#: a cluster agent's rows (4 agents, one a node), the replayed rows and the
+#: rows seq_gen writes while the queries run
+MD_AGENT_ROWS = 1 << 22
+MD_SEQ_ROWS = 1 << 22
+MD_REPLAY_ROWS = 1 << 22
+MD_CHUNK = 1 << 21
+MD_SCRIPT = """
+import px
+df = px.DataFrame(table='http_events')
+df = df[df.resp_status != 404]
+df.service = df.ctx['service']
+df.namespace = df.ctx['namespace']
+df = df.groupby(['service', 'resp_status']).agg(
+    cnt=('latency', px.count), total=('latency', px.sum),
+    avg_lat=('latency', px.mean), p50=('latency', px.p50))
+px.display(df, 'output')
+"""
+#: the ctx query over 4 feeds: C1 (the LUT over the UPID codes), K1's count,
+#: int64 sum (total) and float64 sum (the mean), K2 (p50 of int64
+#: latencies), F2
+MD_KERNELS = [C1, ("segment_reduce", "px_segment_count"),
+              ("segment_reduce", "px_segment_sum_i64"),
+              ("segment_reduce", "px_segment_sum_f64"),
+              ("loghist_update", "px_loghist_update"), F2]
+#: the reference's UDTF relations (pixie_tpu/udf/udtf.py register_builtin_udtfs)
+MD_UDTF_COLUMNS = {
+    "GetAgentStatus": ["agent_id", "asid", "hostname", "ip_address", "agent_state",
+                       "create_time", "last_heartbeat_ns"],
+    "GetTables": ["table_name", "table_desc"],
+    "GetSchemas": ["table_name", "column_name", "column_type", "pattern_type",
+                   "column_desc"],
+    "GetUDFList": ["name", "return_type", "args"],
+}
+#: the ctx filter of MD_SCRIPT (pods only) grouped by status alone: the
+#: agents' states share one layout, so M1 merges them
+MD_STATUS_SCRIPT = """
+import px
+df = px.DataFrame(table='http_events')
+df = df[df.resp_status != 404]
+df = df[df.ctx['namespace'] != '']
+df = df.groupby('resp_status').agg(
+    cnt=('latency', px.count), total=('latency', px.sum),
+    avg_lat=('latency', px.mean), p50=('latency', px.p50))
+px.display(df, 'output')
+"""
+MD_SEQ_SCRIPT = """
+import px
+df = px.DataFrame(table='seq0')
+df = df.groupby('xmod10').agg(cnt=('x', px.count), s=('x', px.sum))
+px.display(df, 'output')
+"""
+MD_STACK_SCRIPT = """
+import px
+df = px.DataFrame(table='stack_traces.beta')
+df = df.groupby('stack_trace').agg(cnt=('count', px.sum))
+px.display(df, 'output')
+"""
+
+
+def md_upid(u: int, UInt128):
+    """UPID u: bound ones (u < 1,024) to pod u // 4 on node pod % 4 (asid
+    node + 1); unbound ones on node u % 4."""
+    node = (u // 4) % MD_NODES if u < MD_BOUND else u % MD_NODES
+    return UInt128.make_upid(node + 1, 1000 + u, (1 << 60) + u)
+
+
+def md_updates(UInt128) -> list[dict]:
+    """The first snapshot: pod p of service p // 16 on node p % 4, service
+    s in namespace s % 4; UPIDs as md_upid."""
+    ups = []
+    for p in range(MD_PODS):
+        ups.append({"kind": "pod", "uid": f"pod-{p}", "name": f"web-{p}",
+                    "namespace": f"ns-{(p // 16) % 4}", "node": f"node-{p % MD_NODES}",
+                    "ip": f"10.0.{p // 16}.{p % 16 + 1}", "phase": "Running"})
+    for s in range(N_SERVICES):
+        ups.append({"kind": "service", "uid": f"svc-uid-{s}", "name": f"svc-{s}",
+                    "namespace": f"ns-{s % 4}", "cluster_ip": f"10.96.0.{s + 1}",
+                    "pod_uids": [f"pod-{p}" for p in range(16 * s, 16 * s + 16)]})
+    for u in range(MD_UPIDS):
+        d = {"kind": "process", "upid": md_upid(u, UInt128), "cmdline": f"/bin/app-{u}"}
+        if u < MD_BOUND:
+            d["pod_uid"] = f"pod-{u // 4}"
+        ups.append(d)
+    return ups
+
+
+def md_epoch_updates(UInt128) -> list[dict]:
+    """The epoch change: pods 0-31 (services 0 and 1) recreated as pods of
+    service 15 (new pod uids, their 128 UPIDs rebound), service 5
+    renamed."""
+    ups = []
+    for p in range(MD_MOVED_PODS):
+        ups.append({"kind": "pod", "uid": f"moved-{p}", "name": f"moved-{p}",
+                    "namespace": "ns-3", "node": f"node-{p % MD_NODES}",
+                    "ip": f"10.1.0.{p + 1}", "phase": "Running"})
+        for u in range(4 * p, 4 * p + 4):
+            ups.append({"kind": "process", "upid": md_upid(u, UInt128),
+                        "pod_uid": f"moved-{p}"})
+    ups.append({"kind": "service", "uid": "svc-uid-15", "name": "svc-15",
+                "namespace": "ns-3", "cluster_ip": "10.96.0.16",
+                "pod_uids": [f"moved-{p}" for p in range(MD_MOVED_PODS)]})
+    ups.append({"kind": "service", "uid": f"svc-uid-{MD_RENAMED}",
+                "name": f"svc-{MD_RENAMED}-renamed", "namespace": f"ns-{MD_RENAMED % 4}",
+                "cluster_ip": f"10.96.0.{MD_RENAMED + 1}"})
+    return ups
+
+
+def md_service_of(u: int, moved: bool) -> str:
+    """The oracle's own answer to ctx['service'] for UPID u (no port code)."""
+    if u >= MD_BOUND:
+        return ""
+    p = u // 4
+    s = 15 if moved and p < MD_MOVED_PODS else p // 16
+    name = f"svc-{s}-renamed" if moved and s == MD_RENAMED else f"svc-{s}"
+    return f"ns-{s % 4}/{name}"
+
+
+class MdHttpRows:
+    """The phase's http_events rows (seed 22, or 22 + agent): upid uniform
+    over `upids` (UPID indexes), given to the table as a list of UInt128
+    (as the connectors push them); resp_status 200/404/500 at
+    .85/.05/.10; latency int64 ns, exponential with mean 50 ms (config #1's
+    draw); the unread string columns from vocabularies of at most 16
+    values, drawn once for a chunk's rows and repeated in every chunk (the
+    build's time goes to encoding, not drawing)."""
+
+    VOCAB = {
+        "remote_addr": np.array([f"10.2.0.{i}" for i in range(16)]),
+        "req_headers": np.array(['{"Host": "svc"}', '{"Accept": "*/*"}']),
+        "req_method": np.array(["GET", "POST", "PUT", "DELETE"]),
+        "req_path": np.array([f"/api/v1/items/{i}" for i in range(16)]),
+        "req_body": np.array(["", '{"q": 1}']),
+        "resp_headers": np.array(['{"Content-Type": "application/json"}']),
+        "resp_message": np.array(["OK", "Not Found", "Internal Server Error"]),
+        "resp_body": np.array(["", '{"ok": true}', '{"error": "x"}']),
+    }
+
+    def __init__(self, UInt128, upids=None, seed: int = 22, rows: int = ROWS):
+        self.upids = np.arange(MD_UPIDS) if upids is None else np.asarray(upids)
+        self.pool = np.empty(MD_UPIDS, dtype=object)
+        self.pool[:] = [md_upid(u, UInt128) for u in range(MD_UPIDS)]
+        self.rng = np.random.default_rng(seed)
+        self.t_step = 600 * SEC // max(rows, 1)
+        self.written = 0
+        draw = np.random.default_rng(seed + 1000)
+        self.strings = {name: vocab[draw.integers(0, len(vocab), MD_CHUNK)]
+                        for name, vocab in self.VOCAB.items()}
+
+    def chunk(self, n: int) -> dict:
+        rng = self.rng
+        u = self.upids[rng.integers(0, len(self.upids), n)]
+        out = {"time_": np.arange(self.written, self.written + n, dtype=np.int64) * self.t_step,
+               "upid": self.pool[u].tolist(),
+               "remote_port": rng.integers(1024, 65536, n),
+               "trace_role": np.full(n, 2, dtype=np.int64),
+               "major_version": np.ones(n, dtype=np.int64),
+               "minor_version": np.ones(n, dtype=np.int64),
+               "content_type": rng.integers(0, 3, n),
+               "req_body_size": rng.integers(0, 4096, n),
+               "resp_status": rng.choice(np.array([200, 404, 500]), n, p=[0.85, 0.05, 0.10]),
+               "resp_body_size": rng.integers(0, 65536, n),
+               "latency": (rng.exponential(50.0, n) * 1e6).astype(np.int64)}
+        for name, col in self.strings.items():
+            out[name] = col[:n] if n <= len(col) else col[np.arange(n) % len(col)]
+        self.written += n
+        return out
+
+    def write(self, table, rows: int) -> None:
+        end = self.written + rows
+        while self.written < end:
+            table.write(self.chunk(min(MD_CHUNK, end - self.written)))
+
+
+def md_table(ts, rows: int, **kw):
+    """An http_events table of the canonical relation in `ts`, written by
+    MdHttpRows; → (table, the host seconds the build took)."""
+    from pixie_tpu_torch.collect.schemas import SCHEMAS
+    from pixie_tpu_torch.types import UInt128
+
+    t0 = time.perf_counter()
+    table = ts.create("http_events", SCHEMAS["http_events"], batch_rows=1 << 16,
+                      max_bytes=1 << 36)
+    MdHttpRows(UInt128, rows=rows, **kw).write(table, rows)
+    return table, time.perf_counter() - t0
+
+
+class MdOracle:
+    """numpy over the tables' rows, per (UPID, status) once: counts, int64
+    sums and the sketch's bin counts; each snapshot's answer folds the
+    UPIDs into their services (md_service_of)."""
+
+    def __init__(self, tables):
+        W = WIDTH
+        statuses = np.array([200, 500])
+        self.cnt = np.zeros((MD_UPIDS, 2), np.int64)
+        self.total = np.zeros((MD_UPIDS, 2), np.int64)
+        self.hist = np.zeros((MD_UPIDS, 2, W), np.int64)
+        from pixie_tpu_torch.types import UInt128
+
+        index = {(v.high, v.low): u for u, v in enumerate(
+            md_upid(u, UInt128) for u in range(MD_UPIDS))}
+        for table in tables:
+            d = table.dictionaries["upid"]
+            # code → UPID index, from the dictionary's values
+            code_u = np.array([index[(v.high, v.low)] for v in d.decode(np.arange(d.size))],
+                              dtype=np.int64)
+            for rb, _rid, _gen in table.cursor():
+                n = rb.num_valid
+                st = rb.columns["resp_status"][:n]
+                keep = st != 404
+                u = code_u[rb.columns["upid"][:n][keep]]
+                s = np.searchsorted(statuses, st[keep])
+                lat = rb.columns["latency"][:n][keep]
+                key = u * 2 + s
+                self.cnt += np.bincount(key, minlength=MD_UPIDS * 2).reshape(MD_UPIDS, 2)
+                # int64 sums, exact: a batch's float64 sums stay below 2^53
+                self.total += np.rint(np.bincount(key, weights=lat, minlength=MD_UPIDS * 2)
+                                      ).astype(np.int64).reshape(MD_UPIDS, 2)
+                x = np.maximum(lat.astype(np.float32), np.float32(MIN_VALUE))
+                lg = np.log(x) / np.float32(math.log(GAMMA))
+                bins = np.clip(np.ceil(lg).astype(np.int64) + 1, 0, W - 1)
+                bins[lat <= MIN_VALUE] = 0
+                self.hist += np.bincount(key * W + bins, minlength=MD_UPIDS * 2 * W
+                                         ).reshape(MD_UPIDS, 2, W)
+        self.statuses = statuses
+
+    def check(self, label: str, res, moved: bool, by_service: bool = True) -> dict:
+        """The result against this snapshot's answer: keys, counts and int64
+        sums exactly, means to rtol 1e-12, p50 in the oracle's sketch bin or
+        the next (ROADMAP's gates).  by_service False: MD_STATUS_SCRIPT's
+        answer (the UPIDs with a pod, one group a status)."""
+        if by_service:
+            of = [md_service_of(u, moved) for u in range(MD_UPIDS)]
+        else:
+            of = ["" if u < MD_BOUND else None for u in range(MD_UPIDS)]
+        keep = np.array([x is not None for x in of])
+        names = sorted({x for x in of if x is not None})
+        svc = np.array([names.index(x) for x in of if x is not None])
+        G = len(names)
+        cnt = np.zeros((G, 2), np.int64)
+        total = np.zeros((G, 2), np.int64)
+        hist = np.zeros((G, 2, WIDTH), np.int64)
+        np.add.at(cnt, svc, self.cnt[keep])
+        np.add.at(total, svc, self.total[keep])
+        np.add.at(hist, svc, self.hist[keep])
+        want = {}
+        for g in range(G):
+            for j, st in enumerate(self.statuses):
+                if cnt[g, j]:
+                    cum = np.cumsum(hist[g, j])
+                    idx = min(int((cum < 0.5 * cum[-1]).sum()), WIDTH - 1)
+                    want[(names[g], int(st))] = (int(cnt[g, j]), int(total[g, j]),
+                                                 total[g, j] / cnt[g, j],
+                                                 0.0 if idx <= 0 else GAMMA ** (idx - 1.5))
+        df = res.to_pandas()
+        got = {(getattr(r, "service", ""), int(r.resp_status)): (
+                   int(r.cnt), int(r.total), float(r.avg_lat), float(r.p50))
+               for r in df.itertuples(index=False)}
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"{label}: groups {sorted(got)[:6]}... against the oracle's "
+                                 f"{sorted(want)[:6]}...")
+        exact = 0
+        for k, (c, t, m, p) in want.items():
+            gc, gt, gm, gp = got[k]
+            if (gc, gt) != (c, t):
+                raise AssertionError(f"{label}: {k} count / sum {gc}, {gt} against {c}, {t}")
+            if not math.isclose(gm, m, rel_tol=1e-12, abs_tol=0):
+                raise AssertionError(f"{label}: {k} mean {gm} against {m}")
+            r = gp / p
+            if not any(math.isclose(r, x, rel_tol=1e-12) for x in (1.0, GAMMA, 1 / GAMMA)):
+                raise AssertionError(f"{label}: {k} p50 {gp} outside the oracle's bin {p}")
+            exact += r == 1.0
+        return {"groups": len(want), "rows_kept": int(cnt.sum()), "p50_exact_bin": exact,
+                "services": sorted({k[0] for k in want})}
+
+
+def md_executable_frame(sym) -> tuple[int, str]:
+    """A runtime address inside sys.executable's executable mapping and the
+    function symbol it lies in (from the ELF file: its dynamic or full
+    symbol table), found by undoing NativeSymbolizer's mapping bias."""
+    from pixie_tpu_torch.obj_tools import ElfReader
+
+    exe = os.path.realpath(sys.executable)
+    for lo, hi, off, path in sym.maps:
+        if os.path.realpath(path) != exe:
+            continue
+        rd = ElfReader(path)
+        base = rd.min_load_vaddr() + off if rd.e_type == 3 else lo
+        for s in rd.symbols():
+            if s.is_func and s.size and base <= s.addr < base + (hi - lo):
+                return s.addr - base + lo, s.name
+    raise AssertionError(f"metadata_collect: no function symbol of {exe} in an "
+                         "executable mapping")
+
+
+def md_agg_setup(query):
+    """The executor's own aggregate setup (`PlanExecutor._agg_setup`: its
+    chain kernel, with the agg step it made, and its group keys) from one
+    run of `query`."""
+    from pixie_tpu_torch.engine.executor import PlanExecutor
+
+    got, orig = [], PlanExecutor._agg_setup
+
+    def hook(self, op):
+        got.append(orig(self, op))
+        return got[-1]
+
+    PlanExecutor._agg_setup = hook
+    try:
+        query()
+    finally:
+        PlanExecutor._agg_setup = orig
+    if len(got) != 1:
+        raise AssertionError(f"metadata chain: {len(got)} aggregate setups in one query")
+    return got[0]
+
+
+def md_chain_check(dev, table, setup) -> dict:
+    """C1 on the metadata chain, as the ctx query's executor lowered it
+    (`setup`: a LUT opcode over the UPID dictionary's codes, the service
+    LUT's codes as a dict key), against its plain interpreter at the
+    table's first 16M-row feed, then timed: → its kernel row."""
+    import torch
+
+    from pixie_tpu_torch.ops import chain as c1
+
+    kern = setup.kern
+    keys = [(k.name, k.kind) for k in setup.keys]
+    if setup.op.groups != ["service", "resp_status"] or keys[0] != ("service", "dict"):
+        raise AssertionError(f"metadata chain: the plan groups by {setup.op.groups}, "
+                             f"keys {keys}")
+    svc = kern.ctx.sym["service"]
+    names = sorted({n for seg in kern.segments for n in seg.binding.cols
+                    if not n.startswith("__")})
+    host = {k: [] for k in names}
+    got_rows = 0
+    for rb, _rid, _gen in table.cursor():
+        for k in names:
+            host[k].append(rb.columns[k][: rb.num_valid])
+        got_rows += rb.num_valid
+        if got_rows >= FEED:
+            break
+    cols = {k: torch.from_numpy(np.concatenate(v)[:FEED]).to(dev) for k, v in host.items()}
+    luts = {k: torch.as_tensor(v).to(dev) for k, v in kern.luts.items()}
+    codes = [c1.OPS[op] for seg in kern.segments for op, *_ in seg.prog.code]
+    if not any(name.startswith("LUT") for name in codes):
+        raise AssertionError(f"metadata chain: no LUT opcode in {codes}")
+
+    def run(runner, n_valid=FEED):
+        return kern.run_segments(kern.segments, cols, FEED, n_valid, -(2 ** 63), 2 ** 63 - 1,
+                                 None, luts, setup.origins, runner=runner)
+
+    for case, n_valid in (("", FEED), (", n_valid < n", FEED - 12345)):
+        got, want = run(c1.run, n_valid), run(c1.run_plain, n_valid)
+        torch.cuda.synchronize()
+        c1_compare("metadata chain" + case + " mask", got[0], want[0])
+        c1_compare("metadata chain" + case + " gid", got[1], want[1])
+        for j, (g, w) in enumerate(zip(got[2], want[2])):
+            c1_compare(f"metadata chain{case} output {j}", g, w)
+        log(json.dumps({"check": "C1 metadata chain" + case, "ok": True,
+                        "kept": int(got[0].sum()), "programs": len(kern.segments),
+                        "opcodes": codes, "keys": keys}))
+    b_ms, b_by = chain_bound(kern, FEED)
+    return {
+        "name": "chain C1 (metadata chain: LUT over UPID codes)", "route": "cuda",
+        "source": "pixie_tpu_torch/csrc/chain.cu",
+        "replaces": "pixie_tpu/engine/executor.py:566-765 ChainKernel; eval.py:57 apply_lut "
+                    "(metadata UDFs as LUTs, metadata/funcs.py)",
+        "entry": C1, "path": "metadata_collect", "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: run(c1.run), 20),
+        "plain_ms": cuda_ms(lambda: run(c1.run_plain), 5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        # no single PyTorch call computes a chain program
+        "library_ms": None,
+        "shape": {"rows": FEED, "programs": len(kern.segments),
+                  "upids": table.dictionaries["upid"].size, "services": svc.dictionary.size,
+                  "instructions": [len(s.prog.code) for s in kern.segments],
+                  "device_ms": kernel_device_ms(lambda: run(c1.run), 10),
+                  "host_us": host_us(lambda: run(c1.run), 100)},
+    }
+
+
+def md_lut_ms(table) -> float:
+    """Host ms to evaluate the ctx query's two LUTs over the UPID
+    dictionary (upid_to_service_name, upid_to_namespace), as eval.py's host
+    call does: each function over every dictionary value into a string
+    dictionary's codes."""
+    from pixie_tpu_torch.table.dictionary import Dictionary
+    from pixie_tpu_torch.types import DataType as DT
+    from pixie_tpu_torch.udf import registry
+
+    d = table.dictionaries["upid"]
+    t0 = time.perf_counter()
+    for name in ("upid_to_service_name", "upid_to_namespace"):
+        fn = registry.scalar(name, (DT.UINT128,)).fn
+        out = Dictionary()
+        d.lut(lambda v, fn=fn, out=out: out.code(fn(v)), np.int32)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def md_query(q, ts, dev):
+    """→ query() for stream_and_warm: one execute_plan of the ctx plan."""
+    import torch
+
+    from pixie_tpu_torch.engine import execute_plan
+
+    def query():
+        r = execute_plan(q.plan, ts, device=dev)["output"]
+        torch.cuda.synchronize(dev)
+        return r
+
+    return query
+
+
+def md_single(dev, smi: str) -> dict:
+    """The 64M-row table, the ctx query (its launches, the oracle, stream
+    and warm medians, the host LUT time), C1's check on its chain, then the
+    epoch change (its warm query's wall, H2D bytes and LUT uploads)."""
+    from pixie_tpu_torch.compiler import compile_pxl
+    from pixie_tpu_torch.engine.executor import device_cache_stats
+    from pixie_tpu_torch.metadata import state as md_state
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.table import TableStore
+    from pixie_tpu_torch.types import UInt128
+
+    ts = TableStore()
+    table, build_s = md_table(ts, ROWS)
+    log(json.dumps({"phase": "metadata_collect.data", "rows": ROWS, "card": smi,
+                    "build_s": build_s, "upids": table.dictionaries["upid"].size,
+                    "columns": len(table.relation.names())}))
+    t0 = time.perf_counter()
+    oracle = MdOracle([table])
+    oracle_s = time.perf_counter() - t0
+    q = compile_pxl(MD_SCRIPT, ts.schemas())
+    query = md_query(q, ts, dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    first = query()
+    first_s = time.perf_counter() - t0
+    launches = read_launches("metadata_collect", MD_KERNELS)
+    held = oracle.check("metadata_collect ctx query", first, moved=False)
+    check_leaves("metadata_collect", first.exec_stats)
+    timing = stream_and_warm(query, "metadata_collect ctx query")
+    lut_ms = sorted(md_lut_ms(table) for _ in range(5))[2]
+    row = md_chain_check(dev, table, md_agg_setup(query))
+    a = {"card": smi, "rows": ROWS, "first_s": first_s, **held, "oracle_s": oracle_s,
+         "lut_host_ms": lut_ms, **{k: v for k, v in timing.items() if k != "settle_h2d_bytes"},
+         "launches": {lib: {e: n for e, n in by.items() if n}
+                      for lib, by in launches.items() if any(by.values())}}
+    log(json.dumps({"phase": "metadata_collect.ctx", "ok": True, **a}))
+
+    # the epoch change: the next warm query must group by the new snapshot;
+    # only the changed LUT travels (the columns stay resident)
+    mgr = md_state.global_manager()
+    epoch = mgr.epoch
+    t0 = time.perf_counter()
+    mgr.apply_updates(md_epoch_updates(UInt128))
+    apply_ms = (time.perf_counter() - t0) * 1e3
+    before = device_cache_stats()
+    t0 = time.perf_counter()
+    after = query()
+    wall = time.perf_counter() - t0
+    mid = device_cache_stats()
+    held2 = oracle.check("metadata_collect after the epoch change", after, moved=True)
+    again = warm_times(query, warmup=0, reps=5)
+    end = device_cache_stats()
+    e = {"card": smi, "epoch": [epoch, mgr.epoch], "apply_ms": apply_ms, "wall_s": wall,
+         "h2d_bytes": after.exec_stats["h2d_bytes"],
+         "lut_uploads": mid["lut_uploads"] - before["lut_uploads"],
+         "lut_h2d_bytes": mid["lut_upload_bytes"] - before["lut_upload_bytes"],
+         "lut_uploads_next_5": end["lut_uploads"] - mid["lut_uploads"],
+         "warm_median_s_after": again[2], **held2}
+    if e["h2d_bytes"] or not e["lut_uploads"] or e["lut_uploads_next_5"]:
+        raise AssertionError(f"metadata_collect: the epoch change's query moved {e}")
+    log(json.dumps({"phase": "metadata_collect.epoch", "ok": True, **e}))
+    return {"launches": launches, "row": row, "ctx": a, "epoch": e}
+
+
+def md_cluster(dev, smi: str) -> dict:
+    """The ctx query through a 4-agent LocalCluster (an agent a node, 2^22
+    rows each of its own UPIDs, in the order they arrive): each agent's
+    service dictionary follows its own UPID order, so the states merge on
+    the host by key values (M1 launched no time; each agent's state read
+    back through P1); the same filter grouped by status alone merges on M1
+    once; the oracle holds both.  Then the UDTFs and px.asid() /
+    px.node_name() through it."""
+    import torch
+
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.parallel import LocalCluster
+    from pixie_tpu_torch.table import TableStore
+
+    stores, tables, build_s = {}, [], 0.0
+    for a in range(MD_NODES):
+        bound = [u for u in range(MD_BOUND) if (u // 4) % MD_NODES == a]
+        unbound = [u for u in range(MD_BOUND, MD_UPIDS) if u % MD_NODES == a]
+        ts = TableStore()
+        t, s = md_table(ts, MD_AGENT_ROWS, upids=bound + unbound, seed=22 + a)
+        stores[f"pem{a}"], build_s = ts, build_s + s
+        tables.append(t)
+    oracle = MdOracle(tables)
+    cluster = LocalCluster(stores, device=dev)
+    launched = {}
+
+    def query(script, m1_want, p1_want):
+        def run():
+            m1, p1 = (_build.KERNELS[lib].by_entry.get(e, 0) for lib, e in (M1, P1))
+            r = cluster.query(script)["output"]
+            torch.cuda.synchronize(dev)
+            got = tuple(_build.KERNELS[lib].by_entry.get(e, 0) - n
+                        for (lib, e), n in ((M1, m1), (P1, p1)))
+            if got != (m1_want, p1_want):
+                raise AssertionError(f"metadata_collect cluster: M1, P1 launched {got} "
+                                     f"times, want {(m1_want, p1_want)}")
+            launched[script] = {"M1": got[0], "P1": got[1]}
+            return r
+
+        return run
+
+    from pixie_tpu_torch.metadata import state as md_state
+
+    moved = md_state.global_manager().epoch > 1
+    by_service = query(MD_SCRIPT, 0, MD_NODES)
+    held = oracle.check("metadata_collect cluster", by_service(), moved=moved)
+    times = warm_times(by_service, warmup=1, reps=5)
+    by_status = query(MD_STATUS_SCRIPT, 1, 0)
+    held_m1 = oracle.check("metadata_collect cluster by status", by_status(), moved=moved,
+                           by_service=False)
+    times_m1 = warm_times(by_status, warmup=1, reps=5)
+    res = cluster.query("""
+import px
+px.display(px.GetAgentStatus(), 'GetAgentStatus')
+px.display(px.GetTables(), 'GetTables')
+px.display(px.GetSchemas(), 'GetSchemas')
+px.display(px.GetUDFList(), 'GetUDFList')
+df = px.DataFrame(table='http_events', select=['time_', 'upid'])
+df = df.groupby('upid').agg(n=('time_', px.count))
+df = df.agg(upids=('n', px.count))
+df.asid = px.asid()
+df.node = px.node_name()
+px.display(df, 'ctx')
+""")
+    cols = {k: [c.name for c in res[k].relation] for k in MD_UDTF_COLUMNS}
+    if cols != MD_UDTF_COLUMNS:
+        raise AssertionError(f"metadata_collect: UDTF columns {cols}")
+    udfs = set(res["GetUDFList"].to_pandas()["name"])
+    tables_seen = res["GetTables"].to_pandas()["table_name"].tolist()
+    ctx = res["ctx"].to_pandas()
+    snap = md_state.snapshot()
+    if (len(udfs) != 135 or "http_events" not in tables_seen
+            or ctx["asid"].tolist() != [snap.asid] or ctx["node"].tolist() != [snap.node_name]
+            or ctx["upids"].tolist() != [MD_UPIDS]):
+        raise AssertionError(f"metadata_collect: cluster UDTFs {len(udfs)} UDFs, tables "
+                             f"{tables_seen}, ctx {ctx.to_dict('records')}")
+    c = {"card": smi, "agents": MD_NODES, "rows": MD_NODES * MD_AGENT_ROWS,
+         "build_s": build_s, "route": "host value-keyed merge",
+         "launches": launched[MD_SCRIPT], "warm_median_s": times[2], "warm_s": times, **held,
+         "by_status": {"route": "M1", "launches": launched[MD_STATUS_SCRIPT],
+                       "warm_median_s": times_m1[2], "warm_s": times_m1, **held_m1},
+         "udtf_columns": cols, "udf_names": len(udfs),
+         "agent_status": res["GetAgentStatus"].to_pandas().astype(str).to_dict("records"),
+         "asid": ctx["asid"].tolist(), "node_name": ctx["node"].tolist()}
+    log(json.dumps({"phase": "metadata_collect.cluster", "ok": True, **c}))
+    return c
+
+
+def md_collect(dev, smi: str, profiler) -> dict:
+    """The collectors: seq_gen, process and network stats on the Collector's
+    thread while 50 warm queries run over seq0; replay of 2^22 http_events
+    rows, then the ctx query over them; the profiler's table."""
+    import ctypes
+
+    import torch
+
+    from pixie_tpu_torch.collect import (Collector, NetworkStatsConnector,
+                                         ProcessStatsConnector, ReplayConnector,
+                                         SeqGenConnector)
+    from pixie_tpu_torch.collect.schemas import SCHEMAS
+    from pixie_tpu_torch.compiler import compile_pxl
+    from pixie_tpu_torch.engine import execute_plan
+    from pixie_tpu_torch.metadata import state as md_state
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.types import UInt128
+
+    # (a) ingest on the poll thread while queries run
+    col = Collector()
+    # at most 2^22 rows: seq0 (32 B a row) stays below its table's 256 MiB,
+    # so no batch expires and every snapshot is a prefix x = 0, 1, ...
+    col.register(SeqGenConnector(rows_per_transfer=1 << 15, sample_period_s=0.01,
+                                 total_rows=MD_SEQ_ROWS))
+    col.register(ProcessStatsConnector(sample_period_s=0.5))
+    col.register(NetworkStatsConnector(sample_period_s=0.5))
+    col.transfer_once()
+    q = compile_pxl(MD_SEQ_SCRIPT, col.store.schemas())
+
+    def seq_query():
+        r = execute_plan(q.plan, col.store, device=dev)["output"]
+        torch.cuda.synchronize(dev)
+        return r
+
+    seq_query()
+    seq0 = col.store.table("seq0")
+    totals, query_s = [], []
+    rows0 = seq0.stats()["rows_written"]
+    t0 = time.perf_counter()
+    col.start()
+    try:
+        for _ in range(50):
+            tq = time.perf_counter()
+            df = seq_query().to_pandas()
+            n = int(df["cnt"].sum())
+            # a snapshot holds a prefix of x = 0, 1, ...: its sum is exact
+            if int(df["s"].sum()) != n * (n - 1) // 2 or (totals and n < totals[-1]):
+                raise AssertionError(f"metadata_collect: seq0 query saw {n} rows, sum "
+                                     f"{int(df['s'].sum())} after {totals[-3:]}")
+            totals.append(n)
+            query_s.append(time.perf_counter() - tq)
+        wall = time.perf_counter() - t0
+        rows1 = seq0.stats()["rows_written"]
+    finally:
+        col.stop()
+    final = seq_query().to_pandas()
+    n = int(final["cnt"].sum())
+    if (n != seq0.stats()["rows_written"] or int(final["s"].sum()) != n * (n - 1) // 2
+            or len(set(totals)) < 3):
+        raise AssertionError(f"metadata_collect: seq0 ended at {n} rows of "
+                             f"{seq0.stats()['rows_written']}, queries saw {totals}")
+    a = {"card": smi, "queries": len(totals), "wall_s": wall,
+         "seq0_rows_per_s": (rows1 - rows0) / wall,
+         "query_median_s": sorted(query_s)[len(query_s) // 2],
+         "seq0_rows_seen": [totals[0], totals[-1]], "distinct_counts": len(set(totals)),
+         "process_stats_rows": col.store.table("process_stats").stats()["rows_written"],
+         "network_stats_rows": col.store.table("network_stats").stats()["rows_written"],
+         "errors": col.stats["errors"]}
+    log(json.dumps({"phase": "metadata_collect.ingest", "ok": True, **a}))
+
+    # (b) replay recorded http_events rows, time rewritten, then the ctx query
+    gen = MdHttpRows(UInt128, seed=23, rows=MD_REPLAY_ROWS)
+    data = gen.chunk(MD_REPLAY_ROWS)
+    rc = Collector()
+    rc.register(ReplayConnector("http_events", SCHEMAS["http_events"], data=data,
+                                rows_per_transfer=1 << 16))
+    t0 = time.perf_counter()
+    while rc.transfer_once():
+        pass
+    replay_s = time.perf_counter() - t0
+    table = rc.store.table("http_events")
+    if table.stats()["rows_written"] != MD_REPLAY_ROWS:
+        raise AssertionError(f"metadata_collect: replayed {table.stats()}")
+    moved = md_state.global_manager().epoch > 1
+    res = md_query(compile_pxl(MD_SCRIPT, rc.store.schemas()), rc.store, dev)()
+    held = MdOracle([table]).check("metadata_collect replay", res, moved=moved)
+    b = {"card": smi, "rows": MD_REPLAY_ROWS, "replay_s": replay_s,
+         "rows_per_s": MD_REPLAY_ROWS / replay_s, **held}
+    log(json.dumps({"phase": "metadata_collect.replay", "ok": True, **b}))
+
+    # (c) the profiler, sampling this process since the phase began; native
+    # frames: the interpreter's Py_GetVersion (in sys.executable or the
+    # libpython it links), and a function of sys.executable's own mapping
+    pcol, prof = profiler
+    addr = ctypes.cast(ctypes.pythonapi.Py_GetVersion, ctypes.c_void_p).value
+    exe_addr, exe_sym = md_executable_frame(prof._symbolizer())
+    prof.add_native_sample([exe_addr, addr], count=1)
+    frame = prof.fold_native_stack([exe_addr, addr])
+    mapping = next((p for lo, hi, _off, p in prof._symbolizer().maps if lo <= addr < hi), None)
+    pcol.transfer_once()
+    pcol.stop()
+    stacks = pcol.store.table("stack_traces.beta")
+    exe = os.path.basename(os.path.realpath(sys.executable))
+    if (not stacks.stats()["rows_written"]
+            or frame != f"{prof._symbolizer().symbolize(addr)};{exe_sym} ({exe})"
+            or not frame.startswith("Py_GetVersion (")):
+        raise AssertionError(f"metadata_collect: profiler rows {stacks.stats()}, "
+                             f"native frames {frame!r} (Py_GetVersion in {mapping}, "
+                             f"{exe_sym} of {exe})")
+    _build.reset_launches()
+    flame = execute_plan(compile_pxl(MD_STACK_SCRIPT, pcol.store.schemas()).plan, pcol.store,
+                         device=dev)["output"].to_pandas()
+    torch.cuda.synchronize(dev)
+    flame_launches = {lib: {e: n for e, n in k.by_entry.items() if n}
+                      for lib, k in _build.KERNELS.items() if k.launches}
+    if int(flame["cnt"].sum()) != int(sum(rb.columns["count"][: rb.num_valid].sum()
+                                          for rb, _r, _g in stacks.cursor())):
+        raise AssertionError("metadata_collect: the flame query's counts differ from the table's")
+    c = {"card": smi, "samples": prof.samples_taken, "stack_rows": stacks.stats()["rows_written"],
+         "stacks": len(flame), "native_frame": frame, "native_mapping": mapping,
+         "executable": sys.executable, "flame_launches": flame_launches}
+    log(json.dumps({"phase": "metadata_collect.profiler", "ok": True, **c}))
+    return {"ingest": a, "replay": b, "profiler": c}
+
+
+def run_metadata_collect(dev, smi: str) -> dict:
+    """Slice 22 on the card: the metadata state's snapshot installed, the
+    profiler sampling throughout; the 64M-row ctx query and its epoch
+    change, the cluster, the collectors."""
+    from pixie_tpu_torch.collect import Collector
+    from pixie_tpu_torch.collect.perf_profiler import PerfProfilerConnector
+    from pixie_tpu_torch.metadata import state as md_state
+    from pixie_tpu_torch.types import UInt128
+
+    old = md_state.global_manager()
+    mgr = md_state.MetadataStateManager(asid=1, node_name="node-0")
+    mgr.apply_updates(md_updates(UInt128))
+    md_state.set_global_manager(mgr)
+    pcol = Collector()
+    prof = PerfProfilerConnector(hz=99.0, push_period_s=1.0, asid=1)
+    pcol.register(prof)
+    pcol.start()
+    try:
+        single = md_single(dev, smi)
+        cluster = md_cluster(dev, smi)
+        collect = md_collect(dev, smi, (pcol, prof))
+    finally:
+        pcol.stop()
+        md_state.set_global_manager(old)
+    return {"launches": single["launches"], "row": single["row"], "single": single,
+            "cluster": cluster, "collect": collect}
+
+
 PIN_FLAGS = {"PX_AUTOTUNE": "0", "PX_CPU_CROSSOVER_ROWS": "0"}
 
 
@@ -6438,6 +7271,9 @@ def main() -> int:
     ap.add_argument("--only-host-layers", action="store_true",
                     help="build the kernels and run the host_layers phase alone "
                          "(no contract lines: not the smoke)")
+    ap.add_argument("--only-metadata-collect", action="store_true",
+                    help="build the kernels and run the metadata_collect phase alone "
+                         "(no contract lines: not the smoke)")
     args = ap.parse_args()
 
     t_start = time.perf_counter()
@@ -6478,6 +7314,11 @@ def main() -> int:
         pinned("host_layers")
         run_host_layers(dev, smi)
         log("only the host_layers phase ran: this is not the smoke's result")
+        return 0
+    if args.only_metadata_collect:
+        pinned("metadata_collect")
+        run_metadata_collect(dev, smi)
+        log("only the metadata_collect phase ran: this is not the smoke's result")
         return 0
     pinned("kernels")
     rows = (check_kernels(dev) + check_new_kernels(dev) + check_resident_kernels(dev)
@@ -6565,6 +7406,15 @@ def main() -> int:
     log(json.dumps({"phase": "host_layers", "card": smi, "seconds": time.perf_counter() - t0,
                     "launches": {lib: {e: n for e, n in by.items() if n}
                                  for lib, by in paths["host_layers"].items() if any(by.values())}}))
+    t0 = time.perf_counter()
+    pinned("metadata_collect")
+    md = run_metadata_collect(dev, smi)
+    paths["metadata_collect"] = md["launches"]
+    rows.append(md["row"])
+    log(json.dumps({"phase": "metadata_collect", "card": smi,
+                    "seconds": time.perf_counter() - t0,
+                    "launches": {lib: {e: n for e, n in by.items() if n}
+                                 for lib, by in md["launches"].items() if any(by.values())}}))
     log(json.dumps({"phase": "launches", "per_path": paths}))
     idle = [lib for lib in _build.KERNELS if not any(p_[lib] for p_ in paths.values())]
     if idle:

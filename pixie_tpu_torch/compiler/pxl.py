@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+from pixie_tpu_torch.metadata.funcs import CTX_KEYS
 from pixie_tpu_torch.plan.plan import (
     AggExpr,
     AggOp,
@@ -31,36 +32,6 @@ from pixie_tpu_torch.plan.plan import (
 from pixie_tpu_torch.status import CompilerError
 from pixie_tpu_torch.types import DataType as DT
 from pixie_tpu_torch.types import Relation
-
-#: Copied from the reference package (pixie_tpu/metadata/funcs.py CTX_KEYS);
-#: the metadata UDFs it names come with the host-layer slice (metadata).
-#: ctx key → candidate (udf, source column) chain, tried in order against the
-#: DataFrame's columns.  The reference's metadata-conversion rule does the
-#: same: it picks whichever metadata key column the table carries (upid for
-#: traced tables, pod_id for network_stats — metadata_ir.cc ResolveMetadata).
-CTX_KEYS = {
-    "pod": [("upid_to_pod_name", "upid"), ("pod_id_to_pod_name", "pod_id")],
-    "pod_name": [("upid_to_pod_name", "upid"), ("pod_id_to_pod_name", "pod_id")],
-    "pod_id": [("upid_to_pod_id", "upid"), ("pod_name_to_pod_id", "pod_name")],
-    "service": [("upid_to_service_name", "upid"),
-                ("pod_id_to_service_name", "pod_id")],
-    "service_name": [("upid_to_service_name", "upid"),
-                     ("pod_id_to_service_name", "pod_id")],
-    "service_id": [("upid_to_service_id", "upid")],
-    "namespace": [("upid_to_namespace", "upid"),
-                  ("pod_id_to_namespace", "pod_id")],
-    "node": [("upid_to_node_name", "upid"), ("pod_id_to_node_name", "pod_id")],
-    "node_name": [("upid_to_node_name", "upid"),
-                  ("pod_id_to_node_name", "pod_id")],
-    "container": [("upid_to_container_name", "upid")],
-    "container_name": [("upid_to_container_name", "upid")],
-    "container_id": [("upid_to_container_id", "upid")],
-    "deployment": [("upid_to_deployment_name", "upid")],
-    "cmdline": [("upid_to_cmdline", "upid")],
-    "cmd": [("upid_to_cmdline", "upid")],
-    "pid": [("upid_to_pid", "upid")],
-    "asid": [("upid_to_asid", "upid")],
-}
 
 _COMPARISONS = {"equal", "not_equal", "less", "less_equal", "greater", "greater_equal"}
 

@@ -4,13 +4,12 @@ src/carnot/planner/objects/pixie_module.cc).
 One PxModule instance exists per compilation and is injected as `px` into the
 script's namespace (and sys.modules during exec, so `import px` works).  Any
 attribute not explicitly defined falls through to the scalar-UDF registry,
-giving every builtin (px.abs, px.contains, ...) for free.
+giving every builtin (px.abs, px.contains, px.upid_to_pod_name, ...) for free.
 
 Copied from the reference package (pixie_tpu/compiler/pxmodule.py).  Not
 ported yet, each raising Unimplemented where a script reaches it: the OTel
-export objects (px.otel, px.export), the metadata-snapshot helpers (px.asid,
-px.node_name, px._exec_hostname) and UDTF sources (px.<UDTF>()), all of which
-come with the host-layer slice.
+export objects (px.otel, px.export), which come with the host-layer slice
+(ROADMAP Queue 1 item 6e).
 """
 from __future__ import annotations
 
@@ -212,19 +211,25 @@ class PxModule(types.ModuleType):
             return self.__getattr__("normalize_sql_struct")(q)
         return self.__getattr__("normalize_pgsql")(q, cmd)
 
-    # Nullary context helpers (reference metadata_ops.h ASIDUDF etc.): they
-    # read the metadata snapshot, which comes with the metadata slice.
+    # Nullary context helpers (reference metadata_ops.h ASIDUDF etc.)
     def asid(self) -> int:
-        raise Unimplemented("px.asid reads the metadata snapshot, which is not "
-                            "ported yet (the host-layer slice, metadata)")
+        from pixie_tpu_torch.metadata import snapshot
+
+        return snapshot().asid
 
     def node_name(self) -> str:
-        raise Unimplemented("px.node_name reads the metadata snapshot, which is "
-                            "not ported yet (the host-layer slice, metadata)")
+        from pixie_tpu_torch.metadata import snapshot
 
+        return snapshot().node_name
+
+    # Exec-context UDFs (reference funcs/metadata/metadata_ops.h HostnameUDF /
+    # HostNumCPUsUDF).  DIVERGENCE: the reference evaluates these on each
+    # executing agent; here they fold to the COMPILING node's view (scripts
+    # use them for per-node drilldowns where the value is constant anyway).
     def _exec_hostname(self) -> str:
-        raise Unimplemented("px._exec_hostname reads the metadata snapshot, "
-                            "which is not ported yet (the host-layer slice, metadata)")
+        from pixie_tpu_torch.metadata import snapshot
+
+        return snapshot().node_name or "localhost"
 
     def _exec_host_num_cpus(self) -> int:
         import os
@@ -245,10 +250,22 @@ class PxModule(types.ModuleType):
 
     # ------------------------------------------------------ registry fallback
     def __getattr__(self, name: str):
-        # Fallback: any scalar UDF in the registry becomes px.<name>(...).
-        # (The reference also turns each UDTF into px.<Name>(...); the port's
-        # registry holds no UDTFs until the host-layer slice.)
+        # Fallback: any scalar UDF in the registry becomes px.<name>(...),
+        # any UDTF becomes px.<Name>(...) returning a DataFrame.
         ctx = object.__getattribute__(self, "_ctx")
+        if ctx.registry.has_udtf(name):
+            from pixie_tpu_torch.plan.plan import UDTFSourceOp
+
+            def call_udtf(_name=name, **kwargs):
+                u = ctx.registry.udtf(_name)
+                op = ctx.plan.add(
+                    UDTFSourceOp(name=_name, args=dict(kwargs),
+                                 schema=u.relation.to_dict())
+                )
+                return DataFrame(ctx, op, {c.name: c.data_type for c in u.relation})
+
+            call_udtf.__name__ = name
+            return call_udtf
         if ctx.registry.has_scalar(name):
             def call(*args, _name=name):
                 df = None

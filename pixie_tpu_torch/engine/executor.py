@@ -58,9 +58,10 @@ the streaming fold consumes) and the streaming polls of engine/stream.py.
 A union materializes each parent on the host (a filtered scan through C1
 and K4), maps every dictionary column onto the first parent's dictionary
 and concatenates the parts; an aggregate over a union uploads that host
-batch.  UDTF sources raise Unimplemented and name the slice that brings
-them.  The agent plan of a batched query (serving/batching.py) holds several
-partial aggregates over one shared scan: they run as a multi-query gang
+batch.  A UDTF source (udf/udtf.py) runs its host function into a
+HostBatch (`_run_udtf`), as the reference does.  The agent plan of a
+batched query (serving/batching.py) holds several partial aggregates over
+one shared scan: they run as a multi-query gang
 (`_gang_agg_payloads`, `_multi_partial_agg`), one launch of kernel G1
 (ops/gang.py) per feed for every member, under PX_MQ_FUSION (auto: on for a
 CUDA executor).
@@ -155,12 +156,13 @@ from pixie_tpu_torch.plan.plan import (
     Plan,
     RemoteSourceOp,
     ResultSinkOp,
+    UDTFSourceOp,
     UnionOp,
 )
 from pixie_tpu_torch.status import CompilerError, Internal, InvalidArgument, Unavailable, Unimplemented
 from pixie_tpu_torch.table.dictionary import Dictionary
 from pixie_tpu_torch.table.table import Table
-from pixie_tpu_torch.types import STORAGE_DTYPE, DataType as DT
+from pixie_tpu_torch.types import STORAGE_DTYPE, DataType as DT, Relation, UInt128, is_dict_encoded
 from pixie_tpu_torch.udf.udf import CountUDA, to_torch_dtype, tree_map
 
 INT64_MIN = int(np.iinfo(np.int64).min)
@@ -423,6 +425,12 @@ def clear_device_cache():
         _DEVICE_CACHE_BYTES = 0
 
 
+#: LUTs device_luts uploaded (a cache miss) and their bytes, since the
+#: process started: a new metadata epoch's LUTs are new contents, so a warm
+#: query after one uploads exactly them
+_LUT_UPLOADS = [0, 0]
+
+
 def device_luts(luts: dict, device: torch.device) -> dict:
     """A chain's LUTs ({name: numpy array}) on `device`.  On a CUDA device
     each is an entry of the feed cache, keyed by its contents (a digest):
@@ -441,13 +449,17 @@ def device_luts(luts: dict, device: torch.device) -> dict:
         if got is None:
             got = {"lut": torch.as_tensor(a).to(device)}
             _device_cache_put(key, got)
+            with _CACHE_LOCK:
+                _LUT_UPLOADS[0] += 1
+                _LUT_UPLOADS[1] += a.nbytes
         out[name] = got["lut"]
     return out
 
 
 def device_cache_stats() -> dict:
     with _CACHE_LOCK:
-        return {"entries": len(_DEVICE_CACHE), "bytes": _DEVICE_CACHE_BYTES}
+        return {"entries": len(_DEVICE_CACHE), "bytes": _DEVICE_CACHE_BYTES,
+                "lut_uploads": _LUT_UPLOADS[0], "lut_upload_bytes": _LUT_UPLOADS[1]}
 
 
 # --------------------------------------------------------------------- batches
@@ -1115,7 +1127,8 @@ class _AggSetup:
 class PlanExecutor:
     def __init__(self, plan: Plan, table_store, registry=None, device=None,
                  analyze: bool = False, inputs=None, mesh="auto", nan_bin: int = 1,
-                 route_scale: int = 1, force_backend: Optional[str] = None):
+                 route_scale: int = 1, force_backend: Optional[str] = None,
+                 udtf_ctx=None):
         from pixie_tpu_torch.udf import registry as default_registry
 
         self.plan = plan
@@ -1148,6 +1161,9 @@ class PlanExecutor:
         #: channel id → HostBatch injected by the cluster layer (remote edges;
         #: reference: GRPCRouter demuxing inbound streams, grpc_router.h:52)
         self.inputs: dict[str, HostBatch] = inputs or {}
+        #: ambient state for UDTF sources (udf.udtf.UDTFContext); None builds
+        #: a local-view context on demand.
+        self.udtf_ctx = udtf_ctx
         #: colocated-agent mode (LocalCluster): agg_state channels return
         #: device-resident state (_DeferredPartial) instead of pulling, so the
         #: cluster merges all agents' states on the device and reads back once
@@ -1561,14 +1577,59 @@ class PlanExecutor:
                 if got is None:
                     raise Internal(f"no input injected for channel {op.channel!r}")
                 out = got
+            elif isinstance(op, UDTFSourceOp):
+                out = self._run_udtf(op)
             else:
-                raise Unimplemented(
-                    f"operator {op.kind!r} is not ported yet: UDTF sources come with the "
-                    "host-layer slice (ROADMAP Queue 1 item 6c)")
+                raise Unimplemented(f"operator {op.kind!r} is not ported yet")
             rec["rows_out"] = out.num_rows
             rec["bytes_out"] = sum(v.nbytes for v in out.cols.values())
         self._materialized[op.id] = out
         return out
+
+    def _run_udtf(self, op: UDTFSourceOp) -> HostBatch:
+        """Materialize a table-generating function (reference
+        exec/udtf_source_node.*): one columnar batch from a host fn."""
+        from pixie_tpu_torch.udf.udtf import UDTFContext
+
+        u = self.registry.udtf(op.name)
+        # The serialized schema (when present) is authoritative for the output
+        # relation — a remote plan's view of the UDTF wins over whatever
+        # version is registered locally.
+        relation = (
+            Relation.from_dict(op.schema) if op.schema is not None else u.relation
+        )
+        ctx = self.udtf_ctx
+        if ctx is None:
+            from pixie_tpu_torch.metadata import state as _mdstate
+
+            m = _mdstate.global_manager()
+            ctx = UDTFContext(
+                table_store=self.store, registry=self.registry,
+                asid=m.current().asid, node_name=m.current().node_name,
+            )
+        cols_raw = u.fn(ctx, **(op.args or {}))
+        dtypes, dicts, cols = {}, {}, {}
+        for c in relation:
+            if c.name not in cols_raw:
+                raise Internal(
+                    f"UDTF {op.name} did not produce declared column {c.name!r}"
+                )
+            vals = list(cols_raw[c.name])
+            dtypes[c.name] = c.data_type
+            if is_dict_encoded(c.data_type):
+                if c.data_type == DT.UINT128:
+                    # tuples would np-broadcast into 2-D object arrays inside
+                    # Dictionary.encode; normalize to UInt128 scalars.
+                    vals = [
+                        UInt128(*v) if isinstance(v, (tuple, list)) else v
+                        for v in vals
+                    ]
+                d = Dictionary()
+                cols[c.name] = d.encode(vals)
+                dicts[c.name] = d
+            else:
+                cols[c.name] = np.asarray(vals, dtype=STORAGE_DTYPE[c.data_type])
+        return HostBatch(dtypes, dicts, cols)
 
     def _consume_chain(self, terminal_parent, out_names=None):
         """Run the chain feeding `terminal_parent` through an output step.

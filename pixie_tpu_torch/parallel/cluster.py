@@ -54,6 +54,9 @@ the rows appended since its watermark.  Such an agent's payload is a host
 PartialAggBatch; the other agents' device states gang-merge among
 themselves and then merge by key values with it.
 
+UDTF sources (px.GetTables(), px.GetAgentStatus(), ...) run in the merger
+plan (the reference's merger scope) with the agents' schema catalog.
+
 Not ported yet: one process over several distinct cards (the multi-card
 slice; parallel/multihost.py spans cards with one process a card) and
 tracepoint mutations (the host-layer slice).
@@ -93,7 +96,7 @@ from pixie_tpu_torch.parallel.repartition import (
     stage_output_inputs,
 )
 from pixie_tpu_torch.parallel.topology import AgentInfo, ClusterSpec
-from pixie_tpu_torch.plan.plan import Plan
+from pixie_tpu_torch.plan.plan import Plan, UDTFSourceOp
 from pixie_tpu_torch.status import Internal, InvalidArgument, Unimplemented
 from pixie_tpu_torch.table.dictionary import Dictionary
 from pixie_tpu_torch.table.table import TableStore
@@ -632,9 +635,20 @@ class LocalCluster:
                 inputs[cid] = _union_host_batches(got)
         inputs.update(stage_output_inputs(dp, payloads))
 
-        # 4. run the merger plan over the injected channels.
+        # 4. run the merger plan over the injected channels.  UDTF sources
+        # run here (merger scope) against the agents' schema catalog, built
+        # only for a plan that has one; the tracepoint manager comes with the
+        # tracepoint slice (ROADMAP Queue 1 item 6e), so GetTracepointStatus
+        # answers its empty table.
+        udtf_ctx = None
+        if any(isinstance(op, UDTFSourceOp) for op in dp.merger_plan.ops()):
+            from pixie_tpu_torch.udf.udtf import UDTFContext
+
+            udtf_ctx = UDTFContext(table_store=self.merger_store, registry=reg,
+                                   schema_catalog=self.schemas())
         ex = PlanExecutor(dp.merger_plan, self.merger_store, self.registry,
-                          device=self.device, inputs=inputs, analyze=analyze)
+                          device=self.device, inputs=inputs, analyze=analyze,
+                          udtf_ctx=udtf_ctx)
         ex.sync_op_timing = sync_op_timing
         results = ex.run()
         # Per-agent exec stats ride along with every result (reference:

@@ -19,14 +19,23 @@ C++ index (native/dictionary.cc, the port's copy, one ctypes call, zero
 copies); anything else, or no toolchain, takes the numpy route: `np.unique`
 over the batch, then a Python loop over the unique values in
 first-occurrence order.  Both routes give the reference's codes for the
-same writes.
+same writes.  A batch of UInt128 values (UPIDs) is read once into (high,
+low) uint64 words, whose uniques come from numpy sorts instead of the
+reference's `np.unique` over the objects (Python comparisons a row), then
+the same first-occurrence loop: the same codes.
 """
 from __future__ import annotations
 
+import operator
 import threading
 from typing import Callable, Iterable, Sequence
 
 import numpy as np
+
+from pixie_tpu_torch.types import UInt128
+
+_HIGH = operator.attrgetter("high")
+_LOW = operator.attrgetter("low")
 
 
 class Dictionary:
@@ -158,7 +167,8 @@ class Dictionary:
         uniqued as it stands (a C string sort): it cannot hold trailing-NUL
         values, so its uniques — and the native index's codes — equal those
         of the object conversion.  Anything else goes through an object
-        array, which keeps trailing NULs intact.
+        array, which keeps trailing NULs intact; a batch of UInt128 values
+        is uniqued on its (high, low) words.
         """
         if isinstance(values, np.ndarray) and values.dtype.kind == "U" \
                 and values.ndim == 1:
@@ -167,6 +177,8 @@ class Dictionary:
             if codes is not None:
                 return codes
             arr = values
+        elif len(values) and type(values[0]) is UInt128:
+            return self._encode_uint128(values)
         else:
             arr = np.asarray(values, dtype=object)
         if arr.size == 0:
@@ -181,6 +193,32 @@ class Dictionary:
             (self._index[v] for v in uniq_list), dtype=np.int32, count=len(uniq_list)
         )
         return uniq_codes[inverse].astype(np.int32, copy=False)
+
+    def _encode_uint128(self, values: Sequence) -> np.ndarray:
+        """A batch of UInt128 objects → codes: one pass reads their (high,
+        low) words, then numpy sorts the words."""
+        n = len(values)
+        words = np.empty((n, 2), dtype=np.uint64)
+        words[:, 0] = np.fromiter(map(_HIGH, values), dtype=np.uint64, count=n)
+        words[:, 1] = np.fromiter(map(_LOW, values), dtype=np.uint64, count=n)
+        # one sort of a 64-bit mix of the two words (numpy's row sort is
+        # several times slower); a mix that joins two values is caught by
+        # the check and redone on an exact key: the pair of word ranks
+        mix = (words[:, 0] * np.uint64(0x9E3779B97F4A7C15)) ^ words[:, 1]
+        _u, first_idx, inverse = np.unique(mix, return_index=True, return_inverse=True)
+        inverse = inverse.reshape(-1)
+        if not (words[first_idx][inverse] == words).all():
+            _h, hi_rank = np.unique(words[:, 0], return_inverse=True)
+            lo, lo_rank = np.unique(words[:, 1], return_inverse=True)
+            key = hi_rank.reshape(-1).astype(np.int64) * len(lo) + lo_rank.reshape(-1)
+            _u, first_idx, inverse = np.unique(key, return_index=True, return_inverse=True)
+            inverse = inverse.reshape(-1)
+        vals = [values[i] for i in first_idx.tolist()]
+        for j in np.argsort(first_idx):
+            self.code(vals[j])
+        uniq_codes = np.fromiter((self._index[v] for v in vals), dtype=np.int32,
+                                 count=len(vals))
+        return uniq_codes[inverse]
 
     def decode(self, codes: np.ndarray) -> list:
         vals = self._values

@@ -3,11 +3,9 @@
 Parity targets: reference src/carnot/funcs/builtins/{math_ops.cc, string_ops.cc,
 conditionals.cc, math_sketches.h, json_ops.cc, ...} (~300 builtins).  Device
 numeric functions are torch functions over column tensors; string functions
-are host functions evaluated over dictionary values (O(unique)).
-
-Not ported yet (they need a package a later slice brings): the metadata
-functions (upid_to_pod_name, ... and the ambient asid / _exec_hostname, slice
-6 with metadata/).
+are host functions evaluated over dictionary values (O(unique)).  The
+metadata functions (upid_to_pod_name, ...) live in metadata/funcs.py; the
+ambient asid and _exec_hostname are here.
 """
 from __future__ import annotations
 
@@ -279,12 +277,20 @@ def register_all(r: Registry) -> None:
                     lambda a, b: torch.abs(a - b) < 1e-9, "approx_eq"))
 
     # ------------------------------------------- environment constants
-    # (reference metadata_ops.cc VizierIDUDF / VizierNameUDF,
-    #  exec_host_num_cpus) — nullary host calls evaluate at compile time
-    # (eval._host_call all-literal path).  asid and _exec_hostname read the
-    # metadata state and wait for the metadata slice.
+    # (reference metadata_ops.cc ASIDUDF / VizierIDUDF / VizierNameUDF,
+    #  exec_hostname / exec_host_num_cpus) — nullary host calls evaluate at
+    # compile time (eval._host_call all-literal path)
+    # NOTE: the px module exposes the same functions as compile-time
+    # intrinsics (pxmodule.py _exec_hostname etc.); the registry entries
+    # below are the runtime-UDF surface for programmatic plans, and MUST
+    # agree with the intrinsics' sources (metadata snapshot / PL flags).
+    # asid/_exec_hostname read the ambient metadata state: volatile
+    r.register(dataclasses.replace(_host("asid", (), _I, _asid),
+                                   volatile=True))
     r.register(_host("vizier_id", (), _S, _vizier_id))
     r.register(_host("vizier_name", (), _S, _vizier_name))
+    r.register(dataclasses.replace(
+        _host("_exec_hostname", (), _S, _exec_hostname), volatile=True))
     r.register(_host("_exec_host_num_cpus", (), _I,
                      lambda: __import__("os").cpu_count() or 1))
     # int → string; evaluable when the int derives from a dictionary column
@@ -323,6 +329,27 @@ def register_all(r: Registry) -> None:
 
 
 # ------------------------------------------------------------- host fn helpers
+
+
+def _asid() -> int:
+    """Agent short id from the attached metadata state (reference ASIDUDF
+    reads ctx->metadata_state()->asid())."""
+    from pixie_tpu_torch.metadata.state import snapshot
+
+    return int(snapshot().asid)
+
+
+def _exec_hostname() -> str:
+    """Executing node's name: the metadata state's node when attached (same
+    source as the px-module intrinsic), else the OS hostname."""
+    from pixie_tpu_torch.metadata.state import snapshot
+
+    name = snapshot().node_name
+    if name:
+        return name
+    import socket
+
+    return socket.gethostname()
 
 
 def _vizier_id() -> str:

@@ -510,6 +510,7 @@ class Registry:
         self.uid = next(_registry_uid)
         self._scalar: dict[str, list[ScalarUDF]] = {}
         self._uda: dict[str, Callable[[], UDA]] = {}
+        self._udtf: dict = {}
 
     # scalar
     def register(self, udf: ScalarUDF):
@@ -556,6 +557,20 @@ class Registry:
     def has_uda(self, name: str) -> bool:
         return name in self._uda
 
+    # udtf (reference src/carnot/udf/udtf.h; see pixie_tpu_torch.udf.udtf)
+    def register_udtf(self, udtf):
+        self._udtf[udtf.name] = udtf
+
+    def udtf(self, name: str):
+        u = self._udtf.get(name)
+        if u is None:
+            raise NotFound(f"no UDTF named {name!r} (have {sorted(self._udtf)})")
+        return u
+
+    def has_udtf(self, name: str) -> bool:
+        return name in self._udtf
+
+    # iteration accessors (introspection UDTFs; keeps internals private)
     def scalar_overloads(self):
         """Yield (name, ScalarUDF) in name order."""
         for name in sorted(self._scalar):
@@ -565,5 +580,14 @@ class Registry:
     def uda_names(self) -> list[str]:
         return sorted(self._uda)
 
+    def udtfs(self):
+        """Yield UDTF specs in name order."""
+        for name in sorted(self._udtf):
+            yield self._udtf[name]
+
     def names(self) -> dict:
-        return {"scalar": sorted(self._scalar), "uda": sorted(self._uda)}
+        return {
+            "scalar": sorted(self._scalar),
+            "uda": sorted(self._uda),
+            "udtf": sorted(self._udtf),
+        }

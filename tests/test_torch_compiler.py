@@ -7,7 +7,8 @@ quantiles from PxL text: each script compiles in both packages to an equal
 reference on the JAX CPU, the port with device="cpu") to equal results:
 counts, ints, strings and sketch quantiles exactly, float64 to rtol 1e-12.
 The restricted-dialect and error cases raise the same CompilerError (or NameError) in
-both.  Metadata, UDTF, union and OTel cases wait for their slices.
+both.  The metadata and UDTF cases are tests/test_torch_metadata.py's and
+tests/test_torch_udtf.py's; the OTel cases wait for their slice.
 """
 import numpy as np
 import pytest
@@ -340,8 +341,10 @@ def test_errors(stores, src):
 
 def test_unported_px_surfaces_raise_unimplemented(stores):
     _ref_ts, ts = stores
-    for src in ("import px\nx = px.asid()\n",
-                "import px\nx = px.otel\n",
+    for src in ("import px\nx = px.otel\n",
                 "import pxtrace\n"):
         with pytest.raises(Unimplemented):
             compile_pxl(src, ts.schemas(), now=NOW)
+    # px.asid() reads the port's metadata state
+    compile_pxl("import px\ndf = px.DataFrame(table='http_events')\ndf.a = px.asid()\n"
+                "px.display(df)\n", ts.schemas(), now=NOW)

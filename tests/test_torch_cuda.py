@@ -2303,3 +2303,76 @@ def test_world_merge_in_a_one_rank_nccl_world(dev):
     finally:
         multihost.shutdown()
         flags.set_for_testing("PIXIE_TORCH_VIRTUAL_SHARDS", saved)
+
+
+# ------------------------------------------------------ metadata and UDTFs
+def test_ctx_query_on_the_card_equals_the_cpu_across_an_epoch(dev):
+    """df.ctx['service'] over a UINT128 column on the card (the chain
+    program's LUT opcode over the UPID codes; one feed, so F1 runs it)
+    equals device="cpu" before and after an epoch change; the warm query
+    after it uploads the new LUT and no column."""
+    from pixie_tpu_torch.collect.schemas import SCHEMAS
+    from pixie_tpu_torch.compiler import compile_pxl
+    from pixie_tpu_torch.engine import execute_plan
+    from pixie_tpu_torch.engine.executor import device_cache_stats
+    from pixie_tpu_torch.metadata import state as md_state
+    from pixie_tpu_torch.table import TableStore
+    from pixie_tpu_torch.types import UInt128
+
+    rng = np.random.default_rng(22)
+    n = 1 << 18
+    upids = [UInt128.make_upid(1 + u % 4, 100 + u, 7 + u) for u in range(80)]
+    pool = np.empty(len(upids), dtype=object)
+    pool[:] = upids
+    ts = TableStore()
+    cols = {"time_": np.arange(n, dtype=np.int64),
+            "upid": pool[rng.integers(0, 80, n)].tolist(),
+            "resp_status": rng.choice(np.array([200, 404, 500]), n),
+            "latency": (rng.exponential(50.0, n) * 1e6).astype(np.int64)}
+    for c in SCHEMAS["http_events"]:
+        if c.name not in cols:
+            cols[c.name] = (np.full(n, "x") if c.data_type.name == "STRING"
+                            else np.zeros(n, dtype=np.int64))
+    ts.create("http_events", SCHEMAS["http_events"]).write(cols)
+    ups = [{"kind": "service", "uid": f"s{s}", "name": f"svc{s}", "namespace": "ns",
+            "pod_uids": [f"p{p}" for p in range(8 * s, 8 * s + 8)]} for s in range(8)]
+    ups += [{"kind": "pod", "uid": f"p{p}", "name": f"pod{p}", "namespace": "ns"}
+            for p in range(64)]
+    ups += [{"kind": "process", "upid": u, "pod_uid": f"p{i}"} for i, u in enumerate(upids[:64])]
+    old = md_state.global_manager()
+    mgr = md_state.MetadataStateManager(asid=1)
+    mgr.apply_updates(ups)
+    md_state.set_global_manager(mgr)
+    src = """
+import px
+df = px.DataFrame(table='http_events')
+df = df[df.resp_status != 404]
+df.service = df.ctx['service']
+df = df.groupby(['service', 'resp_status']).agg(
+    cnt=('latency', px.count), total=('latency', px.sum), avg_lat=('latency', px.mean))
+px.display(df, 'output')
+"""
+    try:
+        plan = compile_pxl(src, ts.schemas()).plan
+        _build.reset_launches()
+        got = execute_plan(plan, ts, device=dev)["output"]
+        torch.cuda.synchronize()
+        assert _build.KERNELS["finalize"].by_entry.get("px_fused_partial_finalize") == 1
+        _same_result(got, execute_plan(plan, ts, device="cpu")["output"],
+                     ["service", "resp_status"])
+        execute_plan(plan, ts, device=dev)  # warm
+        # a rename alone keeps the LUT's codes (only its dictionary's strings
+        # change); the rebound UPID changes them
+        mgr.apply_updates([{"kind": "service", "uid": "s3", "name": "renamed",
+                            "namespace": "ns"},
+                           {"kind": "process", "upid": upids[0], "pod_uid": "p63"}])
+        before = device_cache_stats()["lut_uploads"]
+        after = execute_plan(plan, ts, device=dev)["output"]
+        torch.cuda.synchronize()
+        assert device_cache_stats()["lut_uploads"] == before + 1
+        assert after.exec_stats["h2d_bytes"] == 0
+        assert "ns/renamed" in after.to_pandas()["service"].tolist()
+        _same_result(after, execute_plan(plan, ts, device="cpu")["output"],
+                     ["service", "resp_status"])
+    finally:
+        md_state.set_global_manager(old)

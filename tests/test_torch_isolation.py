@@ -320,6 +320,38 @@ def test_host_layer_modules_import_alone(mod):
     assert out.returncode == 0, out.stderr
 
 
+@pytest.mark.parametrize("mod", ["pixie_tpu_torch.metadata", "pixie_tpu_torch.metadata.state",
+                                 "pixie_tpu_torch.metadata.funcs",
+                                 "pixie_tpu_torch.metadata.proc_scanner",
+                                 "pixie_tpu_torch.metadata.watch", "pixie_tpu_torch.udf.udtf",
+                                 "pixie_tpu_torch.collect", "pixie_tpu_torch.collect.core",
+                                 "pixie_tpu_torch.collect.schemas",
+                                 "pixie_tpu_torch.collect.seq_gen",
+                                 "pixie_tpu_torch.collect.replay",
+                                 "pixie_tpu_torch.collect.proc_stats",
+                                 "pixie_tpu_torch.collect.access_log",
+                                 "pixie_tpu_torch.collect.perf_profiler",
+                                 "pixie_tpu_torch.obj_tools",
+                                 "pixie_tpu_torch.obj_tools.elf_reader",
+                                 "pixie_tpu_torch.obj_tools.dwarf_reader"])
+def test_metadata_and_collect_modules_import_alone(mod):
+    """Each module of the metadata / UDTF / collector slice, imported on its
+    own, pulls in no JAX and nothing of the reference, and leaves the
+    registry whole (135 scalar names, 8 UDTFs)."""
+    code = (
+        f"import importlib, sys\nimportlib.import_module({mod!r})\n"
+        "from pixie_tpu_torch.udf import registry\n"
+        "n = registry.names()\n"
+        "assert (len(n['scalar']), len(n['udtf'])) == (135, 8), n\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pixie_tpu'))\n"
+        "sys.exit('imported: ' + ', '.join(bad) if bad else 0)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_journal_and_cold_tier_write_only_under_the_data_dir(tmp_path, monkeypatch):
     """With PL_DATA_DIR set, a journaled table with the cold tier on writes
     its segments, schema and cold files under PL_DATA_DIR/<node> and
