@@ -9,6 +9,8 @@
     python3 chip_smoke.py --only-metadata-collect (the kernel build and
                                               the metadata_collect phase
                                               alone)
+    python3 chip_smoke.py --only-socket-tracer (the kernel build and the
+                                              socket_tracer phase alone)
 
 Phases, each of which fails the run if it fails:
 
@@ -224,7 +226,7 @@ Mesh cluster: a LocalCluster of 2 agents of 4 shards: config #4's script
 over 2 x 8M rows, equal to the one-device-per-agent cluster and the oracle
 (M1 3 times a query: each agent's shards, then the agents; P1 never),
 stream and
-warm medians; a repartitioned join of two 2^21-row tables (cut from
+warm medians; a repartitioned join of two 2^20-row tables (cut from
 2^22 for the run's time) spread over both
 agents on (int64, string) keys, each side exchanged in each agent's mesh
 (X1, X2), equal to the single-device join (run once with analyze, for its
@@ -289,7 +291,7 @@ one-rank gloo group beside it says whether gloo takes CUDA tensors).  Backend,
 processes, shards, rows, rows/s, p50, launches, the world merge's gathered
 bytes and wall and the exchange's bytes and wall are printed.
 
-Slice 21, the host_layers phase (last, after cpu_route, pinned; alone:
+Slice 21, the host_layers phase (after cpu_route, pinned; alone:
 --only-host-layers): (a) config #1 over build_http_table's 64M rows declared
 with semantic types, through execute_plan and through a one-agent
 LocalCluster, each with tracing (PL_TRACING_ENABLED) on and off in turns
@@ -313,12 +315,13 @@ cold batch resident or cached, every cold batch promoted at the third read;
 (g) a view's snapshot restored into a new manager, serving the live hit's
 state byte for byte.  Every line carries the card's name and power limit.
 
-Slice 22, the metadata_collect phase (last, pinned; alone:
+Slice 22, the metadata_collect phase (after host_layers, pinned; alone:
 --only-metadata-collect), under a metadata snapshot of 1,088 UPIDs (1,024
 on 4 nodes bound to 256 pods of 16 services in 4 namespaces, 64 with no
 pod) and with the perf profiler sampling the process at 99 Hz throughout:
 the canonical http_events relation (collect/schemas.py, 18 columns) at
-64M rows in 65,536-row batches (the UPID column written as uint64 words);
+32M rows in 65,536-row batches (config #1's 64M cut in half for the run's
+time);
 the ctx query (resp_status != 404, df.ctx['service'] and ['namespace'],
 group by service and status: count, int64 sum, mean and p50 of the int64
 latency) from PxL text, its launches (C1 with the LUT opcode over the UPID
@@ -340,6 +343,37 @@ against the oracle; and the profiler's stack_traces.beta with native frames
 of the interpreter symbolized through ElfReader, grouped by stack on the
 card.
 
+Slice 23, the socket_tracer phase (last, pinned; alone:
+--only-socket-tracer), under the metadata_collect phase's snapshot, with
+one SocketTraceConnector a node (asid node + 1): (a) seeded HTTP/1.1
+traffic of 2^19 exchanges on 4,096 keep-alive connections (128 each, each
+connection a process of its node, 64 endpoints, status 200/404/500 at
+.85/.05/.10, JSON bodies of 0-512 bytes, a quarter chunked, 1% HEAD,
+latency exponential with mean 50 ms), every message cut into segments at
+random points, written as a capture file a node and drained through
+CaptureFileSource 4,096 events at a time; then 2^14 exchanges of each of
+MySQL, PgSQL (its startups answered up to ReadyForQuery), DNS, Redis, CQL,
+Kafka, NATS, Mux and gRPC over HTTP/2 (header blocks built by hand) on 256
+connections, 1% of them led by garbage bytes (the traffic is
+pixie_tpu_torch/testing/socket_traffic.py's, which uses nothing of the
+parsers), through a queue a node drained every 0.2 s of the traffic's
+clock; (b) every table's rows against the generator's (as multisets of
+every column the generator knows), conn_stats a row a connection,
+parse_errors the garbage-led connections, no unknown protocol; (c) the
+ctx query (resp_status != 404, df.ctx['service'], count, int64 sum, mean
+and p50 by service and status) over the traced http_events against an
+oracle of the generator's own UPIDs, statuses and latencies (keys, counts
+and int64 sums exactly, means to rtol 1e-12, p50 in the oracle's sketch
+bin or the next), with stream
+and warm medians (0 warm H2D bytes) and its launches; (d) count, mean and
+p50 of latency by command (by path for HTTP/2) over each protocol table
+that keeps a latency; (e) a ThreadingHTTPServer in this process behind
+TapProxy, 8 client threads sending 2,048 keep-alive requests, this process
+bound to a pod by the /proc scanner and a watch feed: a row a request and
+ctx['pod'] and ['service'] resolved on the card for each.  Rows/s of each
+protocol, the ingest walls (HTTP/1's split into its table writes and the
+rest: reading, parsing, stitching) and the tap's rows/s are printed.
+
 It prints one JSON line per kernel, a {"kernels": [...]} line, the card's
 name and power limit, and last {"ok": true, "device": {...}}.  It exits
 non-zero, printing no result, without a CUDA device or outside the repo.
@@ -347,6 +381,7 @@ non-zero, printing no result, without a CUDA device or outside the repo.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -4902,10 +4937,11 @@ X_DICT = 4096
 #: states (N = 4) as it finalizes, so M1 does not launch
 MESH_CONFIG1_KERNELS = CONFIG1_KERNELS
 X_KERNELS = [("repartition", "px_partition_count"), ("repartition", "px_partition_scatter")]
-#: the mesh cluster: agents, config #4's rows over them, the join's rows a side
+#: the mesh cluster: agents, config #4's rows over them, the join's rows a
+#: side and its keys (two rows a key a side, as at 2^21 rows over 2^20 keys)
 MESH_AGENTS = 2
-MESH_JOIN_ROWS = 1 << 21
-MESH_JOIN_KEYS = 1 << 20
+MESH_JOIN_ROWS = 1 << 20
+MESH_JOIN_KEYS = MESH_JOIN_ROWS // 2
 #: bench config #4's script with a repartitioned join of two tables spread
 #: over the agents, keyed on an int64 and a string column
 MESH_JOIN_SCRIPT = """
@@ -6195,11 +6231,13 @@ def run_host_layers(dev, smi: str) -> dict:
 
 # ------------------------------------------------- slice 22: metadata_collect
 #: the metadata_collect phase: the canonical http_events relation (the port's
-#: collect/schemas.py, all 18 columns) at config #1's rows; 1,024 UPIDs over
+#: collect/schemas.py, all 18 columns) at half config #1's rows (cut for the
+#: run's time); 1,024 UPIDs over
 #: 4 nodes (asid 1-4) bound to 256 pods of 16 services in 4 namespaces, 64
 #: more with no pod
 MD_BOUND, MD_UNBOUND, MD_PODS, MD_NODES = 1024, 64, 256, 4
 MD_UPIDS = MD_BOUND + MD_UNBOUND
+MD_ROWS = ROWS // 2
 #: pods recreated under another service at the epoch change; the service
 #: renamed there
 MD_MOVED_PODS, MD_RENAMED = 32, 5
@@ -6394,12 +6432,11 @@ class MdOracle:
     sums and the sketch's bin counts; each snapshot's answer folds the
     UPIDs into their services (md_service_of)."""
 
-    def __init__(self, tables):
-        W = WIDTH
-        statuses = np.array([200, 500])
+    def __init__(self, tables=()):
+        self.statuses = np.array([200, 500])
         self.cnt = np.zeros((MD_UPIDS, 2), np.int64)
         self.total = np.zeros((MD_UPIDS, 2), np.int64)
-        self.hist = np.zeros((MD_UPIDS, 2, W), np.int64)
+        self.hist = np.zeros((MD_UPIDS, 2, WIDTH), np.int64)
         from pixie_tpu_torch.types import UInt128
 
         index = {(v.high, v.low): u for u, v in enumerate(
@@ -6411,23 +6448,25 @@ class MdOracle:
                               dtype=np.int64)
             for rb, _rid, _gen in table.cursor():
                 n = rb.num_valid
-                st = rb.columns["resp_status"][:n]
-                keep = st != 404
-                u = code_u[rb.columns["upid"][:n][keep]]
-                s = np.searchsorted(statuses, st[keep])
-                lat = rb.columns["latency"][:n][keep]
-                key = u * 2 + s
-                self.cnt += np.bincount(key, minlength=MD_UPIDS * 2).reshape(MD_UPIDS, 2)
-                # int64 sums, exact: a batch's float64 sums stay below 2^53
-                self.total += np.rint(np.bincount(key, weights=lat, minlength=MD_UPIDS * 2)
-                                      ).astype(np.int64).reshape(MD_UPIDS, 2)
-                x = np.maximum(lat.astype(np.float32), np.float32(MIN_VALUE))
-                lg = np.log(x) / np.float32(math.log(GAMMA))
-                bins = np.clip(np.ceil(lg).astype(np.int64) + 1, 0, W - 1)
-                bins[lat <= MIN_VALUE] = 0
-                self.hist += np.bincount(key * W + bins, minlength=MD_UPIDS * 2 * W
-                                         ).reshape(MD_UPIDS, 2, W)
-        self.statuses = statuses
+                self.add(code_u[rb.columns["upid"][:n]], rb.columns["resp_status"][:n],
+                         rb.columns["latency"][:n])
+
+    def add(self, u, status, lat) -> None:
+        """Rows given as UPID indexes, statuses and int64 latencies."""
+        W = WIDTH
+        keep = status != 404
+        u, lat = u[keep], lat[keep]
+        key = u * 2 + np.searchsorted(self.statuses, status[keep])
+        self.cnt += np.bincount(key, minlength=MD_UPIDS * 2).reshape(MD_UPIDS, 2)
+        # int64 sums, exact: a batch's float64 sums stay below 2^53
+        self.total += np.rint(np.bincount(key, weights=lat, minlength=MD_UPIDS * 2)
+                              ).astype(np.int64).reshape(MD_UPIDS, 2)
+        x = np.maximum(lat.astype(np.float32), np.float32(MIN_VALUE))
+        lg = np.log(x) / np.float32(math.log(GAMMA))
+        bins = np.clip(np.ceil(lg).astype(np.int64) + 1, 0, W - 1)
+        bins[lat <= MIN_VALUE] = 0
+        self.hist += np.bincount(key * W + bins, minlength=MD_UPIDS * 2 * W
+                                 ).reshape(MD_UPIDS, 2, W)
 
     def check(self, label: str, res, moved: bool, by_service: bool = True) -> dict:
         """The result against this snapshot's answer: keys, counts and int64
@@ -6618,7 +6657,7 @@ def md_query(q, ts, dev):
 
 
 def md_single(dev, smi: str) -> dict:
-    """The 64M-row table, the ctx query (its launches, the oracle, stream
+    """The MD_ROWS-row table, the ctx query (its launches, the oracle, stream
     and warm medians, the host LUT time), C1's check on its chain, then the
     epoch change (its warm query's wall, H2D bytes and LUT uploads)."""
     from pixie_tpu_torch.compiler import compile_pxl
@@ -6629,8 +6668,8 @@ def md_single(dev, smi: str) -> dict:
     from pixie_tpu_torch.types import UInt128
 
     ts = TableStore()
-    table, build_s = md_table(ts, ROWS)
-    log(json.dumps({"phase": "metadata_collect.data", "rows": ROWS, "card": smi,
+    table, build_s = md_table(ts, MD_ROWS)
+    log(json.dumps({"phase": "metadata_collect.data", "rows": MD_ROWS, "card": smi,
                     "build_s": build_s, "upids": table.dictionaries["upid"].size,
                     "columns": len(table.relation.names())}))
     t0 = time.perf_counter()
@@ -6648,7 +6687,7 @@ def md_single(dev, smi: str) -> dict:
     timing = stream_and_warm(query, "metadata_collect ctx query")
     lut_ms = sorted(md_lut_ms(table) for _ in range(5))[2]
     row = md_chain_check(dev, table, md_agg_setup(query))
-    a = {"card": smi, "rows": ROWS, "first_s": first_s, **held, "oracle_s": oracle_s,
+    a = {"card": smi, "rows": MD_ROWS, "first_s": first_s, **held, "oracle_s": oracle_s,
          "lut_host_ms": lut_ms, **{k: v for k, v in timing.items() if k != "settle_h2d_bytes"},
          "launches": {lib: {e: n for e, n in by.items() if n}
                       for lib, by in launches.items() if any(by.values())}}
@@ -6896,7 +6935,7 @@ def md_collect(dev, smi: str, profiler) -> dict:
 
 def run_metadata_collect(dev, smi: str) -> dict:
     """Slice 22 on the card: the metadata state's snapshot installed, the
-    profiler sampling throughout; the 64M-row ctx query and its epoch
+    profiler sampling throughout; the MD_ROWS-row ctx query and its epoch
     change, the cluster, the collectors."""
     from pixie_tpu_torch.collect import Collector
     from pixie_tpu_torch.collect.perf_profiler import PerfProfilerConnector
@@ -6920,6 +6959,436 @@ def run_metadata_collect(dev, smi: str) -> dict:
         md_state.set_global_manager(old)
     return {"launches": single["launches"], "row": single["row"], "single": single,
             "cluster": cluster, "collect": collect}
+
+
+# -------------------------------------------------- slice 23: socket_tracer
+#: the socket_tracer phase's traffic (pixie_tpu_torch/testing/socket_traffic.py
+#: builds it): HTTP/1.1 of 2^19 exchanges on 4,096 keep-alive connections
+#: (128 each), drained from a capture file a node, 4,096 events a drain;
+#: 2^14 exchanges of each other protocol on 256 connections (64 each, 1% of
+#: them garbage-led) through a queue a node, drained every 0.2 s of the
+#: traffic's own clock; the live tap's requests and client threads
+ST_HTTP_CONNS, ST_HTTP_PER_CONN = 4096, 128
+ST_EXCHANGES, ST_PER_CONN = 1 << 14, 64
+ST_DRAIN_EVENTS = 4096
+ST_GARBAGE_FRAC = 0.01
+ST_TAP_REQUESTS, ST_TAP_CLIENTS = 2048, 8
+
+
+def md_node_of_upid() -> np.ndarray:
+    """Each UPID index's node, as md_upid places it: the generated traffic's
+    topology (socket_traffic.upids gives md_upid's UPIDs)."""
+    u = np.arange(MD_UPIDS)
+    return np.where(u < MD_BOUND, (u // 4) % MD_NODES, u % MD_NODES)
+
+
+@contextlib.contextmanager
+def st_frozen():
+    """The generator's objects (millions of bytes and row dicts, kept for
+    the checks) moved out of the collector's sight while the tracer runs:
+    a tracer's own process holds none of them."""
+    import gc
+
+    gc.collect()
+    gc.freeze()
+    try:
+        yield
+    finally:
+        gc.unfreeze()
+
+
+def st_collector(sources: dict):
+    """A Collector with one SocketTraceConnector a node (asid node + 1)
+    over `sources` (node → EventSource); → (collector, connectors)."""
+    from pixie_tpu_torch.collect import Collector
+    from pixie_tpu_torch.collect.tracer import SocketTraceConnector
+
+    col, conns = Collector(), []
+    for node, src in sorted(sources.items()):
+        conns.append(SocketTraceConnector(src, asid=node + 1, name=f"socket_tracer_{node}"))
+        col.register(conns[-1])
+    return col, conns
+
+
+#: the aggregate run over each protocol's table in (d): (protocol, group
+#: column); NATS keeps no latency, DNS no command
+ST_AGG_KEYS = (("mysql", "req_cmd"), ("pgsql", "req_cmd"), ("redis", "req_cmd"),
+               ("cql", "req_op"), ("kafka", "req_cmd"), ("mux", "req_type"),
+               ("http2", "req_path"))
+
+
+def st_agg_check(label: str, res, key: str, want: list) -> dict:
+    """count, mean and p50 of latency by `key` against the generator's rows:
+    counts exactly, means to rtol 1e-9, p50 in the sketch bin of numpy's
+    own histogram or the next."""
+    names = sorted({r[key] for r in want})
+    kix = np.array([names.index(r[key]) for r in want])
+    lat = np.array([r["latency"] for r in want], dtype=np.int64)
+    cnt, mean, p50, _median = sketch_oracle(kix, lat, len(names))
+    df = res.to_pandas()
+    got = {getattr(r, key): (int(r.cnt), float(r.avg_lat), float(r.p50))
+           for r in df.itertuples(index=False)}
+    if sorted(got) != names:
+        raise AssertionError(f"{label}: groups {sorted(got)} against {names}")
+    exact = 0
+    for i, name in enumerate(names):
+        gc, gm, gp = got[name]
+        if gc != int(cnt[i]) or not math.isclose(gm, mean[i], rel_tol=1e-9, abs_tol=0):
+            raise AssertionError(f"{label}: {name} count / mean {gc}, {gm} against "
+                                 f"{cnt[i]}, {mean[i]}")
+        r = gp / p50[i]
+        if not any(math.isclose(r, x, rel_tol=1e-12) for x in (1.0, GAMMA, 1 / GAMMA)):
+            raise AssertionError(f"{label}: {name} p50 {gp} outside the oracle's bin {p50[i]}")
+        exact += int(r == 1.0)
+    return {"groups": len(names), "rows": int(cnt.sum()), "p50_exact_bin": exact}
+
+
+def st_timed_writes(store) -> dict:
+    """Wrap each of the store's tables' write in a timer; → table → the
+    seconds its writes took, filled in as they happen."""
+    spent = {}
+    for name in store.schemas():
+        table = store.table(name)
+        spent[name] = 0.0
+
+        def write(cols, _write=table.write, _name=name):
+            t0 = time.perf_counter()
+            try:
+                return _write(cols)
+            finally:
+                spent[_name] += time.perf_counter() - t0
+
+        table.write = write
+    return spent
+
+
+def st_launched() -> dict:
+    from pixie_tpu_torch.ops import _build
+
+    return {lib: {e: n for e, n in k.by_entry.items() if n}
+            for lib, k in _build.KERNELS.items() if k.launches}
+
+
+def st_http_node(node: int, path: str, conns: int, per_conn: int) -> dict:
+    """One node's HTTP/1 traffic, generated and written as its capture file
+    (in a process of its own: set-up, not the tracer); → its truth and
+    conn_stats rows, its event count and the two walls."""
+    from pixie_tpu_torch.collect.tracer import write_capture
+    from pixie_tpu_torch.testing import socket_traffic as traffic
+
+    t0 = time.perf_counter()
+    gen = traffic.Traffic("http", conns, per_conn, seed=23 + node,
+                          node_of_upid=md_node_of_upid(), think_ms=traffic.HTTP_THINK_MS,
+                          node=node, cid0=node * conns)
+    evs, _keys = gen.events(seg_seed=123 + node)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_capture(path, evs)
+    return {"truth": gen.truth(), "conn_stats": gen.conn_stats(), "events": len(evs),
+            "generate_s": gen_s, "capture_write_s": time.perf_counter() - t0}
+
+
+def st_http1(dev, smi: str, tmp: str) -> dict:
+    """(a) HTTP/1.1 from a capture file a node, (b) held against the
+    generator, (c) the ctx query over it on the card."""
+    import concurrent.futures
+    import multiprocessing
+
+    import torch
+
+    from pixie_tpu_torch.collect.tracer import CaptureFileSource
+    from pixie_tpu_torch.compiler import compile_pxl
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.testing import socket_traffic as traffic
+
+    t0 = time.perf_counter()
+    paths = {n: os.path.join(tmp, f"http-node{n}.jsonl") for n in range(MD_NODES)}
+    with concurrent.futures.ProcessPoolExecutor(
+            MD_NODES, mp_context=multiprocessing.get_context("spawn")) as pool:
+        parts = list(pool.map(st_http_node, list(paths), list(paths.values()),
+                              [ST_HTTP_CONNS // MD_NODES] * MD_NODES,
+                              [ST_HTTP_PER_CONN] * MD_NODES))
+    setup_s = time.perf_counter() - t0
+    n_events = sum(p["events"] for p in parts)
+    capture_bytes = sum(os.path.getsize(p) for p in paths.values())
+    col, conns = st_collector({n: CaptureFileSource(p, events_per_drain=ST_DRAIN_EVENTS)
+                               for n, p in paths.items()})
+    spent = st_timed_writes(col.store)
+    t0 = time.perf_counter()
+    with st_frozen():
+        traffic.drain(col)
+    ingest_s = time.perf_counter() - t0
+    write_s = sum(spent.values())
+    table = col.store.table("http_events")
+    upid_index = traffic.upid_index(md_node_of_upid())
+    t0 = time.perf_counter()
+    want = [r for p in parts for r in p["truth"]]
+    rows = traffic.hold("socket_tracer http", table, want, upid_index)
+    conn_rows = traffic.hold("socket_tracer http conn_stats", col.store.table("conn_stats"),
+                             [r for p in parts for r in p["conn_stats"]], upid_index)
+    hold_s = time.perf_counter() - t0
+    stats = {k: sum(c.stats[k] for c in conns) for k in conns[0].stats}
+    if stats["parse_errors"] or stats["unknown_protocol_conns"] or rows != len(want):
+        raise AssertionError(f"socket_tracer http: stats {stats}")
+    a = {"card": smi, "rows": rows, "connections": conn_rows, "events": n_events,
+         "drains": col.stats["transfers"], "capture_bytes": capture_bytes, "setup_s": setup_s,
+         "generate_s": [p["generate_s"] for p in parts],
+         "capture_write_s": [p["capture_write_s"] for p in parts], "ingest_s": ingest_s,
+         "table_write_s": write_s, "read_parse_s": ingest_s - write_s,
+         "rows_per_s": rows / ingest_s, "hold_s": hold_s, **stats}
+    log(json.dumps({"phase": "socket_tracer.http", "ok": True, **a}))
+
+    # (c) the ctx query over the traced rows, held to the generator's own
+    # (UPID, status, latency)
+    oracle = MdOracle()
+    oracle.add(np.array([r["upid"] for r in want]), np.array([r["resp_status"] for r in want]),
+               np.array([r["latency"] for r in want], dtype=np.int64))
+    q = compile_pxl(MD_SCRIPT, col.store.schemas())
+    query = md_query(q, col.store, dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    first = query()
+    first_s = time.perf_counter() - t0
+    launches = st_launched()
+    # one feed: F1 runs the whole query, the chain's LUT opcode in its member
+    # pass; past F1's limits C1 and the per-feed kernels, then F2
+    finalize = launches.get("finalize", {})
+    if not (finalize.get(F1[1]) or (finalize.get(F2[1]) and launches.get("chain"))):
+        raise AssertionError(f"socket_tracer ctx query: neither F1 nor C1 and F2 in {launches}")
+    held = oracle.check("socket_tracer ctx query", first, moved=False)
+    check_leaves("socket_tracer", first.exec_stats)
+    timing = stream_and_warm(query, "socket_tracer ctx query")
+    torch.cuda.synchronize(dev)
+    lut_ms = sorted(md_lut_ms(table) for _ in range(5))[2]
+    c = {"card": smi, "rows": rows, "first_s": first_s, **held, "lut_host_ms": lut_ms,
+         "finalize": "F1" if finalize.get(F1[1]) else "F2",
+         "f1_declined": first.exec_stats.get("f1_declined", 0),
+         **{k: v for k, v in timing.items() if k != "settle_h2d_bytes"},
+         "launches": launches}
+    log(json.dumps({"phase": "socket_tracer.ctx", "ok": True, **c}))
+    return {"ingest": a, "ctx": c, "launches": launches}
+
+
+def st_protocols(dev, smi: str) -> dict:
+    """(a) 2^14 exchanges of each other protocol through a queue a node,
+    (b) held against the generator, (d) an aggregate a protocol table on
+    the card."""
+    import torch
+
+    from pixie_tpu_torch.collect.tracer import QueueEventSource
+    from pixie_tpu_torch.compiler import compile_pxl
+    from pixie_tpu_torch.engine import execute_plan
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.testing import socket_traffic as traffic
+
+    node_of_upid = md_node_of_upid()
+    upid_index = traffic.upid_index(node_of_upid)
+    out, launches = {}, {}
+    keys_of = dict(ST_AGG_KEYS)
+    for i, proto in enumerate(traffic.PROTOCOLS):
+        t0 = time.perf_counter()
+        gen = traffic.Traffic(proto, ST_EXCHANGES // ST_PER_CONN, ST_PER_CONN, seed=230 + i,
+                              node_of_upid=node_of_upid, garbage_frac=ST_GARBAGE_FRAC,
+                              cid0=(i + 1) << 20)
+        evs, keys = gen.events(seg_seed=2300 + i)
+        gen_s = time.perf_counter() - t0
+        sources = {n: QueueEventSource() for n in range(MD_NODES)}
+        col, conns = st_collector(sources)
+        t0 = time.perf_counter()
+        with st_frozen():
+            traffic.feed_windows(col, sources, traffic.node_of([gen]), evs, keys)
+        ingest_s = time.perf_counter() - t0
+        table = col.store.table(traffic.TABLES[proto])
+        want = gen.truth()
+        rows = traffic.hold(f"socket_tracer {proto}", table, want, upid_index)
+        conn_rows = traffic.hold(f"socket_tracer {proto} conn_stats",
+                                 col.store.table("conn_stats"), gen.conn_stats(), upid_index)
+        stats = {k: sum(c.stats[k] for c in conns) for k in conns[0].stats}
+        garbage = sum(c.garbage for c in gen.conns)
+        if stats["parse_errors"] != garbage or stats["unknown_protocol_conns"]:
+            raise AssertionError(f"socket_tracer {proto}: stats {stats}, {garbage} garbage-led "
+                                 "connections")
+        r = {"card": smi, "protocol": proto, "exchanges": ST_EXCHANGES, "rows": rows,
+             "connections": conn_rows, "garbage_connections": garbage, "events": len(evs),
+             "drains": col.stats["transfers"], "generate_s": gen_s, "ingest_s": ingest_s,
+             "rows_per_s": rows / ingest_s, **stats}
+        if proto in keys_of:
+            key = keys_of[proto]
+            src = (f"import px\ndf = px.DataFrame(table='{traffic.TABLES[proto]}')\n"
+                   f"df = df.groupby('{key}').agg(cnt=('latency', px.count), "
+                   "avg_lat=('latency', px.mean), p50=('latency', px.p50))\n"
+                   "px.display(df, 'output')\n")
+            plan = compile_pxl(src, col.store.schemas()).plan
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            res = execute_plan(plan, col.store, device=dev)["output"]
+            torch.cuda.synchronize(dev)
+            r["query_s"] = time.perf_counter() - t0
+            r["agg"] = {"by": key, **st_agg_check(f"socket_tracer {proto} aggregate", res, key,
+                                                  want)}
+            r["launches"] = launches[proto] = st_launched()
+            if not r["launches"]:
+                raise AssertionError(f"socket_tracer {proto} aggregate: no kernel launched")
+        log(json.dumps({"phase": "socket_tracer.protocol", "ok": True, **r}))
+        out[proto] = r
+    return {"protocols": out, "launches": launches}
+
+
+def st_tap(dev, smi: str, tmp: str) -> dict:
+    """(e) The live tap: a ThreadingHTTPServer in this process behind
+    TapProxy, ST_TAP_CLIENTS threads sending ST_TAP_REQUESTS keep-alive
+    requests in all; this process bound to a pod by the /proc scanner and a
+    watch feed; every row's ctx['pod'] and ['service'] resolved on the
+    card."""
+    import http.client
+    import http.server
+    import threading
+
+    import torch
+
+    from pixie_tpu_torch.collect.tap import TapProxy
+    from pixie_tpu_torch.compiler import compile_pxl
+    from pixie_tpu_torch.engine import execute_plan
+    from pixie_tpu_torch.metadata import state as md_state
+    from pixie_tpu_torch.metadata.proc_scanner import ProcScanner
+    from pixie_tpu_torch.metadata.watch import ResourceUpdateFeed
+
+    asid, me = 9, os.getpid()
+    mgr = md_state.MetadataStateManager(asid=asid, node_name="tap-node")
+    path = os.path.join(tmp, "k8s.jsonl")
+    with open(path, "w") as f:
+        f.write(json.dumps({"kind": "pod", "uid": "pod-tap-0", "name": "webserver-0",
+                            "namespace": "live", "node": "tap-node", "ip": "127.0.0.1"}) + "\n")
+        f.write(json.dumps({"kind": "service", "uid": "svc-tap", "name": "web",
+                            "namespace": "live", "cluster_ip": "10.96.9.9",
+                            "pod_uids": ["pod-tap-0"]}) + "\n")
+    if ResourceUpdateFeed(mgr, path).poll() != 2:
+        raise AssertionError("socket_tracer tap: the watch feed applied no pod and service")
+    scanned = ProcScanner(asid=asid, classifier=lambda pid, cmd: "pod-tap-0" if pid == me
+                          else None).scan_into(mgr)
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def do_GET(self):
+            # one write: headers and body in two would meet Nagle's delay
+            body = b'{"ok": true, "path": "%s"}' % self.path.encode()
+            self.wfile.write(b"HTTP/1.1 200 OK\r\nContent-Type: application/json\r\n"
+                             b"Content-Length: %d\r\n\r\n%s" % (len(body), body))
+
+        def log_message(self, *a):
+            pass
+
+    threads0 = set(threading.enumerate())
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    server.daemon_threads = True
+    serve = threading.Thread(target=server.serve_forever, name="tap-server", daemon=True)
+    serve.start()
+    tap = TapProxy("127.0.0.1", server.server_address[1], pid=me, protocol="http").start()
+    per = ST_TAP_REQUESTS // ST_TAP_CLIENTS
+    errors = []
+
+    def client(i):
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", tap.port, timeout=10)
+            for k in range(per):
+                conn.request("GET", f"/tap/{i}/{k % 16}")
+                resp = conn.getresponse()
+                if resp.status != 200 or not resp.read():
+                    errors.append((i, k, resp.status))
+            conn.close()
+        except Exception as e:  # noqa: BLE001  (reported below)
+            errors.append((i, repr(e)))
+
+    old = md_state.global_manager()
+    md_state.set_global_manager(mgr)
+    try:
+        col, conns = st_collector({asid - 1: tap.source})
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(ST_TAP_CLIENTS)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=60)
+        client_s = time.perf_counter() - t0
+        table = col.store.table("http_events")
+        deadline = time.monotonic() + 30
+        while (table.stats()["rows_written"] < ST_TAP_REQUESTS
+               or col.store.table("conn_stats").stats()["rows_written"] < ST_TAP_CLIENTS
+               ) and time.monotonic() < deadline:
+            col.transfer_once()
+            time.sleep(0.01)
+        ingest_s = time.perf_counter() - t0
+        rows = table.stats()["rows_written"]
+        if errors or rows != ST_TAP_REQUESTS:
+            raise AssertionError(f"socket_tracer tap: {rows} rows of {ST_TAP_REQUESTS} "
+                                 f"requests, client errors {errors[:5]}")
+        q = compile_pxl("import px\ndf = px.DataFrame(table='http_events')\n"
+                        "df.pod = df.ctx['pod']\ndf.service = df.ctx['service']\n"
+                        "df = df.groupby(['pod', 'service', 'resp_status']).agg(\n"
+                        "    cnt=('latency', px.count), p50=('latency', px.p50))\n"
+                        "px.display(df, 'output')\n", col.store.schemas())
+        from pixie_tpu_torch.ops import _build
+
+        _build.reset_launches()
+        res = execute_plan(q.plan, col.store, device=dev)["output"].to_pandas()
+        torch.cuda.synchronize(dev)
+        launches = st_launched()
+        got = [(r.pod, r.service, int(r.resp_status), int(r.cnt))
+               for r in res.itertuples(index=False)]
+        if got != [("live/webserver-0", "live/web", 200, ST_TAP_REQUESTS)]:
+            raise AssertionError(f"socket_tracer tap: ctx rows {got}")
+        stats = {k: sum(c.stats[k] for c in conns) for k in conns[0].stats}
+    finally:
+        md_state.set_global_manager(old)
+        tap.stop()
+        server.shutdown()
+        server.server_close()
+        serve.join(timeout=5)
+    left = [t.name for t in set(threading.enumerate()) - threads0 if t.is_alive()]
+    if left:
+        raise AssertionError(f"socket_tracer tap: threads left running: {left}")
+    e = {"card": smi, "requests": ST_TAP_REQUESTS, "clients": ST_TAP_CLIENTS, "rows": rows,
+         "client_s": client_s, "ingest_s": ingest_s, "rows_per_s": rows / ingest_s,
+         "scanned_processes": scanned,
+         "conn_stats_rows": col.store.table("conn_stats").stats()["rows_written"],
+         **stats, "launches": launches}
+    log(json.dumps({"phase": "socket_tracer.tap", "ok": True, **e}))
+    return e
+
+
+def run_socket_tracer(dev, smi: str) -> dict:
+    """Slice 23 on the card, under the metadata_collect phase's snapshot:
+    generated traffic of the ten protocols parsed by the socket tracer into
+    their tables and held against the generator, the ctx query and an
+    aggregate a protocol table on the card, then the live tap."""
+    import tempfile
+
+    from pixie_tpu_torch.metadata import state as md_state
+    from pixie_tpu_torch.testing import socket_traffic
+    from pixie_tpu_torch.types import UInt128
+
+    if socket_traffic.upids(md_node_of_upid()) != [md_upid(u, UInt128) for u in range(MD_UPIDS)]:
+        raise AssertionError("socket_tracer: the traffic's UPIDs are not the snapshot's")
+    old = md_state.global_manager()
+    mgr = md_state.MetadataStateManager(asid=1, node_name="node-0")
+    mgr.apply_updates(md_updates(UInt128))
+    md_state.set_global_manager(mgr)
+    try:
+        with tempfile.TemporaryDirectory(prefix="px-socket-tracer-") as tmp:
+            http1 = st_http1(dev, smi, tmp)
+            protocols = st_protocols(dev, smi)
+            tap = st_tap(dev, smi, tmp)
+    finally:
+        md_state.set_global_manager(old)
+    from pixie_tpu_torch.ops import _build
+
+    launches = {lib: {} for lib in _build.KERNELS}
+    for part in [http1["launches"], *protocols["launches"].values(), tap["launches"]]:
+        for lib, by in part.items():
+            for e, n in by.items():
+                launches[lib][e] = launches[lib].get(e, 0) + n
+    return {"launches": launches, "http": http1, "protocols": protocols, "tap": tap}
 
 
 PIN_FLAGS = {"PX_AUTOTUNE": "0", "PX_CPU_CROSSOVER_ROWS": "0"}
@@ -7274,6 +7743,9 @@ def main() -> int:
     ap.add_argument("--only-metadata-collect", action="store_true",
                     help="build the kernels and run the metadata_collect phase alone "
                          "(no contract lines: not the smoke)")
+    ap.add_argument("--only-socket-tracer", action="store_true",
+                    help="build the kernels and run the socket_tracer phase alone "
+                         "(no contract lines: not the smoke)")
     args = ap.parse_args()
 
     t_start = time.perf_counter()
@@ -7319,6 +7791,11 @@ def main() -> int:
         pinned("metadata_collect")
         run_metadata_collect(dev, smi)
         log("only the metadata_collect phase ran: this is not the smoke's result")
+        return 0
+    if args.only_socket_tracer:
+        pinned("socket_tracer")
+        run_socket_tracer(dev, smi)
+        log("only the socket_tracer phase ran: this is not the smoke's result")
         return 0
     pinned("kernels")
     rows = (check_kernels(dev) + check_new_kernels(dev) + check_resident_kernels(dev)
@@ -7415,6 +7892,13 @@ def main() -> int:
                     "seconds": time.perf_counter() - t0,
                     "launches": {lib: {e: n for e, n in by.items() if n}
                                  for lib, by in md["launches"].items() if any(by.values())}}))
+    t0 = time.perf_counter()
+    pinned("socket_tracer")
+    paths["socket_tracer"] = run_socket_tracer(dev, smi)["launches"]
+    log(json.dumps({"phase": "socket_tracer", "card": smi,
+                    "seconds": time.perf_counter() - t0,
+                    "launches": {lib: {e: n for e, n in by.items() if n}
+                                 for lib, by in paths["socket_tracer"].items() if any(by.values())}}))
     log(json.dumps({"phase": "launches", "per_path": paths}))
     idle = [lib for lib in _build.KERNELS if not any(p_[lib] for p_ in paths.values())]
     if idle:

@@ -388,8 +388,18 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _port_taken(err: str) -> bool:
-    return "address already in use" in err.lower() or "EADDRINUSE" in err
+#: a rank's stderr naming one of these: the rendezvous itself failed (its
+#: port taken by another process, or the c10d store that rank 0 serves not
+#: coming up or going away while the ranks joined), not the job
+_RENDEZVOUS_ERRORS = ("address already in use", "eaddrinuse", "[c10d]", "tcpstore",
+                      "diststoreerror", "distnetworkerror")
+#: attempts at a job whose rendezvous failed, each on a new port
+RENDEZVOUS_ATTEMPTS = 3
+
+
+def _rendezvous_failed(err: str) -> bool:
+    err = err.lower()
+    return any(s in err for s in _RENDEZVOUS_ERRORS)
 
 
 def launch(argv_of: Callable[[int], list], processes: int, env: dict,
@@ -399,9 +409,10 @@ def launch(argv_of: Callable[[int], list], processes: int, env: dict,
     rank (a rendezvous on a free localhost port, bound as late as possible).
     → each rank's stdout.  Every wait shares one deadline of `timeout`
     seconds; a rank that exits non-zero or outlives it raises Internal with
-    its stderr, after its peers are killed.  A rendezvous that lost its port
-    to another process is retried once on a new port."""
-    for attempt in (0, 1):
+    its stderr, after its peers are killed.  A job whose rendezvous failed
+    (its port taken, the store lost) is run again on a new port, up to
+    RENDEZVOUS_ATTEMPTS times in all."""
+    for attempt in range(RENDEZVOUS_ATTEMPTS):
         coord = f"127.0.0.1:{free_port()}"
         procs = []
         try:
@@ -414,9 +425,10 @@ def launch(argv_of: Callable[[int], list], processes: int, env: dict,
                     [sys.executable, *argv_of(rank)], stdout=subprocess.PIPE,
                     stderr=subprocess.PIPE, env=rank_env, text=True))
             return _wait_all(procs, timeout)
-        except _PortTaken:
-            if attempt:
-                raise Internal(f"the rendezvous port was taken twice ({coord})") from None
+        except _RendezvousFailed as e:
+            if attempt == RENDEZVOUS_ATTEMPTS - 1:
+                raise Internal(f"the rendezvous failed {RENDEZVOUS_ATTEMPTS} times (last on "
+                               f"{coord}): {e}") from None
         finally:
             for p in procs:
                 if p.poll() is None:
@@ -425,7 +437,7 @@ def launch(argv_of: Callable[[int], list], processes: int, env: dict,
     raise Internal("unreachable")
 
 
-class _PortTaken(Exception):
+class _RendezvousFailed(Exception):
     pass
 
 
@@ -455,8 +467,9 @@ def _wait_all(procs: list, timeout: float) -> list[str]:
                 p.kill()
         for t in threads:
             t.join(30)
-        if any(_port_taken(errs[i] or "") for i in failed):
-            raise _PortTaken()
+        if any(_rendezvous_failed(errs[i] or "") for i in failed):
+            raise _RendezvousFailed("; ".join(f"rank {i}: {(errs[i] or '')[-1000:]}"
+                                              for i in failed))
         raise Internal("; ".join(f"rank {i} exited with {procs[i].returncode}: "
                                  f"{(errs[i] or '')[-3000:]}" for i in failed))
     if not all(done):

@@ -2376,3 +2376,59 @@ px.display(df, 'output')
                      ["service", "resp_status"])
     finally:
         md_state.set_global_manager(old)
+
+
+def test_traced_http_events_ctx_query_on_the_card_equals_the_cpu(dev):
+    """2^16 HTTP/1 exchanges of the seeded socket traffic (512 keep-alive
+    connections of 128) parsed by the port's socket tracer, one connector a
+    node, then chip_smoke's ctx query (status != 404, df.ctx['service'],
+    count, int64 sum, mean, p50) under its metadata snapshot: one feed, so
+    F1 launches once and runs the filter and the ctx LUT in its member pass,
+    with no C1 launch; the answer equals the CPU route's (keys,
+    counts and sums exactly, means and p50 to rtol 1e-12) and the
+    generator's oracle."""
+    import chip_smoke as cs
+
+    from pixie_tpu_torch.collect.tracer import QueueEventSource
+    from pixie_tpu_torch.compiler import compile_pxl
+    from pixie_tpu_torch.engine import execute_plan
+    from pixie_tpu_torch.metadata import state as md_state
+    from pixie_tpu_torch.testing import socket_traffic as traffic
+    from pixie_tpu_torch.types import UInt128
+
+    gen = traffic.Traffic("http", 512, 128, seed=23, node_of_upid=cs.md_node_of_upid(),
+                          think_ms=traffic.HTTP_THINK_MS)
+    events, keys = gen.events(seg_seed=123)
+    sources = {n: QueueEventSource() for n in range(cs.MD_NODES)}
+    col, conns = cs.st_collector(sources)
+    traffic.feed_windows(col, sources, traffic.node_of([gen]), events, keys)
+    want_rows = gen.truth()
+    assert sum(c.stats["records"] for c in conns) == len(want_rows) == 1 << 16
+    old = md_state.global_manager()
+    mgr = md_state.MetadataStateManager(asid=1, node_name="node-0")
+    mgr.apply_updates(cs.md_updates(UInt128))
+    md_state.set_global_manager(mgr)
+    try:
+        plan = compile_pxl(cs.MD_SCRIPT, col.store.schemas()).plan
+        _build.reset_launches()
+        got = execute_plan(plan, col.store, device=dev)["output"]
+        torch.cuda.synchronize()
+        assert _build.KERNELS["finalize"].by_entry.get("px_fused_partial_finalize") == 1
+        assert not _build.KERNELS["chain"].launches
+        want = execute_plan(plan, col.store, device="cpu")["output"]
+        keys_ = ["service", "resp_status"]
+        g = got.to_pandas().sort_values(keys_).reset_index(drop=True)
+        w = want.to_pandas().sort_values(keys_).reset_index(drop=True)
+        assert list(g.columns) == list(w.columns) and len(g) == len(w)
+        for c in ("service", "resp_status", "cnt", "total"):
+            assert g[c].tolist() == w[c].tolist(), c
+        for c in ("avg_lat", "p50"):
+            np.testing.assert_allclose(g[c], w[c], rtol=1e-12, atol=0, err_msg=c)
+        oracle = cs.MdOracle()
+        oracle.add(np.array([r["upid"] for r in want_rows]),
+                   np.array([r["resp_status"] for r in want_rows]),
+                   np.array([r["latency"] for r in want_rows], dtype=np.int64))
+        assert oracle.check("traced ctx query", got, moved=False)["rows_kept"] == (
+            sum(r["resp_status"] != 404 for r in want_rows))
+    finally:
+        md_state.set_global_manager(old)

@@ -395,3 +395,27 @@ def test_journal_and_cold_tier_write_only_under_the_data_dir(tmp_path, monkeypat
     assert list(cwd.iterdir()) == []
     assert package_files() == before
     assert lifecycle.cold_dir(str(data_dir / "pem0"), "t").startswith(str(data_dir))
+
+
+@pytest.mark.parametrize("mod", ["pixie_tpu_torch.collect.protocols",
+                                 *(f"pixie_tpu_torch.collect.protocols.{m}" for m in (
+                                     "base", "http", "mysql", "pgsql", "dns", "redis", "cql",
+                                     "kafka", "nats", "mux", "http2")),
+                                 "pixie_tpu_torch.collect.tracer", "pixie_tpu_torch.collect.tap",
+                                 "pixie_tpu_torch.testing.socket_traffic"])
+def test_socket_tracer_modules_import_alone(mod):
+    """Each module of the socket-tracer slice (and its seeded traffic),
+    imported on its own, pulls in no JAX and nothing of the reference, and
+    the parser registry holds the ten protocols."""
+    code = (
+        f"import importlib, sys\nimportlib.import_module({mod!r})\n"
+        "from pixie_tpu_torch.collect.protocols import parser_registry\n"
+        "assert sorted(parser_registry()) == ['cql', 'dns', 'http', 'http2', 'kafka', "
+        "'mux', 'mysql', 'nats', 'pgsql', 'redis'], sorted(parser_registry())\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pixie_tpu'))\n"
+        "sys.exit('imported: ' + ', '.join(bad) if bad else 0)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

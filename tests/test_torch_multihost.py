@@ -152,6 +152,39 @@ def test_launch_kills_ranks_past_the_deadline(tmp_path):
                          shard_bench._worker_env(1), timeout=2.0)
 
 
+@pytest.mark.parametrize("lost", ["[W socket.cpp:207] [c10d] The hostname of the client "
+                                  "socket cannot be retrieved. err=-3",
+                                  "RuntimeError: The server socket has failed to listen on any "
+                                  "local network address. port: 1 (errno: 98 - Address "
+                                  "already in use)."])
+def test_launch_runs_a_job_whose_rendezvous_failed_again(tmp_path, lost):
+    """A rank that dies in the rendezvous (the c10d store lost, its port
+    taken) sends the whole job to a new port; a job whose every attempt
+    fails so raises with the last stderr, and one that fails otherwise
+    raises at once."""
+    from pixie_tpu_torch.status import Internal
+
+    tries = tmp_path / "tries"
+    script = ("import os, sys\n"
+              f"p = {str(tries)!r} + '.' + sys.argv[1]\n"
+              "n = len(open(p).read()) if os.path.exists(p) else 0\n"
+              "open(p, 'a').write('x')\n"
+              "if sys.argv[1] == '1' and n < int(sys.argv[2]):\n"
+              f"    sys.stderr.write({lost!r} + '\\n'); sys.stderr.flush(); os.abort()\n"
+              "print('rank', sys.argv[1], *(['attempt', n] if sys.argv[1] == '1' else []))\n")
+    env = shard_bench._worker_env(1)
+    outs = multihost.launch(lambda rank: ["-c", script, str(rank), "2"], 2, env, timeout=60.0)
+    assert outs == ["rank 0\n", "rank 1 attempt 2\n"]
+    for f in tmp_path.iterdir():
+        f.unlink()
+    with pytest.raises(Internal, match="rendezvous failed 3 times"):
+        multihost.launch(lambda rank: ["-c", script, str(rank), "3"], 2, env, timeout=60.0)
+    assert len((tmp_path / "tries.1").read_text()) == 3
+    with pytest.raises(Internal, match="(?s)rank 1 exited with 1: .*ValueError: no"):
+        multihost.launch(lambda rank: ["-c", f"import sys; sys.exit(0) if {rank} == 0 else "
+                                       "exec('raise ValueError(\"no\")')"], 2, env, timeout=60.0)
+
+
 # ------------------------------------------------------- the two-rank job
 WORKER = r'''
 import json, sys
