@@ -11,6 +11,8 @@
                                               alone)
     python3 chip_smoke.py --only-socket-tracer (the kernel build and the
                                               socket_tracer phase alone)
+    python3 chip_smoke.py --only-services    (the kernel build and the
+                                              services phase alone)
 
 Phases, each of which fails the run if it fails:
 
@@ -373,6 +375,27 @@ bound to a pod by the /proc scanner and a watch feed: a row a request and
 ctx['pod'] and ['service'] resolved on the card for each.  Rows/s of each
 protocol, the ingest walls (HTTP/1's split into its table writes and the
 rest: reading, parsing, stitching) and the tap's rows/s are printed.
+
+Slice 24, the services phase (last, pinned; alone: --only-services): the
+networked deployment on the card.  (a) A Broker (its merger executor on
+the card) and 8 in-process Agents on the card with config #4's stores (8 x
+2M rows, seed 12) over loopback TCP; config #4's script and config #1's
+(bench.http_plan's query as PxL: count and mean by service and status)
+through Client.execute_script, held against LocalCluster over the same
+stores (counts and p50 exactly, means to rtol 1e-12) and config #4's
+against the numpy oracle; the cold wall, the median of 5 warm walls, the
+broker's merge ms, each agent's exec ms and kernel launches (each > 0).
+(b) Two `python -m pixie_tpu_torch.services.agent --connector seq_gen`
+processes on the card under their own broker: the reference's residue
+query, each residue's sum exactly (from each agent's rows scanned), each
+agent's stats naming a CUDA device with launches.  (c) 16 client threads x
+8 queries of config #1's script across two tenants, PL_TENANT_QPS capping
+one at 4 qps: sheds only from the capped tenant, each with retry_after_s,
+every admitted answer equal to (a)'s; the batches formed and G1's
+launches; then config #1's script and the batch phase's second forced
+into one batch of two (G1 on every agent, each answer its serial one).  (d) One agent
+stops: once the registry drops it, the answer
+equals LocalCluster over the 7 stores left.
 
 It prints one JSON line per kernel, a {"kernels": [...]} line, the card's
 name and power limit, and last {"ok": true, "device": {...}}.  It exits
@@ -7391,6 +7414,381 @@ def run_socket_tracer(dev, smi: str) -> dict:
     return {"launches": launches, "http": http1, "protocols": protocols, "tap": tap}
 
 
+# ------------------------------------------------------------- the services
+
+#: bench config #1's query (bench.http_plan(): no quantiles) as PxL text
+CONFIG1_SCRIPT = """
+df = px.DataFrame(table='http_events')
+df = df[df.status != 404]
+df = df.groupby(['service', 'status']).agg(
+    cnt=('latency', px.count), avg_lat=('latency', px.mean))
+px.display(df, 'output')
+"""
+#: the kernels an agent's fragment of config #4's script launches on the card
+SERVICES_KERNELS = [C1, ("segment_reduce", "px_segment_count"),
+                    ("loghist_update", "px_loghist_update")]
+#: the reference's two-process query (tests/test_services.py:237-280)
+SEQ_SCRIPT = """
+df = px.DataFrame(table='seq0')
+df = df.groupby('xmod10').agg(cnt=('x', px.count), s=('x', px.sum))
+px.display(df, 'out')
+"""
+SERVICES_CLIENTS = 16
+SERVICES_QUERIES = 8
+SERVICES_SUBPROCESS_AGENTS = 2
+
+
+def services_same(label: str, got, want, exact=("cnt", "p50"),
+                  keys=("service", "status")) -> None:
+    """Two answers of one query, sorted by its group `keys`: the keys and
+    the `exact` columns bit for bit, the rest (means) to rtol 1e-12 (K1's
+    float64 sums add in the atomics' order, so two runs differ in the last
+    bits)."""
+    def frame(res):
+        df = res.to_pandas()
+        return df.sort_values(list(keys)).reset_index(drop=True)
+
+    g, w = frame(got), frame(want)
+    if list(g.columns) != list(w.columns) or len(g) != len(w) or len(g) == 0:
+        raise AssertionError(f"{label}: shapes differ: {list(g.columns)} x {len(g)} "
+                             f"against {list(w.columns)} x {len(w)}")
+    for c in g.columns:
+        a, b = g[c].to_numpy(), w[c].to_numpy()
+        if c in keys or c in exact:
+            if not (a.tolist() == b.tolist()):
+                raise AssertionError(f"{label}: column {c} differs")
+        elif not np.allclose(a.astype(np.float64), b.astype(np.float64), rtol=1e-12, atol=0):
+            raise AssertionError(f"{label}: column {c} beyond rtol 1e-12")
+
+
+def _agent_launches(res) -> dict:
+    """{agent: {kernel: launches}} and {agent: device} of one answer."""
+    agents = res.exec_stats["agents"]
+    return ({a: st.get("kernel_launches", {}) for a, st in agents.items()},
+            {a: st.get("torch_device") for a, st in agents.items()})
+
+
+def services_tcp(dev, smi: str, broker, client, stores, tables) -> dict:
+    """(a): config #4's and config #1's scripts through the client, the
+    broker and 8 agents, against LocalCluster over the same stores and the
+    numpy oracle; cold and warm walls, the broker's merge and each agent's
+    exec time and kernel launches."""
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.parallel import LocalCluster
+
+    local = LocalCluster(stores, device=dev)
+    out = {}
+    for label, script in (("config4", CONFIG4_SCRIPT), ("config1", CONFIG1_SCRIPT)):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = client.execute_script(script, tenant="serial")["output"]
+        cold_s = time.perf_counter() - t0
+        launches = read_launches(f"services {label}", SERVICES_KERNELS[:2])
+        per_agent, devices = _agent_launches(res)
+        bad = [a for a, d in devices.items() if not str(d).startswith("cuda")]
+        idle = [a for a, n in per_agent.items() if sum(n.values()) == 0]
+        if bad or idle or len(per_agent) != CONFIG4_AGENTS:
+            raise AssertionError(f"services {label}: agents off the card {bad}, agents "
+                                 f"that launched nothing {idle}, {len(per_agent)} agents")
+        want = local.query(script)["output"]
+        exact = ("cnt", "p50") if label == "config4" else ("cnt",)
+        services_same(f"services {label} vs LocalCluster", res, want, exact)
+        check = (cluster_oracle(tables, res) if label == "config4" else {})
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            warm = client.execute_script(script, tenant="serial")["output"]
+            times.append(time.perf_counter() - t0)
+        services_same(f"services {label} warm", warm, res, exact)
+        per_q, _devs = _agent_launches(warm)
+        q_launches = {}
+        for n in per_q.values():
+            for k, v in n.items():
+                q_launches[k] = q_launches.get(k, 0) + v
+        st = warm.exec_stats
+        row = {"cold_s": cold_s, "warm_median_s": sorted(times)[2], "warm_s": sorted(times),
+               "merge_ms": st["phases"]["merge_ns"] / 1e6,
+               "exec_phase_ms": st["phases"]["exec_ns"] / 1e6,
+               "agent_exec_ms": {a: round(s["exec_s"] * 1e3, 3)
+                                 for a, s in sorted(st["agents"].items())},
+               "agent_launches": {a: per_q[a] for a in sorted(per_q)},
+               "launches_per_query": q_launches,
+               "oracle": check, "groups": res.num_rows, "card": smi}
+        log(json.dumps({"phase": f"services.tcp.{label}", "ok": True, **row}))
+        out[label] = {"result": res, "launches": launches, **row}
+    return out
+
+
+def services_processes(dev, smi: str) -> dict:
+    """(b): two `python -m pixie_tpu_torch.services.agent --connector
+    seq_gen` processes on the card under their own broker; each residue's
+    sum exactly, each agent's stats on a CUDA device with launches."""
+    from pixie_tpu_torch.services.broker import Broker
+    from pixie_tpu_torch.services.client import Client
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    broker = Broker(hb_expiry_s=5.0, query_timeout_s=120.0, device=dev).start()
+    names = [f"pem-sub{i}" for i in range(SERVICES_SUBPROCESS_AGENTS)]
+    procs = {n: subprocess.Popen(
+        [sys.executable, "-m", "pixie_tpu_torch.services.agent", "--name", n,
+         "--broker", f"127.0.0.1:{broker.port}", "--connector", "seq_gen",
+         "--heartbeat-s", "0.5", "--device", str(dev)], cwd=root,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True) for n in names}
+    client = None
+    try:
+        t0 = time.perf_counter()
+        while {a.name for a in broker.registry.live_agents()} != set(names):
+            for n, p in procs.items():
+                if p.poll() is not None:
+                    raise AssertionError(f"agent process {n} died: {p.stderr.read()[-3000:]}")
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError("agent processes did not register in 120 s")
+            time.sleep(0.1)
+        up_s = time.perf_counter() - t0
+        time.sleep(1.0)  # seq_gen's first batches
+        client = Client("127.0.0.1", broker.port, timeout_s=120.0)
+        t0 = time.perf_counter()
+        res = client.execute_script(SEQ_SCRIPT)["out"]
+        query_s = time.perf_counter() - t0
+        df = res.to_pandas()
+        agents = res.exec_stats["agents"]
+        want = {r: 0 for r in range(10)}
+        for a, st in agents.items():
+            xs = np.arange(int(st["rows_scanned"]), dtype=np.int64)
+            for r in range(10):
+                want[r] += int(xs[xs % 10 == r].sum())
+        got = {int(r): int(v) for r, v in zip(df["xmod10"], df["s"])}
+        if got != want or int(df["cnt"].sum()) != sum(int(s["rows_scanned"])
+                                                     for s in agents.values()):
+            raise AssertionError(f"services processes: residue sums {got}, want {want}")
+        for a, st in agents.items():
+            if not str(st.get("torch_device")).startswith("cuda") or \
+                    sum(st.get("kernel_launches", {}).values()) == 0:
+                raise AssertionError(f"services processes: agent {a} ran on "
+                                     f"{st.get('torch_device')} with launches "
+                                     f"{st.get('kernel_launches')}")
+        row = {"agents": sorted(agents), "register_s": up_s, "query_s": query_s,
+               "rows": {a: int(s["rows_scanned"]) for a, s in agents.items()},
+               "devices": {a: s["torch_device"] for a, s in agents.items()},
+               "launches": {a: s["kernel_launches"] for a, s in agents.items()},
+               "card": smi}
+        log(json.dumps({"phase": "services.processes", "ok": True, **row}))
+        return row
+    finally:
+        if client is not None:
+            client.close()
+        for p in procs.values():
+            p.terminate()
+        for p in procs.values():
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+            p.stderr.close()
+        broker.stop()
+
+
+def services_front(dev, smi: str, broker, want) -> dict:
+    """(c): SERVICES_CLIENTS client threads x SERVICES_QUERIES queries of
+    config #1's script across two tenants, PL_TENANT_QPS capping one:
+    sheds come only from the capped tenant and carry retry_after_s, every
+    admitted answer equals the serial one; the batches the broker formed
+    and G1's launches on the agents (identical members share one slot of
+    a batch, so no gang); then a forced batch of two distinct members,
+    which launches G1."""
+    import threading
+
+    from pixie_tpu_torch import flags, metrics
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.services.client import Client, QueryError
+
+    saved = {n: flags.get(n) for n in ("PL_TENANT_QPS", "PL_CLIENT_RETRIES")}
+    flags.set_for_testing("PL_TENANT_QPS", "0,capped=4")
+    flags.set_for_testing("PL_CLIENT_RETRIES", 0)
+    tenants = ("capped", "open")
+    answers, sheds, errors = [], [], []
+    lock = threading.Lock()
+
+    def client_loop(i: int):
+        tenant = tenants[i % 2]
+        c = Client("127.0.0.1", broker.port, timeout_s=120.0)
+        try:
+            for _ in range(SERVICES_QUERIES):
+                try:
+                    res = c.execute_script(CONFIG1_SCRIPT, tenant=tenant)["output"]
+                    with lock:
+                        answers.append((tenant, res))
+                except QueryError as e:
+                    with lock:
+                        (sheds if "shed" in str(e) else errors).append(
+                            (tenant, str(e), e.retry_after_s))
+        finally:
+            c.close()
+
+    formed0 = metrics.counter_value("px_batch_formed_total")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client_loop, args=(i,)) for i in range(SERVICES_CLIENTS)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        for n, v in saved.items():
+            flags.set_for_testing(n, v)
+    wall_s = time.perf_counter() - t0
+    launches = {name: dict(k.by_entry) for name, k in _build.KERNELS.items()}
+    if errors:
+        raise AssertionError(f"services front: failed queries {errors[:3]}")
+    wrong = [t for t, _e, _ra in sheds if t != "capped"]
+    no_hint = [e for _t, e, ra in sheds if not ra or ra <= 0]
+    if wrong or no_hint or not sheds:
+        raise AssertionError(f"services front: {len(sheds)} sheds, from other tenants "
+                             f"{wrong}, without retry_after_s {no_hint[:3]}")
+    for tenant, res in answers:
+        services_same(f"services front ({tenant})", res, want, ("cnt",))
+    batches = [r.exec_stats.get("batch") for _t, r in answers if r.exec_stats.get("batch")]
+    forced = services_forced_batch(broker, want)
+    row = {"clients": SERVICES_CLIENTS, "queries": SERVICES_CLIENTS * SERVICES_QUERIES,
+           "answers": {t: sum(1 for a, _r in answers if a == t) for t in tenants},
+           "sheds": {t: sum(1 for a, _e, _r in sheds if a == t) for t in tenants},
+           "retry_after_s": sorted({ra for _t, _e, ra in sheds})[:5],
+           "batches_formed": metrics.counter_value("px_batch_formed_total") - formed0,
+           "batched_answers": len(batches),
+           "batch_sizes": sorted({b["size"] for b in batches}),
+           "g1_launches": launches["gang"].get("px_gang_partial", 0),
+           "wall_s": wall_s, "forced_batch": forced, "card": smi}
+    log(json.dumps({"phase": "services.front", "ok": True, **row}))
+    return {"launches": forced["launches"], **row}
+
+
+def services_forced_batch(broker, want1) -> dict:
+    """Config #1's script and the batch phase's second script (another
+    filter, other keys) sent at once into a batch the broker is made to
+    wait for (the tests' way: `force_wait`, a batch of 2): two aggregates
+    over one scan, so each agent runs them as one G1 gang a feed; each
+    member's answer equals its serial one."""
+    import threading
+
+    from pixie_tpu_torch import flags
+    from pixie_tpu_torch.ops import _build
+    from pixie_tpu_torch.serving import batching
+    from pixie_tpu_torch.services.client import Client
+
+    saved = broker._batcher, flags.get("PL_BATCH_MAX_QUERIES")
+    broker._batcher = batching.BatchCollector()
+    broker._batcher.force_wait = True
+    flags.set_for_testing("PL_BATCH_MAX_QUERIES", 2)
+    other = BATCH_SCRIPTS[1]
+    serial = Client("127.0.0.1", broker.port, timeout_s=120.0)
+    try:
+        want2 = serial.execute_script(other, tenant="serial")["out"]
+    finally:
+        serial.close()
+    got = {}
+
+    def one(label, script, sink):
+        c = Client("127.0.0.1", broker.port, timeout_s=120.0)
+        try:
+            got[label] = c.execute_script(script, tenant="serial")[sink]
+        finally:
+            c.close()
+
+    _build.reset_launches()
+    try:
+        threads = [threading.Thread(target=one, args=a) for a in
+                   (("config1", CONFIG1_SCRIPT, "output"), ("other", other, "out"))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        broker._batcher, _ = saved
+        flags.set_for_testing("PL_BATCH_MAX_QUERIES", saved[1])
+    launches = read_launches("services forced batch", [("gang", "px_gang_partial")])
+    services_same("services forced batch config1", got["config1"], want1, ("cnt",))
+    services_same("services forced batch other", got["other"], want2, ("cnt", "mx"),
+                  keys=("service",))
+    sizes = {k: (r.exec_stats.get("batch") or {}).get("size") for k, r in got.items()}
+    if sizes != {"config1": 2, "other": 2}:
+        raise AssertionError(f"services forced batch: batch sizes {sizes}")
+    per_agent, _devs = _agent_launches(got["config1"])
+    return {"launches": launches, "batch_sizes": sizes,
+            "g1_launches": launches["gang"].get("px_gang_partial", 0),
+            "agent_launches": per_agent}
+
+
+def services_dead_agent(dev, smi: str, broker, agents, client, stores) -> dict:
+    """(d): one agent stops; once the registry has dropped it the next
+    answer equals LocalCluster over the 7 stores that remain."""
+    from pixie_tpu_torch.parallel import LocalCluster
+
+    dead = agents.pop()
+    dead.stop()
+    t0 = time.perf_counter()
+    while dead.name in {a.name for a in broker.registry.live_agents()}:
+        if time.perf_counter() - t0 > 30:
+            raise AssertionError(f"services: {dead.name} still live after 30 s")
+        time.sleep(0.05)
+    gone_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = client.execute_script(CONFIG4_SCRIPT, tenant="serial")["output"]
+    query_s = time.perf_counter() - t0
+    rest = {n: st for n, st in stores.items() if n != dead.name}
+    want = LocalCluster(rest, device=dev).query(CONFIG4_SCRIPT)["output"]
+    services_same("services dead agent vs LocalCluster(7)", res, want)
+    if sorted(res.exec_stats["agents"]) != sorted(rest):
+        raise AssertionError(f"services dead agent: answered by {sorted(res.exec_stats['agents'])}")
+    row = {"dead": dead.name, "dropped_s": gone_s, "query_s": query_s,
+           "agents": len(rest), "card": smi}
+    log(json.dumps({"phase": "services.dead_agent", "ok": True, **row}))
+    return row
+
+
+def run_services(dev, smi: str) -> dict:
+    """Slice 24, the services phase: the broker on the card (its merger
+    executor's device), 8 in-process agents over loopback TCP with config
+    #4's stores (8 x 2M rows, seed 12), and the client: (a) config #4's and
+    config #1's scripts against LocalCluster and the oracle, (b) two agent
+    processes, (c) the serving front under two tenants, (d) a dead agent."""
+    from pixie_tpu_torch.services.agent import Agent
+    from pixie_tpu_torch.services.broker import Broker
+    from pixie_tpu_torch.services.client import Client
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    stores, tables = _agent_stores(CONFIG4_ROWS // CONFIG4_AGENTS)
+    data_s = time.perf_counter() - t0
+    broker = Broker(hb_expiry_s=3.0, query_timeout_s=120.0, device=dev).start()
+    agents = [Agent(n, "127.0.0.1", broker.port, store=st, heartbeat_s=0.5,
+                    device=dev).start() for n, st in stores.items()]
+    client = Client("127.0.0.1", broker.port, timeout_s=120.0)
+    try:
+        log(json.dumps({"phase": "services.setup", "agents": len(agents),
+                        "rows": CONFIG4_ROWS, "data_s": data_s,
+                        "broker_port": broker.port, "broker_device": str(broker.device)}))
+        tcp = services_tcp(dev, smi, broker, client, stores, tables)
+        front = services_front(dev, smi, broker, tcp["config1"]["result"])
+        dead = services_dead_agent(dev, smi, broker, agents, client, stores)
+    finally:
+        client.close()
+        for a in agents:
+            a.stop()
+        broker.stop()
+    procs = services_processes(dev, smi)
+    wall = time.perf_counter() - t_phase
+    log(json.dumps({"phase": "services", "ok": True, "seconds": wall, "card": smi,
+                    "tcp": {k: {kk: v for kk, v in r.items()
+                                if kk not in ("result", "launches")}
+                            for k, r in tcp.items()},
+                    "front": {k: v for k, v in front.items() if k != "launches"},
+                    "dead_agent": dead, "processes": procs}))
+    return {"launches": tcp["config4"]["launches"], "front_launches": front["launches"],
+            "seconds": wall}
+
+
 PIN_FLAGS = {"PX_AUTOTUNE": "0", "PX_CPU_CROSSOVER_ROWS": "0"}
 
 
@@ -7746,6 +8144,9 @@ def main() -> int:
     ap.add_argument("--only-socket-tracer", action="store_true",
                     help="build the kernels and run the socket_tracer phase alone "
                          "(no contract lines: not the smoke)")
+    ap.add_argument("--only-services", action="store_true",
+                    help="build the kernels and run the services phase alone "
+                         "(no contract lines: not the smoke)")
     args = ap.parse_args()
 
     t_start = time.perf_counter()
@@ -7796,6 +8197,11 @@ def main() -> int:
         pinned("socket_tracer")
         run_socket_tracer(dev, smi)
         log("only the socket_tracer phase ran: this is not the smoke's result")
+        return 0
+    if args.only_services:
+        pinned("services")
+        run_services(dev, smi)
+        log("only the services phase ran: this is not the smoke's result")
         return 0
     pinned("kernels")
     rows = (check_kernels(dev) + check_new_kernels(dev) + check_resident_kernels(dev)
@@ -7899,6 +8305,9 @@ def main() -> int:
                     "seconds": time.perf_counter() - t0,
                     "launches": {lib: {e: n for e, n in by.items() if n}
                                  for lib, by in paths["socket_tracer"].items() if any(by.values())}}))
+    pinned("services")
+    sv = run_services(dev, smi)
+    paths["services"], paths["services_front"] = sv["launches"], sv["front_launches"]
     log(json.dumps({"phase": "launches", "per_path": paths}))
     idle = [lib for lib in _build.KERNELS if not any(p_[lib] for p_ in paths.values())]
     if idle:

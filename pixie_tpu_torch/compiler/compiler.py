@@ -53,7 +53,7 @@ def _safe_builtins(px_module) -> dict:
             return px_module
         if name == "pxtrace":
             raise Unimplemented("pxtrace (tracepoint deploys) is not ported "
-                                "yet (the host-layer slice)")
+                                "yet (ROADMAP Queue 1 item 6e)")
         raise ImportError(
             f"PxL scripts may only import px / pxtrace (attempted {name!r})"
         )
@@ -295,3 +295,41 @@ def compile_pxl(
                          sink_names=[s.name for s in ctx.sinks if hasattr(s, "name")],
                          now=ctx._now, mutations=list(ctx.mutations),
                          now_sensitive=ctx.now_consumed)
+
+
+def compile_pxl_funcs(
+    source: str,
+    schemas: dict[str, Relation],
+    funcs: list,
+    registry=None,
+    now: Optional[int] = None,
+    default_limit: Optional[int] = None,
+):
+    """Compile SEVERAL vis funcs of one script and fuse their plans so
+    shared subplans (scans, filters, first aggregates) execute once
+    (reference MergeNodesRule, optimizer/optimizer.h:39): the broker's
+    multi-widget request.
+
+    funcs: [(prefix, func_name, func_args)] — prefix labels the widget.
+    Returns (fused CompiledQuery, sink_map) where
+    sink_map[prefix][original_sink] = fused sink name.
+    """
+    from pixie_tpu_torch.plan.fusion import fuse_compiled
+
+    compiled = [
+        (prefix, compile_pxl(source, schemas, func=fn, func_args=fargs,
+                             registry=registry, now=now,
+                             default_limit=default_limit))
+        for prefix, fn, fargs in funcs
+    ]
+    if len(compiled) == 1:
+        q = compiled[0][1]
+        sink_map = {compiled[0][0]: {s: s for s in q.sink_names}}
+        return q, sink_map
+    fused, sink_map, muts = fuse_compiled(compiled)
+    return CompiledQuery(
+        plan=fused,
+        sink_names=[s for m in sink_map.values() for s in m.values()],
+        now=compiled[0][1].now,
+        mutations=muts,
+    ), sink_map

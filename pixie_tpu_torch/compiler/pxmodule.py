@@ -8,8 +8,7 @@ giving every builtin (px.abs, px.contains, px.upid_to_pod_name, ...) for free.
 
 Copied from the reference package (pixie_tpu/compiler/pxmodule.py).  Not
 ported yet, each raising Unimplemented where a script reaches it: the OTel
-export objects (px.otel, px.export), which come with the host-layer slice
-(ROADMAP Queue 1 item 6e).
+export objects (px.otel, px.export) (ROADMAP Queue 1 item 6e).
 """
 from __future__ import annotations
 
@@ -187,13 +186,13 @@ class PxModule(types.ModuleType):
     @property
     def otel(self):
         raise Unimplemented("px.otel: OTel export objects are not ported yet "
-                            "(the host-layer slice)")
+                            "(ROADMAP Queue 1 item 6e)")
 
     def export(self, df: DataFrame, data) -> None:
         """px.export(df, px.otel.Data(...)) — an OTel export sink in the
         reference (objects/otel.cc); not ported yet."""
         raise Unimplemented("px.export: OTel export sinks are not ported yet "
-                            "(the host-layer slice)")
+                            "(ROADMAP Queue 1 item 6e)")
 
     def normalize_mysql(self, q, cmd=None):
         """2-arg form (reference sql_ops.cc NormalizeMySQLUDF) takes the int

@@ -25,12 +25,11 @@ Soundness:
     ``PL_QUERY_FASTPATH`` flag turns the whole cache off for A/B proof.
 
 Copied from the reference package (pixie_tpu/engine/plancache.py): the
-QueryPlanCache.  The hit/miss counters stay on the instance (the reference
-also exports them as metrics, which come with the observability slice).  Not
-ported: the per-tenant namespaces (PL_TENANT_ISOLATION: tenants arrive with
-the services slice, so every entry here is in the one shared namespace) and
-the admission gate's `contains` peek.  Also here: the native whole-plan
-program cache (`native_programs`, native/codegen.py).
+QueryPlanCache, with its per-tenant namespaces (PL_TENANT_ISOLATION: the
+broker's tenants, services/broker.py), the admission gate's `contains` peek
+and the hit/miss counters, kept on the instance and exported as metrics.
+Also here: the native whole-plan program cache (`native_programs`,
+native/codegen.py).
 """
 from __future__ import annotations
 
@@ -40,15 +39,28 @@ from collections import OrderedDict
 from typing import Callable, Optional
 
 from pixie_tpu_torch import flags as _flags
+from pixie_tpu_torch import metrics as _metrics
 
 _flags.define_bool(
     "PL_QUERY_FASTPATH", True,
     "whole-query plan cache: warm interactive queries skip re-trace/"
     "re-analyze/re-split (bit-equal to the slow path by construction)",
 )
-#: entries per cache instance; a dashboard rotates through a handful of
-#: scripts, so this is generous
+_flags.define_bool(
+    "PL_TENANT_ISOLATION", True,
+    "namespace plan-cache state per tenant (key prefix + per-namespace LRU "
+    "budgets) so one tenant's warm plans cannot be evicted by another's; 0 "
+    "restores the shared cache",
+)
+
+#: entries per tenant NAMESPACE per cache instance; a dashboard rotates
+#: through a handful of scripts, so this is generous.  A noisy tenant fills
+#: only its own namespace — other tenants' entries never evict for it.
 MAX_ENTRIES = 64
+
+#: hard global bound across all namespaces (memory safety against a flood
+#: of distinct tenant ids)
+MAX_TOTAL_ENTRIES = MAX_ENTRIES * 8
 
 
 def enabled() -> bool:
@@ -88,9 +100,22 @@ class QueryPlanCache:
         self.misses = 0
 
     @staticmethod
-    def key(source: str, func, func_args, default_limit, schemas_fp) -> tuple:
-        return (source, func, _freeze(func_args), default_limit,
+    def key(source: str, func, func_args, default_limit, schemas_fp,
+            tenant=None) -> tuple:
+        """Cache key; the leading slot is the tenant NAMESPACE ("" = shared).
+        With PL_TENANT_ISOLATION on, tenants never share entries (and never
+        evict each other's — see get_query's per-namespace budget)."""
+        ns = (tenant if tenant and _flags.get("PL_TENANT_ISOLATION") else "")
+        return (ns, source, func, _freeze(func_args), default_limit,
                 _freeze(schemas_fp))
+
+    def contains(self, key: tuple) -> bool:
+        """Non-mutating peek (no LRU touch, no counters): the admission
+        gate's warm/cold cost estimate must not skew hit/miss accounting."""
+        if not enabled():
+            return False
+        with self._lock:
+            return key in self._entries
 
     def get_query(self, key: tuple, compile_fn: Callable):
         """→ (CompiledQuery, _Entry | None, hit: bool).
@@ -110,16 +135,33 @@ class QueryPlanCache:
             else:
                 self.misses += 1
         if entry is not None:
+            _metrics.counter_inc(
+                "px_query_plan_cache_hits_total",
+                help_="warm queries served from the whole-query plan cache")
             return entry.query, entry, True
+        _metrics.counter_inc(
+            "px_query_plan_cache_misses_total",
+            help_="queries that paid the full compile/optimize path")
         q = compile_fn()
         if getattr(q, "now_sensitive", True) or getattr(q, "mutations", None):
             return q, None, False
         entry = _Entry(q)
         with self._lock:
             self._entries[key] = entry
-            while len(self._entries) > self._max:
+            # per-namespace LRU budget: evict the oldest entry of THIS
+            # key's namespace when it outgrows its own allowance, so one
+            # tenant's churn cannot evict another tenant's warm plans
+            ns = key[0]
+            ns_keys = [k for k in self._entries if k[0] == ns]
+            if len(ns_keys) > self._max:
+                self._entries.pop(ns_keys[0], None)
+            while len(self._entries) > MAX_TOTAL_ENTRIES:
                 self._entries.popitem(last=False)
         return q, entry, False
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
 
     @staticmethod
     def get_split(entry: Optional[_Entry], split_fp, split_fn: Callable):

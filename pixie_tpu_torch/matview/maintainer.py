@@ -46,9 +46,13 @@ directory (`set_snapshot_dir`) every folding refresh persists the view's
 mergeable partial state and watermark as one CRC-framed wire partial_agg
 record in table/journal.py's framing, written atomically after the view's
 lock is released, and a manager rebuilt over the same rows ADOPTS the
-snapshot at first sight instead of rescanning.  What the port leaves out:
-no tenant namespaces (every view is in the reference's no-tenant
-namespace, so one budget).
+snapshot at first sight instead of rescanning.
+
+State budget: PL_MATVIEW_MAX_STATE_MB caps standing-state bytes PER TENANT
+NAMESPACE (PL_TENANT_ISOLATION; the shared "" namespace when no tenant), so
+one tenant's standing state cannot evict another's; a global backstop of
+MAX_NAMESPACE_BUDGETS × budget bounds the sum across namespaces against
+tenant-id floods.  Cold views evict LRU within the over-budget scope.
 """
 from __future__ import annotations
 
@@ -61,6 +65,9 @@ from typing import Optional
 import numpy as np
 
 from pixie_tpu_torch import flags, metrics, trace
+# PL_TENANT_ISOLATION (shared with the plan cache's tenant namespacing) is
+# defined once, in engine/plancache.py
+import pixie_tpu_torch.engine.plancache  # noqa: F401
 from pixie_tpu_torch.matview.registry import ViewPrefix, match_prefix, view_key
 from pixie_tpu_torch.plan.plan import Plan, ResultSinkOp
 from pixie_tpu_torch.status import NotFound, Unavailable
@@ -140,12 +147,13 @@ def _pb_nbytes(pb) -> int:
 class StandingView:
     """One registered view: prefix + delta cursor + accumulated state."""
 
-    __slots__ = ("key", "prefix", "cursor", "state", "lock",
+    __slots__ = ("key", "ns", "prefix", "cursor", "state", "lock",
                  "state_bytes", "refreshes", "rows_folded", "hits",
                  "rebuilds", "stale_serves", "last_access", "created_at")
 
-    def __init__(self, key: str, prefix: ViewPrefix, table):
+    def __init__(self, key: str, prefix: ViewPrefix, table, ns: str = ""):
         self.key = key
+        self.ns = ns
         self.stale_serves = 0
         self.prefix = prefix
         self.cursor = DeltaCursor(table)
@@ -162,7 +170,7 @@ class StandingView:
     def stats(self) -> dict:
         return {
             "key": self.key,
-            "ns": "",
+            "ns": self.ns,
             "stale_serves": self.stale_serves,
             "table": self.prefix.head.table,
             "tablet": self.prefix.head.tablet,
@@ -227,8 +235,8 @@ class MatViewManager:
         return t if isinstance(t, Table) else None
 
     # ----------------------------------------------------------------- serve
-    def serve(self, plan: Plan, route_scale: int = 1, mesh="auto", stale_ok: bool = False,
-              miss: Optional[dict] = None):
+    def serve(self, plan: Plan, route_scale: int = 1, mesh="auto", tenant: str = "",
+              stale_ok: bool = False, miss: Optional[dict] = None):
         """Answer an eligible agent plan from standing state.
 
         Returns (channel, PartialAggBatch, info) on a view answer, or None
@@ -259,6 +267,9 @@ class MatViewManager:
         if table is None:
             return None
         key = view_key(pref)
+        ns = tenant if (tenant and flags.get("PL_TENANT_ISOLATION")) else ""
+        if ns:
+            key = f"{ns}:{key}"
         fresh = False
         with self._lock:
             view = self._views.get(key)
@@ -270,7 +281,7 @@ class MatViewManager:
                 # (outside the manager lock — refresh_all's pop path orders
                 # view.lock before it): the first sight after a restart
                 # already serves, folding only the post-snapshot delta.
-                view = self._views[key] = StandingView(key, pref, table)
+                view = self._views[key] = StandingView(key, pref, table, ns=ns)
                 fresh = True
         if fresh:
             with view.lock:
@@ -560,21 +571,37 @@ class MatViewManager:
         with self._lock:
             return sum(v.state_bytes for v in self._views.values())
 
+    #: global backstop: the SUM across all tenant namespaces may not exceed
+    #: this many per-namespace budgets — tenant ids are client-supplied wire
+    #: strings, so "one full budget per namespace" alone would let an id
+    #: flood grow standing state without bound
+    MAX_NAMESPACE_BUDGETS = 4
+
     def _evict_over_budget(self, keep: Optional[str] = None) -> None:
-        """LRU eviction down to the PL_MATVIEW_MAX_STATE_MB budget."""
+        """LRU eviction, accounted PER TENANT NAMESPACE: each namespace gets
+        the full PL_MATVIEW_MAX_STATE_MB budget, so a tenant flooding
+        standing state evicts only its own views — never another tenant's
+        (the shared "" namespace behaves as it does without isolation).  A
+        GLOBAL cap of MAX_NAMESPACE_BUDGETS × budget bounds the total: past
+        it, eviction goes LRU across every namespace."""
         budget = int(flags.get("PL_MATVIEW_MAX_STATE_MB")) << 20
+        global_cap = budget * self.MAX_NAMESPACE_BUDGETS
         with self._lock:
-            total = sum(v.state_bytes for v in self._views.values())
+            totals: dict[str, int] = {}
+            for v in self._views.values():
+                totals[v.ns] = totals.get(v.ns, 0) + v.state_bytes
+            grand = sum(totals.values())
             for v in sorted(self._views.values(), key=lambda v: v.last_access):
-                if total <= budget:
-                    break
+                if totals.get(v.ns, 0) <= budget and grand <= global_cap:
+                    continue
                 # the just-served view survives LRU unless it ALONE busts the
                 # budget — retaining an oversized view would evict everything
                 # else and still be over budget on its next refresh
                 if v.key == keep and v.state_bytes <= budget:
                     continue
                 self._views.pop(v.key, None)
-                total -= v.state_bytes
+                totals[v.ns] -= v.state_bytes
+                grand -= v.state_bytes
                 metrics.counter_inc(
                     "px_matview_evictions_total",
                     help_="standing views evicted by the state byte budget")

@@ -10,8 +10,9 @@ Copied whole from the reference package (pixie_tpu/metrics.py).  In the port
 its writers include query batching (serving/batching.py), plan verification
 (px_plan_verify_total), the journal and the cold tier (px_journal_*,
 px_cold_*), the views and the SLO monitor; observe.sample_metrics_rows
-folds it into self_telemetry.metrics.  The services that render it come
-with the host-layer slice (services).
+folds it into self_telemetry.metrics, and the broker renders it (the
+`metrics` frame, services/broker.py) as the health server does (/metrics,
+services/health.py).
 """
 from __future__ import annotations
 

@@ -20,6 +20,7 @@ several threads at once (LocalCluster runs its agents concurrently).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -75,10 +76,30 @@ class Kernel:
         with _count_lock:
             self.launches += 1
             self.by_entry[entry] = self.by_entry.get(entry, 0) + 1
+        for tally in getattr(_tallies, "stack", ()):
+            tally[self.name] = tally.get(self.name, 0) + 1
 
 
 KERNELS = {name: Kernel(name) for name in SOURCES}
 _count_lock = threading.Lock()
+#: per-thread launch tallies open on this thread (`launch_tally`)
+_tallies = threading.local()
+
+
+@contextlib.contextmanager
+def launch_tally():
+    """{kernel: launches} made on THIS thread while the block runs — one
+    agent's share of the process-wide counts when several agents execute
+    in one process (the executor launches on its calling thread)."""
+    stack = getattr(_tallies, "stack", None)
+    if stack is None:
+        stack = _tallies.stack = []
+    out: dict = {}
+    stack.append(out)
+    try:
+        yield out
+    finally:
+        stack.remove(out)
 
 
 def reset_launches() -> None:

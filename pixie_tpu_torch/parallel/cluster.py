@@ -59,7 +59,7 @@ plan (the reference's merger scope) with the agents' schema catalog.
 
 Not ported yet: one process over several distinct cards (the multi-card
 slice; parallel/multihost.py spans cards with one process a card) and
-tracepoint mutations (the host-layer slice).
+tracepoint mutations (ROADMAP Queue 1 item 6e).
 Streaming queries over a cluster run through parallel/streaming.py.
 """
 from __future__ import annotations
@@ -89,7 +89,13 @@ from pixie_tpu_torch.engine.result import QueryResult
 from pixie_tpu_torch.engine.semantics import SchemaStore, restamp_result
 from pixie_tpu_torch.matview import MatViewManager
 from pixie_tpu_torch.parallel.distributed import DistributedPlanner
-from pixie_tpu_torch.parallel.partial import PartialAggBatch, merge_partials
+from pixie_tpu_torch.parallel.partial import (
+    PartialAggBatch,
+    PartialAggFold,
+    combine_partials,
+    finalize_partial,
+    merge_partials,
+)
 from pixie_tpu_torch.parallel.repartition import (
     bucket_channels,
     run_join_stages,
@@ -161,6 +167,73 @@ def _union_host_batches(batches: list[HostBatch]) -> HostBatch:
     for b in batches:
         u.add(b)
     return u.finish()
+
+
+class SourceKeyedFold:
+    """Per-producer fold accounting for one merge-input channel (the
+    networked broker's, services/broker.py).
+
+    The fault-tolerant broker must be able to DISCARD one producer's
+    contribution after the fact — an evicted agent whose chunks partially
+    arrived, or the losing attempt of a hedged duplicate dispatch — without
+    poisoning the merge.  A single shared accumulator cannot un-fold; this
+    keys one sub-accumulator per source id (``agent#attempt``), keeps the
+    incremental-fold overlap per source, and pays one cross-source combine
+    at finish over the ACCEPTED sources only.
+
+    Accepted sources merge in sorted-source order (one accepted attempt per
+    agent), so the combine order — and therefore float state reductions —
+    is deterministic regardless of cross-agent arrival interleaving;
+    re-dispatched and hedged runs fold bit-equal to fault-free ones.  The
+    merge is the host's (combine_partials / finalize_partial), as the
+    reference's broker merges.
+    """
+
+    __slots__ = ("kind", "agg", "registry", "subs", "counts")
+
+    def __init__(self, kind: str, agg=None, registry=None):
+        self.kind = kind  # "agg_state" | "rows"
+        self.agg = agg
+        self.registry = registry
+        self.subs: dict[str, object] = {}
+        self.counts: dict[str, int] = {}
+
+    def add(self, src: str, payload) -> None:
+        sub = self.subs.get(src)
+        if sub is None:
+            sub = self.subs[src] = (
+                PartialAggFold(self.agg, self.registry)
+                if self.kind == "agg_state" else HostBatchUnion())
+        if self.kind == "agg_state":
+            if not isinstance(payload, PartialAggBatch):
+                raise TypeError("expected agg_state payloads")
+        elif not isinstance(payload, HostBatch):
+            raise TypeError("expected row payloads")
+        sub.add(payload)
+        self.counts[src] = self.counts.get(src, 0) + 1
+
+    def count_for(self, src: str) -> int:
+        return self.counts.get(src, 0)
+
+    def discarded_chunks(self, accepted: set) -> int:
+        """Chunks folded into sources that did NOT win (evicted agents,
+        losing hedge attempts) — dropped idempotently at finish."""
+        return sum(n for s, n in self.counts.items() if s not in accepted)
+
+    def finish(self, accepted: set) -> HostBatch:
+        subs = [self.subs[s] for s in sorted(accepted) if s in self.subs]
+        if not subs:
+            raise InvalidArgument("SourceKeyedFold.finish: no accepted "
+                                  "sources folded")
+        if self.kind == "agg_state":
+            parts = [p for sub in subs for p in sub.raw_parts()]
+            acc = (parts[0] if len(parts) == 1
+                   else combine_partials(self.agg, parts, self.registry))
+            return finalize_partial(self.agg, acc, self.registry)
+        u = HostBatchUnion()
+        for sub in subs:
+            u.add(sub.finish())
+        return u.finish()
 
 
 class LocalCluster:
@@ -415,7 +488,7 @@ class LocalCluster:
                 prof["plan_text"] = _plan_explain(q.plan)
         if q.mutations:
             raise Unimplemented("tracepoint mutations are not ported yet "
-                                "(the host-layer slice)")
+                                "(ROADMAP Queue 1 item 6e)")
         if not analyze and not explain and not getattr(q, "now_sensitive", True):
             # Concurrent-query batching: groupable concurrent queries over the
             # same (table, scan window, schema epoch) rendezvous and dispatch

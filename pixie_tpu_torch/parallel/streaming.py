@@ -57,7 +57,7 @@ class ClusterStreamQuery:
                         registry=cluster.registry)
         if q.mutations:
             raise Unimplemented("tracepoint mutations are not ported yet "
-                                "(host-layer slice)")
+                                "(ROADMAP Queue 1 item 6e)")
         # Participating agents = those whose store holds every streamed source
         # table (heterogeneous clusters: the batch planner prunes the same way)
         src_tables = {

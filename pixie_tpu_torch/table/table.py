@@ -14,8 +14,8 @@ Parity with reference src/table_store/table/table.h and table_store.h:79:
   * The durable ingest journal (table/journal.py), the compressed on-disk
     cold tier (table/lifecycle.py) and tablets (table/tablets.py) hook in
     here as in the reference.  Seal replication (`on_seal`,
-    services/replication.py) is not ported yet and is refused with
-    Unimplemented where a caller reaches it.
+    services/replication.py) is not ported yet (ROADMAP Queue 1 item 6d,
+    part 2) and is refused with Unimplemented where a caller reaches it.
 
 A retention trim notifies the device-resident tier (engine/resident.py),
 which frees or rebases the table's pinned device buffers.
@@ -139,7 +139,7 @@ class Table:
         if self.on_seal is not None:
             raise Unimplemented(
                 f"write to {self.name}: seal replication is not ported yet "
-                "(the host-layer slice, services)")
+                "(ROADMAP Queue 1 item 6d, part 2)")
         # Validate shape before touching dictionaries: a rejected write must not
         # leak values into the append-only dictionaries.
         n = None
@@ -397,7 +397,7 @@ class Table:
         if self.on_seal is not None:
             raise Unimplemented(
                 f"seal_hot on {self.name}: seal replication is not ported yet "
-                "(the host-layer slice, services)")
+                "(ROADMAP Queue 1 item 6d, part 2)")
         with self._lock:
             n = self._hot_rows
             if n == 0:

@@ -6,6 +6,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -419,3 +420,85 @@ def test_socket_tracer_modules_import_alone(mod):
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+SERVICE_MODULES = [
+    "pixie_tpu_torch.services", "pixie_tpu_torch.services.faultinject",
+    "pixie_tpu_torch.services.transport", "pixie_tpu_torch.services.kvstore",
+    "pixie_tpu_torch.services.registry", "pixie_tpu_torch.services.health",
+    "pixie_tpu_torch.services.election", "pixie_tpu_torch.services.cron",
+    "pixie_tpu_torch.serving.admission", "pixie_tpu_torch.serving.ratemodel",
+    "pixie_tpu_torch.serving.scheduler", "pixie_tpu_torch.services.client",
+    "pixie_tpu_torch.services.agent", "pixie_tpu_torch.services.broker",
+]
+
+
+def test_service_modules_pull_in_no_jax():
+    """The networked deployment's modules, imported in turn in a fresh
+    interpreter (the lightest first): after each, no JAX and nothing of the
+    reference is in sys.modules."""
+    code = (
+        "import importlib, sys\n"
+        f"for mod in {SERVICE_MODULES!r}:\n"
+        "    importlib.import_module(mod)\n"
+        "    bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pixie_tpu'))\n"
+        "    if bad:\n"
+        "        sys.exit(mod + ' imported: ' + ', '.join(bad))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+_AGENT_PROCESS = """
+import os, sys, threading, time
+sys.argv = ["agent", "--name", "iso", "--broker", sys.argv[1], "--connector", "seq_gen",
+            "--heartbeat-s", "0.5", "--device", "cpu"]
+from pixie_tpu_torch.services import agent
+threading.Thread(target=agent.main, daemon=True).start()
+flag = os.environ["ISO_FLAG"]
+end = time.monotonic() + 60
+while not os.path.exists(flag) and time.monotonic() < end:
+    time.sleep(0.1)
+bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pixie_tpu'))
+print('answered' if os.path.exists(flag) else 'no query', ','.join(bad) or 'clean')
+sys.stdout.flush()
+os._exit(0)
+"""
+
+
+def test_agent_process_serves_a_query_without_jax(tmp_path):
+    """`python -m pixie_tpu_torch.services.agent --device cpu`'s main, in its
+    own process, registers, answers a query, and holds no JAX and nothing
+    of the reference afterwards."""
+    from pixie_tpu_torch.services.broker import Broker
+    from pixie_tpu_torch.services.client import Client
+
+    broker = Broker(hb_expiry_s=5.0, query_timeout_s=60.0, device="cpu").start()
+    flag = tmp_path / "answered"
+    proc = subprocess.Popen([sys.executable, "-c", _AGENT_PROCESS, f"127.0.0.1:{broker.port}"],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env={**os.environ, "ISO_FLAG": str(flag)})
+    try:
+        end = time.monotonic() + 60
+        while not any(a.name == "iso" for a in broker.registry.live_agents()):
+            assert proc.poll() is None, proc.stderr.read()[-2000:]
+            assert time.monotonic() < end
+            time.sleep(0.1)
+        time.sleep(1.0)  # seq_gen's first batches
+        client = Client("127.0.0.1", broker.port, timeout_s=60.0)
+        res = client.execute_script(
+            "df = px.DataFrame(table='seq0')\n"
+            "df = df.agg(cnt=('x', px.count))\npx.display(df, 'out')\n")["out"]
+        client.close()
+        assert int(res.to_pandas()["cnt"][0]) > 0
+        assert res.exec_stats["agents"]["iso"]["torch_device"] == "cpu"
+        flag.write_text("1")
+        out, err = proc.communicate(timeout=60)
+        assert out.split() == ["answered", "clean"], err[-2000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        broker.stop()

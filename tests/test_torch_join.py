@@ -28,6 +28,9 @@ import pixie_tpu_torch.interop as interop
 from pixie_tpu_torch import flags as port_flags
 from pixie_tpu_torch.engine.executor import PlanExecutor
 from pixie_tpu_torch.ops import join_device as jd
+from tests.test_torch_native import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 HOWS = ["inner", "left", "right", "outer"]
 

@@ -9,11 +9,18 @@ the reference's (pixie_tpu/native/build.py).
   * the dictionary's native index gives the reference's codes for the same
     writes, non-ASCII strings included;
   * the native join's pairs equal the reference's `_native_join`.
+
+`reference_native` (imported by the other port tests that hold a reference
+native route) makes sure the reference has loaded native/libpixie_native.so
+before a test compares against it: the reference links that file in place,
+so a process can dlopen it half written and then keeps its Python fallback.
 """
+import fcntl
 import os
 import pathlib
 import subprocess
 import sys
+import time
 import zlib
 
 import numpy as np
@@ -28,6 +35,99 @@ from pixie_tpu_torch.table.dictionary import Dictionary
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "pixie_tpu_torch"
+
+
+def _settled(path: pathlib.Path, quiet_s: float = 1.0, limit_s: float = 300.0):
+    """Wait until `path` (present or not) has not changed for `quiet_s`."""
+    def sig():
+        try:
+            st = path.stat()
+            return st.st_size, st.st_mtime_ns
+        except FileNotFoundError:
+            return None
+
+    last, since, end = sig(), time.monotonic(), time.monotonic() + limit_s
+    while time.monotonic() < end:
+        time.sleep(0.2)
+        now = sig()
+        if now != last:
+            last, since = now, time.monotonic()
+        elif time.monotonic() - since >= quiet_s:
+            return
+
+
+def _reload_reference():
+    from pixie_tpu.native import build as ref_build
+    with ref_build._lock:
+        ref_build._lib, ref_build._tried = None, False
+    return ref_build.load_native()
+
+
+def _fresh(ref_build) -> bool:
+    """The library is there and no older than its sources (the reference's
+    own test for a rebuild)."""
+    so = ref_build._SO_PATH
+    srcs = list(ref_build._SRC_DIR.glob("*.cc"))
+    return so.exists() and so.stat().st_mtime >= max(s.stat().st_mtime for s in srcs)
+
+
+def _build_reference_atomically(ref_build, force: bool) -> str | None:
+    """The reference's own g++ command into a temporary file in native/,
+    renamed into place, one process at a time (a lock on the directory).
+    Returns why the build failed, or None."""
+    src_dir, so = ref_build._SRC_DIR, ref_build._SO_PATH
+    fd = os.open(src_dir, os.O_RDONLY)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        _settled(so)
+        if not force and _fresh(ref_build):
+            return None  # another process finished it while this one waited
+        tmp = src_dir / f".{so.name}.{os.getpid()}.tmp"
+        cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
+               "-o", str(tmp), *[str(s) for s in sorted(src_dir.glob("*.cc"))]]
+        try:
+            subprocess.run(cmd, check=True, capture_output=True, timeout=300)
+            os.replace(tmp, so)
+        except subprocess.CalledProcessError as e:
+            return e.stderr.decode(errors="replace")[-2000:]
+        except (subprocess.SubprocessError, OSError) as e:
+            return repr(e)
+        finally:
+            tmp.unlink(missing_ok=True)
+        return None
+    finally:
+        fcntl.flock(fd, fcntl.LOCK_UN)
+        os.close(fd)
+
+
+def ensure_reference_native():
+    """The reference's native library, loaded; fails (never skips) with
+    the reason when it cannot load.  The library is made fresh before the
+    reference is asked to load it, so its in-place build never runs here."""
+    from pixie_tpu.native import build as ref_build
+    if ref_build._lib is not None:
+        return ref_build._lib
+    if ref_build._no_native():
+        pytest.fail("the reference's native library is switched off "
+                    "(PIXIE_TPU_NO_NATIVE)")
+    _settled(ref_build._SO_PATH)
+    why = None if _fresh(ref_build) else _build_reference_atomically(ref_build, force=False)
+    lib = None if why else _reload_reference()
+    if lib is None and why is None:  # there, but it does not load: rebuild it
+        why = _build_reference_atomically(ref_build, force=True)
+        lib = None if why else _reload_reference()
+    if lib is None:
+        pytest.fail(f"the reference's native library does not load: {why or 'dlopen failed'}")
+    ref_jd.reset_gate_for_testing()  # its cached decision may predate the load
+    return lib
+
+
+@pytest.fixture
+def reference_native():
+    return ensure_reference_native()
+
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 
 def _listing(d: pathlib.Path) -> dict:
@@ -164,3 +264,61 @@ def test_native_join_pairs_equal_the_reference(case):
     bidx, pidx, bm, pm = jd.native_join_codes(b, p)
     assert np.all(b[bidx] == p[pidx])
     assert bm.sum() == np.isin(b, p).sum() and pm.sum() == np.isin(p, b).sum()
+
+
+def _restore_reference(ref_build, saved):
+    with ref_build._lock:
+        ref_build._SRC_DIR, ref_build._SO_PATH, ref_build._lib, ref_build._tried = saved
+    ref_jd.reset_gate_for_testing()
+
+
+def test_reference_native_recovers_a_cached_failure():
+    """A process whose reference cached a failed load (what loading a half
+    written library leaves: `_lib` None, `_tried` set) keeps its Python
+    fallback on its own; the fixture's repair loads the library again."""
+    from pixie_tpu.native import build as ref_build
+
+    assert ensure_reference_native() is not None
+    saved = (ref_build._SRC_DIR, ref_build._SO_PATH, ref_build._lib, ref_build._tried)
+    try:
+        with ref_build._lock:
+            ref_build._lib, ref_build._tried = None, True
+        assert ref_build.load_native() is None
+        assert ensure_reference_native() is not None and ref_build._lib is not None
+    finally:
+        if ref_build._lib is None:
+            _restore_reference(ref_build, saved)
+
+
+def test_reference_native_rebuilds_a_half_written_library(tmp_path):
+    """A library cut off mid-write (fresh mtime, its first 64 bytes: dlopen
+    refuses it cleanly, where a longer cut can fault the process) does not
+    load; the repair rebuilds it with the reference's command into a
+    temporary file renamed into place, and loads it.  Run on a copy of
+    native/ (the reference module's paths pointed there), so the shared
+    library other workers load is never touched."""
+    import shutil
+
+    from pixie_tpu.native import build as ref_build
+
+    assert ensure_reference_native() is not None
+    saved = (ref_build._SRC_DIR, ref_build._SO_PATH, ref_build._lib, ref_build._tried)
+    for src in ref_build._SRC_DIR.glob("*.cc"):
+        shutil.copy2(src, tmp_path / src.name)
+    so = tmp_path / ref_build._SO_PATH.name
+    whole = ref_build._SO_PATH.read_bytes()
+    so.write_bytes(whole[:64])
+    try:
+        with ref_build._lock:
+            ref_build._SRC_DIR, ref_build._SO_PATH = tmp_path, so
+            ref_build._lib, ref_build._tried = None, False
+        assert ref_build.load_native() is None  # the reference's own fallback
+        with ref_build._lock:
+            ref_build._lib, ref_build._tried = None, False
+        lib = ensure_reference_native()
+        assert lib is not None and hasattr(lib, "px_wholeplan_run")
+        assert so.stat().st_size > 64
+        assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
+            [so.name] + [s.name for s in saved[0].glob("*.cc")])  # no temporary left
+    finally:
+        _restore_reference(ref_build, saved)

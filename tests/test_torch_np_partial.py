@@ -21,6 +21,9 @@ from pixie_tpu.types import DataType as DT, Relation
 import pixie_tpu_torch.interop as interop
 from pixie_tpu_torch.engine import np_partial
 from pixie_tpu_torch.engine.executor import PlanExecutor
+from tests.test_torch_native import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 from test_torch_wholeplan import (  # noqa: F401  (_cpu_route is autouse)
     ALL_VALUES, NOT_404, SEC, _agg_of, _cpu_route, assert_same_run, columns, plan_of,

@@ -36,6 +36,9 @@ from pixie_tpu_torch.engine.executor import PlanExecutor
 from pixie_tpu_torch.ops import join_device as jd
 from pixie_tpu_torch.parallel.cluster import LocalCluster
 from pixie_tpu_torch.status import Internal
+from tests.test_torch_native import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 from test_torch_executor import PLANS, REL, http_columns
 from test_torch_wholeplan import same_tree, stores

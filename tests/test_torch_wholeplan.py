@@ -38,6 +38,9 @@ from pixie_tpu_torch.engine import np_partial
 from pixie_tpu_torch.engine.executor import PlanExecutor
 from pixie_tpu_torch.engine.plancache import native_programs
 from pixie_tpu_torch.native import codegen
+from tests.test_torch_native import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 SEC = 1_000_000_000
 CROSSOVER = 1 << 22
